@@ -1,0 +1,169 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``apex_tpu_torch/csrc/*.cu`` have a plain C interface.
+At first use they are compiled for Hopper (``sm_90a``) with ``nvcc``, one
+process per source, all started together, and linked into one shared
+library that is loaded with ``ctypes``.  The library lands in
+``build/apex_tpu_torch/<hash>/`` beside the package, where the hash covers
+the sources and the flags, so an edited source builds anew and an unchanged
+one is loaded as it is.
+
+Each wrapper passes ``data_ptr()``s, sizes and the current stream; each C
+entry point returns ``cudaGetLastError()``, which :func:`check` turns into
+an exception.  ``LAUNCHES`` counts kernel launches by name: a wrapper adds
+one where it launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+__all__ = ["LAUNCHES", "BuildResult", "build", "library", "check",
+           "dtype_code", "stream_of", "NVCC_FLAGS"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "apex_tpu_torch"
+LIB_NAME = "libapex_tpu_torch.so"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: kernel launches by kernel name, counted by the wrappers
+LAUNCHES: collections.Counter = collections.Counter()
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_SIGNATURES = {
+    # x, w, b, out, mean, invvar, n_rows, h, eps, x_dtype, w_dtype, stream
+    "apex_ln_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
+    # q, k, v, bias, out, lse, bh, sq, sk, d, heads, bias_b, bias_q, causal,
+    # drop_threshold, keep_div, seed, dtype, stream
+    "apex_flash_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _U, _F, _I, _I, _VP],
+}
+
+
+@dataclasses.dataclass
+class BuildResult:
+    path: Path
+    seconds: float
+    cached: bool
+    log: str          # compiler output (ptxas register / spill report)
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cands = []
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def build() -> BuildResult:
+    """Compile the kernels unless a library for these sources exists."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out_dir = BUILD_ROOT / _digest(srcs)
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return BuildResult(lib, 0.0, True, "")
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    t0 = time.perf_counter()
+    procs = []
+    for src in srcs:
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    return BuildResult(lib, time.perf_counter() - t0, False, "\n".join(logs))
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.apex_error_string.argtypes = [ctypes.c_int]
+        lib.apex_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().apex_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err} ({msg})")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {dtype}: the kernels take "
+                        "float32 and bfloat16")
+    return _DTYPE_CODES[dtype]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,98 @@
+"""Boundaries of the PyTorch port.
+
+* No file under ``apex_tpu_torch/``, nor ``chip_smoke.py``, imports ``jax``
+  or anything of the JAX package ``apex_tpu`` (``apex_tpu_torch`` itself is
+  not the JAX package).
+* Entry points default to the card: on a host without CUDA they raise
+  instead of quietly running on the CPU.
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import apex_tpu_torch
+from apex_tpu_torch.models import TransformerConfig, transformer_init
+from apex_tpu_torch.serve import InferenceEngine
+from apex_tpu_torch.utils.device import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "apex_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "apex_tpu")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "chip_smoke.py" in names
+    assert (ROOT / "chip_smoke.py").is_file()
+    assert "apex_tpu_torch/serve/engine.py" in names
+    assert len(names) > 15
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[p.relative_to(ROOT).as_posix()
+                              for p in PORT_FILES])
+def test_no_jax_or_apex_tpu_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_catches_forbidden_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom apex_tpu.serve import x\n"
+                 "from apex_tpu_torch.serve import y\n"
+                 "importlib.import_module('apex_tpu.ops')\n")
+    assert [m for m in _imports(f) if _forbidden(m)] == [
+        "jax.numpy", "apex_tpu.serve", "apex_tpu.ops"]
+
+
+def test_port_package_is_not_the_jax_package():
+    assert pathlib.Path(apex_tpu_torch.__file__).parent.name == \
+        "apex_tpu_torch"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the no-CUDA refusal cannot show")
+
+
+def test_default_device_refuses_without_cuda():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_engine_without_device_does_not_run_on_cpu():
+    _no_cuda()
+    cfg = TransformerConfig(vocab_size=32, max_len=64, num_layers=1,
+                            d_model=16, num_heads=2, d_ff=32)
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer_init(cfg, torch.Generator().manual_seed(0))

@@ -1,0 +1,132 @@
+"""Layer-norm forward of the PyTorch port against the JAX package.
+
+The same numpy inputs go to ``apex_tpu.ops.layer_norm.ln_fwd_pallas`` (the
+Pallas kernel, in interpret mode on the CPU) and to the port's ``ln_fwd``,
+which on a CPU tensor takes its plain version.  Tolerances: fp32 1e-5 (two
+fp32 reductions in different orders), bf16 1e-2 (one bf16 rounding of the
+output).  The kernel itself runs only on the card:
+``tests/test_torch_cuda_kernels.py`` compares it with the plain version there.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from apex_tpu.normalization import fused_layer_norm_affine as jax_ln_affine
+from apex_tpu.ops.layer_norm import ln_fwd_pallas
+
+from apex_tpu_torch.normalization import (FusedLayerNorm, fused_layer_norm,
+                                          fused_layer_norm_affine)
+from apex_tpu_torch.ops import layer_norm as port_ln
+
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _inputs(n, h, affine, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, h)) * 2.0 + 0.5).astype(np.float32)
+    w = rng.standard_normal(h).astype(np.float32) if affine else None
+    b = rng.standard_normal(h).astype(np.float32) if affine else None
+    return x, w, b
+
+
+def _jnp(a, dtype):
+    return None if a is None else jnp.asarray(a).astype(dtype)
+
+
+def _torch(a, dtype):
+    return None if a is None else torch.from_numpy(a).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("n,h", [(1, 16), (7, 40), (64, 64), (130, 128)])
+def test_ln_fwd_matches_pallas(n, h, affine, dtype):
+    x, w, b = _inputs(n, h, affine, seed=n + h)
+    j_out, j_mean, j_inv = ln_fwd_pallas(_jnp(x, dtype), _jnp(w, dtype),
+                                         _jnp(b, dtype), 1e-5)
+    tdt = getattr(torch, dtype)
+    p_out, p_mean, p_inv = port_ln.ln_fwd(_torch(x, tdt), _torch(w, tdt),
+                                          _torch(b, tdt), 1e-5)
+    assert p_out.dtype == tdt and p_out.shape == (n, h)
+    assert p_mean.shape == (n, 1) and p_inv.shape == (n, 1)
+    assert p_mean.dtype == torch.float32 and p_inv.dtype == torch.float32
+    tol = TOL[dtype]
+    np.testing.assert_allclose(p_out.float().numpy(),
+                               np.asarray(j_out.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(p_mean.numpy(), np.asarray(j_mean),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(p_inv.numpy(), np.asarray(j_inv),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("shape,nshape", [((2, 9, 32), (32,)),
+                                          ((3, 4, 8), (4, 8))])
+def test_fused_layer_norm_matches_jax(shape, nshape, affine):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(nshape).astype(np.float32) if affine else None
+    b = rng.standard_normal(nshape).astype(np.float32) if affine else None
+    ref = jax_ln_affine(jnp.asarray(x), _jnp(w, jnp.float32),
+                        _jnp(b, jnp.float32), nshape)
+    if affine:
+        out = fused_layer_norm_affine(torch.from_numpy(x),
+                                      _torch(w, torch.float32),
+                                      _torch(b, torch.float32), nshape)
+    else:
+        out = fused_layer_norm(torch.from_numpy(x), nshape)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_fused_layer_norm_module_matches_torch():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((5, 48)).astype(np.float32))
+    mod = FusedLayerNorm(48, device="cpu")
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(
+            rng.standard_normal(48).astype(np.float32)))
+        mod.bias.copy_(torch.from_numpy(
+            rng.standard_normal(48).astype(np.float32)))
+    ref = torch.nn.functional.layer_norm(x, (48,), mod.weight, mod.bias)
+    np.testing.assert_allclose(mod(x).detach().numpy(),
+                               ref.detach().numpy(), atol=1e-5)
+    assert FusedLayerNorm(48, elementwise_affine=False,
+                          device="cpu").weight is None
+
+
+def test_normalized_shape_mismatch_raises():
+    with pytest.raises(ValueError):
+        fused_layer_norm(torch.zeros(2, 16), (8,))
+
+
+@pytest.mark.parametrize("bad", ["h_not_multiple_of_8", "too_wide",
+                                 "fp16", "non_contiguous", "half_affine",
+                                 "weight_shape"])
+def test_kernel_input_checks(bad):
+    """The checks the CUDA wrapper applies before a launch (run here on CPU
+    tensors; the launch itself needs the card)."""
+    x = torch.zeros(4, 64)
+    w, b = torch.ones(64), torch.zeros(64)
+    if bad == "h_not_multiple_of_8":
+        x, w, b = torch.zeros(4, 60), torch.ones(60), torch.zeros(60)
+    elif bad == "too_wide":
+        x, w, b = torch.zeros(2, 8192), torch.ones(8192), torch.zeros(8192)
+    elif bad == "fp16":
+        x = x.half()
+    elif bad == "non_contiguous":
+        x = torch.zeros(64, 4).t()
+    elif bad == "half_affine":
+        b = None
+    elif bad == "weight_shape":
+        w, b = torch.ones(32), torch.zeros(32)
+    with pytest.raises((ValueError, TypeError)):
+        port_ln._check_cuda_inputs(x, w, b)
+
+
+def test_kernel_refuses_grad():
+    x = torch.zeros(4, 64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="training slice"):
+        port_ln._check_cuda_inputs(x, None, None)
