@@ -1,0 +1,230 @@
+"""amp frontend: ``initialize``, ``scale_loss``, ``amp_step``.
+
+Counterpart of ``apex_tpu/amp/frontend.py``.  ``initialize`` takes the
+model's fp32 parameter tree and a fused optimizer and returns an
+:class:`AmpState`: the parameters cast per opt level, fp32 masters (or, with
+a fused flat optimizer, none: the optimizer's flat buffer is the master),
+one loss scaler per loss, and the optimizer state.  :func:`amp_step` is the
+post-backward pipeline: unscale -> overflow check -> optimizer step on the
+masters -> skip-step select -> scaler update -> model-precision copy.
+
+O1 and O4 patch functions with casts in the JAX package; their PyTorch
+counterpart (``torch.autocast``) is not ported yet, and ``initialize``
+raises for them.  ``add_param_group`` and ``state_dict`` are not ported yet
+either (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+from . import scaler as _scaler
+from .properties import Properties, opt_levels
+from ..utils import pytree as _pt
+
+__all__ = ["AmpState", "initialize", "scale_loss", "amp_step",
+           "amp_step_multi", "master_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AmpState:
+    model_params: Any               # cast params
+    master_params: Any              # fp32 masters, or None
+    scalers: Tuple[_scaler.ScalerState, ...]
+    opt_state: Any                  # optimizer state, or None
+    properties: Any = None
+    optimizer: Any = None
+
+    def _replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def loss_scale(self):
+        return self.scalers[0].loss_scale
+
+    def params_for_eval(self):
+        """fp32 view of the parameters."""
+        if _flat_masters_active(self):
+            return _master_flattener(self).unflatten(self.opt_state.master)
+        src = self.master_params if self.master_params is not None \
+            else self.model_params
+        return _pt.tree_map(lambda p: p.float() if _pt.is_float(p) else p,
+                            src)
+
+
+def initialize(params, optimizer=None, opt_level="O1", *, num_losses=1,
+               verbosity=1, cast_model_type=None, patch_functions=None,
+               keep_batchnorm_fp32=None, master_weights=None,
+               loss_scale=None, min_loss_scale=1.0,
+               max_loss_scale=2.0 ** 24,
+               allow_incoming_model_not_fp32=False,
+               flash_attn_backward=None) -> AmpState:
+    """Opt-level driven setup.  ``params``: fp32 parameter tree (on the
+    device the model runs on; the scalers go there too).  ``optimizer``: a
+    fused optimizer, whose state is made against the masters.  Keyword
+    overrides apply after the preset."""
+    if opt_level not in opt_levels:
+        raise RuntimeError(f"Unexpected optimization level {opt_level}; "
+                           "options are 'O0'..'O5'.")
+    props = opt_levels[opt_level](Properties())
+    for name, val in (("cast_model_type", cast_model_type),
+                      ("patch_functions", patch_functions),
+                      ("keep_batchnorm_fp32", keep_batchnorm_fp32),
+                      ("master_weights", master_weights),
+                      ("loss_scale", loss_scale),
+                      ("flash_attn_backward", flash_attn_backward)):
+        if val is not None:
+            setattr(props, name, val)
+    if props.patch_functions:
+        raise NotImplementedError(
+            f"opt_level {opt_level} patches functions with casts; its "
+            "PyTorch counterpart (torch.autocast) is not ported yet, see "
+            "ROADMAP.md")
+    if verbosity:
+        print(f"apex_tpu_torch.amp: opt_level {opt_level} -> {props}")
+
+    from ..contrib.multihead_attn import flash as _flash
+    _flash.set_default_backward(props.flash_attn_backward)
+
+    leaves = _pt.tree_leaves_with_path(params)
+    if not leaves:
+        raise ValueError("amp.initialize needs at least one parameter")
+    if not allow_incoming_model_not_fp32:
+        offending = [_pt.path_str(p) for p, leaf in leaves
+                     if _pt.is_float(leaf) and leaf.dtype != torch.float32]
+        if offending:
+            raise RuntimeError(
+                "Found param(s) that are not fp32: "
+                f"{offending[:8]}{'...' if len(offending) > 8 else ''}. "
+                "amp.initialize expects an fp32 model (it applies the "
+                "opt_level's cast itself); pass "
+                "allow_incoming_model_not_fp32=True if this is intended.")
+    device = leaves[0][1].device
+
+    model_params = params
+    ct = props.cast_model_type
+    if ct not in (None, False) and ct != torch.float32:
+        model_params = _pt.convert_network(
+            params, ct, keep_batchnorm_fp32=bool(props.keep_batchnorm_fp32))
+    elif ct not in (None, False):
+        model_params = _pt.cast_tree(params, torch.float32)
+
+    masters = _pt.master_params_from(params) if props.master_weights \
+        else None
+
+    scalers = tuple(
+        _scaler.init(props.loss_scale, min_loss_scale=min_loss_scale,
+                     max_loss_scale=max_loss_scale, device=device)
+        for _ in range(num_losses))
+
+    opt_state = None
+    if optimizer is not None:
+        target = masters if masters is not None else model_params
+        opt_state = optimizer.init(target)
+        if (masters is not None and _is_fused_flat(optimizer)
+                and getattr(opt_state, "master", None) is not None):
+            # the fused state's flat buffer is the master: a second tree
+            # copy would double master memory
+            masters = None
+
+    return AmpState(model_params=model_params, master_params=masters,
+                    scalers=scalers, opt_state=opt_state, properties=props,
+                    optimizer=optimizer)
+
+
+def _is_fused_flat(optimizer) -> bool:
+    return getattr(optimizer, "impl", None) == "fused"
+
+
+def _flat_masters_active(amp_state: AmpState) -> bool:
+    """True when the masters live flat inside the fused optimizer state."""
+    return (amp_state.master_params is None
+            and amp_state.optimizer is not None
+            and _is_fused_flat(amp_state.optimizer)
+            and bool(amp_state.properties is not None
+                     and amp_state.properties.master_weights)
+            and getattr(amp_state.opt_state, "master", None) is not None)
+
+
+def _master_flattener(amp_state: AmpState):
+    """Packing plan of the fp32 master layout (the model tree's structure
+    and shapes, fp32), from shape-only ``meta`` tensors."""
+    ref = _pt.tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                             device="meta"),
+                       amp_state.model_params)
+    return amp_state.optimizer.flattener_for(ref)
+
+
+def scale_loss(loss, amp_state: AmpState, loss_id: int = 0):
+    """loss * the current scale of scaler ``loss_id``."""
+    return _scaler.scale_loss(amp_state.scalers[loss_id], loss)
+
+
+def amp_step(amp_state: AmpState, grads, *, loss_id: int = 0, lr=None):
+    """The post-backward pipeline for one loss; returns a new AmpState."""
+    return amp_step_multi(amp_state, [(grads, loss_id)], lr=lr)
+
+
+def amp_step_multi(amp_state: AmpState, grads_and_ids, *, lr=None):
+    """Several backward passes, each scaled by its own scaler, accumulated
+    into one optimizer step; skipped if any overflowed."""
+    if amp_state.optimizer is None:
+        raise RuntimeError("amp_step_multi requires an optimizer passed to "
+                           "initialize()")
+    total32 = None
+    finites = {}
+    for grads, loss_id in grads_and_ids:
+        g32, finite = _scaler.unscale(amp_state.scalers[loss_id], grads)
+        finites[loss_id] = (finites[loss_id] & finite
+                            if loss_id in finites else finite)
+        total32 = g32 if total32 is None else _pt.tree_map(torch.add,
+                                                           total32, g32)
+    all_finite = None
+    for f in finites.values():
+        all_finite = f if all_finite is None else (all_finite & f)
+
+    scalers = tuple(
+        _scaler.update(s, finites[i]) if i in finites else s
+        for i, s in enumerate(amp_state.scalers))
+
+    if _flat_masters_active(amp_state):
+        # flat fast path: pack the grads once, update the flat master, one
+        # unflatten-with-cast gives the model copy
+        opt = amp_state.optimizer
+        fl = _master_flattener(amp_state)
+        new_opt_state = opt.step_flat(amp_state.opt_state,
+                                      fl.flatten(total32), lr=lr)
+        new_opt_state = _scaler.apply_if_finite(all_finite, new_opt_state,
+                                                amp_state.opt_state)
+        model_params = fl.unflatten(new_opt_state.master,
+                                    like=amp_state.model_params)
+        return amp_state._replace(model_params=model_params,
+                                  scalers=scalers, opt_state=new_opt_state)
+
+    masters = (amp_state.master_params if amp_state.master_params is not None
+               else amp_state.model_params)
+    new_masters, new_opt_state = amp_state.optimizer.step(
+        amp_state.opt_state, total32, masters, lr=lr)
+    new_masters = _scaler.apply_if_finite(all_finite, new_masters, masters)
+    new_opt_state = _scaler.apply_if_finite(all_finite, new_opt_state,
+                                            amp_state.opt_state)
+    if amp_state.master_params is not None:
+        model_params = _pt.master_to_model(new_masters,
+                                           amp_state.model_params)
+        return amp_state._replace(model_params=model_params,
+                                  master_params=new_masters,
+                                  scalers=scalers, opt_state=new_opt_state)
+    return amp_state._replace(model_params=new_masters, scalers=scalers,
+                              opt_state=new_opt_state)
+
+
+def master_params(amp_state: AmpState):
+    """The master (fp32) parameters, as a list of leaves."""
+    if _flat_masters_active(amp_state):
+        return _pt.tree_leaves(_master_flattener(amp_state).unflatten(
+            amp_state.opt_state.master))
+    src = (amp_state.master_params if amp_state.master_params is not None
+           else amp_state.model_params)
+    return _pt.tree_leaves(src)

@@ -1,0 +1,90 @@
+"""Dynamic / static loss scaling as state carried through the step.
+
+Counterpart of ``apex_tpu/amp/scaler.py``: the scaler is a small state of
+device tensors, and the skip-on-overflow decision is a ``torch.where`` over
+the update, so the step needs no host read.  Policy: x2 after
+``scale_window`` consecutive finite steps, /2 on overflow, clamped to
+[min_loss_scale, max_loss_scale].
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..utils.device import resolve_device
+from ..utils.pytree import tree_leaves, tree_map
+
+__all__ = ["ScalerState", "init", "scale_loss", "all_finite", "unscale",
+           "update", "apply_if_finite"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalerState:
+    loss_scale: torch.Tensor      # 0-d fp32
+    unskipped: torch.Tensor       # 0-d int32: consecutive finite steps
+    dynamic: bool = True
+    scale_window: int = 2000
+    min_loss_scale: float = 1.0
+    max_loss_scale: float = 2.0 ** 24
+
+    def _replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+def init(loss_scale="dynamic", init_scale=2.0 ** 16, scale_window=2000,
+         min_loss_scale=1.0, max_loss_scale=2.0 ** 24, *,
+         device=None) -> ScalerState:
+    """``loss_scale`` is "dynamic" or a static float.  The state's tensors
+    live on ``device`` (default ``"cuda"``)."""
+    dev = resolve_device(device)
+    dynamic = loss_scale == "dynamic"
+    scale0 = init_scale if dynamic else float(loss_scale)
+    return ScalerState(
+        loss_scale=torch.tensor(scale0, dtype=torch.float32, device=dev),
+        unskipped=torch.zeros((), dtype=torch.int32, device=dev),
+        dynamic=dynamic, scale_window=int(scale_window),
+        min_loss_scale=float(min_loss_scale),
+        max_loss_scale=float(max_loss_scale))
+
+
+def scale_loss(state: ScalerState, loss: torch.Tensor) -> torch.Tensor:
+    """loss * scale, in fp32."""
+    return loss.float() * state.loss_scale
+
+
+def all_finite(tree) -> torch.Tensor:
+    """0-d bool: every element of every leaf is finite."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.tensor(True)
+    return torch.stack([torch.isfinite(l).all() for l in leaves]).all()
+
+
+def unscale(state: ScalerState, grads):
+    """(grads * (1/scale) in fp32, finite)."""
+    inv = 1.0 / state.loss_scale
+    return tree_map(lambda g: g.float() * inv, grads), all_finite(grads)
+
+
+def update(state: ScalerState, finite) -> ScalerState:
+    """The scale-update policy, branch-free."""
+    if not state.dynamic:
+        return state
+    halved = torch.clamp(state.loss_scale / 2.0, min=state.min_loss_scale)
+    grown_count = state.unskipped + 1
+    should_grow = grown_count >= state.scale_window
+    grown = torch.where(
+        should_grow,
+        torch.clamp(state.loss_scale * 2.0, max=state.max_loss_scale),
+        state.loss_scale)
+    new_scale = torch.where(finite, grown, halved)
+    new_unskipped = torch.where(finite & ~should_grow, grown_count,
+                                torch.zeros_like(grown_count))
+    return state._replace(loss_scale=new_scale, unskipped=new_unskipped)
+
+
+def apply_if_finite(finite, new_tree, old_tree):
+    """Skip-step: the updated tree where grads were finite, else the old."""
+    return tree_map(lambda n, o: torch.where(finite, n, o.to(n.dtype)),
+                    new_tree, old_tree)

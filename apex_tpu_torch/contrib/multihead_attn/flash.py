@@ -1,19 +1,27 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-version.
+"""Flash attention: the hand-written Hopper kernels and their plain
+versions.
 
-Counterpart of the forward half of
-``apex_tpu/contrib/multihead_attn/flash.py``: :func:`flash_attention` and
-:func:`_flash_fwd` keep its contract.  q (BH, Sq, D) is pre-scaled, k/v are
-(BH, Sk, D), the additive fp32 bias is (1|B, 1|Sq, Sk) with its batch row
-taken as ``bh // heads``; ``causal`` masks col > row to -1e30; dropout acts
-on the probabilities after the softmax denominator, with the counter-hash
-mask :func:`_dropout_keep`; a row that saw only masked keys (max <= -5e29)
-is dead and emits zeros with lse = +1e30.
+Counterpart of ``apex_tpu/contrib/multihead_attn/flash.py``:
+:func:`flash_attention`, :func:`_flash_fwd` and :func:`_flash_bwd` keep its
+contract.  q (BH, Sq, D) is pre-scaled, k/v are (BH, Sk, D), the additive
+fp32 bias is (1|B, 1|Sq, Sk) with its batch row taken as ``bh // heads``;
+``causal`` masks col > row to -1e30; dropout acts on the probabilities
+after the softmax denominator, with the counter-hash mask
+:func:`_dropout_keep`; a row that saw only masked keys (max <= -5e29) is
+dead and emits zeros with lse = +1e30.
 
-The kernel is ``apex_tpu_torch/csrc/flash_fwd.cu``.  :func:`_flash_fwd`
-launches it for CUDA tensors and takes :func:`_reference` only for CPU
-tensors.  Only the forward is ported: a CUDA input that requires a gradient
-raises, since the backward kernels come with the training slice.
+The kernels are ``apex_tpu_torch/csrc/flash_fwd.cu`` (forward) and
+``flash_bwd.cu`` (the fused recompute backward, dq as per-k-tile fp32
+partials summed here).  :func:`_flash_fwd` and :func:`_flash_bwd_fused`
+launch them for CUDA tensors and take :func:`_reference` /
+:func:`_flash_bwd_reference` only for CPU tensors.  The split backward
+kernels (dq and dk/dv separately, taken when the dq partials exceed
+:data:`_FUSE_BUFFER_CAP_MB`) are not ported yet: that route raises on the
+card.  ``backward="xla"`` takes autograd of the plain :func:`_reference`
+instead, by the caller's choice; ``"pallas"`` (the JAX package's name for
+its kernel route, kept so the amp option keeps its meaning) and ``"auto"``
+take the kernels.  The JAX package's environment overrides and tuning
+profile keys are not ported.
 """
 from __future__ import annotations
 
@@ -23,12 +31,56 @@ import torch
 
 from ...utils import build
 
-__all__ = ["flash_attention", "_flash_fwd", "_reference", "_dropout_keep",
-           "NEG_INF", "HEAD_DIMS"]
+__all__ = ["flash_attention", "_flash_fwd", "_flash_bwd", "_flash_bwd_fused",
+           "_flash_bwd_reference", "_reference", "_dropout_keep",
+           "_resolve_backward", "_resolve_fuse", "set_default_backward",
+           "BACKWARD_IMPLS", "NEG_INF", "HEAD_DIMS", "BWD_K_TILE"]
 
 NEG_INF = -1e30
-#: head dims the kernel is built for
+#: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 128)
+#: keys per k tile of the backward kernel (``kBk`` in ``flash_bwd.cu``):
+#: the dq partials are (BH, ceil(Sk / BWD_K_TILE), Sq, D) fp32
+BWD_K_TILE = 64
+#: fused-backward dq-partials buffer cap in MB (the JAX package's rule):
+#: past it the split kernels would run
+_FUSE_BUFFER_CAP_MB = 1024.0
+
+BACKWARD_IMPLS = ("auto", "pallas", "xla")
+# process-level default for backward="auto", set by amp.initialize
+_DEFAULT_BACKWARD = "auto"
+
+
+def set_default_backward(value: str) -> None:
+    """Set the process-level default consulted by ``backward="auto"``."""
+    global _DEFAULT_BACKWARD
+    if value not in BACKWARD_IMPLS:
+        raise ValueError(f"backward must be one of {BACKWARD_IMPLS}, "
+                         f"got {value!r}")
+    _DEFAULT_BACKWARD = value
+
+
+def _resolve_backward(backward: str) -> str:
+    """Explicit "pallas"/"xla" argument > the amp default
+    (:func:`set_default_backward`) > "pallas", the kernels."""
+    if backward not in BACKWARD_IMPLS:
+        raise ValueError(f"backward must be one of {BACKWARD_IMPLS}, "
+                         f"got {backward!r}")
+    if backward != "auto":
+        return backward
+    if _DEFAULT_BACKWARD != "auto":
+        return _DEFAULT_BACKWARD
+    return "pallas"
+
+
+def _resolve_fuse(fuse, BH, Sq, Sk, D) -> bool:
+    """Fused-vs-split strategy: an explicit ``fuse`` wins; otherwise fuse
+    while the (BH, ceil(Sk/BWD_K_TILE), Sq, D) fp32 dq-partials buffer
+    stays under :data:`_FUSE_BUFFER_CAP_MB`."""
+    if fuse is not None:
+        return bool(fuse)
+    nk = -(-Sk // BWD_K_TILE)
+    return BH * nk * Sq * D * 4 <= _FUSE_BUFFER_CAP_MB * 2 ** 20
 
 _M32 = 0xFFFFFFFF
 
@@ -146,10 +198,16 @@ def _check_cuda_inputs(q, k, v, bias, dropout_rate):
                              f"aligned {name}")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash attention on CUDA is forward-only: the backward kernels "
-            "come with the training slice (see ROADMAP.md)")
+
+
+def _launch_args(q, k, bias, causal, dropout_rate, seed, heads):
+    """The scalar arguments both kernels take after their pointers."""
+    threshold = int(dropout_rate * (2 ** 32)) if dropout_rate > 0.0 else 0
+    seed32 = ((int(seed) + 2 ** 31) % 2 ** 32) - 2 ** 31   # as int32 bits
+    bh, sq, d = q.shape
+    return (bh, sq, k.shape[1], d, heads, bias.shape[0], bias.shape[1],
+            int(bool(causal)), threshold, float(1.0 - dropout_rate), seed32,
+            build.dtype_code(q.dtype), build.stream_of(q))
 
 
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,22 +223,152 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
-    threshold = int(dropout_rate * (2 ** 32)) if dropout_rate > 0.0 else 0
-    seed32 = ((int(seed) + 2 ** 31) % 2 ** 32) - 2 ** 31   # as int32 bits
     err = build.library().apex_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d, heads,
-        bias.shape[0], bias.shape[1], int(bool(causal)), threshold,
-        float(1.0 - dropout_rate), seed32, build.dtype_code(q.dtype),
-        build.stream_of(q))
+        out.data_ptr(), lse.data_ptr(),
+        *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_fwd")
     build.LAUNCHES["flash_fwd"] += 1
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed, heads,
+                         lse, delta, do
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: the recompute formula
+    of the TPU package's ``_recompute_p`` and ``_bwd_fused_kernel`` over
+    whole rows, with the kernel's roundings (Pd and dS cast to the input
+    dtype before their products).  Not autograd of :func:`_reference`."""
+    _check_layout(q, k, v, bias, heads)
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    b = bias.float()
+    if b.shape[0] != 1:
+        b = b.repeat_interleave(heads, dim=0)
+    s = s + b
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(cols <= rows, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.float())
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    if dropout_rate > 0.0:
+        heads_idx = torch.arange(bh, device=q.device)[:, None, None]
+        keep = _dropout_keep(seed, heads_idx, 0, 0, (sq, sk), dropout_rate) \
+            / (1.0 - dropout_rate)
+        pd, dp = p * keep, dp * keep
+    else:
+        pd = p
+    ds = p * (dp - delta.float())
+    dv = torch.einsum("bqk,bqd->bkd", pd.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), q.float())
+    dq = torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
+                     delta, do
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from one kernel: dk and dv directly, dq as per-k-tile
+    fp32 partials (BH, nk, Sq, D) summed here.  lse and delta are (BH, Sq,
+    1) f32; ``do`` is (BH, Sq, D) in q's dtype."""
+    if not q.is_cuda:
+        return _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed,
+                                    heads, lse, delta, do)
+    _check_layout(q, k, v, bias, heads)
+    _check_cuda_inputs(q, k, v, bias, dropout_rate)
+    bh, sq, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash backward needs a contiguous, 16-byte "
+                             f"aligned {name} on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.numel() != bh * sq:
+            raise ValueError(f"{name} must be float32 (BH, Sq, 1)")
+    nk = -(-k.shape[1] // BWD_K_TILE)
+    dq_part = torch.empty((bh, nk, sq, d), dtype=torch.float32,
+                          device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = build.library().apex_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
+    build.check(err, "flash_bwd")
+    build.LAUNCHES["flash_bwd"] += 1
+    return dq_part.sum(dim=1).to(q.dtype), dk, dv
+
+
+def _flash_bwd(q, k, v, bias, causal, dropout_rate, seed, heads, out, lse,
+               do, fuse=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Recompute-backward dispatcher: (dq, dk, dv).  delta = rowsum(dO * O)
+    is computed once here, as on the TPU."""
+    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    if not _resolve_fuse(fuse, q.shape[0], q.shape[1], k.shape[1],
+                         q.shape[2]):
+        if q.is_cuda:
+            raise NotImplementedError(
+                "the split flash backward (TPU kernels #2 _bwd_dq_kernel and "
+                "#3 _bwd_dkv_kernel, taken when the dq partials exceed "
+                f"{_FUSE_BUFFER_CAP_MB:.0f} MB) is not ported yet; see "
+                "ROADMAP.md")
+        # on the CPU the plain version stands for either route
+    return _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads,
+                            lse, delta, do)
+
+
+def _xla_bwd(q, k, v, bias, causal, dropout_rate, seed, heads, do):
+    """(dq, dk, dv) by autograd of :func:`_reference`: the route a caller
+    picks with ``backward="xla"``."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out, _ = _reference(*qkv, bias, causal, dropout_rate, seed, heads)
+        return torch.autograd.grad(out, qkv, do)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, causal, dropout_rate, heads,
+                backward):
+        out, lse = _flash_fwd(q, k, v, bias, causal, dropout_rate, seed,
+                              heads)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.args = (seed, causal, dropout_rate, heads, backward)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        seed, causal, dropout_rate, heads, backward = ctx.args
+        do = do.contiguous()
+        if _resolve_backward(backward) == "xla":
+            dq, dk, dv = _xla_bwd(q, k, v, bias, causal, dropout_rate, seed,
+                                  heads, do)
+        else:
+            dq, dk, dv = _flash_bwd(q, k, v, bias, causal, dropout_rate,
+                                    seed, heads, out, lse, do)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, bias, seed=0, causal=False, dropout_rate=0.0,
-                    heads=1) -> torch.Tensor:
+                    heads=1, backward="auto") -> torch.Tensor:
     """Fused attention.  q (BH, Sq, D) pre-scaled; k/v (BH, Sk, D); bias
-    (1|B, 1|Sq, Sk) additive f32 (zeros for none).  Returns (BH, Sq, D)."""
-    out, _ = _flash_fwd(q, k, v, bias, causal, dropout_rate, seed, heads)
-    return out
+    (1|B, 1|Sq, Sk) additive f32 (zeros for none).  Returns (BH, Sq, D).
+
+    Differentiable in q, k and v.  ``backward`` picks the gradient route:
+    ``"pallas"`` / ``"auto"`` the backward kernel, ``"xla"`` autograd of the
+    plain :func:`_reference`.  ``bias`` gets no gradient: it models masks,
+    data rather than parameters, as in the JAX package."""
+    _resolve_backward(backward)          # a bad value raises at the call
+    return _FlashAttention.apply(q, k, v, bias, seed, causal, dropout_rate,
+                                 heads, backward)

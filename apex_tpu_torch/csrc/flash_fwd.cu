@@ -32,6 +32,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "dropout.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -52,22 +54,6 @@ struct Params {
   float keep_div;          // 1 - rate: kept probabilities are divided by it
   uint32_t seed;
 };
-
-// flash.py `_dropout_keep`: uint32 squirrel3-style mix of the global
-// coordinates; keep when the hash is >= rate * 2^32.
-__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh,
-                                             uint32_t row, uint32_t col,
-                                             uint32_t threshold) {
-  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u + seed * 0xC2B2AE3Du;
-  x = x * 0xB5297A4Du;
-  x = x ^ (bh * 0x27D4EB2Fu);
-  x = x ^ (x >> 8);
-  x = x + 0x68E31DA4u;
-  x = x ^ (x << 8);
-  x = x * 0x1B56C4E9u;
-  x = x ^ (x >> 8);
-  return x >= threshold;
-}
 
 // Score after bias, causal mask and ragged-edge mask (the TPU path pads Sk
 // with a -1e30 bias; this is the same value without the copy).

@@ -1,4 +1,5 @@
-// Layer-norm forward for Hopper (sm_90a).
+// Layer-norm forward and backward for Hopper (sm_90a).  The backward
+// (`ln_bwd_kernel`, `apex_ln_bwd`) is described where it is defined.
 //
 // Replaces the TPU kernel apex_tpu/ops/layer_norm.py `_fwd_kernel` (reached
 // through `ln_fwd_pallas`): row layer norm over x (N, H) with an optional
@@ -135,6 +136,99 @@ ln_fwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
   }
 }
 
+// Backward: replaces apex_tpu/ops/layer_norm.py `_bwd_kernel` (reached
+// through `ln_bwd_pallas`).  From the saved residuals, per row:
+//   x^ = (x - mean) * invvar,  gw = g * w (g when non-affine),
+//   dx = (gw - mean(gw) - x^ * mean(gw * x^)) * invvar,
+// written in x's dtype.  dw and db are column sums the caller takes.
+// Bytes bound like the forward (g and x read once, dx written once, ~12
+// flops an element); same layout: a row in registers, one warp (or one
+// 256-thread block) per row, both row means in fp32 with shuffles.
+template <typename T, typename WT, int TPR, int MAXV>
+__global__ void __launch_bounds__(128 > TPR ? 128 : TPR)
+ln_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
+              const float* __restrict__ mean_in,
+              const float* __restrict__ invvar_in, const WT* __restrict__ w,
+              T* __restrict__ dx, int n_rows, int h) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ float red[TPR > 32 ? TPR / 32 : 1];
+
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  if (row >= n_rows) return;
+  const int tid = threadIdx.x;
+  const int nvec = h / VEC;
+  const float mean = mean_in[row];
+  const float invvar = invvar_in[row];
+
+  const uint4* gv = reinterpret_cast<const uint4*>(g + (size_t)row * h);
+  const uint4* xv = reinterpret_cast<const uint4*>(x + (size_t)row * h);
+  float gw[MAXV][VEC], xh[MAXV][VEC];
+
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < MAXV; ++i) {
+    const int vi = tid + i * TPR;
+    if (vi < nvec) {
+      uint4 graw = __ldg(gv + vi), xraw = __ldg(xv + vi);
+      const T* ge = reinterpret_cast<const T*>(&graw);
+      const T* xe = reinterpret_cast<const T*>(&xraw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        float gj = to_f32(ge[j]);
+        if (w != nullptr) gj *= to_f32(w[vi * VEC + j]);
+        const float xj = (to_f32(xe[j]) - mean) * invvar;
+        gw[i][j] = gj;
+        xh[i][j] = xj;
+        s1 += gj;
+        s2 += gj * xj;
+      }
+    }
+  }
+  const float inv_h = 1.f / (float)h;
+  const float m1 = row_sum<TPR>(s1, red) * inv_h;
+  const float m2 = row_sum<TPR>(s2, red) * inv_h;
+
+  uint4* dv = reinterpret_cast<uint4*>(dx + (size_t)row * h);
+#pragma unroll
+  for (int i = 0; i < MAXV; ++i) {
+    const int vi = tid + i * TPR;
+    if (vi < nvec) {
+      uint4 raw;
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        from_f32((gw[i][j] - m1 - xh[i][j] * m2) * invvar, e + j);
+      dv[vi] = raw;
+    }
+  }
+}
+
+template <typename T, typename WT>
+cudaError_t launch_bwd(const void* g, const void* x, const float* mean,
+                       const float* invvar, const void* w, void* dx,
+                       int n_rows, int h, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int nvec = h / VEC;
+  const T* gp = static_cast<const T*>(g);
+  const T* xp = static_cast<const T*>(x);
+  const WT* wp = static_cast<const WT*>(w);
+  T* dp = static_cast<T*>(dx);
+  if (nvec <= 32 * 4) {
+    dim3 block(32, 4);
+    dim3 grid((n_rows + 3) / 4);
+    ln_bwd_kernel<T, WT, 32, 4><<<grid, block, 0, stream>>>(
+        gp, xp, mean, invvar, wp, dp, n_rows, h);
+  } else if (nvec <= 256 * 4) {
+    dim3 block(256, 1);
+    dim3 grid(n_rows);
+    ln_bwd_kernel<T, WT, 256, 4><<<grid, block, 0, stream>>>(
+        gp, xp, mean, invvar, wp, dp, n_rows, h);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, typename WT>
 cudaError_t launch(const void* x, const void* w, const void* b, void* out,
                    float* mean, float* invvar, int n_rows, int h, float eps,
@@ -186,6 +280,33 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
     err = launch<__nv_bfloat16, float>(x, w, b, out, m, iv, n_rows, h, eps, s);
   } else if (x_dtype == kDtypeBF16 && w_dtype == kDtypeBF16) {
     err = launch<__nv_bfloat16, __nv_bfloat16>(x, w, b, out, m, iv, n_rows, h, eps, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// g, x, dx: (n_rows, h) contiguous, 16-byte aligned, of x_dtype.
+// mean, invvar: (n_rows,) fp32 from the forward.  w: (h,) of w_dtype, or
+// null for the non-affine norm.  h must be a multiple of 8.
+extern "C" int apex_ln_bwd(const void* g, const void* x, const void* mean,
+                           const void* invvar, const void* w, void* dx,
+                           int n_rows, int h, int x_dtype, int w_dtype,
+                           void* stream) {
+  if (n_rows <= 0 || h <= 0 || h % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(invvar);
+  cudaError_t err;
+  if (x_dtype == kDtypeF32 && w_dtype == kDtypeF32) {
+    err = launch_bwd<float, float>(g, x, m, iv, w, dx, n_rows, h, s);
+  } else if (x_dtype == kDtypeF32 && w_dtype == kDtypeBF16) {
+    err = launch_bwd<float, __nv_bfloat16>(g, x, m, iv, w, dx, n_rows, h, s);
+  } else if (x_dtype == kDtypeBF16 && w_dtype == kDtypeF32) {
+    err = launch_bwd<__nv_bfloat16, float>(g, x, m, iv, w, dx, n_rows, h, s);
+  } else if (x_dtype == kDtypeBF16 && w_dtype == kDtypeBF16) {
+    err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(g, x, m, iv, w, dx,
+                                                   n_rows, h, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,4 +1,4 @@
-"""BERT-style transformer encoder LM, forward only.
+"""BERT-style transformer encoder LM.
 
 Counterpart of ``apex_tpu/models/transformer.py``.  Parameters are a nested
 dict of tensors with the JAX package's structure and layout: per-layer
@@ -6,28 +6,37 @@ weights are stacked on a leading ``num_layers`` axis and projections keep
 the ``(D, 3D)`` / ``(D, F)`` input-major layout, so :func:`params_from_jax`
 is a plain conversion and no weight is transposed anywhere.
 
-``attn_impl="fast"`` routes the attention core through the flash kernel
+``attn_impl="fast"`` routes the attention core through the flash kernels
 (:mod:`apex_tpu_torch.contrib.multihead_attn.flash`); ``"default"`` is the
 plain softmax path, the numerics oracle.  Every layer norm goes through the
-layer-norm kernel (:mod:`apex_tpu_torch.normalization`).  Training-only
-options of the JAX config (dropout masks from an rng, remat, the loss
-kernel, scan unrolling) come with the training slice.
+layer-norm kernels (:mod:`apex_tpu_torch.normalization`), and
+:func:`transformer_loss` through the cross-entropy kernel
+(:mod:`apex_tpu_torch.contrib.xentropy`).  Gradients come from autograd;
+``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``).  Attention dropout takes a
+``torch.Generator`` from which each layer draws an int32 seed for the
+counter-hash mask, so its bits differ from the JAX package's key splitting.
+The JAX config's ``scan_unroll`` has no counterpart: layers run in a Python
+loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from ..contrib.multihead_attn.flash import _dropout_keep
 from ..normalization.fused_layer_norm import fused_layer_norm_affine
 from ..utils.device import resolve_device
 
 __all__ = ["TransformerConfig", "bert_large_config", "transformer_init",
-           "transformer_apply", "params_from_jax"]
+           "transformer_apply", "transformer_loss", "params_from_jax"]
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -40,11 +49,13 @@ class TransformerConfig:
     d_model: int = 256
     num_heads: int = 4
     d_ff: int = 1024
-    dropout: float = 0.0          # inference: no dropout is applied
+    dropout: float = 0.0          # attention dropout, when an rng is given
     causal: bool = False          # BERT-style bidirectional by default
     dtype: Any = torch.float32    # activation dtype
     tie_embeddings: bool = True
+    remat: bool = False           # recompute each layer in the backward
     attn_impl: str = "default"    # "default": plain softmax; "fast": flash
+    xent_impl: str = "auto"       # loss: "auto"/"pallas" kernel, "xla" plain
 
     @property
     def head_dim(self) -> int:
@@ -150,9 +161,11 @@ def qkv_heads(h, lp, cfg: TransformerConfig):
     return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
 
-def attention_core(q, k, v, cfg: TransformerConfig, mask=None):
+def attention_core(q, k, v, cfg: TransformerConfig, mask=None, seed=0,
+                   rate=0.0):
     """q, k, v (B, H, S, hd) -> ctx (B, H, S, hd).  ``mask``: optional
-    key-padding mask (B, S), nonzero = PAD."""
+    key-padding mask (B, S), nonzero = PAD.  ``rate`` > 0: attention
+    dropout with the counter-hash mask of ``seed``."""
     B, H, S, hd = q.shape
     dt = q.dtype
     if cfg.attn_impl == "fast":
@@ -166,8 +179,8 @@ def attention_core(q, k, v, cfg: TransformerConfig, mask=None):
             bias = torch.zeros((1, 1, S), dtype=torch.float32, device=q.device)
         ctx = flash_attention(qf, k.reshape(B * H, S, hd).contiguous(),
                               v.reshape(B * H, S, hd).contiguous(),
-                              bias.contiguous(), seed=0, causal=cfg.causal,
-                              dropout_rate=0.0, heads=H)
+                              bias.contiguous(), seed=seed, causal=cfg.causal,
+                              dropout_rate=rate, heads=H)
         return ctx.reshape(B, H, S, hd)
     # JAX divides by sqrt(hd) in the activation dtype
     scores = (q @ k.transpose(-1, -2)) / torch.sqrt(
@@ -178,34 +191,88 @@ def attention_core(q, k, v, cfg: TransformerConfig, mask=None):
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, None, :] != 0, -1e9)
     probs = torch.softmax(scores.float(), dim=-1).to(dt)
+    if rate > 0.0:
+        bh = torch.arange(B * H, device=q.device)[:, None, None]
+        keep = _dropout_keep(seed, bh, 0, 0, (S, S), rate).view(B, H, S, S)
+        probs = probs * keep.to(dt) / (1.0 - rate)
     return probs @ v
 
 
-def attention(h, lp, cfg: TransformerConfig, mask=None):
+def attention(h, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0):
     """Self-attention block output ``(B, S, D)`` plus this layer's k, v in
     (B, S, H, hd) (the layout the serving engine pages)."""
     B, S, D = h.shape
     q, k, v = qkv_heads(h, lp, cfg)
     ctx = attention_core(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), cfg, mask)
+                         v.transpose(1, 2), cfg, mask, seed, rate)
     ctx = ctx.transpose(1, 2).reshape(B, S, D)
     dt = h.dtype
     return ctx @ lp["wo"].to(dt) + lp["bo"].to(dt), k, v
 
 
+def block(x, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0):
+    """One pre-LN layer: ``x + attn(ln1(x))``, then the MLP block."""
+    h = ln(x, lp["ln1_g"], lp["ln1_b"], cfg)
+    out, _, _ = attention(h, lp, cfg, mask, seed, rate)
+    return mlp(x + out, lp, cfg)
+
+
+def _layer_seeds(n_layers: int, dropout_rng: Optional[torch.Generator]
+                 ) -> List[int]:
+    """One int32 flash seed per layer, drawn up front (a layer recomputed
+    under remat must see the same mask)."""
+    if dropout_rng is None:
+        return [0] * n_layers
+    return torch.randint(-2 ** 31, 2 ** 31, (n_layers,),
+                         generator=dropout_rng).tolist()
+
+
 def transformer_apply(params: Params, tokens: torch.Tensor,
                       cfg: TransformerConfig, *,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None,
+                      dropout_rng: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V).  Pre-LN blocks, tied head.
-    ``mask``: optional key-padding mask (B, S), nonzero = PAD."""
+    ``mask``: optional key-padding mask (B, S), nonzero = PAD.
+    ``dropout_rng``: a (CPU) ``torch.Generator``; with it, attention
+    dropout at ``cfg.dropout``."""
     if cfg.attn_impl not in ("default", "fast"):
         raise ValueError(
             f"attn_impl must be 'default' or 'fast', got {cfg.attn_impl!r}")
     S = tokens.shape[1]
     x = embed(params, tokens, params["embed"]["pos"][:S][None], cfg)
-    for i in range(params["layers"]["wqkv"].shape[0]):
-        lp = layer(params, i)
-        h = ln(x, lp["ln1_g"], lp["ln1_b"], cfg)
-        out, _, _ = attention(h, lp, cfg, mask)
-        x = mlp(x + out, lp, cfg)
+    # one unbind per stacked leaf: its backward stacks the layer grads once
+    stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    n_layers = params["layers"]["wqkv"].shape[0]
+    rate = cfg.dropout if dropout_rng is not None else 0.0
+    for i, seed in enumerate(_layer_seeds(n_layers, dropout_rng)):
+        lp = {k: v[i] for k, v in stacked.items()}
+        fn = functools.partial(block, lp=lp, cfg=cfg, mask=mask, seed=seed,
+                               rate=rate)
+        if cfg.remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+        else:
+            x = fn(x)
     return head(params, x, cfg)
+
+
+def transformer_loss(params: Params, batch: Dict[str, torch.Tensor],
+                     cfg: TransformerConfig, *,
+                     dropout_rng: Optional[torch.Generator] = None,
+                     smoothing: float = 0.0) -> torch.Tensor:
+    """Masked-LM cross-entropy through the fused xentropy kernel.  batch:
+    ``tokens`` (B, S) int, ``targets`` (B, S) int, optional ``weights``
+    (B, S) float and ``mask`` (B, S).  ``padding_idx=-1``: padding is
+    expressed through ``weights``, and vocab id 0 is a legal target."""
+    from ..contrib.xentropy import softmax_xentropy_loss
+    logits = transformer_apply(params, batch["tokens"], cfg,
+                               mask=batch.get("mask"),
+                               dropout_rng=dropout_rng)
+    B, S, V = logits.shape
+    nll = softmax_xentropy_loss(logits.reshape(B * S, V),
+                                batch["targets"].reshape(B * S), smoothing,
+                                -1, False, cfg.xent_impl).reshape(B, S)
+    w = batch.get("weights")
+    if w is None:
+        return nll.mean()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)

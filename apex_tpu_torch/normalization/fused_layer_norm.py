@@ -2,8 +2,11 @@
 
 Counterpart of ``apex_tpu/normalization/fused_layer_norm.py``.  There is no
 tuning-profile lookup: every call goes through
-:func:`apex_tpu_torch.ops.layer_norm.ln_fwd`, which launches the CUDA
-kernel for a CUDA tensor and takes the plain version for a CPU one.
+:class:`apex_tpu_torch.ops.layer_norm.LayerNormFunction`, whose forward and
+backward launch the CUDA kernels for a CUDA tensor and take the plain
+versions for a CPU one.  The gradients are those of the JAX package's XLA
+VJP (``fused_layer_norm.py:80-97``): dx from the saved mean/invvar, dw and
+db as fp32 column sums.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Sequence, Union
 import torch
 from torch import nn
 
-from ..ops.layer_norm import ln_fwd
+from ..ops.layer_norm import LayerNormFunction
 from ..utils.device import resolve_device
 
 __all__ = ["fused_layer_norm_affine", "fused_layer_norm", "FusedLayerNorm"]
@@ -41,7 +44,7 @@ def fused_layer_norm_affine(x: torch.Tensor, weight, bias,
         h *= s
     w = weight.reshape(h) if weight is not None else None
     b = bias.reshape(h) if bias is not None else None
-    out, _, _ = ln_fwd(x.contiguous().reshape(-1, h), w, b, eps)
+    out = LayerNormFunction.apply(x.contiguous().reshape(-1, h), w, b, eps)
     return out.reshape(x.shape)
 
 

@@ -1,13 +1,14 @@
-"""Layer-norm forward: the hand-written Hopper kernel and its plain version.
+"""Layer norm: the hand-written Hopper kernels and their plain versions.
 
-Counterpart of ``apex_tpu/ops/layer_norm.py`` (``ln_fwd_pallas``).  The
-kernel is ``apex_tpu_torch/csrc/layer_norm.cu``; :func:`ln_fwd` launches it
-for a CUDA tensor and takes :func:`ln_fwd_reference` only for a CPU tensor.
-Both return the same residual contract as the TPU kernel:
-``(out (N, H) in x's dtype, mean (N, 1) f32, invvar (N, 1) f32)``.
-
-Only the forward is ported in this slice.  A CUDA input that requires a
-gradient raises: the backward kernel comes with the training slice.
+Counterpart of ``apex_tpu/ops/layer_norm.py`` (``ln_fwd_pallas``,
+``ln_bwd_pallas``, ``layer_norm_pallas``).  Both kernels are in
+``apex_tpu_torch/csrc/layer_norm.cu``; :func:`ln_fwd` and :func:`ln_bwd`
+launch them for a CUDA tensor and take :func:`ln_fwd_reference` /
+:func:`ln_bwd_reference` only for a CPU tensor.  The forward returns the
+TPU kernel's residual contract ``(out (N, H) in x's dtype, mean (N, 1) f32,
+invvar (N, 1) f32)``; the backward takes it back and gives dx.
+:class:`LayerNormFunction` pairs the two as a ``torch.autograd.Function``
+whose dw and db are plain fp32 column sums, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 
 from ..utils import build
 
-__all__ = ["ln_fwd", "ln_fwd_reference", "MAX_H"]
+__all__ = ["ln_fwd", "ln_fwd_reference", "ln_bwd", "ln_bwd_reference",
+           "LayerNormFunction", "MAX_H"]
 
 #: widest row the kernel takes: 1024 16-byte vectors (4096 fp32, 8192 bf16)
 MAX_H = {torch.float32: 4096, torch.bfloat16: 8192}
@@ -51,21 +53,21 @@ def _check_cuda_inputs(x2d, weight, bias):
         raise ValueError("ln_fwd kernel needs a contiguous, 16-byte aligned x")
     if (weight is None) != (bias is None):
         raise ValueError("ln_fwd takes both weight and bias, or neither")
-    tensors = [x2d] + ([weight, bias] if weight is not None else [])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "ln_fwd on CUDA is forward-only: the layer-norm backward kernel "
-            "comes with the training slice (see ROADMAP.md)")
     if weight is not None:
-        for name, t in (("weight", weight), ("bias", bias)):
-            if t.device != x2d.device:
-                raise ValueError(f"{name} is on {t.device}, x on {x2d.device}")
-            if t.shape != (h,) or not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous ({h},), got "
-                                 f"{tuple(t.shape)}")
+        _check_param(weight, "weight", x2d)
+        _check_param(bias, "bias", x2d)
         if weight.dtype != bias.dtype:
             raise TypeError("weight and bias must share a dtype")
-        build.dtype_code(weight.dtype)
+
+
+def _check_param(t, name, x2d):
+    h = x2d.shape[1]
+    if t.device != x2d.device:
+        raise ValueError(f"{name} is on {t.device}, x on {x2d.device}")
+    if t.shape != (h,) or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous ({h},), got "
+                         f"{tuple(t.shape)}")
+    build.dtype_code(t.dtype)
 
 
 def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
@@ -93,3 +95,78 @@ def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
     build.check(err, "ln_fwd")
     build.LAUNCHES["ln_fwd"] += 1
     return out, mean, invvar
+
+
+def ln_bwd_reference(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                     invvar: torch.Tensor, weight: Optional[torch.Tensor]
+                     ) -> torch.Tensor:
+    """Plain PyTorch: the TPU kernel's formula in fp32, dx in x's dtype."""
+    g = g2d.float()
+    xhat = (x2d.float() - mean) * invvar
+    gw = g * weight.float() if weight is not None else g
+    m1 = gw.mean(dim=1, keepdim=True)
+    m2 = (gw * xhat).mean(dim=1, keepdim=True)
+    return ((gw - m1 - xhat * m2) * invvar).to(x2d.dtype)
+
+
+def ln_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+           invvar: torch.Tensor, weight: Optional[torch.Tensor]
+           ) -> torch.Tensor:
+    """dx (N, H) in x's dtype from the saved residuals mean/invvar (N, 1)
+    f32; ``weight`` (H,) or None.  dw and db are the caller's column sums.
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version."""
+    if not x2d.is_cuda:
+        return ln_bwd_reference(g2d, x2d, mean, invvar, weight)
+    _check_cuda_inputs(x2d, None, None)
+    n, h = x2d.shape
+    if g2d.shape != x2d.shape or g2d.dtype != x2d.dtype \
+            or g2d.device != x2d.device:
+        raise ValueError(f"ln_bwd: g {tuple(g2d.shape)} {g2d.dtype} does not "
+                         f"match x {tuple(x2d.shape)} {x2d.dtype}")
+    if not g2d.is_contiguous() or g2d.data_ptr() % 16:
+        raise ValueError("ln_bwd kernel needs a contiguous, 16-byte aligned g")
+    for name, t in (("mean", mean), ("invvar", invvar)):
+        if t.dtype != torch.float32 or t.numel() != n \
+                or not t.is_contiguous() or t.device != x2d.device:
+            raise ValueError(f"ln_bwd: {name} must be contiguous float32 "
+                             f"({n}, 1) on {x2d.device}")
+    if weight is not None:
+        _check_param(weight, "weight", x2d)
+    dx = torch.empty_like(x2d)
+    code = build.dtype_code(x2d.dtype)
+    w_code = build.dtype_code(weight.dtype) if weight is not None else code
+    err = build.library().apex_ln_bwd(
+        g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
+        weight.data_ptr() if weight is not None else None, dx.data_ptr(),
+        n, h, code, w_code, build.stream_of(x2d))
+    build.check(err, "ln_bwd")
+    build.LAUNCHES["ln_bwd"] += 1
+    return dx
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """Layer norm of x2d (N, H) with an optional affine: :func:`ln_fwd`
+    forward, :func:`ln_bwd` for dx, and dw / db as fp32 column sums cast to
+    the parameters' dtype (``apex_tpu/ops/layer_norm.py:218-233``)."""
+
+    @staticmethod
+    def forward(ctx, x2d, weight, bias, eps):
+        out, mean, invvar = ln_fwd(x2d, weight, bias, eps)
+        ctx.save_for_backward(x2d, weight, mean, invvar)
+        ctx.bias_dtype = bias.dtype if bias is not None else None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, weight, mean, invvar = ctx.saved_tensors
+        g = g.contiguous()
+        dx = ln_bwd(g, x2d, mean, invvar, weight)
+        dw = db = None
+        if weight is not None and ctx.needs_input_grad[1]:
+            xhat = (x2d.float() - mean) * invvar
+            dw = (g.float() * xhat).sum(dim=0).to(weight.dtype)
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=0).to(ctx.bias_dtype)
+        return dx, dw, db, None

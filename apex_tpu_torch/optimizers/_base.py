@@ -1,0 +1,104 @@
+"""Shared machinery for the fused optimizers.
+
+Counterpart of ``apex_tpu/optimizers/_base.py``.  An optimizer is an
+algorithm object (hyperparameters only) with ``init(params) -> state`` and
+``step(state, grads, params) -> (new_params, new_state)``; states are named
+tuples of tensors and every step returns new tensors (nothing is updated in
+place), so a skipped step can keep the old state.  Two implementations:
+
+- ``impl="xla"``: per-leaf updates over the parameter tree;
+- ``impl="fused"``: the flat engine — optimizer state and master params
+  live in one flat fp32 buffer per field (:class:`~apex_tpu_torch.
+  multi_tensor_apply.TreeFlattener`), and ``step_flat(state, flat_grads)``
+  updates them with no per-step packing.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..multi_tensor_apply.flattener import TreeFlattener
+from ..utils.pytree import tree_flatten, tree_leaves
+
+__all__ = ["FusedOptimizer", "global_l2norm", "resolve",
+           "resolve_state_dtype"]
+
+
+def global_l2norm(tree) -> torch.Tensor:
+    """Global norm over a tree's leaves (fp32), the plain per-leaf form."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.sqrt(sum(l.float().square().sum() for l in leaves))
+
+
+def resolve(value, count):
+    """Hyperparams may be schedules: callables of the step count."""
+    if callable(value):
+        return value(count)
+    return value
+
+
+def resolve_state_dtype(state_dtype) -> torch.dtype:
+    """Validate and default the moment-storage dtype."""
+    if state_dtype is None:
+        return torch.float32
+    if not isinstance(state_dtype, torch.dtype) \
+            or not state_dtype.is_floating_point:
+        # an int dtype would truncate every stored moment toward zero
+        raise ValueError(f"state_dtype must be a float dtype, got "
+                         f"{state_dtype}")
+    return state_dtype
+
+
+class FusedOptimizer:
+    """Base: impl selection and the flattener of the fused path.
+
+    ``state_dtype`` (fused impl only): storage dtype of the m/v buffers.
+    The arithmetic stays fp32 (moments are upcast at read, cast back at
+    store); master params always stay fp32."""
+
+    def __init__(self, lr, weight_decay=0.0, impl="xla", state_dtype=None):
+        if impl not in ("xla", "fused"):
+            raise ValueError(f"impl must be 'xla' or 'fused', got {impl!r}")
+        if state_dtype is not None and impl != "fused":
+            raise ValueError("state_dtype is a flat-engine (impl='fused') "
+                             "knob; the xla impl keeps fp32 moments")
+        self.lr = lr
+        self.weight_decay = weight_decay
+        self.impl = impl
+        self.state_dtype = resolve_state_dtype(state_dtype)
+        self._flattener: Optional[TreeFlattener] = None
+        self._flattener_key = None
+
+    def _store_moment(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.state_dtype)
+
+    def flattener_for(self, params) -> TreeFlattener:
+        """Packing plan for ``params`` (cached per structure, shapes and
+        dtypes)."""
+        leaves, treedef = tree_flatten(params)
+        key = (treedef, tuple(tuple(l.shape) for l in leaves),
+               tuple(l.dtype for l in leaves))
+        if self._flattener is None or self._flattener_key != key:
+            self._flattener = TreeFlattener(params)
+            self._flattener_key = key
+        return self._flattener
+
+    @property
+    def flattener(self) -> TreeFlattener:
+        if self._flattener is None:
+            raise RuntimeError("no flattener yet: call init(params) first")
+        return self._flattener
+
+    def step_flat(self, state, flat_grads, *, scale=1.0, lr=None):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no fused impl" if self.impl != "fused"
+            else f"{type(self).__name__}.step_flat not implemented")
+
+    def step_flat_shard(self, state, g_shard, *, shard, scale=1.0, lr=None):
+        """Sharded flat update: waits for the port's distributed slice."""
+        raise NotImplementedError(
+            "step_flat_shard (weight-update sharding) is not ported yet; see "
+            "ROADMAP.md")

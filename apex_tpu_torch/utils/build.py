@@ -10,8 +10,10 @@ one is loaded as it is.
 
 Each wrapper passes ``data_ptr()``s, sizes and the current stream; each C
 entry point returns ``cudaGetLastError()``, which :func:`check` turns into
-an exception.  ``LAUNCHES`` counts kernel launches by name: a wrapper adds
-one where it launches its kernel and nowhere else.
+an exception.  ``LAUNCHES`` counts kernel launches by name (``flash_fwd``,
+``flash_bwd``, ``ln_fwd``, ``ln_bwd``, ``xent_fwd``, ``l2norm``): a wrapper
+adds one where it launches its kernel and nowhere else.  Headers
+(``csrc/*.cuh``) are not compiled on their own but count in the hash.
 """
 from __future__ import annotations
 
@@ -45,13 +47,24 @@ LAUNCHES: collections.Counter = collections.Counter()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # x, w, b, out, mean, invvar, n_rows, h, eps, x_dtype, w_dtype, stream
     "apex_ln_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
+    # g, x, mean, invvar, w, dx, n_rows, h, x_dtype, w_dtype, stream
+    "apex_ln_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # q, k, v, bias, out, lse, bh, sq, sk, d, heads, bias_b, bias_q, causal,
     # drop_threshold, keep_div, seed, dtype, stream
     "apex_flash_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                        _I, _I, _U, _F, _I, _I, _VP],
+    # q, k, v, bias, dout, lse, delta, dq_part, dk, dv, bh, sq, sk, d, heads,
+    # bias_b, bias_q, causal, drop_threshold, keep_div, seed, dtype, stream
+    "apex_flash_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I, _VP],
+    # logits, labels, loss, lse, n, v, smoothing, dtype, stream
+    "apex_xent_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # x, n, partials, n_blocks, out, dtype, stream
+    "apex_l2norm": [_VP, _LL, _VP, _I, _VP, _I, _VP],
 }
 
 
@@ -69,7 +82,7 @@ def sources() -> List[Path]:
 
 def _digest(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in sorted(srcs + list(CSRC.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -1,0 +1,168 @@
+"""Parameter-tree helpers: walking nested containers of tensors, and the
+casts amp applies to a model.
+
+Counterpart of a subset of ``apex_tpu/utils/pytree.py`` (``cast_tree``,
+``convert_network``, ``is_norm_path``, ``master_params_from``,
+``master_to_model``), plus the few tree operations the JAX package takes
+from ``jax.tree_util``.  A tree is a tensor (a leaf), ``None`` (no leaf), or
+a dict, list, tuple or named tuple of trees.  Leaves are visited in JAX's
+order: dict keys sorted, sequences and named-tuple fields in order, so a
+flat buffer packed from a tree has the JAX package's layout.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves",
+           "tree_leaves_with_path", "tree_map", "path_str", "is_norm_path",
+           "cast_tree", "convert_network", "master_params_from",
+           "master_to_model", "is_float"]
+
+# Path segments that name normalization parameters, kept fp32 when
+# keep_batchnorm_fp32 is set: the JAX package's pattern, copied.  The
+# transformer's `ln_g` / `ln1_b` leaves do not match it, so amp O5 casts
+# them to bf16 as the JAX package does.
+_NORM_PAT = re.compile(
+    r"(batch[_]?norm|batch_stats|group[_]?norm|layer[_]?norm"
+    r"|(?:^|[/._])(?:bn\d*|norm)(?:[/._]|$))",
+    re.IGNORECASE)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(tree):
+    """(kind, keys, children) of a container, or None for a leaf."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return ("dict", tuple(keys), [tree[k] for k in keys])
+    if _is_namedtuple(tree):
+        return (type(tree), tree._fields, list(tree))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(range(len(tree))), list(tree))
+    return None
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves, treedef): ``treedef`` is a hashable description of the
+    structure that :func:`tree_unflatten` rebuilds from."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if t is None:
+            return None
+        node = _children(t)
+        if node is None:
+            leaves.append(t)
+            return "*"
+        kind, keys, kids = node
+        return (kind, keys, tuple(walk(c) for c in kids))
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves) -> Any:
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d == "*":
+            return next(it)
+        kind, keys, kids = d
+        vals = [build(c) for c in kids]
+        if kind == "dict":
+            return dict(zip(keys, vals))
+        if kind in (list, tuple):
+            return kind(vals)
+        return kind(*vals)          # a named tuple
+
+    return build(treedef)
+
+
+def tree_leaves(tree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_leaves_with_path(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """[(path, leaf)] in leaf order; a path is the tuple of keys to it."""
+    if tree is None:
+        return []
+    node = _children(tree)
+    if node is None:
+        return [(prefix, tree)]
+    _, keys, kids = node
+    out = []
+    for key, kid in zip(keys, kids):
+        out += tree_leaves_with_path(kid, prefix + (key,))
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """``fn`` over corresponding leaves of trees of one structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = [treedef_leaves(treedef, r) for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def treedef_leaves(treedef, tree) -> List[Any]:
+    """The leaves of ``tree``, which must have the structure ``treedef``."""
+    leaves, other = tree_flatten(tree)
+    if other != treedef:
+        raise ValueError("tree structures differ")
+    return leaves
+
+
+def path_str(path) -> str:
+    """'/'-joined key path."""
+    return "/".join(str(p) for p in path)
+
+
+def is_norm_path(path) -> bool:
+    return bool(_NORM_PAT.search(path_str(path)))
+
+
+def is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+def cast_tree(tree, dtype, *, predicate: Optional[Callable] = None):
+    """Cast all floating leaves to ``dtype``; integer leaves pass through.
+    ``predicate(path, leaf)`` True keeps that leaf fp32."""
+    if dtype is None:
+        return tree
+    leaves, treedef = tree_flatten(tree)
+    paths = [p for p, _ in tree_leaves_with_path(tree)]
+    out = []
+    for path, x in zip(paths, leaves):
+        if not is_float(x):
+            out.append(x)
+        elif predicate is not None and predicate(path, x):
+            out.append(x.to(torch.float32))
+        else:
+            out.append(x.to(dtype))
+    return tree_unflatten(treedef, out)
+
+
+def convert_network(params, dtype, keep_batchnorm_fp32: bool = True):
+    """Whole-model cast that keeps normalization parameters (by path) fp32
+    when ``keep_batchnorm_fp32``."""
+    pred = (lambda path, x: is_norm_path(path)) if keep_batchnorm_fp32 \
+        else None
+    return cast_tree(params, dtype, predicate=pred)
+
+
+def master_params_from(params):
+    """fp32 master copies of the floating leaves."""
+    return tree_map(lambda p: p.to(torch.float32, copy=True)
+                    if is_float(p) else p, params)
+
+
+def master_to_model(master, model_like):
+    """fp32 masters -> copies in the model leaves' dtypes."""
+    return tree_map(lambda m, p: m.to(p.dtype) if is_float(p) else m,
+                    master, model_like)

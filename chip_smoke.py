@@ -4,37 +4,55 @@ NVIDIA GPU.
 
     python3 chip_smoke.py             # the whole smoke, one card
     python3 chip_smoke.py --profile   # also: torch.profiler over one
-                                      # prefill + decode steps of the main path
-                                      # (full table: build/profile_serve.txt)
+                                      # prefill + decode steps of the serving
+                                      # path and over one training step
+                                      # (build/profile_{serve,train}.txt)
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
 1. environment: torch/CUDA versions and the card's name and power limit
    (``nvidia-smi``); TF32 off for matmuls and cuDNN;
 2. build: the CUDA kernels from ``apex_tpu_torch/csrc`` into ``build/``;
-3. each kernel against its plain PyTorch version on the card, at the
-   serving shapes, with its device time (a CUDA graph of 20 calls replayed
-   between CUDA events, median of 10 replays), the time of one call with
-   its host cost (CUDA events around the call, median of 30), the plain
-   version's and one PyTorch library call's device time (the library call
-   is a yardstick the port never calls) and the least time the card could
-   take;
+3. the forward kernels against their plain PyTorch versions on the card,
+   at the serving and the training shapes, with their device time (a CUDA
+   graph of 20 calls replayed between CUDA events, median of 10 replays),
+   the time of one call with its host cost (CUDA events around the call,
+   median of 30), the plain version's and one PyTorch library call's
+   device time (the library call is a yardstick the port never calls) and
+   the least time the card could take;
+3b. the same for the training path's kernels: layer-norm backward,
+   cross-entropy forward, the l2norm of the flat master-sized buffer and
+   the flash backward (whose dropout case also goes against autograd of
+   the plain forward: the backward's mask is the forward's);
 4. serve parity: a 2-layer engine at BERT-large width, fp32, on the card
    and on the CPU with the same weights — prefill logits within 1e-3 and
    the same greedy tokens over 8 decode steps;
-5. the main path: a 24-layer BERT-large-width engine, bf16, ``attn_impl=
+5. the serving path: a 24-layer BERT-large-width engine, bf16, ``attn_impl=
    "fast"``, random weights from a seed, serving a seeded trace of 16
    requests through ``ContinuousBatcher.run()``, with every kernel's launch
    count read around that run;
-6. one ``{"kernels": [...]}`` line;
-7. last line ``{"ok": true, "device": {...}}``.
+6. training parity: a 2-layer model at BERT-large width, 3 steps of
+   ``train_step`` under amp O5 with the fp32 model override, FusedLAMB on
+   the flat engine, flash attention and remat, on the card and on the CPU
+   from the same weights — losses within 1e-4 relative, flat masters
+   within 1e-4;
+7. the training path: 24-layer BERT-large, bf16, amp O5 + FusedLAMB
+   (``impl="fused"``), flash attention, remat, batch 8 x 512, one warm-up
+   and 5 timed steps of ``apex_tpu_torch.train.train_step``, with every
+   kernel's launch count read around the timed steps;
+8. one ``{"kernels": [...]}`` line (launches from the training path;
+   ``launches_serve`` from the serving path);
+9. last line ``{"ok": true, "device": {...}}``.
 
 Tolerances: an element passes when ``|kernel - plain| <= tol *
-max(1, |plain|)``, with tol = 1e-5 (layer norm, fp32), 1e-4 (flash, fp32),
-2e-2 (bf16: the two versions may round one value to neighbouring bf16
-numbers, 2^-8 apart relative to the value).  ``mean`` is held to 1e-5 and
-``invvar`` and the live rows' ``lse`` to 1e-4 relative; dead rows' lse must
-be exactly +1e30.  ``max_abs_err`` reports the plain absolute difference.
+max(1, |plain|)``, with tol = 1e-5 (layer-norm forward, cross-entropy,
+fp32), 1e-4 (flash, layer-norm backward, fp32), 2e-2 (bf16: the two
+versions may round one value to neighbouring bf16 numbers, 2^-8 apart
+relative to the value).  ``mean`` is held to 1e-5 and ``invvar`` and the
+live rows' ``lse`` to 1e-4 relative; dead rows' lse must be exactly +1e30.
+The l2norm is held to 1e-5 relative (fp32 sums in other orders) and must
+repeat bit for bit.  ``max_abs_err`` reports the plain absolute
+difference.
 """
 from __future__ import annotations
 
@@ -56,6 +74,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 LN_REPLACES = "apex_tpu/ops/layer_norm.py:52"
 FLASH_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:276"
+LN_BWD_REPLACES = "apex_tpu/ops/layer_norm.py:72"
+FLASH_BWD_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:541"
+XENT_REPLACES = "apex_tpu/contrib/xentropy/softmax_xentropy.py:56"
+L2NORM_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:158"
+
+# kernel launches a training step makes at 24 layers with remat
+TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 48, "flash_bwd": 24, "ln_fwd": 98,
+                           "ln_bwd": 50, "xent_fwd": 1, "l2norm": 1}
 
 
 def log(msg: str) -> None:
@@ -195,7 +221,7 @@ def check_layer_norm(dev):
     from apex_tpu_torch.ops.layer_norm import ln_fwd, ln_fwd_reference
     rows = []
     gen = torch.Generator().manual_seed(0)
-    for n, h in ((512, 1024), (8, 1024)):
+    for n, h in ((512, 1024), (8, 1024), (4096, 1024)):
         for dtype in ("bfloat16", "float32"):
             for affine in (True, False):
                 dt = getattr(torch, dtype)
@@ -262,6 +288,7 @@ def check_flash(dev):
     gen = torch.Generator().manual_seed(1)
     cases = [  # name, B, heads, Sq, Sk, D, bias, causal, dropout
         ("serving", 1, 16, 512, 512, 64, "zeros", True, 0.0),
+        ("training", 8, 16, 512, 512, 64, "zeros", False, 0.0),
         ("ragged_pad_dead", 2, 4, 200, 333, 64, "pad_dead", False, 0.0),
         ("dropout", 1, 16, 512, 512, 64, "zeros", True, 0.1),
         ("d128", 2, 2, 130, 130, 128, "zeros", True, 0.0),
@@ -300,12 +327,12 @@ def check_flash(dev):
             pms = device_ms(lambda: _reference(q, k, v, bias, causal, rate,
                                                1234, heads), n=5)
             lms = l_call = None
-            if name == "serving":
+            if name in ("serving", "training"):
                 q4, k4, v4 = (t.view(B, heads, -1, d) for t in (q, k, v))
 
                 def sdpa():
                     return F.scaled_dot_product_attention(
-                        q4, k4, v4, is_causal=True, scale=1.0)
+                        q4, k4, v4, is_causal=causal, scale=1.0)
                 lms, l_call = device_ms(sdpa), time_ms(sdpa)
             rows.append(dict(case=name, dtype=dtype, max_abs_err=err,
                              tol=tol, lse_rel_err=l_err, dead_rows=n_dead,
@@ -318,6 +345,214 @@ def check_flash(dev):
                 f"{ms:.5f} ms (one call with its host cost {call_ms:.4f} "
                 f"ms)  plain {pms:.5f} ms  sdpa {lib}  bound {bms:.5f} ms "
                 f"({by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the training path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _report(name, case, err, tol, ms, pms, lms, bms, by, extra=""):
+    lib = f"{lms:.5f} ms" if lms is not None else "n/a"
+    log(f"  {name} {case} err {err:.3g} (tol {tol}){extra} | kernel "
+        f"{ms:.5f} ms  plain {pms:.5f} ms  library {lib}  bound {bms:.5f} "
+        f"ms ({by})")
+
+
+def check_ln_bwd(dev):
+    import torch
+    from apex_tpu_torch.ops.layer_norm import (ln_bwd, ln_bwd_reference,
+                                               ln_fwd_reference)
+    rows = []
+    gen = torch.Generator().manual_seed(2)
+    aten_bwd = torch.ops.aten.native_layer_norm_backward
+    for n, h in ((4096, 1024), (8, 1024)):
+        for dtype in ("bfloat16", "float32"):
+            for affine in (True, False):
+                dt = getattr(torch, dtype)
+                x = _randn((n, h), gen, dt, dev, 2.0, 0.5)
+                g = _randn((n, h), gen, dt, dev)
+                w = _randn((h,), gen, dt, dev) if affine else None
+                b = _randn((h,), gen, dt, dev) if affine else None
+                _, mean, inv = ln_fwd_reference(x, w, b, 1e-5)
+                dx = ln_bwd(g, x, mean, inv, w)
+                torch.cuda.synchronize()
+                ref = ln_bwd_reference(g, x, mean, inv, w)
+                tol = 1e-4 if dtype == "float32" else 2e-2
+                ok, err = scaled_ok(dx, ref, tol)
+                require(ok, f"ln_bwd ({n},{h}) {dtype} affine={affine}: err "
+                        f"{err:.3g} (tol {tol})")
+                es = x.element_size()
+                nbytes = 3 * n * h * es + 2 * n * 4 + (h * es if affine
+                                                       else 0)
+                bms, by = bound(nbytes, 12.0 * n * h, "float32")
+                ms = device_ms(lambda: ln_bwd(g, x, mean, inv, w))
+                pms = device_ms(lambda: ln_bwd_reference(g, x, mean, inv, w))
+                # the library backward takes its own forward's statistics
+                _, a_mean, a_inv = torch.ops.aten.native_layer_norm(
+                    x, [h], w, b, 1e-5)
+                lms = device_ms(lambda: aten_bwd(g, x, [h], a_mean, a_inv, w,
+                                                 b, [True, False, False]))
+                rows.append(dict(shape=(n, h), dtype=dtype, affine=affine,
+                                 max_abs_err=err, tol=tol, ms=ms,
+                                 plain_ms=pms, library_ms=lms, bound_ms=bms,
+                                 bound_by=by))
+                _report("ln_bwd", f"({n},{h}) {dtype:8s} affine={affine!s:5s}",
+                        err, tol, ms, pms, lms, bms, by)
+    return rows
+
+
+def check_xent(dev):
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.xentropy.softmax_xentropy import (
+        _xent_fwd, _xent_fwd_reference)
+    rows = []
+    gen = torch.Generator().manual_seed(3)
+    n, v = 4096, 30592
+    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    labels[::16] = -1                          # padding rows
+    for dtype in ("bfloat16", "float32"):
+        x = _randn((n, v), gen, getattr(torch, dtype), dev, 3.0)
+        for sm in (0.0, 0.1):
+            loss, lse = _xent_fwd(x, labels, sm)
+            torch.cuda.synchronize()
+            r_loss, r_lse = _xent_fwd_reference(x, labels, sm)
+            ok1, err = scaled_ok(loss, r_loss, 1e-5)
+            ok2, l_err = scaled_ok(lse, r_lse, 1e-5)
+            require(ok1 and ok2, f"xent ({n},{v}) {dtype} s={sm}: loss err "
+                    f"{err:.3g}, lse err {l_err:.3g} (tol 1e-5)")
+            bms, by = bound(n * v * x.element_size() + 8 * n + 8 * n,
+                            5.0 * n * v, "float32")
+            ms = device_ms(lambda: _xent_fwd(x, labels, sm))
+            pms = device_ms(lambda: _xent_fwd_reference(x, labels, sm), n=5)
+            lms = device_ms(lambda: F.cross_entropy(
+                x, labels, reduction="none", ignore_index=-1,
+                label_smoothing=sm))
+            rows.append(dict(shape=(n, v), dtype=dtype, smoothing=sm,
+                             max_abs_err=max(err, l_err), tol=1e-5, ms=ms,
+                             plain_ms=pms, library_ms=lms, bound_ms=bms,
+                             bound_by=by))
+            _report("xent_fwd", f"({n},{v}) {dtype:8s} s={sm}",
+                    max(err, l_err), 1e-5, ms, pms, lms, bms, by,
+                    f" [{int((labels < 0).sum())} padding rows]")
+    return rows
+
+
+def check_l2norm(dev):
+    import torch
+    from apex_tpu_torch.multi_tensor_apply.kernels import (
+        multi_tensor_l2norm, multi_tensor_l2norm_reference)
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # the BERT-large flat master buffer, and a ragged bf16 one
+    for n, dtype in ((334_233_600, "float32"), (1_310_720, "bfloat16")):
+        x = torch.randn(n, generator=gen, device=dev).to(getattr(torch,
+                                                                 dtype))
+        a, b = multi_tensor_l2norm(x), multi_tensor_l2norm(x)
+        ref = multi_tensor_l2norm_reference(x)
+        torch.cuda.synchronize()
+        err = abs(a.item() - ref.item())
+        require(torch.equal(a, b), f"l2norm ({n},) {dtype} does not repeat")
+        require(err <= 1e-5 * ref.item(), f"l2norm ({n},) {dtype}: err "
+                f"{err:.3g} of {ref.item():.6g} (tol 1e-5 relative)")
+        bms, by = bound(n * x.element_size() + 4, 2.0 * n, "float32")
+        ms = device_ms(lambda: multi_tensor_l2norm(x))
+        pms = device_ms(lambda: multi_tensor_l2norm_reference(x), n=5)
+        lms = device_ms(lambda: torch.linalg.vector_norm(x,
+                                                         dtype=torch.float32))
+        rows.append(dict(shape=(n,), dtype=dtype, max_abs_err=err,
+                         tol="1e-5 rel", ms=ms, plain_ms=pms, library_ms=lms,
+                         bound_ms=bms, bound_by=by))
+        _report("l2norm", f"({n},) {dtype}", err, "1e-5 rel", ms, pms, lms,
+                bms, by, " [repeats bit for bit]")
+    return rows
+
+
+def check_flash_bwd(dev):
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        BWD_K_TILE, _flash_bwd_fused, _flash_bwd_reference, _flash_fwd,
+        _xla_bwd)
+    aten = torch.ops.aten
+    rows = []
+    gen = torch.Generator().manual_seed(5)
+    cases = [  # name, B, heads, Sq, Sk, D, bias, causal, dropout
+        ("training", 8, 16, 512, 512, 64, "zeros", False, 0.0),
+        ("causal", 8, 16, 512, 512, 64, "zeros", True, 0.0),
+        ("ragged_pad_dead", 2, 4, 200, 333, 64, "pad_dead", False, 0.0),
+        ("dropout", 8, 16, 512, 512, 64, "zeros", False, 0.1),
+    ]
+    for name, B, heads, sq, sk, d, kind, causal, rate in cases:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, gen, dt,
+                                          dev)
+            do = _randn(q.shape, gen, dt, dev)
+            out, lse = _flash_fwd(q, k, v, bias, causal, rate, 99, heads)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+
+            def kern():
+                return _flash_bwd_fused(q, k, v, bias, causal, rate, 99,
+                                        heads, lse, delta, do)
+
+            def plain():
+                return _flash_bwd_reference(q, k, v, bias, causal, rate, 99,
+                                            heads, lse, delta, do)
+            got = kern()
+            torch.cuda.synchronize()
+            tol = 1e-4 if dtype == "float32" else 2e-2
+            errs = []
+            for gname, a, r in zip(("dq", "dk", "dv"), got, plain()):
+                ok, err = scaled_ok(a, r, tol)
+                require(ok, f"flash_bwd {name} {dtype} {gname}: err "
+                        f"{err:.3g} (tol {tol})")
+                errs.append(err)
+            extra = ""
+            if rate > 0.0 and dtype == "float32":
+                # forward kernel + backward kernel against autograd of the
+                # plain forward: the backward regenerates the forward's mask
+                for gname, a, r in zip(("dq", "dk", "dv"), got,
+                                       _xla_bwd(q, k, v, bias, causal, rate,
+                                                99, heads, do)):
+                    ok, err = scaled_ok(a, r, 1e-4)
+                    require(ok, f"flash_bwd dropout {gname} vs autograd of "
+                            f"the plain forward: err {err:.3g} (tol 1e-4)")
+                extra = " [= autograd of the plain forward: masks agree]"
+            bh = B * heads
+            es = q.element_size()
+            nbytes = 7 * bh * sq * d * es + 2 * bh * sq * 4 \
+                + bias.numel() * 4
+            pairs = (sum(min(r + 1, sk) for r in range(sq)) if causal
+                     else sq * sk)
+            bms, by = bound(nbytes, 10.0 * d * pairs * bh, dtype)
+            ms = device_ms(kern)
+            pms = device_ms(plain, n=3)
+            nk = -(-sk // BWD_K_TILE)
+            part = torch.empty((bh, nk, sq, d), dtype=torch.float32,
+                               device=dev)
+            sum_ms = device_ms(lambda: part.sum(dim=1).to(dt))
+            lms = None
+            if name in ("training", "causal") and dtype == "bfloat16":
+                # SDPA's flash backward alone, on its own forward's saved
+                # (out, lse), timed like the kernel
+                q4, k4, v4, do4 = (t.view(B, heads, -1, d)
+                                   for t in (q, k, v, do))
+                (o4, lse4, cq, ck, mq, mk, rng_seed, rng_offset,
+                 _) = aten._scaled_dot_product_flash_attention(
+                    q4, k4, v4, 0.0, causal, False, scale=1.0)
+                lms = device_ms(
+                    lambda: aten._scaled_dot_product_flash_attention_backward(
+                        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0,
+                        causal, rng_seed, rng_offset, scale=1.0))
+            rows.append(dict(case=name, dtype=dtype, max_abs_err=max(errs),
+                             tol=tol, ms=ms, plain_ms=pms, library_ms=lms,
+                             library="aten flash-attention backward",
+                             partials_sum_ms=sum_ms, bound_ms=bms,
+                             bound_by=by))
+            _report("flash_bwd", f"{name:15s} {dtype:8s}", max(errs), tol, ms,
+                    pms, lms, bms, by,
+                    f" [of it, the dq-partial sum {sum_ms:.5f} ms]{extra}")
     return rows
 
 
@@ -400,7 +635,7 @@ def phase_main_path(dev, card, profile=False):
                                       InferenceEngine, Request)
     from apex_tpu_torch.telemetry.serve_ledger import serve_violations
     from apex_tpu_torch.utils import build
-    log("== phase 5: main path (BERT-large width, 24 layers, bf16, fast "
+    log("== phase 5: serving path (BERT-large width, 24 layers, bf16, fast "
         "attention, 16-request trace)")
     cfg = bert_large_config(causal=True, attn_impl="fast")
     t0 = time.perf_counter()
@@ -488,6 +723,17 @@ def phase_main_path(dev, card, profile=False):
     return launches, doc
 
 
+def kernel_us(avgs) -> float:
+    """Device time of a profile in us: the kernels' own events only, as the
+    profiler table's footer counts it (an operator's row repeats the time
+    of the kernels it launched, so summing every row counts it twice)."""
+    from torch.autograd import DeviceType
+    return sum(getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0)) for a in avgs
+               if a.device_type == DeviceType.CUDA
+               and not a.is_user_annotation)
+
+
 def profile_steps(eng, tokens, table, toks, pos, tables, temps, topks):
     """torch.profiler over one prefill and 4 decode steps: device time by
     kernel and the device's busy share of the window (``--profile``)."""
@@ -505,8 +751,7 @@ def profile_steps(eng, tokens, table, toks, pos, tables, temps, topks):
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
-    dev_us = sum(getattr(a, "self_device_time_total",
-                         getattr(a, "self_cuda_time_total", 0)) for a in avgs)
+    dev_us = kernel_us(avgs)
     log(f"  profile: window {window_ms:.3f} ms, device busy "
         f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / window_ms:.1f}%)")
     table_txt = avgs.table(sort_by="self_cuda_time_total", row_limit=25)
@@ -517,6 +762,190 @@ def profile_steps(eng, tokens, table, toks, pos, tables, temps, topks):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training parity, card vs CPU
+# ---------------------------------------------------------------------------
+
+def _train_state(params, cfg_dtype_override):
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedLAMB
+    return amp.initialize(
+        params, FusedLAMB(lr=1e-3, weight_decay=0.01, max_grad_norm=1.0,
+                          impl="fused"),
+        opt_level="O5", cast_model_type=cfg_dtype_override, verbosity=0)
+
+
+def _batch(cfg, batch, seq, seed, dev):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab_size, (batch, seq),
+                             generator=gen).to(dev)
+            for k in ("tokens", "targets")}
+
+
+def phase_train_parity(dev):
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.train import train_step
+    log("== phase 6: training parity (2 layers, BERT-large width, amp O5 "
+        "with the fp32 model override, FusedLAMB fused, flash, remat; card "
+        "vs CPU)")
+    cfg = bert_large_config(num_layers=2, attn_impl="fast", remat=True)
+    params = transformer_init(cfg, torch.Generator().manual_seed(1),
+                              device="cpu")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        st = _train_state({g: {n: t.to(d) for n, t in leaves.items()}
+                           for g, leaves in params.items()}, torch.float32)
+        batch = _batch(cfg, 2, 128, 6, d)
+        losses = []
+        for _ in range(3):
+            st, loss = train_step(st, batch, cfg)
+            losses.append(loss.item())
+        runs.append((losses, st.opt_state.master.cpu()))
+    (g_loss, g_master), (c_loss, c_master) = runs
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+    m_err = float((g_master - c_master).abs().max())
+    require(l_err <= 1e-4, f"training losses differ by {l_err:.3g} "
+            f"relative (tol 1e-4): card {g_loss} cpu {c_loss}")
+    require(m_err <= 1e-4, f"flat masters differ by {m_err:.3g} after 3 "
+            "steps (tol 1e-4)")
+    log(f"  losses card {g_loss} cpu {c_loss}: max rel diff {l_err:.3g} "
+        f"(tol 1e-4); flat masters max abs diff {m_err:.3g} (tol 1e-4)")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path
+# ---------------------------------------------------------------------------
+
+def phase_train(dev, card, profile=False):
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.train import train_step
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log("== phase 7: training path (BERT-large, 24 layers, bf16, amp O5 + "
+        "FusedLAMB fused, flash, remat, batch 8 x 512)")
+    cfg = bert_large_config(attn_impl="fast", remat=True,
+                            dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    st = _train_state(params, None)
+    del params
+    batch = _batch(cfg, 8, 512, 7, dev)
+    torch.cuda.synchronize()
+    log(f"  {n_params} parameters from seed 0, amp state on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    st, loss = train_step(st, batch, cfg)          # warm-up
+    losses = [loss.item()]
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        st, loss = train_step(st, batch, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(float(st.loss_scale) == 1.0, f"loss scale {float(st.loss_scale)}")
+    require(st.model_params["layers"]["wqkv"].dtype == torch.bfloat16
+            and st.opt_state.master.dtype == torch.float32,
+            "O5 dtypes: bf16 model, fp32 flat masters")
+    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
+        require(launches.get(name, 0) >= 5 * per_step,
+                f"{name} launched {launches.get(name, 0)} times in 5 steps, "
+                f"expected at least {per_step} a step")
+    step_s = statistics.median(times)
+    tokens = 8 * 512
+    mfu = 8 * n_params * tokens / step_s / 989e12
+    log(f"  losses {[round(l, 5) for l in losses]}; launches in 5 steps "
+        f"{launches}")
+    log(f"  [{card}] step {step_s * 1e3:.2f} ms (median of 5; all "
+        f"{[round(t * 1e3, 2) for t in times]}), {8 / step_s:.2f} "
+        f"sequences/s, {tokens / step_s:.0f} tokens/s, peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB, analytic MFU {100 * mfu:.2f}% "
+        f"(8 x {n_params} params x {tokens} tokens / step / 989 TFLOP/s "
+        f"bf16; attention's S^2 term left out)")
+    fb_ms, opt_ms = split_train_step(st, batch, cfg)
+    log(f"  [{card}] of a step: forward + backward {fb_ms:.2f} ms, amp_step "
+        f"(unscale, flatten, l2norm, FusedLAMB flat update, skip-select, "
+        f"bf16 copy) {opt_ms:.2f} ms (medians of 3)")
+    if profile:
+        profile_train_step(st, batch, cfg)
+    return launches
+
+
+def split_train_step(st, batch, cfg):
+    """Host-clock ms of a step's two halves, each ending in a synchronize:
+    the loss and its gradients, then ``amp_step`` (the state is left as
+    it was)."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import transformer_loss
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+    fb, opt = [], []
+    for _ in range(3):
+        leaves, treedef = tree_flatten(st.model_params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = transformer_loss(tree_unflatten(treedef, leaves), batch, cfg)
+        grads = torch.autograd.grad(amp.scale_loss(loss, st), leaves)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        amp.amp_step(st, tree_unflatten(treedef, list(grads)))
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        opt.append(time.perf_counter() - t1)
+    return statistics.median(fb) * 1e3, statistics.median(opt) * 1e3
+
+
+def profile_train_step(st, batch, cfg):
+    """torch.profiler over one training step: device time by kernel and
+    the device's busy share of the window (``--profile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.train import train_step
+    out_dir = os.path.join(HERE, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(st, batch, cfg)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    dev_us = kernel_us(avgs)
+    log(f"  profile: training step window {window_ms:.3f} ms, device busy "
+        f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / window_ms:.1f}%)")
+    table_txt = avgs.table(sort_by="self_cuda_time_total", row_limit=30)
+    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+        f.write(table_txt)
+    for line in table_txt.splitlines()[:36]:
+        log(f"  {line}")
+
+
+# ---------------------------------------------------------------------------
+
+def _kernel_entry(name, source, replaces, row, launches, launches_serve=None):
+    entry = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 launches=launches, max_abs_err=row["max_abs_err"],
+                 ms=row["ms"], plain_ms=row["plain_ms"],
+                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                 library_ms=row["library_ms"])
+    if launches_serve is not None:
+        entry["launches_serve"] = launches_serve
+    return entry
+
 
 def main(argv) -> int:
     import torch
@@ -529,29 +958,50 @@ def main(argv) -> int:
     t_start = time.perf_counter()
     card = phase_environment()
     phase_build()
-    log("== phase 3: kernels vs plain versions on the card")
+    log("== phase 3: forward kernels vs plain versions on the card")
     ln_rows = check_layer_norm(dev)
     flash_rows = check_flash(dev)
+    log("== phase 3b: training kernels vs plain versions on the card")
+    ln_bwd_rows = check_ln_bwd(dev)
+    xent_rows = check_xent(dev)
+    l2_rows = check_l2norm(dev)
+    fb_rows = check_flash_bwd(dev)
     phase_serve_parity(dev)
-    launches, _ = phase_main_path(dev, card, profile)
+    serve_launches, _ = phase_main_path(dev, card, profile)
+    phase_train_parity(dev)
+    launches = phase_train(dev, card, profile)
 
-    ln_main = next(r for r in ln_rows if r["shape"] == (512, 1024)
-                   and r["dtype"] == "bfloat16" and r["affine"])
-    fl_main = next(r for r in flash_rows if r["case"] == "serving"
-                   and r["dtype"] == "bfloat16")
+    def pick(rows, **want):
+        return next(r for r in rows
+                    if all(r.get(k) == v for k, v in want.items()))
+
+    bf16 = "bfloat16"
     kernels = [
-        dict(name="flash_fwd", route="cuda",
-             source="apex_tpu_torch/csrc/flash_fwd.cu",
-             replaces=FLASH_REPLACES, launches=launches["flash_fwd"],
-             max_abs_err=fl_main["max_abs_err"], ms=fl_main["ms"],
-             plain_ms=fl_main["plain_ms"], bound_ms=fl_main["bound_ms"],
-             bound_by=fl_main["bound_by"], library_ms=fl_main["library_ms"]),
-        dict(name="ln_fwd", route="cuda",
-             source="apex_tpu_torch/csrc/layer_norm.cu",
-             replaces=LN_REPLACES, launches=launches["ln_fwd"],
-             max_abs_err=ln_main["max_abs_err"], ms=ln_main["ms"],
-             plain_ms=ln_main["plain_ms"], bound_ms=ln_main["bound_ms"],
-             bound_by=ln_main["bound_by"], library_ms=ln_main["library_ms"]),
+        _kernel_entry("flash_fwd", "apex_tpu_torch/csrc/flash_fwd.cu",
+                      FLASH_REPLACES,
+                      pick(flash_rows, case="training", dtype=bf16),
+                      launches["flash_fwd"], serve_launches["flash_fwd"]),
+        _kernel_entry("flash_bwd", "apex_tpu_torch/csrc/flash_bwd.cu",
+                      FLASH_BWD_REPLACES,
+                      pick(fb_rows, case="training", dtype=bf16),
+                      launches["flash_bwd"]),
+        _kernel_entry("ln_fwd", "apex_tpu_torch/csrc/layer_norm.cu",
+                      LN_REPLACES,
+                      pick(ln_rows, shape=(4096, 1024), dtype=bf16,
+                           affine=True),
+                      launches["ln_fwd"], serve_launches["ln_fwd"]),
+        _kernel_entry("ln_bwd", "apex_tpu_torch/csrc/layer_norm.cu",
+                      LN_BWD_REPLACES,
+                      pick(ln_bwd_rows, shape=(4096, 1024), dtype=bf16,
+                           affine=True),
+                      launches["ln_bwd"]),
+        _kernel_entry("xent_fwd", "apex_tpu_torch/csrc/xentropy.cu",
+                      XENT_REPLACES,
+                      pick(xent_rows, dtype=bf16, smoothing=0.0),
+                      launches["xent_fwd"]),
+        _kernel_entry("l2norm", "apex_tpu_torch/csrc/multi_tensor.cu",
+                      L2NORM_REPLACES, pick(l2_rows, dtype="float32"),
+                      launches["l2norm"]),
     ]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

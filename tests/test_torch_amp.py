@@ -1,0 +1,150 @@
+"""amp of the PyTorch port against the JAX package.
+
+For each opt level, ``initialize`` on the same fp32 parameter tree gives
+the same model and master dtypes, loss scale and flat-master detection in
+both packages (O1 and O4 patch functions in the JAX package; the port
+raises ``NotImplementedError`` for them until ``torch.autocast`` stands
+in).  With dynamic loss scaling, a step whose gradients hold an inf is
+skipped and the scale halves, as in the JAX package; finite steps match
+its scale and masters.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from apex_tpu import amp as jamp
+from apex_tpu.optimizers import FusedLAMB as JaxLAMB
+
+from apex_tpu_torch import amp
+from apex_tpu_torch.contrib.multihead_attn import flash as pflash
+from apex_tpu_torch.optimizers import FusedLAMB
+from apex_tpu_torch.utils.pytree import tree_leaves
+
+_JDT = {jnp.dtype(jnp.float32): torch.float32,
+        jnp.dtype(jnp.float16): torch.float16,
+        jnp.dtype(jnp.bfloat16): torch.bfloat16}
+
+
+def _tree():
+    rng = np.random.default_rng(0)
+    return {"dense": {"w": rng.standard_normal((8, 16)).astype(np.float32),
+                      "b": np.zeros(16, np.float32)},
+            "layer_norm": {"scale": np.ones(16, np.float32)},
+            "ln_g": np.ones(16, np.float32)}
+
+
+def _torch_tree(tree):
+    return {k: _torch_tree(v) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("impl", ["fused", "xla"])
+@pytest.mark.parametrize("level", ["O0", "O2", "O3", "O5"])
+def test_initialize_matches_jax(level, impl):
+    tree = _tree()
+    js = jamp.initialize(jax.tree_util.tree_map(jnp.asarray, tree),
+                         JaxLAMB(impl=impl), opt_level=level, verbosity=0)
+    ps = amp.initialize(_torch_tree(tree), FusedLAMB(impl=impl),
+                        opt_level=level, verbosity=0)
+    j_model = jax.tree_util.tree_leaves(js.model_params)
+    p_model = tree_leaves(ps.model_params)
+    assert [_JDT[jnp.dtype(l.dtype)] for l in j_model] == \
+        [l.dtype for l in p_model]
+    assert (js.master_params is None) == (ps.master_params is None)
+    if ps.master_params is not None:
+        assert all(l.dtype == torch.float32
+                   for l in tree_leaves(ps.master_params))
+    assert float(js.loss_scale) == float(ps.loss_scale)
+    assert js.scalers[0].dynamic == ps.scalers[0].dynamic
+    assert jamp.frontend._flat_masters_active(js) == \
+        amp.frontend._flat_masters_active(ps)
+    for a, b in zip(tree_leaves(ps.params_for_eval()),
+                    jax.tree_util.tree_leaves(js.params_for_eval())):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_o5_casts_the_transformer_norm_leaves():
+    """The norm leaves' names (ln_g, ...) miss the norm pattern, so O5
+    casts them to bf16 too; a path named layer_norm stays fp32."""
+    ps = amp.initialize(_torch_tree(_tree()), FusedLAMB(impl="fused"),
+                        opt_level="O5", verbosity=0)
+    assert ps.model_params["ln_g"].dtype == torch.bfloat16
+    assert ps.model_params["layer_norm"]["scale"].dtype == torch.float32
+    assert ps.model_params["dense"]["w"].dtype == torch.bfloat16
+    assert float(ps.loss_scale) == 1.0 and not ps.scalers[0].dynamic
+
+
+def test_bad_opt_level_raises():
+    with pytest.raises(RuntimeError, match="O0'..'O5"):
+        amp.initialize(_torch_tree(_tree()), None, opt_level="O7",
+                       verbosity=0)
+
+
+@pytest.mark.parametrize("level", ["O1", "O4"])
+def test_patching_levels_are_not_ported(level):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        amp.initialize(_torch_tree(_tree()), None, opt_level=level,
+                       verbosity=0)
+
+
+def test_non_fp32_params_raise():
+    tree = _torch_tree(_tree())
+    tree["dense"]["w"] = tree["dense"]["w"].half()
+    with pytest.raises(RuntimeError, match="not fp32"):
+        amp.initialize(tree, None, opt_level="O5", verbosity=0)
+    st = amp.initialize(tree, None, opt_level="O5", verbosity=0,
+                        allow_incoming_model_not_fp32=True)
+    assert st.model_params["dense"]["w"].dtype == torch.bfloat16
+
+
+def test_flash_attn_backward_sets_the_flash_default():
+    try:
+        amp.initialize(_torch_tree(_tree()), None, opt_level="O5",
+                       verbosity=0, flash_attn_backward="xla")
+        assert pflash._resolve_backward("auto") == "xla"
+        with pytest.raises(ValueError):
+            amp.initialize(_torch_tree(_tree()), None, opt_level="O5",
+                           verbosity=0, flash_attn_backward="cuda")
+    finally:
+        pflash.set_default_backward("auto")
+
+
+@pytest.mark.parametrize("impl", ["fused", "xla"])
+def test_dynamic_scale_skips_inf_steps_like_jax(impl):
+    tree = _tree()
+    js = jamp.initialize(jax.tree_util.tree_map(jnp.asarray, tree),
+                         JaxLAMB(lr=1e-2, impl=impl), opt_level="O0",
+                         loss_scale="dynamic", verbosity=0)
+    ps = amp.initialize(_torch_tree(tree), FusedLAMB(lr=1e-2, impl=impl),
+                        opt_level="O0", loss_scale="dynamic", verbosity=0)
+    rng = np.random.default_rng(5)
+    for step in range(4):
+        g = jax.tree_util.tree_map(
+            lambda a: (rng.standard_normal(a.shape) * 1e3).astype(np.float32),
+            tree)
+        if step in (1, 2):
+            g["dense"]["w"][0, 0] = np.inf
+        before = [l.clone() for l in tree_leaves(ps.params_for_eval())]
+        js = jamp.amp_step(js, jax.tree_util.tree_map(jnp.asarray, g))
+        ps = amp.amp_step(ps, _torch_tree(g))
+        assert float(ps.loss_scale) == float(js.loss_scale)
+        after = tree_leaves(ps.params_for_eval())
+        if step in (1, 2):           # skipped: masters unchanged
+            for a, b in zip(after, before):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for a, b in zip(after, jax.tree_util.tree_leaves(
+                js.params_for_eval())):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    assert float(ps.loss_scale) == 2.0 ** 14      # halved twice
+    assert len(amp.master_params(ps)) == 4
+
+
+def test_scale_loss_and_step_without_optimizer_raises():
+    ps = amp.initialize(_torch_tree(_tree()), None, opt_level="O2",
+                        verbosity=0)
+    assert float(amp.scale_loss(torch.tensor(2.0), ps)) == 2.0 * 2 ** 16
+    with pytest.raises(RuntimeError, match="optimizer"):
+        amp.amp_step(ps, ps.model_params)

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 import apex_tpu_torch
+from apex_tpu_torch import amp
 from apex_tpu_torch.models import TransformerConfig, transformer_init
+from apex_tpu_torch.optimizers import FusedLAMB
 from apex_tpu_torch.serve import InferenceEngine
 from apex_tpu_torch.utils.device import resolve_device
 
@@ -96,3 +98,18 @@ def test_engine_without_device_does_not_run_on_cpu():
         InferenceEngine(params, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         transformer_init(cfg, torch.Generator().manual_seed(0))
+
+
+def test_training_without_device_does_not_run_on_cpu():
+    """The training flow a user writes (weights from ``transformer_init``,
+    ``amp.initialize``, ``train_step``) asks for the card by default: with
+    no device given it raises here instead of training on the CPU."""
+    _no_cuda()
+    cfg = TransformerConfig(vocab_size=32, max_len=64, num_layers=1,
+                            d_model=16, num_heads=2, d_ff=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params = transformer_init(cfg, torch.Generator().manual_seed(0))
+        amp.initialize(params, FusedLAMB(impl="fused"), opt_level="O5",
+                       verbosity=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        amp.scaler.init("dynamic")

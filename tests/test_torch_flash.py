@@ -1,16 +1,20 @@
-"""Flash-attention forward of the PyTorch port against the JAX package.
+"""Flash attention of the PyTorch port against the JAX package.
 
-The same numpy inputs go to ``apex_tpu``'s ``_flash_fwd`` (the Pallas
-kernel, in interpret mode on the CPU) and to the port's ``_flash_fwd``,
-which on a CPU tensor takes its plain version; out and lse are compared.
-fp32 tolerance 2e-5: the kernel's blockwise online softmax and the plain
-full-row softmax sum in different orders.  The dropout hash is compared bit
-for bit.  The CUDA kernel itself is compared with the plain version on the
-card by ``tests/test_torch_cuda_kernels.py``.
+The same numpy inputs go to ``apex_tpu``'s ``_flash_fwd`` / ``_flash_bwd``
+(the Pallas kernels, in interpret mode on the CPU; the backward on its
+fused route) and to the port's, which on a CPU tensor take their plain
+versions; out and lse, then dq, dk and dv are compared, and the port's
+autograd gradients are held to ``jax.grad`` through ``flash_attention``.
+fp32 tolerances: forward 2e-5 (blockwise online softmax against the plain
+full-row softmax), backward 5e-5 (five products, summed in other orders).
+The dropout hash is compared bit for bit.  The CUDA kernels themselves are
+compared with the plain versions on the card by
+``tests/test_torch_cuda_kernels.py``.
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -143,7 +147,106 @@ def test_kernel_input_checks(bad):
 
 
 def test_kernel_refuses_grad():
+    """The forward kernel no longer refuses inputs that require a gradient:
+    ``flash_attention`` pairs it with the backward kernel."""
     q = torch.zeros(2, 8, 64, requires_grad=True)
     k = v = torch.zeros(2, 8, 64)
-    with pytest.raises(RuntimeError, match="training slice"):
-        pflash._check_cuda_inputs(q, k, v, torch.zeros(1, 1, 8), 0.0)
+    pflash._check_cuda_inputs(q, k, v, torch.zeros(1, 1, 8), 0.0)
+
+
+BWD_TOL = 5e-5
+
+
+def _dout(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_bwd_matches_pallas(case):
+    _, B, heads, sq, sk, d, kind, causal, rate = case
+    q, k, v, bias = _inputs(B, heads, sq, sk, d, kind, seed=sq + sk + d)
+    do = _dout(q.shape, seed=sq)
+    seed = 77
+    jq, jk, jv, jb, jdo = (jnp.asarray(a) for a in (q, k, v, bias, do))
+    j_out, j_lse = jflash._flash_fwd(jq, jk, jv, jb, causal, rate, seed,
+                                     heads)
+    ref = jflash._flash_bwd(jq, jk, jv, jb, causal, rate, seed, heads,
+                            j_out, j_lse, jdo, fuse=True)
+    t = [torch.from_numpy(np.array(a)) for a in (q, k, v, bias, j_out, j_lse,
+                                                 do)]
+    got = pflash._flash_bwd(t[0], t[1], t[2], t[3], causal, rate, seed,
+                            heads, t[4], t[5], t[6])
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == r.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=BWD_TOL,
+                                   rtol=BWD_TOL, err_msg=name)
+    if kind == "dead":
+        assert np.all(got[0].numpy()[0, 3] == 0.0)
+
+
+@pytest.mark.parametrize("backward", ["auto", "pallas", "xla"])
+@pytest.mark.parametrize("case", [CASES[0], CASES[3], CASES[5], CASES[7],
+                                  CASES[9]],
+                         ids=[CASES[i][0] for i in (0, 3, 5, 7, 9)])
+def test_flash_attention_grads_match_jax(case, backward):
+    _, B, heads, sq, sk, d, kind, causal, rate = case
+    q, k, v, bias = _inputs(B, heads, sq, sk, d, kind, seed=3 * sq + d)
+    do = _dout(q.shape, seed=sk)
+    seed = 5
+
+    def jloss(q_, k_, v_):
+        out = jflash.flash_attention(q_, k_, v_, jnp.asarray(bias), seed,
+                                     causal, rate, heads, backward)
+        return jnp.sum(out * jnp.asarray(do))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v))
+    qkv = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = pflash.flash_attention(*qkv, torch.from_numpy(bias), seed=seed,
+                                 causal=causal, dropout_rate=rate,
+                                 heads=heads, backward=backward)
+    got = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=BWD_TOL,
+                                   rtol=BWD_TOL, err_msg=name)
+
+
+def test_backward_selection():
+    assert pflash._resolve_backward("xla") == "xla"
+    assert pflash._resolve_backward("pallas") == "pallas"
+    assert pflash._resolve_backward("auto") == "pallas"
+    try:
+        pflash.set_default_backward("xla")
+        assert pflash._resolve_backward("auto") == "xla"
+        assert pflash._resolve_backward("pallas") == "pallas"
+    finally:
+        pflash.set_default_backward("auto")
+    with pytest.raises(ValueError):
+        pflash._resolve_backward("triton")
+    with pytest.raises(ValueError):
+        pflash.set_default_backward("cuda")
+    with pytest.raises(ValueError):
+        pflash.flash_attention(*[torch.zeros(1, 4, 8)] * 3,
+                               torch.zeros(1, 1, 4), backward="fast")
+
+
+def test_fuse_rule_is_the_byte_cap():
+    # the training shape: 128 x 8 x 512 x 64 x 4 B = 134 MB of dq partials
+    assert pflash._resolve_fuse(None, 128, 512, 512, 64)
+    assert pflash._resolve_fuse(None, 128, 512, 512, 64) == \
+        jflash._resolve_fuse(None, 128, 512, 512, 64, pflash.BWD_K_TILE)
+    # past 1024 MB the split route would run
+    assert not pflash._resolve_fuse(None, 128, 4096, 4096, 64)
+    assert pflash._resolve_fuse(False, 1, 8, 8, 64) is False
+    assert pflash._resolve_fuse(True, 128, 4096, 4096, 64) is True
+
+
+def test_bias_gets_no_gradient():
+    q, k, v, bias = _inputs(1, 2, 8, 8, 8, "full", seed=1)
+    b = torch.from_numpy(bias).requires_grad_(True)
+    qt = torch.from_numpy(q).requires_grad_(True)
+    out = pflash.flash_attention(qt, torch.from_numpy(k), torch.from_numpy(v),
+                                 b, heads=2)
+    out.sum().backward()
+    assert b.grad is None and qt.grad is not None

@@ -1,20 +1,24 @@
-"""Layer-norm forward of the PyTorch port against the JAX package.
+"""Layer norm of the PyTorch port against the JAX package.
 
-The same numpy inputs go to ``apex_tpu.ops.layer_norm.ln_fwd_pallas`` (the
-Pallas kernel, in interpret mode on the CPU) and to the port's ``ln_fwd``,
-which on a CPU tensor takes its plain version.  Tolerances: fp32 1e-5 (two
-fp32 reductions in different orders), bf16 1e-2 (one bf16 rounding of the
-output).  The kernel itself runs only on the card:
-``tests/test_torch_cuda_kernels.py`` compares it with the plain version there.
+The same numpy inputs go to ``apex_tpu.ops.layer_norm.ln_fwd_pallas`` /
+``ln_bwd_pallas`` (the Pallas kernels, in interpret mode on the CPU) and to
+the port's ``ln_fwd`` / ``ln_bwd``, which on a CPU tensor take their plain
+versions; the port's autograd gradients (dx, dw, db) are held to
+``jax.grad`` of the JAX package's ``fused_layer_norm_affine``.  Tolerances:
+fp32 1e-5 (fp32 reductions in different orders), bf16 1e-2 (one bf16
+rounding of the output).  The kernels themselves run only on the card:
+``tests/test_torch_cuda_kernels.py`` compares them with the plain versions
+there.
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
 from apex_tpu.normalization import fused_layer_norm_affine as jax_ln_affine
-from apex_tpu.ops.layer_norm import ln_fwd_pallas
+from apex_tpu.ops.layer_norm import ln_bwd_pallas, ln_fwd_pallas
 
 from apex_tpu_torch.normalization import (FusedLayerNorm, fused_layer_norm,
                                           fused_layer_norm_affine)
@@ -127,6 +131,72 @@ def test_kernel_input_checks(bad):
 
 
 def test_kernel_refuses_grad():
+    """The forward kernel no longer refuses inputs that require a gradient:
+    :class:`LayerNormFunction` pairs it with the backward kernel."""
     x = torch.zeros(4, 64, requires_grad=True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        port_ln._check_cuda_inputs(x, None, None)
+    w = torch.ones(64, requires_grad=True)
+    port_ln._check_cuda_inputs(x, w, torch.zeros(64, requires_grad=True))
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("n,h", [(1, 16), (7, 40), (130, 128)])
+def test_ln_bwd_matches_pallas(n, h, affine):
+    x, w, _ = _inputs(n, h, affine, seed=3 * n + h)
+    g = np.random.default_rng(n).standard_normal((n, h)).astype(np.float32)
+    _, j_mean, j_inv = ln_fwd_pallas(jnp.asarray(x), _jnp(w, jnp.float32),
+                                     _jnp(w, jnp.float32), 1e-5)
+    ref = ln_bwd_pallas(jnp.asarray(g), jnp.asarray(x), j_mean, j_inv,
+                        _jnp(w, jnp.float32), 1e-5)
+    got = port_ln.ln_bwd(torch.from_numpy(g), torch.from_numpy(x),
+                         torch.from_numpy(np.array(j_mean)),
+                         torch.from_numpy(np.array(j_inv)),
+                         _torch(w, torch.float32))
+    assert got.shape == (n, h) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("shape,nshape", [((2, 9, 32), (32,)),
+                                          ((5, 40), (40,)),
+                                          ((3, 4, 8), (4, 8))])
+def test_fused_layer_norm_grads_match_jax(shape, nshape, affine):
+    rng = np.random.default_rng(len(shape) * 10 + shape[-1])
+    x = (rng.standard_normal(shape) * 1.5 + 0.3).astype(np.float32)
+    w = rng.standard_normal(nshape).astype(np.float32) if affine else None
+    b = rng.standard_normal(nshape).astype(np.float32) if affine else None
+    g = rng.standard_normal(shape).astype(np.float32)
+
+    def jloss(x_, w_, b_):
+        return jnp.sum(jax_ln_affine(x_, w_, b_, nshape) * jnp.asarray(g))
+
+    argnums = (0, 1, 2) if affine else (0,)
+    j_grads = jax.grad(jloss, argnums=argnums)(
+        jnp.asarray(x), _jnp(w, jnp.float32), _jnp(b, jnp.float32))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = _torch(w, torch.float32)
+    bt = _torch(b, torch.float32)
+    inputs = [xt] + ([wt.requires_grad_(True), bt.requires_grad_(True)]
+                     if affine else [])
+    out = fused_layer_norm_affine(xt, wt, bt, nshape)
+    p_grads = torch.autograd.grad(out, inputs, torch.from_numpy(g))
+    for name, a, r in zip(("dx", "dw", "db"), p_grads, j_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("bad", ["g_shape", "g_dtype", "mean_dtype"])
+def test_ln_bwd_kernel_input_checks(bad, monkeypatch):
+    """The checks the CUDA backward wrapper applies before a launch (the
+    tensors are CPU tensors dressed as CUDA ones; no launch happens)."""
+    x, g = torch.zeros(4, 64), torch.zeros(4, 64)
+    mean, inv = torch.zeros(4, 1), torch.ones(4, 1)
+    if bad == "g_shape":
+        g = torch.zeros(4, 32)
+    elif bad == "g_dtype":
+        g = g.bfloat16()
+    else:
+        mean = mean.double()
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    with pytest.raises((ValueError, TypeError)):
+        port_ln.ln_bwd(g, x, mean, inv, None)
