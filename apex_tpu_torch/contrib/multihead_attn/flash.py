@@ -11,17 +11,19 @@ after the softmax denominator, with the counter-hash mask
 dead and emits zeros with lse = +1e30.
 
 The kernels are ``apex_tpu_torch/csrc/flash_fwd.cu`` (forward) and
-``flash_bwd.cu`` (the fused recompute backward, dq as per-k-tile fp32
-partials summed here).  :func:`_flash_fwd` and :func:`_flash_bwd_fused`
-launch them for CUDA tensors and take :func:`_reference` /
-:func:`_flash_bwd_reference` only for CPU tensors.  The split backward
-kernels (dq and dk/dv separately, taken when the dq partials exceed
-:data:`_FUSE_BUFFER_CAP_MB`) are not ported yet: that route raises on the
-card.  ``backward="xla"`` takes autograd of the plain :func:`_reference`
-instead, by the caller's choice; ``"pallas"`` (the JAX package's name for
-its kernel route, kept so the amp option keeps its meaning) and ``"auto"``
-take the kernels.  The JAX package's environment overrides and tuning
-profile keys are not ported.
+``flash_bwd.cu``: the fused recompute backward (dq as per-k-tile fp32
+partials summed here) and the split route's two kernels, dq alone and
+dk/dv alone, which :func:`_flash_bwd` takes when the dq partials would
+pass :data:`_FUSE_BUFFER_CAP_MB` (long sequences).  :func:`_flash_fwd`,
+:func:`_flash_bwd_fused`, :func:`_flash_bwd_dq` and :func:`_flash_bwd_dkv`
+launch them for CUDA tensors and take their plain versions
+(:func:`_reference`, :func:`_flash_bwd_reference`,
+:func:`_flash_bwd_dq_reference`, :func:`_flash_bwd_dkv_reference`) only
+for CPU tensors.  ``backward="xla"`` takes autograd of the plain
+:func:`_reference` instead, by the caller's choice; ``"pallas"`` (the JAX
+package's name for its kernel route, kept so the amp option keeps its
+meaning) and ``"auto"`` take the kernels.  The JAX package's environment
+overrides and tuning profile keys are not ported.
 """
 from __future__ import annotations
 
@@ -32,9 +34,11 @@ import torch
 from ...utils import build
 
 __all__ = ["flash_attention", "_flash_fwd", "_flash_bwd", "_flash_bwd_fused",
-           "_flash_bwd_reference", "_reference", "_dropout_keep",
-           "_resolve_backward", "_resolve_fuse", "set_default_backward",
-           "BACKWARD_IMPLS", "NEG_INF", "HEAD_DIMS", "BWD_K_TILE"]
+           "_flash_bwd_dq", "_flash_bwd_dkv", "_flash_bwd_reference",
+           "_flash_bwd_dq_reference", "_flash_bwd_dkv_reference",
+           "_reference", "_dropout_keep", "_resolve_backward",
+           "_resolve_fuse", "set_default_backward", "BACKWARD_IMPLS",
+           "NEG_INF", "HEAD_DIMS", "BWD_K_TILE"]
 
 NEG_INF = -1e30
 #: head dims the kernels are built for
@@ -43,7 +47,7 @@ HEAD_DIMS = (32, 64, 128)
 #: the dq partials are (BH, ceil(Sk / BWD_K_TILE), Sq, D) fp32
 BWD_K_TILE = 64
 #: fused-backward dq-partials buffer cap in MB (the JAX package's rule):
-#: past it the split kernels would run
+#: past it the split kernels run
 _FUSE_BUFFER_CAP_MB = 1024.0
 
 BACKWARD_IMPLS = ("auto", "pallas", "xla")
@@ -76,7 +80,14 @@ def _resolve_backward(backward: str) -> str:
 def _resolve_fuse(fuse, BH, Sq, Sk, D) -> bool:
     """Fused-vs-split strategy: an explicit ``fuse`` wins; otherwise fuse
     while the (BH, ceil(Sk/BWD_K_TILE), Sq, D) fp32 dq-partials buffer
-    stays under :data:`_FUSE_BUFFER_CAP_MB`."""
+    stays under :data:`_FUSE_BUFFER_CAP_MB`.
+
+    The rule counts this port's own buffer, whose k tiles are 64 keys; the
+    JAX package counts its 128-key fused blocks, so at the same cap the
+    port splits at half the size where the JAX package still fuses (BH 128
+    x 2048 x 2048 x 64, for one: 2 GiB of partials here, 1 GiB at 128
+    keys).  Compare the two packages at shapes where both pick the same
+    route, or with ``fuse`` given."""
     if fuse is not None:
         return bool(fuse)
     nk = -(-Sk // BWD_K_TILE)
@@ -236,13 +247,12 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # backward
 # ---------------------------------------------------------------------------
 
-def _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed, heads,
-                         lse, delta, do
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward kernel: the recompute formula
-    of the TPU package's ``_recompute_p`` and ``_bwd_fused_kernel`` over
-    whole rows, with the kernel's roundings (Pd and dS cast to the input
-    dtype before their products).  Not autograd of :func:`_reference`."""
+def _recompute(q, k, v, bias, causal, dropout_rate, seed, heads, lse, delta,
+               do):
+    """The backward's recompute over whole rows (the TPU package's
+    ``_recompute_p`` and the kernels' shared prologue): (P, the dropout
+    factor keep / (1 - rate) or None, dS = P * (dP * keep - delta)), fp32
+    (BH, Sq, Sk)."""
     _check_layout(q, k, v, bias, heads)
     bh, sq, _ = q.shape
     sk = k.shape[1]
@@ -256,19 +266,58 @@ def _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed, heads,
         cols = torch.arange(sk, device=q.device)[None, :]
         s = torch.where(cols <= rows, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - lse.float())
+    del s
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    keep = None
     if dropout_rate > 0.0:
         heads_idx = torch.arange(bh, device=q.device)[:, None, None]
         keep = _dropout_keep(seed, heads_idx, 0, 0, (sq, sk), dropout_rate) \
             / (1.0 - dropout_rate)
-        pd, dp = p * keep, dp * keep
-    else:
-        pd = p
-    ds = p * (dp - delta.float())
+        dp = dp * keep
+    return p, keep, p * (dp - delta.float())
+
+
+def _dq_from(ds, k, q_dtype):
+    return torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).float(),
+                        k.float()).to(q_dtype)
+
+
+def _dkv_from(p, keep, ds, q, k, v, do):
+    pd = p if keep is None else p * keep
     dv = torch.einsum("bqk,bqd->bkd", pd.to(do.dtype).float(), do.float())
     dk = torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), q.float())
-    dq = torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).float(), k.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed, heads,
+                         lse, delta, do
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels: the recompute formula
+    of the TPU package's ``_recompute_p`` and ``_bwd_fused_kernel`` over
+    whole rows, with the kernel's roundings (Pd and dS cast to the input
+    dtype before their products).  Not autograd of :func:`_reference`."""
+    p, keep, ds = _recompute(q, k, v, bias, causal, dropout_rate, seed,
+                             heads, lse, delta, do)
+    return (_dq_from(ds, k, q.dtype),) + _dkv_from(p, keep, ds, q, k, v, do)
+
+
+def _flash_bwd_dq_reference(q, k, v, bias, causal, dropout_rate, seed,
+                            heads, lse, delta, do) -> torch.Tensor:
+    """Plain PyTorch version of the dq kernel: the dq part of
+    :func:`_flash_bwd_reference`."""
+    _, _, ds = _recompute(q, k, v, bias, causal, dropout_rate, seed, heads,
+                          lse, delta, do)
+    return _dq_from(ds, k, q.dtype)
+
+
+def _flash_bwd_dkv_reference(q, k, v, bias, causal, dropout_rate, seed,
+                             heads, lse, delta, do
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dk/dv kernel: the dk, dv part of
+    :func:`_flash_bwd_reference`."""
+    p, keep, ds = _recompute(q, k, v, bias, causal, dropout_rate, seed,
+                             heads, lse, delta, do)
+    return _dkv_from(p, keep, ds, q, k, v, do)
 
 
 def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
@@ -280,19 +329,8 @@ def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
     if not q.is_cuda:
         return _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed,
                                     heads, lse, delta, do)
-    _check_layout(q, k, v, bias, heads)
-    _check_cuda_inputs(q, k, v, bias, dropout_rate)
+    _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
     bh, sq, d = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q "
-                         f"{tuple(q.shape)} {q.dtype}")
-    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash backward needs a contiguous, 16-byte "
-                             f"aligned {name} on {q.device}")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or t.numel() != bh * sq:
-            raise ValueError(f"{name} must be float32 (BH, Sq, 1)")
     nk = -(-k.shape[1] // BWD_K_TILE)
     dq_part = torch.empty((bh, nk, sq, d), dtype=torch.float32,
                           device=q.device)
@@ -308,23 +346,78 @@ def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
     return dq_part.sum(dim=1).to(q.dtype), dk, dv
 
 
+def _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do):
+    """The checks every backward kernel's wrapper applies before a
+    launch."""
+    _check_layout(q, k, v, bias, heads)
+    _check_cuda_inputs(q, k, v, bias, dropout_rate)
+    bh, sq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash backward needs a contiguous, 16-byte "
+                             f"aligned {name} on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.numel() != bh * sq:
+            raise ValueError(f"{name} must be float32 (BH, Sq, 1)")
+
+
+def _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
+                  delta, do) -> torch.Tensor:
+    """dq alone, from the split route's dq kernel (one CTA per 64-query
+    tile accumulating over the k tiles): (BH, Sq, D) in q's dtype."""
+    if not q.is_cuda:
+        return _flash_bwd_dq_reference(q, k, v, bias, causal, dropout_rate,
+                                       seed, heads, lse, delta, do)
+    _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
+    dq = torch.empty_like(q)
+    err = build.library().apex_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
+    build.check(err, "flash_bwd_dq")
+    build.LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _flash_bwd_dkv(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
+                   delta, do) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk and dv, from the split route's dk/dv kernel (the fused kernel
+    without its dq partials): each (BH, Sk, D) in k's dtype."""
+    if not q.is_cuda:
+        return _flash_bwd_dkv_reference(q, k, v, bias, causal, dropout_rate,
+                                        seed, heads, lse, delta, do)
+    _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = build.library().apex_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
+        *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
+    build.check(err, "flash_bwd_dkv")
+    build.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
 def _flash_bwd(q, k, v, bias, causal, dropout_rate, seed, heads, out, lse,
                do, fuse=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Recompute-backward dispatcher: (dq, dk, dv).  delta = rowsum(dO * O)
-    is computed once here, as on the TPU."""
+    is computed once here, as on the TPU, and feeds whichever route
+    :func:`_resolve_fuse` picks: the fused kernel, or the split dq and
+    dk/dv kernels."""
     delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
-    if not _resolve_fuse(fuse, q.shape[0], q.shape[1], k.shape[1],
-                         q.shape[2]):
-        if q.is_cuda:
-            raise NotImplementedError(
-                "the split flash backward (TPU kernels #2 _bwd_dq_kernel and "
-                "#3 _bwd_dkv_kernel, taken when the dq partials exceed "
-                f"{_FUSE_BUFFER_CAP_MB:.0f} MB) is not ported yet; see "
-                "ROADMAP.md")
-        # on the CPU the plain version stands for either route
-    return _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads,
+    if _resolve_fuse(fuse, q.shape[0], q.shape[1], k.shape[1], q.shape[2]):
+        return _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed,
+                                heads, lse, delta, do)
+    dq = _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
+                       delta, do)
+    dk, dv = _flash_bwd_dkv(q, k, v, bias, causal, dropout_rate, seed, heads,
                             lse, delta, do)
+    return dq, dk, dv
 
 
 def _xla_bwd(q, k, v, bias, causal, dropout_rate, seed, heads, do):

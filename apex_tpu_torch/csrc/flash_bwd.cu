@@ -1,6 +1,7 @@
-// Flash-attention backward (fused recompute) for Hopper (sm_90a).
+// Flash-attention backward (recompute) for Hopper (sm_90a): the fused
+// kernel and the two kernels of the split route.
 //
-// Replaces the TPU kernel apex_tpu/contrib/multihead_attn/flash.py
+// Fused: replaces the TPU kernel apex_tpu/contrib/multihead_attn/flash.py
 // `_bwd_fused_kernel` (reached through `_flash_bwd_fused`): from q (BH, Sq,
 // D) pre-scaled, k/v (BH, Sk, D), the fp32 bias (1|B, 1|Sq, Sk), the
 // forward's lse (BH, Sq) and delta = rowsum(dO * O) (BH, Sq), one recompute
@@ -38,6 +39,25 @@
 //   * fp32 (the numerics oracle): one CTA of 256 threads per (bh, 64-key
 //     tile), q tiles of 32 rows, scalar FMA out of shared memory.
 // Both use dynamic shared memory (up to ~113 KB for fp32 at D = 128).
+//
+// Split route, taken where the dq partials would pass the wrapper's byte
+// cap (long sequences: BH 64 x 4096 x 4096 x 64 gives 4.3 GB of them):
+//   * dk/dv: replaces `_bwd_dkv_kernel` (via `_flash_bwd_dkv`).  It is the
+//     fused kernel above with its dq work compiled out (template flag
+//     kEmitDq = false): the same recompute and the same dropout draw.
+//   * dq: replaces `_bwd_dq_kernel` (via `_flash_bwd_dq`).  One CTA per
+//     (bh, 64-query tile) walks the k tiles, skipping those a causal mask
+//     hides wholly: S = q k^T and dP = dO v^T for its 64 rows x 64 keys,
+//     P = exp(S + bias - lse) (a dead row, lse = +1e30, gives 0), dS =
+//     P * (dP * keep / (1 - rate) - delta) rounded to the input dtype (the
+//     TPU kernel's `ds.astype(k.dtype)`), dQ += dS k in fp32 registers,
+//     written once in q's dtype.  bf16: 4 warps of mma.sync, each warp 16
+//     query rows with q / dO as A fragments and dS leaving the
+//     accumulators straight as the A fragment of dS k.  fp32: 256 threads
+//     of scalar FMA, dS through shared memory.
+// What bounds them: operations.  At BH 64 x 4096 x 4096 x 64 bf16 dq is
+// 6 BH Sq Sk D = 412 GFLOP (0.42 ms at 989 TFLOP/s) against ~170 MB of
+// inputs and outputs (0.05 ms); dk/dv 8 BH Sq Sk D = 550 GFLOP (0.56 ms).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -60,7 +80,8 @@ struct Params {
   const float* bias;
   const float* lse;    // (bh, sq)
   const float* delta;  // (bh, sq)
-  float* dq_part;      // (bh, nk, sq, d)
+  float* dq_part;      // (bh, nk, sq, d): fused kernel only
+  void* dq;            // (bh, sq, d): dq kernel only
   void* dk;
   void* dv;
   int bh_count, sq, sk, heads, nk;
@@ -166,13 +187,16 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int stride,
   }
 }
 
-template <int D>
+template <int D, bool kEmitDq>
 constexpr int mma_smem_bytes() {
-  return (2 * kBk * (D + 8) + 2 * kMmaBq * (D + 8) + kMmaBq * (kBk + 8)) * 2 +
+  return (2 * kBk * (D + 8) + 2 * kMmaBq * (D + 8) +
+          (kEmitDq ? kMmaBq * (kBk + 8) : 0)) * 2 +
          2 * kMmaBq * 4;
 }
 
-template <int D>
+// kEmitDq: the fused kernel (dk, dv and the dq partials); without it, the
+// split route's dk/dv kernel.
+template <int D, bool kEmitDq>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_mma_kernel(Params p) {
   constexpr int kStride = D + 8;      // padded smem row (bf16 elements)
@@ -182,8 +206,9 @@ flash_bwd_mma_kernel(Params p) {
   __nv_bfloat16* vs = ks + kBk * kStride;
   __nv_bfloat16* qs = vs + kBk * kStride;
   __nv_bfloat16* dos = qs + kMmaBq * kStride;
-  __nv_bfloat16* dss = dos + kMmaBq * kStride;  // dS[q][key]
-  float* lse_s = reinterpret_cast<float*>(dss + kMmaBq * kDsStride);
+  __nv_bfloat16* dss = dos + kMmaBq * kStride;  // dS[q][key] (kEmitDq)
+  float* lse_s = reinterpret_cast<float*>(
+      kEmitDq ? dss + kMmaBq * kDsStride : dss);
   float* delta_s = lse_s + kMmaBq;
 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
@@ -204,7 +229,8 @@ flash_bwd_mma_kernel(Params p) {
 
   const size_t qbase = (size_t)bh * p.sq * D;
   const size_t kbase = (size_t)bh * p.sk * D;
-  float* dqp = p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D;
+  float* dqp = kEmitDq ? p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D
+                       : nullptr;
 
   load_tile<D>(ks, kStride, k + kbase, k0, kBk, p.sk, tid, kMmaThreads);
   load_tile<D>(vs, kStride, v + kbase, k0, kBk, p.sk, tid, kMmaThreads);
@@ -221,6 +247,7 @@ flash_bwd_mma_kernel(Params p) {
     if (p.causal && q0 + kMmaBq - 1 < k0) {
       // every (row, col) of this step is above the diagonal: the step still
       // owns its dq-partial block, which must be defined
+      if (!kEmitDq) continue;
       for (int i = tid; i < kMmaBq * D / 4; i += kMmaThreads) {
         const int r = i / (D / 4);
         const int c = (i % (D / 4)) * 4;
@@ -273,7 +300,7 @@ flash_bwd_mma_kernel(Params p) {
         const float kf = keep_factor(p, bh, row, col);
         st[j][e] = pr * kf;
         dpt[j][e] = pr * (dpt[j][e] * kf - delta_s[q_l]);
-        dss[q_l * kDsStride + key_l] = __float2bfloat16(dpt[j][e]);
+        if (kEmitDq) dss[q_l * kDsStride + key_l] = __float2bfloat16(dpt[j][e]);
       }
     }
 
@@ -298,6 +325,7 @@ flash_bwd_mma_kernel(Params p) {
         mma_bf16(dk_acc[n], sa, b0, b1);
       }
     }
+    if (!kEmitDq) continue;
     __syncthreads();  // dS of all four warps in shared memory
 
     // dQ partial = dS k for this warp's 16 q rows, reducing over 64 keys
@@ -362,7 +390,7 @@ constexpr int simt_smem_bytes() {
           2 * kSimtBq) * 4;
 }
 
-template <int D>
+template <int D, bool kEmitDq>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_bwd_simt_kernel(Params p) {
   constexpr int kS = D + 1;    // +1: lane-per-key reads hit distinct banks
@@ -391,7 +419,8 @@ flash_bwd_simt_kernel(Params p) {
   const int grp = tid / kBk;  // one value per warp: broadcast reads
   const size_t qbase = (size_t)bh * p.sq * D;
   const size_t kbase = (size_t)bh * p.sk * D;
-  float* dqp = p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D;
+  float* dqp = kEmitDq ? p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D
+                       : nullptr;
 
   for (int i = tid; i < kBk * D; i += kSimtThreads) {
     const int r = i / D, c = i % D;
@@ -408,6 +437,7 @@ flash_bwd_simt_kernel(Params p) {
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * kSimtBq;
     if (p.causal && q0 + kSimtBq - 1 < k0) {
+      if (!kEmitDq) continue;
       for (int i = tid; i < kSimtBq * D; i += kSimtThreads) {
         const int r = i / D;
         if (q0 + r < p.sq) dqp[(size_t)(q0 + r) * D + i % D] = 0.f;
@@ -454,6 +484,7 @@ flash_bwd_simt_kernel(Params p) {
       dv_acc[j] = a;
       dk_acc[j] = b;
     }
+    if (!kEmitDq) continue;
     for (int i = tid; i < kSimtBq * D; i += kSimtThreads) {
       const int q_l = i / D, d = i % D;
       if (q0 + q_l >= p.sq) continue;
@@ -477,6 +508,231 @@ flash_bwd_simt_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the split route's dq kernels
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr int dq_mma_smem_bytes() {
+  return (2 * kMmaBq * (D + 8) + 2 * kBk * (D + 8)) * 2;
+}
+
+// k tiles a 64-row query tile at q0 reads: under a causal mask, none past
+// the tile's last row.
+__device__ __forceinline__ int dq_k_tiles(const Params& p, int q0, int rows) {
+  const int n = (p.sk + kBk - 1) / kBk;
+  return p.causal ? min(n, (q0 + rows - 1) / kBk + 1) : n;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(Params p) {
+  constexpr int kStride = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* dos = qs + kMmaBq * kStride;
+  __nv_bfloat16* ks = dos + kMmaBq * kStride;
+  __nv_bfloat16* vs = ks + kBk * kStride;
+
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout);
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kMmaBq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qw = warp * 16;  // this warp's 16 rows of the query tile
+  const size_t qbase = (size_t)bh * p.sq * D;
+  const size_t kbase = (size_t)bh * p.sk * D;
+
+  load_tile<D>(qs, kStride, q + qbase, q0, kMmaBq, p.sq, tid, kMmaThreads);
+  load_tile<D>(dos, kStride, dout + qbase, q0, kMmaBq, p.sq, tid,
+               kMmaThreads);
+  // this thread's two rows (accumulator elements 0-1 and 2-3)
+  const int row_a = q0 + qw + g, row_b = row_a + 8;
+  const float lse_a = row_a < p.sq ? p.lse[(size_t)bh * p.sq + row_a] : -kNegInf;
+  const float lse_b = row_b < p.sq ? p.lse[(size_t)bh * p.sq + row_b] : -kNegInf;
+  const float del_a = row_a < p.sq ? p.delta[(size_t)bh * p.sq + row_a] : 0.f;
+  const float del_b = row_b < p.sq ? p.delta[(size_t)bh * p.sq + row_b] : 0.f;
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  const int n_kt = dq_k_tiles(p, q0, kMmaBq);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBk;
+    __syncthreads();  // the previous k / v tiles fully consumed
+    load_tile<D>(ks, kStride, k + kbase, k0, kBk, p.sk, tid, kMmaThreads);
+    load_tile<D>(vs, kStride, v + kbase, k0, kBk, p.sk, tid, kMmaThreads);
+    __syncthreads();
+
+    // S = q k^T and dP = dO v^T for this warp's 16 rows x 64 keys
+    float s[kBk / 8][4], dp[kBk / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      load_a(qa, qs, kStride, qw, kk * 16, g, t);
+      load_a(da, dos, kStride, qw, kk * 16, g, t);
+#pragma unroll
+      for (int j = 0; j < kBk / 8; ++j) {
+        const __nv_bfloat16* kr = ks + (j * 8 + g) * kStride + kk * 16 + 2 * t;
+        mma_bf16(s[j], qa, ld32(kr), ld32(kr + 8));
+        const __nv_bfloat16* vr = vs + (j * 8 + g) * kStride + kk * 16 + 2 * t;
+        mma_bf16(dp[j], da, ld32(vr), ld32(vr + 8));
+      }
+    }
+
+    // dS in place of S
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        const int row = lo ? row_a : row_b;
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        const float pr = prob(p, s[j][e], lo ? lse_a : lse_b, bh, row, col);
+        const float kf = keep_factor(p, bh, row, col);
+        s[j][e] = pr * (dp[j][e] * kf - (lo ? del_a : del_b));
+      }
+    }
+
+    // dQ += dS k, reducing over the tile's 64 keys; dS rounds to bf16 here
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t b0, b1;
+        load_b_rows(b0, b1, ks, kStride, kk * 16, n * 8, g, t);
+        mma_bf16(dq[n], a, b0, b1);
+      }
+    }
+  }
+
+  __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (row_a < p.sq)
+      *reinterpret_cast<uint32_t*>(dq_out + qbase + (size_t)row_a * D + c) =
+          pack_bf16(dq[n][0], dq[n][1]);
+    if (row_b < p.sq)
+      *reinterpret_cast<uint32_t*>(dq_out + qbase + (size_t)row_b * D + c) =
+          pack_bf16(dq[n][2], dq[n][3]);
+  }
+}
+
+constexpr int kSimtDqBq = 64;  // query rows per CTA of the fp32 dq kernel
+
+template <int D>
+constexpr int dq_simt_smem_bytes() {
+  return (2 * kSimtDqBq * (D + 1) + 2 * kBk * (D + 1) + kSimtDqBq * (kBk + 1) +
+          2 * kSimtDqBq) * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSimtThreads)
+flash_bwd_dq_simt_kernel(Params p) {
+  constexpr int kS = D + 1;  // +1: lane-per-row reads hit distinct banks
+  constexpr int kP = kBk + 1;
+  constexpr int kPerThread = kSimtDqBq * D / kSimtThreads;  // dQ values
+  constexpr int kGroups = kSimtThreads / kSimtDqBq;         // 4
+  extern __shared__ float sm[];
+  float* qs = sm;
+  float* dos = qs + kSimtDqBq * kS;
+  float* ks = dos + kSimtDqBq * kS;
+  float* vs = ks + kBk * kS;
+  float* dss = vs + kBk * kS;  // dS[q][key]
+  float* lse_s = dss + kSimtDqBq * kP;
+  float* delta_s = lse_s + kSimtDqBq;
+
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kSimtDqBq;
+  const int tid = threadIdx.x;
+  const int lane_l = tid % kSimtDqBq;  // a key (dS), then a query row (dQ)
+  const int grp = tid / kSimtDqBq;     // one value per warp: broadcast reads
+  const size_t qbase = (size_t)bh * p.sq * D;
+  const size_t kbase = (size_t)bh * p.sk * D;
+
+  for (int i = tid; i < kSimtDqBq * D; i += kSimtThreads) {
+    const int r = i / D, c = i % D;
+    const bool in = q0 + r < p.sq;
+    qs[r * kS + c] = in ? q[qbase + (size_t)(q0 + r) * D + c] : 0.f;
+    dos[r * kS + c] = in ? dout[qbase + (size_t)(q0 + r) * D + c] : 0.f;
+  }
+  for (int r = tid; r < kSimtDqBq; r += kSimtThreads) {
+    const bool in = q0 + r < p.sq;
+    lse_s[r] = in ? p.lse[(size_t)bh * p.sq + q0 + r] : -kNegInf;
+    delta_s[r] = in ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
+  }
+
+  float acc[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.f;
+
+  const int n_kt = dq_k_tiles(p, q0, kSimtDqBq);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBk;
+    __syncthreads();
+    for (int i = tid; i < kBk * D; i += kSimtThreads) {
+      const int r = i / D, c = i % D;
+      const bool in = k0 + r < p.sk;
+      ks[r * kS + c] = in ? k[kbase + (size_t)(k0 + r) * D + c] : 0.f;
+      vs[r * kS + c] = in ? v[kbase + (size_t)(k0 + r) * D + c] : 0.f;
+    }
+    __syncthreads();
+
+    for (int q_l = grp; q_l < kSimtDqBq; q_l += kGroups) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(qs[q_l * kS + d], ks[lane_l * kS + d], s);
+        dp = fmaf(dos[q_l * kS + d], vs[lane_l * kS + d], dp);
+      }
+      const int row = q0 + q_l, col = k0 + lane_l;
+      const float pr = prob(p, s, lse_s[q_l], bh, row, col);
+      const float kf = keep_factor(p, bh, row, col);
+      dss[q_l * kP + lane_l] = pr * (dp * kf - delta_s[q_l]);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int d = grp + kGroups * j;
+      float a = acc[j];
+      for (int kk = 0; kk < kBk; ++kk)
+        a = fmaf(dss[lane_l * kP + kk], ks[kk * kS + d], a);
+      acc[j] = a;
+    }
+  }
+
+  float* dq_out = static_cast<float*>(p.dq);
+  if (q0 + lane_l < p.sq) {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      dq_out[qbase + (size_t)(q0 + lane_l) * D + grp + kGroups * j] = acc[j];
+  }
+}
+
 // Opt a kernel in to `bytes` of dynamic shared memory, once per kernel
 // (a host call, kept out of the launches a CUDA graph may capture).
 template <typename Kernel>
@@ -488,23 +744,97 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
   return err;
 }
 
-template <int D>
-cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
+// The fused kernel (kEmitDq) or the split route's dk/dv kernel.
+template <int D, bool kEmitDq>
+cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
   static bool mma_ready = false, simt_ready = false;
   dim3 grid(p.nk, p.bh_count);
   cudaError_t err;
   if (dtype == kDtypeBF16) {
-    constexpr int bytes = mma_smem_bytes<D>();
-    err = allow_smem(flash_bwd_mma_kernel<D>, bytes, mma_ready);
+    constexpr int bytes = mma_smem_bytes<D, kEmitDq>();
+    err = allow_smem(flash_bwd_mma_kernel<D, kEmitDq>, bytes, mma_ready);
     if (err != cudaSuccess) return err;
-    flash_bwd_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(p);
+    flash_bwd_mma_kernel<D, kEmitDq><<<grid, kMmaThreads, bytes, stream>>>(p);
   } else {
     constexpr int bytes = simt_smem_bytes<D>();
-    err = allow_smem(flash_bwd_simt_kernel<D>, bytes, simt_ready);
+    err = allow_smem(flash_bwd_simt_kernel<D, kEmitDq>, bytes, simt_ready);
     if (err != cudaSuccess) return err;
-    flash_bwd_simt_kernel<D><<<grid, kSimtThreads, bytes, stream>>>(p);
+    flash_bwd_simt_kernel<D, kEmitDq><<<grid, kSimtThreads, bytes, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
+  static bool mma_ready = false, simt_ready = false;
+  cudaError_t err;
+  if (dtype == kDtypeBF16) {
+    constexpr int bytes = dq_mma_smem_bytes<D>();
+    err = allow_smem(flash_bwd_dq_mma_kernel<D>, bytes, mma_ready);
+    if (err != cudaSuccess) return err;
+    dim3 grid((p.sq + kMmaBq - 1) / kMmaBq, p.bh_count);
+    flash_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(p);
+  } else {
+    constexpr int bytes = dq_simt_smem_bytes<D>();
+    err = allow_smem(flash_bwd_dq_simt_kernel<D>, bytes, simt_ready);
+    if (err != cudaSuccess) return err;
+    dim3 grid((p.sq + kSimtDqBq - 1) / kSimtDqBq, p.bh_count);
+    flash_bwd_dq_simt_kernel<D><<<grid, kSimtThreads, bytes, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+enum class Route { kFused, kDkv, kDq };
+
+template <int D>
+cudaError_t launch(const Params& p, Route route, int dtype,
+                   cudaStream_t stream) {
+  switch (route) {
+    case Route::kFused: return launch_kv<D, true>(p, dtype, stream);
+    case Route::kDkv: return launch_kv<D, false>(p, dtype, stream);
+    default: return launch_dq<D>(p, dtype, stream);
+  }
+}
+
+int run(const void* q, const void* k, const void* v, const void* bias,
+        const void* dout, const void* lse, const void* delta, void* dq_part,
+        void* dq, void* dk, void* dv, int bh_count, int sq, int sk, int d,
+        int heads, int bias_b, int bias_q, int causal,
+        unsigned int drop_threshold, float keep_div, int seed, int dtype,
+        Route route, void* stream) {
+  if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || bh_count > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dtype != kDtypeF32 && dtype != kDtypeBF16) return (int)cudaErrorInvalidValue;
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.bias = static_cast<const float*>(bias);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq_part = static_cast<float*>(dq_part);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.bh_count = bh_count;
+  p.sq = sq;
+  p.sk = sk;
+  p.heads = heads;
+  p.nk = (sk + kBk - 1) / kBk;
+  p.bias_b = bias_b;
+  p.bias_q = bias_q;
+  p.causal = causal;
+  p.drop_threshold = drop_threshold;
+  p.keep_div = keep_div;
+  p.seed = (uint32_t)seed;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return (int)launch<32>(p, route, dtype, s);
+    case 64: return (int)launch<64>(p, route, dtype, s);
+    case 128: return (int)launch<128>(p, route, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -523,36 +853,36 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               int bias_b, int bias_q, int causal,
                               unsigned int drop_threshold, float keep_div,
                               int seed, int dtype, void* stream) {
-  if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || bh_count > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (dtype != kDtypeF32 && dtype != kDtypeBF16) return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.bias = static_cast<const float*>(bias);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq_part = static_cast<float*>(dq_part);
-  p.dk = dk;
-  p.dv = dv;
-  p.bh_count = bh_count;
-  p.sq = sq;
-  p.sk = sk;
-  p.heads = heads;
-  p.nk = (sk + kBk - 1) / kBk;
-  p.bias_b = bias_b;
-  p.bias_q = bias_q;
-  p.causal = causal;
-  p.drop_threshold = drop_threshold;
-  p.keep_div = keep_div;
-  p.seed = (uint32_t)seed;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return (int)launch<32>(p, dtype, s);
-    case 64: return (int)launch<64>(p, dtype, s);
-    case 128: return (int)launch<128>(p, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return run(q, k, v, bias, dout, lse, delta, dq_part, nullptr, dk, dv,
+             bh_count, sq, sk, d, heads, bias_b, bias_q, causal,
+             drop_threshold, keep_div, seed, dtype, Route::kFused, stream);
+}
+
+// The split route's dk/dv: as apex_flash_bwd without the dq partials.
+extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
+                                  const void* v, const void* bias,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dk, void* dv,
+                                  int bh_count, int sq, int sk, int d,
+                                  int heads, int bias_b, int bias_q,
+                                  int causal, unsigned int drop_threshold,
+                                  float keep_div, int seed, int dtype,
+                                  void* stream) {
+  return run(q, k, v, bias, dout, lse, delta, nullptr, nullptr, dk, dv,
+             bh_count, sq, sk, d, heads, bias_b, bias_q, causal,
+             drop_threshold, keep_div, seed, dtype, Route::kDkv, stream);
+}
+
+// The split route's dq: (bh, sq, d) of `dtype`, the inputs as above.
+extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* bias, const void* dout,
+                                 const void* lse, const void* delta, void* dq,
+                                 int bh_count, int sq, int sk, int d,
+                                 int heads, int bias_b, int bias_q,
+                                 int causal, unsigned int drop_threshold,
+                                 float keep_div, int seed, int dtype,
+                                 void* stream) {
+  return run(q, k, v, bias, dout, lse, delta, nullptr, dq, nullptr, nullptr,
+             bh_count, sq, sk, d, heads, bias_b, bias_q, causal,
+             drop_threshold, keep_div, seed, dtype, Route::kDq, stream);
 }

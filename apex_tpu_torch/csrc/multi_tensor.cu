@@ -1,8 +1,8 @@
-// Multi-tensor L2 norm over a flat buffer for Hopper (sm_90a).
+// The multi-tensor engine's kernels over flat buffers, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel apex_tpu/multi_tensor_apply/kernels.py
-// `multi_tensor_l2norm`: sqrt(sum x^2) over the flat (total,) buffer the
-// TreeFlattener packs, read in its own dtype (bf16 or fp32) and
+// 1. L2 norm.  Replaces the TPU kernel apex_tpu/multi_tensor_apply/
+// kernels.py `multi_tensor_l2norm`: sqrt(sum x^2) over the flat (total,)
+// buffer the TreeFlattener packs, read in its own dtype (bf16 or fp32) and
 // accumulated in fp32.  FusedLAMB's global-grad-norm clip rides on it.
 //
 // What bounds it: bytes.  Each element is read once for 2 flops; the
@@ -19,6 +19,26 @@
 // No float atomics: the grid depends only on the length, so two calls on
 // the same buffer return the same bits, and a training step's clip
 // coefficient does not wander between runs.
+//
+// 2. Adam / AdamW and 3. LAMB stage 1, the ZeRO optimizers' elementwise
+// updates on their flat fp32 shards.  They replace `fused_adam_flat` and
+// `fused_lamb_stage1_flat` of the same file:
+//   adam:  g = g * s;  m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g;
+//          u = (m rc1) / (sqrt(v rc2) + eps);  p -= lr u   (+ wd p: in g
+//          for Adam, in u for AdamW), optional bf16/fp32 copy of p;
+//   lamb1: g = g * inv_scale * clip; m = b1 m + beta3 g; v as above;
+//          u as above (+ wd p likewise) -> (u, m, v).
+// The hyperparameters come from a device buffer (8 / 9 fp32, the TPU
+// kernels' SMEM layout), so a clip or bias correction computed on the
+// card never passes through the host.  Every product and sum is an
+// explicitly rounded IEEE operation (__fmul_rn, __fadd_rn: no contraction
+// into FMAs) in the TPU kernels' order, sqrtf and the division are IEEE
+// (no fast-math), so the kernels give the bits of the plain PyTorch
+// versions.  What bounds them: bytes.  Adam reads g, p, m, v and writes p,
+// m, v (28 B an fp32 element, 30 with a bf16 copy); at the BERT-large
+// flat size (334,233,600) that is at least ~2.79 ms at 3.35 TB/s.  One
+// grid-stride pass in 16-byte vectors, a scalar tail for a length that is
+// not a whole number of vectors.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -102,6 +122,131 @@ cudaError_t launch(const void* x, int64_t n, float* partials, int n_blocks,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Adam / AdamW and LAMB stage 1
+// ---------------------------------------------------------------------------
+
+constexpr int kCopyNone = -1;  // Adam's model copy: none, fp32 or bf16
+constexpr int kCopyF32 = kDtypeF32;
+constexpr int kCopyBF16 = kDtypeBF16;
+
+struct Hyper {
+  float lr, b1, b2, eps, wd, rc1, rc2, scale, clip, c1, c2;
+};
+
+// Adam scalars [lr, b1, b2, eps, wd, rc1, rc2, scale]; LAMB stage-1
+// scalars [b1, b2, eps, wd, rc1, rc2, clip, inv_scale, beta3].
+template <bool kLamb>
+__device__ __forceinline__ Hyper load_hyper(const float* __restrict__ s) {
+  Hyper h;
+  if (kLamb) {
+    h.lr = 0.f;
+    h.b1 = s[0]; h.b2 = s[1]; h.eps = s[2]; h.wd = s[3];
+    h.rc1 = s[4]; h.rc2 = s[5]; h.clip = s[6]; h.scale = s[7];
+    h.c1 = s[8];                       // beta3
+  } else {
+    h.lr = s[0]; h.b1 = s[1]; h.b2 = s[2]; h.eps = s[3]; h.wd = s[4];
+    h.rc1 = s[5]; h.rc2 = s[6]; h.scale = s[7];
+    h.clip = 1.f;
+    h.c1 = __fsub_rn(1.f, h.b1);       // 1 - b1
+  }
+  h.c2 = __fsub_rn(1.f, h.b2);
+  return h;
+}
+
+// One element: new m and v, and Adam's new p or LAMB's direction u.
+template <bool kLamb>
+__device__ __forceinline__ void update_elem(const Hyper& h, bool adam_w,
+                                            float g, float p, float m,
+                                            float v, float& out, float& m_out,
+                                            float& v_out) {
+  g = __fmul_rn(g, h.scale);
+  if (kLamb) g = __fmul_rn(g, h.clip);
+  if (!adam_w) g = __fadd_rn(g, __fmul_rn(h.wd, p));  // classic L2
+  m_out = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.c1, g));
+  v_out = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(__fmul_rn(h.c2, g), g));
+  float u = __fdiv_rn(__fmul_rn(m_out, h.rc1),
+                      __fadd_rn(__fsqrt_rn(__fmul_rn(v_out, h.rc2)), h.eps));
+  if (adam_w) u = __fadd_rn(u, __fmul_rn(h.wd, p));  // decoupled decay
+  out = kLamb ? u : __fsub_rn(p, __fmul_rn(h.lr, u));
+}
+
+__device__ __forceinline__ void store_copy4(void* copy, int64_t i,
+                                            const float (&x)[4], int kind) {
+  if (kind == kCopyF32) {
+    reinterpret_cast<float4*>(copy)[i] = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<uint32_t*>(&lo);
+    w.y = *reinterpret_cast<uint32_t*>(&hi);
+    reinterpret_cast<uint2*>(copy)[i] = w;
+  }
+}
+
+// out0 = Adam's new p or LAMB's u; `copy` (Adam only, kCopy != none) the
+// new p in fp32 or bf16.
+template <bool kLamb, int kCopy>
+__global__ void __launch_bounds__(kThreads)
+flat_update_kernel(const float* __restrict__ g, const float* __restrict__ p,
+                   const float* __restrict__ m, const float* __restrict__ v,
+                   const float* __restrict__ scalars,
+                   float* __restrict__ out0, float* __restrict__ m_out,
+                   float* __restrict__ v_out, void* __restrict__ copy,
+                   int64_t n, int adam_w) {
+  const Hyper h = load_hyper<kLamb>(scalars);
+  const bool aw = adam_w != 0;
+  const int64_t nvec = n / 4;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  for (int64_t i = first; i < nvec; i += stride) {
+    const float4 g4 = __ldg(reinterpret_cast<const float4*>(g) + i);
+    const float4 p4 = __ldg(reinterpret_cast<const float4*>(p) + i);
+    const float4 m4 = __ldg(reinterpret_cast<const float4*>(m) + i);
+    const float4 v4 = __ldg(reinterpret_cast<const float4*>(v) + i);
+    const float gs[4] = {g4.x, g4.y, g4.z, g4.w};
+    const float ps[4] = {p4.x, p4.y, p4.z, p4.w};
+    const float ms[4] = {m4.x, m4.y, m4.z, m4.w};
+    const float vs[4] = {v4.x, v4.y, v4.z, v4.w};
+    float o[4], mo[4], vo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      update_elem<kLamb>(h, aw, gs[j], ps[j], ms[j], vs[j], o[j], mo[j],
+                         vo[j]);
+    reinterpret_cast<float4*>(out0)[i] = make_float4(o[0], o[1], o[2], o[3]);
+    reinterpret_cast<float4*>(m_out)[i] =
+        make_float4(mo[0], mo[1], mo[2], mo[3]);
+    reinterpret_cast<float4*>(v_out)[i] =
+        make_float4(vo[0], vo[1], vo[2], vo[3]);
+    if (kCopy != kCopyNone) store_copy4(copy, i, o, kCopy);
+  }
+  for (int64_t i = nvec * 4 + first; i < n; i += stride) {  // the tail
+    float o, mo, vo;
+    update_elem<kLamb>(h, aw, g[i], p[i], m[i], v[i], o, mo, vo);
+    out0[i] = o;
+    m_out[i] = mo;
+    v_out[i] = vo;
+    if (kCopy == kCopyF32) static_cast<float*>(copy)[i] = o;
+    if (kCopy == kCopyBF16)
+      static_cast<__nv_bfloat16*>(copy)[i] = __float2bfloat16(o);
+  }
+}
+
+template <bool kLamb, int kCopy>
+cudaError_t launch_update(const void* g, const void* p, const void* m,
+                          const void* v, const void* scalars, void* out0,
+                          void* m_out, void* v_out, void* copy, int64_t n,
+                          int n_blocks, int adam_w, cudaStream_t stream) {
+  flat_update_kernel<kLamb, kCopy><<<n_blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(p),
+      static_cast<const float*>(m), static_cast<const float*>(v),
+      static_cast<const float*>(scalars), static_cast<float*>(out0),
+      static_cast<float*>(m_out), static_cast<float*>(v_out), copy, n,
+      adam_w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (n,) contiguous, 16-byte aligned, of `dtype`.  partials: (n_blocks,)
@@ -117,4 +262,46 @@ extern "C" int apex_l2norm(const void* x, long long n, void* partials,
   if (dtype == kDtypeBF16)
     return (int)launch<__nv_bfloat16>(x, n, p, n_blocks, o, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// g, p, m, v, p_out, m_out, v_out: (n,) fp32, contiguous, 16-byte aligned,
+// outputs distinct from the inputs.  scalars: 8 fp32 on the card [lr, b1,
+// b2, eps, wd, rc1, rc2, scale].  copy: (n,) of copy_dtype (0 fp32, 1 bf16,
+// 16-byte aligned) or null with copy_dtype -1.  The kernel runs n_blocks
+// blocks of 256 threads.  Returns cudaSuccess (0) or the launch error.
+extern "C" int apex_fused_adam(const void* g, const void* p, const void* m,
+                               const void* v, const void* scalars,
+                               void* p_out, void* m_out, void* v_out,
+                               void* copy, long long n, int n_blocks,
+                               int adam_w, int copy_dtype, void* stream) {
+  if (n <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (copy_dtype) {
+    case kCopyNone:
+      return (int)launch_update<false, kCopyNone>(
+          g, p, m, v, scalars, p_out, m_out, v_out, nullptr, n, n_blocks,
+          adam_w, s);
+    case kCopyF32:
+      return (int)launch_update<false, kCopyF32>(
+          g, p, m, v, scalars, p_out, m_out, v_out, copy, n, n_blocks,
+          adam_w, s);
+    case kCopyBF16:
+      return (int)launch_update<false, kCopyBF16>(
+          g, p, m, v, scalars, p_out, m_out, v_out, copy, n, n_blocks,
+          adam_w, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As apex_fused_adam, writing (u, m, v); scalars: 9 fp32 on the card [b1,
+// b2, eps, wd, rc1, rc2, clip, inv_scale, beta3].
+extern "C" int apex_lamb_stage1(const void* g, const void* p, const void* m,
+                                const void* v, const void* scalars, void* u,
+                                void* m_out, void* v_out, long long n,
+                                int n_blocks, int adam_w, void* stream) {
+  if (n <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_update<true, kCopyNone>(
+      g, p, m, v, scalars, u, m_out, v_out, nullptr, n, n_blocks, adam_w,
+      static_cast<cudaStream_t>(stream));
 }

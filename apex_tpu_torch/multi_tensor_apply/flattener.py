@@ -106,14 +106,25 @@ class TreeFlattener:
 
     # -- per-tensor reductions ----------------------------------------------
 
-    def per_tensor_sumsq(self, flat: torch.Tensor) -> torch.Tensor:
+    def _ranges(self, rows):
+        """Each leaf's row range, clipped to the window ``rows = (lo, hi)``
+        and made relative to it (all of the buffer when None)."""
+        if rows is None:
+            return self.leaf_row_ranges
+        lo, hi = rows
+        return [(min(max(r0, lo), hi) - lo, min(max(r1, lo), hi) - lo)
+                for r0, r1 in self.leaf_row_ranges]
+
+    def per_tensor_sumsq(self, flat: torch.Tensor, rows=None) -> torch.Tensor:
         """Per-leaf sum of squares (num_leaves,) fp32: row sums, then each
-        leaf's static row range, in a fixed order."""
+        leaf's static row range, in a fixed order.  With ``rows = (lo,
+        hi)``, ``flat`` holds only those rows of the buffer (a ZeRO shard)
+        and each leaf sums its part of them."""
         if not self.leaf_row_ranges:
             return torch.zeros(0, dtype=torch.float32, device=flat.device)
         row_sums = flat.view(-1, LANE).float().square().sum(dim=1)
         return torch.stack([row_sums[r0:r1].sum()
-                            for r0, r1 in self.leaf_row_ranges])
+                            for r0, r1 in self._ranges(rows)])
 
     def per_tensor_maxabs(self, flat: torch.Tensor) -> torch.Tensor:
         """Per-leaf max |x| (num_leaves,) fp32; padding is 0, which cannot
@@ -124,12 +135,14 @@ class TreeFlattener:
         return torch.stack([row_max[r0:r1].amax()
                             for r0, r1 in self.leaf_row_ranges])
 
-    def broadcast_rows(self, values: torch.Tensor) -> torch.Tensor:
-        """(num_leaves,) -> (rows,) per-row values (0 on padding rows)."""
+    def broadcast_rows(self, values: torch.Tensor, rows=None) -> torch.Tensor:
+        """(num_leaves,) -> (rows,) per-row values (0 on padding rows); with
+        ``rows = (lo, hi)``, those rows only."""
         vals = torch.cat([values.float(),
                           torch.zeros(1, dtype=torch.float32,
                                       device=values.device)])
-        return vals[self._segments(values.device)]
+        seg = self._segments(values.device)
+        return vals[seg if rows is None else seg[rows[0]:rows[1]]]
 
     def broadcast_per_tensor(self, values: torch.Tensor) -> torch.Tensor:
         """(num_leaves,) -> (total,): each leaf's value on its elements."""

@@ -1,28 +1,45 @@
 """The multi-tensor engine's kernels over flat buffers.
 
-Counterpart of ``apex_tpu/multi_tensor_apply/kernels.py``.  Ported so far:
-:func:`multi_tensor_l2norm`, the global-grad-norm reduction FusedLAMB's clip
-rides on (kernel ``apex_tpu_torch/csrc/multi_tensor.cu``; two passes with a
-fixed grid, so the result is the same bits on every call).  It launches the
-kernel for a CUDA tensor and takes :func:`multi_tensor_l2norm_reference`
-only for a CPU tensor.  ``multi_tensor_scale``, ``multi_tensor_axpby``,
-``fused_adam_flat`` and ``fused_lamb_stage1_flat`` are off the training
-path and not ported yet (ROADMAP.md).
+Counterpart of ``apex_tpu/multi_tensor_apply/kernels.py``.  Ported so far,
+each a kernel of ``apex_tpu_torch/csrc/multi_tensor.cu`` with its plain
+PyTorch version beside it:
+
+- :func:`multi_tensor_l2norm`, the global-grad-norm reduction FusedLAMB's
+  clip rides on (two passes with a fixed grid, so the result is the same
+  bits on every call);
+- :func:`fused_adam_flat` and :func:`fused_lamb_stage1_flat`, the ZeRO
+  optimizers' elementwise updates on their flat fp32 shards
+  (:mod:`apex_tpu_torch.contrib.optimizers`).  Their hyperparameters are
+  a (1, 8) / (1, 9) fp32 tensor in the JAX package's layout, read by the
+  kernel on the card, so a clip or bias correction computed there never
+  passes through the host.
+
+Each launches its kernel for CUDA tensors and takes its ``*_reference``
+only for CPU tensors.  ``multi_tensor_scale`` and ``multi_tensor_axpby``
+are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
+
+from typing import List, Optional
 
 import torch
 
 from ..utils import build
 
 __all__ = ["multi_tensor_l2norm", "multi_tensor_l2norm_reference",
+           "fused_adam_flat", "fused_adam_flat_reference",
+           "fused_lamb_stage1_flat", "fused_lamb_stage1_flat_reference",
            "L2NORM_MAX_BLOCKS"]
 
 #: first-pass grid of the l2norm kernel: at most this many blocks of 256
 #: threads (one fp32 partial each)
 L2NORM_MAX_BLOCKS = 1024
+#: grid of the elementwise update kernels: at most this many blocks of 256
+#: threads, grid-stride over 4-element vectors
+UPDATE_MAX_BLOCKS = 4096
 _THREADS = 256
 _VEC_BYTES = 16
+_COPY_NONE = -1
 
 
 def multi_tensor_l2norm_reference(flat: torch.Tensor) -> torch.Tensor:
@@ -56,3 +73,133 @@ def multi_tensor_l2norm(flat: torch.Tensor) -> torch.Tensor:
     build.check(err, "l2norm")
     build.LAUNCHES["l2norm"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Adam / AdamW and LAMB stage 1 on flat fp32 buffers
+# ---------------------------------------------------------------------------
+
+def _moments(g, p, m, v, b1, b2, eps, wd, rc1, rc2, c1, adam_w_mode):
+    """m, v and the step direction u, in the TPU kernels' order; ``g`` is
+    already scaled."""
+    if not adam_w_mode:
+        g = g + wd * p                 # classic L2 (ADAM_MODE_0)
+    m = b1 * m + c1 * g
+    v = b2 * v + (1.0 - b2) * g * g
+    u = (m * rc1) / (torch.sqrt(v * rc2) + eps)
+    if adam_w_mode:
+        u = u + wd * p                 # decoupled decay (ADAM_MODE_1)
+    return u, m, v
+
+
+def fused_adam_flat_reference(flat_g, flat_p, flat_m, flat_v, scalars, *,
+                              adam_w_mode=True, model_dtype=None
+                              ) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_adam_flat`: the JAX kernel's
+    body (``kernels.py:207-226``) over whole buffers."""
+    s = scalars.reshape(-1).float()
+    lr, b1, b2, eps, wd, rc1, rc2, scale = (s[i] for i in range(8))
+    g = flat_g.float() * scale
+    p = flat_p.float()
+    u, m, v = _moments(g, p, flat_m.float(), flat_v.float(), b1, b2, eps, wd,
+                       rc1, rc2, 1.0 - b1, adam_w_mode)
+    p_new = p - lr * u
+    outs = [p_new, m, v]
+    if model_dtype is not None:
+        outs.append(p_new.to(model_dtype))
+    return outs
+
+
+def fused_lamb_stage1_flat_reference(flat_g, flat_p, flat_m, flat_v,
+                                     scalars, *, adam_w_mode=True
+                                     ) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_lamb_stage1_flat`: the JAX
+    kernel's body (``kernels.py:245-261``) over whole buffers."""
+    s = scalars.reshape(-1).float()
+    b1, b2, eps, wd, rc1, rc2, clip, inv_scale, beta3 = (s[i]
+                                                         for i in range(9))
+    g = flat_g.float() * inv_scale * clip
+    u, m, v = _moments(g, flat_p.float(), flat_m.float(), flat_v.float(), b1,
+                       b2, eps, wd, rc1, rc2, beta3, adam_w_mode)
+    return [u, m, v]
+
+
+def _check_update_inputs(name, bufs, scalars, n_scalars):
+    n = bufs[0].numel()
+    for t in bufs:
+        if t.device != bufs[0].device or t.dtype != torch.float32 \
+                or t.dim() != 1 or t.numel() != n:
+            raise ValueError(f"{name} takes 1-D fp32 g, p, m, v of one "
+                             f"length on one device, got "
+                             f"{[(tuple(b.shape), b.dtype) for b in bufs]}")
+        if not t.is_contiguous() or t.data_ptr() % _VEC_BYTES:
+            raise ValueError(f"{name} kernel needs contiguous, 16-byte "
+                             f"aligned buffers")
+    if scalars.device != bufs[0].device or scalars.dtype != torch.float32 \
+            or scalars.numel() != n_scalars or not scalars.is_contiguous():
+        raise ValueError(f"{name} takes {n_scalars} contiguous fp32 scalars "
+                         f"on {bufs[0].device}, got {tuple(scalars.shape)} "
+                         f"{scalars.dtype} on {scalars.device}")
+    return n
+
+
+def _update_blocks(n: int) -> int:
+    return max(1, min(UPDATE_MAX_BLOCKS, -(-n // (4 * _THREADS))))
+
+
+def fused_adam_flat(flat_g, flat_p, flat_m, flat_v, scalars, *,
+                    adam_w_mode=True, model_dtype=None
+                    ) -> List[torch.Tensor]:
+    """Adam / AdamW over flat fp32 g, p, m, v.  ``scalars`` (1, 8) fp32:
+    [lr, beta1, beta2, eps, wd, rc1, rc2, scale] with rc1 = 1/(1-beta1^t),
+    rc2 = 1/(1-beta2^t) and ``scale`` the gradient's multiplier (unscale
+    times clip).  Returns new [p, m, v] (+ p in ``model_dtype``, fp32 or
+    bf16, when given)."""
+    if not flat_g.is_cuda:
+        return fused_adam_flat_reference(flat_g, flat_p, flat_m, flat_v,
+                                         scalars, adam_w_mode=adam_w_mode,
+                                         model_dtype=model_dtype)
+    n = _check_update_inputs("fused_adam_flat",
+                             (flat_g, flat_p, flat_m, flat_v), scalars, 8)
+    p_out, m_out, v_out = (torch.empty_like(flat_p) for _ in range(3))
+    copy: Optional[torch.Tensor] = None
+    code = _COPY_NONE
+    if model_dtype is not None:
+        code = build.dtype_code(model_dtype)
+        copy = torch.empty(n, dtype=model_dtype, device=flat_p.device)
+    if n == 0:
+        return [p_out, m_out, v_out] + ([copy] if copy is not None else [])
+    err = build.library().apex_fused_adam(
+        flat_g.data_ptr(), flat_p.data_ptr(), flat_m.data_ptr(),
+        flat_v.data_ptr(), scalars.data_ptr(), p_out.data_ptr(),
+        m_out.data_ptr(), v_out.data_ptr(),
+        copy.data_ptr() if copy is not None else None, n, _update_blocks(n),
+        int(bool(adam_w_mode)), code, build.stream_of(flat_g))
+    build.check(err, "adam")
+    build.LAUNCHES["adam"] += 1
+    return [p_out, m_out, v_out] + ([copy] if copy is not None else [])
+
+
+def fused_lamb_stage1_flat(flat_g, flat_p, flat_m, flat_v, scalars, *,
+                           adam_w_mode=True) -> List[torch.Tensor]:
+    """LAMB stage 1 over flat fp32 g, p, m, v.  ``scalars`` (1, 9) fp32:
+    [beta1, beta2, eps, wd, rc1, rc2, clip, inv_scale, beta3] with clip =
+    1/max(1, norm/max_grad_norm) and beta3 = 1-beta1 under grad averaging,
+    else 1.  Returns [u, m, v]: the unscaled step direction and the new
+    moments (stage 2, the trust ratios, is the caller's)."""
+    if not flat_g.is_cuda:
+        return fused_lamb_stage1_flat_reference(
+            flat_g, flat_p, flat_m, flat_v, scalars, adam_w_mode=adam_w_mode)
+    n = _check_update_inputs("fused_lamb_stage1_flat",
+                             (flat_g, flat_p, flat_m, flat_v), scalars, 9)
+    u, m_out, v_out = (torch.empty_like(flat_p) for _ in range(3))
+    if n == 0:
+        return [u, m_out, v_out]
+    err = build.library().apex_lamb_stage1(
+        flat_g.data_ptr(), flat_p.data_ptr(), flat_m.data_ptr(),
+        flat_v.data_ptr(), scalars.data_ptr(), u.data_ptr(),
+        m_out.data_ptr(), v_out.data_ptr(), n, _update_blocks(n),
+        int(bool(adam_w_mode)), build.stream_of(flat_g))
+    build.check(err, "lamb_stage1")
+    build.LAUNCHES["lamb_stage1"] += 1
+    return [u, m_out, v_out]

@@ -98,7 +98,8 @@ class FusedOptimizer:
             else f"{type(self).__name__}.step_flat not implemented")
 
     def step_flat_shard(self, state, g_shard, *, shard, scale=1.0, lr=None):
-        """Sharded flat update: waits for the port's distributed slice."""
+        """Sharded flat update of weight-update sharding (zero1): not
+        ported yet (ROADMAP.md, Queue 1 item 5)."""
         raise NotImplementedError(
             "step_flat_shard (weight-update sharding) is not ported yet; see "
             "ROADMAP.md")

@@ -11,8 +11,9 @@ one is loaded as it is.
 Each wrapper passes ``data_ptr()``s, sizes and the current stream; each C
 entry point returns ``cudaGetLastError()``, which :func:`check` turns into
 an exception.  ``LAUNCHES`` counts kernel launches by name (``flash_fwd``,
-``flash_bwd``, ``ln_fwd``, ``ln_bwd``, ``xent_fwd``, ``l2norm``): a wrapper
-adds one where it launches its kernel and nowhere else.  Headers
+``flash_bwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``ln_fwd``,
+``ln_bwd``, ``xent_fwd``, ``l2norm``, ``adam``, ``lamb_stage1``): a
+wrapper adds one where it launches its kernel and nowhere else.  Headers
 (``csrc/*.cuh``) are not compiled on their own but count in the hash.
 """
 from __future__ import annotations
@@ -61,10 +62,26 @@ _SIGNATURES = {
     # bias_b, bias_q, causal, drop_threshold, keep_div, seed, dtype, stream
     "apex_flash_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I, _VP],
+    # q, k, v, bias, dout, lse, delta, dq, bh, sq, sk, d, heads, bias_b,
+    # bias_q, causal, drop_threshold, keep_div, seed, dtype, stream
+    "apex_flash_bwd_dq": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I,
+                          _VP],
+    # q, k, v, bias, dout, lse, delta, dk, dv, then as apex_flash_bwd_dq
+    "apex_flash_bwd_dkv": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I,
+                           _VP],
     # logits, labels, loss, lse, n, v, smoothing, dtype, stream
     "apex_xent_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     # x, n, partials, n_blocks, out, dtype, stream
     "apex_l2norm": [_VP, _LL, _VP, _I, _VP, _I, _VP],
+    # g, p, m, v, scalars, p_out, m_out, v_out, copy, n, n_blocks, adam_w,
+    # copy_dtype, stream
+    "apex_fused_adam": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                        _I, _I, _I, _VP],
+    # g, p, m, v, scalars, u, m_out, v_out, n, n_blocks, adam_w, stream
+    "apex_lamb_stage1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I,
+                         _I, _VP],
 }
 
 

@@ -5,8 +5,9 @@ NVIDIA GPU.
     python3 chip_smoke.py             # the whole smoke, one card
     python3 chip_smoke.py --profile   # also: torch.profiler over one
                                       # prefill + decode steps of the serving
-                                      # path and over one training step
-                                      # (build/profile_{serve,train}.txt)
+                                      # path and over one step of each
+                                      # training path (build/profile_{serve,
+                                      # train,zero,long_seq}.txt)
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -24,6 +25,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
    cross-entropy forward, the l2norm of the flat master-sized buffer and
    the flash backward (whose dropout case also goes against autograd of
    the plain forward: the backward's mask is the forward's);
+3c. the same for this slice's kernels: the ZeRO updates (Adam, LAMB stage
+   1) over the BERT-large flat fp32 buffer, and the split flash backward
+   (dq, dk/dv) on small cases (causal, key padding with a dead row and
+   Sq != Sk, dropout against autograd of the plain forward) and at the
+   long-sequence shape BH 64 x 4096 x 4096 x 64 bf16 (held to the plain
+   version on its first 8 heads; the plain version's time there is CUDA
+   events around one call at the full shape);
 4. serve parity: a 2-layer engine at BERT-large width, fp32, on the card
    and on the CPU with the same weights — prefill logits within 1e-3 and
    the same greedy tokens over 8 decode steps;
@@ -40,19 +48,43 @@ Phases, in order; any failure exits nonzero and prints no result line:
    (``impl="fused"``), flash attention, remat, batch 8 x 512, one warm-up
    and 5 timed steps of ``apex_tpu_torch.train.train_step``, with every
    kernel's launch count read around the timed steps;
-8. one ``{"kernels": [...]}`` line (launches from the training path;
-   ``launches_serve`` from the serving path);
-9. last line ``{"ok": true, "device": {...}}``.
+8. ZeRO parity: a 2-layer model at BERT-large width, fp32 activations, 3
+   steps of ``zero_train_step`` with ``DistributedFusedLAMB(impl=
+   "fused")`` and then ``DistributedFusedAdam(impl="fused")`` at world 1,
+   on the card over NCCL and on the CPU over a gloo group, from the same
+   weights — losses within 1e-4 relative; LAMB's master shards within
+   1e-4, Adam's 3-step update within 1e-3 relative in norm (its eps 1e-8
+   lets elements with near-zero gradients differ by up to lr a step);
+9. the ZeRO path (the BERT example's ``--bert-large --zero --remat --attn
+   fast``): 24-layer BERT-large, fp32 params, bf16 activations, synthetic
+   MLM batches of 8 x 512, ``DistributedFusedLAMB(lr=1e-3, weight_decay=
+   0.01, max_grad_norm=1.0, bf16_allgather=True, impl="fused")`` on a
+   world-1 NCCL group, one warm-up and 5 timed steps, then one warm-up and
+   3 timed steps under ``DistributedFusedAdam(lr=1e-4, impl="fused")``,
+   launch counts read around each timed run; then 4 steps of Adam at lr
+   1e-3 read twice, through the kernel and through ``impl="xla"``, the two
+   loss trajectories within 2e-2 relative;
+10. the long-sequence path (the BERT example's ``--layers 24 --d-model 1024
+   --heads 16 --vocab 30592 --seq-len 4096 --batch-size 4 --attn fast
+   --remat``): amp O5 + FusedLAMB as phase 7 at batch 4 x 4096, one warm-up
+   and 2 timed steps; every flash backward takes the split route;
+11. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+   it serves (``launches_by_path`` gives every path's count), then the
+   card's name and power limit, then the last line ``{"ok": true,
+   "device": {...}}``.  Every process group is destroyed before exit.
 
 Tolerances: an element passes when ``|kernel - plain| <= tol *
 max(1, |plain|)``, with tol = 1e-5 (layer-norm forward, cross-entropy,
 fp32), 1e-4 (flash, layer-norm backward, fp32), 2e-2 (bf16: the two
 versions may round one value to neighbouring bf16 numbers, 2^-8 apart
-relative to the value).  ``mean`` is held to 1e-5 and ``invvar`` and the
+relative to the value).  The flash backward's gradients (fused and
+split) may lie far below 1, so for them the floor of 1 drops to the
+tensor's largest |plain|: ``tol * max(|plain|, min(1, max|plain|))``.  ``mean`` is held to 1e-5 and ``invvar`` and the
 live rows' ``lse`` to 1e-4 relative; dead rows' lse must be exactly +1e30.
 The l2norm is held to 1e-5 relative (fp32 sums in other orders) and must
-repeat bit for bit.  ``max_abs_err`` reports the plain absolute
-difference.
+repeat bit for bit.  The Adam and LAMB stage-1 kernels are held to 1e-6
+relative (the same IEEE operations in the same order as the plain
+version).  ``max_abs_err`` reports the plain absolute difference.
 """
 from __future__ import annotations
 
@@ -68,6 +100,12 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+# the BERT-large flat fp32 buffer (FusedLAMB's, the l2norm's; the ZeRO shard
+# at world 1 is the same parameters on a 128-element lattice)
+FLAT_N = 334_233_600
+# the long-sequence path's attention: batch, heads, sequence, head dim
+LONG_SHAPE = (4, 16, 4096, 64)
+
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -78,10 +116,23 @@ LN_BWD_REPLACES = "apex_tpu/ops/layer_norm.py:72"
 FLASH_BWD_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:541"
 XENT_REPLACES = "apex_tpu/contrib/xentropy/softmax_xentropy.py:56"
 L2NORM_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:158"
+FLASH_DQ_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:459"
+FLASH_DKV_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:495"
+ADAM_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:201"
+LAMB1_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:243"
 
-# kernel launches a training step makes at 24 layers with remat
-TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 48, "flash_bwd": 24, "ln_fwd": 98,
-                           "ln_bwd": 50, "xent_fwd": 1, "l2norm": 1}
+# kernel launches a training step makes at 24 layers with remat, by path
+# (a kernel at 0 must not launch on that path)
+_LAYERS = {"flash_fwd": 48, "ln_fwd": 98, "ln_bwd": 50, "xent_fwd": 1}
+TRAIN_LAUNCHES_PER_STEP = {
+    "o5_lamb": dict(_LAYERS, flash_bwd=24, l2norm=1),
+    "zero_lamb": dict(_LAYERS, flash_bwd=24, lamb_stage1=1, l2norm=0,
+                      adam=0),
+    "zero_adam": dict(_LAYERS, flash_bwd=24, adam=1, lamb_stage1=0,
+                      l2norm=0),
+    "long_seq": dict(_LAYERS, flash_bwd_dq=24, flash_bwd_dkv=24,
+                     flash_bwd=0, l2norm=1),
+}
 
 
 def log(msg: str) -> None:
@@ -149,6 +200,20 @@ def device_ms(fn, n: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def check_launches(path: str, launches, steps: int) -> None:
+    """Every kernel of ``path`` launched at least its per-step count in
+    ``steps`` steps; a kernel listed at 0 not at all."""
+    for name, per_step in TRAIN_LAUNCHES_PER_STEP[path].items():
+        got = launches.get(name, 0)
+        if per_step == 0:
+            require(got == 0, f"{path}: {name} launched {got} times in "
+                    f"{steps} steps, expected none")
+        else:
+            require(got >= steps * per_step,
+                    f"{path}: {name} launched {got} times in {steps} "
+                    f"steps, expected at least {per_step} a step")
+
+
 def bound(bytes_moved: float, flops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -159,6 +224,16 @@ def scaled_ok(got, ref, tol: float):
     """(all elements within tol * max(1, |ref|), max absolute error)."""
     err = (got.float() - ref.float()).abs()
     ok = bool((err <= tol * ref.float().abs().clamp(min=1.0)).all())
+    return ok, float(err.max())
+
+
+def peak_ok(got, ref, tol: float):
+    """(all elements within tol * max(|ref|, min(1, max|ref|)), max
+    absolute error): :func:`scaled_ok` with its floor of 1 lowered to the
+    tensor's largest value, for gradients whose values lie far below 1."""
+    err = (got.float() - ref.float()).abs()
+    a = ref.float().abs()
+    ok = bool((err <= tol * a.clamp(min=min(1.0, float(a.max())))).all())
     return ok, float(err.max())
 
 
@@ -446,7 +521,7 @@ def check_l2norm(dev):
     rows = []
     gen = torch.Generator(device=dev).manual_seed(4)
     # the BERT-large flat master buffer, and a ragged bf16 one
-    for n, dtype in ((334_233_600, "float32"), (1_310_720, "bfloat16")):
+    for n, dtype in ((FLAT_N, "float32"), (1_310_720, "bfloat16")):
         x = torch.randn(n, generator=gen, device=dev).to(getattr(torch,
                                                                  dtype))
         a, b = multi_tensor_l2norm(x), multi_tensor_l2norm(x)
@@ -504,7 +579,7 @@ def check_flash_bwd(dev):
             tol = 1e-4 if dtype == "float32" else 2e-2
             errs = []
             for gname, a, r in zip(("dq", "dk", "dv"), got, plain()):
-                ok, err = scaled_ok(a, r, tol)
+                ok, err = peak_ok(a, r, tol)
                 require(ok, f"flash_bwd {name} {dtype} {gname}: err "
                         f"{err:.3g} (tol {tol})")
                 errs.append(err)
@@ -553,6 +628,195 @@ def check_flash_bwd(dev):
             _report("flash_bwd", f"{name:15s} {dtype:8s}", max(errs), tol, ms,
                     pms, lms, bms, by,
                     f" [of it, the dq-partial sum {sum_ms:.5f} ms]{extra}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: this slice's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+
+def _rel_ok(got, ref, tol):
+    """(all elements within tol * |ref|, max absolute error)."""
+    err = (got.float() - ref.float()).abs()
+    ok = bool((err <= tol * ref.float().abs() + 1e-30).all())
+    return ok, float(err.max())
+
+
+def check_zero_updates(dev):
+    """Adam and LAMB stage 1 over the flat buffer: kernel vs plain (1e-6
+    relative), device time, plain time, ``torch._fused_adamw_`` for Adam
+    (LAMB stage 1 has no single library call), bound by bytes (7 fp32
+    streams, 28 B an element)."""
+    import torch
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n = FLAT_N
+    g = torch.randn(n, generator=gen, device=dev) * 3.0
+    p = torch.randn(n, generator=gen, device=dev)
+    m = torch.randn(n, generator=gen, device=dev) * 0.1
+    v = torch.rand(n, generator=gen, device=dev) * 0.01
+    t = 3
+    adam_s = torch.tensor([[1e-3, 0.9, 0.999, 1e-8, 0.01, 1 / (1 - 0.9 ** t),
+                            1 / (1 - 0.999 ** t), 0.7]], device=dev)
+    lamb_s = torch.tensor([[0.9, 0.999, 1e-6, 0.01, 1 / (1 - 0.9 ** t),
+                            1 / (1 - 0.999 ** t), 0.35, 1.0, 0.1]],
+                          device=dev)
+    for name, fn, plain, scal in (
+            ("adam", kernels.fused_adam_flat,
+             kernels.fused_adam_flat_reference, adam_s),
+            ("lamb_stage1", kernels.fused_lamb_stage1_flat,
+             kernels.fused_lamb_stage1_flat_reference, lamb_s)):
+        got = fn(g, p, m, v, scal)
+        torch.cuda.synchronize()
+        errs = []
+        for out_name, a, r in zip(("p/u", "m", "v"), got,
+                                  plain(g, p, m, v, scal)):
+            ok, err = _rel_ok(a, r, 1e-6)
+            require(ok, f"{name} {out_name}: err {err:.3g} (tol 1e-6 "
+                    "relative)")
+            errs.append(err)
+        del got
+        bms, by = bound(28.0 * n, 15.0 * n, "float32")
+        ms = device_ms(lambda: fn(g, p, m, v, scal))
+        call_ms = time_ms(lambda: fn(g, p, m, v, scal), reps=10)
+        pms = device_ms(lambda: plain(g, p, m, v, scal), n=2, reps=5)
+        lms = None
+        if name == "adam":
+            # the call behind torch.optim.AdamW(fused=True), in place on
+            # copies of the same buffers
+            pc, mc, vc = p.clone(), m.clone(), v.clone()
+            step = torch.full((), float(t), device=dev)
+
+            def adamw():
+                torch._fused_adamw_([pc], [g], [mc], [vc], [], [step],
+                                    lr=1e-3, beta1=0.9, beta2=0.999,
+                                    weight_decay=0.01, eps=1e-8,
+                                    amsgrad=False, maximize=False)
+            lms = device_ms(adamw)
+            del pc, mc, vc
+        torch.cuda.empty_cache()
+        rows.append(dict(kernel=name, shape=(n,), dtype="float32",
+                         max_abs_err=max(errs), tol="1e-6 rel", ms=ms,
+                         call_ms=call_ms, plain_ms=pms, library_ms=lms,
+                         library="torch._fused_adamw_" if lms else None,
+                         bound_ms=bms, bound_by=by))
+        lib = f"{lms:.5f} ms (torch._fused_adamw_)" if lms else "none"
+        log(f"  {name} ({n},) fp32 err {max(errs):.3g} (tol 1e-6 rel) | "
+            f"kernel {ms:.5f} ms (one call with its host cost "
+            f"{call_ms:.4f} ms)  plain {pms:.5f} ms  library {lib}  bound "
+            f"{bms:.5f} ms ({by})")
+    return rows
+
+
+def check_flash_split(dev):
+    """The split backward's dq and dk/dv kernels: small cases against the
+    plain versions (and the dropout case against autograd of the plain
+    forward), then the long-sequence shape, timed."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dkv, _flash_bwd_dkv_reference, _flash_bwd_dq,
+        _flash_bwd_dq_reference, _flash_fwd, _xla_bwd)
+    aten = torch.ops.aten
+    gen = torch.Generator().manual_seed(9)
+    cases = [  # name, B, heads, Sq, Sk, D, bias, causal, dropout
+        ("causal", 2, 4, 256, 256, 64, "zeros", True, 0.0),
+        ("ragged_pad_dead", 2, 4, 200, 333, 64, "pad_dead", False, 0.0),
+        ("dropout", 2, 4, 256, 192, 64, "zeros", False, 0.1),
+    ]
+    for name, B, heads, sq, sk, d, kind, causal, rate in cases:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, gen, dt,
+                                          dev)
+            do = _randn(q.shape, gen, dt, dev)
+            out, lse = _flash_fwd(q, k, v, bias, causal, rate, 21, heads)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            args = (q, k, v, bias, causal, rate, 21, heads, lse, delta, do)
+            got = (_flash_bwd_dq(*args),) + _flash_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            ref = (_flash_bwd_dq_reference(*args),) \
+                + _flash_bwd_dkv_reference(*args)
+            tol = 1e-4 if dtype == "float32" else 2e-2
+            errs = []
+            for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+                ok, err = peak_ok(a, r, tol)
+                require(ok, f"flash split {name} {dtype} {gname}: err "
+                        f"{err:.3g} (tol {tol})")
+                errs.append(err)
+            extra = ""
+            if rate > 0.0 and dtype == "float32":
+                for gname, a, r in zip(("dq", "dk", "dv"), got,
+                                       _xla_bwd(q, k, v, bias, causal, rate,
+                                                21, heads, do)):
+                    ok, err = scaled_ok(a, r, 1e-4)
+                    require(ok, f"flash split dropout {gname} vs autograd "
+                            f"of the plain forward: err {err:.3g}")
+                extra = " [= autograd of the plain forward: masks agree]"
+            log(f"  flash split {name:15s} {dtype:8s} dq/dk/dv err "
+                f"{max(errs):.3g} (tol {tol}){extra}")
+
+    # the long-sequence shape: BH 64 x 4096 x 4096 x 64 bf16, not causal
+    B, heads, S, d = LONG_SHAPE
+    bh = B * heads
+    q, k, v, bias = _flash_inputs(B, heads, S, S, d, "zeros", gen,
+                                  torch.bfloat16, dev)
+    do = _randn(q.shape, gen, torch.bfloat16, dev)
+    out, lse = _flash_fwd(q, k, v, bias, False, 0.0, 0, heads)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, bias, False, 0.0, 0, heads, lse, delta, do)
+    dq = _flash_bwd_dq(*args)
+    dk, dv = _flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    # held to the plain version on the first 8 heads (no dropout: the
+    # heads are independent), so the (Sq, Sk) fp32 matrices stay small
+    sl = (q[:8], k[:8], v[:8], bias, False, 0.0, 0, 1, lse[:8], delta[:8],
+          do[:8])
+    err_dq = peak_ok(dq[:8], _flash_bwd_dq_reference(*sl), 2e-2)
+    r_dk, r_dv = _flash_bwd_dkv_reference(*sl)
+    err_dk, err_dv = peak_ok(dk[:8], r_dk, 2e-2), peak_ok(dv[:8], r_dv, 2e-2)
+    del r_dk, r_dv
+    require(err_dq[0] and err_dk[0] and err_dv[0],
+            f"flash split long shape: dq {err_dq[1]:.3g} dk {err_dk[1]:.3g} "
+            f"dv {err_dv[1]:.3g} (tol 2e-2)")
+    io = 4 * bh * S * d * 2 + 2 * bh * S * 4 + bias.numel() * 4
+    pairs = bh * S * S
+    # SDPA's flash backward alone, for dq, dk and dv together
+    q4, k4, v4, do4 = (t.view(B, heads, S, d) for t in (q, k, v, do))
+    (o4, lse4, cq, ck, mq, mk, rng_seed, rng_offset,
+     _) = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False,
+                                                   False, scale=1.0)
+    lms = device_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, False, rng_seed,
+        rng_offset, scale=1.0))
+    del o4, lse4
+    rows = []
+    for name, fn, plain, err, nbytes, flops in (
+            ("flash_bwd_dq", lambda: _flash_bwd_dq(*args),
+             lambda: _flash_bwd_dq_reference(*args), err_dq[1],
+             io + bh * S * d * 2, 6.0 * d * pairs),
+            ("flash_bwd_dkv", lambda: _flash_bwd_dkv(*args),
+             lambda: _flash_bwd_dkv_reference(*args),
+             max(err_dk[1], err_dv[1]), io + 2 * bh * S * d * 2,
+             8.0 * d * pairs)):
+        bms, by = bound(nbytes, flops, "bfloat16")
+        ms = device_ms(fn)
+        call_ms = time_ms(fn, reps=10, warmup=2)
+        pms = time_ms(plain, reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        rows.append(dict(kernel=name, case="long_seq", shape=(bh, S, S, d),
+                         dtype="bfloat16", max_abs_err=err, tol=2e-2,
+                         ms=ms, call_ms=call_ms, plain_ms=pms,
+                         library_ms=lms,
+                         library="aten flash-attention backward (dq, dk "
+                                 "and dv together)",
+                         bound_ms=bms, bound_by=by))
+        _report(name, f"BH{bh}x{S}x{S}x{d} bf16", err, 2e-2, ms, pms, lms,
+                bms, by, f" [one call with its host cost {call_ms:.4f} ms; "
+                "plain: one call between events; library: SDPA's whole "
+                "backward]")
     return rows
 
 
@@ -859,10 +1123,7 @@ def phase_train(dev, card, profile=False):
     require(st.model_params["layers"]["wqkv"].dtype == torch.bfloat16
             and st.opt_state.master.dtype == torch.float32,
             "O5 dtypes: bf16 model, fp32 flat masters")
-    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
-        require(launches.get(name, 0) >= 5 * per_step,
-                f"{name} launched {launches.get(name, 0)} times in 5 steps, "
-                f"expected at least {per_step} a step")
+    check_launches("o5_lamb", launches, 5)
     step_s = statistics.median(times)
     tokens = 8 * 512
     mfu = 8 * n_params * tokens / step_s / 989e12
@@ -879,7 +1140,8 @@ def phase_train(dev, card, profile=False):
         f"(unscale, flatten, l2norm, FusedLAMB flat update, skip-select, "
         f"bf16 copy) {opt_ms:.2f} ms (medians of 3)")
     if profile:
-        profile_train_step(st, batch, cfg)
+        from apex_tpu_torch.train import train_step
+        profile_train_step(lambda: train_step(st, batch, cfg))
     return launches
 
 
@@ -908,43 +1170,339 @@ def split_train_step(st, batch, cfg):
     return statistics.median(fb) * 1e3, statistics.median(opt) * 1e3
 
 
-def profile_train_step(st, batch, cfg):
-    """torch.profiler over one training step: device time by kernel and
-    the device's busy share of the window (``--profile``)."""
+def profile_train_step(step, name="train"):
+    """torch.profiler over one call of ``step`` (a training step): device
+    time by kernel and the device's busy share of the window
+    (``--profile``; the table goes to ``build/profile_<name>.txt``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from apex_tpu_torch.train import train_step
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_step(st, batch, cfg)
+        step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
     dev_us = kernel_us(avgs)
-    log(f"  profile: training step window {window_ms:.3f} ms, device busy "
-        f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / window_ms:.1f}%)")
+    log(f"  profile ({name}): training step window {window_ms:.3f} ms, "
+        f"device busy {dev_us / 1e3:.3f} ms "
+        f"({100 * dev_us / 1e3 / window_ms:.1f}%)")
     table_txt = avgs.table(sort_by="self_cuda_time_total", row_limit=30)
-    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(table_txt)
     for line in table_txt.splitlines()[:36]:
         log(f"  {line}")
 
 
 # ---------------------------------------------------------------------------
+# phases 8-9: the ZeRO path
+# ---------------------------------------------------------------------------
 
-def _kernel_entry(name, source, replaces, row, launches, launches_serve=None):
-    entry = dict(name=name, route="cuda", source=source, replaces=replaces,
-                 launches=launches, max_abs_err=row["max_abs_err"],
-                 ms=row["ms"], plain_ms=row["plain_ms"],
-                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                 library_ms=row["library_ms"])
-    if launches_serve is not None:
-        entry["launches_serve"] = launches_serve
-    return entry
+def _mlm_batch(cfg, batch, seq, seed, dev):
+    """The BERT example's synthetic MLM batch: 15 % of the tokens masked to
+    id 0, the originals as targets, weights on the masked positions."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    mask = torch.rand((batch, seq), generator=gen) < 0.15
+    return {"tokens": torch.where(mask, 0, tokens).to(dev),
+            "targets": tokens.to(dev),
+            "weights": mask.to(torch.float32).to(dev)}
+
+
+def start_process_group():
+    """A world-1 NCCL default group, rendezvous through a file under
+    ``build/`` (no network port)."""
+    from apex_tpu_torch.parallel import initialize_distributed
+    out_dir = os.path.join(HERE, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, f"zero_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    initialize_distributed(init_file=store, rank=0, world_size=1)
+    return store
+
+
+def phase_zero_parity(dev):
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch.contrib.optimizers import (DistributedFusedAdam,
+                                                   DistributedFusedLAMB)
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.train import zero_train_step
+    log("== phase 8: ZeRO parity (2 layers, BERT-large width, fp32, "
+        "DistributedFusedLAMB and DistributedFusedAdam fused at world 1; card "
+        "over NCCL vs CPU over gloo)")
+    gloo = dist.new_group(backend="gloo")
+    cfg = bert_large_config(num_layers=2, attn_impl="fast", remat=True)
+    params = transformer_init(cfg, torch.Generator().manual_seed(2),
+                              device="cpu")
+    makers = (
+        ("LAMB", lambda group: DistributedFusedLAMB(
+            lr=1e-3, weight_decay=0.01, max_grad_norm=1.0, impl="fused",
+            shard_group=group)),
+        ("Adam", lambda group: DistributedFusedAdam(
+            lr=1e-3, weight_decay=0.01, impl="fused", shard_group=group)))
+    for name, make in makers:
+        runs = []
+        for d, group in ((dev, None), (torch.device("cpu"), gloo)):
+            p = {g: {n: t.to(d) for n, t in leaves.items()}
+                 for g, leaves in params.items()}
+            opt = make(group)
+            st = opt.init(p)
+            p0 = st.p.cpu()
+            batch = _mlm_batch(cfg, 2, 128, 10, d)
+            losses = []
+            for _ in range(3):
+                p, st, loss = zero_train_step(p, st, batch, cfg, opt)
+                losses.append(loss.item())
+            runs.append((losses, st.p.cpu()))
+        (g_loss, g_p), (c_loss, c_p) = runs
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+        p_err = float((g_p - c_p).abs().max())
+        # the 3-step update as a whole: ||card - cpu|| / ||cpu - start||
+        u_err = float((g_p - c_p).norm() / (c_p - p0).norm())
+        require(l_err <= 1e-4, f"ZeRO {name} losses differ by {l_err:.3g} "
+                f"relative (tol 1e-4): card {g_loss} cpu {c_loss}")
+        if name == "LAMB":
+            require(p_err <= 1e-4, f"ZeRO LAMB master shards differ by "
+                    f"{p_err:.3g} after 3 steps (tol 1e-4)")
+            limit = "max abs diff tol 1e-4"
+        else:
+            # Adam's eps (1e-8) lets an element whose gradient is near 0,
+            # its sign the rounding of two devices' GEMMs, move by up to lr
+            # a step either way: elementwise the shards agree only to ~lr,
+            # so the update is held as a whole
+            require(u_err <= 1e-3, f"ZeRO Adam updates differ by {u_err:.3g}"
+                    f" relative in norm after 3 steps (tol 1e-3; max abs "
+                    f"diff {p_err:.3g})")
+            limit = "update norm tol 1e-3"
+        log(f"  {name}: losses card {g_loss} cpu {c_loss}: max rel diff "
+            f"{l_err:.3g} (tol 1e-4); master shards max abs diff {p_err:.3g},"
+            f" update diff {u_err:.3g} relative in norm ({limit})")
+
+
+def _zero_run(params, opt, batch, cfg, steps, label):
+    """One warm-up and ``steps`` timed ZeRO steps; (launches, losses,
+    step seconds, state, params)."""
+    import torch
+    from apex_tpu_torch.train import zero_train_step
+    from apex_tpu_torch.utils import build
+    st = opt.init(params)
+    params, st, loss = zero_train_step(params, st, batch, cfg, opt)
+    losses = [loss.item()]
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, st, loss = zero_train_step(params, st, batch, cfg, opt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(build.LAUNCHES)
+    require(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{label}: loss did not fall {losses}")
+    log(f"  {label}: losses {[round(l, 5) for l in losses]}; launches in "
+        f"{steps} steps {launches}")
+    return launches, times, st, params
+
+
+def phase_zero(dev, card, profile=False):
+    import torch
+    from apex_tpu_torch.contrib.optimizers import (DistributedFusedAdam,
+                                                   DistributedFusedLAMB)
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log("== phase 9: ZeRO path (BERT-large, 24 layers, fp32 params, bf16 "
+        "activations, remat, flash, batch 8 x 512 MLM, DistributedFusedLAMB "
+        "fused + bf16 all-gather, world-1 NCCL)")
+    cfg = bert_large_config(attn_impl="fast", remat=True,
+                            dtype=torch.bfloat16)
+    params0 = transformer_init(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    batch = _mlm_batch(cfg, 8, 512, 11, dev)
+    torch.cuda.reset_peak_memory_stats()
+    opt = DistributedFusedLAMB(lr=1e-3, weight_decay=0.01, max_grad_norm=1.0,
+                               bf16_allgather=True, impl="fused")
+    lamb_launches, times, st, params = _zero_run(params0, opt, batch, cfg,
+                                                 5, "LAMB")
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("zero_lamb", lamb_launches, 5)
+    require(st.p.dtype == torch.float32 and st.p.numel() % 128 == 0,
+            "ZeRO master shard: fp32 on the 128-element lattice")
+    step_s = statistics.median(times)
+    tokens = 8 * 512
+    mfu = 8 * n_params * tokens / step_s / 989e12
+    log(f"  [{card}] LAMB step {step_s * 1e3:.2f} ms (median of 5; all "
+        f"{[round(t * 1e3, 2) for t in times]}), {8 / step_s:.2f} "
+        f"sequences/s, {tokens / step_s:.0f} tokens/s, analytic MFU "
+        f"{100 * mfu:.2f}% (8 x {n_params} params x {tokens} tokens / step "
+        f"/ 989 TFLOP/s), peak device memory {peak / 2 ** 30:.2f} GiB, "
+        f"master shard {st.p.numel()} fp32")
+    fb_ms, opt_ms = split_zero_step(params, st, batch, cfg, opt)
+    log(f"  [{card}] of a LAMB step: forward + backward {fb_ms:.2f} ms, "
+        f"opt.step (flatten, reduce-scatter, norm, stage 1 kernel, trust "
+        f"ratios, select, bf16 all-gather, unflatten) {opt_ms:.2f} ms "
+        f"(medians of 3)")
+    if profile:
+        from apex_tpu_torch.train import zero_train_step
+        profile_train_step(lambda: zero_train_step(params, st, batch, cfg,
+                                                   opt), "zero")
+    del st, params
+    torch.cuda.empty_cache()
+
+    # lr 1e-4: at 1e-3 the repeated-batch loss of Adam rises again by its
+    # fourth step; the witness below reads that trajectory twice
+    opt = DistributedFusedAdam(lr=1e-4, weight_decay=0.01, impl="fused")
+    adam_launches, times, st, params = _zero_run(params0, opt, batch, cfg,
+                                                 3, "Adam")
+    check_launches("zero_adam", adam_launches, 3)
+    step_s = statistics.median(times)
+    log(f"  [{card}] Adam step {step_s * 1e3:.2f} ms (median of 3; all "
+        f"{[round(t * 1e3, 2) for t in times]}), {8 / step_s:.2f} "
+        f"sequences/s")
+    del st, params
+    torch.cuda.empty_cache()
+    adam_lr_witness(params0, batch, cfg)
+    return lamb_launches, adam_launches
+
+
+def adam_lr_witness(params0, batch, cfg, steps=4, tol=2e-2):
+    """Adam at lr 1e-3 from the same weights and batch, read twice: through
+    the kernel (``impl="fused"``) and through the same math as PyTorch ops
+    (``impl="xla"``).  The two trajectories must agree step by step within
+    ``tol`` relative, whichever way the loss goes."""
+    import torch
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.train import zero_train_step
+    runs = {}
+    for impl in ("fused", "xla"):
+        opt = DistributedFusedAdam(lr=1e-3, weight_decay=0.01, impl=impl)
+        params, st, losses = params0, opt.init(params0), []
+        for _ in range(steps):
+            params, st, loss = zero_train_step(params, st, batch, cfg, opt)
+            losses.append(loss.item())
+        runs[impl] = losses
+        del params, st
+        torch.cuda.empty_cache()
+    fused, xla = runs["fused"], runs["xla"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(fused, xla))
+    require(all(np.isfinite(fused + xla)) and err <= tol,
+            f"Adam lr 1e-3: fused {fused} vs xla {xla}, max rel diff "
+            f"{err:.3g} (tol {tol})")
+    log(f"  Adam lr 1e-3, {steps} steps: fused {[round(l, 5) for l in fused]}"
+        f", xla {[round(l, 5) for l in xla]}: max rel diff {err:.3g} (tol "
+        f"{tol})")
+
+
+def split_zero_step(params, st, batch, cfg, opt):
+    """Host-clock ms of a ZeRO step's two halves, each ending in a
+    synchronize: the loss and its gradients, then ``opt.step``."""
+    import torch
+    from apex_tpu_torch.models import transformer_loss
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+    fb, op = [], []
+    for _ in range(3):
+        leaves, treedef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = transformer_loss(tree_unflatten(treedef, leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.step(st, tree_unflatten(treedef, list(grads)), params)
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        op.append(time.perf_counter() - t1)
+    return statistics.median(fb) * 1e3, statistics.median(op) * 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the long-sequence path
+# ---------------------------------------------------------------------------
+
+def phase_long_seq(dev, card, profile=False):
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import _resolve_fuse
+    from apex_tpu_torch.models import TransformerConfig, transformer_init
+    from apex_tpu_torch.train import train_step
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log("== phase 10: long-sequence path (24 layers, d_model 1024, 16 heads, "
+        "vocab 30592, seq 4096, batch 4, bf16, amp O5 + FusedLAMB fused, "
+        "flash, remat)")
+    B, heads, S, d = LONG_SHAPE
+    cfg = TransformerConfig(vocab_size=30592, max_len=S, num_layers=24,
+                            d_model=heads * d, num_heads=heads, d_ff=4096,
+                            dtype=torch.bfloat16, attn_impl="fast",
+                            remat=True)
+    require(not _resolve_fuse(None, B * cfg.num_heads, S, S, cfg.head_dim),
+            "the long-sequence shape should take the split route")
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    st = _train_state(params, None)
+    del params
+    batch = _batch(cfg, B, S, 12, dev)
+    st, loss = train_step(st, batch, cfg)          # warm-up
+    losses = [loss.item()]
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        st, loss = train_step(st, batch, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(float(st.loss_scale) == 1.0, f"loss scale {float(st.loss_scale)}")
+    check_launches("long_seq", launches, 2)
+    step_s = statistics.median(times)
+    tokens = B * S
+    mfu = 8 * n_params * tokens / step_s / 989e12
+    # attention's S^2 products: 4 B S^2 d_model a layer forward, twice that
+    # backward, and the remat forward again
+    attn = 16.0 * cfg.num_layers * B * S * S * cfg.d_model
+    mfu_attn = (8 * n_params * tokens + attn) / step_s / 989e12
+    log(f"  losses {[round(l, 5) for l in losses]}; launches in 2 steps "
+        f"{launches}")
+    log(f"  [{card}] step {step_s * 1e3:.2f} ms (median of 2; all "
+        f"{[round(t * 1e3, 2) for t in times]}), {B / step_s:.3f} "
+        f"sequences/s, {tokens / step_s:.0f} tokens/s, peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB, analytic MFU {100 * mfu:.2f}% (params "
+        f"term only, as phase 7) / {100 * mfu_attn:.2f}% with attention's "
+        f"S^2 term (16 L B S^2 d_model)")
+    fb_ms, opt_ms = split_train_step(st, batch, cfg)
+    log(f"  [{card}] of a step: forward + backward {fb_ms:.2f} ms, amp_step "
+        f"{opt_ms:.2f} ms (medians of 3)")
+    if profile:
+        profile_train_step(lambda: train_step(st, batch, cfg), "long_seq")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+def _kernel_entry(name, source, replaces, row, launches_by_path, path):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches_by_path[path].get(name, 0),
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                path=path,
+                launches_by_path={p: c.get(name, 0)
+                                  for p, c in launches_by_path.items()
+                                  if c.get(name, 0)})
 
 
 def main(argv) -> int:
@@ -966,43 +1524,71 @@ def main(argv) -> int:
     xent_rows = check_xent(dev)
     l2_rows = check_l2norm(dev)
     fb_rows = check_flash_bwd(dev)
+    log("== phase 3c: ZeRO update and split flash-backward kernels vs plain "
+        "versions on the card")
+    zero_rows = check_zero_updates(dev)
+    split_rows = check_flash_split(dev)
+    torch.cuda.empty_cache()
     phase_serve_parity(dev)
     serve_launches, _ = phase_main_path(dev, card, profile)
     phase_train_parity(dev)
-    launches = phase_train(dev, card, profile)
+    launches = {"serve": serve_launches,
+                "o5_lamb": phase_train(dev, card, profile)}
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    store = start_process_group()
+    try:
+        phase_zero_parity(dev)
+        launches["zero_lamb"], launches["zero_adam"] = phase_zero(
+            dev, card, profile)
+        torch.cuda.empty_cache()
+        launches["long_seq"] = phase_long_seq(dev, card, profile)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
 
     def pick(rows, **want):
         return next(r for r in rows
                     if all(r.get(k) == v for k, v in want.items()))
 
     bf16 = "bfloat16"
+    csrc = "apex_tpu_torch/csrc/"
     kernels = [
-        _kernel_entry("flash_fwd", "apex_tpu_torch/csrc/flash_fwd.cu",
-                      FLASH_REPLACES,
+        _kernel_entry("flash_fwd", csrc + "flash_fwd.cu", FLASH_REPLACES,
                       pick(flash_rows, case="training", dtype=bf16),
-                      launches["flash_fwd"], serve_launches["flash_fwd"]),
-        _kernel_entry("flash_bwd", "apex_tpu_torch/csrc/flash_bwd.cu",
-                      FLASH_BWD_REPLACES,
-                      pick(fb_rows, case="training", dtype=bf16),
-                      launches["flash_bwd"]),
-        _kernel_entry("ln_fwd", "apex_tpu_torch/csrc/layer_norm.cu",
-                      LN_REPLACES,
+                      launches, "o5_lamb"),
+        _kernel_entry("flash_bwd", csrc + "flash_bwd.cu", FLASH_BWD_REPLACES,
+                      pick(fb_rows, case="training", dtype=bf16), launches,
+                      "o5_lamb"),
+        _kernel_entry("ln_fwd", csrc + "layer_norm.cu", LN_REPLACES,
                       pick(ln_rows, shape=(4096, 1024), dtype=bf16,
-                           affine=True),
-                      launches["ln_fwd"], serve_launches["ln_fwd"]),
-        _kernel_entry("ln_bwd", "apex_tpu_torch/csrc/layer_norm.cu",
-                      LN_BWD_REPLACES,
+                           affine=True), launches, "o5_lamb"),
+        _kernel_entry("ln_bwd", csrc + "layer_norm.cu", LN_BWD_REPLACES,
                       pick(ln_bwd_rows, shape=(4096, 1024), dtype=bf16,
-                           affine=True),
-                      launches["ln_bwd"]),
-        _kernel_entry("xent_fwd", "apex_tpu_torch/csrc/xentropy.cu",
-                      XENT_REPLACES,
-                      pick(xent_rows, dtype=bf16, smoothing=0.0),
-                      launches["xent_fwd"]),
-        _kernel_entry("l2norm", "apex_tpu_torch/csrc/multi_tensor.cu",
-                      L2NORM_REPLACES, pick(l2_rows, dtype="float32"),
-                      launches["l2norm"]),
+                           affine=True), launches, "o5_lamb"),
+        _kernel_entry("xent_fwd", csrc + "xentropy.cu", XENT_REPLACES,
+                      pick(xent_rows, dtype=bf16, smoothing=0.0), launches,
+                      "o5_lamb"),
+        _kernel_entry("l2norm", csrc + "multi_tensor.cu", L2NORM_REPLACES,
+                      pick(l2_rows, dtype="float32"), launches, "o5_lamb"),
+        _kernel_entry("lamb_stage1", csrc + "multi_tensor.cu",
+                      LAMB1_REPLACES, pick(zero_rows, kernel="lamb_stage1"),
+                      launches, "zero_lamb"),
+        _kernel_entry("adam", csrc + "multi_tensor.cu", ADAM_REPLACES,
+                      pick(zero_rows, kernel="adam"), launches, "zero_adam"),
+        _kernel_entry("flash_bwd_dq", csrc + "flash_bwd.cu",
+                      FLASH_DQ_REPLACES,
+                      pick(split_rows, kernel="flash_bwd_dq"), launches,
+                      "long_seq"),
+        _kernel_entry("flash_bwd_dkv", csrc + "flash_bwd.cu",
+                      FLASH_DKV_REPLACES,
+                      pick(split_rows, kernel="flash_bwd_dkv"), launches,
+                      "long_seq"),
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} never launched on its path "
+                f"{k['path']}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

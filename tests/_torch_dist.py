@@ -1,0 +1,186 @@
+"""Rank workers for the PyTorch port's multi-process tests.
+
+Imports neither JAX nor the JAX package, so a rank started with the
+``spawn`` method loads only torch and the port.  :func:`run_ranks` starts
+``world`` ranks on gloo, each rendezvousing through a ``FileStore`` under
+the test's ``tmp_path`` (no network port: several pytest workers run at
+once), runs ``fn(rank, world, *args)`` in each and returns their results
+in rank order.  It joins the ranks against its own deadline and
+terminates them when it passes, so a hung collective fails the test
+instead of stalling the suite.  :func:`run_in_process` runs ``fn`` as the
+only rank of a world-1 gloo group in the calling process.
+"""
+import multiprocessing as mp
+import os
+import queue
+import time
+import traceback
+
+import numpy as np
+
+
+def lr_decay(count):
+    """An LR schedule both packages can evaluate on their step count."""
+    return 1e-2 / count
+
+
+LR_SCHEDULES = {"decay": lr_decay}
+
+
+def _init(store_path, rank, world):
+    from apex_tpu_torch.parallel import initialize_distributed
+    initialize_distributed(init_file=store_path, rank=rank, world_size=world,
+                           device="cpu")
+
+
+def _worker(fn, rank, world, store_path, args, out):
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1)
+        _init(store_path, rank, world)
+        try:
+            res = fn(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except Exception:                         # reported to the parent
+        out.put((rank, False, traceback.format_exc()))
+
+
+def run_ranks(fn, world, tmp_path, *args, deadline_s=150.0):
+    """``fn(rank, world, *args)`` on ``world`` spawned gloo ranks; their
+    results in rank order.  Raises on a rank's exception, a rank that dies
+    without a result, or the deadline."""
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(os.fspath(tmp_path),
+                         f"store-{fn.__name__}-{world}-{time.time_ns()}")
+    procs = [ctx.Process(target=_worker, args=(fn, r, world, store, args,
+                                               out), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    end = time.monotonic() + deadline_s
+    try:
+        while len(results) + len(errors) < world:
+            if time.monotonic() > end:
+                raise TimeoutError(f"{fn.__name__}: {world} ranks did not "
+                                   f"finish within {deadline_s:.0f} s")
+            try:
+                rank, ok, payload = out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead and out.empty():
+                    time.sleep(1.0)           # a last result in flight
+                    if out.empty():
+                        raise RuntimeError(f"{fn.__name__}: a rank died "
+                                           f"with exit codes {dead}")
+                continue
+            (results.__setitem__(rank, payload) if ok
+             else errors.append(f"rank {rank}:\n{payload}"))
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def run_in_process(fn, tmp_path, *args):
+    """``fn(0, 1, *args)`` as the one rank of a world-1 gloo group in this
+    process; the group is destroyed afterwards."""
+    import torch.distributed as dist
+    _init(os.path.join(os.fspath(tmp_path), f"store-{time.time_ns()}"), 0, 1)
+    try:
+        return fn(0, 1, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# workers
+# ---------------------------------------------------------------------------
+
+def _groups(rank, world, topology):
+    """(shard_group, replica_group, shard_rank).  "flat": one shard group
+    of all ranks; "2x2": shard groups {0,1}, {2,3} and replica groups
+    {0,2}, {1,3} (rank = replica * 2 + shard, the JAX (dcn, ici) mesh)."""
+    import torch.distributed as dist
+    if topology == "flat":
+        return None, None, rank
+    shard = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    replica = [dist.new_group([0, 2]), dist.new_group([1, 3])]
+    return shard[rank // 2], replica[rank % 2], rank % 2
+
+
+def zero_optimizer_cases(rank, world, cases, params_np, grads_np):
+    """Each case: build the port's sharded optimizer, ``init`` from
+    ``params_np`` and step over ``grads_np`` (a list, one dict of (world,
+    *shape) local grads per step; this rank takes its row).  Returns, per
+    case, the new params and this rank's state as numpy."""
+    import torch
+    from apex_tpu_torch.contrib.optimizers import (DistributedFusedAdam,
+                                                   DistributedFusedLAMB)
+    classes = {"adam": DistributedFusedAdam, "lamb": DistributedFusedLAMB}
+    out = {}
+    for case in cases:
+        sg, rg, _ = _groups(rank, world, case.get("topology", "flat"))
+        kw = dict(case["kw"])
+        if kw.get("state_dtype") == "bfloat16":
+            kw["state_dtype"] = torch.bfloat16
+        if "lr" in case:
+            kw["lr"] = LR_SCHEDULES[case["lr"]]
+        opt = classes[case["opt"]](shard_group=sg, replica_group=rg, **kw)
+        params = {k: torch.from_numpy(v.copy()) for k, v in params_np.items()}
+        state = opt.init(params)
+        scale = case.get("grad_scale", 1.0)
+        for i, gl in enumerate(grads_np):
+            g = {k: torch.from_numpy(v[rank] * scale) for k, v in gl.items()}
+            if case.get("poison_iter") == i and rank == 0:
+                g = {k: torch.full_like(v, float("inf")) for k, v in g.items()}
+            params, state = opt.step(state, g, params, scale=scale)
+        out[case["name"]] = dict(
+            params={k: v.numpy() for k, v in params.items()},
+            p=state.p.numpy(), m=state.m.float().numpy(),
+            v=state.v.float().numpy(), m_dtype=str(state.m.dtype),
+            count=int(state.count), gnorm=float(state.gnorm))
+    return out
+
+
+def zero_train(rank, world, tree_np, cfg_kw, batches, opt_kw, split):
+    """3 steps of ``zero_train_step`` from the JAX params ``tree_np``;
+    this rank takes its contiguous rows of each global batch.  Returns
+    (losses, this rank's master shard)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn import flash
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.models import TransformerConfig, params_from_jax
+    from apex_tpu_torch.train import zero_train_step
+    cap = flash._FUSE_BUFFER_CAP_MB
+    if split:
+        flash._FUSE_BUFFER_CAP_MB = 0.0      # every backward takes the split
+    try:
+        cfg = TransformerConfig(**cfg_kw)
+        params = params_from_jax(tree_np, device="cpu")
+        opt = DistributedFusedLAMB(**opt_kw)
+        state = opt.init(params)
+        losses = []
+        for b in batches:
+            per = b["tokens"].shape[0] // world
+            local = {k: torch.from_numpy(np.ascontiguousarray(
+                v[rank * per:(rank + 1) * per]))
+                for k, v in b.items()}
+            local = {k: v.long() if v.dtype == torch.int32 else v
+                     for k, v in local.items()}
+            params, state, loss = zero_train_step(params, state, local, cfg,
+                                                  opt)
+            losses.append(float(loss))
+    finally:
+        flash._FUSE_BUFFER_CAP_MB = cap
+    return losses, state.p.numpy()

@@ -49,6 +49,10 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert (ROOT / "chip_smoke.py").is_file()
     assert "apex_tpu_torch/serve/engine.py" in names
+    for module in ("parallel/mesh.py", "parallel/collectives.py",
+                   "contrib/optimizers/distributed_fused.py", "train.py",
+                   "multi_tensor_apply/kernels.py"):
+        assert f"apex_tpu_torch/{module}" in names, module
     assert len(names) > 15
 
 
@@ -113,3 +117,20 @@ def test_training_without_device_does_not_run_on_cpu():
                        verbosity=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         amp.scaler.init("dynamic")
+
+
+def test_zero_state_from_jax_defaults_to_the_card():
+    """``state_from_jax`` puts the state on the card unless asked for the
+    CPU: without CUDA it raises instead of building a CPU state."""
+    _no_cuda()
+    import numpy as np
+    from apex_tpu_torch.contrib.optimizers import state_from_jax
+
+    class ShardedLAMBState:
+        count, p, m, v, gnorm = (np.int32(1), np.zeros(256, np.float32),
+                                 np.zeros(256, np.float32),
+                                 np.zeros(256, np.float32), np.float32(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_from_jax(ShardedLAMBState(), 0, 2)
+    st = state_from_jax(ShardedLAMBState(), 1, 2, device="cpu")
+    assert type(st).__name__ == "ShardedLAMBState" and st.p.shape == (128,)

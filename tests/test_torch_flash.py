@@ -7,6 +7,10 @@ versions; out and lse, then dq, dk and dv are compared, and the port's
 autograd gradients are held to ``jax.grad`` through ``flash_attention``.
 fp32 tolerances: forward 2e-5 (blockwise online softmax against the plain
 full-row softmax), backward 5e-5 (five products, summed in other orders).
+The split route's plain versions (dq alone, dk/dv alone) go against the
+JAX package's ``_flash_bwd_dq`` / ``_flash_bwd_dkv`` kernels (interpret
+mode) at the same 5e-5, and the port's two routes give the same bits on
+the CPU.
 The dropout hash is compared bit for bit.  The CUDA kernels themselves are
 compared with the plain versions on the card by
 ``tests/test_torch_cuda_kernels.py``.
@@ -231,13 +235,61 @@ def test_backward_selection():
                                torch.zeros(1, 1, 4), backward="fast")
 
 
+def _bwd_inputs(case, seed):
+    _, B, heads, sq, sk, d, kind, causal, rate = case
+    q, k, v, bias = _inputs(B, heads, sq, sk, d, kind, seed=seed)
+    do = _dout(q.shape, seed=sq + 1)
+    jq, jk, jv, jb, jdo = (jnp.asarray(a) for a in (q, k, v, bias, do))
+    j_out, j_lse = jflash._flash_fwd(jq, jk, jv, jb, causal, rate, 31, heads)
+    j_delta = jnp.sum(jdo * j_out, axis=-1, keepdims=True)
+    jax_args = (jq, jk, jv, jb, causal, rate, 31, heads, j_lse, j_delta, jdo)
+    t = [torch.from_numpy(np.array(a)) for a in (q, k, v, bias, j_lse,
+                                                 j_delta, do, j_out)]
+    port_args = (t[0], t[1], t[2], t[3], causal, rate, 31, heads, t[4], t[5],
+                 t[6])
+    return jax_args, port_args, t[7]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_bwd_split_matches_pallas(case):
+    jax_args, port_args, _ = _bwd_inputs(case, seed=case[3] * 7 + case[5])
+    ref_dq = jflash._flash_bwd_dq(*jax_args)
+    ref_dk, ref_dv = jflash._flash_bwd_dkv(*jax_args)
+    dq = pflash._flash_bwd_dq(*port_args)
+    dk, dv = pflash._flash_bwd_dkv(*port_args)
+    for name, a, r in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                       ("dv", dv, ref_dv)):
+        assert a.shape == r.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=BWD_TOL,
+                                   rtol=BWD_TOL, err_msg=name)
+    if case[6] == "dead":
+        assert np.all(dq.numpy()[0, 3] == 0.0)
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[5], CASES[7], CASES[9]],
+                         ids=[CASES[i][0] for i in (0, 5, 7, 9)])
+def test_split_route_equals_fused_route_on_cpu(case):
+    _, port_args, out = _bwd_inputs(case, seed=case[4] + 3)
+    q, k, v, bias, causal, rate, seed, heads, lse, _, do = port_args
+    fused = pflash._flash_bwd(q, k, v, bias, causal, rate, seed, heads, out,
+                              lse, do, fuse=True)
+    split = pflash._flash_bwd(q, k, v, bias, causal, rate, seed, heads, out,
+                              lse, do, fuse=False)
+    for name, a, b in zip(("dq", "dk", "dv"), fused, split):
+        assert torch.equal(a, b), name
+
+
 def test_fuse_rule_is_the_byte_cap():
     # the training shape: 128 x 8 x 512 x 64 x 4 B = 134 MB of dq partials
     assert pflash._resolve_fuse(None, 128, 512, 512, 64)
     assert pflash._resolve_fuse(None, 128, 512, 512, 64) == \
         jflash._resolve_fuse(None, 128, 512, 512, 64, pflash.BWD_K_TILE)
-    # past 1024 MB the split route would run
-    assert not pflash._resolve_fuse(None, 128, 4096, 4096, 64)
+    # past 1024 MB the split route runs: the long-sequence training shape
+    assert not pflash._resolve_fuse(None, 64, 4096, 4096, 64)
+    # the port counts 64-key tiles, the JAX package 128-key blocks: here
+    # the port splits where the JAX package still fuses
+    assert not pflash._resolve_fuse(None, 128, 2048, 2048, 64)
+    assert jflash._resolve_fuse(None, 128, 2048, 2048, 64, 128)
     assert pflash._resolve_fuse(False, 1, 8, 8, 64) is False
     assert pflash._resolve_fuse(True, 128, 4096, 4096, 64) is True
 

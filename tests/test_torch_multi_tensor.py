@@ -6,9 +6,12 @@ both packages: the same leaf order (dict keys sorted), offsets, total,
 row ranges and values.  The per-tensor reductions and the broadcasts
 agree, and the port's l2norm (its plain version on the CPU) agrees with
 ``apex_tpu``'s ``multi_tensor_l2norm`` (the Pallas kernel, in interpret
-mode) to 1e-6 relative (fp32 sums in other orders).  The CUDA kernel is
-compared with the plain version on the card by
-``tests/test_torch_cuda_kernels.py``.
+mode) to 1e-6 relative (fp32 sums in other orders).  The plain versions
+of the ZeRO update kernels, ``fused_adam_flat`` (both decay modes, with
+and without a bf16 model copy) and ``fused_lamb_stage1_flat``, agree with
+the JAX kernels (interpret mode) to 1e-6 relative, with the unscale and
+clip factors away from 1.  The CUDA kernels are compared with the plain
+versions on the card by ``tests/test_torch_cuda_kernels.py``.
 """
 import numpy as np
 import pytest
@@ -21,10 +24,11 @@ from apex_tpu.models import TransformerConfig as JaxConfig
 from apex_tpu.models import transformer_init as jax_init
 from apex_tpu.multi_tensor_apply import TreeFlattener as JaxFlattener
 from apex_tpu.multi_tensor_apply import multi_tensor_l2norm as jax_l2norm
+from apex_tpu.multi_tensor_apply import kernels as jkernels
 
 from apex_tpu_torch.models import params_from_jax
 from apex_tpu_torch.multi_tensor_apply import (DEFAULT_CHUNK, LANE,
-                                               TreeFlattener,
+                                               TreeFlattener, kernels,
                                                multi_tensor_l2norm,
                                                multi_tensor_l2norm_reference)
 from apex_tpu_torch.utils.pytree import tree_leaves
@@ -116,3 +120,80 @@ def test_leaf_order_is_sorted_keys():
     fl = TreeFlattener(tree)
     assert fl.shapes == [(1,), (2,), (3,)]
     assert fl.offsets.tolist() == [0, 128, 256, 384]
+
+
+def _opt_buffers(n, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(n).astype(np.float32) * 3.0
+    p = rng.standard_normal(n).astype(np.float32)
+    m = rng.standard_normal(n).astype(np.float32) * 0.1
+    v = np.abs(rng.standard_normal(n)).astype(np.float32) * 0.01
+    return g, p, m, v
+
+
+def _close(got, ref, name):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref).astype(np.float32),
+                               rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("model_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_fused_adam_flat_matches_pallas(adam_w_mode, model_dtype):
+    n = 2 * LANE * 8
+    bufs = _opt_buffers(n, seed=3 + adam_w_mode)
+    # lr, b1, b2, eps, wd, rc1, rc2, scale (unscale 1/64 times clip 0.7)
+    scal = np.array([[1e-2, 0.9, 0.999, 1e-8, 0.01, 1 / (1 - 0.9 ** 3),
+                      1 / (1 - 0.999 ** 3), 0.7 / 64]], np.float32)
+    ref = jkernels.fused_adam_flat(
+        *(jnp.asarray(b) for b in bufs), jnp.asarray(scal),
+        adam_w_mode=adam_w_mode,
+        model_dtype=jnp.bfloat16 if model_dtype else None)
+    got = kernels.fused_adam_flat(
+        *(torch.from_numpy(b) for b in bufs), torch.from_numpy(scal),
+        adam_w_mode=adam_w_mode,
+        model_dtype=torch.bfloat16 if model_dtype else None)
+    assert len(got) == len(ref) == (4 if model_dtype else 3)
+    for name, a, r in zip(("p", "m", "v"), got, ref):
+        assert a.dtype == torch.float32
+        _close(a, r, name)
+    if model_dtype:
+        assert got[3].dtype == torch.bfloat16
+        # the same fp32 values round to the same bf16 numbers
+        np.testing.assert_array_equal(
+            got[3].float().numpy(),
+            np.asarray(ref[3].astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("beta3", [0.1, 1.0])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_fused_lamb_stage1_flat_matches_pallas(adam_w_mode, beta3):
+    n = 3 * LANE * 8
+    bufs = _opt_buffers(n, seed=7 + adam_w_mode)
+    # b1, b2, eps, wd, rc1, rc2, clip, inv_scale, beta3
+    scal = np.array([[0.9, 0.999, 1e-6, 0.01, 1 / (1 - 0.9 ** 2),
+                      1 / (1 - 0.999 ** 2), 0.35, 1 / 128, beta3]],
+                    np.float32)
+    ref = jkernels.fused_lamb_stage1_flat(
+        *(jnp.asarray(b) for b in bufs), jnp.asarray(scal),
+        adam_w_mode=adam_w_mode)
+    got = kernels.fused_lamb_stage1_flat(
+        *(torch.from_numpy(b) for b in bufs), torch.from_numpy(scal),
+        adam_w_mode=adam_w_mode)
+    for name, a, r in zip(("u", "m", "v"), got, ref):
+        _close(a, r, name)
+
+
+def test_update_kernels_check_their_inputs():
+    bufs = [torch.zeros(256) for _ in range(4)]
+    with pytest.raises(ValueError):
+        kernels._check_update_inputs("adam", bufs, torch.zeros(7), 8)
+    with pytest.raises(ValueError):
+        kernels._check_update_inputs(
+            "adam", bufs[:3] + [torch.zeros(128)], torch.zeros(8), 8)
+    with pytest.raises(ValueError):
+        kernels._check_update_inputs(
+            "adam", bufs[:3] + [torch.zeros(256, dtype=torch.bfloat16)],
+            torch.zeros(8), 8)
+    assert kernels._check_update_inputs("lamb", bufs, torch.zeros(1, 9),
+                                        9) == 256

@@ -9,7 +9,18 @@ losses agree to 1e-5 relative and the flat masters to 1e-5, for flash and
 plain attention, with and without remat.  At O5 proper (bf16 model) the
 losses agree to 2e-2: the two frameworks round bf16 at other places.
 Dropout is 0: the port's per-layer seeds are not the JAX key splits.
+
+The ZeRO step (``zero_train_step`` with ``DistributedFusedLAMB``, fp32
+params and activations, flash attention and remat) goes against a JAX
+step written as the BERT example's ``run_zero`` writes it (``shard_map``
+over the data axis, ``value_and_grad``, ``opt.step``, ``pmean`` of the
+loss): at world 1 in this process, at world 2 as two spawned gloo ranks
+(``tests/_torch_dist.py``) each taking its half of the batch, and at world
+1 with every flash backward forced onto the split route (the JAX package
+through ``APEX_TPU_FLASH_BWD_FUSE=0``).  Losses and master shards agree to
+1e-5.
 """
+import functools
 import dataclasses
 
 import numpy as np
@@ -19,11 +30,16 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from jax.sharding import Mesh, PartitionSpec as P
+
+import _torch_dist
 from apex_tpu import amp as jamp
+from apex_tpu.contrib.optimizers import DistributedFusedLAMB as JaxZeroLAMB
 from apex_tpu.models import TransformerConfig as JaxConfig
 from apex_tpu.models import transformer_init as jax_init
 from apex_tpu.models import transformer_loss as jax_loss
 from apex_tpu.optimizers import FusedLAMB as JaxLAMB
+from apex_tpu.parallel.mesh import shard_map
 
 from apex_tpu_torch import amp
 from apex_tpu_torch.models import (TransformerConfig, params_from_jax,
@@ -143,3 +159,80 @@ def test_dropout_draws_one_seed_per_layer_and_repeats(tree):
                                 dropout_rng=torch.Generator().manual_seed(3))
         grads.append(torch.autograd.grad(loss, [p["layers"]["wqkv"]])[0])
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=1e-7)
+
+
+ZERO_KW = dict(attn_impl="fast", remat=True)
+ZERO_OPT = dict(lr=1e-2, weight_decay=0.01, max_grad_norm=1.0, impl="fused")
+
+
+def _zero_batches(batch=4):
+    """One synthetic MLM batch (15 % masked, weights on the masked
+    positions), repeated each step, so the loss must fall."""
+    rng = np.random.default_rng(33)
+    tokens = rng.integers(0, DIMS["vocab_size"], (batch, S)).astype(np.int32)
+    weights = (rng.random((batch, S)) < 0.15).astype(np.float32)
+    b = dict(tokens=np.where(weights > 0, 0, tokens).astype(np.int32),
+             targets=tokens, weights=weights)
+    return [b] * STEPS
+
+
+def _run_jax_zero(tree, batches, n_dev):
+    """The BERT example's ``run_zero`` step at these widths."""
+    cfg = JaxConfig(**DIMS, **ZERO_KW)
+    mesh = Mesh(np.array(jax.devices()[:n_dev]), ("data",))
+    opt = JaxZeroLAMB(**ZERO_OPT)
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    rep = jax.tree_util.tree_map(lambda _: P(), params)
+    sspec = opt.state_pspecs()
+    state = jax.jit(shard_map(opt.init, mesh=mesh, in_specs=(rep,),
+                              out_specs=sspec))(params)
+
+    @jax.jit
+    def train_step(params, state, batch):
+        @functools.partial(
+            shard_map, mesh=mesh,
+            in_specs=(rep, sspec, {k: P("data") for k in batch}),
+            out_specs=(rep, sspec, P()), check_vma=False)
+        def inner(p, s, local):
+            loss, g = jax.value_and_grad(
+                lambda p_: jax_loss(p_, local, cfg))(p)
+            new_p, new_s = opt.step(s, g, p)
+            return new_p, new_s, jax.lax.pmean(loss, "data")
+        return inner(params, state, batch)
+
+    losses = []
+    for b in batches:
+        params, state, loss = train_step(
+            params, state, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(float(loss))
+    return losses, np.asarray(state.p)
+
+
+def _check_zero(port, j_losses, j_master):
+    per = j_master.shape[0] // len(port)
+    for rank, (losses, shard) in enumerate(port):
+        np.testing.assert_allclose(losses, j_losses, rtol=1e-5)
+        np.testing.assert_allclose(shard, j_master[rank * per:(rank + 1)
+                                                   * per], atol=1e-5, rtol=0)
+    assert port[0][0][-1] < port[0][0][0]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
+def test_zero_step_world1_matches_jax(tree, tmp_path, monkeypatch, split):
+    batches = _zero_batches()
+    if split:
+        monkeypatch.setenv("APEX_TPU_FLASH_BWD_FUSE", "0")
+    j_losses, j_master = _run_jax_zero(tree, batches, 1)
+    port = _torch_dist.run_in_process(
+        _torch_dist.zero_train, tmp_path, tree, dict(DIMS, **ZERO_KW),
+        batches, ZERO_OPT, split)
+    _check_zero([port], j_losses, j_master)
+
+
+def test_zero_step_world2_matches_jax(tree, tmp_path):
+    batches = _zero_batches()
+    j_losses, j_master = _run_jax_zero(tree, batches, 2)
+    port = _torch_dist.run_ranks(
+        _torch_dist.zero_train, 2, tmp_path, tree, dict(DIMS, **ZERO_KW),
+        batches, ZERO_OPT, False)
+    _check_zero(port, j_losses, j_master)
