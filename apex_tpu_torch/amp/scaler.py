@@ -16,7 +16,7 @@ from ..utils.device import resolve_device
 from ..utils.pytree import tree_leaves, tree_map
 
 __all__ = ["ScalerState", "init", "scale_loss", "all_finite", "unscale",
-           "update", "apply_if_finite"]
+           "update", "apply_if_finite", "state_dict", "load_state_dict"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +88,30 @@ def apply_if_finite(finite, new_tree, old_tree):
     """Skip-step: the updated tree where grads were finite, else the old."""
     return tree_map(lambda n, o: torch.where(finite, n, o.to(n.dtype)),
                     new_tree, old_tree)
+
+
+def state_dict(state: ScalerState) -> dict:
+    """The scaler as plain Python values (reads the scale and the count
+    from the device), the JAX package's layout."""
+    return {
+        "loss_scale": float(state.loss_scale),
+        "unskipped": int(state.unskipped),
+        "dynamic": state.dynamic,
+        "scale_window": state.scale_window,
+        "min_loss_scale": state.min_loss_scale,
+        "max_loss_scale": state.max_loss_scale,
+    }
+
+
+def load_state_dict(d: dict, *, device=None) -> ScalerState:
+    """A :func:`state_dict` back into a state on ``device`` (default
+    ``"cuda"``)."""
+    dev = resolve_device(device)
+    return ScalerState(
+        loss_scale=torch.tensor(float(d["loss_scale"]), dtype=torch.float32,
+                                device=dev),
+        unskipped=torch.tensor(int(d["unskipped"]), dtype=torch.int32,
+                               device=dev),
+        dynamic=bool(d["dynamic"]), scale_window=int(d["scale_window"]),
+        min_loss_scale=float(d["min_loss_scale"]),
+        max_loss_scale=float(d["max_loss_scale"]))

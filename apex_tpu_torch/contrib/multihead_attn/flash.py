@@ -218,7 +218,8 @@ def _launch_args(q, k, bias, causal, dropout_rate, seed, heads):
     bh, sq, d = q.shape
     return (bh, sq, k.shape[1], d, heads, bias.shape[0], bias.shape[1],
             int(bool(causal)), threshold, float(1.0 - dropout_rate), seed32,
-            build.dtype_code(q.dtype), build.stream_of(q))
+            build.dtype_code(q.dtype, build.F32_BF16, "the flash kernels"),
+            build.stream_of(q))
 
 
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

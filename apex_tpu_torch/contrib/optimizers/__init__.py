@@ -1,7 +1,8 @@
 """Contrib optimizers (counterpart of ``apex_tpu/contrib/optimizers``):
 the ZeRO sharded :class:`DistributedFusedAdam` and
-:class:`DistributedFusedLAMB`.  The fp16 optimizer is queued in
-ROADMAP.md."""
+:class:`DistributedFusedLAMB`, and :class:`FP16_Optimizer`, the flat
+fp16 master-weight wrapper of the fused optimizers."""
 from .distributed_fused import (DistributedFusedAdam,  # noqa: F401
                                 DistributedFusedLAMB, ShardedAdamState,
                                 ShardedLAMBState, state_from_jax)
+from .fp16_optimizer import FP16_Optimizer  # noqa: F401

@@ -55,6 +55,21 @@ def _xent_fwd(logits: torch.Tensor, labels: torch.Tensor, smoothing: float
     plain version."""
     if not logits.is_cuda:
         return _xent_fwd_reference(logits, labels, smoothing)
+    labels, code = _check_cuda_inputs(logits, labels)
+    n, v = logits.shape
+    loss = torch.empty(n, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(n, dtype=torch.float32, device=logits.device)
+    err = build.library().apex_xent_fwd(
+        logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+        n, v, float(smoothing), code, build.stream_of(logits))
+    build.check(err, "xent_fwd")
+    build.LAUNCHES["xent_fwd"] += 1
+    return loss, lse
+
+
+def _check_cuda_inputs(logits: torch.Tensor, labels: torch.Tensor):
+    """What the kernel takes, checked before a launch: (labels as
+    contiguous int64, the logits' dtype code)."""
     if logits.dim() != 2 or labels.shape != logits.shape[:1]:
         raise ValueError(f"xent kernel takes logits (N, V) and labels (N,), "
                          f"got {tuple(logits.shape)} and "
@@ -72,16 +87,9 @@ def _xent_fwd(logits: torch.Tensor, labels: torch.Tensor, smoothing: float
         labels = labels.long()
     if labels.dtype != torch.int64:
         raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
-    labels = labels.contiguous()
-    loss = torch.empty(n, dtype=torch.float32, device=logits.device)
-    lse = torch.empty(n, dtype=torch.float32, device=logits.device)
-    err = build.library().apex_xent_fwd(
-        logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-        n, v, float(smoothing), build.dtype_code(logits.dtype),
-        build.stream_of(logits))
-    build.check(err, "xent_fwd")
-    build.LAUNCHES["xent_fwd"] += 1
-    return loss, lse
+    code = build.dtype_code(logits.dtype, build.F32_BF16,
+                            "the cross-entropy kernel")
+    return labels.contiguous(), code
 
 
 def _fwd(logits, labels, smoothing, impl):

@@ -39,19 +39,51 @@
 // flat size (334,233,600) that is at least ~2.79 ms at 3.35 TB/s.  One
 // grid-stride pass in 16-byte vectors, a scalar tail for a length that is
 // not a whole number of vectors.
+//
+// 4. Scale and axpby with the overflow flag.  They replace
+// `multi_tensor_scale` and `multi_tensor_axpby` of the same file (through
+// its `_grid_call`): out = x s, or out = x a + y b, in fp32, cast to the
+// output dtype (fp32, bf16 or fp16 in and out), and a flag that is 1 when
+// any element of the OUTPUT, after the cast, is not finite (the TPU
+// code's `_overflow_flag`: fp32 70000 into fp16 is inf, so it counts).
+// The TPU code checks the flag in a second XLA pass over the output; here
+// it is fused into the same pass: the wrapper zeroes the flag on the
+// stream, and a thread that has seen a non-finite output stores 1 once at
+// its end, which is idempotent and needs no atomics.  The scalars come
+// from a device pointer when one is given (the optimizer's 1 / loss_scale
+// stays on the card), else by value.  Products and the sum are explicitly
+// rounded (__fmul_rn, __fadd_rn: no FMA contraction) in the TPU order, so
+// the output is bit-identical to the plain PyTorch version.  What bounds
+// them: bytes, 8 B an element for the fp32 scale and 12 B for the fp32
+// axpby; 134,217,728 fp32 elements take at least 0.32 / 0.48 ms at
+// 3.35 TB/s.  One grid-stride pass over 4-element vectors (16 B of fp32,
+// 8 B of a 16-bit type), a scalar tail.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeF16 = 2;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// round-to-nearest-even into T
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
 
 template <typename V>
 __device__ __forceinline__ V block_sum(V v) {
@@ -247,6 +279,121 @@ cudaError_t launch_update(const void* g, const void* p, const void* m,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// scale and axpby
+// ---------------------------------------------------------------------------
+
+// Four consecutive elements of T as one load / store: 16 B of fp32, 8 B of
+// a 16-bit type.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
+template <> struct Vec4<__half> { using type = uint2; };
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ p, int64_t i,
+                                      float (&f)[4]) {
+  const typename Vec4<T>::type raw =
+      __ldg(reinterpret_cast<const typename Vec4<T>::type*>(p) + i);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = to_f32(e[j]);
+}
+
+// Stores the four values rounded into T; true when one of the stored
+// values is not finite.
+template <typename T>
+__device__ __forceinline__ bool store4(T* __restrict__ p, int64_t i,
+                                       const float (&f)[4]) {
+  typename Vec4<T>::type raw;
+  T* e = reinterpret_cast<T*>(&raw);
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    e[j] = from_f32<T>(f[j]);
+    bad |= !isfinite(to_f32(e[j]));
+  }
+  reinterpret_cast<typename Vec4<T>::type*>(p)[i] = raw;
+  return bad;
+}
+
+template <bool kAxpby>
+__device__ __forceinline__ float scale_axpby(float x, float y, float a,
+                                             float b) {
+  return kAxpby ? __fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b))
+                : __fmul_rn(x, a);
+}
+
+// out = x a (+ y b); *flag = 1 when an output is not finite.  a (b) is
+// read from a_ptr (b_ptr) when that is not null.
+template <typename Tin, typename Tout, bool kAxpby>
+__global__ void __launch_bounds__(kThreads)
+scale_axpby_kernel(const Tin* __restrict__ x, const Tin* __restrict__ y,
+                   const float* __restrict__ a_ptr, float a,
+                   const float* __restrict__ b_ptr, float b,
+                   Tout* __restrict__ out, int* __restrict__ flag,
+                   int64_t n) {
+  if (a_ptr != nullptr) a = *a_ptr;
+  if (kAxpby && b_ptr != nullptr) b = *b_ptr;
+  const int64_t nvec = n / 4;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  bool bad = false;
+  for (int64_t i = first; i < nvec; i += stride) {
+    float xs[4], ys[4] = {0.f, 0.f, 0.f, 0.f}, o[4];
+    load4(x, i, xs);
+    if (kAxpby) load4(y, i, ys);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = scale_axpby<kAxpby>(xs[j], ys[j], a, b);
+    bad |= store4(out, i, o);
+  }
+  for (int64_t i = nvec * 4 + first; i < n; i += stride) {  // the tail
+    const float yv = kAxpby ? to_f32(y[i]) : 0.f;
+    const Tout o = from_f32<Tout>(scale_axpby<kAxpby>(to_f32(x[i]), yv, a, b));
+    out[i] = o;
+    bad |= !isfinite(to_f32(o));
+  }
+  if (bad) *flag = 1;
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch_scale_axpby(const void* x, const void* y,
+                               const float* a_ptr, float a,
+                               const float* b_ptr, float b, void* out,
+                               int* flag, int64_t n, int n_blocks,
+                               cudaStream_t stream) {
+  if (y != nullptr) {
+    scale_axpby_kernel<Tin, Tout, true><<<n_blocks, kThreads, 0, stream>>>(
+        static_cast<const Tin*>(x), static_cast<const Tin*>(y), a_ptr, a,
+        b_ptr, b, static_cast<Tout*>(out), flag, n);
+  } else {
+    scale_axpby_kernel<Tin, Tout, false><<<n_blocks, kThreads, 0, stream>>>(
+        static_cast<const Tin*>(x), nullptr, a_ptr, a, nullptr, 0.f,
+        static_cast<Tout*>(out), flag, n);
+  }
+  return cudaGetLastError();
+}
+
+template <typename Tin>
+cudaError_t dispatch_out(int out_dtype, const void* x, const void* y,
+                         const float* a_ptr, float a, const float* b_ptr,
+                         float b, void* out, int* flag, int64_t n,
+                         int n_blocks, cudaStream_t s) {
+  switch (out_dtype) {
+    case kDtypeF32:
+      return launch_scale_axpby<Tin, float>(x, y, a_ptr, a, b_ptr, b, out,
+                                            flag, n, n_blocks, s);
+    case kDtypeBF16:
+      return launch_scale_axpby<Tin, __nv_bfloat16>(x, y, a_ptr, a, b_ptr, b,
+                                                    out, flag, n, n_blocks, s);
+    case kDtypeF16:
+      return launch_scale_axpby<Tin, __half>(x, y, a_ptr, a, b_ptr, b, out,
+                                             flag, n, n_blocks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x: (n,) contiguous, 16-byte aligned, of `dtype`.  partials: (n_blocks,)
@@ -304,4 +451,37 @@ extern "C" int apex_lamb_stage1(const void* g, const void* p, const void* m,
   return (int)launch_update<true, kCopyNone>(
       g, p, m, v, scalars, u, m_out, v_out, nullptr, n, n_blocks, adam_w,
       static_cast<cudaStream_t>(stream));
+}
+
+// out = x a (y null: multi_tensor_scale) or x a + y b (axpby).  x, y: (n,)
+// of in_dtype, out: (n,) of out_dtype (0 fp32, 1 bf16, 2 fp16), all
+// contiguous and 16-byte aligned.  a_ptr / b_ptr: one fp32 on the card, or
+// null to take a / b by value.  flag: one int32, zeroed by the caller on
+// the stream; set to 1 when an output is not finite.  The kernel runs
+// n_blocks blocks of 256 threads.  Returns cudaSuccess (0) or the launch
+// error.
+extern "C" int apex_mt_scale_axpby(const void* x, const void* y,
+                                   const void* a_ptr, float a,
+                                   const void* b_ptr, float b, void* out,
+                                   void* flag, long long n, int n_blocks,
+                                   int in_dtype, int out_dtype,
+                                   void* stream) {
+  if (n <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ap = static_cast<const float*>(a_ptr);
+  const float* bp = static_cast<const float*>(b_ptr);
+  int* f = static_cast<int*>(flag);
+  switch (in_dtype) {
+    case kDtypeF32:
+      return (int)dispatch_out<float>(out_dtype, x, y, ap, a, bp, b, out, f,
+                                      n, n_blocks, s);
+    case kDtypeBF16:
+      return (int)dispatch_out<__nv_bfloat16>(out_dtype, x, y, ap, a, bp, b,
+                                              out, f, n, n_blocks, s);
+    case kDtypeF16:
+      return (int)dispatch_out<__half>(out_dtype, x, y, ap, a, bp, b, out, f,
+                                       n, n_blocks, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -26,14 +26,13 @@ import functools
 import math
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..contrib.multihead_attn.flash import _dropout_keep
 from ..normalization.fused_layer_norm import fused_layer_norm_affine
-from ..utils.device import resolve_device
+from ..utils.device import from_numpy, resolve_device
 
 __all__ = ["TransformerConfig", "bert_large_config", "transformer_init",
            "transformer_apply", "transformer_loss", "params_from_jax"]
@@ -111,10 +110,7 @@ def params_from_jax(tree, device=None) -> Params:
     """The JAX package's parameter pytree (as numpy arrays, or anything
     ``np.asarray`` takes) -> the port's parameters, same structure, same
     layout, same values."""
-    dev = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, dev) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+    return from_numpy(tree, device)
 
 
 def layer(params: Params, i: int) -> Dict[str, torch.Tensor]:

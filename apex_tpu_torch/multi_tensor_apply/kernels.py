@@ -12,15 +12,23 @@ PyTorch version beside it:
   (:mod:`apex_tpu_torch.contrib.optimizers`).  Their hyperparameters are
   a (1, 8) / (1, 9) fp32 tensor in the JAX package's layout, read by the
   kernel on the card, so a clip or bias correction computed there never
-  passes through the host.
+  passes through the host;
+- :func:`multi_tensor_scale` (out = x * scale) and
+  :func:`multi_tensor_axpby` (out = a * x + b * y), fp32 / bf16 / fp16 in
+  and out, each with the overflow flag of the JAX package: a 0-d int32,
+  1 when any element of the output (after the cast to ``out_dtype``) is
+  not finite.  The contrib ``FP16_Optimizer`` unscales its flat gradients
+  through the first; the ``multi_tensor_applier`` facade reaches both.
+  A scalar (scale, a, b) is a Python number or a one-element tensor on
+  the buffers' device, read by the kernel: ``1 / loss_scale`` stays on
+  the card.
 
 Each launches its kernel for CUDA tensors and takes its ``*_reference``
-only for CPU tensors.  ``multi_tensor_scale`` and ``multi_tensor_axpby``
-are not ported yet (ROADMAP.md).
+only for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -29,6 +37,8 @@ from ..utils import build
 __all__ = ["multi_tensor_l2norm", "multi_tensor_l2norm_reference",
            "fused_adam_flat", "fused_adam_flat_reference",
            "fused_lamb_stage1_flat", "fused_lamb_stage1_flat_reference",
+           "multi_tensor_scale", "multi_tensor_scale_reference",
+           "multi_tensor_axpby", "multi_tensor_axpby_reference",
            "L2NORM_MAX_BLOCKS"]
 
 #: first-pass grid of the l2norm kernel: at most this many blocks of 256
@@ -48,21 +58,27 @@ def multi_tensor_l2norm_reference(flat: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((x * x).sum())
 
 
+def _check_l2norm_input(flat: torch.Tensor) -> int:
+    """What the kernel takes, checked before a launch; its dtype code."""
+    if flat.dim() != 1:
+        raise ValueError(f"l2norm takes a 1-D flat buffer, got shape "
+                         f"{tuple(flat.shape)}")
+    code = build.dtype_code(flat.dtype, build.F32_BF16, "the l2norm kernel")
+    if not flat.is_contiguous() or flat.data_ptr() % _VEC_BYTES:
+        raise ValueError("l2norm kernel needs a contiguous, 16-byte aligned "
+                         "buffer")
+    return code
+
+
 def multi_tensor_l2norm(flat: torch.Tensor) -> torch.Tensor:
     """sqrt(sum x^2) over a 1-D buffer (fp32 or bf16), accumulated in fp32;
     a 0-d fp32 tensor on the buffer's device."""
     if not flat.is_cuda:
         return multi_tensor_l2norm_reference(flat)
-    if flat.dim() != 1:
-        raise ValueError(f"l2norm takes a 1-D flat buffer, got shape "
-                         f"{tuple(flat.shape)}")
+    code = _check_l2norm_input(flat)
     n = flat.numel()
     if n == 0:
         return torch.zeros((), dtype=torch.float32, device=flat.device)
-    if not flat.is_contiguous() or flat.data_ptr() % _VEC_BYTES:
-        raise ValueError("l2norm kernel needs a contiguous, 16-byte aligned "
-                         "buffer")
-    code = build.dtype_code(flat.dtype)
     per_block = _THREADS * (_VEC_BYTES // flat.element_size())
     n_blocks = max(1, min(L2NORM_MAX_BLOCKS, -(-n // per_block)))
     partials = torch.empty(n_blocks, dtype=torch.float32, device=flat.device)
@@ -143,6 +159,14 @@ def _check_update_inputs(name, bufs, scalars, n_scalars):
     return n
 
 
+def _copy_code(model_dtype: Optional[torch.dtype]) -> int:
+    """The code of Adam's model copy: none, fp32 or bf16."""
+    if model_dtype is None:
+        return _COPY_NONE
+    return build.dtype_code(model_dtype, build.F32_BF16,
+                            "the Adam kernel's model copy")
+
+
 def _update_blocks(n: int) -> int:
     return max(1, min(UPDATE_MAX_BLOCKS, -(-n // (4 * _THREADS))))
 
@@ -163,9 +187,8 @@ def fused_adam_flat(flat_g, flat_p, flat_m, flat_v, scalars, *,
                              (flat_g, flat_p, flat_m, flat_v), scalars, 8)
     p_out, m_out, v_out = (torch.empty_like(flat_p) for _ in range(3))
     copy: Optional[torch.Tensor] = None
-    code = _COPY_NONE
+    code = _copy_code(model_dtype)
     if model_dtype is not None:
-        code = build.dtype_code(model_dtype)
         copy = torch.empty(n, dtype=model_dtype, device=flat_p.device)
     if n == 0:
         return [p_out, m_out, v_out] + ([copy] if copy is not None else [])
@@ -203,3 +226,112 @@ def fused_lamb_stage1_flat(flat_g, flat_p, flat_m, flat_v, scalars, *,
     build.check(err, "lamb_stage1")
     build.LAUNCHES["lamb_stage1"] += 1
     return [u, m_out, v_out]
+
+
+# ---------------------------------------------------------------------------
+# multi_tensor_scale and multi_tensor_axpby, with the overflow flag
+# ---------------------------------------------------------------------------
+
+Scalar = Union[float, torch.Tensor]
+
+
+def _f32_scalar(s: Scalar, device) -> torch.Tensor:
+    """A scale as a 0-d fp32 tensor, as the JAX kernels take it."""
+    if isinstance(s, torch.Tensor):
+        return s.reshape(()).to(device, torch.float32)
+    # a fill on the device, not a host copy (capturable in a CUDA graph)
+    return torch.full((), float(s), dtype=torch.float32, device=device)
+
+
+def _overflow_flag(out: torch.Tensor) -> torch.Tensor:
+    """0-d int32: 1 when any element of ``out`` is not finite (the JAX
+    package's ``_overflow_flag``)."""
+    return (~torch.isfinite(out).all()).to(torch.int32)
+
+
+def multi_tensor_scale_reference(flat_in, scale, out_dtype=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`multi_tensor_scale`."""
+    out = (flat_in.float() * _f32_scalar(scale, flat_in.device)).to(
+        out_dtype or flat_in.dtype)
+    return out, _overflow_flag(out)
+
+
+def multi_tensor_axpby_reference(flat_x, flat_y, a, b, out_dtype=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`multi_tensor_axpby`: x * a + y * b
+    in fp32, in the JAX kernel's order, then the cast."""
+    dev = flat_x.device
+    out = (flat_x.float() * _f32_scalar(a, dev)
+           + flat_y.float() * _f32_scalar(b, dev)).to(
+               out_dtype or flat_x.dtype)
+    return out, _overflow_flag(out)
+
+
+def _scalar_arg(s: Scalar, device) -> Tuple[Optional[int], float,
+                                            Optional[torch.Tensor]]:
+    """(device pointer or None, value, the tensor to keep alive) of a
+    scale: a one-element tensor is read by the kernel, a number is passed
+    by value."""
+    if isinstance(s, torch.Tensor):
+        if s.numel() != 1 or s.device != device:
+            raise ValueError(f"a tensor scale must have one element on "
+                             f"{device}, got {tuple(s.shape)} on {s.device}")
+        t = s.reshape(()).to(torch.float32).contiguous()
+        return t.data_ptr(), 0.0, t
+    return None, float(s), None
+
+
+def _scale_axpby(name, key, xs, scalars, out_dtype):
+    """Check, allocate the output and the zeroed flag, launch, count."""
+    x = xs[0]
+    out_dtype = out_dtype or x.dtype
+    n = x.numel()
+    in_code = build.dtype_code(x.dtype, build.FLOATS, f"{name}'s input")
+    out_code = build.dtype_code(out_dtype, build.FLOATS, f"{name}'s output")
+    for t in xs:
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} takes buffers of one dtype, got "
+                            f"{[b.dtype for b in xs]}")
+        if t.dim() != 1 or t.numel() != n or t.device != x.device:
+            raise ValueError(f"{name} takes 1-D buffers of one length on one "
+                             f"device, got {[tuple(b.shape) for b in xs]}")
+        if not t.is_contiguous() or t.data_ptr() % _VEC_BYTES:
+            raise ValueError(f"{name} kernel needs contiguous, 16-byte "
+                             f"aligned buffers")
+    (a_ptr, a, a_keep), (b_ptr, b, b_keep) = [
+        _scalar_arg(s, x.device) for s in scalars] + [(None, 0.0, None)] * (
+            2 - len(scalars))
+    out = torch.empty(n, dtype=out_dtype, device=x.device)
+    flag = torch.zeros((), dtype=torch.int32, device=x.device)
+    if n == 0:
+        return out, flag
+    err = build.library().apex_mt_scale_axpby(
+        x.data_ptr(), xs[1].data_ptr() if len(xs) > 1 else None, a_ptr, a,
+        b_ptr, b, out.data_ptr(), flag.data_ptr(), n, _update_blocks(n),
+        in_code, out_code, build.stream_of(x))
+    build.check(err, name)
+    build.LAUNCHES[key] += 1
+    return out, flag
+
+
+def multi_tensor_scale(flat_in: torch.Tensor, scale: Scalar, out_dtype=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """out = flat_in * scale in fp32, cast to ``out_dtype`` (default the
+    input's); returns (out, flag), ``flag`` a 0-d int32 on the device: 1
+    when any element of ``out`` is not finite.  No host read."""
+    if not flat_in.is_cuda:
+        return multi_tensor_scale_reference(flat_in, scale, out_dtype)
+    return _scale_axpby("multi_tensor_scale", "mt_scale", (flat_in,),
+                        (scale,), out_dtype)
+
+
+def multi_tensor_axpby(flat_x: torch.Tensor, flat_y: torch.Tensor,
+                       a: Scalar, b: Scalar, out_dtype=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """out = a * x + b * y in fp32, cast to ``out_dtype`` (default x's);
+    returns (out, flag) as :func:`multi_tensor_scale`."""
+    if not flat_x.is_cuda:
+        return multi_tensor_axpby_reference(flat_x, flat_y, a, b, out_dtype)
+    return _scale_axpby("multi_tensor_axpby", "mt_axpby", (flat_x, flat_y),
+                        (a, b), out_dtype)

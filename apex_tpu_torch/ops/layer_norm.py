@@ -67,7 +67,7 @@ def _check_param(t, name, x2d):
     if t.shape != (h,) or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous ({h},), got "
                          f"{tuple(t.shape)}")
-    build.dtype_code(t.dtype)
+    build.dtype_code(t.dtype, build.F32_BF16, f"the layer-norm {name}")
 
 
 def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
@@ -84,8 +84,10 @@ def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
     out = torch.empty_like(x2d)
     mean = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
     invvar = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
-    code = build.dtype_code(x2d.dtype)
-    w_code = build.dtype_code(weight.dtype) if weight is not None else code
+    code = build.dtype_code(x2d.dtype, build.F32_BF16, "the layer-norm x")
+    w_code = (build.dtype_code(weight.dtype, build.F32_BF16,
+                               "the layer-norm weight")
+              if weight is not None else code)
     err = build.library().apex_ln_fwd(
         x2d.data_ptr(),
         weight.data_ptr() if weight is not None else None,
@@ -135,8 +137,10 @@ def ln_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
     if weight is not None:
         _check_param(weight, "weight", x2d)
     dx = torch.empty_like(x2d)
-    code = build.dtype_code(x2d.dtype)
-    w_code = build.dtype_code(weight.dtype) if weight is not None else code
+    code = build.dtype_code(x2d.dtype, build.F32_BF16, "the layer-norm x")
+    w_code = (build.dtype_code(weight.dtype, build.F32_BF16,
+                               "the layer-norm weight")
+              if weight is not None else code)
     err = build.library().apex_ln_bwd(
         g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
         weight.data_ptr() if weight is not None else None, dx.data_ptr(),

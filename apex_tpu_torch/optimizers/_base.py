@@ -19,10 +19,10 @@ from typing import Optional
 import torch
 
 from ..multi_tensor_apply.flattener import TreeFlattener
-from ..utils.pytree import tree_flatten, tree_leaves
+from ..utils.pytree import tree_flatten, tree_leaves, tree_unflatten
 
 __all__ = ["FusedOptimizer", "global_l2norm", "resolve",
-           "resolve_state_dtype"]
+           "resolve_state_dtype", "tree_zeros_f32"]
 
 
 def global_l2norm(tree) -> torch.Tensor:
@@ -31,6 +31,14 @@ def global_l2norm(tree) -> torch.Tensor:
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(sum(l.float().square().sum() for l in leaves))
+
+
+def tree_zeros_f32(params):
+    """fp32 zeros shaped like each leaf, on its device."""
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [torch.zeros(l.shape, dtype=torch.float32,
+                                                device=l.device)
+                                    for l in leaves])
 
 
 def resolve(value, count):
@@ -96,6 +104,27 @@ class FusedOptimizer:
         raise NotImplementedError(
             f"{type(self).__name__} has no fused impl" if self.impl != "fused"
             else f"{type(self).__name__}.step_flat not implemented")
+
+    def _prep(self, state, lr):
+        """(count, lr, rc1, rc2) of the next step: the new step count, the
+        learning rate (a schedule resolved at that count) and the bias
+        corrections 1 / (1 - beta^t), 1 without ``bias_correction``."""
+        count = state.count + 1
+        lr = resolve(lr if lr is not None else self.lr, count)
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
+        if self.bias_correction:
+            t = count.float()
+            rc1 = 1.0 / (1.0 - torch.pow(self.beta1, t))
+            rc2 = 1.0 / (1.0 - torch.pow(self.beta2, t))
+        else:
+            rc1 = rc2 = torch.ones((), dtype=torch.float32,
+                                   device=count.device)
+        return count, lr, rc1, rc2
+
+    def model_params(self, state, dtype=None):
+        """The fused state's flat master unpacked into a parameter tree,
+        in ``dtype`` (default each leaf's dtype at ``init``)."""
+        return self.flattener.unflatten(state.master, dtype=dtype)
 
     def step_flat_shard(self, state, g_shard, *, shard, scale=1.0, lr=None):
         """Sharded flat update of weight-update sharding (zero1): not

@@ -16,7 +16,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ._base import FusedOptimizer, global_l2norm, resolve
+from ._base import FusedOptimizer, global_l2norm, tree_zeros_f32
 from ..multi_tensor_apply.flattener import LANE
 from ..multi_tensor_apply.kernels import multi_tensor_l2norm
 from ..utils.pytree import tree_flatten, tree_leaves, tree_unflatten
@@ -29,13 +29,6 @@ class FusedLAMBState(NamedTuple):
     m: Any
     v: Any
     master: Any = None    # fused impl: flat fp32 master params
-
-
-def _zeros_f32(params):
-    leaves, treedef = tree_flatten(params)
-    return tree_unflatten(treedef, [torch.zeros(l.shape, dtype=torch.float32,
-                                                device=l.device)
-                                    for l in leaves])
 
 
 class FusedLAMB(FusedOptimizer):
@@ -67,26 +60,14 @@ class FusedLAMB(FusedOptimizer):
                 torch.zeros(fl.total, dtype=self.state_dtype, device=device),
                 torch.zeros(fl.total, dtype=self.state_dtype, device=device),
                 fl.flatten(params))
-        return FusedLAMBState(count, _zeros_f32(params), _zeros_f32(params))
+        return FusedLAMBState(count, tree_zeros_f32(params),
+                              tree_zeros_f32(params))
 
     def _clip_coeff(self, gnorm: torch.Tensor) -> torch.Tensor:
         """1 / max(1, gnorm / max_grad_norm)."""
         if self.max_grad_norm is None or self.max_grad_norm <= 0:
             return torch.ones((), dtype=torch.float32, device=gnorm.device)
         return 1.0 / torch.clamp(gnorm / self.max_grad_norm, min=1.0)
-
-    def _prep(self, state, lr):
-        count = state.count + 1
-        lr = resolve(lr if lr is not None else self.lr, count)
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
-        if self.bias_correction:
-            t = count.float()
-            rc1 = 1.0 / (1.0 - torch.pow(self.beta1, t))
-            rc2 = 1.0 / (1.0 - torch.pow(self.beta2, t))
-        else:
-            rc1 = rc2 = torch.ones((), dtype=torch.float32,
-                                   device=count.device)
-        return count, lr, rc1, rc2
 
     def step(self, state, grads, params, *, scale=1.0, lr=None):
         if self.impl == "fused":

@@ -23,6 +23,18 @@ per rank::
     for batch in batches:                   # this rank's part of the batch
         params, opt_state, loss = zero_train_step(params, opt_state, batch,
                                                   cfg, opt)
+
+:func:`mlp_train_step` trains the fused MLP in fp16 under the contrib
+``FP16_Optimizer`` (the fp16 master-weight flow of apex's pre-amp API, the
+pieces the JAX package's tests compose: ``MLP.apply`` -> MSE loss ->
+``scale_loss`` -> gradients of the fp16 leaves -> ``FP16_Optimizer.step``)::
+
+    mlp = MLP([1024, 4096, 4096, 1024], activation="relu", use_pallas=True)
+    params = tree_map(lambda p: p.half(), mlp.init(gen))   # fp16 model
+    opt = FP16_Optimizer(FusedAdam(lr=1e-3, impl="fused"), params,
+                         dynamic_loss_scale=True)
+    for batch in batches:                   # {"x": fp16 (B, in), "y": (B, out)}
+        params, loss = mlp_train_step(opt, params, batch, mlp)
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ from .models.transformer import TransformerConfig, transformer_loss
 from .parallel.mesh import group_size
 from .utils.pytree import tree_flatten, tree_unflatten
 
-__all__ = ["train_step", "zero_train_step"]
+__all__ = ["train_step", "zero_train_step", "mlp_train_step"]
 
 
 def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
@@ -75,3 +87,18 @@ def zero_train_step(params, opt_state, batch: Dict[str, torch.Tensor],
     loss = loss.detach().to(torch.float32)
     dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=opt.shard_group)
     return new_params, new_state, loss / group_size(opt.shard_group)
+
+
+def mlp_train_step(fp16_opt, params, batch: Dict[str, torch.Tensor], mlp):
+    """One fp16 MLP step: loss = mean((mlp(x).float() - y)^2), its scaled
+    gradients over the model's leaves, then ``fp16_opt.step``, which skips
+    the update (and halves a dynamic scale) when a gradient overflowed.
+    Returns ``(new_params, loss)``, the loss the unscaled 0-d fp32
+    tensor."""
+    leaves, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    out = mlp(tree_unflatten(treedef, leaves), batch["x"])
+    loss = ((out.float() - batch["y"].float()) ** 2).mean()
+    grads = torch.autograd.grad(fp16_opt.scale_loss(loss), leaves)
+    new_params = fp16_opt.step(tree_unflatten(treedef, list(grads)))
+    return new_params, loss.detach()

@@ -12,8 +12,11 @@ Each wrapper passes ``data_ptr()``s, sizes and the current stream; each C
 entry point returns ``cudaGetLastError()``, which :func:`check` turns into
 an exception.  ``LAUNCHES`` counts kernel launches by name (``flash_fwd``,
 ``flash_bwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``ln_fwd``,
-``ln_bwd``, ``xent_fwd``, ``l2norm``, ``adam``, ``lamb_stage1``): a
-wrapper adds one where it launches its kernel and nowhere else.  Headers
+``ln_bwd``, ``xent_fwd``, ``l2norm``, ``adam``, ``lamb_stage1``,
+``mt_scale``, ``mt_axpby``, ``dense_act``): a wrapper adds one where it
+launches its kernel and nowhere else.  :func:`dtype_code` takes the dtypes
+the calling kernel accepts, so a kernel that has no float16 branch rejects
+float16 with a ``TypeError`` before any launch.  Headers
 (``csrc/*.cuh``) are not compiled on their own but count in the hash.
 """
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import List, Optional
 import torch
 
 __all__ = ["LAUNCHES", "BuildResult", "build", "library", "check",
-           "dtype_code", "stream_of", "NVCC_FLAGS"]
+           "dtype_code", "stream_of", "NVCC_FLAGS", "F32_BF16", "FLOATS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -45,7 +48,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel launches by kernel name, counted by the wrappers
 LAUNCHES: collections.Counter = collections.Counter()
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: what a kernel may accept: the kernels of the first three slices take
+#: fp32 and bf16; the multi-tensor scale / axpby and the fused dense
+#: kernels take fp16 too
+F32_BF16 = (torch.float32, torch.bfloat16)
+FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LL = ctypes.c_longlong
@@ -82,6 +90,12 @@ _SIGNATURES = {
     # g, p, m, v, scalars, u, m_out, v_out, n, n_blocks, adam_w, stream
     "apex_lamb_stage1": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I,
                          _I, _VP],
+    # x, y, a_ptr, a, b_ptr, b, out, flag, n, n_blocks, in_dtype, out_dtype,
+    # stream (y and the b pair null / unused for the scale)
+    "apex_mt_scale_axpby": [_VP, _VP, _VP, _F, _VP, _F, _VP, _VP, _LL, _I,
+                            _I, _I, _VP],
+    # x, w, b, out, m, n, k, activation, dtype, stream
+    "apex_dense_act": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 
@@ -187,10 +201,13 @@ def check(err: int, name: str) -> None:
                            f"{err} ({msg})")
 
 
-def dtype_code(dtype: torch.dtype) -> int:
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"unsupported dtype {dtype}: the kernels take "
-                        "float32 and bfloat16")
+def dtype_code(dtype: torch.dtype, allowed, what: str = "the kernel") -> int:
+    """The C code of ``dtype``; ``TypeError`` unless it is one of
+    ``allowed`` (:data:`F32_BF16` or :data:`FLOATS`), the dtypes the
+    kernel has a branch for."""
+    if dtype not in allowed:
+        names = "/".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"{what} takes {names}, got {dtype}")
     return _DTYPE_CODES[dtype]
 
 

@@ -68,7 +68,30 @@ Phases, in order; any failure exits nonzero and prints no result line:
    --heads 16 --vocab 30592 --seq-len 4096 --batch-size 4 --attn fast
    --remat``): amp O5 + FusedLAMB as phase 7 at batch 4 x 4096, one warm-up
    and 2 timed steps; every flash backward takes the split route;
-11. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+3d. (run after 3c) the fp16 slice's kernels: the fused dense + activation
+   kernel at the MLP's three layer shapes (8192 x 1024 @ 1024 x 4096, 8192
+   x 4096 @ 4096 x 4096, 8192 x 4096 @ 4096 x 1024) in fp16 and bf16 with
+   relu, the middle shape also with sigmoid, none and no bias, on ragged
+   shapes and in fp32; ``multi_tensor_scale`` over the MLP's flat buffer
+   and 134,217,728 elements, fp32 and fp16 in, fp32 out, and
+   ``multi_tensor_axpby`` at both sizes in fp32, each also with an inf
+   injected (the flag must be set);
+11. MLP fp16 parity: ``MLP([1024, 4096, 4096, 1024])`` in fp16, batch
+   256, 3 steps of ``mlp_train_step`` under ``FP16_Optimizer(FusedAdam(
+   impl="fused"), dynamic_loss_scale=True)``, step 2's batch carrying an
+   inf, on the card and on the CPU from the same weights — the same skip
+   pattern and loss scales, losses within 1e-3 relative, the 3-step update
+   of the flat fp32 masters within 0.1 relative in norm;
+12. the MLP fp16 path: the same at batch 8192, one warm-up and 5 timed
+   steps, step time, samples/s, analytic MFU, peak memory and the step
+   split into forward, backward and ``opt.step``, launch counts read
+   around the timed steps; then 4 steps at lr 1e-3 as a witness of the
+   optimizer's trajectory (it overshoots at this width);
+13. the ``multi_tensor_applier`` path: ``multi_tensor_scale`` and
+   ``multi_tensor_axpby`` through the facade over the MLP's six
+   parameter-shaped tensors, each against its plain version, with the
+   launch counts of the two calls;
+14. one ``{"kernels": [...]}`` line: each kernel's launches from the path
    it serves (``launches_by_path`` gives every path's count), then the
    card's name and power limit, then the last line ``{"ok": true,
    "device": {...}}``.  Every process group is destroyed before exit.
@@ -84,10 +107,14 @@ live rows' ``lse`` to 1e-4 relative; dead rows' lse must be exactly +1e30.
 The l2norm is held to 1e-5 relative (fp32 sums in other orders) and must
 repeat bit for bit.  The Adam and LAMB stage-1 kernels are held to 1e-6
 relative (the same IEEE operations in the same order as the plain
-version).  ``max_abs_err`` reports the plain absolute difference.
+version).  The scale and axpby kernels must give the plain versions' bits
+and flags.  The fused dense kernel: fp32 1e-5, bf16 2e-2, fp16 4e-3 (both
+versions round one fp32 value whose sums ran in other orders).
+``max_abs_err`` reports the plain absolute difference.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -108,7 +135,7 @@ LONG_SHAPE = (4, 16, 4096, 64)
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 LN_REPLACES = "apex_tpu/ops/layer_norm.py:52"
 FLASH_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:276"
@@ -120,6 +147,19 @@ FLASH_DQ_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:459"
 FLASH_DKV_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:495"
 ADAM_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:201"
 LAMB1_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:243"
+DENSE_REPLACES = "apex_tpu/ops/fused_mlp.py:32"
+SCALE_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:120"
+AXPBY_REPLACES = "apex_tpu/multi_tensor_apply/kernels.py:136"
+
+# the fp16 MLP path (bench_kernels.py:685-690): sizes and batch
+MLP_SIZES = [1024, 4096, 4096, 1024]
+MLP_BATCH = 8192
+# the second, larger size the flat kernels are measured at
+BIG_FLAT_N = 134_217_728
+DENSE_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 4e-3}
+ALL_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+               "ln_fwd", "ln_bwd", "xent_fwd", "l2norm", "adam",
+               "lamb_stage1", "mt_scale", "mt_axpby", "dense_act")
 
 # kernel launches a training step makes at 24 layers with remat, by path
 # (a kernel at 0 must not launch on that path)
@@ -132,10 +172,19 @@ TRAIN_LAUNCHES_PER_STEP = {
                       l2norm=0),
     "long_seq": dict(_LAYERS, flash_bwd_dq=24, flash_bwd_dkv=24,
                      flash_bwd=0, l2norm=1),
+    # exactly these counts, every other kernel 0 (FusedAdam's step_flat is
+    # eager PyTorch, as the JAX package's is XLA)
+    "mlp_fp16": dict({k: 0 for k in ALL_KERNELS}, dense_act=3, mt_scale=1),
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase header also gets the seconds since start."""
+    if msg.startswith("== "):
+        msg = f"{msg}  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -200,12 +249,17 @@ def device_ms(fn, n: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def check_launches(path: str, launches, steps: int) -> None:
-    """Every kernel of ``path`` launched at least its per-step count in
-    ``steps`` steps; a kernel listed at 0 not at all."""
+def check_launches(path: str, launches, steps: int,
+                   exact: bool = False) -> None:
+    """Every kernel of ``path`` launched at least (``exact``: exactly) its
+    per-step count in ``steps`` steps; a kernel listed at 0 not at all."""
     for name, per_step in TRAIN_LAUNCHES_PER_STEP[path].items():
         got = launches.get(name, 0)
-        if per_step == 0:
+        if exact:
+            require(got == steps * per_step,
+                    f"{path}: {name} launched {got} times in {steps} steps, "
+                    f"expected {per_step} a step")
+        elif per_step == 0:
             require(got == 0, f"{path}: {name} launched {got} times in "
                     f"{steps} steps, expected none")
         else:
@@ -817,6 +871,170 @@ def check_flash_split(dev):
                 bms, by, f" [one call with its host cost {call_ms:.4f} ms; "
                 "plain: one call between events; library: SDPA's whole "
                 "backward]")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the fp16 slice's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def mlp_flat_n() -> int:
+    """The MLP's flat fp32 buffer: what FP16_Optimizer unscales a step."""
+    import torch
+    from apex_tpu_torch.multi_tensor_apply import TreeFlattener
+    shapes = [(a, b) for a, b in zip(MLP_SIZES[:-1], MLP_SIZES[1:])] \
+        + [(b,) for b in MLP_SIZES[1:]]
+    return TreeFlattener([torch.empty(s, device="meta")
+                          for s in shapes]).total
+
+
+def check_dense_act(dev):
+    """The fused dense + activation kernel: the MLP's layer shapes (fp16,
+    bf16), the activations and the bias on the middle one, ragged shapes
+    and fp32; kernel vs plain, device times, cuBLAS (addmm + activation)
+    as the library yardstick, bound by operations."""
+    import torch
+    from apex_tpu_torch.ops.fused_mlp import (fused_dense_act,
+                                              fused_dense_act_reference)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    layers = list(zip(MLP_SIZES[:-1], MLP_SIZES[1:]))
+    cases = []   # (M, K, N, dtype, activation, bias)
+    for k, n in layers:
+        for dtype in ("float16", "bfloat16"):
+            cases.append((MLP_BATCH, k, n, dtype, "relu", True))
+    k, n = layers[1]
+    cases += [(MLP_BATCH, k, n, "float16", "sigmoid", True),
+              (MLP_BATCH, k, n, "float16", "none", True),
+              (MLP_BATCH, k, n, "float16", "relu", False)]
+    for dtype in ("float16", "bfloat16", "float32"):
+        cases += [(1000, 1000, 1000, dtype, "relu", True),
+                  (10, 24, 12, dtype, "sigmoid", True)]
+    rows = []
+    for m, k, n, dtype, act, has_bias in cases:
+        dt = getattr(torch, dtype)
+        x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(dt)
+        b = torch.randn(n, generator=gen, device=dev).to(dt) \
+            if has_bias else None
+        out = fused_dense_act(x, w, b, act)
+        torch.cuda.synchronize()
+        ref = fused_dense_act_reference(x, w, b, act)
+        tol = DENSE_TOL[dtype]
+        ok, err = scaled_ok(out, ref, tol)
+        case = f"{m}x{k}@{k}x{n} {dtype} {act}{'' if has_bias else ' no-bias'}"
+        require(ok, f"dense_act {case}: err {err:.3g} (tol {tol})")
+        del out, ref
+        es = x.element_size()
+        bms, by = bound((m * k + k * n + m * n + (n if has_bias else 0)) * es,
+                        2.0 * m * n * k, dtype)
+        big = m * n * k > 1e9
+        ms = device_ms(lambda: fused_dense_act(x, w, b, act))
+        pms = device_ms(lambda: fused_dense_act_reference(x, w, b, act),
+                        n=3 if big else 20, reps=5 if big else 10)
+
+        def library():
+            h = torch.addmm(b, x, w) if has_bias else torch.mm(x, w)
+            if act == "relu":
+                h.relu_()
+            elif act == "sigmoid":
+                h.sigmoid_()
+            return h
+        lms = device_ms(library)
+        rows.append(dict(shape=(m, k, n), dtype=dtype, activation=act,
+                         bias=has_bias, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=pms, library_ms=lms,
+                         library="torch.addmm + activation (cuBLAS)",
+                         bound_ms=bms, bound_by=by,
+                         tflops=2.0 * m * n * k / ms / 1e9))
+        _report("dense_act", f"{case:38s}", err, tol, ms, pms, lms, bms, by,
+                f" [{2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s]")
+        del x, w, b
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_scale_axpby(dev):
+    """multi_tensor_scale (fp32 and fp16 in, fp32 out) and
+    multi_tensor_axpby (fp32) over the MLP's flat buffer and 134 M
+    elements: bit-identical to the plain versions with the same flag, the
+    flag set by an injected inf; device times; the library yardstick for
+    the scale is torch._amp_foreach_non_finite_check_and_unscale_ (what
+    GradScaler.unscale_ calls), in place on a copy."""
+    import torch
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    gen = torch.Generator(device=dev).manual_seed(14)
+    inv = torch.tensor(1.0 / 65536, device=dev)   # 1 / loss_scale, on the card
+    rows = []
+    for n in (mlp_flat_n(), BIG_FLAT_N):
+        for in_dtype in ("float32", "float16"):
+            x = (torch.randn(n, generator=gen, device=dev) * 100).to(
+                getattr(torch, in_dtype))
+            out, flag = kernels.multi_tensor_scale(x, inv, torch.float32)
+            ref, rflag = kernels.multi_tensor_scale_reference(
+                x, inv, torch.float32)
+            torch.cuda.synchronize()
+            require(torch.equal(out, ref) and int(flag) == int(rflag) == 0,
+                    f"mt_scale ({n},) {in_dtype}: differs from plain or "
+                    f"flagged (flag {int(flag)}, plain {int(rflag)})")
+            err = float((out - ref).abs().max())
+            del out, ref
+            bad = x.clone()
+            bad[n // 3] = float("inf")
+            out, flag = kernels.multi_tensor_scale(bad, inv, torch.float32)
+            torch.cuda.synchronize()
+            require(int(flag) == 1 and not bool(torch.isfinite(out[n // 3])),
+                    f"mt_scale ({n},) {in_dtype}: an inf did not set the flag")
+            del out, bad
+            bms, by = bound(n * (x.element_size() + 4), 1.0 * n, "float32")
+            ms = device_ms(lambda: kernels.multi_tensor_scale(
+                x, inv, torch.float32))
+            pms = device_ms(lambda: kernels.multi_tensor_scale_reference(
+                x, inv, torch.float32), n=3, reps=5)
+            lms = None
+            if in_dtype == "float32":
+                buf = x.clone()
+                found = torch.zeros(1, device=dev)
+                inv1 = inv.reshape(1)
+                lms = device_ms(
+                    lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                        [buf], found, inv1))
+                del buf
+            rows.append(dict(kernel="mt_scale", n=n, dtype=in_dtype,
+                             max_abs_err=err, tol="bit-identical", ms=ms,
+                             plain_ms=pms, library_ms=lms,
+                             library="torch._amp_foreach_non_finite_check_"
+                                     "and_unscale_" if lms else None,
+                             bound_ms=bms, bound_by=by))
+            _report("mt_scale", f"({n},) {in_dtype:8s}->fp32", err,
+                    "bit-identical", ms, pms, lms, bms, by,
+                    " [flag set by an injected inf]")
+            del x
+            torch.cuda.empty_cache()
+        x = torch.randn(n, generator=gen, device=dev)
+        y = torch.randn(n, generator=gen, device=dev)
+        out, flag = kernels.multi_tensor_axpby(x, y, 2.0, -0.5)
+        ref, rflag = kernels.multi_tensor_axpby_reference(x, y, 2.0, -0.5)
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref) and int(flag) == int(rflag) == 0,
+                f"mt_axpby ({n},): differs from plain or flagged")
+        del out, ref
+        y[n - 5] = float("-inf")
+        _, flag = kernels.multi_tensor_axpby(x, y, 2.0, -0.5)
+        require(int(flag) == 1, f"mt_axpby ({n},): an inf did not set the "
+                "flag")
+        y[n - 5] = 0.0
+        bms, by = bound(12.0 * n, 3.0 * n, "float32")
+        ms = device_ms(lambda: kernels.multi_tensor_axpby(x, y, 2.0, -0.5))
+        pms = device_ms(lambda: kernels.multi_tensor_axpby_reference(
+            x, y, 2.0, -0.5), n=3, reps=5)
+        rows.append(dict(kernel="mt_axpby", n=n, dtype="float32",
+                         max_abs_err=0.0, tol="bit-identical", ms=ms,
+                         plain_ms=pms, library_ms=None, bound_ms=bms,
+                         bound_by=by))
+        _report("mt_axpby", f"({n},) float32 ", 0.0, "bit-identical", ms, pms,
+                None, bms, by, " [flag set by an injected inf]")
+        del x, y
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1492,6 +1710,234 @@ def phase_long_seq(dev, card, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phases 11-13: the fp16 MLP path and the multi_tensor_applier path
+# ---------------------------------------------------------------------------
+
+def _mlp_fp16_params(dev, seed=0):
+    """The MLP's weights from ``seed``, drawn on the CPU, cast to fp16 on
+    ``dev``."""
+    import torch
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.utils.pytree import tree_map
+    mlp = MLP(MLP_SIZES, activation="relu", use_pallas=True)
+    params = mlp.init(torch.Generator().manual_seed(seed), device="cpu")
+    return mlp, tree_map(lambda t: t.to(dev, torch.float16), params)
+
+
+def _mlp_batch(batch, seed, dev):
+    """x ~ N(0, 1) in fp16, a fixed target y ~ U(0, 1) in fp32."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, MLP_SIZES[0], generator=gen).half()
+    y = torch.rand(batch, MLP_SIZES[-1], generator=gen)
+    return {"x": x.to(dev), "y": y.to(dev)}
+
+
+def _fp16_opt(params, lr):
+    from apex_tpu_torch.contrib.optimizers import FP16_Optimizer
+    from apex_tpu_torch.optimizers import FusedAdam
+    return FP16_Optimizer(FusedAdam(lr=lr, impl="fused"), params,
+                          dynamic_loss_scale=True)
+
+
+# lr of the MLP path: at 1e-3 (the JAX tests' value) Adam's first, sign-like
+# step overshoots at this width; phase 12 reads that trajectory too
+MLP_LR = 1e-4
+
+
+def phase_mlp_parity(dev):
+    import torch
+    from apex_tpu_torch.train import mlp_train_step
+    from apex_tpu_torch.utils.pytree import tree_map
+    log(f"== phase 11: MLP fp16 parity ({MLP_SIZES}, batch 256, "
+        "FP16_Optimizer(FusedAdam fused), dynamic loss scale; card vs CPU; "
+        "step 2's batch carries an inf)")
+    mlp, params = _mlp_fp16_params(torch.device("cpu"), seed=1)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        batch = _mlp_batch(256, 15, d)
+        bad = dict(batch, x=batch["x"].clone())
+        bad["x"][7, 9] = float("inf")
+        opt = _fp16_opt(p, MLP_LR)
+        start = opt.opt_state.master.cpu()
+        losses, skips, scales = [], [], []
+        for b in (batch, bad, batch):
+            p, loss = mlp_train_step(opt, p, b, mlp)
+            losses.append(loss.item())
+            skips.append(opt.overflow)
+            scales.append(opt.loss_scale)
+        runs.append((losses, skips, scales, opt.opt_state.master.cpu(),
+                     start))
+    (g_l, g_s, g_sc, g_m, start), (c_l, c_s, c_sc, c_m, _) = runs
+    require(g_s == c_s == [False, True, False],
+            f"skip patterns: card {g_s} cpu {c_s}, expected step 2 only")
+    require(g_sc == c_sc == [2.0 ** 16, 2.0 ** 15, 2.0 ** 15],
+            f"loss scales: card {g_sc} cpu {c_sc}")
+    require(not np.isfinite(g_l[1]) and not np.isfinite(c_l[1]),
+            f"the overflow step's loss should not be finite: {g_l} {c_l}")
+    l_err = max(abs(g_l[i] - c_l[i]) / abs(c_l[i]) for i in (0, 2))
+    u_err = float((g_m - c_m).norm() / (c_m - start).norm())
+    require(l_err <= 1e-3, f"MLP losses differ by {l_err:.3g} relative (tol "
+            f"1e-3): card {g_l} cpu {c_l}")
+    # Adam's first steps are sign-like: a gradient element whose sign the
+    # fp16 rounding of the two devices' activations decides moves by ~lr
+    # either way, so the update is held as a whole
+    require(u_err <= 0.1, f"MLP master updates differ by {u_err:.3g} "
+            "relative in norm (tol 0.1)")
+    log(f"  losses card {g_l} cpu {c_l}: max rel diff {l_err:.3g} (tol 1e-3);"
+        f" skipped {g_s} on both; loss scales {g_sc} on both; master update "
+        f"diff {u_err:.3g} relative in norm (tol 0.1), max abs "
+        f"{float((g_m - c_m).abs().max()):.3g}")
+
+
+def phase_mlp(dev, card, profile=False):
+    import torch
+    from apex_tpu_torch.train import mlp_train_step
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log(f"== phase 12: MLP fp16 path ({MLP_SIZES}, relu, batch {MLP_BATCH}, "
+        f"fp16 model, FP16_Optimizer(FusedAdam(lr={MLP_LR}, impl='fused'), "
+        "dynamic loss scale))")
+    mlp, params = _mlp_fp16_params(dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = _mlp_batch(MLP_BATCH, 16, dev)
+    # earlier phases' tensors held only by reference cycles would
+    # otherwise count in this path's peak
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    opt = _fp16_opt(params, MLP_LR)
+    params, loss = mlp_train_step(opt, params, batch, mlp)     # warm-up
+    losses, skips = [loss.item()], [opt.overflow]
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        params, loss = mlp_train_step(opt, params, batch, mlp)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        skips.append(opt.overflow)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    kept = [l for l, s in zip(losses, skips) if not s]
+    require(all(np.isfinite(kept)) and len(kept) >= 2,
+            f"MLP losses {losses}, skipped {skips}")
+    require(kept[-1] < kept[0], f"MLP loss did not fall: {losses}")
+    require(all(p.dtype == torch.float16 for p in tree_leaves(params))
+            and opt.opt_state.master.dtype == torch.float32,
+            "fp16 model, fp32 flat masters")
+    check_launches("mlp_fp16", launches, 5, exact=True)
+    step_s = statistics.median(times)
+    mfu = 6 * n_params * MLP_BATCH / step_s / 989e12
+    log(f"  losses {[round(l, 5) for l in losses]}, skipped {skips}, loss "
+        f"scale {opt.loss_scale}; launches in 5 steps {launches}")
+    log(f"  [{card}] step {step_s * 1e3:.3f} ms (median of 5; all "
+        f"{[round(t * 1e3, 3) for t in times]}), {MLP_BATCH / step_s:.0f} "
+        f"samples/s, analytic MFU {100 * mfu:.2f}% (6 x {n_params} params x "
+        f"{MLP_BATCH} / step / 989 TFLOP/s fp16), peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    f_ms, b_ms, o_ms = split_mlp_step(opt, params, batch, mlp)
+    log(f"  [{card}] of a step: forward (3 fused dense kernels) {f_ms:.3f} "
+        f"ms, backward (fp32 products, masks, casts) {b_ms:.3f} ms, opt.step "
+        f"(flatten, unscale kernel, flat Adam, select, scale update, fp16 "
+        f"copies) {o_ms:.3f} ms (medians of 3)")
+    if profile:
+        profile_train_step(lambda: mlp_train_step(opt, params, batch, mlp),
+                           "mlp_fp16")
+    del opt, params
+    torch.cuda.empty_cache()
+    mlp_lr_witness(dev, batch)
+    return launches
+
+
+def split_mlp_step(opt, params, batch, mlp):
+    """Host-clock ms of a step's three parts, each ending in a
+    synchronize: the forward and loss, the backward, ``opt.step`` (which
+    takes the step)."""
+    import torch
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+    parts = []
+    for _ in range(3):
+        leaves, treedef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mlp(tree_unflatten(treedef, leaves), batch["x"])
+        loss = ((out.float() - batch["y"]) ** 2).mean()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(opt.scale_loss(loss), leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params = opt.step(tree_unflatten(treedef, list(grads)))
+        torch.cuda.synchronize()
+        parts.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    return tuple(statistics.median(p[i] for p in parts) * 1e3
+                 for i in range(3))
+
+
+def mlp_lr_witness(dev, batch, steps=4):
+    """The same path at lr 1e-3 from the same weights and batch: its loss
+    trajectory, printed (it must stay finite where no step was skipped)."""
+    import torch
+    from apex_tpu_torch.train import mlp_train_step
+    mlp, params = _mlp_fp16_params(dev)
+    opt = _fp16_opt(params, 1e-3)
+    losses, skips = [], []
+    for _ in range(steps):
+        params, loss = mlp_train_step(opt, params, batch, mlp)
+        losses.append(loss.item())
+        skips.append(opt.overflow)
+    require(all(np.isfinite(l) for l, s in zip(losses, skips) if not s),
+            f"MLP lr 1e-3: non-finite loss {losses}")
+    log(f"  lr 1e-3 witness, {steps} steps: losses "
+        f"{[round(l, 5) for l in losses]}, skipped {skips}")
+    del opt, params
+    torch.cuda.empty_cache()
+
+
+def phase_mt_apply(dev):
+    """multi_tensor_scale and multi_tensor_axpby through the
+    ``multi_tensor_applier`` facade, over the MLP's six parameter-shaped
+    tensors (fp16, as the model's), each against its plain version on the
+    same flat buffers."""
+    import torch
+    from apex_tpu_torch.multi_tensor_apply import (kernels,
+                                                   multi_tensor_applier)
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log("== phase 13: multi_tensor_applier path (scale 0.5, axpby 2, -0.5 "
+        "over the MLP's six parameter-shaped fp16 tensors)")
+    _, params = _mlp_fp16_params(dev, seed=2)
+    xs = tree_leaves(params)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ys = [torch.randn(t.shape, generator=gen, device=dev).half() for t in xs]
+    build.LAUNCHES.clear()
+    (s_out, s_flag), fl = multi_tensor_applier(kernels.multi_tensor_scale,
+                                               [xs], 0.5)
+    (a_out, a_flag), _ = multi_tensor_applier(kernels.multi_tensor_axpby,
+                                              [xs, ys], 2.0, -0.5)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    fx, fy = fl.flatten(xs), fl.flatten(ys)
+    s_ref, s_rflag = kernels.multi_tensor_scale_reference(fx, 0.5)
+    a_ref, a_rflag = kernels.multi_tensor_axpby_reference(fx, fy, 2.0, -0.5)
+    require(torch.equal(s_out, s_ref) and int(s_flag) == int(s_rflag) == 0,
+            "applier scale differs from plain")
+    require(torch.equal(a_out, a_ref) and int(a_flag) == int(a_rflag) == 0,
+            "applier axpby differs from plain")
+    want = dict({k: 0 for k in ALL_KERNELS}, mt_scale=1, mt_axpby=1)
+    for name, n in want.items():
+        require(launches.get(name, 0) == n, f"mt_apply: {name} launched "
+                f"{launches.get(name, 0)} times, expected {n}")
+    log(f"  {len(xs)} tensors, flat {fl.total} fp32; scale and axpby "
+        f"bit-identical to plain, flags 0; launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def _kernel_entry(name, source, replaces, row, launches_by_path, path):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1529,6 +1975,10 @@ def main(argv) -> int:
     zero_rows = check_zero_updates(dev)
     split_rows = check_flash_split(dev)
     torch.cuda.empty_cache()
+    log("== phase 3d: fused dense, multi-tensor scale and axpby kernels vs "
+        "plain versions on the card")
+    dense_rows = check_dense_act(dev)
+    flat_rows = check_scale_axpby(dev)
     phase_serve_parity(dev)
     serve_launches, _ = phase_main_path(dev, card, profile)
     phase_train_parity(dev)
@@ -1547,6 +1997,10 @@ def main(argv) -> int:
         dist.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
+    torch.cuda.empty_cache()
+    phase_mlp_parity(dev)
+    launches["mlp_fp16"] = phase_mlp(dev, card, profile)
+    launches["mt_apply"] = phase_mt_apply(dev)
 
     def pick(rows, **want):
         return next(r for r in rows
@@ -1585,6 +2039,16 @@ def main(argv) -> int:
                       FLASH_DKV_REPLACES,
                       pick(split_rows, kernel="flash_bwd_dkv"), launches,
                       "long_seq"),
+        _kernel_entry("dense_act", csrc + "fused_mlp.cu", DENSE_REPLACES,
+                      pick(dense_rows, shape=(MLP_BATCH, 4096, 4096),
+                           dtype="float16", activation="relu", bias=True),
+                      launches, "mlp_fp16"),
+        _kernel_entry("mt_scale", csrc + "multi_tensor.cu", SCALE_REPLACES,
+                      pick(flat_rows, kernel="mt_scale", n=mlp_flat_n(),
+                           dtype="float32"), launches, "mlp_fp16"),
+        _kernel_entry("mt_axpby", csrc + "multi_tensor.cu", AXPBY_REPLACES,
+                      pick(flat_rows, kernel="mt_axpby", n=mlp_flat_n()),
+                      launches, "mt_apply"),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on its path "

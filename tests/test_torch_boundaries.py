@@ -5,6 +5,11 @@
   not the JAX package).
 * Entry points default to the card: on a host without CUDA they raise
   instead of quietly running on the CPU.
+* float16 has a kernel code (the scale / axpby and fused dense kernels
+  take it), but the kernels without an fp16 branch (layer norm, l2norm,
+  cross-entropy, flash, Adam's model copy) refuse it with a ``TypeError``
+  in their wrapper's checks, before any launch.  CPU tensors reach those
+  checks here; the card's own tests launch with fp16 CUDA tensors.
 """
 import ast
 import pathlib
@@ -51,7 +56,9 @@ def test_port_files_exist():
     assert "apex_tpu_torch/serve/engine.py" in names
     for module in ("parallel/mesh.py", "parallel/collectives.py",
                    "contrib/optimizers/distributed_fused.py", "train.py",
-                   "multi_tensor_apply/kernels.py"):
+                   "multi_tensor_apply/kernels.py", "ops/fused_mlp.py",
+                   "mlp/mlp.py", "optimizers/fused_adam.py",
+                   "contrib/optimizers/fp16_optimizer.py"):
         assert f"apex_tpu_torch/{module}" in names, module
     assert len(names) > 15
 
@@ -134,3 +141,68 @@ def test_zero_state_from_jax_defaults_to_the_card():
         state_from_jax(ShardedLAMBState(), 0, 2)
     st = state_from_jax(ShardedLAMBState(), 1, 2, device="cpu")
     assert type(st).__name__ == "ShardedLAMBState" and st.p.shape == (128,)
+
+
+def test_mlp_init_without_device_does_not_run_on_cpu():
+    """``MLP.init`` asks for the card by default: without CUDA it raises
+    instead of making CPU weights; the fp16 flow on the CPU must say so."""
+    _no_cuda()
+    import numpy as np
+    from apex_tpu_torch.mlp import MLP, mlp_params_from_jax
+    from apex_tpu_torch.optimizers import adam_state_from_jax
+    mlp = MLP([8, 16, 4])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mlp.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mlp_params_from_jax({"weights": [], "biases": []})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        adam_state_from_jax((np.int32(1), np.zeros(4, np.float32),
+                             np.zeros(4, np.float32), None))
+    params = mlp.init(torch.Generator().manual_seed(0), device="cpu")
+    assert params["weights"][0].device.type == "cpu"
+
+
+def _fp16_cases():
+    from apex_tpu_torch.contrib.multihead_attn import flash
+    from apex_tpu_torch.contrib.xentropy import softmax_xentropy as xent
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    from apex_tpu_torch.ops import layer_norm
+    h16, f32 = torch.float16, torch.float32
+    x32 = torch.zeros(4, 64)
+    q16 = torch.zeros(2, 8, 64, dtype=h16)
+    return {
+        "ln_fwd_x": lambda: layer_norm._check_cuda_inputs(
+            x32.to(h16), None, None),
+        "ln_weight": lambda: layer_norm._check_cuda_inputs(
+            x32, torch.ones(64, dtype=h16), torch.zeros(64, dtype=h16)),
+        "ln_bwd_weight": lambda: layer_norm._check_param(
+            torch.ones(64, dtype=h16), "weight", x32),
+        "l2norm": lambda: kernels._check_l2norm_input(
+            torch.zeros(256, dtype=h16)),
+        "xent": lambda: xent._check_cuda_inputs(
+            torch.zeros(4, 32, dtype=h16), torch.zeros(4, dtype=torch.long)),
+        "flash": lambda: flash._check_cuda_inputs(
+            q16, q16, q16, torch.zeros(1, 1, 8, dtype=f32), 0.0),
+        "adam_model_copy": lambda: kernels._copy_code(h16),
+    }
+
+
+@pytest.mark.parametrize("wrapper", ["ln_fwd_x", "ln_weight",
+                                     "ln_bwd_weight", "l2norm", "xent",
+                                     "flash", "adam_model_copy"])
+def test_fp16_refused_before_any_launch(wrapper):
+    from apex_tpu_torch.utils import build
+    before = dict(build.LAUNCHES)
+    with pytest.raises(TypeError, match="float16"):
+        _fp16_cases()[wrapper]()
+    assert dict(build.LAUNCHES) == before
+
+
+def test_float16_has_a_code_only_where_allowed():
+    from apex_tpu_torch.utils import build
+    assert build.dtype_code(torch.float16, build.FLOATS) == 2
+    assert build.dtype_code(torch.bfloat16, build.F32_BF16) == 1
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        build.dtype_code(torch.float16, build.F32_BF16)
+    with pytest.raises(TypeError):
+        build.dtype_code(torch.float64, build.FLOATS)

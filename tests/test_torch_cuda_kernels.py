@@ -17,7 +17,15 @@ versions do the same IEEE operations in the same order).  The split
 flash backward's dq and dk/dv kernels take the fused kernel's
 tolerances.  The ZeRO LAMB step on a world-1 NCCL group must give the same
 bits twice (its trust ratios sum in a fixed order), and a CUDA tensor on a
-gloo group must raise.
+gloo group must raise.  The scale and axpby kernels must give the plain
+versions' bits (the same IEEE products and sums, the same rounding into
+the output type) and the same overflow flag.  The fused dense kernel is
+held per element to ``tol * max(1, |plain|)``: fp32 1e-5 (SIMT fmaf, sums
+in another order than cuBLAS), bf16 2e-2 and fp16 4e-3 (both versions
+round one fp32 value whose sums ran in other orders, and may land on
+neighbouring 16-bit numbers; fp16's 2^-11 steps plus a K-long sum's
+rounding).  Every kernel without an fp16 branch refuses fp16 CUDA tensors
+with a ``TypeError`` and launches nothing.
 """
 import numpy as np
 import pytest
@@ -392,3 +400,185 @@ def test_cuda_tensor_on_gloo_group_raises(nccl_world1, cuda_device):
         collectives.allgather_flat(x, nccl_world1)
     with pytest.raises(RuntimeError, match="gloo"):
         collectives.allgather_flat(x.cpu(), None)       # NCCL default group
+
+
+# -- fused dense + activation ------------------------------------------------
+
+DENSE_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 4e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32"])
+@pytest.mark.parametrize("activation,bias", [("relu", True),
+                                             ("sigmoid", True),
+                                             ("none", False)])
+@pytest.mark.parametrize("m,k,n", [(1024, 1024, 512), (1000, 1000, 1000),
+                                   (10, 24, 12), (9, 16, 8), (257, 33, 130),
+                                   (1, 1, 1)])
+def test_dense_act_kernel_matches_plain(m, k, n, activation, bias, dtype,
+                                        cuda_device):
+    from apex_tpu_torch.ops import fused_mlp
+    rng = np.random.default_rng(m + k + n)
+    tdt = getattr(torch, dtype)
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda_device, tdt)
+
+    x, w = t((m, k), 1.0), t((k, n), k ** -0.5)
+    b = t((n,), 1.0) if bias else None
+    before = build.LAUNCHES["dense_act"]
+    out = fused_mlp.fused_dense_act(x, w, b, activation)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dense_act"] == before + 1
+    ref = fused_mlp.fused_dense_act_reference(x, w, b, activation)
+    assert out.dtype == tdt and out.shape == (m, n)
+    assert _close(out, ref, DENSE_TOL[dtype]), float(
+        (out.float() - ref.float()).abs().max())
+
+
+def test_dense_act_backward_on_the_card(cuda_device):
+    """Autograd through the kernel forward: the gradients of the plain
+    forward's autograd, fp32."""
+    from apex_tpu_torch.ops import fused_mlp
+    rng = np.random.default_rng(1)
+    ins = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        cuda_device).requires_grad_(True) for s in ((64, 48), (48, 40),
+                                                    (40,))]
+    fused_mlp.dense_act(*ins, "sigmoid").square().sum().backward()
+    got = [a.grad.clone() for a in ins]
+    for a in ins:
+        a.grad = None
+    fused_mlp.fused_dense_act_reference(*ins, "sigmoid").square().sum() \
+        .backward()
+    for g, a in zip(got, ins):
+        assert _close(g, a.grad, 1e-4)
+
+
+# -- multi_tensor_scale / multi_tensor_axpby ----------------------------------
+
+@pytest.mark.parametrize("scalar", ["number", "tensor"])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    ("float32", "float32"), ("float16", "float32"), ("float32", "float16"),
+    ("bfloat16", "float32"), ("float32", "bfloat16"),
+    ("float16", "float16")])
+@pytest.mark.parametrize("n", [1 << 20, 1001, 3])
+def test_scale_kernel_matches_plain(n, in_dtype, out_dtype, scalar,
+                                    cuda_device):
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.standard_normal(n) * 100).astype(
+        np.float32)).to(cuda_device, getattr(torch, in_dtype))
+    s = 1.0 / 65536 if scalar == "number" else torch.tensor(
+        1.0 / 3.0, device=cuda_device)
+    odt = getattr(torch, out_dtype)
+    before = build.LAUNCHES["mt_scale"]
+    out, flag = kernels.multi_tensor_scale(x, s, odt)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mt_scale"] == before + 1
+    ref, rflag = kernels.multi_tensor_scale_reference(x, s, odt)
+    assert out.dtype == odt and torch.equal(out, ref)
+    assert flag.is_cuda and int(flag) == int(rflag) == 0
+
+
+@pytest.mark.parametrize("case", ["inf", "nan", "fp16_overflow", "tail_inf"])
+@pytest.mark.parametrize("op", ["scale", "axpby"])
+def test_overflow_flag_on_the_card(op, case, cuda_device):
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    n = 4099
+    x = torch.randn(n, device=cuda_device)
+    out_dtype = None
+    if case == "inf":
+        x[17] = float("inf")
+    elif case == "nan":
+        x[2048] = float("nan")
+    elif case == "tail_inf":
+        x[n - 1] = float("-inf")
+    else:
+        x[300], out_dtype = 70000.0, torch.float16
+    if op == "scale":
+        out, flag = kernels.multi_tensor_scale(x, 1.0, out_dtype)
+        ref, rflag = kernels.multi_tensor_scale_reference(x, 1.0, out_dtype)
+    else:
+        out, flag = kernels.multi_tensor_axpby(x, x, 1.0, 0.0, out_dtype)
+        ref, rflag = kernels.multi_tensor_axpby_reference(x, x, 1.0, 0.0,
+                                                          out_dtype)
+    torch.cuda.synchronize()
+    assert int(flag) == int(rflag) == 1
+    assert torch.equal(torch.isfinite(out), torch.isfinite(ref))
+    # a clean call after a flagged one starts from a zeroed flag
+    _, clean = kernels.multi_tensor_scale(torch.ones(n, device=cuda_device),
+                                          2.0)
+    assert int(clean) == 0
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    ("float32", "float32"), ("float16", "float32"), ("bfloat16", "bfloat16"),
+    ("float32", "float16")])
+@pytest.mark.parametrize("n", [1 << 20, 1001, 3])
+def test_axpby_kernel_matches_plain(n, in_dtype, out_dtype, cuda_device):
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    rng = np.random.default_rng(n + 7)
+    x, y = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        cuda_device, getattr(torch, in_dtype)) for _ in range(2))
+    a = torch.tensor(1.7, device=cuda_device)
+    odt = getattr(torch, out_dtype)
+    before = build.LAUNCHES["mt_axpby"]
+    out, flag = kernels.multi_tensor_axpby(x, y, a, -0.3, odt)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mt_axpby"] == before + 1
+    ref, rflag = kernels.multi_tensor_axpby_reference(x, y, a, -0.3, odt)
+    assert out.dtype == odt and torch.equal(out, ref)
+    assert int(flag) == int(rflag) == 0
+
+
+def test_applier_on_the_card(cuda_device):
+    from apex_tpu_torch.multi_tensor_apply import (kernels,
+                                                   multi_tensor_applier)
+    rng = np.random.default_rng(3)
+    shapes = [(64, 32), (32,), (32, 8), (8,)]
+    xs = [torch.from_numpy(rng.standard_normal(s).astype(np.float16)).to(
+        cuda_device) for s in shapes]
+    ys = [torch.ones(s, device=cuda_device) for s in shapes]
+    before = dict(build.LAUNCHES)
+    (out, flag), fl = multi_tensor_applier(kernels.multi_tensor_axpby,
+                                           [xs, ys], 2.0, -0.5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mt_axpby"] == before.get("mt_axpby", 0) + 1
+    assert int(flag) == 0
+    for x, back in zip(xs, fl.unflatten(out, dtype=torch.float32)):
+        assert torch.equal(back, x.float() * 2.0 - 0.5)
+
+
+# -- float16 refused by the kernels that have no fp16 branch -----------------
+
+def test_fp16_refused_on_the_card(cuda_device):
+    from apex_tpu_torch.contrib.xentropy import softmax_xentropy as xent
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    h16 = torch.float16
+    x = torch.randn(8, 64, device=cuda_device)
+    w16 = torch.ones(64, device=cuda_device, dtype=h16)
+    q = torch.zeros(2, 8, 64, device=cuda_device, dtype=h16)
+    calls = {
+        "ln_fwd_x": lambda: port_ln.ln_fwd(x.half(), None, None, 1e-5),
+        "ln_fwd_weight": lambda: port_ln.ln_fwd(x, w16, w16, 1e-5),
+        "ln_bwd_weight": lambda: port_ln.ln_bwd(
+            x, x, torch.zeros(8, 1, device=cuda_device),
+            torch.ones(8, 1, device=cuda_device), w16),
+        "l2norm": lambda: kernels.multi_tensor_l2norm(
+            torch.zeros(256, device=cuda_device, dtype=h16)),
+        "xent": lambda: xent._xent_fwd(
+            x.half(), torch.zeros(8, dtype=torch.long, device=cuda_device),
+            0.0),
+        "flash": lambda: pflash._flash_fwd(
+            q, q, q, torch.zeros(1, 1, 8, device=cuda_device), False, 0.0,
+            0, 1),
+        "adam_model_copy": lambda: kernels.fused_adam_flat(
+            *(torch.zeros(256, device=cuda_device) for _ in range(4)),
+            torch.zeros(1, 8, device=cuda_device), model_dtype=h16),
+    }
+    before = dict(build.LAUNCHES)
+    for name, call in calls.items():
+        with pytest.raises(TypeError):
+            call()
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == before

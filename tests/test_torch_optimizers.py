@@ -8,6 +8,12 @@ on the CPU).  Cases cover the global-norm clip biting (max_grad_norm below
 the gradients' norm), weight decay 0 and 0.01, ``use_nvlamb`` and bf16
 moment storage.  Master params agree to 1e-6 (fp32, reductions in other
 orders).
+
+FusedAdam goes the same way, both impls: AdamW and classic L2 decay,
+``bias_correction=False``, a ``model_dtype`` (bf16 params out), bf16
+moment storage and a learning-rate schedule.  Params and the flat master
+agree to 1e-6 (fp32 elementwise math; bias corrections from fp32 ``pow``
+in each framework), a bf16 model copy to one bf16 step (2^-8 relative).
 """
 import numpy as np
 import pytest
@@ -18,10 +24,11 @@ import torch
 
 from apex_tpu.models import TransformerConfig as JaxConfig
 from apex_tpu.models import transformer_init as jax_init
+from apex_tpu.optimizers import FusedAdam as JaxAdam
 from apex_tpu.optimizers import FusedLAMB as JaxLAMB
 
 from apex_tpu_torch.models import params_from_jax
-from apex_tpu_torch.optimizers import FusedLAMB
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, adam_state_from_jax
 from apex_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 DIMS = dict(vocab_size=61, max_len=16, num_layers=2, d_model=32,
@@ -114,3 +121,90 @@ def test_step_flat_shard_waits_for_the_distributed_slice():
     opt = FusedLAMB(impl="fused")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         opt.step_flat_shard(None, None, shard=None)
+
+
+# name, impl, kwargs
+ADAM_CASES = [
+    ("fused_adamw", "fused", dict(weight_decay=0.01)),
+    ("fused_l2_mode", "fused", dict(adam_w_mode=False, weight_decay=0.01)),
+    ("fused_no_bias_correction", "fused", dict(bias_correction=False)),
+    ("fused_bf16_state", "fused", dict(state_dtype="bf16")),
+    ("fused_bf16_model", "fused", dict(model_dtype="bf16",
+                                        weight_decay=0.01)),
+    ("fused_schedule", "fused", dict(lr="schedule")),
+    ("xla_adamw", "xla", dict(weight_decay=0.01)),
+    ("xla_l2_mode", "xla", dict(adam_w_mode=False, weight_decay=0.01)),
+    ("xla_bf16_model", "xla", dict(model_dtype="bf16")),
+    ("xla_schedule", "xla", dict(lr="schedule", bias_correction=False)),
+]
+
+
+def _adam_kwargs(kw, framework):
+    out = dict(kw)
+    bf16 = jnp.bfloat16 if framework == "jax" else torch.bfloat16
+    for key in ("state_dtype", "model_dtype"):
+        if out.get(key) == "bf16":
+            out[key] = bf16
+    if out.get("lr") == "schedule":
+        # the step count is a device integer in both frameworks
+        out["lr"] = lambda count: 1e-2 * 0.5 ** count
+    else:
+        out["lr"] = 1e-2
+    return out
+
+
+@pytest.mark.parametrize("case", ADAM_CASES, ids=[c[0] for c in ADAM_CASES])
+def test_adam_matches_jax(case):
+    _, impl, kw = case
+    jtree = jax.tree_util.tree_map(
+        np.asarray, jax_init(jax.random.PRNGKey(4), JaxConfig(**DIMS)))
+    jopt = JaxAdam(impl=impl, **_adam_kwargs(kw, "jax"))
+    popt = FusedAdam(impl=impl, **_adam_kwargs(kw, "torch"))
+    jp = jax.tree_util.tree_map(jnp.asarray, jtree)
+    pp = params_from_jax(jtree, device="cpu")
+    js, ps = jopt.init(jp), popt.init(pp)
+    for step in range(STEPS):
+        g = _grads(jtree, step)
+        # amp-style scale on the fused path, 1 on the tree path
+        scale = 8.0 if impl == "fused" else 1.0
+        jg = jax.tree_util.tree_map(lambda a: jnp.asarray(a * scale), g)
+        pg = params_from_jax(jax.tree_util.tree_map(lambda a: a * scale, g),
+                             device="cpu")
+        jnew, js = jopt.step(js, jg, jp, scale=scale)
+        pnew, ps = popt.step(ps, pg, pp, scale=scale)
+        if "model_dtype" not in kw:
+            jp, pp = jnew, pnew
+    assert int(ps.count) == STEPS
+    bf16_model = "model_dtype" in kw
+    for a, b in zip(tree_leaves(pnew), jax.tree_util.tree_leaves(jnew)):
+        assert a.dtype == (torch.bfloat16 if bf16_model else torch.float32)
+        ref = np.asarray(b.astype(jnp.float32))
+        if bf16_model:
+            np.testing.assert_allclose(a.float().numpy(), ref,
+                                       rtol=2.0 ** -8, atol=1e-6)
+        else:
+            np.testing.assert_allclose(a.numpy(), ref, atol=1e-6, rtol=0)
+    if impl == "fused":
+        np.testing.assert_allclose(ps.master.numpy(), np.asarray(js.master),
+                                   atol=1e-6, rtol=0)
+        assert ps.m.dtype == (torch.bfloat16 if "state_dtype" in kw
+                              else torch.float32)
+        state = adam_state_from_jax(
+            jax.tree_util.tree_map(np.asarray, js), device="cpu")
+        assert state.m.dtype == ps.m.dtype and int(state.count) == STEPS
+        for a, b in zip(state, ps):
+            np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                       atol=1e-6, rtol=0)
+
+
+def test_adam_tree_state_from_jax_and_bad_options():
+    jtree = {"w": np.ones((3, 4), np.float32), "b": np.zeros(4, np.float32)}
+    js = JaxAdam(impl="xla").init(jax.tree_util.tree_map(jnp.asarray, jtree))
+    st = adam_state_from_jax(jax.tree_util.tree_map(np.asarray, js),
+                             device="cpu")
+    assert st.master is None and st.count.dtype == torch.int32
+    assert st.m["w"].shape == (3, 4) and st.v["b"].dtype == torch.float32
+    with pytest.raises(RuntimeError):
+        FusedAdam(amsgrad=True)
+    with pytest.raises(ValueError):
+        FusedAdam(impl="xla", state_dtype=torch.bfloat16)

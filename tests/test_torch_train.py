@@ -19,6 +19,15 @@ loss): at world 1 in this process, at world 2 as two spawned gloo ranks
 1 with every flash backward forced onto the split route (the JAX package
 through ``APEX_TPU_FLASH_BWD_FUSE=0``).  Losses and master shards agree to
 1e-5.
+
+The fp16 MLP step (``mlp_train_step``: ``MLP([16, 32, 8])`` in fp16 under
+``FP16_Optimizer(FusedAdam(impl="fused"), dynamic_loss_scale=True)``)
+goes against the same composition in the JAX package (``MLP.apply`` with
+``use_pallas=True``, the MSE loss, ``jax.value_and_grad`` of the scaled
+loss, ``FP16_Optimizer.step``) for 3 steps whose second batch carries an
+inf: the same overflow pattern and loss scales, losses within 1e-3
+relative (fp16 activations rounded from fp32 sums in other orders), the
+flat fp32 masters within 1e-5 and the fp16 params within one fp16 step.
 """
 import functools
 import dataclasses
@@ -34,18 +43,23 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import _torch_dist
 from apex_tpu import amp as jamp
+from apex_tpu.contrib.optimizers import FP16_Optimizer as JaxFP16
 from apex_tpu.contrib.optimizers import DistributedFusedLAMB as JaxZeroLAMB
 from apex_tpu.models import TransformerConfig as JaxConfig
 from apex_tpu.models import transformer_init as jax_init
 from apex_tpu.models import transformer_loss as jax_loss
+from apex_tpu.mlp import MLP as JaxMLP
+from apex_tpu.optimizers import FusedAdam as JaxAdam
 from apex_tpu.optimizers import FusedLAMB as JaxLAMB
 from apex_tpu.parallel.mesh import shard_map
 
 from apex_tpu_torch import amp
 from apex_tpu_torch.models import (TransformerConfig, params_from_jax,
                                    transformer_loss)
-from apex_tpu_torch.optimizers import FusedLAMB
-from apex_tpu_torch.train import train_step
+from apex_tpu_torch.contrib.optimizers import FP16_Optimizer
+from apex_tpu_torch.mlp import MLP, mlp_params_from_jax
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from apex_tpu_torch.train import mlp_train_step, train_step
 from apex_tpu_torch.utils.pytree import tree_leaves
 
 DIMS = dict(vocab_size=211, max_len=64, num_layers=2, d_model=64,
@@ -236,3 +250,61 @@ def test_zero_step_world2_matches_jax(tree, tmp_path):
         _torch_dist.zero_train, 2, tmp_path, tree, dict(DIMS, **ZERO_KW),
         batches, ZERO_OPT, False)
     _check_zero(port, j_losses, j_master)
+
+
+def test_mlp_fp16_steps_match_jax():
+    sizes = [16, 32, 8]
+    jmlp = JaxMLP(sizes, activation="relu", use_pallas=True)
+    jp0 = jax.tree_util.tree_map(lambda a: a.astype(jnp.float16),
+                                 jmlp.init(jax.random.PRNGKey(5)))
+    jp = jp0
+    rng = np.random.default_rng(23)
+    xs = [rng.standard_normal((12, 16)).astype(np.float16)
+          for _ in range(STEPS)]
+    xs[1][3, 4] = np.inf                     # step 2 overflows
+    y = rng.random((12, 8)).astype(np.float32)
+
+    jopt = JaxFP16(JaxAdam(lr=1e-2, impl="fused"), jp,
+                   dynamic_loss_scale=True)
+
+    def jloss(p, x):
+        out = jmlp.apply(p, x).astype(jnp.float32)
+        return jnp.mean((out - y) ** 2)
+
+    j_losses, j_over, j_scale = [], [], []
+    for x in xs:
+        scale = jopt.loss_scale
+        scaled, g = jax.value_and_grad(
+            lambda p: jopt.scale_loss(jloss(p, jnp.asarray(x))))(jp)
+        jp = jopt.step(g)
+        j_losses.append(float(scaled) / scale)
+        j_over.append(jopt.overflow)
+        j_scale.append(jopt.loss_scale)
+
+    mlp = MLP(sizes, activation="relu", use_pallas=True)
+    pp = mlp_params_from_jax(jax.tree_util.tree_map(np.asarray, jp0),
+                             device="cpu")
+    popt = FP16_Optimizer(FusedAdam(lr=1e-2, impl="fused"), pp,
+                          dynamic_loss_scale=True)
+    p_losses, p_over, p_scale = [], [], []
+    for x in xs:
+        pp, loss = mlp_train_step(popt, pp, {"x": torch.from_numpy(x),
+                                             "y": torch.from_numpy(y)}, mlp)
+        assert loss.shape == () and loss.dtype == torch.float32
+        p_losses.append(loss.item())
+        p_over.append(popt.overflow)
+        p_scale.append(popt.loss_scale)
+
+    assert p_over == j_over == [False, True, False]
+    assert p_scale == j_scale == [2.0 ** 16, 2.0 ** 15, 2.0 ** 15]
+    assert not np.isfinite(p_losses[1]) and not np.isfinite(j_losses[1])
+    np.testing.assert_allclose([p_losses[0], p_losses[2]],
+                               [j_losses[0], j_losses[2]], rtol=1e-3)
+    np.testing.assert_allclose(popt.opt_state.master.numpy(),
+                               np.asarray(jopt.opt_state.master), atol=1e-5,
+                               rtol=0)
+    for a, b in zip(tree_leaves(pp), jax.tree_util.tree_leaves(jp)):
+        assert a.dtype == torch.float16
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32),
+                                   rtol=2.0 ** -10, atol=1e-4)
