@@ -367,8 +367,9 @@ def _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do):
 
 def _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
                   delta, do) -> torch.Tensor:
-    """dq alone, from the split route's dq kernel (one CTA per 64-query
-    tile accumulating over the k tiles): (BH, Sq, D) in q's dtype."""
+    """dq alone, from the split route's dq kernel (one CTA per 64- or
+    128-query tile accumulating over the k tiles): (BH, Sq, D) in q's
+    dtype."""
     if not q.is_cuda:
         return _flash_bwd_dq_reference(q, k, v, bias, causal, dropout_rate,
                                        seed, heads, lse, delta, do)

@@ -46,15 +46,21 @@
 //     fused kernel above with its dq work compiled out (template flag
 //     kEmitDq = false): the same recompute and the same dropout draw.
 //   * dq: replaces `_bwd_dq_kernel` (via `_flash_bwd_dq`).  One CTA per
-//     (bh, 64-query tile) walks the k tiles, skipping those a causal mask
-//     hides wholly: S = q k^T and dP = dO v^T for its 64 rows x 64 keys,
-//     P = exp(S + bias - lse) (a dead row, lse = +1e30, gives 0), dS =
-//     P * (dP * keep / (1 - rate) - delta) rounded to the input dtype (the
-//     TPU kernel's `ds.astype(k.dtype)`), dQ += dS k in fp32 registers,
-//     written once in q's dtype.  bf16: 4 warps of mma.sync, each warp 16
-//     query rows with q / dO as A fragments and dS leaving the
-//     accumulators straight as the A fragment of dS k.  fp32: 256 threads
-//     of scalar FMA, dS through shared memory.
+//     (bh, query tile) walks the k tiles, skipping those a causal mask
+//     hides wholly: S = q k^T and dP = dO v^T, P = exp(S + bias - lse) (a
+//     dead row, lse = +1e30, gives 0), dS = P * (dP * keep / (1 - rate) -
+//     delta) rounded to the input dtype (the TPU kernel's
+//     `ds.astype(k.dtype)`), dQ += dS k in fp32 registers, written once in
+//     q's dtype.  bf16: the forward's Hopper design (`sm90_attn.cuh`): the
+//     first warp of a producer warpgroup keeps TMA loads of 64-key k and v
+//     tiles and their key bias in flight through a 2-stage mbarrier ring
+//     after loading q and dO once; one or two consumer warpgroups of 64
+//     query rows (the register split and the tile choice as the forward's)
+//     run S and dP on wgmma from swizzled shared memory, turn them into dS
+//     in registers in exp2 (the key bias read once per tile, the causal
+//     compare only on tiles crossing the diagonal), and feed dS as the
+//     register A operand of dQ += dS k with k's tile as an MN-major B.
+//     fp32: 256 threads of scalar FMA, dS through shared memory.
 // What bounds them: operations.  At BH 64 x 4096 x 4096 x 64 bf16 dq is
 // 6 BH Sq Sk D = 412 GFLOP (0.42 ms at 989 TFLOP/s) against ~170 MB of
 // inputs and outputs (0.05 ms); dk/dv 8 BH Sq Sk D = 550 GFLOP (0.56 ms).
@@ -64,10 +70,11 @@
 #include <stdint.h>
 
 #include "dropout.cuh"
+#include "sm90_attn.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using sm90::kNegInf;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
 constexpr int kBk = 64;  // keys per CTA, both kernels (the dq-partial tile)
@@ -512,127 +519,146 @@ flash_bwd_simt_kernel(Params p) {
 // the split route's dq kernels
 // ---------------------------------------------------------------------------
 
-template <int D>
-constexpr int dq_mma_smem_bytes() {
-  return (2 * kMmaBq * (D + 8) + 2 * kBk * (D + 8)) * 2;
+// k tiles a query tile at q0 of `rows` rows reads: under a causal mask,
+// none past the tile's last row.
+__device__ __forceinline__ int dq_k_tiles(const Params& p, int q0, int rows,
+                                          int bk) {
+  const int n = (p.sk + bk - 1) / bk;
+  return p.causal ? min(n, (q0 + rows - 1) / bk + 1) : n;
 }
 
-// k tiles a 64-row query tile at q0 reads: under a causal mask, none past
-// the tile's last row.
-__device__ __forceinline__ int dq_k_tiles(const Params& p, int q0, int rows) {
-  const int n = (p.sk + kBk - 1) / kBk;
-  return p.causal ? min(n, (q0 + rows - 1) / kBk + 1) : n;
-}
+// C consumer warpgroups of 64 query rows each, then one producer
+// warpgroup whose first warp starts the loads: q and dO once, 64-key k/v
+// stages (128 would give S and dP 128 fp32 registers a thread together,
+// which spills even at 240 and measured slower).
+template <int D, int C>
+using DqCfg = sm90::RingCfg<D, C, 64, 2>;
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(Params p) {
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + kMmaBq * kStride;
-  __nv_bfloat16* ks = dos + kMmaBq * kStride;
-  __nv_bfloat16* vs = ks + kBk * kStride;
+template <int D, int C>
+__global__ void __launch_bounds__(DqCfg<D, C>::kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap, Params p) {
+  using Cfg = DqCfg<D, C>;
+  using T = sm90::Tile<D>;
+  using sm90::kLog2e;
+  constexpr int kBq = Cfg::kBq, kBk = Cfg::kBk;
+  extern __shared__ unsigned char smem_raw[];
+  const sm90::Ring<Cfg> ring(smem_raw);
 
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout);
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kMmaBq;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int qw = warp * 16;  // this warp's 16 rows of the query tile
-  const size_t qbase = (size_t)bh * p.sq * D;
-  const size_t kbase = (size_t)bh * p.sk * D;
+  const int bh = blockIdx.y;
+  const int n_qt = (p.sq + kBq - 1) / kBq;
+  // causal: the longest rows first, so the grid's tail is short tiles
+  const int q0 = (p.causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x) * kBq;
+  const int n_kt = dq_k_tiles(p, q0, kBq, kBk);
+  const float* bias_rows = p.bias + (size_t)(p.bias_b == 1 ? 0 : bh / p.heads) * p.bias_q * p.sk;
+  const bool full_bias = p.bias_q != 1;
 
-  load_tile<D>(qs, kStride, q + qbase, q0, kMmaBq, p.sq, tid, kMmaThreads);
-  load_tile<D>(dos, kStride, dout + qbase, q0, kMmaBq, p.sq, tid,
-               kMmaThreads);
-  // this thread's two rows (accumulator elements 0-1 and 2-3)
-  const int row_a = q0 + qw + g, row_b = row_a + 8;
-  const float lse_a = row_a < p.sq ? p.lse[(size_t)bh * p.sq + row_a] : -kNegInf;
-  const float lse_b = row_b < p.sq ? p.lse[(size_t)bh * p.sq + row_b] : -kNegInf;
+  ring.init();
+  if (warp >= 4 * C) {
+    // ---- producer: q and dO once, then k/v tiles and their key bias
+    sm90::producer_release_registers();
+    if (warp == 4 * C) {
+      const CUtensorMap* qmaps[2] = {&qmap, &domap};
+      ring.produce(qmaps, &kmap, &vmap, full_bias ? nullptr : bias_rows, p.sk,
+                   q0, bh, n_kt, lane);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  sm90::consumer_claim_registers<C>();
+  const int wg = warp >> 2;
+  const int t = lane & 3;   // thread in its accumulator row group
+  const int wg_row0 = q0 + wg * 64;
+  const int row_a = wg_row0 + (warp & 3) * 16 + (lane >> 2);  // this thread's two rows
+  const int row_b = row_a + 8;
+  // lse in log2 units; a row past Sq reads as dead (P = 0)
+  const float lse_a = (row_a < p.sq ? p.lse[(size_t)bh * p.sq + row_a] : -kNegInf) * kLog2e;
+  const float lse_b = (row_b < p.sq ? p.lse[(size_t)bh * p.sq + row_b] : -kNegInf) * kLog2e;
   const float del_a = row_a < p.sq ? p.delta[(size_t)bh * p.sq + row_a] : 0.f;
   const float del_b = row_b < p.sq ? p.delta[(size_t)bh * p.sq + row_b] : 0.f;
+  const float inv_keep = 1.f / p.keep_div;
+  const uint32_t q_addr = ring.q_addr(0);
+  const uint32_t do_addr = ring.q_addr(1);
 
-  float dq[D / 8][4];
+  float dq[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  const int n_kt = dq_k_tiles(p, q0, kMmaBq);
+  ring.wait_q();
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBk;
-    __syncthreads();  // the previous k / v tiles fully consumed
-    load_tile<D>(ks, kStride, k + kbase, k0, kBk, p.sk, tid, kMmaThreads);
-    load_tile<D>(vs, kStride, v + kbase, k0, kBk, p.sk, tid, kMmaThreads);
-    __syncthreads();
+    ring.wait_full(kt);
+    const uint32_t k_addr = ring.k_addr(kt);
 
-    // S = q k^T and dP = dO v^T for this warp's 16 rows x 64 keys
-    float s[kBk / 8][4], dp[kBk / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBk / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    // S = q k^T and dP = dO v^T: 64 rows x kBk keys each, reducing over D
+    float s[kBk / 2], dp[kBk / 2];
+    sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, qs, kStride, qw, kk * 16, g, t);
-      load_a(da, dos, kStride, qw, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < kBk / 8; ++j) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_bf16(s[j], qa, ld32(kr), ld32(kr + 8));
-        const __nv_bfloat16* vr = vs + (j * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_bf16(dp[j], da, ld32(vr), ld32(vr + 8));
-      }
+      sm90::Wgmma<kBk>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
+                           T::kmajor(k_addr, kBk, 0, kk), kk > 0);
+      sm90::Wgmma<kBk>::ss(dp, T::kmajor(do_addr, kBq, wg * 64, kk),
+                           T::kmajor(ring.v_addr(kt), kBk, 0, kk), kk > 0);
     }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    sm90::mask_scores<kBk>(s, ring.key_bias(kt), full_bias ? bias_rows : nullptr,
+                           p.causal && k0 + kBk - 1 > wg_row0, row_a, k0, t,
+                           p.sq, p.sk);
 
-    // dS in place of S
+    // P = exp(S + bias - lse), dS = P * (dP * keep / (1 - rate) - delta)
 #pragma unroll
     for (int j = 0; j < kBk / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool lo = e < 2;
-        const int row = lo ? row_a : row_b;
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float pr = prob(p, s[j][e], lo ? lse_a : lse_b, bh, row, col);
-        const float kf = keep_factor(p, bh, row, col);
-        s[j][e] = pr * (dp[j][e] * kf - (lo ? del_a : del_b));
+        const float pr = exp2f(fmaf(s[4 * j + e], kLog2e, -(lo ? lse_a : lse_b)));
+        float kf = 1.f;
+        if (p.drop_threshold != 0u)
+          kf = dropout_keep(p.seed, bh, lo ? row_a : row_b, k0 + j * 8 + 2 * t + (e & 1),
+                            p.drop_threshold) ? inv_keep : 0.f;
+        s[4 * j + e] = pr * (dp[4 * j + e] * kf - (lo ? del_a : del_b));
       }
     }
 
-    // dQ += dS k, reducing over the tile's 64 keys; dS rounds to bf16 here
+    // dQ += dS k: dS rounds to bf16 here (the TPU kernel's
+    // `ds.astype(k.dtype)`) and leaves the accumulators as A fragments; k is
+    // B as it lies, (keys, D), read MN-major
+    uint32_t da[kBk / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int kk = 0; kk < kBk / 16; ++kk)
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, ks, kStride, kk * 16, n * 8, g, t);
-        mma_bf16(dq[n], a, b0, b1);
-      }
-    }
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = sm90::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk)
+      sm90::Wgmma<D>::rs(dq, da[kk], T::mnmajor(k_addr, kBk, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(dq);
+    ring.release(kt, lane);
   }
 
   __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq);
+  const size_t qbase = (size_t)bh * p.sq * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t;
     if (row_a < p.sq)
       *reinterpret_cast<uint32_t*>(dq_out + qbase + (size_t)row_a * D + c) =
-          pack_bf16(dq[n][0], dq[n][1]);
+          sm90::pack_bf16(dq[4 * n], dq[4 * n + 1]);
     if (row_b < p.sq)
       *reinterpret_cast<uint32_t*>(dq_out + qbase + (size_t)row_b * D + c) =
-          pack_bf16(dq[n][2], dq[n][3]);
+          sm90::pack_bf16(dq[4 * n + 2], dq[4 * n + 3]);
   }
 }
 
@@ -689,7 +715,7 @@ flash_bwd_dq_simt_kernel(Params p) {
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) acc[j] = 0.f;
 
-  const int n_kt = dq_k_tiles(p, q0, kSimtDqBq);
+  const int n_kt = dq_k_tiles(p, q0, kSimtDqBq, kBk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBk;
     __syncthreads();
@@ -733,16 +759,7 @@ flash_bwd_dq_simt_kernel(Params p) {
   }
 }
 
-// Opt a kernel in to `bytes` of dynamic shared memory, once per kernel
-// (a host call, kept out of the launches a CUDA graph may capture).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
-}
+using sm90::allow_smem;
 
 // The fused kernel (kEmitDq) or the split route's dk/dv kernel.
 template <int D, bool kEmitDq>
@@ -764,23 +781,34 @@ cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, int C>
+cudaError_t launch_dq_sm90(const Params& p, cudaStream_t stream) {
+  using Cfg = DqCfg<D, C>;
+  static bool smem_ready = false;
+  cudaError_t err = sm90::allow_smem(flash_bwd_dq_sm90_kernel<D, C>, Cfg::kSmem, smem_ready);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, dom, km, vm;
+  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kBq)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kBq)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess)
+    return err;
+  dim3 grid((p.sq + Cfg::kBq - 1) / Cfg::kBq, p.bh_count);
+  flash_bwd_dq_sm90_kernel<D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, dom, km, vm, p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
-  static bool mma_ready = false, simt_ready = false;
-  cudaError_t err;
-  if (dtype == kDtypeBF16) {
-    constexpr int bytes = dq_mma_smem_bytes<D>();
-    err = allow_smem(flash_bwd_dq_mma_kernel<D>, bytes, mma_ready);
-    if (err != cudaSuccess) return err;
-    dim3 grid((p.sq + kMmaBq - 1) / kMmaBq, p.bh_count);
-    flash_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(p);
-  } else {
-    constexpr int bytes = dq_simt_smem_bytes<D>();
-    err = allow_smem(flash_bwd_dq_simt_kernel<D>, bytes, simt_ready);
-    if (err != cudaSuccess) return err;
-    dim3 grid((p.sq + kSimtDqBq - 1) / kSimtDqBq, p.bh_count);
-    flash_bwd_dq_simt_kernel<D><<<grid, kSimtThreads, bytes, stream>>>(p);
-  }
+  if (dtype == kDtypeBF16)
+    return sm90::consumer_groups(p.sq, p.bh_count) == 2 ? launch_dq_sm90<D, 2>(p, stream)
+                                                        : launch_dq_sm90<D, 1>(p, stream);
+  static bool simt_ready = false;
+  constexpr int bytes = dq_simt_smem_bytes<D>();
+  const cudaError_t err = allow_smem(flash_bwd_dq_simt_kernel<D>, bytes, simt_ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.sq + kSimtDqBq - 1) / kSimtDqBq, p.bh_count);
+  flash_bwd_dq_simt_kernel<D><<<grid, kSimtThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 

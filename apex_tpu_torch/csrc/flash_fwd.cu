@@ -9,34 +9,50 @@
 // (bh, row, col) and seed), dead rows (max <= -5e29) written as 0 with
 // lse = +1e30.  Emits out (BH, Sq, D) in q's dtype and lse (BH, Sq) fp32.
 //
-// What bounds it: at the serving shape (BH = 16, S = 512, D = 64, causal,
-// bf16) the kernel must move ~4 MB (q, k, v, out) and do ~0.54 GFLOP of
-// matrix products, i.e. ~1.3 us of memory traffic against ~0.5 us of tensor
-// core work: bytes bound, and short enough that the launch and the tail of
-// the grid dominate.  The design keeps the (Sq, Sk) scores out of device
-// memory entirely and reads each k/v tile once per q tile:
-//   * bf16: one CTA of 4 warps per (bh, 64-row q tile); each warp owns 16 q
-//     rows held as mma.sync A fragments in registers; k/v tiles of 64 keys
-//     are staged in padded shared memory (no bank conflicts on fragment
-//     loads); S = q k^T and O += P v run on mma.sync.m16n8k16 (bf16 in,
-//     fp32 accumulate), and P is re-packed from the S accumulators straight
-//     into A fragments without touching shared memory;
-//   * fp32 (the numerics oracle): one CTA of 4 warps per (bh, 16-row q tile),
-//     scalar FMA, one lane per key of a 32-key tile; rows' running max/sum
-//     live in registers, the output accumulator in registers (D/32 per lane).
-// Tiles wholly above the diagonal are skipped when causal; ragged Sq / Sk
-// edges are masked inside the kernel (no padding copies).  Speed work
-// (wgmma, TMA, warp specialisation) is for later.
+// What bounds it: operations.  Attention does 4 BH Sq Sk D flops on ~4 BH S D
+// elements: at the long-sequence shape (BH 64, S 4096, D 64, bf16) that is
+// 275 GFLOP (0.28 ms at 989 TFLOP/s) against 134 MB (0.04 ms); at the
+// training shape (BH 128, S 512) 8.6 GFLOP (8.7 us) against 34 MB (10 us),
+// the two about even.  Only Hopper's warpgroup products (wgmma) reach that
+// rate, and only when the tiles arrive while the tensor cores work on the
+// last ones, so the bf16 kernel is built as Hopper wants it
+// (`sm90_attn.cuh`):
+//   * a producer warpgroup gives its registers to the consumers
+//     (setmaxnreg), and its first warp keeps TMA loads of 128-key k and v
+//     tiles in flight through a 2-stage ring of shared-memory stages
+//     guarded by mbarriers (full: the bytes arrived; empty: every consumer
+//     warp is done); it loads q once, and stages the tile's key bias
+//     beside it;
+//   * one or two consumer warpgroups of 64 query rows each: S = q k^T runs
+//     on wgmma with q and k read from swizzled shared memory; the online
+//     softmax runs on the accumulators in exp2 with log2(e) folded in; P is
+//     rounded to bf16 in registers and is the register A operand of O += P
+//     v, where v is B as it lies, (keys, D), read MN-major; O stays in
+//     registers until the epilogue;
+//   * masks only where they bite: the per-key bias (a (1|B, 1, Sk) bias,
+//     with -1e30 past Sk folded in, since a zero-filled key would score 0)
+//     is read once per tile from the stage; a (B, Sq, Sk) bias is read per
+//     element; the causal compare runs only on tiles that cross the
+//     warpgroup's diagonal, and tiles wholly above it are not loaded;
+//   * the grid: 128-row query tiles (two warpgroups) where they still fill
+//     the 132 SMs, else 64 (serving's BH 16 x 512 causal gives 128 CTAs of
+//     64 rows, not 64 of 128); causal grids take the longest rows first.
+// fp32 (the numerics oracle): one CTA of 4 warps per (bh, 16-row q tile),
+// scalar FMA, one lane per key of a 32-key tile; rows' running max/sum live
+// in registers, the output accumulator in registers (D/32 per lane).
+// Ragged Sq / Sk edges need no padding copies: the TMA maps are 3-D over
+// (D, S, BH), so rows past S arrive as zeros and never from the next head.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "dropout.cuh"
+#include "sm90_attn.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using sm90::kNegInf;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
 
@@ -70,125 +86,89 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int bh,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync.m16n8k16 tensor-core kernel
+// bf16: TMA + mbarrier ring + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaBq = 64;   // q rows per CTA (4 warps x 16)
-constexpr int kMmaBk = 64;   // keys per k/v tile
-constexpr int kMmaThreads = 128;
+// C consumer warpgroups of 64 query rows each, then one producer
+// warpgroup whose first warp starts the loads: q once, 128-key k/v stages.
+template <int D, int C>
+using FwdCfg = sm90::RingCfg<D, C, 128, 1>;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <int D, int C>
+__global__ void __launch_bounds__(FwdCfg<D, C>::kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, Params p) {
+  using Cfg = FwdCfg<D, C>;
+  using T = sm90::Tile<D>;
+  using sm90::kLog2e;
+  constexpr int kBq = Cfg::kBq, kBk = Cfg::kBk;
+  extern __shared__ unsigned char smem_raw[];
+  const sm90::Ring<Cfg> ring(smem_raw);
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(Params p) {
-  constexpr int kStride = D + 8;  // padded smem row (bf16 elements)
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaBk * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMmaBk * kStride];
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kMmaBq;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int r0 = q0 + warp * 16;
-  const int row_a = r0 + g;       // this thread's two q rows
-  const int row_b = r0 + g + 8;
+  const int bh = blockIdx.y;
+  const int n_qt = (p.sq + kBq - 1) / kBq;
+  // causal: the longest rows first, so the grid's tail is short tiles
+  const int q0 = (p.causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x) * kBq;
+  int n_kt = (p.sk + kBk - 1) / kBk;
+  if (p.causal) n_kt = min(n_kt, (q0 + kBq - 1) / kBk + 1);
+  const float* bias_rows = p.bias + (size_t)(p.bias_b == 1 ? 0 : bh / p.heads) * p.bias_q * p.sk;
+  const bool full_bias = p.bias_q != 1;
 
-  const size_t qbase = (size_t)bh * p.sq * D;
-  const size_t kbase = (size_t)bh * p.sk * D;
-
-  // q A-fragments for the whole head dim, kept in registers
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = row_a < p.sq ? *reinterpret_cast<const uint32_t*>(q + qbase + (size_t)row_a * D + c) : 0u;
-    qa[kk][1] = row_b < p.sq ? *reinterpret_cast<const uint32_t*>(q + qbase + (size_t)row_b * D + c) : 0u;
-    qa[kk][2] = row_a < p.sq ? *reinterpret_cast<const uint32_t*>(q + qbase + (size_t)row_a * D + c + 8) : 0u;
-    qa[kk][3] = row_b < p.sq ? *reinterpret_cast<const uint32_t*>(q + qbase + (size_t)row_b * D + c + 8) : 0u;
+  ring.init();
+  if (warp >= 4 * C) {
+    // ---- producer: q once, then k/v tiles and their key bias
+    sm90::producer_release_registers();
+    if (warp == 4 * C) {
+      const CUtensorMap* qmaps[1] = {&qmap};
+      ring.produce(qmaps, &kmap, &vmap, full_bias ? nullptr : bias_rows, p.sk,
+                   q0, bh, n_kt, lane);
+    }
+    return;
   }
+
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  sm90::consumer_claim_registers<C>();
+  const int wg = warp >> 2;
+  const int t = lane & 3;   // thread in its accumulator row group
+  const int wg_row0 = q0 + wg * 64;
+  const int row_a = wg_row0 + (warp & 3) * 16 + (lane >> 2);  // this thread's two rows
+  const int row_b = row_a + 8;
+  const uint32_t q_addr = ring.q_addr(0);
 
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
-  float o[D / 8][4];
+  float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-  int n_tiles = (p.sk + kMmaBk - 1) / kMmaBk;
-  if (p.causal) {
-    const int last = (q0 + kMmaBq - 1) / kMmaBk + 1;  // tiles with k0 <= q-tile end
-    n_tiles = min(n_tiles, last);
-  }
+  ring.wait_q();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBk;
+    ring.wait_full(kt);
 
-  constexpr int kVecPerRow = D / 8;  // 16-byte vectors per k/v row
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kMmaBk;
-    __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < kMmaBk * kVecPerRow; i += kMmaThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < p.sk) {
-        kv = *reinterpret_cast<const uint4*>(k + kbase + (size_t)(k0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(v + kbase + (size_t)(k0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * kStride + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * kStride + c) = vv;
-    }
-    __syncthreads();
-
-    // S = q k^T over this tile: 8 n-tiles of 8 keys
-    float s[kMmaBk / 8][4];
+    // S = q k^T: 64 rows x kBk keys, reducing over D
+    float s[kBk / 2];
+    sm90::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kMmaBk / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * kStride + kk * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma_bf16(s[j], qa[kk], b0, b1);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::Wgmma<kBk>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
+                           T::kmajor(ring.k_addr(kt), kBk, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::mask_scores<kBk>(s, ring.key_bias(kt), full_bias ? bias_rows : nullptr,
+                           p.causal && k0 + kBk - 1 > wg_row0, row_a, k0, t,
+                           p.sq, p.sk);
 
-    // bias / masks, then the running max of each of this thread's two rows
+    // online softmax in exp2: log2(e) folded into the scores
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kMmaBk / 8; ++j) {
-      const int col = k0 + j * 8 + 2 * t;
-      s[j][0] = masked_score(p, s[j][0], bh, row_a, col);
-      s[j][1] = masked_score(p, s[j][1], bh, row_a, col + 1);
-      s[j][2] = masked_score(p, s[j][2], bh, row_b, col);
-      s[j][3] = masked_score(p, s[j][3], bh, row_b, col + 1);
-      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+    for (int j = 0; j < kBk / 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -196,17 +176,17 @@ flash_fwd_mma_kernel(Params p) {
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float sc_a = expf(m_a - mn_a), sc_b = expf(m_b - mn_b);
-
+    const float sc_a = exp2f((m_a - mn_a) * kLog2e), sc_b = exp2f((m_b - mn_b) * kLog2e);
+    const float ml_a = mn_a * kLog2e, ml_b = mn_b * kLog2e;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMmaBk / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn_a);
-      s[j][1] = expf(s[j][1] - mn_a);
-      s[j][2] = expf(s[j][2] - mn_b);
-      s[j][3] = expf(s[j][3] - mn_b);
-      sum_a += s[j][0] + s[j][1];
-      sum_b += s[j][2] + s[j][3];
+    for (int j = 0; j < kBk / 8; ++j) {
+      s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], kLog2e, -ml_a));
+      s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], kLog2e, -ml_a));
+      s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], kLog2e, -ml_b));
+      s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], kLog2e, -ml_b));
+      sum_a += s[4 * j] + s[4 * j + 1];
+      sum_b += s[4 * j + 2] + s[4 * j + 3];
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -220,60 +200,64 @@ flash_fwd_mma_kernel(Params p) {
 
     if (p.drop_threshold != 0u) {  // after the denominator, as on the TPU
 #pragma unroll
-      for (int j = 0; j < kMmaBk / 8; ++j) {
-        const uint32_t col = (uint32_t)(k0 + j * 8 + 2 * t);
-        s[j][0] = dropout_keep(p.seed, bh, row_a, col, p.drop_threshold) ? s[j][0] / p.keep_div : 0.f;
-        s[j][1] = dropout_keep(p.seed, bh, row_a, col + 1, p.drop_threshold) ? s[j][1] / p.keep_div : 0.f;
-        s[j][2] = dropout_keep(p.seed, bh, row_b, col, p.drop_threshold) ? s[j][2] / p.keep_div : 0.f;
-        s[j][3] = dropout_keep(p.seed, bh, row_b, col + 1, p.drop_threshold) ? s[j][3] / p.keep_div : 0.f;
+      for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t row = e < 2 ? row_a : row_b;
+          const uint32_t col = (uint32_t)(k0 + j * 8 + 2 * t + (e & 1));
+          s[4 * j + e] = dropout_keep(p.seed, bh, row, col, p.drop_threshold)
+                             ? s[4 * j + e] / p.keep_div : 0.f;
+        }
       }
     }
 
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= sc_a;
-      o[n][1] *= sc_a;
-      o[n][2] *= sc_b;
-      o[n][3] *= sc_b;
+      o[4 * n + 0] *= sc_a;
+      o[4 * n + 1] *= sc_a;
+      o[4 * n + 2] *= sc_b;
+      o[4 * n + 3] *= sc_b;
     }
 
-    // O += P v: P's C-fragments re-packed as A-fragments, 16 keys at a time
+    // O += P v: P leaves the accumulators as bf16 A fragments; v is B as it
+    // lies, (keys, D), read MN-major
+    uint32_t pa[kBk / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kMmaBk / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = vs + (kk * 16 + 2 * t) * kStride + g;
+    for (int kk = 0; kk < kBk / 16; ++kk)
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vr = v0 + n * 8;
-        const uint32_t b0 = pack_bf16_raw(vr[0], vr[kStride]);
-        const uint32_t b1 = pack_bf16_raw(vr[8 * kStride], vr[9 * kStride]);
-        mma_bf16(o[n], pa, b0, b1);
-      }
-    }
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = sm90::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk)
+      sm90::Wgmma<D>::rs(o, pa[kk], T::mnmajor(ring.v_addr(kt), kBk, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(o);
+    ring.release(kt, lane);
   }
 
   // epilogue: normalise, dead rows -> 0 and lse = +1e30
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  const size_t qbase = (size_t)bh * p.sq * D;
   const bool dead_a = m_a <= kNegInf / 2, dead_b = m_b <= kNegInf / 2;
   const float sl_a = l_a == 0.f ? 1.f : l_a, sl_b = l_b == 0.f ? 1.f : l_b;
+  const float r_a = 1.f / sl_a, r_b = 1.f / sl_b;
   if (row_a < p.sq) {
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      const float x0 = dead_a ? 0.f : o[n][0] / sl_a;
-      const float x1 = dead_a ? 0.f : o[n][1] / sl_a;
-      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_a * D + n * 8 + 2 * t) = pack_bf16(x0, x1);
+      const float x0 = dead_a ? 0.f : o[4 * n] * r_a;
+      const float x1 = dead_a ? 0.f : o[4 * n + 1] * r_a;
+      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_a * D + n * 8 + 2 * t) = sm90::pack_bf16(x0, x1);
     }
     if (t == 0) p.lse[(size_t)bh * p.sq + row_a] = dead_a ? -kNegInf : m_a + logf(sl_a);
   }
   if (row_b < p.sq) {
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      const float x0 = dead_b ? 0.f : o[n][2] / sl_b;
-      const float x1 = dead_b ? 0.f : o[n][3] / sl_b;
-      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_b * D + n * 8 + 2 * t) = pack_bf16(x0, x1);
+      const float x0 = dead_b ? 0.f : o[4 * n + 2] * r_b;
+      const float x1 = dead_b ? 0.f : o[4 * n + 3] * r_b;
+      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_b * D + n * 8 + 2 * t) = sm90::pack_bf16(x0, x1);
     }
     if (t == 0) p.lse[(size_t)bh * p.sq + row_b] = dead_b ? -kNegInf : m_b + logf(sl_b);
   }
@@ -383,15 +367,29 @@ flash_fwd_simt_kernel(Params p) {
   }
 }
 
+template <int D, int C>
+cudaError_t launch_sm90(const Params& p, cudaStream_t stream) {
+  using Cfg = FwdCfg<D, C>;
+  static bool smem_ready = false;
+  cudaError_t err = sm90::allow_smem(flash_fwd_sm90_kernel<D, C>, Cfg::kSmem, smem_ready);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm;
+  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kBq)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess)
+    return err;
+  dim3 grid((p.sq + Cfg::kBq - 1) / Cfg::kBq, p.bh_count);
+  flash_fwd_sm90_kernel<D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, km, vm, p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kDtypeBF16) {
-    dim3 grid((p.sq + kMmaBq - 1) / kMmaBq, p.bh_count);
-    flash_fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(p);
-  } else {
-    dim3 grid((p.sq + kSimtBq - 1) / kSimtBq, p.bh_count);
-    flash_fwd_simt_kernel<D><<<grid, kSimtThreads, 0, stream>>>(p);
-  }
+  if (dtype == kDtypeBF16)
+    return sm90::consumer_groups(p.sq, p.bh_count) == 2 ? launch_sm90<D, 2>(p, stream)
+                                                        : launch_sm90<D, 1>(p, stream);
+  dim3 grid((p.sq + kSimtBq - 1) / kSimtBq, p.bh_count);
+  flash_fwd_simt_kernel<D><<<grid, kSimtThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -1,0 +1,562 @@
+// Hopper (sm_90a) building blocks shared by the attention kernels whose CTA
+// owns a tile of queries and streams k/v tiles (the flash forward, the split
+// dq): TMA tensor maps over (D, S, BH) bf16 tensors; the ring, an
+// mbarrier-guarded 2-stage ring of k/v tiles and their key bias filled by a
+// producer warp, with its shared-memory layout; the score masks; warpgroup
+// matrix multiplies (`wgmma`) reading their B operand (and A, or A from
+// registers) from swizzled shared memory; the register split between the
+// producer and the consumer warpgroups; and the choice of one or two
+// consumer warpgroups.
+//
+// Tile layout.  A tile of `rows` rows of a (.., D) bf16 tensor lies in
+// shared memory as D / AW column chunks of (rows, AW), AW = min(D, 64)
+// elements: one 128-byte swizzle atom a row for D = 64 and 128 (two chunks
+// for 128), one 64-byte atom for D = 32.  TMA writes each chunk with the
+// matching swizzle (CU_TENSOR_MAP_SWIZZLE_128B / _64B), and the wgmma
+// descriptors below read it back with the same swizzle:
+//   * K-major (the reduction runs along D: q, k, dO, v as the B of S = q k^T
+//     and dP = dO v^T): the 16-element k step advances the start address by
+//     32 bytes inside the atom (and to the next chunk every AW / 16 steps);
+//     8-row groups are SBO = 8 * row bytes apart;
+//   * MN-major (the reduction runs along the rows, the keys: v in O += P v,
+//     k in dQ += dS k; the instruction's transpose bit set): the 16-key step
+//     advances 16 rows; 8-key groups are SBO = 8 * row bytes apart and the
+//     D chunks LBO = rows * row bytes apart.
+// Every tile starts on a 1024-byte boundary, so the swizzle's base offset is
+// 0.
+//
+// The maps are 3-D, (D, S, BH), so a box never reaches into the next head
+// and rows past S arrive as zeros: ragged edges need no padding copies.
+// `cuTensorMapEncodeTiled` is looked up through the CUDA runtime
+// (cudaGetDriverEntryPoint), so the library links without -lcuda; the
+// maps are encoded on the host at each call and passed by value as
+// __grid_constant__ parameters.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+// ---------------------------------------------------------------------------
+// host: tensor maps and the shared-memory opt-in
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Map over a contiguous (bh, s, d) bf16 tensor whose box is one column chunk
+// of `box_rows` rows of one head.
+template <int D>
+cudaError_t encode_map(CUtensorMap* map, const void* base, int s, int bh,
+                       int box_rows) {
+  constexpr int kAw = D < 64 ? D : 64;
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)s * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kAw, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        kAw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory, once per kernel (a
+// host call kept out of the launches a CUDA graph may capture).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// device: tile layout and wgmma descriptors
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Tile {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static constexpr int kAw = D < 64 ? D : 64;    // elements a chunk row
+  static constexpr int kChunks = D / kAw;
+  static constexpr int kRowBytes = kAw * 2;      // 64 or 128
+  static constexpr uint64_t kLayout = kAw == 64 ? 1 : 2;  // 128B / 64B swizzle
+  static constexpr uint32_t kSbo = 8 * kRowBytes / 16;    // 8-row groups
+
+  // the descriptor of a K-major operand: rows of a tile of `rows` rows, the
+  // 16 elements of reduction step kk
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows,
+                                                    int row0, int kk) {
+    const uint32_t addr = tile + (kk * 16 / kAw) * rows * kRowBytes +
+                          row0 * kRowBytes + (kk * 16 % kAw) * 2;
+    return desc(addr, 1, kSbo);
+  }
+  // the descriptor of an MN-major operand: the 16 rows of reduction step
+  // kk, all D columns
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
+                                                     int kk) {
+    return desc(tile + kk * 16 * kRowBytes, rows * kRowBytes / 16, kSbo);
+  }
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                                  uint32_t sbo) {
+    return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo & 0x3FFF) << 16) |
+           ((uint64_t)(sbo & 0x3FFF) << 32) | (kLayout << 62);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// device: mbarriers, TMA, the producer's register release
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that lasts
+// 4 s traps: a fault in the ring's phases ends the kernel with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, spins = 0;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if ((++spins & 1023u) == 0u) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 4000000000ull) __trap();
+    }
+  }
+}
+
+// the column chunks of rows [row0, row0 + rows) of head bh into `dst`
+template <int D>
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         int row0, int bh, int rows,
+                                         uint64_t* bar) {
+  const uint32_t d = smem_u32(dst), b = smem_u32(bar);
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+#pragma unroll
+  for (int c = 0; c < Tile<D>::kChunks; ++c) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+            d + c * rows * Tile<D>::kRowBytes),
+        "l"(m), "r"(c * Tile<D>::kAw), "r"(row0), "r"(bh), "r"(b)
+        : "memory");
+  }
+}
+
+// The register split.  A kernel of C consumer warpgroups and one producer
+// warpgroup is launched with 65536 / (128 (C + 1)) registers a thread: 168
+// at C = 2, the 255 cap at C = 1.  The producer's four warps drop to 24
+// (one of them starts the loads, the other three leave), and at C = 2 the
+// 128 x 144 registers they free are what the two consumer warpgroups need
+// to rise from 168 to 240 for their accumulators and fragments.
+// setmaxnreg acts on a whole warpgroup: every warp of it runs the same
+// instruction.
+__device__ __forceinline__ void producer_release_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+template <int C>
+__device__ __forceinline__ void consumer_claim_registers() {
+  if constexpr (C == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// the k/v ring of a query-tile kernel
+// ---------------------------------------------------------------------------
+
+constexpr float kNegInf = -1e30f;  // a masked score
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Consumer warpgroups a CTA takes: two (128-row query tiles) where those
+// still fill the card's 132 SMs, else one (64 rows).
+inline int consumer_groups(int sq, int bh) {
+  return (sq + 127) / 128 * bh >= 132 ? 2 : 1;
+}
+
+// The shared memory of a kernel whose CTA owns 64 C query rows: QTiles
+// query-side tiles loaded once (q; q and dO), then kStages stages of a k and
+// a v tile of Bk keys, each stage's key bias, and the barriers (full and
+// empty a stage, one for the query side).  C consumer warpgroups, then one
+// producer warpgroup.
+template <int D, int C, int Bk, int QTiles>
+struct RingCfg {
+  static constexpr int kD = D;
+  static constexpr int kC = C;
+  static constexpr int kBq = 64 * C;           // query rows per CTA
+  static constexpr int kBk = Bk;               // keys per ring stage
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 128 * (C + 1);
+  static constexpr int kQTiles = QTiles;
+  static constexpr int kQBytes = kBq * D * 2;  // one query-side tile
+  static constexpr int kKvBytes = kBk * D * 2;  // one k (or v) tile
+  static constexpr int kKOff = QTiles * kQBytes;  // stage s: k, then v
+  static constexpr int kBiasOff = kKOff + kStages * 2 * kKvBytes;
+  static constexpr int kBarOff = kBiasOff + kStages * kBk * 4;
+  static constexpr int kSmem = 1024 + kBarOff + (2 * kStages + 1) * 8;
+};
+
+template <class Cfg>
+struct Ring {
+  static constexpr int kStages = Cfg::kStages, kBk = Cfg::kBk;
+  // every part at a fixed offset from one 1024-byte aligned base (TMA's
+  // 128-byte swizzle wants it), so the ring costs one register
+  unsigned char* smem;
+
+  __device__ explicit Ring(unsigned char* raw)
+      : smem(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023)) {}
+  __device__ float* bias() const { return reinterpret_cast<float*>(smem + Cfg::kBiasOff); }
+  // full[s]: a stage's bytes arrived; empty[s]: every consumer warp is done
+  // with it; qbar: the query-side tiles arrived
+  __device__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(smem + Cfg::kBarOff) + s;
+  }
+  __device__ uint64_t* empty(int s) const { return full(kStages + s); }
+  __device__ uint64_t* qbar() const { return full(2 * kStages); }
+
+  // every thread of the CTA: thread 0 sets the barriers up
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), 4 * Cfg::kC);  // one arrival per consumer warp
+      }
+      mbar_init(qbar(), 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+
+  // The producer warp: the query-side tiles of rows q0.. once, then for each
+  // of n_kt k tiles its key bias and its k and v tiles.  The key bias is
+  // `bias_row` (the per-key row of a (1|B, 1, Sk) bias), or 0 where the
+  // consumers add a (B, Sq, Sk) bias per element (`bias_row` null), with
+  // -1e30 past Sk folded in: a zero-filled key would otherwise score 0.
+  __device__ void produce(const CUtensorMap* const (&qmaps)[Cfg::kQTiles],
+                          const CUtensorMap* kmap, const CUtensorMap* vmap,
+                          const float* bias_row, int sk, int q0, int bh,
+                          int n_kt, int lane) const {
+    constexpr int D = Cfg::kD;
+    if (lane == 0) {
+      mbar_expect_tx(qbar(), Cfg::kQTiles * Cfg::kQBytes);
+      for (int i = 0; i < Cfg::kQTiles; ++i)
+        tma_tile<D>(smem + i * Cfg::kQBytes, qmaps[i], q0, bh, Cfg::kBq, qbar());
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int stage = kt % kStages;
+      mbar_wait(empty(stage), ((kt / kStages) & 1) ^ 1);
+      float* bs = bias() + stage * kBk;
+      for (int i = lane; i < kBk; i += 32) {
+        const int col = kt * kBk + i;
+        bs[i] = col < sk ? (bias_row != nullptr ? bias_row[col] : 0.f) : kNegInf;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        unsigned char* kv = smem + Cfg::kKOff + stage * 2 * Cfg::kKvBytes;
+        mbar_expect_tx(full(stage), 2 * Cfg::kKvBytes);
+        tma_tile<D>(kv, kmap, kt * kBk, bh, kBk, full(stage));
+        tma_tile<D>(kv + Cfg::kKvBytes, vmap, kt * kBk, bh, kBk, full(stage));
+      }
+    }
+  }
+
+  // the consumers' side
+  __device__ uint32_t q_addr(int i) const { return smem_u32(smem) + i * Cfg::kQBytes; }
+  __device__ uint32_t k_addr(int kt) const {
+    return smem_u32(smem + Cfg::kKOff + (kt % kStages) * 2 * Cfg::kKvBytes);
+  }
+  __device__ uint32_t v_addr(int kt) const { return k_addr(kt) + Cfg::kKvBytes; }
+  __device__ const float* key_bias(int kt) const { return bias() + (kt % kStages) * kBk; }
+  __device__ void wait_q() const { mbar_wait(qbar(), 0); }
+  __device__ void wait_full(int kt) const {
+    mbar_wait(full(kt % kStages), (kt / kStages) & 1);
+  }
+  __device__ void release(int kt, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(kt % kStages));
+  }
+};
+
+// The masks of a 64 x N score accumulator of keys k0.. (the thread's rows
+// row_a and row_a + 8, in the accumulator layout below): the stage's key
+// bias `bs` once per tile; a (B, Sq, Sk) bias per element where `bias_rows`
+// (its rows for this head) is not null; the causal compare only where
+// `diag` says the tile crosses the warpgroup's diagonal.
+template <int N>
+__device__ __forceinline__ void mask_scores(float (&s)[N / 2], const float* bs,
+                                            const float* bias_rows, bool diag,
+                                            int row_a, int k0, int t, int sq,
+                                            int sk) {
+  const int row_b = row_a + 8;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(bs + c);
+    s[4 * j + 0] += b.x;
+    s[4 * j + 1] += b.y;
+    s[4 * j + 2] += b.x;
+    s[4 * j + 3] += b.y;
+    if (bias_rows != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row_a : row_b, col = k0 + c + (e & 1);
+        if (row < sq && col < sk) s[4 * j + e] += bias_rows[(size_t)row * sk + col];
+      }
+    }
+    if (diag) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + c + (e & 1) > (e < 2 ? row_a : row_b)) s[4 * j + e] = kNegInf;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from touching accumulator registers across an
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator layout of m64nNk16 (fp32): thread t of the warpgroup holds
+// d[4 j + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e],
+// the mma.sync C fragment of each 8-column block for its warp's 16 rows.
+// The register A fragment of a 16-column slice kk is the same four pairs:
+// {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
+// {d[8kk+6], d[8kk+7]}, packed to bf16.
+template <int N>
+struct Wgmma;
+
+template <> struct Wgmma<32> {
+  // D (64 x 32) (+)= A (64 x 16, smem, K-major) * B (32 x 16, smem, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // D (64 x 32) (+)= A (64 x 16, registers) * B (16 x 32, smem, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct Wgmma<64> {
+  // D (64 x 64) (+)= A (64 x 16, smem, K-major) * B (64 x 16, smem, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // D (64 x 64) (+)= A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // D (64 x 128) (+)= A (64 x 16, smem, K-major) * B (128 x 16, smem, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // D (64 x 128) (+)= A (64 x 16, registers) * B (16 x 128, smem, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+}  // namespace sm90

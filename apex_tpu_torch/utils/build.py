@@ -34,7 +34,7 @@ from typing import List, Optional
 
 import torch
 
-__all__ = ["LAUNCHES", "BuildResult", "build", "library", "check",
+__all__ = ["LAUNCHES", "BuildResult", "build", "load", "library", "check",
            "dtype_code", "stream_of", "NVCC_FLAGS", "F32_BF16", "FLOATS"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -107,13 +107,13 @@ class BuildResult:
     log: str          # compiler output (ptxas register / spill report)
 
 
-def sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> List[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest(srcs: List[Path]) -> str:
+def _digest(srcs: List[Path], csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(srcs + list(CSRC.glob("*.cuh"))):
+    for p in sorted(srcs + list(csrc.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -135,12 +135,13 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def build() -> BuildResult:
-    """Compile the kernels unless a library for these sources exists."""
-    srcs = sources()
+def build(csrc: Path = CSRC) -> BuildResult:
+    """Compile the kernels of ``csrc`` (the package's sources, or an edited
+    copy of them) unless a library for these sources exists."""
+    srcs = sources(csrc)
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_dir = BUILD_ROOT / _digest(srcs)
+        raise RuntimeError(f"no CUDA sources under {csrc}")
+    out_dir = BUILD_ROOT / _digest(srcs, csrc)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return BuildResult(lib, 0.0, True, "")
@@ -178,18 +179,23 @@ def build() -> BuildResult:
 _LIB: Optional[ctypes.CDLL] = None
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library with its entry points' signatures set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.apex_error_string.argtypes = [ctypes.c_int]
+    lib.apex_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.apex_error_string.argtypes = [ctypes.c_int]
-        lib.apex_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = load(build().path)
     return _LIB
 
 

@@ -8,6 +8,10 @@ NVIDIA GPU.
                                       # path and over one step of each
                                       # training path (build/profile_{serve,
                                       # train,zero,long_seq}.txt)
+    python3 chip_smoke.py --variants  # only phases 1-2, then the bf16 flash
+                                      # kernels' tile variants timed against
+                                      # the shipped ones (TILE_VARIANTS); no
+                                      # result line
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -20,7 +24,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
    the time of one call with its host cost (CUDA events around the call,
    median of 30), the plain version's and one PyTorch library call's
    device time (the library call is a yardstick the port never calls) and
-   the least time the card could take;
+   the least time the card could take; the forward also at the
+   long-sequence shape BH 64 x 4096 x 4096 x 64 bf16 (held to the plain
+   version on its first 8 heads, SDPA's forward as the yardstick), and the
+   bf16 forward on the edges of its tiles (``FLASH_EDGE_CASES``: Sq and Sk
+   of 1, 127, 129, 200 x 333, Sk below one k tile and exactly one, causal
+   with Sq != Sk, each bias shape with a dead row, dropout, D = 32 and 128,
+   the two-warpgroup kernels), checked and not timed;
 3b. the same for the training path's kernels: layer-norm backward,
    cross-entropy forward, the l2norm of the flat master-sized buffer and
    the flash backward (whose dropout case also goes against autograd of
@@ -31,7 +41,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
    Sq != Sk, dropout against autograd of the plain forward) and at the
    long-sequence shape BH 64 x 4096 x 4096 x 64 bf16 (held to the plain
    version on its first 8 heads; the plain version's time there is CUDA
-   events around one call at the full shape);
+   events around one call at the full shape), and the bf16 dq kernel on
+   ``FLASH_EDGE_CASES``;
 4. serve parity: a 2-layer engine at BERT-large width, fp32, on the card
    and on the CPU with the same weights — prefill logits within 1e-3 and
    the same greedy tokens over 8 decode steps;
@@ -100,9 +111,10 @@ Tolerances: an element passes when ``|kernel - plain| <= tol *
 max(1, |plain|)``, with tol = 1e-5 (layer-norm forward, cross-entropy,
 fp32), 1e-4 (flash, layer-norm backward, fp32), 2e-2 (bf16: the two
 versions may round one value to neighbouring bf16 numbers, 2^-8 apart
-relative to the value).  The flash backward's gradients (fused and
-split) may lie far below 1, so for them the floor of 1 drops to the
-tensor's largest |plain|: ``tol * max(|plain|, min(1, max|plain|))``.  ``mean`` is held to 1e-5 and ``invvar`` and the
+relative to the value).  Attention's outputs and the flash backward's
+gradients (fused and split) may lie far below 1 (at 4096 keys the output
+is ~0.02), so for them the floor of 1 drops to the tensor's largest
+|plain|: ``tol * max(|plain|, min(1, max|plain|))``.  ``mean`` is held to 1e-5 and ``invvar`` and the
 live rows' ``lse`` to 1e-4 relative; dead rows' lse must be exactly +1e30.
 The l2norm is held to 1e-5 relative (fp32 sums in other orders) and must
 repeat bit for bit.  The Adam and LAMB stage-1 kernels are held to 1e-6
@@ -400,12 +412,85 @@ def _flash_inputs(B, heads, sq, sk, d, kind, gen, dt, dev):
     v = _randn((bh, sk, d), gen, dt, dev)
     if kind == "zeros":
         bias = torch.zeros((1, 1, sk))
-    else:   # key padding per batch row plus one dead query row
+    elif kind == "key_pad":   # (1, 1, Sk): the last keys padded for all
+        bias = torch.zeros((1, 1, sk))
+        bias[..., max(1, sk - 5):] = -1e9
+    elif kind == "all_dead":  # (1, 1, Sk): every key masked, every row dead
+        bias = torch.full((1, 1, sk), -1e30)
+    elif kind == "batch_pad_dead":  # (B, 1, Sk): the last batch row dead
+        bias = torch.zeros((B, 1, sk))
+        for b_ in range(B):
+            bias[b_, :, max(1, sk - 3 - 2 * b_):] = -1e9
+        bias[B - 1] = -1e30
+    else:   # (B, Sq, Sk): key padding per batch row plus one dead query row
         bias = torch.zeros((B, sq, sk))
         for b_ in range(B):
-            bias[b_, :, sk - 7 - 5 * b_:] = -1e9
+            bias[b_, :, max(1, sk - 7 - 5 * b_):] = -1e9
         bias[B - 1, sq // 2, :] = -1e30
     return q, k, v, bias.to(dev)
+
+
+# Edge cases of the bf16 forward and dq kernels' tiles (128 keys a forward
+# stage, 64 a dq stage, 64 or 128 query rows a CTA): held to the plain
+# versions, not timed.  name, B, heads, Sq, Sk, D, bias, causal, dropout
+FLASH_EDGE_CASES = [
+    ("s1", 1, 4, 1, 1, 64, "zeros", False, 0.0),
+    ("s1_causal", 1, 4, 1, 1, 64, "key_pad", True, 0.0),
+    ("s127", 1, 4, 127, 127, 64, "key_pad", True, 0.0),
+    ("s129", 2, 2, 129, 129, 64, "batch_pad_dead", False, 0.0),
+    ("s200x333", 2, 2, 200, 333, 64, "pad_dead", False, 0.0),
+    ("sk_below_tile", 2, 2, 100, 40, 64, "key_pad", False, 0.0),
+    ("sk_one_dq_tile", 2, 2, 130, 64, 64, "batch_pad_dead", False, 0.0),
+    ("sk_one_fwd_tile", 2, 2, 130, 128, 64, "key_pad", False, 0.0),
+    ("causal_sq_lt_sk", 2, 2, 200, 333, 64, "batch_pad_dead", True, 0.0),
+    ("causal_sq_gt_sk", 2, 2, 333, 200, 64, "pad_dead", True, 0.0),
+    ("all_dead", 1, 2, 64, 96, 64, "all_dead", False, 0.0),
+    ("dropout", 2, 2, 129, 200, 64, "pad_dead", True, 0.1),
+    ("d32", 2, 2, 127, 129, 32, "batch_pad_dead", True, 0.1),
+    ("d128", 2, 2, 200, 333, 128, "pad_dead", False, 0.0),
+    # 132+ CTAs of 128 rows: the two-warpgroup kernels
+    ("wide_ragged", 2, 66, 200, 333, 64, "pad_dead", True, 0.1),
+    ("wide_d32", 2, 66, 127, 100, 32, "key_pad", True, 0.0),
+    ("wide_d128", 2, 66, 129, 129, 128, "batch_pad_dead", False, 0.0),
+]
+
+
+def check_flash_edges(dev, grad: bool):
+    """The bf16 kernels on :data:`FLASH_EDGE_CASES`: the forward (out within
+    2e-2 on the peak rule, live lse within 1e-4 relative, dead rows exact)
+    or, with ``grad``, the split dq kernel on the kernel forward's lse (2e-2,
+    the peak rule)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dq, _flash_bwd_dq_reference, _flash_fwd, _reference)
+    gen = torch.Generator().manual_seed(13 if grad else 12)
+    for name, B, heads, sq, sk, d, kind, causal, rate in FLASH_EDGE_CASES:
+        q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, gen,
+                                      torch.bfloat16, dev)
+        out, lse = _flash_fwd(q, k, v, bias, causal, rate, 77, heads)
+        if grad:
+            do = _randn(q.shape, gen, torch.bfloat16, dev)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            args = (q, k, v, bias, causal, rate, 77, heads, lse, delta, do)
+            # over a single key the softmax is constant: dq is 0 up to
+            # rounding, which the peak rule would hold to itself
+            ok, err = (scaled_ok if sk == 1 else peak_ok)(
+                _flash_bwd_dq(*args), _flash_bwd_dq_reference(*args), 2e-2)
+            require(ok, f"flash_bwd_dq edge {name}: err {err:.3g} (tol 2e-2)")
+            log(f"  flash_bwd_dq edge {name:16s} err {err:.3g} (tol 2e-2)")
+            continue
+        torch.cuda.synchronize()
+        r_out, r_lse = _reference(q, k, v, bias, causal, rate, 77, heads)
+        ok, err = peak_ok(out, r_out, 2e-2)
+        live = r_lse < 1e29
+        l_err = rel_err(lse[live], r_lse[live]) if bool(live.any()) else 0.0
+        dead_ok = bool((lse[~live] == r_lse[~live]).all()) and bool(
+            (out[(~live)[..., 0]] == 0).all())
+        require(ok and l_err <= 1e-4 and dead_ok,
+                f"flash edge {name}: out err {err:.3g} (tol 2e-2, peak "
+                f"rule), lse rel err {l_err:.3g}, dead rows ok {dead_ok}")
+        log(f"  flash edge {name:16s} out err {err:.3g} (tol 2e-2, peak) lse "
+            f"{l_err:.2g} dead rows {int((~live).sum())}")
 
 
 def check_flash(dev):
@@ -433,14 +518,15 @@ def check_flash(dev):
             r_out, r_lse = _reference(q, k, v, bias, causal, rate, 1234,
                                       heads)
             tol = 1e-4 if dtype == "float32" else 2e-2
-            ok, err = scaled_ok(out, r_out, tol)
+            ok, err = peak_ok(out, r_out, tol)
             live = r_lse < 1e29
             l_err = rel_err(lse[live], r_lse[live])
             dead_ok = bool((lse[~live] == r_lse[~live]).all()) and bool(
                 (out[(~live)[..., 0]] == 0).all())
             n_dead = int((~live).sum())
             require(ok and l_err <= 1e-4 and dead_ok,
-                    f"flash {name} {dtype}: out err {err:.3g} (tol {tol}), "
+                    f"flash {name} {dtype}: out err {err:.3g} (tol {tol}, peak "
+                    "rule), "
                     f"lse rel err {l_err:.3g}, dead rows ok {dead_ok}")
             bh = B * heads
             es = q.element_size()
@@ -474,7 +560,53 @@ def check_flash(dev):
                 f"{ms:.5f} ms (one call with its host cost {call_ms:.4f} "
                 f"ms)  plain {pms:.5f} ms  sdpa {lib}  bound {bms:.5f} ms "
                 f"({by})")
+    rows.append(check_flash_long(dev, gen))
     return rows
+
+
+def check_flash_long(dev, gen):
+    """The forward at the long-sequence shape, BH 64 x 4096 x 4096 x 64
+    bf16, not causal: held to the plain version on its first 8 heads (the
+    heads are independent), timed against SDPA's forward; the plain
+    version's time is CUDA events around one call at the full shape."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.multihead_attn.flash import (_flash_fwd,
+                                                             _reference)
+    B, heads, S, d = LONG_SHAPE
+    bh = B * heads
+    q, k, v, bias = _flash_inputs(B, heads, S, S, d, "zeros", gen,
+                                  torch.bfloat16, dev)
+    out, lse = _flash_fwd(q, k, v, bias, False, 0.0, 0, heads)
+    torch.cuda.synchronize()
+    r_out, r_lse = _reference(q[:8], k[:8], v[:8], bias, False, 0.0, 0, 1)
+    ok, err = peak_ok(out[:8], r_out, 2e-2)
+    floor = 2e-2 * min(1.0, float(r_out.float().abs().max()))
+    l_err = rel_err(lse[:8], r_lse)
+    del r_out, r_lse
+    require(ok and l_err <= 1e-4, f"flash long shape: out err {err:.3g} "
+            f"(tol 2e-2), lse rel err {l_err:.3g}")
+    nbytes = 4 * bh * S * d * 2 + bias.numel() * 4 + bh * S * 4
+    bms, by = bound(nbytes, 4.0 * d * S * S * bh, "bfloat16")
+
+    def kern():
+        return _flash_fwd(q, k, v, bias, False, 0.0, 0, heads)
+    ms = device_ms(kern)
+    call_ms = time_ms(kern, reps=10, warmup=2)
+    pms = time_ms(lambda: _reference(q, k, v, bias, False, 0.0, 0, heads),
+                  reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    q4, k4, v4 = (t.view(B, heads, S, d) for t in (q, k, v))
+    lms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                           scale=1.0))
+    _report("flash_fwd", f"BH{bh}x{S}x{S}x{d} bf16", err,
+            f"2e-2 peak rule, {floor:.3g} at least", ms, pms, lms,
+            bms, by, f" lse {l_err:.2g} [one call with its host cost "
+            f"{call_ms:.4f} ms; plain: one call between events]")
+    return dict(case="long_seq", dtype="bfloat16", max_abs_err=err,
+                tol=2e-2, lse_rel_err=l_err, dead_rows=0, ms=ms,
+                call_ms=call_ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -1938,6 +2070,118 @@ def phase_mt_apply(dev):
 
 
 # ---------------------------------------------------------------------------
+# --variants: the bf16 flash kernels' tile variants, timed against each other
+# ---------------------------------------------------------------------------
+
+# Edits of csrc/sm90_attn.cuh, each an (old, new) pair that must match once:
+# one consumer warpgroup (64-row query tiles) everywhere, two (128-row)
+# everywhere, and a lone producer warp with no setmaxnreg split in place of
+# the producer warpgroup.  The shipped kernels take two where ceil(Sq / 128)
+# x BH >= 132, else one.
+TILE_VARIANTS = {
+    "c1": [(">= 132 ? 2 : 1;", ">= 132 ? 1 : 1;")],
+    "c2": [(">= 132 ? 2 : 1;", ">= 132 ? 2 : 2;")],
+    "lone_warp": [
+        ("kThreads = 128 * (C + 1);", "kThreads = 128 * C + 32;"),
+        ('asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n" ::: "memory");',
+         ""),
+        ('asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n" ::: '
+         '"memory");', ";")],
+}
+# kernel, B, heads, S (= Sq = Sk), causal: the serving prefill, the O5
+# training and the long-sequence shapes (dq also at the serving shape, where
+# the grid is small)
+VARIANT_SHAPES = [
+    ("flash_fwd", 1, 16, 512, True),
+    ("flash_fwd", 8, 16, 512, False),
+    ("flash_fwd", 4, 16, 4096, False),
+    ("flash_bwd_dq", 1, 16, 512, True),
+    ("flash_bwd_dq", 4, 16, 4096, False),
+]
+
+
+def _build_variant(name, edits):
+    import shutil
+    from pathlib import Path
+    from apex_tpu_torch.utils import build
+    d = Path(HERE) / "build" / "variants" / name
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(build.CSRC, d)
+    header = d / "sm90_attn.cuh"
+    text = header.read_text()
+    for old, new in edits:
+        require(text.count(old) == 1, f"variant {name}: {old!r} does not "
+                "match once in sm90_attn.cuh")
+        text = text.replace(old, new)
+    header.write_text(text)
+    return build.build(d)
+
+
+def study_variants(dev, rounds: int = 3):
+    """Each variant of :data:`TILE_VARIANTS` built from an edited copy of the
+    sources (in parallel), then every variant's device time at each of
+    :data:`VARIANT_SHAPES`, ``rounds`` rounds of all variants in turn (the
+    spread between rounds is the noise a gain must beat); each variant's
+    output is compared with the shipped kernels'."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from apex_tpu_torch.contrib.multihead_attn.flash import (_flash_bwd_dq,
+                                                             _flash_fwd)
+    from apex_tpu_torch.utils import build
+    log("== variants: bf16 flash tile variants")
+    libs = {"shipped": build.library()}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(TILE_VARIANTS)) as ex:
+        futs = {n: ex.submit(_build_variant, n, e)
+                for n, e in TILE_VARIANTS.items()}
+        for n, f in futs.items():
+            res = f.result()
+            for line in res.log.splitlines():
+                if "flash" in line and ("registers" in line or "spill" in line):
+                    log(f"  {n} ptxas: {line.strip()}")
+            libs[n] = build.load(res.path)
+    log(f"  built {len(TILE_VARIANTS)} variants in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(31)
+    calls = []
+    for kernel, B, heads, S, causal in VARIANT_SHAPES:
+        q, k, v, bias = _flash_inputs(B, heads, S, S, 64, "zeros", gen,
+                                      torch.bfloat16, dev)
+        if kernel == "flash_fwd":
+            calls.append(lambda q=q, k=k, v=v, b=bias, c=causal, h=heads:
+                         _flash_fwd(q, k, v, b, c, 0.0, 0, h)[0])
+            continue
+        do = _randn(q.shape, gen, torch.bfloat16, dev)
+        out, lse = _flash_fwd(q, k, v, bias, causal, 0.0, 0, heads)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        args = (q, k, v, bias, causal, 0.0, 0, heads, lse, delta, do)
+        calls.append(lambda a=args: _flash_bwd_dq(*a))
+    times, diff = {}, {}
+    shipped = build._LIB
+    try:
+        ref = [fn() for fn in calls]
+        for n, lib in libs.items():
+            build._LIB = lib
+            for i, fn in enumerate(calls):
+                diff[(i, n)] = float((fn().float() - ref[i].float()).abs()
+                                     .max())
+        for _ in range(rounds):
+            for n, lib in libs.items():
+                build._LIB = lib
+                for i, fn in enumerate(calls):
+                    times.setdefault((i, n), []).append(device_ms(fn))
+    finally:
+        build._LIB = shipped
+    for i, (kernel, B, heads, S, causal) in enumerate(VARIANT_SHAPES):
+        for n in libs:
+            ts = times[(i, n)]
+            log(f"  {kernel} BH{B * heads}x{S}x{S}x64 bf16"
+                f"{' causal' if causal else ''} {n:9s} median "
+                f"{statistics.median(ts):.5f} ms, rounds "
+                f"{[round(t, 5) for t in ts]}; output vs shipped: max "
+                f"|diff| {diff[(i, n)]:.3g}")
+    return times
+
 
 def _kernel_entry(name, source, replaces, row, launches_by_path, path):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1962,9 +2206,15 @@ def main(argv) -> int:
     t_start = time.perf_counter()
     card = phase_environment()
     phase_build()
+    if "--variants" in argv:
+        study_variants(dev)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     log("== phase 3: forward kernels vs plain versions on the card")
     ln_rows = check_layer_norm(dev)
     flash_rows = check_flash(dev)
+    check_flash_edges(dev, grad=False)
     log("== phase 3b: training kernels vs plain versions on the card")
     ln_bwd_rows = check_ln_bwd(dev)
     xent_rows = check_xent(dev)
@@ -1974,6 +2224,7 @@ def main(argv) -> int:
         "versions on the card")
     zero_rows = check_zero_updates(dev)
     split_rows = check_flash_split(dev)
+    check_flash_edges(dev, grad=True)
     torch.cuda.empty_cache()
     log("== phase 3d: fused dense, multi-tensor scale and axpby kernels vs "
         "plain versions on the card")
