@@ -43,9 +43,10 @@ __all__ = ["flash_attention", "_flash_fwd", "_flash_bwd", "_flash_bwd_fused",
 NEG_INF = -1e30
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 128)
-#: keys per k tile of the backward kernel (``kBk`` in ``flash_bwd.cu``):
-#: the dq partials are (BH, ceil(Sk / BWD_K_TILE), Sq, D) fp32
-BWD_K_TILE = 64
+#: keys per CTA of the fused and dk/dv kernels (``kPartKeys`` in
+#: ``flash_bwd.cu``), the JAX package's default backward ``bk``: the dq
+#: partials are (BH, ceil(Sk / BWD_K_TILE), Sq, D) fp32
+BWD_K_TILE = 128
 #: fused-backward dq-partials buffer cap in MB (the JAX package's rule):
 #: past it the split kernels run
 _FUSE_BUFFER_CAP_MB = 1024.0
@@ -82,12 +83,11 @@ def _resolve_fuse(fuse, BH, Sq, Sk, D) -> bool:
     while the (BH, ceil(Sk/BWD_K_TILE), Sq, D) fp32 dq-partials buffer
     stays under :data:`_FUSE_BUFFER_CAP_MB`.
 
-    The rule counts this port's own buffer, whose k tiles are 64 keys; the
-    JAX package counts its 128-key fused blocks, so at the same cap the
-    port splits at half the size where the JAX package still fuses (BH 128
-    x 2048 x 2048 x 64, for one: 2 GiB of partials here, 1 GiB at 128
-    keys).  Compare the two packages at shapes where both pick the same
-    route, or with ``fuse`` given."""
+    The JAX package's rule with its default 128-key backward blocks
+    (``_resolve_fuse(None, ..., bk=128)``), which the port's 128-key tiles
+    count alike: at BH 128 x 2048 x 2048 x 64 both fuse (exactly 1 GiB of
+    partials), at BH 64 x 4096 x 4096 x 64 both split.  The JAX package's
+    environment overrides are not ported."""
     if fuse is not None:
         return bool(fuse)
     nk = -(-Sk // BWD_K_TILE)

@@ -15,55 +15,53 @@
 //   dQ partial[bh, k tile] = dS k       (fp32, summed over k tiles outside)
 // Dead rows (lse = +1e30) and masked scores give P = 0.  Ragged Sq / Sk are
 // masked inside the kernel.  The dq partials are the TPU layout (BH, nk,
-// Sq, D) with nk = ceil(Sk / 64): every (k tile, q tile) block is written
-// exactly once (zeros for a causal-skipped one), so the sum is
-// deterministic and there are no atomics.
-//
-// What bounds it: at the training shape (BH 128, S 512, D 64, bf16) the
-// five matrix products are 21.5 GFLOP (~22 us of tensor-core time) against
-// ~59 MB of inputs and outputs (~18 us): operations, narrowly.  The dq
-// partials are the trap: 128 x 8 x 512 x 64 x 4 B = 134 MB written here and
-// read again by the sum, several times the kernel's own minimum traffic.
-// Wider k tiles (fewer partials) or atomic dq are later work.
-//
-// Design:
-//   * bf16: one CTA of 4 warps per (bh, 64-key tile); k and v of the tile,
-//     and each 64-row q / dO tile in turn, sit in padded shared memory.
-//     Each warp owns 16 keys: S^T and dP^T (16 keys x 64 q rows) run on
-//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with k / v as A
-//     fragments; Pd and dS go from the accumulators straight into A
-//     fragments for dV and dK, which stay in registers (fp32) across the q
-//     sweep.  dS goes to shared memory once (bf16) so that each warp can
-//     take 16 q rows of dQ = dS k.  The bf16 roundings of Pd and dS before
-//     their products are the TPU kernel's (`astype(do.dtype)` etc.).
-//   * fp32 (the numerics oracle): one CTA of 256 threads per (bh, 64-key
-//     tile), q tiles of 32 rows, scalar FMA out of shared memory.
-// Both use dynamic shared memory (up to ~113 KB for fp32 at D = 128).
+// Sq, D) with nk = ceil(Sk / 128) (kPartKeys, flash.py BWD_K_TILE): every
+// (k tile, q tile) block is written exactly once (zeros for a
+// causal-skipped one), so the sum is deterministic and there are no
+// atomics.
 //
 // Split route, taken where the dq partials would pass the wrapper's byte
-// cap (long sequences: BH 64 x 4096 x 4096 x 64 gives 4.3 GB of them):
+// cap (long sequences: BH 64 x 4096 x 4096 x 64 gives 2.1 GB of them):
 //   * dk/dv: replaces `_bwd_dkv_kernel` (via `_flash_bwd_dkv`).  It is the
-//     fused kernel above with its dq work compiled out (template flag
-//     kEmitDq = false): the same recompute and the same dropout draw.
-//   * dq: replaces `_bwd_dq_kernel` (via `_flash_bwd_dq`).  One CTA per
-//     (bh, query tile) walks the k tiles, skipping those a causal mask
-//     hides wholly: S = q k^T and dP = dO v^T, P = exp(S + bias - lse) (a
-//     dead row, lse = +1e30, gives 0), dS = P * (dP * keep / (1 - rate) -
-//     delta) rounded to the input dtype (the TPU kernel's
-//     `ds.astype(k.dtype)`), dQ += dS k in fp32 registers, written once in
-//     q's dtype.  bf16: the forward's Hopper design (`sm90_attn.cuh`): the
-//     first warp of a producer warpgroup keeps TMA loads of 64-key k and v
-//     tiles and their key bias in flight through a 2-stage mbarrier ring
-//     after loading q and dO once; one or two consumer warpgroups of 64
-//     query rows (the register split and the tile choice as the forward's)
-//     run S and dP on wgmma from swizzled shared memory, turn them into dS
-//     in registers in exp2 (the key bias read once per tile, the causal
-//     compare only on tiles crossing the diagonal), and feed dS as the
-//     register A operand of dQ += dS k with k's tile as an MN-major B.
-//     fp32: 256 threads of scalar FMA, dS through shared memory.
-// What bounds them: operations.  At BH 64 x 4096 x 4096 x 64 bf16 dq is
-// 6 BH Sq Sk D = 412 GFLOP (0.42 ms at 989 TFLOP/s) against ~170 MB of
-// inputs and outputs (0.05 ms); dk/dv 8 BH Sq Sk D = 550 GFLOP (0.56 ms).
+//     fused kernel with its dq work compiled out (template flag kEmitDq =
+//     false): the same recompute, in the same order, and the same dropout
+//     draw, so the two routes' dk and dv are the same bits.
+//   * dq: replaces `_bwd_dq_kernel` (via `_flash_bwd_dq`), below.
+//
+// What bounds them: operations.  At the training shape (BH 128, S 512, D
+// 64, bf16) the fused kernel's five matrix products are 21.5 GFLOP (~22 us
+// of tensor-core time) against ~59 MB of inputs and outputs (~18 us);
+// its dq partials, 128 x 4 x 512 x 64 x 4 B = 67 MB, are written here and
+// read again by the sum.  At BH 64 x 4096 x 4096 x 64 bf16 dq is 6 BH Sq
+// Sk D = 412 GFLOP (0.42 ms at 989 TFLOP/s) against ~170 MB of inputs and
+// outputs (0.05 ms); dk/dv 8 BH Sq Sk D = 550 GFLOP (0.56 ms).
+//
+// Design of the fused and dk/dv kernels, bf16 (`flash_bwd_kv_sm90_kernel`,
+// on `sm90_attn.cuh`'s key-major ring): a CTA owns 128 keys of one head
+// (grid: key tiles x BH; key tile 0, which every causal query row sees,
+// first).  A producer warpgroup hands its registers to the consumers, and
+// its first warp loads k and v of the CTA's keys once by TMA, then keeps a
+// 2-stage mbarrier ring of 64-row q and dO tiles in flight, each stage
+// with its rows' lse (in log2 units) and delta.  Two consumer warpgroups
+// own 64 keys each (wgmma's M); per q tile each runs
+//   * S^T = k q^T and dP^T = v dO^T on wgmma from swizzled shared memory
+//     (k / v the K-major A, q / dO the K-major B): 64 keys x 64 rows;
+//   * P^T = exp2(S^T log2e + bias - lse log2e) in registers, the key bias
+//     read once per CTA (a (1|B, 1, Sk) bias is per key, so per
+//     accumulator row; -1e30 past Sk), a (B, Sq, Sk) bias per element, the
+//     causal compare only on tiles that cross the warpgroup's diagonal (q
+//     tiles wholly above the CTA's keys are not loaded), dropout from the
+//     accumulator's (key, row) pairs; Pd^T and dS^T round to bf16 in
+//     registers (the TPU kernel's `astype`s) and are the register A of dV
+//     += Pd^T dO and dK += dS^T q, with dO and q as MN-major B;
+//   * fused only: both warpgroups write dS^T into one bf16 shared tile (two,
+//     alternating by q tile, so one named barrier a tile suffices), then
+//     each computes half of the dq-partial block, dS k over the 128 keys,
+//     with dS^T as an MN-major A and its half of k's columns as an MN-major
+//     B (k lies in chunks of D / 2 columns for this), and writes it once.
+//   dK and dV stay in registers until the epilogue.
+// fp32 (the numerics oracle): one CTA of 512 threads per (bh, 128-key
+// tile), q tiles of 32 rows, scalar FMA out of shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,7 +75,9 @@ namespace {
 using sm90::kNegInf;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
-constexpr int kBk = 64;  // keys per CTA, both kernels (the dq-partial tile)
+// keys per CTA of the fused and dk/dv kernels, both dtypes: the dq-partial
+// tile (flash.py BWD_K_TILE)
+constexpr int kPartKeys = 128;
 
 struct Params {
   const void* q;
@@ -122,263 +122,229 @@ __device__ __forceinline__ float keep_factor(const Params& p, int bh, int row,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync.m16n8k16 tensor-core kernel
+// bf16: the key-major kernel (TMA ring + wgmma)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaBq = 64;  // q rows per step
-constexpr int kMmaThreads = 128;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows r0..r0+15, cols c0..c0+15 of a row-major bf16 tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int stride,
-                                       int r0, int c0, int g, int t) {
-  const __nv_bfloat16* base = tile + (r0 + g) * stride + c0 + 2 * t;
-  a[0] = ld32(base);
-  a[1] = ld32(base + 8 * stride);
-  a[2] = ld32(base + 8);
-  a[3] = ld32(base + 8 * stride + 8);
-}
-
-// B fragment (k = rows k0..k0+15, n = cols n0..n0+7) of a row-major tile
-// whose rows are the reduction index.
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const __nv_bfloat16* tile,
-                                            int stride, int k0, int n0, int g,
-                                            int t) {
-  const __nv_bfloat16* r = tile + (k0 + 2 * t) * stride + n0 + g;
-  b0 = pack_bf16_raw(r[0], r[stride]);
-  b1 = pack_bf16_raw(r[8 * stride], r[9 * stride]);
-}
-
-// Copy rows [r0, r0 + rows) of a (n_rows, D) bf16 matrix into a padded
-// shared tile, zeros past n_rows.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int stride,
-                                          const __nv_bfloat16* src, int r0,
-                                          int rows, int n_rows, int tid,
-                                          int threads) {
-  constexpr int kVecPerRow = D / 8;
-  for (int i = tid; i < rows * kVecPerRow; i += threads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
-  }
-}
-
+// Two consumer warpgroups of 64 keys each, then one producer warpgroup
+// whose first warp starts the loads: k and v of the CTA's 128 keys once, in
+// chunks of D / 2 columns, then stages of a q and a dO tile with their
+// rows' lse and delta.  The fused kernel's own bytes: two dS^T tiles.
 template <int D, bool kEmitDq>
-constexpr int mma_smem_bytes() {
-  return (2 * kBk * (D + 8) + 2 * kMmaBq * (D + 8) +
-          (kEmitDq ? kMmaBq * (kBk + 8) : 0)) * 2 +
-         2 * kMmaBq * 4;
-}
+using KvCfg = sm90::RingCfg<D, 2, sm90::kKvStages, kPartKeys, 2,
+                            sm90::kKvStageRows, 2, D / 2,
+                            kEmitDq ? 2 * kPartKeys * sm90::kKvStageRows * 2 : 0>;
 
 // kEmitDq: the fused kernel (dk, dv and the dq partials); without it, the
 // split route's dk/dv kernel.
 template <int D, bool kEmitDq>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_mma_kernel(Params p) {
-  constexpr int kStride = D + 8;      // padded smem row (bf16 elements)
-  constexpr int kDsStride = kBk + 8;  // dS tile row: keys
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kBk * kStride;
-  __nv_bfloat16* qs = vs + kBk * kStride;
-  __nv_bfloat16* dos = qs + kMmaBq * kStride;
-  __nv_bfloat16* dss = dos + kMmaBq * kStride;  // dS[q][key] (kEmitDq)
-  float* lse_s = reinterpret_cast<float*>(
-      kEmitDq ? dss + kMmaBq * kDsStride : dss);
-  float* delta_s = lse_s + kMmaBq;
+__global__ void __launch_bounds__(KvCfg<D, kEmitDq>::kThreads, 1)
+flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap domap, Params p) {
+  using Cfg = KvCfg<D, kEmitDq>;
+  using Tk = sm90::Tile<D, Cfg::kResAw>;   // k and v
+  using Tq = sm90::Tile<D>;                // q and dO
+  using Ts = sm90::Tile<Cfg::kStageRows>;  // dS^T: keys x query rows
+  using sm90::kLog2e;
+  constexpr int kBq = Cfg::kStageRows, kBk = Cfg::kResRows;
+  // dQ = dS k is split between the two warpgroups by columns (D / 2 each,
+  // one chunk of k) at 64-row q tiles, by rows (64 each) at 128
+  constexpr bool kSplitRows = kBq == 128;
+  constexpr int kDqN = kSplitRows ? D : D / 2;
+  constexpr int kDsBytes = kBk * kBq * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const sm90::Ring<Cfg> ring(smem_raw);
 
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout);
-
-  const int bh = blockIdx.y;
-  const int kt = blockIdx.x;
-  const int k0 = kt * kBk;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int kr = warp * 16;  // this warp's keys in the tile (dK, dV rows)
-  const int qw = warp * 16;  // this warp's q rows of a q tile (dQ rows)
-
-  const size_t qbase = (size_t)bh * p.sq * D;
-  const size_t kbase = (size_t)bh * p.sk * D;
+  const int bh = blockIdx.y;
+  const int kt = blockIdx.x;
+  const int k0 = kt * kBk;
+  const int n_qt = (p.sq + kBq - 1) / kBq;
+  // causal: q tiles whose every row lies above the CTA's first key are
+  // neither loaded nor computed
+  const int qt0 = p.causal ? min(k0 / kBq, n_qt) : 0;
+  const int n = n_qt - qt0;
   float* dqp = kEmitDq ? p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D
                        : nullptr;
 
-  load_tile<D>(ks, kStride, k + kbase, k0, kBk, p.sk, tid, kMmaThreads);
-  load_tile<D>(vs, kStride, v + kbase, k0, kBk, p.sk, tid, kMmaThreads);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int n_qt = (p.sq + kMmaBq - 1) / kMmaBq;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kMmaBq;
-    if (p.causal && q0 + kMmaBq - 1 < k0) {
-      // every (row, col) of this step is above the diagonal: the step still
-      // owns its dq-partial block, which must be defined
-      if (!kEmitDq) continue;
-      for (int i = tid; i < kMmaBq * D / 4; i += kMmaThreads) {
-        const int r = i / (D / 4);
-        const int c = (i % (D / 4)) * 4;
-        if (q0 + r < p.sq)
-          *reinterpret_cast<float4*>(dqp + (size_t)(q0 + r) * D + c) =
-              make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      continue;
+  ring.init();
+  if (warp >= 8) {
+    // ---- producer: k and v once, then q / dO tiles with lse and delta
+    sm90::producer_release_registers();
+    if (warp == 8) {
+      const CUtensorMap* kv[2] = {&kmap, &vmap};
+      const size_t rows = (size_t)bh * p.sq;
+      ring.produce(kv, k0, &qmap, &domap, bh, qt0, n, lane,
+                   sm90::QueryStats{p.lse + rows, p.delta + rows, p.sq});
     }
-    __syncthreads();  // the previous step's tiles fully consumed
-    load_tile<D>(qs, kStride, q + qbase, q0, kMmaBq, p.sq, tid, kMmaThreads);
-    load_tile<D>(dos, kStride, dout + qbase, q0, kMmaBq, p.sq, tid,
-                 kMmaThreads);
-    for (int r = tid; r < kMmaBq; r += kMmaThreads) {
-      const bool in = q0 + r < p.sq;
-      lse_s[r] = in ? p.lse[(size_t)bh * p.sq + q0 + r] : -kNegInf;
-      delta_s[r] = in ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = k q^T and dP^T = v dO^T for this warp's 16 keys x 64 q rows
-    float st[kMmaBq / 8][4], dpt[kMmaBq / 8][4];
-#pragma unroll
-    for (int j = 0; j < kMmaBq / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, ks, kStride, kr, kk * 16, g, t);
-      load_a(va, vs, kStride, kr, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < kMmaBq / 8; ++j) {
-        const __nv_bfloat16* qr = qs + (j * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_bf16(st[j], ka, ld32(qr), ld32(qr + 8));
-        const __nv_bfloat16* dr = dos + (j * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_bf16(dpt[j], va, ld32(dr), ld32(dr + 8));
-      }
-    }
-
-    // P, Pd and dS in place: st <- Pd^T, dpt <- dS^T
-#pragma unroll
-    for (int j = 0; j < kMmaBq / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key_l = kr + g + (e >= 2 ? 8 : 0);
-        const int q_l = j * 8 + 2 * t + (e & 1);
-        const int row = q0 + q_l, col = k0 + key_l;
-        const float pr = prob(p, st[j][e], lse_s[q_l], bh, row, col);
-        const float kf = keep_factor(p, bh, row, col);
-        st[j][e] = pr * kf;
-        dpt[j][e] = pr * (dpt[j][e] * kf - delta_s[q_l]);
-        if (kEmitDq) dss[q_l * kDsStride + key_l] = __float2bfloat16(dpt[j][e]);
-      }
-    }
-
-    // dV += Pd^T dO and dK += dS^T q, reducing over this step's 64 q rows
-#pragma unroll
-    for (int kk = 0; kk < kMmaBq / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-      sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-      sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      sa[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, dos, kStride, kk * 16, n * 8, g, t);
-        mma_bf16(dv_acc[n], pa, b0, b1);
-        load_b_rows(b0, b1, qs, kStride, kk * 16, n * 8, g, t);
-        mma_bf16(dk_acc[n], sa, b0, b1);
-      }
-    }
-    if (!kEmitDq) continue;
-    __syncthreads();  // dS of all four warps in shared memory
-
-    // dQ partial = dS k for this warp's 16 q rows, reducing over 64 keys
-    float dq[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, dss, kDsStride, qw, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, ks, kStride, kk * 16, n * 8, g, t);
-        mma_bf16(dq[n], a, b0, b1);
-      }
-    }
-    const int row_a = q0 + qw + g, row_b = row_a + 8;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      if (row_a < p.sq)
-        *reinterpret_cast<float2*>(dqp + (size_t)row_a * D + n * 8 + 2 * t) =
-            make_float2(dq[n][0], dq[n][1]);
-      if (row_b < p.sq)
-        *reinterpret_cast<float2*>(dqp + (size_t)row_b * D + n * 8 + 2 * t) =
-            make_float2(dq[n][2], dq[n][3]);
-    }
+    return;
   }
 
-  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(p.dk);
-  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(p.dv);
-  const int key_a = k0 + kr + g, key_b = key_a + 8;
+  // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  sm90::consumer_claim_registers<2>();
+  const int wg = warp >> 2;
+  const int t = lane & 3;   // thread in its accumulator row group
+  const int key_l = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // tile row
+  const int key_a = k0 + key_l, key_b = key_a + 8;  // this thread's keys
+  const float* bias_rows = p.bias + (size_t)(p.bias_b == 1 ? 0 : bh / p.heads) * p.bias_q * p.sk;
+  const bool full_bias = p.bias_q != 1;
+  // the keys' bias, once: a (1|B, 1, Sk) bias's value, or 0 where a (B, Sq,
+  // Sk) bias is added per element; -1e30 past Sk
+  const float kb_a = key_a < p.sk ? (full_bias ? 0.f : bias_rows[key_a]) : kNegInf;
+  const float kb_b = key_b < p.sk ? (full_bias ? 0.f : bias_rows[key_b]) : kNegInf;
+  const float inv_keep = 1.f / p.keep_div;
+
+  if constexpr (kEmitDq) {
+    // the dq-partial rows of the q tiles the causal mask skips: zeros
+    const int rows = min(qt0 * kBq, p.sq);
+    for (int i = tid; i < rows * D / 4; i += 256)
+      reinterpret_cast<float4*>(dqp)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t k_addr = ring.res_addr(0);
+  const uint32_t v_addr = ring.res_addr(1);
+
+  ring.wait_res();
+  for (int i = 0; i < n; ++i) {
+    const int q0 = (qt0 + i) * kBq;
+    ring.wait_full(i);
+    const uint32_t q_addr = ring.stage_addr(i, 0);
+    const uint32_t do_addr = ring.stage_addr(i, 1);
+
+    // S^T = k q^T and dP^T = v dO^T: 64 keys x kBq rows each, reducing
+    // over D
+    float s[kBq / 2], dp[kBq / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      sm90::Wgmma<kBq>::ss(s, Tk::kmajor(k_addr, kBk, wg * 64, kk),
+                           Tq::kmajor(q_addr, kBq, 0, kk), kk > 0);
+      sm90::Wgmma<kBq>::ss(dp, Tk::kmajor(v_addr, kBk, wg * 64, kk),
+                           Tq::kmajor(do_addr, kBq, 0, kk), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    sm90::mask_scores_t<kBq>(s, kb_a, kb_b, full_bias ? bias_rows : nullptr,
+                             p.causal && q0 < k0 + wg * 64 + 63, key_a, q0, t,
+                             p.sq, p.sk);
+
+    // P^T = exp(S^T + bias - lse), then Pd^T = P^T keep / (1 - rate) (into
+    // s) and dS^T = P^T (dP^T keep / (1 - rate) - delta) (into dp); lse and
+    // delta are per column, read from the stage
+    const float* lse2 = ring.vecs(i);
+    const float* delta = lse2 + kBq;
+#pragma unroll
+    for (int j = 0; j < kBq / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lse2 + j * 8 + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(delta + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = exp2f(fmaf(s[4 * j + e], kLog2e, -((e & 1) ? l.y : l.x)));
+        float kf = 1.f;
+        if (p.drop_threshold != 0u)
+          kf = dropout_keep(p.seed, bh, q0 + j * 8 + 2 * t + (e & 1),
+                            e < 2 ? key_a : key_b, p.drop_threshold) ? inv_keep : 0.f;
+        s[4 * j + e] = __fmul_rn(pr, kf);
+        dp[4 * j + e] = __fmul_rn(pr, fmaf(dp[4 * j + e], kf, -((e & 1) ? dl.y : dl.x)));
+      }
+    }
+
+    // dV += Pd^T dO and dK += dS^T q: Pd^T and dS^T round to bf16 here (the
+    // TPU kernel's `pd.astype(do.dtype)` and `ds.astype(q.dtype)`) and leave
+    // the accumulators as A fragments; dO and q are B as they lie, (rows,
+    // D), read MN-major
+    uint32_t pa[kBq / 16][4], da[kBq / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = sm90::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        da[kk][r] = sm90::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)
+      sm90::Wgmma<D>::rs(dv, pa[kk], Tq::mnmajor(do_addr, kBq, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)
+      sm90::Wgmma<D>::rs(dk, da[kk], Tq::mnmajor(q_addr, kBq, kk), 1);
+    sm90::wgmma_commit();
+
+    if constexpr (kEmitDq) {
+      // dS^T into this tile's shared buffer, in the 128-byte swizzle its
+      // descriptor reads: chunks of 64 query rows; in a key's 128-byte
+      // row, 16-byte unit u lands at u ^ (key & 7).  The two buffers
+      // alternate: the other warpgroup may still be reading the last one.
+      unsigned char* ds = ring.extra() + (i & 1) * kDsBytes;
+      const int sw = key_l & 7;
+#pragma unroll
+      for (int j = 0; j < kBq / 8; ++j) {
+        unsigned char* at = ds + (j / 8) * kBk * 128 + (((j % 8) ^ sw) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(at + key_l * 128) = da[j >> 1][(j & 1) * 2];
+        *reinterpret_cast<uint32_t*>(at + (key_l + 8) * 128) = da[j >> 1][(j & 1) * 2 + 1];
+      }
+      sm90::fence_async_shared();
+      sm90::consumers_sync<2>();
+
+      // dQ partial = dS k over the CTA's keys: A = dS (rows x keys), read
+      // as dS^T with the transpose bit; B = k, read MN-major
+      const uint32_t ds_addr = sm90::smem_u32(ds) + (kSplitRows ? wg * kBk * 128 : 0);
+      const uint32_t kn_addr = k_addr + (kSplitRows ? 0 : wg * kBk * Tk::kRowBytes);
+      float dq[kDqN / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBk / 16; ++kk)
+        sm90::Wgmma<kDqN>::template ss<1, 1>(dq, Ts::mnmajor(ds_addr, kBk, kk),
+                                             Tk::mnmajor(kn_addr, kBk, kk), kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(dq);
+      const int row_a = q0 + (kSplitRows ? wg * 64 : 0) + (warp & 3) * 16 + (lane >> 2);
+      const int row_b = row_a + 8;
+      const int c0 = kSplitRows ? 0 : wg * kDqN;
+#pragma unroll
+      for (int nn = 0; nn < kDqN / 8; ++nn) {
+        const int c = c0 + nn * 8 + 2 * t;
+        if (row_a < p.sq)
+          *reinterpret_cast<float2*>(dqp + (size_t)row_a * D + c) =
+              make_float2(dq[4 * nn], dq[4 * nn + 1]);
+        if (row_b < p.sq)
+          *reinterpret_cast<float2*>(dqp + (size_t)row_b * D + c) =
+              make_float2(dq[4 * nn + 2], dq[4 * nn + 3]);
+      }
+    } else {
+      sm90::wgmma_wait_all();
+    }
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    ring.release(i, lane);
+  }
+
+  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk);
+  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv);
+  const size_t kbase = (size_t)bh * p.sk * D;
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn) {
+    const int c = nn * 8 + 2 * t;
     if (key_a < p.sk) {
-      *reinterpret_cast<uint32_t*>(dk + kbase + (size_t)key_a * D + c) =
-          pack_bf16(dk_acc[n][0], dk_acc[n][1]);
-      *reinterpret_cast<uint32_t*>(dv + kbase + (size_t)key_a * D + c) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+      *reinterpret_cast<uint32_t*>(dk_out + kbase + (size_t)key_a * D + c) =
+          sm90::pack_bf16(dk[4 * nn], dk[4 * nn + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + kbase + (size_t)key_a * D + c) =
+          sm90::pack_bf16(dv[4 * nn], dv[4 * nn + 1]);
     }
     if (key_b < p.sk) {
-      *reinterpret_cast<uint32_t*>(dk + kbase + (size_t)key_b * D + c) =
-          pack_bf16(dk_acc[n][2], dk_acc[n][3]);
-      *reinterpret_cast<uint32_t*>(dv + kbase + (size_t)key_b * D + c) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+      *reinterpret_cast<uint32_t*>(dk_out + kbase + (size_t)key_b * D + c) =
+          sm90::pack_bf16(dk[4 * nn + 2], dk[4 * nn + 3]);
+      *reinterpret_cast<uint32_t*>(dv_out + kbase + (size_t)key_b * D + c) =
+          sm90::pack_bf16(dv[4 * nn + 2], dv[4 * nn + 3]);
     }
   }
 }
@@ -388,18 +354,19 @@ flash_bwd_mma_kernel(Params p) {
 // ---------------------------------------------------------------------------
 
 constexpr int kSimtBq = 32;  // q rows per step
-constexpr int kSimtThreads = 256;
-constexpr int kSimtGroups = kSimtThreads / kBk;  // 4 thread groups of 64
+constexpr int kSimtKvThreads = 512;
+constexpr int kSimtGroups = kSimtKvThreads / kPartKeys;  // 4 groups of 128
 
 template <int D>
 constexpr int simt_smem_bytes() {
-  return (2 * kBk * (D + 1) + 2 * kSimtBq * (D + 1) + 2 * kSimtBq * (kBk + 1) +
-          2 * kSimtBq) * 4;
+  return (2 * kPartKeys * (D + 1) + 2 * kSimtBq * (D + 1) +
+          2 * kSimtBq * (kPartKeys + 1) + 2 * kSimtBq) * 4;
 }
 
 template <int D, bool kEmitDq>
-__global__ void __launch_bounds__(kSimtThreads)
+__global__ void __launch_bounds__(kSimtKvThreads)
 flash_bwd_simt_kernel(Params p) {
+  constexpr int kBk = kPartKeys;
   constexpr int kS = D + 1;    // +1: lane-per-key reads hit distinct banks
   constexpr int kP = kBk + 1;
   constexpr int kPerThread = D / kSimtGroups;  // dK / dV columns a thread owns
@@ -429,7 +396,7 @@ flash_bwd_simt_kernel(Params p) {
   float* dqp = kEmitDq ? p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D
                        : nullptr;
 
-  for (int i = tid; i < kBk * D; i += kSimtThreads) {
+  for (int i = tid; i < kBk * D; i += kSimtKvThreads) {
     const int r = i / D, c = i % D;
     const bool in = k0 + r < p.sk;
     ks[r * kS + c] = in ? k[kbase + (size_t)(k0 + r) * D + c] : 0.f;
@@ -445,20 +412,20 @@ flash_bwd_simt_kernel(Params p) {
     const int q0 = qt * kSimtBq;
     if (p.causal && q0 + kSimtBq - 1 < k0) {
       if (!kEmitDq) continue;
-      for (int i = tid; i < kSimtBq * D; i += kSimtThreads) {
+      for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
         const int r = i / D;
         if (q0 + r < p.sq) dqp[(size_t)(q0 + r) * D + i % D] = 0.f;
       }
       continue;
     }
     __syncthreads();
-    for (int i = tid; i < kSimtBq * D; i += kSimtThreads) {
+    for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
       const int r = i / D, c = i % D;
       const bool in = q0 + r < p.sq;
       qs[r * kS + c] = in ? q[qbase + (size_t)(q0 + r) * D + c] : 0.f;
       dos[r * kS + c] = in ? dout[qbase + (size_t)(q0 + r) * D + c] : 0.f;
     }
-    for (int r = tid; r < kSimtBq; r += kSimtThreads) {
+    for (int r = tid; r < kSimtBq; r += kSimtKvThreads) {
       const bool in = q0 + r < p.sq;
       lse_s[r] = in ? p.lse[(size_t)bh * p.sq + q0 + r] : -kNegInf;
       delta_s[r] = in ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
@@ -492,7 +459,7 @@ flash_bwd_simt_kernel(Params p) {
       dk_acc[j] = b;
     }
     if (!kEmitDq) continue;
-    for (int i = tid; i < kSimtBq * D; i += kSimtThreads) {
+    for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
       const int q_l = i / D, d = i % D;
       if (q0 + q_l >= p.sq) continue;
       float s = 0.f;
@@ -519,6 +486,21 @@ flash_bwd_simt_kernel(Params p) {
 // the split route's dq kernels
 // ---------------------------------------------------------------------------
 
+// One CTA per (bh, query tile) walks the k tiles, skipping those a causal
+// mask hides wholly: S = q k^T and dP = dO v^T, P = exp(S + bias - lse) (a
+// dead row, lse = +1e30, gives 0), dS = P * (dP * keep / (1 - rate) -
+// delta) rounded to the input dtype (the TPU kernel's `ds.astype(k.dtype)`),
+// dQ += dS k in fp32 registers, written once in q's dtype.  bf16: the
+// forward's query-major design (`sm90_attn.cuh`): the first warp of a
+// producer warpgroup keeps TMA loads of 64-key k and v tiles and their key
+// bias in flight through a 2-stage mbarrier ring after loading q and dO
+// once; one or two consumer warpgroups of 64 query rows (the register split
+// and the tile choice as the forward's) run S and dP on wgmma from swizzled
+// shared memory, turn them into dS in registers in exp2 (the key bias read
+// once per tile, the causal compare only on tiles crossing the diagonal),
+// and feed dS as the register A operand of dQ += dS k with k's tile as an
+// MN-major B.  fp32: 256 threads of scalar FMA, dS through shared memory.
+
 // k tiles a query tile at q0 of `rows` rows reads: under a causal mask,
 // none past the tile's last row.
 __device__ __forceinline__ int dq_k_tiles(const Params& p, int q0, int rows,
@@ -532,7 +514,7 @@ __device__ __forceinline__ int dq_k_tiles(const Params& p, int q0, int rows,
 // stages (128 would give S and dP 128 fp32 registers a thread together,
 // which spills even at 240 and measured slower).
 template <int D, int C>
-using DqCfg = sm90::RingCfg<D, C, 64, 2>;
+using DqCfg = sm90::RingCfg<D, C, 2, 64 * C, 2, 64, 1>;
 
 template <int D, int C>
 __global__ void __launch_bounds__(DqCfg<D, C>::kThreads, 1)
@@ -543,7 +525,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   using Cfg = DqCfg<D, C>;
   using T = sm90::Tile<D>;
   using sm90::kLog2e;
-  constexpr int kBq = Cfg::kBq, kBk = Cfg::kBk;
+  constexpr int kBq = Cfg::kResRows, kBk = Cfg::kStageRows;
   extern __shared__ unsigned char smem_raw[];
   const sm90::Ring<Cfg> ring(smem_raw);
 
@@ -564,8 +546,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::producer_release_registers();
     if (warp == 4 * C) {
       const CUtensorMap* qmaps[2] = {&qmap, &domap};
-      ring.produce(qmaps, &kmap, &vmap, full_bias ? nullptr : bias_rows, p.sk,
-                   q0, bh, n_kt, lane);
+      ring.produce(qmaps, q0, &kmap, &vmap, bh, 0, n_kt, lane,
+                   sm90::KeyBias{full_bias ? nullptr : bias_rows, p.sk});
     }
     return;
   }
@@ -583,18 +565,18 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const float del_a = row_a < p.sq ? p.delta[(size_t)bh * p.sq + row_a] : 0.f;
   const float del_b = row_b < p.sq ? p.delta[(size_t)bh * p.sq + row_b] : 0.f;
   const float inv_keep = 1.f / p.keep_div;
-  const uint32_t q_addr = ring.q_addr(0);
-  const uint32_t do_addr = ring.q_addr(1);
+  const uint32_t q_addr = ring.res_addr(0);
+  const uint32_t do_addr = ring.res_addr(1);
 
   float dq[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  ring.wait_q();
+  ring.wait_res();
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBk;
     ring.wait_full(kt);
-    const uint32_t k_addr = ring.k_addr(kt);
+    const uint32_t k_addr = ring.stage_addr(kt, 0);
 
     // S = q k^T and dP = dO v^T: 64 rows x kBk keys each, reducing over D
     float s[kBk / 2], dp[kBk / 2];
@@ -604,13 +586,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::Wgmma<kBk>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
                            T::kmajor(k_addr, kBk, 0, kk), kk > 0);
       sm90::Wgmma<kBk>::ss(dp, T::kmajor(do_addr, kBq, wg * 64, kk),
-                           T::kmajor(ring.v_addr(kt), kBk, 0, kk), kk > 0);
+                           T::kmajor(ring.stage_addr(kt, 1), kBk, 0, kk), kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    sm90::mask_scores<kBk>(s, ring.key_bias(kt), full_bias ? bias_rows : nullptr,
+    sm90::mask_scores<kBk>(s, ring.vecs(kt), full_bias ? bias_rows : nullptr,
                            p.causal && k0 + kBk - 1 > wg_row0, row_a, k0, t,
                            p.sq, p.sk);
 
@@ -663,16 +645,19 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 constexpr int kSimtDqBq = 64;  // query rows per CTA of the fp32 dq kernel
+constexpr int kSimtDqBk = 64;  // keys per k tile of the fp32 dq kernel
+constexpr int kSimtThreads = 256;
 
 template <int D>
 constexpr int dq_simt_smem_bytes() {
-  return (2 * kSimtDqBq * (D + 1) + 2 * kBk * (D + 1) + kSimtDqBq * (kBk + 1) +
-          2 * kSimtDqBq) * 4;
+  return (2 * kSimtDqBq * (D + 1) + 2 * kSimtDqBk * (D + 1) +
+          kSimtDqBq * (kSimtDqBk + 1) + 2 * kSimtDqBq) * 4;
 }
 
 template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_bwd_dq_simt_kernel(Params p) {
+  constexpr int kBk = kSimtDqBk;
   constexpr int kS = D + 1;  // +1: lane-per-row reads hit distinct banks
   constexpr int kP = kBk + 1;
   constexpr int kPerThread = kSimtDqBq * D / kSimtThreads;  // dQ values
@@ -761,23 +746,33 @@ flash_bwd_dq_simt_kernel(Params p) {
 
 using sm90::allow_smem;
 
+template <int D, bool kEmitDq>
+cudaError_t launch_kv_sm90(const Params& p, cudaStream_t stream) {
+  using Cfg = KvCfg<D, kEmitDq>;
+  static bool smem_ready = false;
+  cudaError_t err = allow_smem(flash_bwd_kv_sm90_kernel<D, kEmitDq>, Cfg::kSmem, smem_ready);
+  if (err != cudaSuccess) return err;
+  CUtensorMap km, vm, qm, dom;
+  if ((err = sm90::encode_map<D, Cfg::kResAw>(&km, p.k, p.sk, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D, Cfg::kResAw>(&vm, p.v, p.sk, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
+    return err;
+  dim3 grid(p.nk, p.bh_count);
+  flash_bwd_kv_sm90_kernel<D, kEmitDq><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(km, vm, qm, dom, p);
+  return cudaGetLastError();
+}
+
 // The fused kernel (kEmitDq) or the split route's dk/dv kernel.
 template <int D, bool kEmitDq>
 cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
-  static bool mma_ready = false, simt_ready = false;
+  if (dtype == kDtypeBF16) return launch_kv_sm90<D, kEmitDq>(p, stream);
+  static bool simt_ready = false;
+  constexpr int bytes = simt_smem_bytes<D>();
+  const cudaError_t err = allow_smem(flash_bwd_simt_kernel<D, kEmitDq>, bytes, simt_ready);
+  if (err != cudaSuccess) return err;
   dim3 grid(p.nk, p.bh_count);
-  cudaError_t err;
-  if (dtype == kDtypeBF16) {
-    constexpr int bytes = mma_smem_bytes<D, kEmitDq>();
-    err = allow_smem(flash_bwd_mma_kernel<D, kEmitDq>, bytes, mma_ready);
-    if (err != cudaSuccess) return err;
-    flash_bwd_mma_kernel<D, kEmitDq><<<grid, kMmaThreads, bytes, stream>>>(p);
-  } else {
-    constexpr int bytes = simt_smem_bytes<D>();
-    err = allow_smem(flash_bwd_simt_kernel<D, kEmitDq>, bytes, simt_ready);
-    if (err != cudaSuccess) return err;
-    flash_bwd_simt_kernel<D, kEmitDq><<<grid, kSimtThreads, bytes, stream>>>(p);
-  }
+  flash_bwd_simt_kernel<D, kEmitDq><<<grid, kSimtKvThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -788,12 +783,12 @@ cudaError_t launch_dq_sm90(const Params& p, cudaStream_t stream) {
   cudaError_t err = sm90::allow_smem(flash_bwd_dq_sm90_kernel<D, C>, Cfg::kSmem, smem_ready);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, dom, km, vm;
-  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kBq)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kBq)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess)
+  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
-  dim3 grid((p.sq + Cfg::kBq - 1) / Cfg::kBq, p.bh_count);
+  dim3 grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count);
   flash_bwd_dq_sm90_kernel<D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, dom, km, vm, p);
   return cudaGetLastError();
 }
@@ -849,7 +844,7 @@ int run(const void* q, const void* k, const void* v, const void* bias,
   p.sq = sq;
   p.sk = sk;
   p.heads = heads;
-  p.nk = (sk + kBk - 1) / kBk;
+  p.nk = (sk + kPartKeys - 1) / kPartKeys;
   p.bias_b = bias_b;
   p.bias_q = bias_q;
   p.causal = causal;
@@ -869,7 +864,7 @@ int run(const void* q, const void* k, const void* v, const void* bias,
 
 // q, dout (bh, sq, d), k/v (bh, sk, d), dk/dv (bh, sk, d): contiguous,
 // 16-byte aligned, of `dtype`.  bias: fp32 (bias_b, bias_q, sk) or null.
-// lse, delta: fp32 (bh, sq).  dq_part: fp32 (bh, ceil(sk / 64), sq, d),
+// lse, delta: fp32 (bh, sq).  dq_part: fp32 (bh, ceil(sk / 128), sq, d),
 // fully written.  d in {32, 64, 128}.  drop_threshold = rate * 2^32 (0 = no
 // dropout), keep_div = 1 - rate.  Returns cudaSuccess (0) or the launch
 // error.

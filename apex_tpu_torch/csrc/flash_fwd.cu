@@ -90,9 +90,10 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int bh,
 // ---------------------------------------------------------------------------
 
 // C consumer warpgroups of 64 query rows each, then one producer
-// warpgroup whose first warp starts the loads: q once, 128-key k/v stages.
+// warpgroup whose first warp starts the loads: q once, 2 stages of 128-key
+// k/v tiles with their key bias.
 template <int D, int C>
-using FwdCfg = sm90::RingCfg<D, C, 128, 1>;
+using FwdCfg = sm90::RingCfg<D, C, 2, 64 * C, 1, 128, 1>;
 
 template <int D, int C>
 __global__ void __launch_bounds__(FwdCfg<D, C>::kThreads, 1)
@@ -102,7 +103,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   using Cfg = FwdCfg<D, C>;
   using T = sm90::Tile<D>;
   using sm90::kLog2e;
-  constexpr int kBq = Cfg::kBq, kBk = Cfg::kBk;
+  constexpr int kBq = Cfg::kResRows, kBk = Cfg::kStageRows;
   extern __shared__ unsigned char smem_raw[];
   const sm90::Ring<Cfg> ring(smem_raw);
 
@@ -124,8 +125,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::producer_release_registers();
     if (warp == 4 * C) {
       const CUtensorMap* qmaps[1] = {&qmap};
-      ring.produce(qmaps, &kmap, &vmap, full_bias ? nullptr : bias_rows, p.sk,
-                   q0, bh, n_kt, lane);
+      ring.produce(qmaps, q0, &kmap, &vmap, bh, 0, n_kt, lane,
+                   sm90::KeyBias{full_bias ? nullptr : bias_rows, p.sk});
     }
     return;
   }
@@ -137,14 +138,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg_row0 = q0 + wg * 64;
   const int row_a = wg_row0 + (warp & 3) * 16 + (lane >> 2);  // this thread's two rows
   const int row_b = row_a + 8;
-  const uint32_t q_addr = ring.q_addr(0);
+  const uint32_t q_addr = ring.res_addr(0);
 
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-  ring.wait_q();
+  ring.wait_res();
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBk;
     ring.wait_full(kt);
@@ -155,11 +156,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       sm90::Wgmma<kBk>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
-                           T::kmajor(ring.k_addr(kt), kBk, 0, kk), kk > 0);
+                           T::kmajor(ring.stage_addr(kt, 0), kBk, 0, kk), kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(s);
-    sm90::mask_scores<kBk>(s, ring.key_bias(kt), full_bias ? bias_rows : nullptr,
+    sm90::mask_scores<kBk>(s, ring.vecs(kt), full_bias ? bias_rows : nullptr,
                            p.causal && k0 + kBk - 1 > wg_row0, row_a, k0, t,
                            p.sq, p.sk);
 
@@ -230,7 +231,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk)
-      sm90::Wgmma<D>::rs(o, pa[kk], T::mnmajor(ring.v_addr(kt), kBk, kk), 1);
+      sm90::Wgmma<D>::rs(o, pa[kk], T::mnmajor(ring.stage_addr(kt, 1), kBk, kk), 1);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(o);
@@ -374,11 +375,11 @@ cudaError_t launch_sm90(const Params& p, cudaStream_t stream) {
   cudaError_t err = sm90::allow_smem(flash_fwd_sm90_kernel<D, C>, Cfg::kSmem, smem_ready);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
-  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kBq)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kBk)) != cudaSuccess)
+  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
+      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
-  dim3 grid((p.sq + Cfg::kBq - 1) / Cfg::kBq, p.bh_count);
+  dim3 grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count);
   flash_fwd_sm90_kernel<D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
 }

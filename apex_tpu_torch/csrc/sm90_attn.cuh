@@ -1,27 +1,38 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels whose CTA
-// owns a tile of queries and streams k/v tiles (the flash forward, the split
-// dq): TMA tensor maps over (D, S, BH) bf16 tensors; the ring, an
-// mbarrier-guarded 2-stage ring of k/v tiles and their key bias filled by a
-// producer warp, with its shared-memory layout; the score masks; warpgroup
-// matrix multiplies (`wgmma`) reading their B operand (and A, or A from
-// registers) from swizzled shared memory; the register split between the
-// producer and the consumer warpgroups; and the choice of one or two
-// consumer warpgroups.
+// Hopper (sm_90a) building blocks shared by the bf16 attention kernels:
+// TMA tensor maps over (D, S, BH) bf16 tensors; the ring, an
+// mbarrier-guarded ring of two-tile stages filled by a producer warp, with
+// its shared-memory layout; the score masks; warpgroup matrix multiplies
+// (`wgmma`) reading their operands from swizzled shared memory (A also from
+// registers); the register split between the producer and the consumer
+// warpgroups; and the choice of one or two consumer warpgroups.
+//
+// The ring serves two shapes of kernel.  Query-major (the flash forward,
+// the split dq): a CTA owns a tile of queries, its resident tiles are q (and
+// dO), loaded once, and each stage brings a k and a v tile with their key
+// bias.  Key-major (the fused backward, the split dk/dv): a CTA owns a tile
+// of 128 keys, its resident tiles are k and v, and each stage brings a q and
+// a dO tile with those rows' lse and delta.
 //
 // Tile layout.  A tile of `rows` rows of a (.., D) bf16 tensor lies in
 // shared memory as D / AW column chunks of (rows, AW), AW = min(D, 64)
-// elements: one 128-byte swizzle atom a row for D = 64 and 128 (two chunks
-// for 128), one 64-byte atom for D = 32.  TMA writes each chunk with the
-// matching swizzle (CU_TENSOR_MAP_SWIZZLE_128B / _64B), and the wgmma
-// descriptors below read it back with the same swizzle:
-//   * K-major (the reduction runs along D: q, k, dO, v as the B of S = q k^T
-//     and dP = dO v^T): the 16-element k step advances the start address by
-//     32 bytes inside the atom (and to the next chunk every AW / 16 steps);
-//     8-row groups are SBO = 8 * row bytes apart;
-//   * MN-major (the reduction runs along the rows, the keys: v in O += P v,
-//     k in dQ += dS k; the instruction's transpose bit set): the 16-key step
-//     advances 16 rows; 8-key groups are SBO = 8 * row bytes apart and the
-//     D chunks LBO = rows * row bytes apart.
+// elements unless a kernel asks for narrower chunks: one 128-byte swizzle
+// atom a row for AW = 64, one 64-byte atom for AW = 32, one 32-byte atom
+// for AW = 16.  TMA writes each chunk with the matching swizzle
+// (CU_TENSOR_MAP_SWIZZLE_128B / _64B / _32B), and the wgmma descriptors
+// below read it back with the same swizzle:
+//   * K-major (the reduction runs along D: q, k, dO, v as the operands of
+//     S = q k^T and dP = dO v^T or of their transposes): the 16-element k
+//     step advances the start address by 32 bytes inside the atom (and to
+//     the next chunk every AW / 16 steps); 8-row groups are SBO = 8 * row
+//     bytes apart;
+//   * MN-major (the reduction runs along the rows: v in O += P v, k in dQ
+//     += dS k, dO and q in dV += Pd^T dO and dK += dS^T q, dS^T as the A of
+//     dQ += dS k; the instruction's transpose bit set): the 16-row step
+//     advances 16 rows; 8-row groups are SBO = 8 * row bytes apart and the
+//     column chunks LBO = rows * row bytes apart.  An operand that starts
+//     at a chunk reads that chunk alone when its width is one chunk: the
+//     key-major kernels keep k in chunks of D / 2 columns so that each
+//     consumer warpgroup's dQ takes one chunk as its B.
 // Every tile starts on a 1024-byte boundary, so the swizzle's base offset is
 // 0.
 //
@@ -68,23 +79,27 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// Map over a contiguous (bh, s, d) bf16 tensor whose box is one column chunk
-// of `box_rows` rows of one head.
+// the default column chunk: one 128-byte row (64-byte at D = 32)
 template <int D>
+constexpr int default_aw() { return D < 64 ? D : 64; }
+
+// Map over a contiguous (bh, s, d) bf16 tensor whose box is one column chunk
+// of AW columns and `box_rows` rows of one head.
+template <int D, int AW = default_aw<D>()>
 cudaError_t encode_map(CUtensorMap* map, const void* base, int s, int bh,
                        int box_rows) {
-  constexpr int kAw = D < 64 ? D : 64;
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)s * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kAw, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)AW, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        kAw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                  : CU_TENSOR_MAP_SWIZZLE_64B,
+                        AW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : AW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                   : CU_TENSOR_MAP_SWIZZLE_32B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -105,13 +120,16 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
 // device: tile layout and wgmma descriptors
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int AW = default_aw<D>()>
 struct Tile {
   static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
-  static constexpr int kAw = D < 64 ? D : 64;    // elements a chunk row
+  static_assert((AW == 16 || AW == 32 || AW == 64) && D % AW == 0,
+                "column chunks of 16, 32 or 64 elements");
+  static constexpr int kAw = AW;                 // elements a chunk row
   static constexpr int kChunks = D / kAw;
-  static constexpr int kRowBytes = kAw * 2;      // 64 or 128
-  static constexpr uint64_t kLayout = kAw == 64 ? 1 : 2;  // 128B / 64B swizzle
+  static constexpr int kRowBytes = kAw * 2;      // 32, 64 or 128
+  // 128B / 64B / 32B swizzle
+  static constexpr uint64_t kLayout = kAw == 64 ? 1 : kAw == 32 ? 2 : 3;
   static constexpr uint32_t kSbo = 8 * kRowBytes / 16;    // 8-row groups
 
   // the descriptor of a K-major operand: rows of a tile of `rows` rows, the
@@ -123,7 +141,7 @@ struct Tile {
     return desc(addr, 1, kSbo);
   }
   // the descriptor of an MN-major operand: the 16 rows of reduction step
-  // kk, all D columns
+  // kk, every column chunk from `tile` on
   static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
                                                      int kk) {
     return desc(tile + kk * 16 * kRowBytes, rows * kRowBytes / 16, kSbo);
@@ -187,19 +205,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // the column chunks of rows [row0, row0 + rows) of head bh into `dst`
-template <int D>
+template <int D, int AW = default_aw<D>()>
 __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
                                          int row0, int bh, int rows,
                                          uint64_t* bar) {
+  using T = Tile<D, AW>;
   const uint32_t d = smem_u32(dst), b = smem_u32(bar);
   const uint64_t m = reinterpret_cast<uint64_t>(map);
 #pragma unroll
-  for (int c = 0; c < Tile<D>::kChunks; ++c) {
+  for (int c = 0; c < T::kChunks; ++c) {
     asm volatile(
         "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
         "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
-            d + c * rows * Tile<D>::kRowBytes),
-        "l"(m), "r"(c * Tile<D>::kAw), "r"(row0), "r"(bh), "r"(b)
+            d + c * rows * T::kRowBytes),
+        "l"(m), "r"(c * T::kAw), "r"(row0), "r"(bh), "r"(b)
         : "memory");
   }
 }
@@ -221,58 +240,117 @@ __device__ __forceinline__ void consumer_claim_registers() {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
 }
 
+// The consumer warpgroups alone (threads 0 .. 128 C - 1) at named barrier
+// 1: the producer warpgroup has left the loop.
+template <int C>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * C) : "memory");
+}
+
+// Make this thread's st.shared visible to the async proxy (wgmma, TMA)
+// before a barrier hands the tile to it.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
-// the k/v ring of a query-tile kernel
+// the ring
 // ---------------------------------------------------------------------------
 
 constexpr float kNegInf = -1e30f;  // a masked score
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Consumer warpgroups a CTA takes: two (128-row query tiles) where those
-// still fill the card's 132 SMs, else one (64 rows).
+// Consumer warpgroups a query-major CTA takes: two (128-row query tiles)
+// where those still fill the card's 132 SMs, else one (64 rows).
 inline int consumer_groups(int sq, int bh) {
   return (sq + 127) / 128 * bh >= 132 ? 2 : 1;
 }
 
-// The shared memory of a kernel whose CTA owns 64 C query rows: QTiles
-// query-side tiles loaded once (q; q and dO), then kStages stages of a k and
-// a v tile of Bk keys, each stage's key bias, and the barriers (full and
-// empty a stage, one for the query side).  C consumer warpgroups, then one
-// producer warpgroup.
-template <int D, int C, int Bk, int QTiles>
+// The key-major kernels' stages: query rows a stage, and stages.  128
+// rows give S^T and dP^T 128 fp32 registers a thread together, which
+// spills and ran slower; a third stage bought nothing (`chip_smoke.py
+// --variants`).
+constexpr int kKvStageRows = 64;
+constexpr int kKvStages = 2;
+
+// The shared memory of a kernel of C consumer warpgroups and one producer
+// warpgroup: ResTiles resident tiles of ResRows rows (in chunks of ResAw
+// columns), loaded once; Stages stages of two tiles of StageRows rows each
+// (default chunks); ExtraBytes of the kernel's own (1024-byte aligned);
+// StageVecs fp32 vectors of StageRows a stage; the barriers (full and empty
+// a stage, one for the resident tiles).
+template <int D, int C, int Stages, int ResRows, int ResTiles, int StageRows,
+          int StageVecs, int ResAw = default_aw<D>(), int ExtraBytes = 0>
 struct RingCfg {
   static constexpr int kD = D;
   static constexpr int kC = C;
-  static constexpr int kBq = 64 * C;           // query rows per CTA
-  static constexpr int kBk = Bk;               // keys per ring stage
-  static constexpr int kStages = 2;
+  static constexpr int kStages = Stages;
   static constexpr int kThreads = 128 * (C + 1);
-  static constexpr int kQTiles = QTiles;
-  static constexpr int kQBytes = kBq * D * 2;  // one query-side tile
-  static constexpr int kKvBytes = kBk * D * 2;  // one k (or v) tile
-  static constexpr int kKOff = QTiles * kQBytes;  // stage s: k, then v
-  static constexpr int kBiasOff = kKOff + kStages * 2 * kKvBytes;
-  static constexpr int kBarOff = kBiasOff + kStages * kBk * 4;
-  static constexpr int kSmem = 1024 + kBarOff + (2 * kStages + 1) * 8;
+  static constexpr int kResRows = ResRows;
+  static constexpr int kResTiles = ResTiles;
+  static constexpr int kResAw = ResAw;
+  static constexpr int kStageRows = StageRows;
+  static constexpr int kStageVecs = StageVecs;
+  static constexpr int kResBytes = ResRows * D * 2;       // one resident tile
+  static constexpr int kTileBytes = StageRows * D * 2;    // one stage tile
+  static constexpr int kStageOff = ResTiles * kResBytes;  // stage s: 2 tiles
+  static constexpr int kExtraOff = kStageOff + Stages * 2 * kTileBytes;
+  static constexpr int kVecOff = kExtraOff + ExtraBytes;
+  static constexpr int kBarOff = kVecOff + Stages * StageVecs * StageRows * 4;
+  static constexpr int kSmem = 1024 + kBarOff + (2 * Stages + 1) * 8;
+};
+
+// A query-major kernel's stage vector: the key bias of the stage's keys,
+// `row` (the per-key row of a (1|B, 1, Sk) bias) or 0 where the consumers
+// add a (B, Sq, Sk) bias per element (`row` null), with -1e30 past Sk
+// folded in: a zero-filled key would otherwise score 0.
+struct KeyBias {
+  const float* row;
+  int sk;
+  __device__ void operator()(float* v, int rows, int col0, int lane) const {
+    for (int i = lane; i < rows; i += 32) {
+      const int col = col0 + i;
+      v[i] = col < sk ? (row != nullptr ? row[col] : 0.f) : kNegInf;
+    }
+  }
+};
+
+// A key-major kernel's stage vectors: the stage's query rows' lse in log2
+// units, then their delta; a row past Sq reads as dead (lse = +1e30, so P =
+// 0) with delta 0.
+struct QueryStats {
+  const float* lse;    // this head's (Sq,) rows
+  const float* delta;
+  int sq;
+  __device__ void operator()(float* v, int rows, int row0, int lane) const {
+    for (int i = lane; i < rows; i += 32) {
+      const int row = row0 + i;
+      v[i] = (row < sq ? lse[row] : -kNegInf) * kLog2e;
+      v[rows + i] = row < sq ? delta[row] : 0.f;
+    }
+  }
 };
 
 template <class Cfg>
 struct Ring {
-  static constexpr int kStages = Cfg::kStages, kBk = Cfg::kBk;
+  static constexpr int kStages = Cfg::kStages, kRows = Cfg::kStageRows;
   // every part at a fixed offset from one 1024-byte aligned base (TMA's
   // 128-byte swizzle wants it), so the ring costs one register
   unsigned char* smem;
 
   __device__ explicit Ring(unsigned char* raw)
       : smem(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023)) {}
-  __device__ float* bias() const { return reinterpret_cast<float*>(smem + Cfg::kBiasOff); }
+  __device__ float* vecs_of(int stage) const {
+    return reinterpret_cast<float*>(smem + Cfg::kVecOff) +
+           stage * Cfg::kStageVecs * kRows;
+  }
   // full[s]: a stage's bytes arrived; empty[s]: every consumer warp is done
-  // with it; qbar: the query-side tiles arrived
+  // with it; resbar: the resident tiles arrived
   __device__ uint64_t* full(int s) const {
     return reinterpret_cast<uint64_t*>(smem + Cfg::kBarOff) + s;
   }
   __device__ uint64_t* empty(int s) const { return full(kStages + s); }
-  __device__ uint64_t* qbar() const { return full(2 * kStages); }
+  __device__ uint64_t* resbar() const { return full(2 * kStages); }
 
   // every thread of the CTA: thread 0 sets the barriers up
   __device__ void init() const {
@@ -281,67 +359,70 @@ struct Ring {
         mbar_init(full(s), 1);
         mbar_init(empty(s), 4 * Cfg::kC);  // one arrival per consumer warp
       }
-      mbar_init(qbar(), 1);
+      mbar_init(resbar(), 1);
       mbar_fence_init();
     }
     __syncthreads();
   }
 
-  // The producer warp: the query-side tiles of rows q0.. once, then for each
-  // of n_kt k tiles its key bias and its k and v tiles.  The key bias is
-  // `bias_row` (the per-key row of a (1|B, 1, Sk) bias), or 0 where the
-  // consumers add a (B, Sq, Sk) bias per element (`bias_row` null), with
-  // -1e30 past Sk folded in: a zero-filled key would otherwise score 0.
-  __device__ void produce(const CUtensorMap* const (&qmaps)[Cfg::kQTiles],
-                          const CUtensorMap* kmap, const CUtensorMap* vmap,
-                          const float* bias_row, int sk, int q0, int bh,
-                          int n_kt, int lane) const {
+  // The producer warp: the resident tiles of rows res_row0.. once, then for
+  // each of n stages, i = 0 .. n - 1, the stage's vectors (`fill`, over
+  // rows (first + i) kRows ..) and its two tiles (map0, map1).  Stage i
+  // lives in slot i % kStages; the phase of its barriers is (i / kStages)
+  // & 1.
+  template <class Fill>
+  __device__ void produce(const CUtensorMap* const (&res_maps)[Cfg::kResTiles],
+                          int res_row0, const CUtensorMap* map0,
+                          const CUtensorMap* map1, int bh, int first, int n,
+                          int lane, const Fill& fill) const {
     constexpr int D = Cfg::kD;
     if (lane == 0) {
-      mbar_expect_tx(qbar(), Cfg::kQTiles * Cfg::kQBytes);
-      for (int i = 0; i < Cfg::kQTiles; ++i)
-        tma_tile<D>(smem + i * Cfg::kQBytes, qmaps[i], q0, bh, Cfg::kBq, qbar());
+      mbar_expect_tx(resbar(), Cfg::kResTiles * Cfg::kResBytes);
+      for (int i = 0; i < Cfg::kResTiles; ++i)
+        tma_tile<D, Cfg::kResAw>(smem + i * Cfg::kResBytes, res_maps[i],
+                                 res_row0, bh, Cfg::kResRows, resbar());
     }
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int stage = kt % kStages;
-      mbar_wait(empty(stage), ((kt / kStages) & 1) ^ 1);
-      float* bs = bias() + stage * kBk;
-      for (int i = lane; i < kBk; i += 32) {
-        const int col = kt * kBk + i;
-        bs[i] = col < sk ? (bias_row != nullptr ? bias_row[col] : 0.f) : kNegInf;
-      }
+    for (int i = 0; i < n; ++i) {
+      const int stage = i % kStages;
+      const int row0 = (first + i) * kRows;
+      mbar_wait(empty(stage), ((i / kStages) & 1) ^ 1);
+      fill(vecs_of(stage), kRows, row0, lane);
       __syncwarp();
       if (lane == 0) {
-        unsigned char* kv = smem + Cfg::kKOff + stage * 2 * Cfg::kKvBytes;
-        mbar_expect_tx(full(stage), 2 * Cfg::kKvBytes);
-        tma_tile<D>(kv, kmap, kt * kBk, bh, kBk, full(stage));
-        tma_tile<D>(kv + Cfg::kKvBytes, vmap, kt * kBk, bh, kBk, full(stage));
+        unsigned char* st = smem + Cfg::kStageOff + stage * 2 * Cfg::kTileBytes;
+        mbar_expect_tx(full(stage), 2 * Cfg::kTileBytes);
+        tma_tile<D>(st, map0, row0, bh, kRows, full(stage));
+        tma_tile<D>(st + Cfg::kTileBytes, map1, row0, bh, kRows, full(stage));
       }
     }
   }
 
   // the consumers' side
-  __device__ uint32_t q_addr(int i) const { return smem_u32(smem) + i * Cfg::kQBytes; }
-  __device__ uint32_t k_addr(int kt) const {
-    return smem_u32(smem + Cfg::kKOff + (kt % kStages) * 2 * Cfg::kKvBytes);
+  __device__ uint32_t res_addr(int i) const { return smem_u32(smem) + i * Cfg::kResBytes; }
+  __device__ uint32_t stage_addr(int i, int tile) const {
+    return smem_u32(smem + Cfg::kStageOff + ((i % kStages) * 2 + tile) * Cfg::kTileBytes);
   }
-  __device__ uint32_t v_addr(int kt) const { return k_addr(kt) + Cfg::kKvBytes; }
-  __device__ const float* key_bias(int kt) const { return bias() + (kt % kStages) * kBk; }
-  __device__ void wait_q() const { mbar_wait(qbar(), 0); }
-  __device__ void wait_full(int kt) const {
-    mbar_wait(full(kt % kStages), (kt / kStages) & 1);
+  __device__ unsigned char* extra() const { return smem + Cfg::kExtraOff; }
+  __device__ const float* vecs(int i) const { return vecs_of(i % kStages); }
+  __device__ void wait_res() const { mbar_wait(resbar(), 0); }
+  __device__ void wait_full(int i) const {
+    mbar_wait(full(i % kStages), (i / kStages) & 1);
   }
-  __device__ void release(int kt, int lane) const {
+  __device__ void release(int i, int lane) const {
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty(kt % kStages));
+    if (lane == 0) mbar_arrive(empty(i % kStages));
   }
 };
 
-// The masks of a 64 x N score accumulator of keys k0.. (the thread's rows
-// row_a and row_a + 8, in the accumulator layout below): the stage's key
-// bias `bs` once per tile; a (B, Sq, Sk) bias per element where `bias_rows`
-// (its rows for this head) is not null; the causal compare only where
-// `diag` says the tile crosses the warpgroup's diagonal.
+// ---------------------------------------------------------------------------
+// the score masks
+// ---------------------------------------------------------------------------
+
+// The masks of a query-major 64 x N score accumulator of keys k0.. (the
+// thread's rows row_a and row_a + 8, in the accumulator layout below): the
+// stage's key bias `bs` once per tile; a (B, Sq, Sk) bias per element where
+// `bias_rows` (its rows for this head) is not null; the causal compare only
+// where `diag` says the tile crosses the warpgroup's diagonal.
 template <int N>
 __device__ __forceinline__ void mask_scores(float (&s)[N / 2], const float* bs,
                                             const float* bias_rows, bool diag,
@@ -367,6 +448,41 @@ __device__ __forceinline__ void mask_scores(float (&s)[N / 2], const float* bs,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (k0 + c + (e & 1) > (e < 2 ? row_a : row_b)) s[4 * j + e] = kNegInf;
+    }
+  }
+}
+
+// The same for a key-major 64 x N accumulator of S^T (rows are the
+// thread's keys key_a and key_a + 8, columns the query rows q0..): the
+// keys' bias kb_a / kb_b, held in registers for the whole CTA (-1e30 past
+// Sk folded in), once per element; a (B, Sq, Sk) bias per element where
+// `bias_rows` is not null; the causal compare only where `diag` says the
+// tile crosses the warpgroup's diagonal.
+template <int N>
+__device__ __forceinline__ void mask_scores_t(float (&s)[N / 2], float kb_a,
+                                              float kb_b,
+                                              const float* bias_rows, bool diag,
+                                              int key_a, int q0, int t, int sq,
+                                              int sk) {
+  const int key_b = key_a + 8;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int r = q0 + j * 8 + 2 * t;
+    s[4 * j + 0] += kb_a;
+    s[4 * j + 1] += kb_a;
+    s[4 * j + 2] += kb_b;
+    s[4 * j + 3] += kb_b;
+    if (bias_rows != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = e < 2 ? key_a : key_b, row = r + (e & 1);
+        if (row < sq && key < sk) s[4 * j + e] += bias_rows[(size_t)row * sk + key];
+      }
+    }
+    if (diag) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if ((e < 2 ? key_a : key_b) > r + (e & 1)) s[4 * j + e] = kNegInf;
     }
   }
 }
@@ -406,8 +522,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int N>
 struct Wgmma;
 
+template <> struct Wgmma<16> {
+  // D (64 x 16) (+)= A (64 x 16, smem) * B (16 x 16, smem); TA / TB set:
+  // the operand is MN-major (transposed)
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
 template <> struct Wgmma<32> {
-  // D (64 x 32) (+)= A (64 x 16, smem, K-major) * B (32 x 16, smem, K-major)
+  // D (64 x 32) (+)= A (64 x 16, smem) * B (32 x 16, smem); TA / TB set:
+  // the operand is MN-major (transposed)
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -416,12 +552,12 @@ template <> struct Wgmma<32> {
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   // D (64 x 32) (+)= A (64 x 16, registers) * B (16 x 32, smem, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
@@ -442,7 +578,9 @@ template <> struct Wgmma<32> {
 };
 
 template <> struct Wgmma<64> {
-  // D (64 x 64) (+)= A (64 x 16, smem, K-major) * B (64 x 16, smem, K-major)
+  // D (64 x 64) (+)= A (64 x 16, smem) * B (64 x 16, smem); TA / TB set:
+  // the operand is MN-major (transposed)
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -453,7 +591,7 @@ template <> struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -462,7 +600,7 @@ template <> struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   // D (64 x 64) (+)= A (64 x 16, registers) * B (16 x 64, smem, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
@@ -489,7 +627,9 @@ template <> struct Wgmma<64> {
 };
 
 template <> struct Wgmma<128> {
-  // D (64 x 128) (+)= A (64 x 16, smem, K-major) * B (128 x 16, smem, K-major)
+  // D (64 x 128) (+)= A (64 x 16, smem) * B (128 x 16, smem); TA / TB set:
+  // the operand is MN-major (transposed)
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -504,7 +644,7 @@ template <> struct Wgmma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -521,7 +661,7 @@ template <> struct Wgmma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   // D (64 x 128) (+)= A (64 x 16, registers) * B (16 x 128, smem, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {

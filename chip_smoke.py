@@ -6,8 +6,9 @@ NVIDIA GPU.
     python3 chip_smoke.py --profile   # also: torch.profiler over one
                                       # prefill + decode steps of the serving
                                       # path and over one step of each
-                                      # training path (build/profile_{serve,
-                                      # train,zero,long_seq}.txt)
+                                      # training path, each after a warm-up
+                                      # call (build/profile_{serve,train,
+                                      # zero,long_seq,mlp_fp16}.txt)
     python3 chip_smoke.py --variants  # only phases 1-2, then the bf16 flash
                                       # kernels' tile variants timed against
                                       # the shipped ones (TILE_VARIANTS); no
@@ -41,8 +42,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
    Sq != Sk, dropout against autograd of the plain forward) and at the
    long-sequence shape BH 64 x 4096 x 4096 x 64 bf16 (held to the plain
    version on its first 8 heads; the plain version's time there is CUDA
-   events around one call at the full shape), and the bf16 dq kernel on
-   ``FLASH_EDGE_CASES``;
+   events around one call at the full shape); the bf16 dq, dk/dv and fused
+   kernels on ``FLASH_EDGE_CASES`` (the fused kernel's dk and dv must be
+   the dk/dv kernel's bits, its dq partials must fill a NaN-filled (BH,
+   ceil(Sk / 128), Sq, D) buffer); the two routes' dk and dv bit-equal and
+   a CUDA graph of fused and dk/dv calls replaying the eager bits; and the
+   fused and dk/dv kernels at D = 32, 64 and 128, timed;
 4. serve parity: a 2-layer engine at BERT-large width, fp32, on the card
    and on the CPU with the same weights — prefill logits within 1e-3 and
    the same greedy tokens over 8 decode steps;
@@ -430,8 +435,9 @@ def _flash_inputs(B, heads, sq, sk, d, kind, gen, dt, dev):
     return q, k, v, bias.to(dev)
 
 
-# Edge cases of the bf16 forward and dq kernels' tiles (128 keys a forward
-# stage, 64 a dq stage, 64 or 128 query rows a CTA): held to the plain
+# Edge cases of the bf16 flash kernels' tiles (the forward: 128 keys a
+# stage, 64 or 128 query rows a CTA; dq: 64 keys a stage; the fused and
+# dk/dv kernels: 128 keys a CTA, 64 query rows a stage): held to the plain
 # versions, not timed.  name, B, heads, Sq, Sk, D, bias, causal, dropout
 FLASH_EDGE_CASES = [
     ("s1", 1, 4, 1, 1, 64, "zeros", False, 0.0),
@@ -452,17 +458,52 @@ FLASH_EDGE_CASES = [
     ("wide_ragged", 2, 66, 200, 333, 64, "pad_dead", True, 0.1),
     ("wide_d32", 2, 66, 127, 100, 32, "key_pad", True, 0.0),
     ("wide_d128", 2, 66, 129, 129, 128, "batch_pad_dead", False, 0.0),
+    # the edges of the 128-key tiles and of the 64-row q stages: Sk one
+    # under, at and one over a key tile and one under two; Sq under one
+    # stage, at one and one row over; causal with Sq != Sk across the
+    # diagonal of a 128-key tile; D = 32 and 128 with dropout
+    ("sk127_sq64", 2, 2, 64, 127, 64, "pad_dead", False, 0.0),
+    ("sk128_sq40", 2, 2, 40, 128, 64, "batch_pad_dead", False, 0.0),
+    ("sk129_sq65", 2, 2, 65, 129, 64, "key_pad", False, 0.0),
+    ("sk255_causal", 2, 2, 65, 255, 64, "batch_pad_dead", True, 0.0),
+    ("causal_sq300_sk130", 2, 2, 300, 130, 64, "pad_dead", True, 0.0),
+    ("causal_sq130_sk300", 2, 2, 130, 300, 64, "key_pad", True, 0.0),
+    ("d32_dropout_sk255", 2, 2, 130, 255, 32, "pad_dead", True, 0.1),
+    ("d128_dropout_sk129", 2, 2, 65, 129, 128, "batch_pad_dead", True, 0.1),
 ]
+
+
+def _fused_partials(args, part):
+    """The fused kernel's C entry point with the caller's dq-partial buffer
+    ``part`` (a check of the buffer's layout; not a counted launch)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import _launch_args
+    from apex_tpu_torch.utils import build
+    q, k, v, bias, causal, rate, seed, heads, lse, delta, do = args
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = build.library().apex_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        *_launch_args(q, k, bias, causal, rate, seed, heads))
+    build.check(err, "flash_bwd (partials check)")
+    return dk, dv
 
 
 def check_flash_edges(dev, grad: bool):
     """The bf16 kernels on :data:`FLASH_EDGE_CASES`: the forward (out within
     2e-2 on the peak rule, live lse within 1e-4 relative, dead rows exact)
-    or, with ``grad``, the split dq kernel on the kernel forward's lse (2e-2,
-    the peak rule)."""
+    or, with ``grad``, on the kernel forward's lse, each held to its plain
+    version (2e-2, the peak rule): the split dq kernel, the dk/dv kernel
+    and the fused kernel, whose dk and dv must be the dk/dv kernel's bits;
+    and the fused kernel's dq partials, written into a NaN-filled (BH,
+    ceil(Sk / BWD_K_TILE), Sq, D) buffer, must be finite everywhere (each
+    block written) and sum to the wrapper's dq bit for bit."""
     import torch
     from apex_tpu_torch.contrib.multihead_attn.flash import (
-        _flash_bwd_dq, _flash_bwd_dq_reference, _flash_fwd, _reference)
+        BWD_K_TILE, _flash_bwd_dkv, _flash_bwd_dkv_reference, _flash_bwd_dq,
+        _flash_bwd_dq_reference, _flash_bwd_fused, _flash_bwd_reference,
+        _flash_fwd, _reference)
     gen = torch.Generator().manual_seed(13 if grad else 12)
     for name, B, heads, sq, sk, d, kind, causal, rate in FLASH_EDGE_CASES:
         q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, gen,
@@ -472,12 +513,39 @@ def check_flash_edges(dev, grad: bool):
             do = _randn(q.shape, gen, torch.bfloat16, dev)
             delta = (do.float() * out.float()).sum(-1, keepdim=True)
             args = (q, k, v, bias, causal, rate, 77, heads, lse, delta, do)
-            # over a single key the softmax is constant: dq is 0 up to
-            # rounding, which the peak rule would hold to itself
-            ok, err = (scaled_ok if sk == 1 else peak_ok)(
-                _flash_bwd_dq(*args), _flash_bwd_dq_reference(*args), 2e-2)
-            require(ok, f"flash_bwd_dq edge {name}: err {err:.3g} (tol 2e-2)")
-            log(f"  flash_bwd_dq edge {name:16s} err {err:.3g} (tol 2e-2)")
+            # over a single key the softmax is constant: dq and dk are 0 up
+            # to rounding, which the peak rule would hold to itself
+            rule = scaled_ok if sk == 1 else peak_ok
+            fused = _flash_bwd_fused(*args)
+            dk, dv = _flash_bwd_dkv(*args)
+            errs = {}
+            for gname, a, r in (
+                    ("dq", _flash_bwd_dq(*args), _flash_bwd_dq_reference(*args)),
+                    ("dk", dk, _flash_bwd_dkv_reference(*args)[0])):
+                ok, errs[gname] = rule(a, r, 2e-2)
+                require(ok, f"flash split edge {name} {gname}: err "
+                        f"{errs[gname]:.3g} (tol 2e-2)")
+            for gname, a, r in zip(("fused dq", "fused dk", "fused dv"),
+                                   fused, _flash_bwd_reference(*args)):
+                ok, errs[gname] = (peak_ok if gname == "fused dv" else rule)(
+                    a, r, 2e-2)
+                require(ok, f"flash_bwd edge {name} {gname}: err "
+                        f"{errs[gname]:.3g} (tol 2e-2)")
+            require(torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]),
+                    f"flash edge {name}: the dk/dv kernel and the fused "
+                    "kernel give different dk or dv")
+            bh = B * heads
+            part = torch.full((bh, -(-sk // BWD_K_TILE), sq, d), float("nan"),
+                              device=dev)
+            _fused_partials(args, part)
+            require(bool(torch.isfinite(part).all()) and torch.equal(
+                part.sum(dim=1).to(q.dtype), fused[0]),
+                f"flash edge {name}: dq partials {tuple(part.shape)} not all "
+                "written, or not the wrapper's dq")
+            log(f"  flash_bwd edge {name:18s} " + " ".join(
+                f"{g} {e:.3g}" for g, e in errs.items()) + " (tol 2e-2, peak "
+                f"rule); dk/dv = fused bits; partials {tuple(part.shape)} "
+                "all written")
             continue
         torch.cuda.synchronize()
         r_out, r_lse = _reference(q, k, v, bias, causal, rate, 77, heads)
@@ -489,8 +557,53 @@ def check_flash_edges(dev, grad: bool):
         require(ok and l_err <= 1e-4 and dead_ok,
                 f"flash edge {name}: out err {err:.3g} (tol 2e-2, peak "
                 f"rule), lse rel err {l_err:.3g}, dead rows ok {dead_ok}")
-        log(f"  flash edge {name:16s} out err {err:.3g} (tol 2e-2, peak) lse "
+        log(f"  flash edge {name:18s} out err {err:.3g} (tol 2e-2, peak) lse "
             f"{l_err:.2g} dead rows {int((~live).sum())}")
+
+
+def check_flash_bwd_graph(dev):
+    """The routes on the card: the fused route's dk and dv are the split
+    route's bits (dq is summed in another order there: the peak rule), and
+    a CUDA graph of 3 fused and 3 dk/dv calls replays the eager calls'
+    bits."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd, _flash_bwd_dkv, _flash_bwd_fused, _flash_fwd)
+    gen = torch.Generator().manual_seed(17)
+    B, heads = 2, 66
+    q, k, v, bias = _flash_inputs(B, heads, 200, 333, 64, "batch_pad_dead",
+                                  gen, torch.bfloat16, dev)
+    do = _randn(q.shape, gen, torch.bfloat16, dev)
+    out, lse = _flash_fwd(q, k, v, bias, True, 0.1, 3, heads)
+    fused = _flash_bwd(q, k, v, bias, True, 0.1, 3, heads, out, lse, do,
+                       fuse=True)
+    split = _flash_bwd(q, k, v, bias, True, 0.1, 3, heads, out, lse, do,
+                       fuse=False)
+    ok, err = peak_ok(split[0], fused[0], 2e-2)
+    require(torch.equal(fused[1], split[1]) and torch.equal(fused[2], split[2])
+            and ok, f"flash routes: dk/dv bits differ or dq err {err:.3g}")
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, bias, True, 0.1, 3, heads, lse, delta, do)
+    eager = _flash_bwd_fused(*args) + _flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [_flash_bwd_fused(*args) for _ in range(3)]
+        got += [_flash_bwd_dkv(*args) for _ in range(3)]
+    for outs in got:
+        for t in outs:
+            t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for outs in got[:3]
+               for a, b in zip(outs, eager[:3])) and all(
+        torch.equal(a, b) for outs in got[3:] for a, b in zip(outs, eager[3:]))
+    require(same, "a CUDA graph of fused and dk/dv calls does not replay the "
+            "eager bits")
+    del graph
+    log(f"  flash routes: fused dk/dv = split dk/dv bits, dq err {err:.3g} "
+        "(tol 2e-2, peak rule); a CUDA graph of 3 fused + 3 dk/dv calls "
+        "replays the eager bits")
 
 
 def check_flash(dev):
@@ -1006,6 +1119,57 @@ def check_flash_split(dev):
     return rows
 
 
+def check_kv_head_dims(dev):
+    """The key-major kernels' instances by head dim (ptxas spills most at D
+    = 128): the fused kernel at BH 128 x 512 and the dk/dv kernel at BH 64
+    x 4096, D = 32, 64 and 128, bf16, each held to its plain version (dk/dv
+    on its first two heads) and timed against its bound."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dkv, _flash_bwd_dkv_reference, _flash_bwd_fused,
+        _flash_bwd_reference, _flash_fwd)
+    gen = torch.Generator().manual_seed(23)
+    for kernel, B, S in (("flash_bwd", 8, 512), ("flash_bwd_dkv", 4, 4096)):
+        for d in (32, 64, 128):
+            heads = 16
+            bh = B * heads
+            q, k, v, bias = _flash_inputs(B, heads, S, S, d, "zeros", gen,
+                                          torch.bfloat16, dev)
+            do = _randn(q.shape, gen, torch.bfloat16, dev)
+            out, lse = _flash_fwd(q, k, v, bias, False, 0.0, 0, heads)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            args = (q, k, v, bias, False, 0.0, 0, heads, lse, delta, do)
+            if kernel == "flash_bwd":
+                def fn():
+                    return _flash_bwd_fused(*args)
+                got, ref = fn(), _flash_bwd_reference(*args)
+                flops = 10.0 * d * S * S * bh
+            else:
+                def fn():
+                    return _flash_bwd_dkv(*args)
+                got = tuple(t[:2] for t in fn())
+                ref = _flash_bwd_dkv_reference(q[:2], k[:2], v[:2], bias,
+                                               False, 0.0, 0, 1, lse[:2],
+                                               delta[:2], do[:2])
+                flops = 8.0 * d * S * S * bh
+            err = 0.0
+            for a, r in zip(got, ref):
+                ok, e = peak_ok(a, r, 2e-2)
+                require(ok, f"{kernel} D={d}: err {e:.3g} (tol 2e-2)")
+                err = max(err, e)
+            del ref
+            tensors = 7 if kernel == "flash_bwd" else 6   # dq or not
+            nbytes = tensors * bh * S * d * 2 + 2 * bh * S * 4 \
+                + bias.numel() * 4
+            bms, by = bound(nbytes, flops, "bfloat16")
+            ms = device_ms(fn)
+            log(f"  {kernel} BH{bh}x{S}x{S}x{d} bf16 err {err:.3g} (tol 2e-2, "
+                f"peak rule) | kernel {ms:.5f} ms  bound {bms:.5f} ms ({by}), "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+            del q, k, v, do, out, lse, delta, args, got
+            torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3d: the fp16 slice's kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -1333,7 +1497,11 @@ def phase_main_path(dev, card, profile=False):
     log(f"  [{card}] median prefill (448-token prompt) {prefill_ms:.3f} ms  "
         f"median decode step (8 slots) {decode_ms:.3f} ms")
     if profile:
-        profile_steps(eng, tokens, table, ones, pos, tables, temps, topks)
+        def serve_steps():
+            eng.prefill(tokens, 448, table, 0)
+            for _ in range(4):
+                eng.decode_step(ones, pos, tables, ones, temps, topks)
+        profile_window(serve_steps, "serve", "one prefill and 4 decode steps")
     return launches, doc
 
 
@@ -1346,33 +1514,6 @@ def kernel_us(avgs) -> float:
                        getattr(a, "self_cuda_time_total", 0)) for a in avgs
                if a.device_type == DeviceType.CUDA
                and not a.is_user_annotation)
-
-
-def profile_steps(eng, tokens, table, toks, pos, tables, temps, topks):
-    """torch.profiler over one prefill and 4 decode steps: device time by
-    kernel and the device's busy share of the window (``--profile``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    out_dir = os.path.join(HERE, "build")
-    os.makedirs(out_dir, exist_ok=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.prefill(tokens, 448, table, 0)
-        for _ in range(4):
-            eng.decode_step(toks, pos, tables, toks, temps, topks)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    avgs = prof.key_averages()
-    dev_us = kernel_us(avgs)
-    log(f"  profile: window {window_ms:.3f} ms, device busy "
-        f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / window_ms:.1f}%)")
-    table_txt = avgs.table(sort_by="self_cuda_time_total", row_limit=25)
-    with open(os.path.join(out_dir, "profile_serve.txt"), "w") as f:
-        f.write(table_txt)
-    for line in table_txt.splitlines()[:30]:
-        log(f"  {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -1491,7 +1632,8 @@ def phase_train(dev, card, profile=False):
         f"bf16 copy) {opt_ms:.2f} ms (medians of 3)")
     if profile:
         from apex_tpu_torch.train import train_step
-        profile_train_step(lambda: train_step(st, batch, cfg))
+        profile_window(lambda: train_step(st, batch, cfg), "train",
+                       expect={"flash_bwd_kv_sm90_kernel": 24})
     return launches
 
 
@@ -1520,26 +1662,61 @@ def split_train_step(st, batch, cfg):
     return statistics.median(fb) * 1e3, statistics.median(opt) * 1e3
 
 
-def profile_train_step(step, name="train"):
-    """torch.profiler over one call of ``step`` (a training step): device
-    time by kernel and the device's busy share of the window
-    (``--profile``; the table goes to ``build/profile_<name>.txt``)."""
+# the port's kernels by their CUDA function names, as the profiler lists them
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_simt_kernel",
+                "flash_bwd_kv_sm90_kernel", "flash_bwd_simt_kernel",
+                "flash_bwd_dq_sm90_kernel", "flash_bwd_dq_simt_kernel",
+                "ln_fwd_kernel", "ln_bwd_kernel", "xent_fwd_kernel",
+                "sumsq_partials_kernel", "finish_kernel", "flat_update_kernel",
+                "scale_axpby_kernel", "dense_act_mma_kernel",
+                "dense_act_f32_kernel")
+
+
+def port_kernel_events(prof) -> dict:
+    """Device events of the port's kernels in a profile, by kernel."""
+    from torch.autograd import DeviceType
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in PORT_KERNELS:
+                if f"::{k}<" in e.name or f"::{k}(" in e.name:
+                    counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def profile_window(fn, name, what="training step", expect=None):
+    """torch.profiler over one call of ``fn`` (``what``), after one warm-up
+    call under the profiler's schedule (``--profile``): device time by
+    kernel, the port's kernels' events and the device's busy share of the
+    window; the table goes to ``build/profile_<name>.txt``.  The warm-up
+    call is there because a profiler's first kernels can be missing from
+    its trace: profiled alone, the MLP step (whose first launches are its
+    three dense_act kernels) listed none of them, and the long-sequence
+    step two ln_fwd kernels fewer.  ``expect``: {kernel: events} the window
+    must hold."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
     dev_us = kernel_us(avgs)
-    log(f"  profile ({name}): training step window {window_ms:.3f} ms, "
-        f"device busy {dev_us / 1e3:.3f} ms "
-        f"({100 * dev_us / 1e3 / window_ms:.1f}%)")
+    events = port_kernel_events(prof)
+    log(f"  profile ({name}): {what} window {window_ms:.3f} ms, device busy "
+        f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / window_ms:.1f}%); the "
+        f"port's kernels' events {events}")
+    for k, n in (expect or {}).items():
+        require(events.get(k, 0) == n, f"profile ({name}): {events.get(k, 0)}"
+                f" {k} events in the window, expected {n}")
     table_txt = avgs.table(sort_by="self_cuda_time_total", row_limit=30)
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(table_txt)
@@ -1701,8 +1878,8 @@ def phase_zero(dev, card, profile=False):
         f"(medians of 3)")
     if profile:
         from apex_tpu_torch.train import zero_train_step
-        profile_train_step(lambda: zero_train_step(params, st, batch, cfg,
-                                                   opt), "zero")
+        profile_window(lambda: zero_train_step(params, st, batch, cfg, opt),
+                       "zero", expect={"flash_bwd_kv_sm90_kernel": 24})
     del st, params
     torch.cuda.empty_cache()
 
@@ -1837,7 +2014,9 @@ def phase_long_seq(dev, card, profile=False):
     log(f"  [{card}] of a step: forward + backward {fb_ms:.2f} ms, amp_step "
         f"{opt_ms:.2f} ms (medians of 3)")
     if profile:
-        profile_train_step(lambda: train_step(st, batch, cfg), "long_seq")
+        profile_window(lambda: train_step(st, batch, cfg), "long_seq",
+                       expect={"flash_bwd_kv_sm90_kernel": 24,
+                               "flash_bwd_dq_sm90_kernel": 24})
     return launches
 
 
@@ -1976,8 +2155,8 @@ def phase_mlp(dev, card, profile=False):
         f"(flatten, unscale kernel, flat Adam, select, scale update, fp16 "
         f"copies) {o_ms:.3f} ms (medians of 3)")
     if profile:
-        profile_train_step(lambda: mlp_train_step(opt, params, batch, mlp),
-                           "mlp_fp16")
+        profile_window(lambda: mlp_train_step(opt, params, batch, mlp),
+                       "mlp_fp16", expect={"dense_act_mma_kernel": 3})
     del opt, params
     torch.cuda.empty_cache()
     mlp_lr_witness(dev, batch)
@@ -2076,8 +2255,10 @@ def phase_mt_apply(dev):
 # Edits of csrc/sm90_attn.cuh, each an (old, new) pair that must match once:
 # one consumer warpgroup (64-row query tiles) everywhere, two (128-row)
 # everywhere, and a lone producer warp with no setmaxnreg split in place of
-# the producer warpgroup.  The shipped kernels take two where ceil(Sq / 128)
-# x BH >= 132, else one.
+# the producer warpgroup; for the key-major kernels (fused, dk/dv) 128-row
+# q stages instead of 64, and 3 stages instead of 2.  The shipped
+# query-major kernels take two warpgroups where ceil(Sq / 128) x BH >= 132,
+# else one; the key-major ones two stages of 64 rows.
 TILE_VARIANTS = {
     "c1": [(">= 132 ? 2 : 1;", ">= 132 ? 1 : 1;")],
     "c2": [(">= 132 ? 2 : 1;", ">= 132 ? 2 : 2;")],
@@ -2087,16 +2268,21 @@ TILE_VARIANTS = {
          ""),
         ('asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n" ::: '
          '"memory");', ";")],
+    "q128": [("kKvStageRows = 64;", "kKvStageRows = 128;")],
+    "s3": [("kKvStages = 2;", "kKvStages = 3;")],
 }
 # kernel, B, heads, S (= Sq = Sk), causal: the serving prefill, the O5
 # training and the long-sequence shapes (dq also at the serving shape, where
-# the grid is small)
+# the grid is small; the fused kernel at the training shape, dk/dv at the
+# long one, where the paths take them)
 VARIANT_SHAPES = [
     ("flash_fwd", 1, 16, 512, True),
     ("flash_fwd", 8, 16, 512, False),
     ("flash_fwd", 4, 16, 4096, False),
     ("flash_bwd_dq", 1, 16, 512, True),
     ("flash_bwd_dq", 4, 16, 4096, False),
+    ("flash_bwd", 8, 16, 512, False),
+    ("flash_bwd_dkv", 4, 16, 4096, False),
 ]
 
 
@@ -2125,8 +2311,8 @@ def study_variants(dev, rounds: int = 3):
     output is compared with the shipped kernels'."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
-    from apex_tpu_torch.contrib.multihead_attn.flash import (_flash_bwd_dq,
-                                                             _flash_fwd)
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dkv, _flash_bwd_dq, _flash_bwd_fused, _flash_fwd)
     from apex_tpu_torch.utils import build
     log("== variants: bf16 flash tile variants")
     libs = {"shipped": build.library()}
@@ -2155,16 +2341,21 @@ def study_variants(dev, rounds: int = 3):
         out, lse = _flash_fwd(q, k, v, bias, causal, 0.0, 0, heads)
         delta = (do.float() * out.float()).sum(-1, keepdim=True)
         args = (q, k, v, bias, causal, 0.0, 0, heads, lse, delta, do)
-        calls.append(lambda a=args: _flash_bwd_dq(*a))
+        fn = {"flash_bwd_dq": _flash_bwd_dq, "flash_bwd": _flash_bwd_fused,
+              "flash_bwd_dkv": _flash_bwd_dkv}[kernel]
+        calls.append(lambda a=args, f=fn: f(*a))
     times, diff = {}, {}
     shipped = build._LIB
+
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
     try:
-        ref = [fn() for fn in calls]
+        ref = [outs(fn()) for fn in calls]
         for n, lib in libs.items():
             build._LIB = lib
             for i, fn in enumerate(calls):
-                diff[(i, n)] = float((fn().float() - ref[i].float()).abs()
-                                     .max())
+                diff[(i, n)] = max(float((a.float() - r.float()).abs().max())
+                                   for a, r in zip(outs(fn()), ref[i]))
         for _ in range(rounds):
             for n, lib in libs.items():
                 build._LIB = lib
@@ -2225,6 +2416,8 @@ def main(argv) -> int:
     zero_rows = check_zero_updates(dev)
     split_rows = check_flash_split(dev)
     check_flash_edges(dev, grad=True)
+    check_flash_bwd_graph(dev)
+    check_kv_head_dims(dev)
     torch.cuda.empty_cache()
     log("== phase 3d: fused dense, multi-tensor scale and axpby kernels vs "
         "plain versions on the card")

@@ -280,18 +280,39 @@ def test_split_route_equals_fused_route_on_cpu(case):
 
 
 def test_fuse_rule_is_the_byte_cap():
-    # the training shape: 128 x 8 x 512 x 64 x 4 B = 134 MB of dq partials
+    # the port's dq-partial tile is the JAX package's default 128-key block
+    assert pflash.BWD_K_TILE == 128
+    # the training shape: 128 x 4 x 512 x 64 x 4 B = 67 MB of dq partials
     assert pflash._resolve_fuse(None, 128, 512, 512, 64)
-    assert pflash._resolve_fuse(None, 128, 512, 512, 64) == \
-        jflash._resolve_fuse(None, 128, 512, 512, 64, pflash.BWD_K_TILE)
     # past 1024 MB the split route runs: the long-sequence training shape
     assert not pflash._resolve_fuse(None, 64, 4096, 4096, 64)
-    # the port counts 64-key tiles, the JAX package 128-key blocks: here
-    # the port splits where the JAX package still fuses
-    assert not pflash._resolve_fuse(None, 128, 2048, 2048, 64)
-    assert jflash._resolve_fuse(None, 128, 2048, 2048, 64, 128)
+    # exactly 1024 MB fuses, in both packages; one key tile more splits
+    assert pflash._resolve_fuse(None, 128, 2048, 2048, 64)
+    assert not pflash._resolve_fuse(None, 128, 2048, 2049, 64)
     assert pflash._resolve_fuse(False, 1, 8, 8, 64) is False
     assert pflash._resolve_fuse(True, 128, 4096, 4096, 64) is True
+
+
+# (BH, Sq, Sk, D): the training and long-sequence shapes, the 1024 MB cap
+# exactly (BH 128 x 2048^2 x 64, BH 16 x 4096^2 x 128), just over it (one
+# more key tile, one more head), ragged and tiny shapes
+FUSE_SHAPES = [
+    (128, 512, 512, 64), (64, 4096, 4096, 64), (128, 2048, 2048, 64),
+    (128, 2048, 2049, 64), (129, 2048, 2048, 64), (16, 4096, 4096, 128),
+    (16, 4096, 4097, 128), (8, 200, 333, 64), (1, 1, 1, 32),
+    (256, 1024, 4096, 32), (64, 8192, 1000, 64),
+]
+
+
+@pytest.mark.parametrize("shape", FUSE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in FUSE_SHAPES])
+def test_fuse_rule_matches_jax_package(shape, monkeypatch):
+    """The port's route is the JAX package's at its default 128-key block,
+    with the JAX package's environment overrides cleared."""
+    for name in ("APEX_TPU_FLASH_BWD_FUSE", "APEX_TPU_FLASH_BWD_FUSE_MB"):
+        monkeypatch.delenv(name, raising=False)
+    assert pflash._resolve_fuse(None, *shape) == \
+        jflash._resolve_fuse(None, *shape, 128)
 
 
 def test_bias_gets_no_gradient():
