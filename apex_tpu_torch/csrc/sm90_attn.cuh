@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the bf16 attention kernels:
-// TMA tensor maps over (D, S, BH) bf16 tensors; the ring, an
+// Hopper (sm_90a) building blocks shared by the bf16 attention kernels, on
+// top of the generic ones of `sm90_common.cuh` (the encode lookup,
+// descriptors, mbarriers, the register split, wgmma's fence / commit /
+// wait): TMA tensor maps over (D, S, BH) bf16 tensors; the ring, an
 // mbarrier-guarded ring of two-tile stages filled by a producer warp, with
 // its shared-memory layout; the score masks; warpgroup matrix multiplies
-// (`wgmma`) reading their operands from swizzled shared memory (A also from
-// registers); the register split between the producer and the consumer
-// warpgroups; and the choice of one or two consumer warpgroups.
+// (`wgmma`, bf16) reading their operands from swizzled shared memory (A also
+// from registers); and the choice of one or two consumer warpgroups.
 //
 // The ring serves two shapes of kernel.  Query-major (the flash forward,
 // the split dq): a CTA owns a tile of queries, its resident tiles are q (and
@@ -49,35 +50,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace sm90 {
 
 // ---------------------------------------------------------------------------
-// host: tensor maps and the shared-memory opt-in
+// host: tensor maps
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
 
 // the default column chunk: one 128-byte row (64-byte at D = 32)
 template <int D>
@@ -103,17 +82,6 @@ cudaError_t encode_map(CUtensorMap* map, const void* base, int s, int bh,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// Opt a kernel in to `bytes` of dynamic shared memory, once per kernel (a
-// host call kept out of the launches a CUDA graph may capture).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -148,61 +116,9 @@ struct Tile {
   }
   static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                                   uint32_t sbo) {
-    return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo & 0x3FFF) << 16) |
-           ((uint64_t)(sbo & 0x3FFF) << 32) | (kLayout << 62);
+    return smem_desc(addr, lbo, sbo, kLayout);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------------------
-// device: mbarriers, TMA, the producer's register release
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival that also announces `bytes` of TMA traffic
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A wait that lasts
-// 4 s traps: a fault in the ring's phases ends the kernel with an error
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0, spins = 0;
-  uint64_t t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if ((++spins & 1023u) == 0u) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (t0 == 0) t0 = now;
-      else if (now - t0 > 4000000000ull) __trap();
-    }
-  }
-}
 
 // the column chunks of rows [row0, row0 + rows) of head bh into `dst`
 template <int D, int AW = default_aw<D>()>
@@ -221,36 +137,6 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
         "l"(m), "r"(c * T::kAw), "r"(row0), "r"(bh), "r"(b)
         : "memory");
   }
-}
-
-// The register split.  A kernel of C consumer warpgroups and one producer
-// warpgroup is launched with 65536 / (128 (C + 1)) registers a thread: 168
-// at C = 2, the 255 cap at C = 1.  The producer's four warps drop to 24
-// (one of them starts the loads, the other three leave), and at C = 2 the
-// 128 x 144 registers they free are what the two consumer warpgroups need
-// to rise from 168 to 240 for their accumulators and fragments.
-// setmaxnreg acts on a whole warpgroup: every warp of it runs the same
-// instruction.
-__device__ __forceinline__ void producer_release_registers() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-}
-template <int C>
-__device__ __forceinline__ void consumer_claim_registers() {
-  if constexpr (C == 2)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-}
-
-// The consumer warpgroups alone (threads 0 .. 128 C - 1) at named barrier
-// 1: the producer warpgroup has left the loop.
-template <int C>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * C) : "memory");
-}
-
-// Make this thread's st.shared visible to the async proxy (wgmma, TMA)
-// before a barrier hands the tile to it.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -488,25 +374,8 @@ __device__ __forceinline__ void mask_scores_t(float (&s)[N / 2], float kb_a,
 }
 
 // ---------------------------------------------------------------------------
-// device: wgmma
+// device: bf16 wgmma
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from touching accumulator registers across an
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)

@@ -1,15 +1,19 @@
-"""Fused dense layer act(x @ w + b): the hand-written Hopper kernel, its
+"""Fused dense layer act(x @ w + b): the hand-written Hopper kernels, their
 plain version and its autograd function.
 
 Counterpart of ``apex_tpu/ops/fused_mlp.py``.  :func:`fused_dense_act`
-launches the kernel of ``apex_tpu_torch/csrc/fused_mlp.cu`` for CUDA
-tensors (fp16 / bf16 on the tensor cores, fp32 in SIMT) and takes
-:func:`fused_dense_act_reference` only for CPU tensors.  Weights keep the
-JAX layout, ``w`` (in, out), so ``x @ w``.  :class:`DenseActFunction`
-(:func:`dense_act`) is the JAX ``custom_vjp``: the kernel forward, and a
-backward of two plain fp32 products and a mask recomputed from the saved
-output (relu: ``out > 0``; sigmoid: ``out (1 - out)``), as the JAX package
-leaves them to XLA.  :func:`mlp_pallas` chains the layers.
+launches a kernel of ``apex_tpu_torch/csrc/fused_mlp.cu`` for CUDA
+tensors and takes :func:`fused_dense_act_reference` only for CPU tensors.
+:func:`_route` picks the kernel from the inputs before the launch: fp32
+the SIMT kernel; fp16 / bf16 the TMA + wgmma kernel where TMA can take the
+operands (K and N multiples of 8, x and w 16-byte aligned), else the
+mma.sync kernel.  A failed build or launch raises; nothing retries on
+another route.  Weights keep the JAX layout, ``w`` (in, out), so ``x @
+w``.  :class:`DenseActFunction` (:func:`dense_act`) is the JAX
+``custom_vjp``: the kernel forward, and a backward of two plain fp32
+products and a mask recomputed from the saved output (relu: ``out > 0``;
+sigmoid: ``out (1 - out)``), as the JAX package leaves them to XLA.
+:func:`mlp_pallas` chains the layers.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from ..utils import build
 
 __all__ = ["fused_dense_act", "fused_dense_act_reference", "dense_act",
-           "DenseActFunction", "mlp_pallas", "ACTIVATIONS"]
+           "DenseActFunction", "mlp_pallas", "ACTIVATIONS", "ROUTES"]
 
 #: activation -> the kernel's code
 ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2}
@@ -79,6 +83,26 @@ def _check_cuda_inputs(x, w, b):
     return code
 
 
+#: the CUDA kernel each route launches
+ROUTES = {"sm90": "dense_act_sm90_kernel", "mma": "dense_act_mma_kernel",
+          "f32": "dense_act_f32_kernel"}
+
+
+def _route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel :func:`fused_dense_act` launches for inputs that passed
+    :func:`_check_cuda_inputs`: ``"f32"`` for fp32; ``"sm90"`` for fp16 /
+    bf16 whose operands TMA can take (row strides of K and N elements
+    multiples of 16 bytes, x and w 16-byte aligned; the output is a fresh
+    allocation, aligned; the bias is read element by element); ``"mma"``
+    for the other fp16 / bf16 inputs.  Reads shapes, dtypes and addresses
+    only."""
+    if x.dtype == torch.float32:
+        return "f32"
+    k, n = w.shape
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "sm90" if k % 8 == 0 and n % 8 == 0 and aligned else "mma"
+
+
 def fused_dense_act(x: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor] = None,
                     activation: str = "relu") -> torch.Tensor:
@@ -86,15 +110,18 @@ def fused_dense_act(x: torch.Tensor, w: torch.Tensor,
     accumulates in fp32, the output is in x's dtype.  x, w and b share one
     dtype (fp32, bf16 or fp16) on the card; any M, N, K >= 1.
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version."""
+    A CUDA tensor launches the kernel :func:`_route` names (or raises); a
+    CPU tensor takes the plain version."""
     if not x.is_cuda:
         return fused_dense_act_reference(x, w, b, activation)
     act = _activation_code(activation)
     code = _check_cuda_inputs(x, w, b)
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    err = build.library().apex_dense_act(
+    lib = build.library()
+    entry = lib.apex_dense_act_sm90 if _route(x, w) == "sm90" \
+        else lib.apex_dense_act
+    err = entry(
         x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
         out.data_ptr(), m, n, k, act, code, build.stream_of(x))
     build.check(err, "dense_act")

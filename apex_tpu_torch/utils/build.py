@@ -96,6 +96,7 @@ _SIGNATURES = {
                             _I, _I, _VP],
     # x, w, b, out, m, n, k, activation, dtype, stream
     "apex_dense_act": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "apex_dense_act_sm90": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 

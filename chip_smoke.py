@@ -11,8 +11,11 @@ NVIDIA GPU.
                                       # zero,long_seq,mlp_fp16}.txt)
     python3 chip_smoke.py --variants  # only phases 1-2, then the bf16 flash
                                       # kernels' tile variants timed against
-                                      # the shipped ones (TILE_VARIANTS); no
-                                      # result line
+                                      # the shipped ones (TILE_VARIANTS) and
+                                      # the dense kernel's (GEMM_VARIANTS)
+                                      # against it and cuBLAS; no result
+                                      # line
+    python3 chip_smoke.py --variants flash   # (or gemm): one study only
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -85,11 +88,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
    --remat``): amp O5 + FusedLAMB as phase 7 at batch 4 x 4096, one warm-up
    and 2 timed steps; every flash backward takes the split route;
 3d. (run after 3c) the fp16 slice's kernels: the fused dense + activation
-   kernel at the MLP's three layer shapes (8192 x 1024 @ 1024 x 4096, 8192
+   kernels at the MLP's three layer shapes (8192 x 1024 @ 1024 x 4096, 8192
    x 4096 @ 4096 x 4096, 8192 x 4096 @ 4096 x 1024) in fp16 and bf16 with
-   relu, the middle shape also with sigmoid, none and no bias, on ragged
-   shapes and in fp32; ``multi_tensor_scale`` over the MLP's flat buffer
-   and 134,217,728 elements, fp32 and fp16 in, fp32 out, and
+   relu, the middle shape also with sigmoid, none and no bias, on the TMA
+   route's tails (M 8191 and 1, K 1000, N 136), on a misaligned x and
+   ragged shapes (the mma.sync route) and in fp32; each case's route as
+   ``_route`` names it (confirmed after phase 13) and a second call's bits
+   equal to the first's; ``multi_tensor_scale`` over the MLP's flat
+   buffer and 134,217,728 elements, fp32 and fp16 in, fp32 out, and
    ``multi_tensor_axpby`` at both sizes in fp32, each also with an inf
    injected (the flag must be set);
 11. MLP fp16 parity: ``MLP([1024, 4096, 4096, 1024])`` in fp16, batch
@@ -107,7 +113,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``multi_tensor_axpby`` through the facade over the MLP's six
    parameter-shaped tensors, each against its plain version, with the
    launch counts of the two calls;
-14. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+14. the dense cases of phase 3d once more under ``torch.profiler``: the
+   dense kernels it lists must be the kernels ``_route`` names (run last,
+   so that no profiler session precedes the timed paths);
+15. one ``{"kernels": [...]}`` line: each kernel's launches from the path
    it serves (``launches_by_path`` gives every path's count), then the
    card's name and power limit, then the last line ``{"ok": true,
    "device": {...}}``.  Every process group is destroyed before exit.
@@ -1184,41 +1193,104 @@ def mlp_flat_n() -> int:
                           for s in shapes]).total
 
 
-def check_dense_act(dev):
-    """The fused dense + activation kernel: the MLP's layer shapes (fp16,
-    bf16), the activations and the bias on the middle one, ragged shapes
-    and fp32; kernel vs plain, device times, cuBLAS (addmm + activation)
-    as the library yardstick, bound by operations."""
-    import torch
-    from apex_tpu_torch.ops.fused_mlp import (fused_dense_act,
-                                              fused_dense_act_reference)
-    gen = torch.Generator(device=dev).manual_seed(13)
+def dense_act_cases():
+    """(M, K, N, dtype, activation, bias, x offset in elements) of phase
+    3d: the MLP's layer shapes (fp16, bf16), the activations and the bias
+    on the middle one; tails of the TMA route (M 8191, K 1000, N 136; M 1);
+    x one element into its buffer (misaligned: the mma.sync route); the
+    ragged shapes K or N not a multiple of 8 (mma.sync) and fp32."""
     layers = list(zip(MLP_SIZES[:-1], MLP_SIZES[1:]))
-    cases = []   # (M, K, N, dtype, activation, bias)
+    cases = []
     for k, n in layers:
         for dtype in ("float16", "bfloat16"):
-            cases.append((MLP_BATCH, k, n, dtype, "relu", True))
+            cases.append((MLP_BATCH, k, n, dtype, "relu", True, 0))
     k, n = layers[1]
-    cases += [(MLP_BATCH, k, n, "float16", "sigmoid", True),
-              (MLP_BATCH, k, n, "float16", "none", True),
-              (MLP_BATCH, k, n, "float16", "relu", False)]
+    cases += [(MLP_BATCH, k, n, "float16", "sigmoid", True, 0),
+              (MLP_BATCH, k, n, "float16", "none", True, 0),
+              (MLP_BATCH, k, n, "float16", "relu", False, 0)]
+    for dtype in ("float16", "bfloat16"):
+        cases += [(8191, 1000, 136, dtype, "relu", True, 0),
+                  (1, 1024, 4096, dtype, "sigmoid", True, 0),
+                  (1000, 1000, 1000, dtype, "relu", True, 1)]
     for dtype in ("float16", "bfloat16", "float32"):
-        cases += [(1000, 1000, 1000, dtype, "relu", True),
-                  (10, 24, 12, dtype, "sigmoid", True)]
+        cases += [(1000, 1000, 1000, dtype, "relu", True, 0),
+                  (10, 24, 12, dtype, "sigmoid", True, 0)]
+    return cases
+
+
+def _dense_inputs(m, k, n, dtype, has_bias, offset, gen, dev):
+    import torch
+    dt = getattr(torch, dtype)
+    x = torch.randn(m * k + offset, generator=gen, device=dev).to(dt)
+    x = x[offset:].view(m, k)
+    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(dt)
+    b = torch.randn(n, generator=gen, device=dev).to(dt) if has_bias else None
+    return x, w, b
+
+
+def check_dense_routes(dev):
+    """The route :func:`_route` names for each case of
+    :func:`dense_act_cases` (the inputs of phase 3d again, from its seed),
+    confirmed by the profiler: one profiled call of each, after a warm-up
+    round under the profiler's schedule (as in :func:`profile_window`);
+    the dense kernels' device events must be the routes' kernels.  Run
+    after the timed paths, so that no profiler session precedes them."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from apex_tpu_torch.ops.fused_mlp import ROUTES, _route, fused_dense_act
+    log("== dense_act routes on the card")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    calls, want = [], collections.Counter()
+    for m, k, n, dtype, act, has_bias, offset in dense_act_cases():
+        x, w, b = _dense_inputs(m, k, n, dtype, has_bias, offset, gen, dev)
+        calls.append(lambda x=x, w=w, b=b, a=act: fused_dense_act(x, w, b, a))
+        want[ROUTES[_route(x, w)]] += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    got = {k: v for k, v in port_kernel_events(prof).items()
+           if k.startswith("dense_act")}
+    log(f"  profiler events {got}, the route function's kernels "
+        f"{dict(want)}")
+    require(got == dict(want), f"dense_act kernels launched {got}, the "
+            f"route function names {dict(want)}")
+    del calls
+    torch.cuda.empty_cache()
+
+
+def check_dense_act(dev):
+    """The fused dense + activation kernels on :func:`dense_act_cases`:
+    kernel vs plain, the route each case takes (``_route``; the profiler
+    confirms it in :func:`check_dense_routes`), a repeat call's bits,
+    device times, cuBLAS (addmm + activation) as the library yardstick,
+    bound by operations."""
+    import torch
+    from apex_tpu_torch.ops.fused_mlp import (_route, fused_dense_act,
+                                              fused_dense_act_reference)
+    gen = torch.Generator(device=dev).manual_seed(13)
     rows = []
-    for m, k, n, dtype, act, has_bias in cases:
-        dt = getattr(torch, dtype)
-        x = torch.randn(m, k, generator=gen, device=dev).to(dt)
-        w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(dt)
-        b = torch.randn(n, generator=gen, device=dev).to(dt) \
-            if has_bias else None
+    for m, k, n, dtype, act, has_bias, offset in dense_act_cases():
+        x, w, b = _dense_inputs(m, k, n, dtype, has_bias, offset, gen, dev)
+        route = _route(x, w)
         out = fused_dense_act(x, w, b, act)
         torch.cuda.synchronize()
         ref = fused_dense_act_reference(x, w, b, act)
         tol = DENSE_TOL[dtype]
         ok, err = scaled_ok(out, ref, tol)
-        case = f"{m}x{k}@{k}x{n} {dtype} {act}{'' if has_bias else ' no-bias'}"
+        case = (f"{m}x{k}@{k}x{n} {dtype} {act}"
+                f"{'' if has_bias else ' no-bias'}"
+                f"{' x+1' if offset else ''}")
         require(ok, f"dense_act {case}: err {err:.3g} (tol {tol})")
+        require(torch.equal(fused_dense_act(x, w, b, act), out),
+                f"dense_act {case}: a second call gave other bits")
         del out, ref
         es = x.element_size()
         bms, by = bound((m * k + k * n + m * n + (n if has_bias else 0)) * es,
@@ -1237,13 +1309,14 @@ def check_dense_act(dev):
             return h
         lms = device_ms(library)
         rows.append(dict(shape=(m, k, n), dtype=dtype, activation=act,
-                         bias=has_bias, max_abs_err=err, tol=tol, ms=ms,
+                         bias=has_bias, offset=offset, route=route,
+                         max_abs_err=err, tol=tol, ms=ms,
                          plain_ms=pms, library_ms=lms,
                          library="torch.addmm + activation (cuBLAS)",
                          bound_ms=bms, bound_by=by,
                          tflops=2.0 * m * n * k / ms / 1e9))
-        _report("dense_act", f"{case:38s}", err, tol, ms, pms, lms, bms, by,
-                f" [{2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s]")
+        _report("dense_act", f"{case:42s} {route:4s}", err, tol, ms, pms,
+                lms, bms, by, f" [{2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s]")
         del x, w, b
     torch.cuda.empty_cache()
     return rows
@@ -1668,8 +1741,8 @@ PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_simt_kernel",
                 "flash_bwd_dq_sm90_kernel", "flash_bwd_dq_simt_kernel",
                 "ln_fwd_kernel", "ln_bwd_kernel", "xent_fwd_kernel",
                 "sumsq_partials_kernel", "finish_kernel", "flat_update_kernel",
-                "scale_axpby_kernel", "dense_act_mma_kernel",
-                "dense_act_f32_kernel")
+                "scale_axpby_kernel", "dense_act_sm90_kernel",
+                "dense_act_mma_kernel", "dense_act_f32_kernel")
 
 
 def port_kernel_events(prof) -> dict:
@@ -2156,7 +2229,8 @@ def phase_mlp(dev, card, profile=False):
         f"copies) {o_ms:.3f} ms (medians of 3)")
     if profile:
         profile_window(lambda: mlp_train_step(opt, params, batch, mlp),
-                       "mlp_fp16", expect={"dense_act_mma_kernel": 3})
+                       "mlp_fp16", expect={"dense_act_sm90_kernel": 3,
+                                           "dense_act_mma_kernel": 0})
     del opt, params
     torch.cuda.empty_cache()
     mlp_lr_witness(dev, batch)
@@ -2252,24 +2326,26 @@ def phase_mt_apply(dev):
 # --variants: the bf16 flash kernels' tile variants, timed against each other
 # ---------------------------------------------------------------------------
 
-# Edits of csrc/sm90_attn.cuh, each an (old, new) pair that must match once:
-# one consumer warpgroup (64-row query tiles) everywhere, two (128-row)
-# everywhere, and a lone producer warp with no setmaxnreg split in place of
-# the producer warpgroup; for the key-major kernels (fused, dk/dv) 128-row
-# q stages instead of 64, and 3 stages instead of 2.  The shipped
-# query-major kernels take two warpgroups where ceil(Sq / 128) x BH >= 132,
-# else one; the key-major ones two stages of 64 rows.
+# Edits of the sources, each a (file under csrc/, old, new) triple whose old
+# text must match once: one consumer warpgroup (64-row query tiles)
+# everywhere, two (128-row) everywhere, and a lone producer warp with no
+# setmaxnreg split in place of the producer warpgroup; for the key-major
+# kernels (fused, dk/dv) 128-row q stages instead of 64, and 3 stages
+# instead of 2.  The shipped query-major kernels take two warpgroups where
+# ceil(Sq / 128) x BH >= 132, else one; the key-major ones two stages of 64
+# rows.
+_ATTN, _COMMON = "sm90_attn.cuh", "sm90_common.cuh"
 TILE_VARIANTS = {
-    "c1": [(">= 132 ? 2 : 1;", ">= 132 ? 1 : 1;")],
-    "c2": [(">= 132 ? 2 : 1;", ">= 132 ? 2 : 2;")],
+    "c1": [(_ATTN, ">= 132 ? 2 : 1;", ">= 132 ? 1 : 1;")],
+    "c2": [(_ATTN, ">= 132 ? 2 : 1;", ">= 132 ? 2 : 2;")],
     "lone_warp": [
-        ("kThreads = 128 * (C + 1);", "kThreads = 128 * C + 32;"),
-        ('asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n" ::: "memory");',
-         ""),
-        ('asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n" ::: '
-         '"memory");', ";")],
-    "q128": [("kKvStageRows = 64;", "kKvStageRows = 128;")],
-    "s3": [("kKvStages = 2;", "kKvStages = 3;")],
+        (_ATTN, "kThreads = 128 * (C + 1);", "kThreads = 128 * C + 32;"),
+        (_COMMON, 'asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n" '
+         '::: "memory");', ""),
+        (_COMMON, 'asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n" '
+         '::: "memory");', ";")],
+    "q128": [(_ATTN, "kKvStageRows = 64;", "kKvStageRows = 128;")],
+    "s3": [(_ATTN, "kKvStages = 2;", "kKvStages = 3;")],
 }
 # kernel, B, heads, S (= Sq = Sk), causal: the serving prefill, the O5
 # training and the long-sequence shapes (dq also at the serving shape, where
@@ -2286,6 +2362,26 @@ VARIANT_SHAPES = [
 ]
 
 
+# Edits of csrc/fused_mlp.cu's TMA + wgmma kernel, whose shipped choice is
+# 128 x 256 tiles, 3 stages (with the 64 KB output buffer, 4 do not fit),
+# clusters of 2 CTAs sharing w's tile by multicast and bands of 8 tile
+# groups: no cluster (every CTA loads its own tile of w); 128 x 128 tiles
+# with 3, then 4 stages of 32 KB; 2 stages; the groups walked row by row.
+_MLP = "fused_mlp.cu"
+_BN128 = (_MLP, "constexpr int kSmBN = 256;", "constexpr int kSmBN = 128;")
+GEMM_VARIANTS = {
+    "c1": [(_MLP, "constexpr int kSmCluster = 2;",
+            "constexpr int kSmCluster = 1;")],
+    "bn128": [_BN128],
+    "bn128_s4": [_BN128, (_MLP, "constexpr int kSmStages = 3;",
+                          "constexpr int kSmStages = 4;")],
+    "s2": [(_MLP, "constexpr int kSmStages = 3;",
+            "constexpr int kSmStages = 2;")],
+    "g1": [(_MLP, "constexpr int kSmGroupM = 8;",
+            "constexpr int kSmGroupM = 1;")],
+}
+
+
 def _build_variant(name, edits):
     import shutil
     from pathlib import Path
@@ -2293,14 +2389,76 @@ def _build_variant(name, edits):
     d = Path(HERE) / "build" / "variants" / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(build.CSRC, d)
-    header = d / "sm90_attn.cuh"
-    text = header.read_text()
-    for old, new in edits:
+    for source, old, new in edits:
+        path = d / source
+        text = path.read_text()
         require(text.count(old) == 1, f"variant {name}: {old!r} does not "
-                "match once in sm90_attn.cuh")
-        text = text.replace(old, new)
-    header.write_text(text)
+                f"match once in {source}")
+        path.write_text(text.replace(old, new))
     return build.build(d)
+
+
+def study_gemm_variants(dev, rounds: int = 3):
+    """Each variant of :data:`GEMM_VARIANTS` built from an edited copy of
+    the sources (in parallel), then the device time of every variant and
+    of cuBLAS (``torch.addmm`` + ``relu_``) at the MLP's three layer shapes
+    in fp16 (relu, bias), ``rounds`` rounds of all in turn; each variant's
+    output is compared with the shipped kernel's."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from apex_tpu_torch.ops.fused_mlp import _route, fused_dense_act
+    from apex_tpu_torch.utils import build
+    log("== variants: the TMA + wgmma dense kernel's tiles, stages and order")
+    libs = {"shipped": build.library()}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(GEMM_VARIANTS)) as ex:
+        futs = {n: ex.submit(_build_variant, n, e)
+                for n, e in GEMM_VARIANTS.items()}
+        for n, f in futs.items():
+            res = f.result()
+            for line in res.log.splitlines():
+                if "spill" in line:
+                    log(f"  {n} ptxas: {line.strip()}")
+            libs[n] = build.load(res.path)
+    log(f"  built {len(GEMM_VARIANTS)} variants in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    shapes = list(zip(MLP_SIZES[:-1], MLP_SIZES[1:]))
+    ins = [_dense_inputs(MLP_BATCH, k, n, "float16", True, 0, gen, dev)
+           for k, n in shapes]
+    require(all(_route(x, w) == "sm90" for x, w, _ in ins),
+            "the layers' route")
+    times, diff = {}, {}
+    shipped = build._LIB
+    try:
+        ref = [fused_dense_act(*a, "relu") for a in ins]
+        for n, lib in libs.items():
+            build._LIB = lib
+            for i, a in enumerate(ins):
+                diff[(i, n)] = float((fused_dense_act(*a, "relu").float()
+                                      - ref[i].float()).abs().max())
+        for _ in range(rounds):
+            for n, lib in libs.items():
+                build._LIB = lib
+                for i, a in enumerate(ins):
+                    times.setdefault((i, n), []).append(device_ms(
+                        lambda a=a: fused_dense_act(*a, "relu")))
+            for i, (x, w, b) in enumerate(ins):
+                times.setdefault((i, "cuBLAS"), []).append(device_ms(
+                    lambda x=x, w=w, b=b: torch.addmm(b, x, w).relu_()))
+    finally:
+        build._LIB = shipped
+    for i, (k, n) in enumerate(shapes):
+        flops = 2.0 * MLP_BATCH * k * n
+        for name in [*libs, "cuBLAS"]:
+            ts = times[(i, name)]
+            med = statistics.median(ts)
+            d = f"; output vs shipped: max |diff| {diff[(i, name)]:.3g}" \
+                if name in libs else ""
+            log(f"  dense_act {MLP_BATCH}x{k}@{k}x{n} fp16 relu {name:9s} "
+                f"median {med:.5f} ms ({flops / med / 1e9:.1f} TFLOP/s), "
+                f"rounds {[round(t, 5) for t in ts]}{d}")
+    return times
 
 
 def study_variants(dev, rounds: int = 3):
@@ -2398,7 +2556,11 @@ def main(argv) -> int:
     card = phase_environment()
     phase_build()
     if "--variants" in argv:
-        study_variants(dev)
+        which = argv[argv.index("--variants") + 1:][:1]
+        if which != ["gemm"]:
+            study_variants(dev)
+        if which != ["flash"]:
+            study_gemm_variants(dev)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
@@ -2445,6 +2607,7 @@ def main(argv) -> int:
     phase_mlp_parity(dev)
     launches["mlp_fp16"] = phase_mlp(dev, card, profile)
     launches["mt_apply"] = phase_mt_apply(dev)
+    check_dense_routes(dev)
 
     def pick(rows, **want):
         return next(r for r in rows

@@ -27,8 +27,9 @@ held per element to ``tol * max(1, |plain|)``: fp32 1e-5 (SIMT fmaf, sums
 in another order than cuBLAS), bf16 2e-2 and fp16 4e-3 (both versions
 round one fp32 value whose sums ran in other orders, and may land on
 neighbouring 16-bit numbers; fp16's 2^-11 steps plus a K-long sum's
-rounding).  Every kernel without an fp16 branch refuses fp16 CUDA tensors
-with a ``TypeError`` and launches nothing.
+rounding); its TMA + wgmma route must repeat bit for bit.  Every kernel
+without an fp16 branch refuses fp16 CUDA tensors with a ``TypeError`` and
+launches nothing.
 """
 import numpy as np
 import pytest
@@ -569,6 +570,87 @@ def test_dense_act_kernel_matches_plain(m, k, n, activation, bias, dtype,
     assert out.dtype == tdt and out.shape == (m, n)
     assert _close(out, ref, DENSE_TOL[dtype]), float(
         (out.float() - ref.float()).abs().max())
+
+
+def _dense_case(m, k, n, dtype, device, seed, x_offset=0):
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(device, tdt)
+
+    x = t((m * k + x_offset,), 1.0)[x_offset:].view(m, k)
+    return x, t((k, n), k ** -0.5), t((n,), 1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,activation", [
+    (8192, 1024, 4096, "relu"), (8192, 4096, 4096, "relu"),
+    (8192, 4096, 1024, "relu"),               # the MLP's three layers
+    (8191, 1000, 1000, "sigmoid"),            # M, K, N off the tiles
+    (1000, 1000, 136, "none"), (8191, 4096, 136, "relu"),
+    (1, 1024, 4096, "relu")])
+def test_dense_act_sm90_route_matches_plain(m, k, n, activation, dtype,
+                                            cuda_device):
+    """The TMA + wgmma kernel (the route ``_route`` names for these
+    inputs) against the plain version, with and without a bias."""
+    from apex_tpu_torch.ops import fused_mlp
+    x, w, b = _dense_case(m, k, n, dtype, cuda_device, m + k + n)
+    assert fused_mlp._route(x, w) == "sm90"
+    for bias in (b, None):
+        before = build.LAUNCHES["dense_act"]
+        out = fused_mlp.fused_dense_act(x, w, bias, activation)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["dense_act"] == before + 1
+        ref = fused_mlp.fused_dense_act_reference(x, w, bias, activation)
+        assert out.dtype == x.dtype and out.shape == (m, n)
+        assert _close(out, ref, DENSE_TOL[dtype]), float(
+            (out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_dense_act_misaligned_x_takes_mma_route(dtype, cuda_device):
+    from apex_tpu_torch.ops import fused_mlp
+    x, w, b = _dense_case(1000, 1000, 1000, dtype, cuda_device, 3,
+                          x_offset=1)
+    assert x.is_contiguous() and fused_mlp._route(x, w) == "mma"
+    out = fused_mlp.fused_dense_act(x, w, b, "relu")
+    ref = fused_mlp.fused_dense_act_reference(x, w, b, "relu")
+    assert _close(out, ref, DENSE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(8192, 4096, 4096), (8191, 1000, 136)])
+def test_dense_act_sm90_repeats_bit_for_bit(m, k, n, dtype, cuda_device):
+    """Each output is one fp32 sum in a fixed order: a second call gives
+    the same bits."""
+    from apex_tpu_torch.ops import fused_mlp
+    x, w, b = _dense_case(m, k, n, dtype, cuda_device, 7)
+    assert fused_mlp._route(x, w) == "sm90"
+    first = fused_mlp.fused_dense_act(x, w, b, "relu")
+    assert torch.equal(fused_mlp.fused_dense_act(x, w, b, "relu"), first)
+
+
+def test_dense_act_sm90_entry_refuses_what_tma_cannot_take(cuda_device):
+    """The TMA route's C entry point refuses a K or N off the multiple of 8
+    and a misaligned pointer with an error: it sends nothing to another
+    kernel."""
+    from apex_tpu_torch.ops import fused_mlp
+    lib = build.library()
+    x, w, b = _dense_case(64, 72, 64, "float16", cuda_device, 11)
+    out = torch.empty(64, 64, dtype=x.dtype, device=cuda_device)
+    s = build.stream_of(x)
+    args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr()]
+    assert lib.apex_dense_act_sm90(*args, 64, 64, 72, 1, 2, s) == 0
+    torch.cuda.synchronize()
+    assert _close(out, fused_mlp.fused_dense_act_reference(x, w, b), 4e-3)
+    assert lib.apex_dense_act_sm90(*args, 64, 64, 71, 1, 2, s) != 0
+    assert lib.apex_dense_act_sm90(*args, 64, 60, 72, 1, 2, s) != 0
+    bad = list(args)
+    bad[0] += 2
+    assert lib.apex_dense_act_sm90(*bad, 63, 64, 72, 1, 2, s) != 0
+    assert lib.apex_dense_act_sm90(*args, 64, 64, 72, 1, 0, s) != 0
 
 
 def test_dense_act_backward_on_the_card(cuda_device):

@@ -12,8 +12,10 @@ land on neighbouring 16-bit numbers (2^-8 and 2^-11 apart relative).
 1e-5 (the same formula; products in other orders).  ``MLP.apply`` (one
 route: ``dense_act`` a layer) against both JAX routes, ``use_pallas`` True
 and False, through ``mlp_params_from_jax``: fp32 within 1e-5, fp16 within
-2e-3.  The CUDA kernel is compared with the plain version on the card by
-``tests/test_torch_cuda_kernels.py``.
+2e-3.  The CUDA kernels are compared with the plain version on the card
+by ``tests/test_torch_cuda_kernels.py``; here ``_route``, which picks one
+of them before a launch, is checked on CPU tensors (it reads shapes,
+dtypes and addresses only), and a CPU tensor is shown to reach no route.
 """
 import numpy as np
 import pytest
@@ -157,3 +159,64 @@ def test_bad_activation_and_inputs_raise():
         fused_mlp._check_cuda_inputs(x, torch.zeros(5, 4).T, None)
     assert fused_mlp._check_cuda_inputs(x.half(), w.half(),
                                         torch.zeros(5).half()) == 2
+
+
+def _operand(shape, dtype, offset=0):
+    """A contiguous (rows, cols) tensor ``offset`` elements into a fresh
+    buffer (1: two or four bytes past a 16-byte aligned base)."""
+    rows, cols = shape
+    buf = torch.empty(rows * cols + offset, dtype=getattr(torch, dtype))
+    return buf[offset:].view(rows, cols)
+
+
+MLP_LAYERS = [(8192, 1024, 4096), (8192, 4096, 4096), (8192, 4096, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,x_off,w_off,want", [
+    *[(m, k, n, 0, 0, "sm90") for m, k, n in MLP_LAYERS],
+    (1, 1024, 4096, 0, 0, "sm90"),        # M = 1
+    (8191, 1000, 136, 0, 0, "sm90"),      # tails of the tiles, K and N % 8
+    (64, 1001, 64, 0, 0, "mma"),          # K not a multiple of 8
+    (64, 64, 100, 0, 0, "mma"),           # N not a multiple of 8
+    (64, 64, 64, 1, 0, "mma"),            # x one element past aligned
+    (64, 64, 64, 0, 1, "mma"),            # w one element past aligned
+])
+def test_route_names_the_kernel(m, k, n, x_off, w_off, want, dtype):
+    x = _operand((m, k), dtype, x_off)
+    w = _operand((k, n), dtype, w_off)
+    b = torch.empty(n, dtype=x.dtype)
+    assert x.is_contiguous() and w.is_contiguous()
+    assert fused_mlp._check_cuda_inputs(x, w, b) in (1, 2)
+    assert fused_mlp._route(x, w) == want
+    assert fused_mlp.ROUTES[want].startswith("dense_act_")
+
+
+@pytest.mark.parametrize("m,k,n,x_off", [(8192, 4096, 4096, 0),
+                                         (10, 24, 12, 0), (64, 64, 64, 1)])
+def test_route_of_fp32_is_the_simt_kernel(m, k, n, x_off):
+    x = _operand((m, k), "float32", x_off)
+    w = _operand((k, n), "float32")
+    assert fused_mlp._route(x, w) == "f32"
+    assert fused_mlp.ROUTES["f32"] == "dense_act_f32_kernel"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_cpu_tensor_reaches_no_route(dtype, monkeypatch):
+    """A CPU tensor takes the plain version: neither the route function
+    nor the kernel library is asked, and no launch is counted."""
+    from apex_tpu_torch.utils import build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the CUDA dispatch")
+    monkeypatch.setattr(fused_mlp, "_route", refuse)
+    monkeypatch.setattr(build, "library", refuse)
+    rng = np.random.default_rng(5)
+    tdt = getattr(torch, dtype)
+    x, w, b = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(tdt) for s in ((9, 16), (16, 8), (8,)))
+    before = dict(build.LAUNCHES)
+    out = fused_dense_act(x, w, b, "relu")
+    assert torch.equal(out, fused_mlp.fused_dense_act_reference(x, w, b,
+                                                                "relu"))
+    assert dict(build.LAUNCHES) == before
