@@ -6,17 +6,24 @@ for an axis size, the port runs one process per card and passes
 ``torch.distributed`` process groups; :func:`group_size` and
 :func:`group_rank` answer the same questions.  No ``Mesh`` or
 ``NamedSharding`` counterpart yet (ROADMAP.md).
+
+:func:`create_grouped_mesh` gives the JAX package's grouped scope (its
+``(data, group)`` mesh) as ``torch.distributed.new_group`` subsets: a
+collective over :attr:`GroupedMesh.group` stays inside this rank's group
+of consecutive ranks, one over :attr:`GroupedMesh.data` crosses the groups.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["initialize_distributed", "group_size", "group_rank",
-           "check_group_device"]
+           "check_group_device", "resolve_group", "GroupedMesh",
+           "create_grouped_mesh"]
 
 
 def initialize_distributed(*, init_file: Optional[str] = None,
@@ -59,6 +66,17 @@ def group_rank(group=None) -> int:
     return dist.get_rank(group)
 
 
+def resolve_group(axis_name=None):
+    """The process group a collective runs over, or None for none: an
+    explicit group is kept; ``None`` is the default group when
+    torch.distributed is initialised (the JAX package's "every bound
+    axis"), else no group (single-device semantics)."""
+    if axis_name is None:
+        return dist.group.WORLD if dist.is_available() \
+            and dist.is_initialized() else None
+    return axis_name
+
+
 def check_group_device(t: torch.Tensor, group=None) -> None:
     """Raise unless ``group``'s backend carries ``t``'s device: a CUDA
     tensor needs NCCL (it must not move through host memory), a CPU tensor
@@ -73,3 +91,31 @@ def check_group_device(t: torch.Tensor, group=None) -> None:
         raise RuntimeError(
             f"a {t.device} tensor on an NCCL process group: give CPU "
             "tensors a gloo group")
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedMesh:
+    """This rank's two process groups of a world split into groups of
+    ``group_size`` consecutive ranks: ``group`` (its own group, the JAX
+    package's ``group`` axis) and ``data`` (the ranks at its position in
+    every group, the ``data`` axis)."""
+    group: Any
+    data: Any
+
+
+def create_grouped_mesh(group_size: int) -> GroupedMesh:
+    """Split the default group into contiguous groups of ``group_size``
+    ranks (``create_grouped_mesh``'s layout: rank = data * group_size +
+    group).  Collective: every rank of the default group calls it."""
+    world = dist.get_world_size()
+    if group_size <= 0 or world % group_size:
+        raise ValueError(f"group_size {group_size} must divide world size "
+                         f"{world}")
+    rank = dist.get_rank()
+    groups = [dist.new_group(list(range(g * group_size,
+                                        (g + 1) * group_size)))
+              for g in range(world // group_size)]
+    datas = [dist.new_group(list(range(i, world, group_size)))
+             for i in range(group_size)]
+    return GroupedMesh(group=groups[rank // group_size],
+                       data=datas[rank % group_size])

@@ -35,6 +35,20 @@ pieces the JAX package's tests compose: ``MLP.apply`` -> MSE loss ->
                          dynamic_loss_scale=True)
     for batch in batches:                   # {"x": fp16 (B, in), "y": (B, out)}
         params, loss = mlp_train_step(opt, params, batch, mlp)
+
+:func:`resnet_train_step` is the step of the JAX imagenet example
+(``examples/imagenet/main_amp.py`` ``train_step``): ResNet-50 under amp O2
+(fp16 weights with fp32 batch norm, bf16 activations) and ``FusedAdam``;
+with ``ddp`` (``--distributed --sync-bn``, one process per card) the
+gradients are averaged over ``ddp``'s group and every batch norm syncs its
+statistics over it::
+
+    cfg = resnet50_config(dtype=torch.bfloat16)
+    params, bn_state = resnet_init(torch.Generator().manual_seed(0), cfg)
+    state = amp.initialize(params, FusedAdam(lr=1e-3), opt_level="O2")
+    for images, labels in batches:          # NHWC fp32, int64
+        state, bn_state, loss, acc = resnet_train_step(
+            state, bn_state, images, labels, cfg)
 """
 from __future__ import annotations
 
@@ -44,11 +58,13 @@ import torch
 import torch.distributed as dist
 
 from . import amp
+from .models.resnet import ResNetConfig, resnet_apply
 from .models.transformer import TransformerConfig, transformer_loss
 from .parallel.mesh import group_size
 from .utils.pytree import tree_flatten, tree_unflatten
 
-__all__ = ["train_step", "zero_train_step", "mlp_train_step"]
+__all__ = ["train_step", "zero_train_step", "mlp_train_step",
+           "resnet_train_step", "resnet_eval_step"]
 
 
 def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
@@ -102,3 +118,43 @@ def mlp_train_step(fp16_opt, params, batch: Dict[str, torch.Tensor], mlp):
     grads = torch.autograd.grad(fp16_opt.scale_loss(loss), leaves)
     new_params = fp16_opt.step(tree_unflatten(treedef, list(grads)))
     return new_params, loss.detach()
+
+
+def resnet_train_step(amp_state: amp.AmpState, bn_state, images, labels,
+                      cfg: ResNetConfig, *, ddp=None):
+    """One imagenet step: the fp32 ``log_softmax`` of the logits, the mean
+    negative log-likelihood of ``labels``, ``amp.scale_loss``, its
+    gradients over the model's leaves, ``ddp.allreduce_grads`` when given
+    (the batch norms then sync over ``ddp``'s group) and ``amp.amp_step``.
+    Returns ``(new_amp_state, new_bn_state, loss, acc)``, the loss
+    (unscaled) and the top-1 accuracy of this rank's batch as 0-d fp32
+    tensors."""
+    leaves, treedef = tree_flatten(amp_state.model_params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    logits, new_bn = resnet_apply(
+        tree_unflatten(treedef, leaves), bn_state, images, cfg, train=True,
+        axis_name=None if ddp is None else ddp.axis_name)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -lp.gather(1, labels.long()[:, None]).mean()
+    acc = (logits.argmax(dim=1) == labels).float().mean()
+    grads = torch.autograd.grad(amp.scale_loss(loss, amp_state), leaves)
+    grads = tree_unflatten(treedef, list(grads))
+    if ddp is not None:
+        grads = ddp.allreduce_grads(grads)
+    return (amp.amp_step(amp_state, grads), new_bn, loss.detach(),
+            acc.detach())
+
+
+@torch.no_grad()
+def resnet_eval_step(amp_state: amp.AmpState, bn_state, images, labels,
+                     cfg: ResNetConfig):
+    """The example's ``validate`` step: batch norm on its running
+    statistics; returns the (top-1, top-5) accuracy of the batch as 0-d
+    fp32 tensors."""
+    logits, _ = resnet_apply(amp_state.model_params, bn_state, images, cfg,
+                             train=False)
+    labels = labels.long()
+    top1 = (logits.argmax(dim=1) == labels).float().mean()
+    top5 = (logits.topk(5, dim=1).indices == labels[:, None]).any(
+        dim=1).float().mean()
+    return top1, top5

@@ -8,7 +8,7 @@ NVIDIA GPU.
                                       # path and over one step of each
                                       # training path, each after a warm-up
                                       # call (build/profile_{serve,train,
-                                      # zero,long_seq,mlp_fp16}.txt)
+                                      # zero,long_seq,mlp_fp16,rn50}.txt)
     python3 chip_smoke.py --variants  # only phases 1-2, then the bf16 flash
                                       # kernels' tile variants timed against
                                       # the shipped ones (TILE_VARIANTS) and
@@ -113,13 +113,36 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``multi_tensor_axpby`` through the facade over the MLP's six
    parameter-shaped tensors, each against its plain version, with the
    launch counts of the two calls;
-14. the dense cases of phase 3d once more under ``torch.profiler``: the
+14. ResNet-50 parity, card vs CPU, full width (64, stages 3-4-6-3, 1000
+   classes), batch 8 x 224^2 x 3 from the example's synthetic pool: the
+   loss and the gradients of every leaf in float64 (within 1e-9 / 1e-8
+   relative), the fp32 gradients of each device against the CPU's
+   float64 ones (both ~3 %: the network's own fp32 conditioning), then 3
+   steps of ``resnet_train_step`` in fp32 under amp O0 + FusedAdam, step
+   1's loss within 1e-5 relative and running statistics within 1e-4, the
+   three losses within 5e-2;
+15. the ResNet-50 path of ``examples/imagenet/main_amp.py``: config 2
+   (amp O2 + ``FusedAdam(lr=1e-3)``, bf16 activations, fp16 weights, fp32
+   batch norm, global batch 128 x 224^2 from a seeded copy of the
+   example's learnable prototype pool built on the card), its first 3
+   steps under ``cudnn.deterministic`` as a reference, then one warm-up
+   (absorbing ``cudnn.benchmark``'s autotuning) and 20 timed steps: step
+   time, images/s, analytic MFU (the convolutions' and fc's FLOPs counted
+   from their shapes, x 3, over 989 TFLOP/s), peak memory, the skipped
+   steps, a falling loss and the step split into forward, backward and
+   ``amp_step``; then config 3 (``--distributed --sync-bn``:
+   ``DistributedDataParallel`` and every batch norm synced over a world-1
+   NCCL group), whose first 3 steps must be config 2's bits under
+   ``cudnn.deterministic``, then one warm-up and 5 timed steps; around both
+   timed runs each of the 13 kernels must launch 0 times;
+16. the dense cases of phase 3d once more under ``torch.profiler``: the
    dense kernels it lists must be the kernels ``_route`` names (run last,
    so that no profiler session precedes the timed paths);
-15. one ``{"kernels": [...]}`` line: each kernel's launches from the path
-   it serves (``launches_by_path`` gives every path's count), then the
-   card's name and power limit, then the last line ``{"ok": true,
-   "device": {...}}``.  Every process group is destroyed before exit.
+17. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+   it serves (``launches_by_path`` gives every path's count, the
+   ResNet-50 paths' 0 included), then the card's name and power limit,
+   then the last line ``{"ok": true, "device": {...}}``.  Every process
+   group is destroyed before exit.
 
 Tolerances: an element passes when ``|kernel - plain| <= tol *
 max(1, |plain|)``, with tol = 1e-5 (layer-norm forward, cross-entropy,
@@ -201,6 +224,9 @@ TRAIN_LAUNCHES_PER_STEP = {
     # exactly these counts, every other kernel 0 (FusedAdam's step_flat is
     # eager PyTorch, as the JAX package's is XLA)
     "mlp_fp16": dict({k: 0 for k in ALL_KERNELS}, dense_act=3, mt_scale=1),
+    # ResNet-50 (configs 2 and 3): convolutions in cuDNN, batch norm, amp
+    # and FusedAdam(impl="xla") eager PyTorch, as the JAX package's are XLA
+    "rn50": {k: 0 for k in ALL_KERNELS},
 }
 
 
@@ -2323,6 +2349,372 @@ def phase_mt_apply(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-15: the imagenet example's ResNet-50 (BASELINE configs 2 and 3)
+# ---------------------------------------------------------------------------
+
+# examples/imagenet/main_amp.py: the default global batch, the image side,
+# the synthetic pool's classes and noise, FusedAdam's lr
+RN50_BATCH = 128
+RN50_HW = 224
+SYN_CLASSES = 64
+SYN_NOISE = 0.08
+RN50_LR = 1e-3
+# timed steps of config 2 (after one warm-up): over the first ~10 the loss
+# moves about its start while the first steps are skipped and Adam's
+# sign-like steps settle; it falls clearly over 20
+RN50_STEPS = 20
+
+
+def resnet_flops(cfg, hw: int) -> float:
+    """Forward FLOPs of one image: 2 x the multiply-adds of every
+    convolution (output positions x kh x kw x cin x cout, "SAME" output
+    sizes) and of the fc layer."""
+    def conv(size, k, cin, cout, stride):
+        out = -(-size // stride)
+        return out, 2.0 * out * out * k * k * cin * cout
+
+    expansion = 4 if cfg.block == "bottleneck" else 1
+    size, flops = conv(hw, 7, 3, cfg.width, 2)
+    size = -(-size // 2)                                # the max-pool
+    cin = cfg.width
+    for si, n_blocks in enumerate(cfg.stage_sizes):
+        cmid = cfg.width * 2 ** si
+        cout = cmid * expansion
+        for bi in range(n_blocks):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            if cfg.block == "bottleneck":
+                _, f1 = conv(size, 1, cin, cmid, 1)
+                out, f2 = conv(size, 3, cmid, cmid, stride)
+                _, f3 = conv(out, 1, cmid, cout, 1)
+                flops += f1 + f2 + f3
+            else:
+                out, f1 = conv(size, 3, cin, cmid, stride)
+                _, f2 = conv(out, 3, cmid, cout, 1)
+                flops += f1 + f2
+            if stride != 1 or cin != cout:
+                flops += conv(size, 1, cin, cout, stride)[1]
+            size, cin = out, cout
+    return flops + 2.0 * cin * cfg.num_classes
+
+
+def syn_batches(dev, batch, seed, steps):
+    """The example's synthetic ImageNet batches (``synthetic_batches``):
+    one random image per class in a pool of 64 (pool seed 1234, as the
+    example's), sampled by label with N(0, 0.08^2) noise a step, so the
+    image -> label map is learnable; built on ``dev`` from seeded
+    generators.  NHWC fp32 images, int64 labels."""
+    import torch
+    pool = torch.rand(SYN_CLASSES, RN50_HW, RN50_HW, 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1234))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        labels = torch.randint(0, SYN_CLASSES, (batch,), device=dev,
+                               generator=gen)
+        noise = torch.randn(batch, RN50_HW, RN50_HW, 3, device=dev,
+                            generator=gen)
+        out.append((pool[labels] + SYN_NOISE * noise, labels))
+    return out
+
+
+def _flat_params(tree):
+    import torch
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    return torch.cat([t.detach().float().reshape(-1).cpu()
+                      for t in tree_leaves(tree)])
+
+
+def _rn50_grads(params, bn, x, y, dtype, d):
+    """Logits' NLL loss and its gradients over every leaf, ``dtype``
+    activations and weights on ``d`` (CPU tensors out)."""
+    import torch
+    from apex_tpu_torch.models import resnet50_config, resnet_apply
+    from apex_tpu_torch.utils.pytree import (tree_flatten, tree_map,
+                                             tree_unflatten)
+    leaves, treedef = tree_flatten(tree_map(lambda t: t.to(d, dtype), params))
+    leaves = [p.requires_grad_(True) for p in leaves]
+    logits, _ = resnet_apply(tree_unflatten(treedef, leaves),
+                             tree_map(lambda t: t.to(d, dtype), bn),
+                             x.to(d, dtype), resnet50_config(dtype=dtype))
+    loss = -torch.log_softmax(logits, -1).gather(1, y.to(d)[:, None]).mean()
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), torch.cat([g.detach().double().reshape(-1).cpu()
+                                   for g in grads])
+
+
+def phase_rn50_parity(dev):
+    """Card vs CPU from the same weights and batches.  (a) The model's
+    loss and gradients in float64 (every batch norm then computes in
+    float64), and the fp32 gradients of each device against the CPU's
+    float64 ones.  (b) 3 steps of ``resnet_train_step`` in fp32, amp O0 +
+    FusedAdam: step 1's loss and running statistics are held tight.  The
+    fp32 gradients of the freshly initialised network in train mode lie
+    ~3 % from the float64 ones on both devices (part (a) prints both), so
+    steps 2-3, after updates from those gradients, are held to that."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import resnet50_config, resnet_init
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.train import resnet_train_step
+    from apex_tpu_torch.utils.pytree import tree_leaves, tree_map
+    log("== phase 14: ResNet-50 parity (full width, batch 8 x "
+        f"{RN50_HW}^2 x 3; card vs CPU: loss and gradients in float64 and "
+        f"fp32, then 3 steps in fp32 under amp O0 + FusedAdam(lr={RN50_LR}))")
+    cfg = resnet50_config()
+    params, bn0 = resnet_init(torch.Generator().manual_seed(3), cfg,
+                              device="cpu")
+    cpu = torch.device("cpu")
+    batches = [(x.cpu(), y.cpu()) for x, y in syn_batches(cpu, 8, 21, 3)]
+    x0, y0 = batches[0]
+    res = {(d.type, dt): _rn50_grads(params, bn0, x0, y0, dt, d)
+           for d in (dev, cpu) for dt in (torch.float64, torch.float32)}
+    ref_l, ref_g = res[("cpu", torch.float64)]
+    g64_l, g64_g = res[(dev.type, torch.float64)]
+    l64 = abs(g64_l - ref_l) / abs(ref_l)
+    d64 = float((g64_g - ref_g).norm() / ref_g.norm())
+    require(l64 <= 1e-9 and d64 <= 1e-8, f"float64 loss / gradients differ "
+            f"by {l64:.3g} / {d64:.3g} relative (tol 1e-9 / 1e-8 in norm)")
+    e32 = {d: float((res[(d, torch.float32)][1] - ref_g).norm()
+                    / ref_g.norm()) for d in (dev.type, "cpu")}
+    require(max(e32.values()) <= 0.1, f"fp32 gradients lie {e32} from the "
+            "float64 ones (tol 0.1 relative in norm)")
+    log(f"  float64: loss {g64_l!r} card, {ref_l!r} cpu: rel diff {l64:.3g} "
+        f"(tol 1e-9); gradients rel diff {d64:.3g} in norm (tol 1e-8); fp32 "
+        f"gradients against the CPU's float64: card {e32[dev.type]:.4f}, "
+        f"cpu {e32['cpu']:.4f} relative in norm (tol 0.1 each)")
+
+    runs = []
+    for d in (dev, cpu):
+        st = amp.initialize(tree_map(lambda t: t.to(d), params),
+                            FusedAdam(lr=RN50_LR), opt_level="O0",
+                            verbosity=0)
+        bn = tree_map(lambda t: t.to(d), bn0)
+        t0 = time.perf_counter()
+        losses, bn1 = [], None
+        for x, y in batches:
+            st, bn, loss, _ = resnet_train_step(st, bn, x.to(d), y.to(d),
+                                                cfg)
+            losses.append(loss.item())
+            bn1 = bn1 or [t.cpu() for t in tree_leaves(bn)]
+        runs.append((losses, bn1, [t.cpu() for t in tree_leaves(bn)],
+                     _flat_params(st.model_params),
+                     time.perf_counter() - t0))
+    (g_l, g_bn1, g_bn, g_p, g_s), (c_l, c_bn1, c_bn, c_p, c_s) = runs
+    start = _flat_params(params)
+    l1 = abs(g_l[0] - c_l[0]) / abs(c_l[0])
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(g_l, c_l))
+    bn1_err = max(rel_err(a, b) for a, b in zip(g_bn1, c_bn1))
+    bn_err = max(rel_err(a, b) for a, b in zip(g_bn, c_bn))
+    u_err = float((g_p - c_p).norm() / (c_p - start).norm())
+    require(all(np.isfinite(g_l)) and l1 <= 1e-5 and bn1_err <= 1e-4,
+            f"RN50 step 1 differs: loss {l1:.3g} relative (tol 1e-5), "
+            f"running stats {bn1_err:.3g} (tol 1e-4)")
+    require(l_err <= 5e-2, f"RN50 losses differ by {l_err:.3g} relative "
+            f"(tol 5e-2): card {g_l} cpu {c_l}")
+    log(f"  fp32 steps: losses card {g_l} cpu {c_l}: step 1 rel diff "
+        f"{l1:.3g} (tol 1e-5), all steps {l_err:.3g} (tol 5e-2); running "
+        f"stats after step 1 {bn1_err:.3g} (tol 1e-4), after 3 "
+        f"{bn_err:.3g}; 3-step update diff {u_err:.3g} relative in norm "
+        f"(not held: Adam's sign-like first steps move every element whose "
+        f"fp32 gradient's sign differs by lr); card {g_s:.1f} s, CPU "
+        f"{c_s:.1f} s")
+
+
+def _rn50_steps(st, bn, batches, cfg, ddp=None, sync=False):
+    """``resnet_train_step`` over ``batches``: (state, bn, losses, loss
+    scales, step seconds); each step ends in a synchronize when ``sync``."""
+    import torch
+    from apex_tpu_torch.train import resnet_train_step
+    losses, scales, times = [], [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        st, bn, loss, _ = resnet_train_step(st, bn, x, y, cfg, ddp=ddp)
+        if sync:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        scales.append(float(st.loss_scale))
+    return st, bn, losses, scales, times
+
+
+def _skipped(scales, first):
+    """Steps the dynamic scaler skipped: those after which the scale fell."""
+    prev, out = first, []
+    for s in scales:
+        out.append(s < prev)
+        prev = s
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_rn50(dev, card, profile=False):
+    """Config 2 (amp O2 + FusedAdam, one card), then config 3
+    (``--distributed --sync-bn``: DistributedDataParallel and every batch
+    norm synced over a world-1 NCCL group): config 3's first 3 steps must
+    give config 2's bits under ``cudnn.deterministic``; both timed with
+    ``cudnn.benchmark`` on, the warm-up step absorbing its autotuning.
+    Returns the two paths' launch counts."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import resnet50_config, resnet_init
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log(f"== phase 15: ResNet-50 path (main_amp.py configs 2 and 3: batch "
+        f"{RN50_BATCH} x {RN50_HW}^2, amp O2 + FusedAdam(lr={RN50_LR}), "
+        "bf16 activations, fp16 weights, fp32 batch norm)")
+    cfg = resnet50_config(dtype=torch.bfloat16)
+    params, bn0 = resnet_init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    st0 = amp.initialize(params, FusedAdam(lr=RN50_LR), opt_level="O2",
+                         verbosity=0)
+    del params
+    batches = syn_batches(dev, RN50_BATCH, 0, 1 + RN50_STEPS)
+    flops = 3 * resnet_flops(cfg, RN50_HW) * RN50_BATCH
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # config 2's first 3 steps, deterministic, as the bits config 3 must give
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    ref = _rn50_steps(st0, bn0, batches[:3], cfg)
+
+    # config 2 timed
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats()
+    st, bn, losses, scales, _ = _rn50_steps(st0, bn0, batches[:1], cfg)
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    st, bn, l2, s2, times = _rn50_steps(st, bn, batches[1:], cfg, sync=True)
+    launches_o2 = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses, scales = losses + l2, scales + s2
+    skipped = _skipped(scales, 2.0 ** 16)
+    require(all(np.isfinite(losses)), f"RN50 non-finite loss: {losses}")
+    require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3])
+            and sum(not s for s in skipped) >= 2,
+            f"RN50 loss did not fall (mean of the last 3 against the first "
+            f"3): {losses}, skipped {skipped}")
+    require(st.model_params["conv_init"].dtype == torch.float16
+            and st.model_params["bn_init"]["scale"].dtype == torch.float32
+            and st.master_params["conv_init"].dtype == torch.float32,
+            "O2 dtypes: fp16 weights, fp32 batch norm and masters")
+    check_launches("rn50", launches_o2, len(times), exact=True)
+    step_s = statistics.median(times)
+    log(f"  {n_params} parameters; losses {[round(l, 4) for l in losses]}, "
+        f"loss scales {scales}, skipped {skipped} "
+        f"({sum(skipped)} of {len(skipped)}); launches of the 13 kernels "
+        f"in {len(times)} steps {launches_o2 or 'none'}")
+    log(f"  [{card}] config 2: step {step_s * 1e3:.2f} ms (median of "
+        f"{len(times)}; all {[round(t * 1e3, 2) for t in times]}), "
+        f"{RN50_BATCH / step_s:.1f} images/s, analytic MFU "
+        f"{100 * flops / step_s / 989e12:.2f}% ({flops / 1e12:.3f} TFLOP a "
+        f"step: 3 x the convolutions' and fc's "
+        f"{resnet_flops(cfg, RN50_HW) / 1e9:.3f} GFLOP an image x "
+        f"{RN50_BATCH}, over 989 TFLOP/s), peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB; cudnn.benchmark on")
+    f_ms, b_ms, o_ms = split_rn50_step(st, bn, batches[1], cfg)
+    log(f"  [{card}] of a step: forward + loss {f_ms:.2f} ms, backward "
+        f"{b_ms:.2f} ms, amp_step (unscale, finite check, FusedAdam on the "
+        f"fp32 masters, skip-select, fp16 copies) {o_ms:.2f} ms (medians "
+        "of 3)")
+    if profile:
+        from apex_tpu_torch.train import resnet_train_step
+        x, y = batches[1]
+        profile_window(lambda: resnet_train_step(st, bn, x, y, cfg),
+                       "rn50")
+    del st, bn
+    torch.cuda.empty_cache()
+
+    store = start_process_group()
+    try:
+        ddp = DistributedDataParallel()
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        got = _rn50_steps(st0, bn0, batches[:3], cfg, ddp=ddp)
+        same = (got[2] == ref[2] and got[3] == ref[3]
+                and _same_bits(got[0].model_params, ref[0].model_params)
+                and _same_bits(got[0].master_params, ref[0].master_params)
+                and _same_bits(got[1], ref[1]))
+        require(same, f"config 3 at world 1 is not config 2's bits: losses "
+                f"{got[2]} vs {ref[2]}, scales {got[3]} vs {ref[3]}")
+        log(f"  config 3 (world-1 NCCL group, DDP, every batch norm synced) "
+            f"3 steps under cudnn.deterministic: losses {got[2]}, the same "
+            "bits as config 2's in losses, scales, fp16 weights, fp32 "
+            "masters and running statistics")
+        del got
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+        st, bn, losses3, _, _ = _rn50_steps(st0, bn0, batches[:1], cfg,
+                                            ddp=ddp)
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        st, bn, l3, s3, times3 = _rn50_steps(st, bn, batches[1:6], cfg,
+                                             ddp=ddp, sync=True)
+        launches_ddp = dict(build.LAUNCHES)
+        check_launches("rn50", launches_ddp, len(times3), exact=True)
+        require(all(np.isfinite(losses3 + l3)),
+                f"config 3 non-finite loss: {losses3 + l3}")
+        step3 = statistics.median(times3)
+        log(f"  [{card}] config 3: step {step3 * 1e3:.2f} ms (median of "
+            f"{len(times3)}; all {[round(t * 1e3, 2) for t in times3]}), "
+            f"{RN50_BATCH / step3:.1f} images/s, analytic MFU "
+            f"{100 * flops / step3 / 989e12:.2f}%; losses "
+            f"{[round(l, 4) for l in losses3 + l3]}, scales {s3}; launches "
+            f"of the 13 kernels {launches_ddp or 'none'}")
+    finally:
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    del st0, batches
+    torch.cuda.empty_cache()
+    return launches_o2, launches_ddp
+
+
+def split_rn50_step(st, bn, batch, cfg):
+    """Host-clock ms of a step's three parts, each ending in a
+    synchronize: forward and loss, backward, ``amp_step`` (the state is
+    left as it was)."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import resnet_apply
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+    x, y = batch
+    parts = []
+    for _ in range(3):
+        leaves, treedef = tree_flatten(st.model_params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = resnet_apply(tree_unflatten(treedef, leaves), bn, x, cfg)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -lp.gather(1, y[:, None]).mean()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(amp.scale_loss(loss, st), leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        amp.amp_step(st, tree_unflatten(treedef, list(grads)))
+        torch.cuda.synchronize()
+        parts.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    return tuple(statistics.median(p[i] for p in parts) * 1e3
+                 for i in range(3))
+
+
+# ---------------------------------------------------------------------------
 # --variants: the bf16 flash kernels' tile variants, timed against each other
 # ---------------------------------------------------------------------------
 
@@ -2541,7 +2933,7 @@ def _kernel_entry(name, source, replaces, row, launches_by_path, path):
                 path=path,
                 launches_by_path={p: c.get(name, 0)
                                   for p, c in launches_by_path.items()
-                                  if c.get(name, 0)})
+                                  if c.get(name, 0) or p.startswith("rn50")})
 
 
 def main(argv) -> int:
@@ -2607,6 +2999,9 @@ def main(argv) -> int:
     phase_mlp_parity(dev)
     launches["mlp_fp16"] = phase_mlp(dev, card, profile)
     launches["mt_apply"] = phase_mt_apply(dev)
+    phase_rn50_parity(dev)
+    launches["rn50_o2"], launches["rn50_ddp"] = phase_rn50(dev, card,
+                                                           profile)
     check_dense_routes(dev)
 
     def pick(rows, **want):

@@ -184,3 +184,147 @@ def zero_train(rank, world, tree_np, cfg_kw, batches, opt_kw, split):
     finally:
         flash._FUSE_BUFFER_CAP_MB = cap
     return losses, state.p.numpy()
+
+
+def _rows(a, rank, counts):
+    """This rank's rows of a global batch split into ``counts`` rows."""
+    start = sum(counts[:rank])
+    return np.ascontiguousarray(a[start:start + counts[rank]])
+
+
+def syncbn_cases(rank, world, data):
+    """The SyncBatchNorm and groupbn cases at world 2 over the default
+    group, each on this rank's rows of the global numpy inputs in ``data``;
+    returns {case: {name: numpy}}."""
+    import torch
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.parallel import SyncBatchNorm, sync_batch_norm
+    even = [data["x"].shape[0] // world] * world
+    t = torch.from_numpy
+    c = data["x"].shape[-1]
+    w = t(data["w"]).requires_grad_(True)
+    b = t(data["b"]).requires_grad_(True)
+    out = {}
+    for case, counts in (("nhwc", even), ("unequal", data["counts"])):
+        x = t(_rows(data["x"], rank, counts)).requires_grad_(True)
+        y, rm, rv = sync_batch_norm(x, w, b, torch.zeros(c), torch.ones(c))
+        gx, gw, gb = torch.autograd.grad(
+            (y * t(_rows(data["gy"], rank, counts))).sum(), (x, w, b))
+        out[case] = dict(y=y, rm=rm, rv=rv, gx=gx, gw=gw, gb=gb)
+    x = t(_rows(data["x"], rank, even)).requires_grad_(True)
+    z = t(_rows(data["z"], rank, even))
+    y, _, _ = sync_batch_norm(x, w, b, fuse_relu=True, z=z)
+    gx, = torch.autograd.grad((y * t(_rows(data["gy"], rank, even))).sum(),
+                              x)
+    out["relu_z"] = dict(y=y, gx=gx)
+    xc = t(_rows(data["x"], rank, even)).permute(0, 3, 1, 2)
+    y, rm, rv = sync_batch_norm(xc, w, b, torch.zeros(c), torch.ones(c),
+                                channel_last=False)
+    out["nchw"] = dict(y=y.permute(0, 2, 3, 1), rm=rm, rv=rv)
+    bn = SyncBatchNorm(c, affine=False, track_running_stats=False)
+    y, _ = bn.apply({}, {}, x.detach(), training=False)
+    out["eval_no_stats"] = dict(y=y)
+    gbn = BatchNorm2d_NHWC(c, fuse_relu=True)
+    params, state = gbn.init(device="cpu")
+    y, st = gbn(params, state, x.detach(), z)
+    out["groupbn"] = dict(y=y, rm=st["mean"], rv=st["var"])
+    return {k: {n: v.detach().numpy() for n, v in d.items()}
+            for k, d in out.items()}
+
+
+def syncbn_grouped(rank, world, x_np):
+    """World 4 in groups of 2: batch norm over this rank's group (the
+    grouped mesh's ``group``, then groupbn's ``bn_group=2``), and the sum of
+    the ranks over the ``data`` group."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.parallel import create_grouped_mesh, sync_batch_norm
+    mesh = create_grouped_mesh(2)
+    x = torch.from_numpy(_rows(x_np, rank, [x_np.shape[0] // world] * world))
+    y, _, _ = sync_batch_norm(x, None, None, axis_name=mesh.group)
+    gbn = BatchNorm2d_NHWC(x.shape[-1], bn_group=2)
+    params, state = gbn.init(device="cpu")
+    y2, st = gbn(params, state, x)
+    r = torch.tensor([float(rank)])
+    dist.all_reduce(r, group=mesh.data)
+    return dict(y=y.numpy(), y2=y2.numpy(), rm=st["mean"].numpy(),
+                data_sum=float(r))
+
+
+def ddp_cases(rank, world, grads_np, params_np):
+    """DistributedDataParallel / Reducer / allreduce_tree over the default
+    group on this rank's gradients (``grads_np`` leaves are (world, ...));
+    returns {case: {leaf: numpy fp32}} and the broadcast params."""
+    import torch
+    from apex_tpu_torch.parallel import (DistributedDataParallel, Reducer,
+                                         allreduce_tree)
+
+    def local():
+        g = {k: torch.from_numpy(v[rank].copy()) for k, v in grads_np.items()}
+        g["b"] = g["b"].to(torch.bfloat16)
+        return g
+
+    def np32(tree):
+        return {k: v.float().numpy() for k, v in tree.items()}
+
+    ddp = DistributedDataParallel(device="cpu")
+    out = {
+        "average": ddp.allreduce_grads(local()),
+        "one_bucket": DistributedDataParallel(
+            delay_allreduce=True, device="cpu").allreduce_grads(local()),
+        "small_buckets": DistributedDataParallel(
+            message_size=40, device="cpu").allreduce_grads(local()),
+        "predivide": DistributedDataParallel(
+            gradient_predivide_factor=2.0, allreduce_always_fp32=True,
+            device="cpu").allreduce_grads(local()),
+        "predivide_sum": DistributedDataParallel(
+            gradient_predivide_factor=2.0, gradient_average=False,
+            allreduce_always_fp32=True,
+            device="cpu").allreduce_grads(local()),
+        "tree_fp32": allreduce_tree(local(), always_fp32=True),
+        "reducer_sum": Reducer(gradient_average=False).reduce(local()),
+    }
+    dtypes = {k: str(v.dtype) for k, v in out["predivide"].items()}
+    params = {k: torch.from_numpy(v[rank].copy())
+              for k, v in params_np.items()}
+    return ({k: np32(v) for k, v in out.items()}, dtypes,
+            {k: v.numpy() for k, v in ddp.broadcast_params(params).items()})
+
+
+def resnet_ddp_steps(rank, world, params_np, state_np, batches, cfg_kw,
+                     scale):
+    """The ``--distributed --sync-bn`` step: amp O2 + FusedAdam(lr=1e-3),
+    the dynamic scale started at ``scale``, ``resnet_train_step`` with a
+    DistributedDataParallel over the default group on this rank's rows of
+    each global batch.  Returns (losses averaged over the ranks, loss
+    scales, the fp32 masters, the batch-norm state) as numpy."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.resnet import (ResNetConfig,
+                                              resnet_params_from_jax)
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.train import resnet_train_step
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    cfg = ResNetConfig(**cfg_kw)
+    params, bn = resnet_params_from_jax(params_np, state_np, device="cpu")
+    ddp = DistributedDataParallel(device="cpu")
+    st = amp.initialize(ddp.broadcast_params(params), FusedAdam(lr=1e-3),
+                        opt_level="O2", verbosity=0)
+    st = st._replace(scalers=tuple(s._replace(loss_scale=torch.tensor(scale))
+                                   for s in st.scalers))
+    losses, scales = [], []
+    for x, y in batches:
+        counts = [x.shape[0] // world] * world
+        st, bn, loss, _ = resnet_train_step(
+            st, bn, torch.from_numpy(_rows(x, rank, counts)),
+            torch.from_numpy(_rows(y, rank, counts)), cfg, ddp=ddp)
+        dist.all_reduce(loss)
+        losses.append(float(loss) / world)
+        scales.append(float(st.loss_scale))
+    masters = [t.detach() for t in tree_leaves(st.master_params)]
+    masters = [(t.permute(2, 3, 1, 0) if t.dim() == 4 else t).numpy()
+               for t in masters]
+    return losses, scales, masters, [t.numpy() for t in tree_leaves(bn)]

@@ -58,7 +58,11 @@ def test_port_files_exist():
                    "contrib/optimizers/distributed_fused.py", "train.py",
                    "multi_tensor_apply/kernels.py", "ops/fused_mlp.py",
                    "mlp/mlp.py", "optimizers/fused_adam.py",
-                   "contrib/optimizers/fp16_optimizer.py"):
+                   "contrib/optimizers/fp16_optimizer.py",
+                   "parallel/sync_batchnorm.py", "models/resnet.py",
+                   "contrib/groupbn/batch_norm.py",
+                   "optimizers/fused_sgd.py", "parallel/LARC.py",
+                   "parallel/distributed.py"):
         assert f"apex_tpu_torch/{module}" in names, module
     assert len(names) > 15
 
@@ -160,6 +164,37 @@ def test_mlp_init_without_device_does_not_run_on_cpu():
                              np.zeros(4, np.float32), None))
     params = mlp.init(torch.Generator().manual_seed(0), device="cpu")
     assert params["weights"][0].device.type == "cpu"
+
+
+def test_resnet_entry_points_default_to_the_card():
+    """``resnet_init``, ``resnet_params_from_jax``, the data-parallel
+    wrapper and the batch-norm modules' ``init`` ask for the card unless
+    given a device: without CUDA they raise instead of running on the CPU;
+    with ``device="cpu"`` they run there."""
+    _no_cuda()
+    import numpy as np
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.models import resnet18_config, resnet_init
+    from apex_tpu_torch.models.resnet import resnet_params_from_jax
+    from apex_tpu_torch.parallel import (DistributedDataParallel,
+                                         SyncBatchNorm)
+    cfg = resnet18_config(width=4, num_classes=3)
+    for call in (lambda: resnet_init(torch.Generator().manual_seed(0), cfg),
+                 lambda: resnet_params_from_jax(
+                     {"fc_w": np.zeros((2, 3), np.float32)},
+                     {"bn_init": {"mean": np.zeros(2, np.float32)}}),
+                 lambda: DistributedDataParallel(),
+                 lambda: SyncBatchNorm(4).init(),
+                 lambda: BatchNorm2d_NHWC(4).init()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    params, state = resnet_init(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    assert params["conv_init"].device.type == "cpu"
+    assert DistributedDataParallel(device="cpu").device.type == "cpu"
+    ddp = DistributedDataParallel(device="cpu")
+    with pytest.raises(RuntimeError, match="made for cpu"):
+        ddp.allreduce_grads({"w": torch.zeros(2, device="meta")})
 
 
 def _fp16_cases():
