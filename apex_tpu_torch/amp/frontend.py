@@ -8,10 +8,12 @@ one loss scaler per loss, and the optimizer state.  :func:`amp_step` is the
 post-backward pipeline: unscale -> overflow check -> optimizer step on the
 masters -> skip-step select -> scaler update -> model-precision copy.
 
-O1 and O4 patch functions with casts in the JAX package; their PyTorch
-counterpart (``torch.autocast``) is not ported yet, and ``initialize``
-raises for them.  ``add_param_group`` and ``state_dict`` are not ported yet
-either (ROADMAP.md).
+O1 and O4 turn on the per-op casts of :mod:`.amp` (fp16 and bf16
+respectively) for the calling thread, as the JAX package patches its
+namespaces; ``amp.uninit()`` turns them off.  Lists of models and
+optimizers give a list of states.  :func:`add_param_group` extends the
+trained tree mid-run, and :func:`state_dict` / :func:`load_state_dict`
+carry the loss scalers.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ from typing import Any, Tuple
 
 import torch
 
+from . import amp as _amp
 from . import scaler as _scaler
 from .properties import Properties, opt_levels
 from ..utils import pytree as _pt
 
 __all__ = ["AmpState", "initialize", "scale_loss", "amp_step",
-           "amp_step_multi", "master_params"]
+           "amp_step_multi", "add_param_group", "master_params",
+           "state_dict", "load_state_dict"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +40,7 @@ class AmpState:
     opt_state: Any                  # optimizer state, or None
     properties: Any = None
     optimizer: Any = None
+    cast_model_outputs: Any = None
 
     def _replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -43,6 +48,16 @@ class AmpState:
     @property
     def loss_scale(self):
         return self.scalers[0].loss_scale
+
+    def cast_input(self, x):
+        """Floating tensors of ``x`` (a tree) in the opt level's model
+        dtype; unchanged where the level casts no model (O1, O4)."""
+        return _cast_floats(x, self.properties.cast_model_type)
+
+    def cast_output(self, y):
+        """Floating tensors of ``y`` in the ``cast_model_outputs`` dtype
+        given to :func:`initialize`; unchanged without one."""
+        return _cast_floats(y, self.cast_model_outputs)
 
     def params_for_eval(self):
         """fp32 view of the parameters."""
@@ -54,17 +69,51 @@ class AmpState:
                             src)
 
 
+def _cast_floats(tree, dt):
+    """Floating tensors of ``tree`` cast to ``dt`` (None / False: no-op);
+    Python scalars and integer tensors pass through."""
+    if dt in (None, False):
+        return tree
+    args, _ = _pt.cast_inputs((tree,), {}, dt)
+    return args[0]
+
+
 def initialize(params, optimizer=None, opt_level="O1", *, num_losses=1,
                verbosity=1, cast_model_type=None, patch_functions=None,
                keep_batchnorm_fp32=None, master_weights=None,
                loss_scale=None, min_loss_scale=1.0,
                max_loss_scale=2.0 ** 24,
                allow_incoming_model_not_fp32=False,
-               flash_attn_backward=None) -> AmpState:
+               cast_model_outputs=None,
+               flash_attn_backward=None) -> "AmpState | list[AmpState]":
     """Opt-level driven setup.  ``params``: fp32 parameter tree (on the
     device the model runs on; the scalers go there too).  ``optimizer``: a
     fused optimizer, whose state is made against the masters.  Keyword
-    overrides apply after the preset."""
+    overrides apply after the preset.  O1 / O4 turn the casts of
+    :mod:`.amp` on in the calling thread.
+
+    A list (or tuple) of parameter trees with a list of optimizers of the
+    same length gives a list of independent states, paired by position;
+    a list of trees with one optimizer is one model."""
+    if isinstance(params, (list, tuple)) \
+            and isinstance(optimizer, (list, tuple)):
+        opts = list(optimizer)
+        if len(opts) != len(params):
+            raise ValueError(
+                f"{len(params)} models but {len(opts)} optimizers")
+        kw = dict(num_losses=num_losses, verbosity=verbosity,
+                  cast_model_type=cast_model_type,
+                  patch_functions=patch_functions,
+                  keep_batchnorm_fp32=keep_batchnorm_fp32,
+                  master_weights=master_weights, loss_scale=loss_scale,
+                  min_loss_scale=min_loss_scale,
+                  max_loss_scale=max_loss_scale,
+                  allow_incoming_model_not_fp32=allow_incoming_model_not_fp32,
+                  cast_model_outputs=cast_model_outputs,
+                  flash_attn_backward=flash_attn_backward)
+        return [initialize(p, o, opt_level, **kw)
+                for p, o in zip(params, opts)]
+
     if opt_level not in opt_levels:
         raise RuntimeError(f"Unexpected optimization level {opt_level}; "
                            "options are 'O0'..'O5'.")
@@ -77,11 +126,6 @@ def initialize(params, optimizer=None, opt_level="O1", *, num_losses=1,
                       ("flash_attn_backward", flash_attn_backward)):
         if val is not None:
             setattr(props, name, val)
-    if props.patch_functions:
-        raise NotImplementedError(
-            f"opt_level {opt_level} patches functions with casts; its "
-            "PyTorch counterpart (torch.autocast) is not ported yet, see "
-            "ROADMAP.md")
     if verbosity:
         print(f"apex_tpu_torch.amp: opt_level {opt_level} -> {props}")
 
@@ -119,6 +163,9 @@ def initialize(params, optimizer=None, opt_level="O1", *, num_losses=1,
                      max_loss_scale=max_loss_scale, device=device)
         for _ in range(num_losses))
 
+    if props.patch_functions and props.patch_functions_type is not None:
+        _amp.init(patch_type=props.patch_functions_type)
+
     opt_state = None
     if optimizer is not None:
         target = masters if masters is not None else model_params
@@ -131,7 +178,8 @@ def initialize(params, optimizer=None, opt_level="O1", *, num_losses=1,
 
     return AmpState(model_params=model_params, master_params=masters,
                     scalers=scalers, opt_state=opt_state, properties=props,
-                    optimizer=optimizer)
+                    optimizer=optimizer,
+                    cast_model_outputs=cast_model_outputs)
 
 
 def _is_fused_flat(optimizer) -> bool:
@@ -228,3 +276,116 @@ def master_params(amp_state: AmpState):
     src = (amp_state.master_params if amp_state.master_params is not None
            else amp_state.model_params)
     return _pt.tree_leaves(src)
+
+
+def add_param_group(amp_state: AmpState, new_params):
+    """Extend the trained parameters mid-run: ``new_params`` (an fp32 dict
+    whose top-level keys the model's dict does not hold) merges into the
+    model.  Existing leaves keep their master values, optimizer moments
+    and the step count; new leaves get the preset's casts and masters and
+    zero moments; the scalers carry over.  Both impls: the flat engine
+    repacks its buffers into the merged layout once."""
+    props = amp_state.properties
+    opt = amp_state.optimizer
+    old32 = amp_state.params_for_eval()
+    if not (isinstance(old32, dict) and isinstance(new_params, dict)):
+        raise TypeError("add_param_group needs dict param trees "
+                        "(merge = new top-level keys)")
+    overlap = set(old32) & set(new_params)
+    if overlap:
+        raise ValueError(f"new param group re-uses existing keys: "
+                         f"{sorted(overlap)}")
+    merged32 = {**old32, **new_params}
+
+    fresh = initialize(
+        merged32, opt, opt_level=props.opt_level,
+        num_losses=len(amp_state.scalers), verbosity=0,
+        cast_model_type=props.cast_model_type,
+        patch_functions=props.patch_functions,
+        keep_batchnorm_fp32=props.keep_batchnorm_fp32,
+        master_weights=props.master_weights,
+        loss_scale=props.loss_scale,
+        flash_attn_backward=props.flash_attn_backward,
+        cast_model_outputs=amp_state.cast_model_outputs)
+
+    new_opt_state = fresh.opt_state
+    if amp_state.opt_state is not None and new_opt_state is not None:
+        if _is_fused_flat(opt):
+            new_opt_state = _migrate_flat_state(amp_state, fresh, old32,
+                                                merged32)
+        else:
+            merged_fields = {}
+            for field in new_opt_state._fields:
+                old_v = getattr(amp_state.opt_state, field)
+                fresh_v = getattr(new_opt_state, field)
+                if isinstance(old_v, dict) and isinstance(fresh_v, dict) \
+                        and set(old_v) <= set(fresh_v):
+                    merged_fields[field] = {**fresh_v, **old_v}
+                elif _same_shape(old_v, fresh_v):
+                    merged_fields[field] = old_v      # the step count
+                else:
+                    merged_fields[field] = fresh_v
+            new_opt_state = type(new_opt_state)(**merged_fields)
+
+    return fresh._replace(opt_state=new_opt_state,
+                          scalers=amp_state.scalers)
+
+
+def _same_shape(a, b) -> bool:
+    return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+        and a.shape == b.shape
+
+
+def _meta_f32(tree):
+    return _pt.tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                              device="meta"), tree)
+
+
+def _migrate_flat_state(amp_state, fresh, old32, merged32):
+    """The old flat buffers (moments, master) scattered into the merged
+    layout: unflattened by the old plan, laid over the fresh tree,
+    flattened by the new plan.  The step count carries."""
+    opt = amp_state.optimizer
+    old_fl = opt.flattener_for(_meta_f32(old32))
+    # the optimizer caches one plan: take the old trees before the new one
+    old_trees = {}
+    for field in amp_state.opt_state._fields:
+        v = getattr(amp_state.opt_state, field)
+        if isinstance(v, torch.Tensor) and v.dim() == 1 \
+                and v.shape[0] == old_fl.total:
+            old_trees[field] = old_fl.unflatten(v, dtype=torch.float32)
+    new_fl = opt.flattener_for(_meta_f32(merged32))
+    merged_fields = {}
+    for field in fresh.opt_state._fields:
+        fresh_v = getattr(fresh.opt_state, field)
+        old_v = getattr(amp_state.opt_state, field)
+        if field in old_trees and isinstance(fresh_v, torch.Tensor) \
+                and fresh_v.dim() == 1 and fresh_v.shape[0] == new_fl.total:
+            fresh_tree = new_fl.unflatten(fresh_v, dtype=torch.float32)
+            merged_fields[field] = new_fl.flatten(
+                {**fresh_tree, **old_trees[field]}).to(fresh_v.dtype)
+        elif _same_shape(old_v, fresh_v):
+            merged_fields[field] = old_v              # the step count
+        else:
+            merged_fields[field] = fresh_v
+    return type(fresh.opt_state)(**merged_fields)
+
+
+def state_dict(amp_state: AmpState) -> dict:
+    """Every loss scaler as plain Python values (``amp.state_dict``)."""
+    return {f"loss_scaler{i}": _scaler.state_dict(s)
+            for i, s in enumerate(amp_state.scalers)}
+
+
+def load_state_dict(amp_state: AmpState, d: dict) -> AmpState:
+    """The scalers of :func:`state_dict` back into ``amp_state``, on the
+    device of its scalers; with a different count of scalers it warns and
+    loads as many as both have."""
+    if len(d) != len(amp_state.scalers):
+        print(f"Warning: loading state with {len(d)} scalers into "
+              f"{len(amp_state.scalers)}")
+    scalers = list(amp_state.scalers)
+    for i in range(min(len(d), len(scalers))):
+        scalers[i] = _scaler.load_state_dict(
+            d[f"loss_scaler{i}"], device=scalers[i].loss_scale.device)
+    return amp_state._replace(scalers=tuple(scalers))

@@ -15,7 +15,7 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.pytree import tree_leaves, tree_map
 
-__all__ = ["ScalerState", "init", "scale_loss", "all_finite", "unscale",
+__all__ = ["ScalerState", "LossScaler", "init", "scale_loss", "all_finite", "unscale",
            "update", "apply_if_finite", "state_dict", "load_state_dict"]
 
 
@@ -27,6 +27,10 @@ class ScalerState:
     scale_window: int = 2000
     min_loss_scale: float = 1.0
     max_loss_scale: float = 2.0 ** 24
+
+    @property
+    def scale(self):
+        return self.loss_scale
 
     def _replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -115,3 +119,36 @@ def load_state_dict(d: dict, *, device=None) -> ScalerState:
         dynamic=bool(d["dynamic"]), scale_window=int(d["scale_window"]),
         min_loss_scale=float(d["min_loss_scale"]),
         max_loss_scale=float(d["max_loss_scale"]))
+
+
+class LossScaler:
+    """Object facade over the scaler functions, shaped like the reference
+    class for scripts ported from it: holds a :class:`ScalerState` on
+    ``device`` (default ``"cuda"``) and delegates every operation."""
+
+    def __init__(self, loss_scale="dynamic", init_scale=2.0 ** 16,
+                 scale_window=2000, min_loss_scale=1.0,
+                 max_loss_scale=2.0 ** 24, *, device=None):
+        self.state = init(loss_scale, init_scale, scale_window,
+                          min_loss_scale, max_loss_scale, device=device)
+
+    def loss_scale(self):
+        return float(self.state.loss_scale)
+
+    def scale_loss(self, loss):
+        return scale_loss(self.state, loss)
+
+    def unscale(self, grads):
+        return unscale(self.state, grads)
+
+    def update_scale(self, finite):
+        """Update from ``finite``; returns True when the step should be
+        skipped."""
+        self.state = update(self.state, finite)
+        return not bool(finite)
+
+    def state_dict(self):
+        return state_dict(self.state)
+
+    def load_state_dict(self, d):
+        self.state = load_state_dict(d, device=self.state.loss_scale.device)

@@ -4,3 +4,6 @@ from .transformer import (TransformerConfig, bert_large_config,  # noqa: F401
 from .resnet import (ResNetConfig, resnet18_config,  # noqa: F401
                      resnet50_config, resnet_apply, resnet_init,
                      resnet_params_from_jax)
+from .dcgan import (DCGANConfig, dcgan_init,  # noqa: F401
+                    dcgan_params_from_jax, discriminator_apply,
+                    generator_apply)

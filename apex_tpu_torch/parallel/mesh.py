@@ -70,10 +70,14 @@ def resolve_group(axis_name=None):
     """The process group a collective runs over, or None for none: an
     explicit group is kept; ``None`` is the default group when
     torch.distributed is initialised (the JAX package's "every bound
-    axis"), else no group (single-device semantics)."""
+    axis"), else no group (single-device semantics); an empty tuple or
+    list is no group, as the JAX package's empty axis tuple ``()`` binds
+    no axis."""
     if axis_name is None:
         return dist.group.WORLD if dist.is_available() \
             and dist.is_initialized() else None
+    if isinstance(axis_name, (tuple, list)) and not axis_name:
+        return None
     return axis_name
 
 

@@ -11,8 +11,9 @@ parallel gradient average it gives the gradient of the global-batch loss.
 
 ``axis_name`` is a ``torch.distributed`` process group in place of the JAX
 package's mesh axis.  ``None`` means the default group when one is
-initialised; with no group the op has single-device semantics, so the same
-model code runs on one card unchanged.  The running statistics are returned,
+initialised; with no group, or with ``()`` (the JAX package's empty axis
+tuple), the op has single-device semantics, so the same model code runs
+on one card unchanged.  The running statistics are returned,
 never updated in place.
 """
 from __future__ import annotations

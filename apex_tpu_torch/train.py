@@ -49,6 +49,38 @@ statistics over it::
     for images, labels in batches:          # NHWC fp32, int64
         state, bn_state, loss, acc = resnet_train_step(
             state, bn_state, images, labels, cfg)
+
+:func:`simple_ddp_train_step` is the step of the toy data-parallel example
+(``examples/simple/distributed/distributed_data_parallel.py``): a 2-layer
+MLP under amp O1 (fp16 products from the casts, dynamic loss scale),
+``FusedSGD(lr=0.1, momentum=0.9)``, the gradients averaged over a process
+group (one process per card, each with its part of the batch)::
+
+    state = amp.initialize(params, FusedSGD(lr=0.1, momentum=0.9),
+                           opt_level="O1")
+    for _ in range(steps):
+        state, loss = simple_ddp_train_step(state, X, Y)
+
+Both run on ``device`` (default ``"cuda"``, raising where CUDA is absent)
+and refuse a state whose tensors lie elsewhere; the CPU is used only when
+``device="cpu"`` is passed.
+
+:func:`dcgan_train_step` is the step of the dcgan example
+(``examples/dcgan/main_amp.py``): the discriminator takes two separately
+scaled backward passes (real: loss_id 0, fake: 1) into one
+``amp_step_multi``, the generator a third scaler through ``amp_step``::
+
+    cfg = DCGANConfig(dtype=torch.bfloat16)
+    params, bn_state = dcgan_init(torch.Generator().manual_seed(0), cfg)
+    stateD = amp.initialize(params["disc"],
+                            FusedAdam(lr=2e-4, betas=(0.5, 0.999)),
+                            opt_level="O4", num_losses=2)
+    stateG = amp.initialize(params["gen"],
+                            FusedAdam(lr=2e-4, betas=(0.5, 0.999)),
+                            opt_level="O4")
+    for real, z in batches:                 # NHWC in [-1, 1], (N, latent)
+        stateD, stateG, bn_state, errD_real, errD_fake, errG = \
+            dcgan_train_step(stateD, stateG, bn_state, real, z, cfg)
 """
 from __future__ import annotations
 
@@ -58,13 +90,18 @@ import torch
 import torch.distributed as dist
 
 from . import amp
+from .models.dcgan import (DCGANConfig, discriminator_apply,
+                           generator_apply)
 from .models.resnet import ResNetConfig, resnet_apply
 from .models.transformer import TransformerConfig, transformer_loss
-from .parallel.mesh import group_size
-from .utils.pytree import tree_flatten, tree_unflatten
+from .parallel.distributed import allreduce_tree
+from .parallel.mesh import group_size, resolve_group
+from .utils.device import resolve_device
+from .utils.pytree import tree_flatten, tree_leaves, tree_unflatten
 
 __all__ = ["train_step", "zero_train_step", "mlp_train_step",
-           "resnet_train_step", "resnet_eval_step"]
+           "resnet_train_step", "resnet_eval_step", "simple_ddp_train_step",
+           "bce_logits", "dcgan_train_step"]
 
 
 def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
@@ -158,3 +195,105 @@ def resnet_eval_step(amp_state: amp.AmpState, bn_state, images, labels,
     top5 = (logits.topk(5, dim=1).indices == labels[:, None]).any(
         dim=1).float().mean()
     return top1, top5
+
+
+def _grad_leaves(tree):
+    """(leaves that require grad, treedef) of a parameter tree."""
+    leaves, treedef = tree_flatten(tree)
+    return [p.detach().requires_grad_(True) for p in leaves], treedef
+
+
+def _check_device(device, *trees):
+    """Resolve ``device`` (default ``"cuda"``) and refuse a tensor of
+    ``trees`` on another device type."""
+    dev = resolve_device(device)
+    for t in trees:
+        for leaf in tree_leaves(t):
+            if isinstance(leaf, torch.Tensor) and leaf.device.type != dev.type:
+                raise RuntimeError(
+                    f"a tensor on {leaf.device} reaches a step run on {dev}; "
+                    "pass device= the device the model lives on")
+
+
+def simple_ddp_train_step(amp_state: amp.AmpState, X, Y, *, group=None,
+                          device=None):
+    """One step of the toy MLP (``fc1`` / ``fc2`` ``{w, b}``):
+    ``relu(X @ w1 + b1) @ w2 + b2`` through ``torch.matmul`` (cast by O1's
+    casts), the MSE in fp32, its scaled gradients averaged over ``group``
+    (None: the default group when torch.distributed is initialised, else
+    none) and ``amp.amp_step``.  ``X`` / ``Y`` are this rank's rows.
+    Returns ``(new_amp_state, loss)``, the loss the unscaled 0-d fp32 mean
+    over the group's ranks."""
+    _check_device(device, amp_state.model_params, X, Y)
+    leaves, treedef = _grad_leaves(amp_state.model_params)
+    p = tree_unflatten(treedef, leaves)
+    h = torch.relu(torch.matmul(amp_state.cast_input(X), p["fc1"]["w"])
+                   + p["fc1"]["b"])
+    pred = torch.matmul(h, p["fc2"]["w"]) + p["fc2"]["b"]
+    loss = torch.mean((pred.to(torch.float32) - Y) ** 2)
+    grads = torch.autograd.grad(amp.scale_loss(loss, amp_state), leaves)
+    grads = allreduce_tree(tree_unflatten(treedef, list(grads)),
+                           axis_name=group)
+    loss = loss.detach()
+    g = resolve_group(group)
+    if g is not None:
+        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=g)
+        loss = loss / group_size(g)
+    return amp.amp_step(amp_state, grads), loss
+
+
+def bce_logits(logits, target):
+    """Binary cross-entropy with logits, through the namespace calls of
+    the JAX example's (``maximum``, ``log1p``, ``exp``, ``abs``, ``mean``),
+    so the fp32 list applies to the same calls."""
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * target
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def dcgan_train_step(stateD: amp.AmpState, stateG: amp.AmpState, bn_state,
+                     real, z, cfg: DCGANConfig, *, device=None):
+    """One DCGAN step: D on real (loss_id 0) and detached fake images
+    (loss_id 1) into one ``amp_step_multi``, then G through its own scaler
+    against the updated D.  The batch-norm statistics chain through the
+    passes as the JAX step threads them: the fake images' generator pass
+    (bn1), D on real (bn_r), D on fake (bn2), G's generator pass (bn3)
+    and D on G's images (bn4).  Returns ``(stateD, stateG, bn4,
+    errD_real, errD_fake, errG)``, the losses unscaled 0-d fp32 (the JAX
+    step returns all but ``errD_fake``)."""
+    _check_device(device, stateD.model_params, stateG.model_params,
+                  bn_state, real, z)
+    params = {"disc": stateD.model_params, "gen": stateG.model_params}
+    with torch.no_grad():
+        fake, bn1 = generator_apply(params, bn_state, z, cfg)
+
+    d_leaves, d_def = _grad_leaves(stateD.model_params)
+    logits, bn_r = discriminator_apply(
+        {"disc": tree_unflatten(d_def, d_leaves), "gen": None}, bn1, real,
+        cfg)
+    err_real = bce_logits(logits, 1.0)
+    gr = torch.autograd.grad(amp.scale_loss(err_real, stateD, loss_id=0),
+                             d_leaves)
+
+    d_leaves, _ = _grad_leaves(stateD.model_params)
+    logits, bn2 = discriminator_apply(
+        {"disc": tree_unflatten(d_def, d_leaves), "gen": None}, bn_r, fake,
+        cfg)
+    err_fake = bce_logits(logits, 0.0)
+    gf = torch.autograd.grad(amp.scale_loss(err_fake, stateD, loss_id=1),
+                             d_leaves)
+    new_stateD = amp.amp_step_multi(
+        stateD, [(tree_unflatten(d_def, list(gr)), 0),
+                 (tree_unflatten(d_def, list(gf)), 1)])
+
+    g_leaves, g_def = _grad_leaves(stateG.model_params)
+    p = {"disc": new_stateD.model_params,
+         "gen": tree_unflatten(g_def, g_leaves)}
+    imgs, bn3 = generator_apply(p, bn2, z, cfg)
+    logits, bn4 = discriminator_apply(p, bn3, imgs, cfg)
+    err_g = bce_logits(logits, 1.0)
+    gg = torch.autograd.grad(amp.scale_loss(err_g, stateG, loss_id=0),
+                             g_leaves)
+    new_stateG = amp.amp_step(stateG, tree_unflatten(g_def, list(gg)))
+    return (new_stateD, new_stateG, bn4, err_real.detach(),
+            err_fake.detach(), err_g.detach())

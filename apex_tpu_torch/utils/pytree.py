@@ -2,8 +2,8 @@
 casts amp applies to a model.
 
 Counterpart of a subset of ``apex_tpu/utils/pytree.py`` (``cast_tree``,
-``convert_network``, ``is_norm_path``, ``master_params_from``,
-``master_to_model``), plus the few tree operations the JAX package takes
+``convert_network``, ``cast_inputs``, ``is_norm_path``,
+``master_params_from``, ``master_to_model``), plus the few tree operations the JAX package takes
 from ``jax.tree_util``.  A tree is a tensor (a leaf), ``None`` (no leaf), or
 a dict, list, tuple or named tuple of trees.  Leaves are visited in JAX's
 order: dict keys sorted, sequences and named-tuple fields in order, so a
@@ -18,7 +18,8 @@ import torch
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_leaves",
            "tree_leaves_with_path", "tree_map", "path_str", "is_norm_path",
-           "cast_tree", "convert_network", "master_params_from",
+           "cast_tree", "convert_network", "cast_inputs",
+           "master_params_from",
            "master_to_model", "is_float"]
 
 # Path segments that name normalization parameters, kept fp32 when
@@ -154,6 +155,18 @@ def convert_network(params, dtype, keep_batchnorm_fp32: bool = True):
     pred = (lambda path, x: is_norm_path(path)) if keep_batchnorm_fp32 \
         else None
     return cast_tree(params, dtype, predicate=pred)
+
+
+def cast_inputs(args, kwargs, dtype):
+    """The input cast of amp's model forward: floating tensors among the
+    leaves of (args, kwargs) in ``dtype`` (None: unchanged); integer
+    tensors, Python scalars and other leaves pass through."""
+    if dtype is None:
+        return args, kwargs
+
+    def caster(x):
+        return x.to(dtype) if is_float(x) else x
+    return tree_map(caster, args), tree_map(caster, kwargs)
 
 
 def master_params_from(params):

@@ -8,7 +8,8 @@ NVIDIA GPU.
                                       # path and over one step of each
                                       # training path, each after a warm-up
                                       # call (build/profile_{serve,train,
-                                      # zero,long_seq,mlp_fp16,rn50}.txt)
+                                      # zero,long_seq,mlp_fp16,rn50,
+                                      # dcgan}.txt)
     python3 chip_smoke.py --variants  # only phases 1-2, then the bf16 flash
                                       # kernels' tile variants timed against
                                       # the shipped ones (TILE_VARIANTS) and
@@ -135,14 +136,40 @@ Phases, in order; any failure exits nonzero and prints no result line:
    NCCL group), whose first 3 steps must be config 2's bits under
    ``cudnn.deterministic``, then one warm-up and 5 timed steps; around both
    timed runs each of the 13 kernels must launch 0 times;
-16. the dense cases of phase 3d once more under ``torch.profiler``: the
+16. the amp O1 / O4 cast table: every callable of
+   ``amp/lists/torch_overrides.py`` under ``amp.autocast(bf16)`` and
+   ``amp.autocast(fp16)`` on the card and on the CPU, three dtype mixes
+   (all low precision, all fp32, the first fp32 and the rest low
+   precision): the same output dtypes, values within 2e-2 (bf16) / 4e-3
+   (fp16) of max(1, |cpu|), no torch function mode left after ``uninit``;
+17. config 1, the toy DDP example (``examples/simple/distributed``'s
+   defaults: 512 -> 256 -> 32, global batch 64, amp O1, ``FusedSGD(lr=0.1,
+   momentum=0.9)``, ``simple_ddp_train_step`` on a world-1 NCCL group):
+   card vs CPU over 3 steps (losses within 1e-3 relative, the same
+   scales), then one warm-up and 100 timed steps: a falling loss, step
+   time, samples/s, 0 launches of the 13 kernels;
+18. config 5, DCGAN (``examples/dcgan/main_amp.py``'s defaults:
+   ``DCGANConfig()``, batch 64, amp O4, two ``FusedAdam(lr=2e-4, betas=
+   (0.5, 0.999))``, D with two scaled losses, G with a third): (a) card vs
+   CPU at batch 8 from the same weights, the gradients of D's real loss
+   and G's loss and one ``dcgan_train_step``: in float64 (gradients and
+   losses 1e-6 relative: the logits stay fp32), under O0 (fp32 gradients ~0.17 %
+   from float64 on both devices: the card's no farther than 1.25 x the
+   CPU's + 1e-3, one step's losses within 1e-4) and under O4 (the card's
+   bf16 gradients no farther from its fp32 ones than 1.25 x the CPU's +
+   0.01, the devices' within 1.5 x the CPU's distance of each other,
+   losses 2e-2); (b) one warm-up and
+   20 timed steps: step time, images/s, peak
+   memory, the D-real / D-fake / G losses, the three loss scales (1.0),
+   no skipped step, 0 launches of the 13 kernels;
+19. the dense cases of phase 3d once more under ``torch.profiler``: the
    dense kernels it lists must be the kernels ``_route`` names (run last,
    so that no profiler session precedes the timed paths);
-17. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+20. one ``{"kernels": [...]}`` line: each kernel's launches from the path
    it serves (``launches_by_path`` gives every path's count, the
-   ResNet-50 paths' 0 included), then the card's name and power limit,
-   then the last line ``{"ok": true, "device": {...}}``.  Every process
-   group is destroyed before exit.
+   ResNet-50, toy-DDP and DCGAN paths' 0 included), then the card's name
+   and power limit, then the last line ``{"ok": true, "device": {...}}``.
+   Every process group is destroyed before exit.
 
 Tolerances: an element passes when ``|kernel - plain| <= tol *
 max(1, |plain|)``, with tol = 1e-5 (layer-norm forward, cross-entropy,
@@ -227,7 +254,14 @@ TRAIN_LAUNCHES_PER_STEP = {
     # ResNet-50 (configs 2 and 3): convolutions in cuDNN, batch norm, amp
     # and FusedAdam(impl="xla") eager PyTorch, as the JAX package's are XLA
     "rn50": {k: 0 for k in ALL_KERNELS},
+    # the toy DDP example under O1 (config 1) and DCGAN under O4 (config 5):
+    # cuBLAS / cuDNN products and eager FusedSGD / FusedAdam(impl="xla"), as
+    # the JAX examples' are XLA
+    "simple_ddp_o1": {k: 0 for k in ALL_KERNELS},
+    "dcgan_o4": {k: 0 for k in ALL_KERNELS},
 }
+# paths that launch none of the 13 kernels: every kernel's line lists them
+ZERO_PATHS = ("rn50_o2", "rn50_ddp", "simple_ddp_o1", "dcgan_o4")
 
 
 _T0 = time.perf_counter()
@@ -2715,6 +2749,509 @@ def split_rn50_step(st, bn, batch, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phases 16-18: amp O1 / O4 casts, the toy DDP example (config 1) and DCGAN
+# (config 5)
+# ---------------------------------------------------------------------------
+
+CAST_TOL = {"bfloat16": 2e-2, "float16": 4e-3}
+# the toy data-parallel example (examples/simple/distributed): widths, global
+# batch, steps, SGD
+SIMPLE_DIMS = (512, 256, 32)
+SIMPLE_BATCH = 64
+SIMPLE_STEPS = 100
+# the dcgan example: batch, timed steps, Adam
+DCGAN_BATCH = 64
+DCGAN_PARITY_BATCH = 8
+DCGAN_STEPS = 20
+DCGAN_ADAM = dict(lr=2e-4, betas=(0.5, 0.999))
+
+
+def cast_calls():
+    """(key, category, callable, call, input shapes, domain) for every
+    callable of the port's cast lists (``amp/lists/torch_overrides.py``):
+    how to call it, and on what (domain "pos": uniform(0.5, 2), "unit":
+    (-0.9, 0.9), else 0.5 N(0, 1))."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.amp.lists import torch_overrides as L
+    mm = ((64, 128), (128, 32))
+    calls = {
+        torch.dot: (None, ((256,), (256,))),
+        torch.vdot: (None, ((256,), (256,))),
+        torch.matmul: (None, mm), torch.mm: (None, mm),
+        torch.inner: (None, ((64, 128), (32, 128))),
+        torch.outer: (None, ((64,), (32,))),
+        torch.tensordot: (lambda f, a, b: f(a, b, dims=1), mm),
+        torch.einsum: (lambda f, a, b: f("ij,jk->ik", a, b), mm),
+        torch.bmm: (None, ((4, 64, 128), (4, 128, 32))),
+        F.linear: (None, ((64, 128), (32, 128))),
+        F.conv1d: (None, ((4, 16, 33), (32, 16, 3))),
+        F.conv2d: (None, ((4, 16, 15, 15), (32, 16, 3, 3))),
+        F.conv3d: (None, ((2, 16, 7, 7, 7), (32, 16, 3, 3, 3))),
+        F.conv_transpose1d: (lambda f, x, w: f(x, w, stride=2),
+                             ((4, 32, 17), (32, 16, 3))),
+        F.conv_transpose2d: (lambda f, x, w: f(x, w, stride=2),
+                             ((4, 32, 8, 8), (32, 16, 3, 3))),
+        F.conv_transpose3d: (lambda f, x, w: f(x, w, stride=2),
+                             ((2, 32, 4, 4, 4), (32, 16, 3, 3, 3))),
+    }
+    pos = {"jnp.log", "jnp.log10", "jnp.log1p", "jnp.log2", "jnp.power",
+           "jnp.float_power", "jnp.cumprod", "jnp.prod", "lax.log",
+           "lax.log1p", "lax.pow", "lax.rsqrt", "jnp.divide",
+           "jnp.true_divide"}
+    unit = {"jnp.cosh", "jnp.sinh", "jnp.tan", "jnp.arccos", "jnp.arcsin",
+            "lax.erf_inv"}
+    dim0 = {"jnp.cumprod", "jnp.cumsum"}
+    last = {"nn.softmax", "nn.log_softmax", "nn.logsumexp"}
+    binary = {"jnp.power", "jnp.float_power", "lax.pow"}
+    out = []
+    for cat in ("LOW_PREC", "FP32", "CASTS", "SEQUENCE_CASTS"):
+        for key, fns in getattr(L, cat).items():
+            dom = "pos" if key in pos else "unit" if key in unit else "any"
+            for f in fns:
+                if cat == "LOW_PREC":
+                    call, shapes = calls[f]
+                elif cat == "SEQUENCE_CASTS":
+                    call, shapes = (lambda f, a, b: f([a, b])), ((8, 6),) * 2
+                elif cat == "CASTS" or key in binary:
+                    call, shapes = None, ((8, 6),) * 2
+                elif key in dim0:
+                    call, shapes = (lambda f, x: f(x, dim=0)), ((4, 6),)
+                elif key in last:
+                    call, shapes = (lambda f, x: f(x, dim=-1)), ((8, 6),)
+                else:
+                    call, shapes = None, ((4, 6),)
+                out.append((key, cat, f, call or (lambda f, *a: f(*a)),
+                            shapes, dom))
+    return out
+
+
+def _cast_inputs(shapes, domain, seed):
+    rng = np.random.default_rng(seed)
+    if domain == "pos":
+        return [rng.uniform(0.5, 2.0, s).astype(np.float32) for s in shapes]
+    if domain == "unit":
+        return [rng.uniform(-0.9, 0.9, s).astype(np.float32) for s in shapes]
+    return [(0.5 * rng.standard_normal(s)).astype(np.float32)
+            for s in shapes]
+
+
+def _as_cast(category, xs, low):
+    """The inputs as the casts of ``category`` hand them to the function:
+    the low-precision type, fp32, or the widest floating type."""
+    import functools
+    import torch
+    if category == "LOW_PREC":
+        return [x.to(low) for x in xs]
+    if category == "FP32":
+        return [x.float() for x in xs]
+    widest = functools.reduce(torch.promote_types, [x.dtype for x in xs])
+    return [x.to(widest) for x in xs]
+
+
+def phase_cast_table(dev):
+    """Every callable of the cast lists under ``amp.autocast(bf16)`` and
+    ``amp.autocast(fp16)``, on the card and on the CPU from the same
+    inputs in three dtype mixes (all low precision, all fp32, the first
+    fp32 and the rest low precision).  The card's output dtype must be
+    the CPU's (the CPU table is held to the JAX package's in
+    ``tests/test_torch_amp_autocast.py``); its values must lie within one
+    rounding of the function computed in float64 on the CPU from the
+    inputs as the casts hand them over: 2e-2 (bf16) / 4e-3 (fp16) / 1e-5
+    (fp32 outputs) of max(1, |ref|); booleans equal the CPU's.  The CPU's
+    own low-precision results are held the same way and reported.
+    ``uninit`` must leave no torch function mode."""
+    import torch
+    from torch.overrides import _get_current_function_mode_stack
+    from apex_tpu_torch import amp
+    log("== phase 16: amp O1 / O4 cast table on the card (every callable of "
+        "amp/lists/torch_overrides.py, bf16 and fp16, three dtype mixes, "
+        "card vs CPU)")
+    cpu = torch.device("cpu")
+    cases = cast_calls()
+    worst, fails, n = {}, [], 0
+    for low_name, low_tol in CAST_TOL.items():
+        low = getattr(torch, low_name)
+        for i, (key, cat, f, call, shapes, dom) in enumerate(cases):
+            arrays = _cast_inputs(shapes, dom, i)
+            mixes = [("low",) * len(shapes), ("f32",) * len(shapes)]
+            if len(shapes) > 1:
+                mixes.append(("f32",) + ("low",) * (len(shapes) - 1))
+            for mix in mixes:
+                outs = {}
+                for d in (dev, cpu):
+                    xs = [torch.from_numpy(a).to(d, low if m == "low"
+                                                 else torch.float32)
+                          for a, m in zip(arrays, mix)]
+                    with amp.autocast(low):
+                        outs[d.type] = call(f, *xs)
+                xs = [torch.from_numpy(a).to(low if m == "low"
+                                             else torch.float32)
+                      for a, m in zip(arrays, mix)]
+                ref = call(f, *[x.double()
+                                for x in _as_cast(cat, xs, low)])
+                got, cref = outs[dev.type], outs["cpu"]
+                name = f"{key} {getattr(f, '__name__', f)} {low_name} {mix}"
+                n += 1
+                if got.dtype != cref.dtype or got.shape != cref.shape:
+                    fails.append(f"{name}: card {got.dtype} "
+                                 f"{tuple(got.shape)}, CPU {cref.dtype} "
+                                 f"{tuple(cref.shape)}")
+                    continue
+                if cref.dtype == torch.bool:
+                    if not torch.equal(got.cpu(), cref):
+                        fails.append(f"{name}: booleans differ")
+                    continue
+                tol = 1e-5 if got.dtype == torch.float32 else low_tol
+                for who, out in (("card", got), ("cpu", cref)):
+                    ok, err = scaled_ok(out.cpu().double(), ref, tol)
+                    w = (who, str(out.dtype).split(".")[-1])
+                    worst[w] = max(worst.get(w, (0.0, ""))[0], err), \
+                        name if err >= worst.get(w, (0.0, ""))[0] \
+                        else worst[w][1]
+                    if who == "card" and not ok:
+                        fails.append(f"{name}: card max err {err:.3g} "
+                                     f"(tol {tol} of max(1, |ref|))")
+    for (who, dt), (err, name) in sorted(worst.items()):
+        log(f"  {who} {dt} outputs: max abs err {err:.3g} against float64 "
+            f"({name})")
+    require(not fails, f"cast table: {len(fails)} of {n} calls failed: "
+            + "; ".join(fails[:12]))
+    require(not amp.is_initialized() and not _get_current_function_mode_stack(),
+            "amp casts left on after the cast table")
+    amp.init(torch.float16)
+    amp.uninit()
+    require(not _get_current_function_mode_stack(),
+            "amp.uninit left a torch function mode on the stack")
+    log(f"  {len(cases)} callables, {n} calls: every card dtype the CPU's, "
+        "every card value within its rule; no function mode left after "
+        "uninit")
+
+
+def simple_example(dev):
+    """The toy example's parameters (``fc1`` / ``fc2`` ``{w, b}``, He-style
+    normal from torch seed 0, as the example's scale) and regression
+    problem (numpy seed 0, the example's), on ``dev``."""
+    import torch
+    d_in, d_h, d_out = SIMPLE_DIMS
+    gen = torch.Generator().manual_seed(0)
+    params = {"fc1": {"w": torch.randn(d_in, d_h, generator=gen)
+                      * (2.0 / d_in) ** 0.5, "b": torch.zeros(d_h)},
+              "fc2": {"w": torch.randn(d_h, d_out, generator=gen)
+                      * (1.0 / d_h) ** 0.5, "b": torch.zeros(d_out)}}
+    rng = np.random.RandomState(0)
+    X = rng.randn(SIMPLE_BATCH, d_in).astype(np.float32)
+    W = rng.randn(d_in, d_out).astype(np.float32) * 0.1
+    tree = {k: {n: t.to(dev) for n, t in v.items()} for k, v in
+            params.items()}
+    return (tree, torch.from_numpy(X).to(dev),
+            torch.from_numpy(X @ W).to(dev))
+
+
+def _simple_steps(dev, steps, sync=False):
+    """``simple_ddp_train_step`` under amp O1 + FusedSGD(lr=0.1, momentum
+    0.9) from the example's start: (state, losses, scales, step seconds)."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.train import simple_ddp_train_step
+    params, X, Y = simple_example(dev)
+    st = amp.initialize(params, FusedSGD(lr=0.1, momentum=0.9),
+                        opt_level="O1", verbosity=0)
+    losses, scales, times = [], [], []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            st, loss = simple_ddp_train_step(st, X, Y, device=dev.type)
+            if sync:
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            scales.append(float(st.loss_scale))
+    finally:
+        amp.uninit()
+    return st, losses, scales, times
+
+
+def phase_simple_ddp(dev, card):
+    """BASELINE config 1 (``examples/simple/distributed``, its defaults:
+    512 -> 256 -> 32, global batch 64, amp O1, FusedSGD(lr=0.1, momentum
+    0.9)).  Card vs CPU from the same weights over 3 steps (the CPU with no
+    group, the card on a world-1 NCCL group); then 100 steps on the card,
+    timed.  Returns the path's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from torch.overrides import _get_current_function_mode_stack
+    from apex_tpu_torch.utils import build
+    log(f"== phase 17: the toy DDP example under amp O1 (config 1: "
+        f"{' -> '.join(map(str, SIMPLE_DIMS))}, batch {SIMPLE_BATCH}, "
+        f"FusedSGD(lr=0.1, momentum=0.9), world-1 NCCL group)")
+    _, c_l, c_s, _ = _simple_steps(torch.device("cpu"), 3)
+    store = start_process_group()
+    try:
+        _, g_l, g_s, _ = _simple_steps(dev, 3)
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(g_l, c_l))
+        require(g_s == c_s and l_err <= 1e-3,
+                f"config 1 card vs CPU: losses {g_l} vs {c_l} ({l_err:.3g} "
+                f"relative, tol 1e-3), scales {g_s} vs {c_s}")
+        log(f"  card vs CPU, 3 steps: losses {g_l} / {c_l}, max rel diff "
+            f"{l_err:.3g} (tol 1e-3); loss scales {g_s} (equal)")
+        _simple_steps(dev, 1)                        # warm-up
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        st, losses, scales, times = _simple_steps(dev, SIMPLE_STEPS,
+                                                  sync=True)
+        launches = dict(build.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    require(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+            f"config 1 loss did not fall: {losses[0]} -> {losses[-1]}")
+    require(st.model_params["fc1"]["w"].dtype == torch.float32,
+            "O1 keeps the model fp32")
+    require(not _get_current_function_mode_stack(),
+            "O1 casts left on after config 1")
+    check_launches("simple_ddp_o1", launches, len(times), exact=True)
+    step_s = statistics.median(times)
+    log(f"  losses step 1 {losses[0]:.5f}, 20 {losses[19]:.5f}, 50 "
+        f"{losses[49]:.5f}, 100 {losses[-1]:.5f}; loss scale "
+        f"{scales[-1]:.0f} (skipped "
+        f"{sum(_skipped(scales, 2.0 ** 16))} of {len(scales)}); launches "
+        f"of the 13 kernels {launches or 'none'}")
+    log(f"  [{card}] config 1: step {step_s * 1e3:.3f} ms (median of "
+        f"{len(times)}; min {min(times) * 1e3:.3f}, max "
+        f"{max(times) * 1e3:.3f}), {SIMPLE_BATCH / step_s:.1f} samples/s")
+    return launches
+
+
+def _dcgan_start(dev, level, seed=0):
+    """DCGAN (``DCGANConfig()``: latent 100, 64 features, 3 x 64 x 64) and
+    its two amp states (two FusedAdam, D with 2 losses) at ``level``."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import DCGANConfig, dcgan_init
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = DCGANConfig(dtype=torch.float32 if level == "O0"
+                      else torch.bfloat16)
+    params, bn = dcgan_init(torch.Generator().manual_seed(seed), cfg,
+                            device=dev)
+    sD = amp.initialize(params["disc"], FusedAdam(**DCGAN_ADAM),
+                        opt_level=level, num_losses=2, verbosity=0)
+    sG = amp.initialize(params["gen"], FusedAdam(**DCGAN_ADAM),
+                        opt_level=level, verbosity=0)
+    return cfg, sD, sG, bn
+
+
+def dcgan_batch(dev, batch, seed):
+    """The example's synthetic batch: images uniform in [-1, 1] NHWC and
+    latents N(0, 1) (numpy ``RandomState(seed)``, as ``main_amp.py``)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    real = rng.rand(batch, 64, 64, 3).astype(np.float32) * 2.0 - 1.0
+    z = rng.randn(batch, 100).astype(np.float32)
+    return torch.from_numpy(real).to(dev), torch.from_numpy(z).to(dev)
+
+
+def _dcgan_grads(sD, sG, bn, real, z, cfg):
+    """Gradients of D's real loss over D and of G's loss over G (D fixed),
+    one flat float64 CPU vector, and the two losses."""
+    import torch
+    from apex_tpu_torch.models import discriminator_apply, generator_apply
+    from apex_tpu_torch.train import bce_logits
+    from apex_tpu_torch.utils.pytree import (tree_flatten, tree_leaves,
+                                             tree_unflatten)
+    d_l, d_def = tree_flatten(sD.model_params)
+    d_l = [p.detach().requires_grad_(True) for p in d_l]
+    logits, _ = discriminator_apply({"disc": tree_unflatten(d_def, d_l)}, bn,
+                                    real, cfg)
+    ld = bce_logits(logits, 1.0)
+    gd = torch.autograd.grad(ld, d_l)
+    g_l, g_def = tree_flatten(sG.model_params)
+    g_l = [p.detach().requires_grad_(True) for p in g_l]
+    p = {"disc": sD.model_params, "gen": tree_unflatten(g_def, g_l)}
+    imgs, bn3 = generator_apply(p, bn, z, cfg)
+    logits, _ = discriminator_apply(p, bn3, imgs, cfg)
+    lg = bce_logits(logits, 1.0)
+    gg = torch.autograd.grad(lg, g_l)
+    flat = torch.cat([g.detach().double().reshape(-1).cpu()
+                      for g in list(gd) + list(gg)])
+    return flat, ld.item(), lg.item()
+
+
+def _dcgan_grads64(d, real, z):
+    """:func:`_dcgan_grads` in float64 on ``d``, from the O0 start."""
+    import dataclasses
+    import torch
+    from apex_tpu_torch.utils.pytree import tree_map
+    cfg, sD, sG, bn = _dcgan_start(d, "O0")
+
+    def f64(t):
+        # contiguous: the CPU's float64 convolution backward refuses a
+        # channels_last weight
+        return t.double().contiguous()
+    return _dcgan_grads(sD._replace(model_params=tree_map(f64,
+                                                          sD.model_params)),
+                        sG._replace(model_params=tree_map(f64,
+                                                          sG.model_params)),
+                        tree_map(f64, bn), real.to(d).double(),
+                        z.to(d).double(),
+                        dataclasses.replace(cfg, dtype=torch.float64))
+
+
+def phase_dcgan_parity(dev):
+    """Config 5 at full width, card vs CPU from the same weights, batch 8:
+    the gradients of D's real loss over D and of G's loss over G, and one
+    ``dcgan_train_step``.  In float64 the two devices' gradients and
+    losses agree within 1e-6 relative (the discriminator returns fp32
+    logits, as the JAX model does, so a float64 run still rounds them to
+    fp32 once: 1.4e-7 in the losses on the card).  In fp32
+    (O0) each device's gradients lie ~0.17 % from the CPU's float64 ones
+    (the network's fp32 conditioning, measured on the CPU), so the card's
+    must lie no farther than 1.25 x the CPU's + 1e-3, and one step's
+    losses within 1e-4.  Under O4 the bf16 activations put each device's
+    gradients ~13 % from its fp32 ones, so the card's must lie no farther
+    than 1.25 x the CPU's + 0.01, the two devices' bf16 gradients within
+    1.5 x the CPU's distance of each other, and the losses within 2e-2."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.train import dcgan_train_step
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log(f"== phase 18a: DCGAN parity (DCGANConfig(): full width; card vs "
+        f"CPU, batch {DCGAN_PARITY_BATCH}; float64, O0 fp32 and O4 bf16)")
+    cpu = torch.device("cpu")
+    real, z = dcgan_batch(cpu, DCGAN_PARITY_BATCH, 5)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    g64 = {d.type: _dcgan_grads64(d, real, z) for d in (dev, cpu)}
+    d64 = rel(g64[dev.type][0], g64["cpu"][0])
+    l64 = max(abs(a - b) / abs(b) for a, b in zip(g64[dev.type][1:],
+                                                  g64["cpu"][1:]))
+    require(d64 <= 1e-6 and l64 <= 1e-6,
+            f"DCGAN float64 card vs CPU: gradients {d64:.3g} (tol 1e-6), "
+            f"losses {l64:.3g} (tol 1e-6)")
+    log(f"  float64 (fp32 logits): gradients card vs CPU rel diff {d64:.3g} "
+        f"in norm (tol 1e-6), losses {l64:.3g} (tol 1e-6)")
+    ref = {"O0": g64["cpu"][0]}
+    for level in ("O0", "O4"):
+        res = {}
+        for d in (dev, cpu):
+            cfg, sD, sG, bn = _dcgan_start(d, level)
+            grads, ld, lg = _dcgan_grads(sD, sG, bn, real.to(d), z.to(d), cfg)
+            out = dcgan_train_step(sD, sG, bn, real.to(d), z.to(d), cfg,
+                                   device=d.type)
+            upd = torch.cat([t.detach().double().reshape(-1).cpu() for t in
+                             tree_leaves(out[0].model_params)
+                             + tree_leaves(out[1].model_params)])
+            res[d.type] = (grads, [float(x) for x in out[3:]] + [ld, lg],
+                           upd)
+            if amp.is_initialized():
+                amp.uninit()
+        (g_g, g_l, g_p), (c_g, c_l, c_p) = res[dev.type], res["cpu"]
+        d_err = rel(g_g, c_g)
+        l_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(g_l, c_l))
+        p_err = float((g_p - c_p).abs().max())
+        if level == "O0":
+            e_card, e_cpu = rel(g_g, ref["O0"]), rel(c_g, ref["O0"])
+            ref = {dev.type: g_g, "cpu": c_g}
+            require(e_card <= 1.25 * e_cpu + 1e-3 and l_err <= 1e-4,
+                    f"DCGAN O0: fp32 gradients lie {e_card:.3g} (card) / "
+                    f"{e_cpu:.3g} (CPU) from the CPU's float64 ones (card tol "
+                    f"1.25 x CPU + 1e-3); losses {l_err:.3g} (tol 1e-4)")
+            held = (f"fp32 gradients from the CPU's float64 ones: card "
+                    f"{e_card:.3g}, CPU {e_cpu:.3g} relative in norm (card "
+                    f"tol 1.25 x CPU + 1e-3), card vs CPU {d_err:.3g}; losses "
+                    f"max diff {l_err:.3g} (tol 1e-4)")
+        else:
+            e_card, e_cpu = rel(g_g, ref[dev.type]), rel(c_g, ref["cpu"])
+            require(e_card <= 1.25 * e_cpu + 0.01 and d_err <= 1.5 * e_cpu
+                    and l_err <= 2e-2,
+                    f"DCGAN O4: bf16 gradients lie {e_card:.3g} (card) / "
+                    f"{e_cpu:.3g} (CPU) from the fp32 ones (card tol 1.25 x "
+                    f"CPU + 0.01); card vs CPU {d_err:.3g} (tol 1.5 x "
+                    f"{e_cpu:.3g}); losses {l_err:.3g} (tol 2e-2)")
+            held = (f"bf16 gradients from the same device's fp32 ones: card "
+                    f"{e_card:.3g}, CPU {e_cpu:.3g} relative in norm (card "
+                    f"tol 1.25 x CPU + 0.01); card vs CPU {d_err:.3g} (tol "
+                    f"1.5 x CPU's); losses max diff {l_err:.3g} (tol 2e-2)")
+        log(f"  {level}: losses (D real, D fake, G) card {g_l[:3]} cpu "
+            f"{c_l[:3]}; {held}; parameters after the step max |diff| "
+            f"{p_err:.3g} (not held: Adam's first step moves each element "
+            "by ~lr 2e-4 whatever its gradient's size)")
+
+
+def phase_dcgan(dev, card, profile=False):
+    """Config 5 (``examples/dcgan/main_amp.py``'s defaults: O4, batch 64,
+    two FusedAdam, three loss scalers): one warm-up and 20 timed steps.
+    Returns the path's launch counts."""
+    import torch
+    from torch.overrides import _get_current_function_mode_stack
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.train import dcgan_train_step
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log(f"== phase 18b: DCGAN path (config 5: DCGANConfig(), batch "
+        f"{DCGAN_BATCH}, amp O4, FusedAdam(lr=2e-4, betas=(0.5, 0.999)) x 2, "
+        "three loss scalers)")
+    torch.backends.cudnn.benchmark = True
+    try:
+        cfg, sD, sG, bn = _dcgan_start(dev, "O4")
+        n_params = sum(p.numel() for p in tree_leaves(sD.model_params)
+                       + tree_leaves(sG.model_params))
+        batches = [dcgan_batch(dev, DCGAN_BATCH, s)
+                   for s in range(1 + DCGAN_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        sD, sG, bn, *_ = dcgan_train_step(sD, sG, bn, *batches[0], cfg,
+                                          device=dev.type)
+        c0 = (int(sD.opt_state.count), int(sG.opt_state.count))
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        losses, times = [], []
+        for real, z in batches[1:]:
+            t0 = time.perf_counter()
+            sD, sG, bn, e_r, e_f, e_g = dcgan_train_step(
+                sD, sG, bn, real, z, cfg, device=dev.type)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append((e_r.item(), e_f.item(), e_g.item()))
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        scales = [float(s.loss_scale) for s in sD.scalers + sG.scalers]
+        skipped = [DCGAN_STEPS - (int(sD.opt_state.count) - c0[0]),
+                   DCGAN_STEPS - (int(sG.opt_state.count) - c0[1])]
+        require(all(np.isfinite(losses).ravel()),
+                f"DCGAN non-finite loss: {losses}")
+        require(scales == [1.0, 1.0, 1.0] and skipped == [0, 0],
+                f"O4: loss scales {scales} (all 1.0), skipped D / G steps "
+                f"{skipped} (none)")
+        require(sD.model_params["conv1"].dtype == torch.float32,
+                "O4 keeps the model fp32")
+        check_launches("dcgan_o4", launches, len(times), exact=True)
+        step_s = statistics.median(times)
+        log(f"  {n_params} parameters; losses (D real, D fake, G) step 1 "
+            f"{[round(x, 4) for x in losses[0]]}, step {DCGAN_STEPS} "
+            f"{[round(x, 4) for x in losses[-1]]}; loss scales D0 / D1 / G "
+            f"{scales}; skipped steps D / G {skipped}; launches of the 13 "
+            f"kernels {launches or 'none'}")
+        log(f"  [{card}] config 5: step {step_s * 1e3:.3f} ms (median of "
+            f"{len(times)}; all {[round(t * 1e3, 3) for t in times]}), "
+            f"{DCGAN_BATCH / step_s:.1f} images/s, peak device memory "
+            f"{peak / 2 ** 30:.3f} GiB; cudnn.benchmark on")
+        if profile:
+            real, z = batches[1]
+            profile_window(lambda: dcgan_train_step(
+                sD, sG, bn, real, z, cfg, device=dev.type), "dcgan")
+    finally:
+        torch.backends.cudnn.benchmark = False
+        if amp.is_initialized():
+            amp.uninit()
+    require(not _get_current_function_mode_stack(),
+            "O4 casts left on after config 5")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # --variants: the bf16 flash kernels' tile variants, timed against each other
 # ---------------------------------------------------------------------------
 
@@ -2933,7 +3470,7 @@ def _kernel_entry(name, source, replaces, row, launches_by_path, path):
                 path=path,
                 launches_by_path={p: c.get(name, 0)
                                   for p, c in launches_by_path.items()
-                                  if c.get(name, 0) or p.startswith("rn50")})
+                                  if c.get(name, 0) or p in ZERO_PATHS})
 
 
 def main(argv) -> int:
@@ -3002,6 +3539,12 @@ def main(argv) -> int:
     phase_rn50_parity(dev)
     launches["rn50_o2"], launches["rn50_ddp"] = phase_rn50(dev, card,
                                                            profile)
+    torch.cuda.empty_cache()
+    phase_cast_table(dev)
+    launches["simple_ddp_o1"] = phase_simple_ddp(dev, card)
+    phase_dcgan_parity(dev)
+    launches["dcgan_o4"] = phase_dcgan(dev, card, profile)
+    torch.cuda.empty_cache()
     check_dense_routes(dev)
 
     def pick(rows, **want):

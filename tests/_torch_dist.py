@@ -328,3 +328,46 @@ def resnet_ddp_steps(rank, world, params_np, state_np, batches, cfg_kw,
     masters = [(t.permute(2, 3, 1, 0) if t.dim() == 4 else t).numpy()
                for t in masters]
     return losses, scales, masters, [t.numpy() for t in tree_leaves(bn)]
+
+
+def syncbn_empty_axis(rank, world, x_np):
+    """``sync_batch_norm(..., axis_name=())`` on this rank's rows of
+    ``x_np`` (NHWC) inside the initialised world: the output and the new
+    running statistics, which must be this rank's own."""
+    import torch
+    from apex_tpu_torch.parallel import sync_batch_norm
+    from apex_tpu_torch.parallel.mesh import resolve_group
+    assert resolve_group(()) is None and resolve_group([]) is None
+    x = torch.from_numpy(_rows(x_np, rank, [x_np.shape[0] // world] * world))
+    c = x.shape[-1]
+    out, rm, rv = sync_batch_norm(x, torch.ones(c), torch.zeros(c),
+                                  torch.zeros(c), torch.ones(c),
+                                  axis_name=(), training=True)
+    return out.numpy(), rm.numpy(), rv.numpy()
+
+
+def simple_ddp_steps(rank, world, params_np, X, Y, steps):
+    """The toy example's O1 step (``simple_ddp_train_step``) on this
+    rank's rows of the global batch, gradients averaged over the default
+    group.  Returns (losses, loss scales, the fp32 params) as numpy."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.train import simple_ddp_train_step
+    from apex_tpu_torch.utils.device import from_numpy
+    counts = [X.shape[0] // world] * world
+    x = from_numpy(_rows(X, rank, counts), "cpu")
+    y = from_numpy(_rows(Y, rank, counts), "cpu")
+    st = amp.initialize(from_numpy(params_np, "cpu"),
+                        FusedSGD(lr=0.1, momentum=0.9), opt_level="O1",
+                        verbosity=0)
+    losses, scales = [], []
+    try:
+        for _ in range(steps):
+            st, loss = simple_ddp_train_step(st, x, y, device="cpu")
+            losses.append(float(loss))
+            scales.append(float(st.loss_scale))
+    finally:
+        amp.uninit()
+    params = {k: {n: t.numpy() for n, t in v.items()}
+              for k, v in st.model_params.items()}
+    return losses, scales, params

@@ -12,3 +12,13 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def amp_uninit():
+    """Leave no O1 / O4 casts of the port behind a test (import it into a
+    test module to make it autouse there)."""
+    yield
+    from apex_tpu_torch.amp import amp as _amp
+    if _amp.is_initialized():
+        _amp.uninit()

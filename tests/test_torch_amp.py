@@ -2,11 +2,11 @@
 
 For each opt level, ``initialize`` on the same fp32 parameter tree gives
 the same model and master dtypes, loss scale and flat-master detection in
-both packages (O1 and O4 patch functions in the JAX package; the port
-raises ``NotImplementedError`` for them until ``torch.autocast`` stands
-in).  With dynamic loss scaling, a step whose gradients hold an inf is
-skipped and the scale halves, as in the JAX package; finite steps match
-its scale and masters.
+both packages; at O1 and O4 both turn on their per-op casts (fp16 and
+bf16 products), and ``uninit`` turns them off (the op table itself is
+``tests/test_torch_amp_autocast.py``).  With dynamic loss scaling, a step
+whose gradients hold an inf is skipped and the scale halves, as in the JAX
+package; finite steps match its scale and masters.
 """
 import numpy as np
 import pytest
@@ -14,6 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.overrides import _get_current_function_mode_stack
 
 from apex_tpu import amp as jamp
 from apex_tpu.optimizers import FusedLAMB as JaxLAMB
@@ -85,9 +86,35 @@ def test_bad_opt_level_raises():
 
 @pytest.mark.parametrize("level", ["O1", "O4"])
 def test_patching_levels_are_not_ported(level):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        amp.initialize(_torch_tree(_tree()), None, opt_level=level,
-                       verbosity=0)
+    """O1 / O4 (which once raised here): ``initialize`` leaves the model
+    fp32, keeps the JAX package's loss scale, and turns on the casts of
+    the level's low-precision type, as the JAX package's does; ``uninit``
+    turns them off and leaves no torch function mode behind."""
+    want_t = {"O1": torch.float16, "O4": torch.bfloat16}[level]
+    want_j = {"O1": jnp.float16, "O4": jnp.bfloat16}[level]
+    tree = _tree()
+    try:
+        js = jamp.initialize(jax.tree_util.tree_map(jnp.asarray, tree),
+                             JaxLAMB(impl="xla"), opt_level=level,
+                             verbosity=0)
+        ps = amp.initialize(_torch_tree(tree), FusedLAMB(impl="xla"),
+                            opt_level=level, verbosity=0)
+        assert all(l.dtype == torch.float32
+                   for l in tree_leaves(ps.model_params))
+        assert ps.master_params is None and js.master_params is None
+        assert float(js.loss_scale) == float(ps.loss_scale)
+        assert js.scalers[0].dynamic == ps.scalers[0].dynamic
+        assert amp.is_initialized()
+        w = ps.model_params["dense"]["w"]
+        assert torch.matmul(torch.ones(2, 8), w).dtype == want_t
+        assert jnp.matmul(jnp.ones((2, 8)),
+                          js.model_params["dense"]["w"]).dtype == want_j
+        assert torch.sum(torch.ones(3, dtype=want_t)).dtype == torch.float32
+    finally:
+        amp.uninit()
+    assert not amp.is_initialized()
+    assert not _get_current_function_mode_stack()
+    assert torch.matmul(torch.ones(2, 8), w).dtype == torch.float32
 
 
 def test_non_fp32_params_raise():
