@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Properties", "opt_levels"]
+__all__ = ["Properties", "opt_levels", "O0", "O1", "O2", "O3", "O4", "O5"]
 
 _ALLOWED = {
     "enabled", "opt_level", "cast_model_type", "patch_functions",
@@ -83,27 +83,53 @@ class Properties:
             f"{k}={v}" for k, v in self.options.items()) + ")"
 
 
-def _preset(opt_level, cast_model_type, patch_functions, patch_type,
-            keep_bn, master_weights, loss_scale):
-    def apply(properties: Properties) -> Properties:
+class _Preset:
+    """An opt level: ``preset(properties)`` fills and returns
+    ``properties``.  ``_values`` is (opt_level, cast_model_type,
+    patch_functions, patch_functions_type, keep_batchnorm_fp32,
+    master_weights, loss_scale)."""
+    brief = ""
+    _values: tuple = ()
+
+    def __call__(self, properties: Properties) -> Properties:
+        (properties.opt_level, properties.cast_model_type,
+         properties.patch_functions, properties.patch_functions_type,
+         properties.keep_batchnorm_fp32, properties.master_weights,
+         properties.loss_scale) = self._values
         properties.enabled = True
-        properties.opt_level = opt_level
-        properties.cast_model_type = cast_model_type
-        properties.patch_functions = patch_functions
-        properties.patch_functions_type = patch_type
-        properties.keep_batchnorm_fp32 = keep_bn
-        properties.master_weights = master_weights
-        properties.loss_scale = loss_scale
         return properties
-    return apply
+
+
+class O0(_Preset):
+    brief = "O0:  Pure FP32 training."
+    _values = ("O0", torch.float32, False, None, None, False, 1.0)
+
+
+class O1(_Preset):
+    brief = "O1:  Insert automatic casts around torch functions (fp16)."
+    _values = ("O1", None, True, torch.float16, None, None, "dynamic")
+
+
+class O2(_Preset):
+    brief = "O2:  FP16 training with FP32 batchnorm and FP32 master weights."
+    _values = ("O2", torch.float16, False, None, True, True, "dynamic")
+
+
+class O3(_Preset):
+    brief = "O3:  Pure FP16 training."
+    _values = ("O3", torch.float16, False, None, False, False, 1.0)
+
+
+class O4(_Preset):
+    brief = "O4:  Insert automatic casts around torch functions (bf16)."
+    _values = ("O4", None, True, torch.bfloat16, None, None, 1.0)
+
+
+class O5(_Preset):
+    brief = ("O5:  BFLOAT16 training with FP32 batchnorm and FP32 master "
+             "weights.")
+    _values = ("O5", torch.bfloat16, False, None, True, True, 1.0)
 
 
 # Mirrors the JAX package's (and the reference's) opt_levels table.
-opt_levels = {
-    "O0": _preset("O0", torch.float32, False, None, None, False, 1.0),
-    "O1": _preset("O1", None, True, torch.float16, None, None, "dynamic"),
-    "O2": _preset("O2", torch.float16, False, None, True, True, "dynamic"),
-    "O3": _preset("O3", torch.float16, False, None, False, False, 1.0),
-    "O4": _preset("O4", None, True, torch.bfloat16, None, None, 1.0),
-    "O5": _preset("O5", torch.bfloat16, False, None, True, True, 1.0),
-}
+opt_levels = {c.__name__: c() for c in (O0, O1, O2, O3, O4, O5)}

@@ -9,14 +9,16 @@ the update, so the step needs no host read.  Policy: x2 after
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..utils.device import resolve_device
 from ..utils.pytree import tree_leaves, tree_map
 
-__all__ = ["ScalerState", "LossScaler", "init", "scale_loss", "all_finite", "unscale",
-           "update", "apply_if_finite", "state_dict", "load_state_dict"]
+__all__ = ["ScalerState", "LossScaler", "init", "scale_loss", "all_finite",
+           "unscale", "unscale_with_stashed", "update", "transition_kind",
+           "floor_pinned", "apply_if_finite", "state_dict", "load_state_dict"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +67,22 @@ def all_finite(tree) -> torch.Tensor:
     return torch.stack([torch.isfinite(l).all() for l in leaves]).all()
 
 
-def unscale(state: ScalerState, grads):
-    """(grads * (1/scale) in fp32, finite)."""
+def unscale(state: ScalerState, grads, *, check_finite=True):
+    """(grads * (1/scale) in fp32, finite); ``check_finite=False`` skips
+    the check and reports True."""
     inv = 1.0 / state.loss_scale
-    return tree_map(lambda g: g.float() * inv, grads), all_finite(grads)
+    finite = (all_finite(grads) if check_finite else
+              torch.ones((), dtype=torch.bool, device=inv.device))
+    return tree_map(lambda g: g.float() * inv, grads), finite
+
+
+def unscale_with_stashed(state: ScalerState, new_grads, stashed_grads):
+    """The gradient-accumulation form: (stashed + new * (1/scale) in fp32,
+    finite of ``new_grads``)."""
+    inv = 1.0 / state.loss_scale
+    out = tree_map(lambda n, s: s.float() + n.float() * inv, new_grads,
+                   stashed_grads)
+    return out, all_finite(new_grads)
 
 
 def update(state: ScalerState, finite) -> ScalerState:
@@ -86,6 +100,41 @@ def update(state: ScalerState, finite) -> ScalerState:
     new_unskipped = torch.where(finite & ~should_grow, grown_count,
                                 torch.zeros_like(grown_count))
     return state._replace(loss_scale=new_scale, unskipped=new_unskipped)
+
+
+def transition_kind(prev_scale: float, new_scale: float,
+                    prev_unskipped: int, new_unskipped: int,
+                    scale_window: Optional[int] = None,
+                    min_loss_scale: Optional[float] = None,
+                    max_loss_scale: Optional[float] = None) -> str:
+    """Classify one :func:`update` from host-read scalars: ``"overflow"``
+    (halved, or pinned at min_loss_scale with the streak reset),
+    ``"grew"`` (doubled) or ``"steady"``.  An unchanged scale with the
+    streak reset is either a halve clamped at the floor or a double
+    clamped at the ceiling: at the floor (and not also at the ceiling) it
+    is an overflow; otherwise ``scale_window`` decides (a reset at
+    window - 1 is the clamped grow).  A second overflow at the floor
+    changes nothing observable and reads "steady"."""
+    if new_scale < prev_scale:
+        return "overflow"
+    if new_scale > prev_scale:
+        return "grew"
+    if new_unskipped == 0 and new_unskipped < prev_unskipped:
+        at_min = min_loss_scale is not None and prev_scale <= min_loss_scale
+        at_max = max_loss_scale is not None and prev_scale >= max_loss_scale
+        if at_min and not at_max:
+            return "overflow"
+        if scale_window is not None and prev_unskipped + 1 >= scale_window:
+            return "steady"
+        return "overflow"
+    return "steady"
+
+
+def floor_pinned(state: ScalerState, scale_value: float) -> bool:
+    """True when a dynamic scaler's already-read ``scale_value`` sits at
+    its floor, where halving can no longer answer non-finite gradients (a
+    static scaler never is)."""
+    return bool(state.dynamic) and scale_value <= state.min_loss_scale
 
 
 def apply_if_finite(finite, new_tree, old_tree):

@@ -81,15 +81,36 @@ scaled backward passes (real: loss_id 0, fake: 1) into one
     for real, z in batches:                 # NHWC in [-1, 1], (N, latent)
         stateD, stateG, bn_state, errD_real, errD_fake, errG = \
             dcgan_train_step(stateD, stateG, bn_state, real, z, cfg)
+
+The imagenet example's ``--data`` / ``--save`` / ``--resume`` path:
+:func:`resnet_sharded_batches` is its ``sharded_npz_loader`` (a seekable
+:class:`~apex_tpu_torch.data.ShardedLoader` over ``.npz`` shards of
+``images`` / ``labels``), :func:`resnet_checkpoint_entries` the entries it
+saves and :func:`resnet_resume` what it does with them on ``--resume``::
+
+    loader = resnet_sharded_batches(data_dir, 128, seed, steps)
+    mgr = CheckpointManager(ckpt_dir, keep_last=2)
+    for step, (images, labels) in enumerate(loader):
+        state, bn_state, loss, acc = resnet_train_step(
+            state, bn_state, images, labels, cfg)
+    mgr.set_meta({META_DATA_KEY: dict(loader.data_meta(),
+                                      cursor=loader.cursor(steps))})
+    mgr.save(steps, resnet_checkpoint_entries(state, bn_state, steps))
+    ...
+    step, payload = mgr.load_latest()       # in a new process
+    state, bn_state, start = resnet_resume(payload, state, bn_state)
+    loader.seek(start)
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import amp
+from . import amp, checkpoint
+from .data.sharded import ShardedLoader, open_dataset
 from .models.dcgan import (DCGANConfig, discriminator_apply,
                            generator_apply)
 from .models.resnet import ResNetConfig, resnet_apply
@@ -97,11 +118,14 @@ from .models.transformer import TransformerConfig, transformer_loss
 from .parallel.distributed import allreduce_tree
 from .parallel.mesh import group_size, resolve_group
 from .utils.device import resolve_device
-from .utils.pytree import tree_flatten, tree_leaves, tree_unflatten
+from .utils.pytree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 __all__ = ["train_step", "zero_train_step", "mlp_train_step",
            "resnet_train_step", "resnet_eval_step", "simple_ddp_train_step",
-           "bce_logits", "dcgan_train_step"]
+           "bce_logits", "dcgan_train_step", "resnet_checkpoint_entries",
+           "resnet_resume", "resnet_checkpoint_from_jax",
+           "resnet_sharded_batches"]
 
 
 def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
@@ -195,6 +219,66 @@ def resnet_eval_step(amp_state: amp.AmpState, bn_state, images, labels,
     top5 = (logits.topk(5, dim=1).indices == labels[:, None]).any(
         dim=1).float().mean()
     return top1, top5
+
+
+def resnet_checkpoint_entries(amp_state: amp.AmpState, bn_state,
+                              step: int) -> dict:
+    """The entries the imagenet example saves (``checkpoint.save(path,
+    **entries)``): ``step``, ``model``, ``masters``, ``opt``, ``amp``
+    (``amp.state_dict``) and ``bn``."""
+    return dict(step=int(step), model=amp_state.model_params,
+                masters=amp_state.master_params, opt=amp_state.opt_state,
+                amp=amp.state_dict(amp_state), bn=bn_state)
+
+
+def resnet_resume(payload, amp_state: amp.AmpState, bn_state):
+    """The example's ``--resume``: the model, the masters (where the
+    payload has them), the optimizer state and the batch-norm statistics
+    of ``payload`` (from ``checkpoint.load``) restored like
+    ``amp_state``'s and ``bn_state``'s tensors, then its loss scalers.
+    Returns ``(amp_state, bn_state, start_step)``."""
+    masters = payload.get("masters")
+    st = amp_state._replace(
+        model_params=checkpoint.restore_like(amp_state.model_params,
+                                             payload["model"]),
+        master_params=(None if masters is None else checkpoint.restore_like(
+            amp_state.master_params, masters)),
+        opt_state=checkpoint.restore_like(amp_state.opt_state,
+                                          payload["opt"]))
+    st = amp.load_state_dict(st, payload["amp"])
+    return (st, checkpoint.restore_like(bn_state, payload["bn"]),
+            int(payload["step"]))
+
+
+def resnet_checkpoint_from_jax(payload) -> dict:
+    """A checkpoint the JAX imagenet example wrote, with every HWIO kernel
+    of its model, masters and optimizer moments (the 4-d leaves) as OIHW,
+    the port's layout, ready for :func:`resnet_resume`."""
+    def oihw(a):
+        return np.transpose(a, (3, 2, 0, 1)) if np.ndim(a) == 4 else a
+    return {k: tree_map(oihw, v) if k in ("model", "masters", "opt") else v
+            for k, v in payload.items()}
+
+
+def resnet_sharded_batches(directory: str, batch: int, seed: int,
+                           steps: int, device=None) -> ShardedLoader:
+    """The example's ``sharded_npz_loader``: a :class:`ShardedLoader` over
+    ``directory``'s ``.npz`` shards (``images`` NHWC, ``labels``; the
+    index written when absent) of ``steps`` global batches of ``batch``.
+    Its transform gives uint8 images as fp32 / 255 (other images as fp32)
+    and int32 labels, computed in numpy on the fill thread, both on
+    ``device`` (default ``"cuda"``)."""
+    dev = resolve_device(device)
+
+    def tf(b, step):
+        x = b["images"]
+        x = (x.astype(np.float32) / 255.0 if x.dtype == np.uint8
+             else x.astype(np.float32))
+        y = b["labels"].astype(np.int32)
+        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    return ShardedLoader(open_dataset(directory), global_batch=batch,
+                         seed=seed, num_steps=steps, transform=tf)
 
 
 def _grad_leaves(tree):

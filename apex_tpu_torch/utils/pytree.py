@@ -3,9 +3,10 @@ casts amp applies to a model.
 
 Counterpart of a subset of ``apex_tpu/utils/pytree.py`` (``cast_tree``,
 ``convert_network``, ``cast_inputs``, ``is_norm_path``,
-``master_params_from``, ``master_to_model``), plus the few tree operations the JAX package takes
-from ``jax.tree_util``.  A tree is a tensor (a leaf), ``None`` (no leaf), or
-a dict, list, tuple or named tuple of trees.  Leaves are visited in JAX's
+``master_params_from``, ``master_to_model``, ``tree_cast_like``), plus
+the few tree operations the JAX package takes from ``jax.tree_util``.
+A tree is a tensor (a leaf), ``None`` (no leaf), or a dict, list, tuple
+or named tuple of trees.  Leaves are visited in JAX's
 order: dict keys sorted, sequences and named-tuple fields in order, so a
 flat buffer packed from a tree has the JAX package's layout.
 """
@@ -19,8 +20,8 @@ import torch
 __all__ = ["tree_flatten", "tree_unflatten", "tree_leaves",
            "tree_leaves_with_path", "tree_map", "path_str", "is_norm_path",
            "cast_tree", "convert_network", "cast_inputs",
-           "master_params_from",
-           "master_to_model", "is_float"]
+           "master_params_from", "master_to_model", "tree_cast_like",
+           "is_float"]
 
 # Path segments that name normalization parameters, kept fp32 when
 # keep_batchnorm_fp32 is set: the JAX package's pattern, copied.  The
@@ -179,3 +180,10 @@ def master_to_model(master, model_like):
     """fp32 masters -> copies in the model leaves' dtypes."""
     return tree_map(lambda m, p: m.to(p.dtype) if is_float(p) else m,
                     master, model_like)
+
+
+def tree_cast_like(src, like):
+    """Each leaf of ``src`` in the dtype of the matching leaf of ``like``
+    where that leaf is floating; other leaves of ``src`` unchanged."""
+    return tree_map(lambda s, l: s.to(l.dtype) if is_float(l) else s,
+                    src, like)

@@ -162,12 +162,31 @@ Phases, in order; any failure exits nonzero and prints no result line:
    20 timed steps: step time, images/s, peak
    memory, the D-real / D-fake / G losses, the three loss scales (1.0),
    no skipped step, 0 launches of the 13 kernels;
-19. the dense cases of phase 3d once more under ``torch.profiler``: the
+19. checkpoints and the resumable data plane (the imagenet example's
+   ``--data`` / ``--save`` / ``--resume``): (a) ResNet-50 config 2 at
+   full width under ``cudnn.deterministic``, fed by a ``ShardedLoader``
+   over 4 ``.npz`` shards of 1,024 uint8 224^2 records written under
+   ``build/phase19`` (~154 MB, seed 0): 6 steps straight against 3
+   steps, ``CheckpointManager(keep_last=2).save`` (the loader's
+   ``data_meta()`` and ``cursor(3)`` in the manifest), a state from seed
+   1, ``load_latest`` -> ``resnet_resume`` -> ``seek(3)`` -> 3 steps: the
+   same 6 losses and bits in weights, masters, Adam m / v / count,
+   running statistics and scaler; that state through ``save_sharded`` /
+   ``load_sharded`` on a world-1 NCCL group, the same bits; (b) a truncated newest checkpoint
+   (``CheckpointError``, ``latest()`` the one before) and a flipped byte
+   in a shard (``ShardChecksumError`` naming shard and offset); (c) the
+   O5 BERT step of phase 7 at full width cut to 2 layers: 4 steps
+   straight against 2 + save / load (bf16 leaves, the FusedLAMB state) +
+   2, the same bits, ``ml_dtypes`` never imported, the kernels' launch
+   counts; (d) save / verify / load / restore times, MB and MB/s, the
+   shard scan and the loader's wait per batch;
+20. the dense cases of phase 3d once more under ``torch.profiler``: the
    dense kernels it lists must be the kernels ``_route`` names (run last,
    so that no profiler session precedes the timed paths);
-20. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+21. one ``{"kernels": [...]}`` line: each kernel's launches from the path
    it serves (``launches_by_path`` gives every path's count, the
-   ResNet-50, toy-DDP and DCGAN paths' 0 included), then the card's name
+   ResNet-50, toy-DDP, DCGAN and phase-19 ResNet-50 paths' 0 included, the
+   phase-19 BERT leg's counts), then the card's name
    and power limit, then the last line ``{"ok": true, "device": {...}}``.
    Every process group is destroyed before exit.
 
@@ -259,9 +278,13 @@ TRAIN_LAUNCHES_PER_STEP = {
     # the JAX examples' are XLA
     "simple_ddp_o1": {k: 0 for k in ALL_KERNELS},
     "dcgan_o4": {k: 0 for k in ALL_KERNELS},
+    # phase 19's O5 BERT leg at 2 layers: phase 7's counts a layer
+    "ckpt_o5": dict(flash_fwd=4, ln_fwd=10, ln_bwd=6, xent_fwd=1,
+                    flash_bwd=2, l2norm=1),
 }
 # paths that launch none of the 13 kernels: every kernel's line lists them
-ZERO_PATHS = ("rn50_o2", "rn50_ddp", "simple_ddp_o1", "dcgan_o4")
+ZERO_PATHS = ("rn50_o2", "rn50_ddp", "simple_ddp_o1", "dcgan_o4",
+              "ckpt_rn50")
 
 
 _T0 = time.perf_counter()
@@ -3252,6 +3275,368 @@ def phase_dcgan(dev, card, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: checkpoints and the resumable data plane
+# ---------------------------------------------------------------------------
+
+# the shard set of the ResNet-50 leg: uint8 NHWC 224^2 records and int64
+# labels in 4 .npz shards (~154 MB), seed 0
+CKPT_RECORDS = 1024
+CKPT_SHARDS = 4
+# straight steps of each leg, and the step after which the resumed run
+# saves, loads into a state built from another seed, and goes on
+CKPT_RN50_STEPS, CKPT_RN50_SPLIT = 6, 3
+CKPT_BERT_LAYERS, CKPT_BERT_STEPS, CKPT_BERT_SPLIT = 2, 4, 2
+
+
+def write_image_shards(directory, records, shards, seed):
+    """``shards`` ``.npz`` files of ``images`` (uint8, records x 224 x 224
+    x 3) and ``labels`` (int64 in [0, 1000)), from numpy's PCG64 at
+    ``seed``; returns the bytes written."""
+    import shutil
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    rng = np.random.default_rng(seed)
+    per = records // shards
+    for i in range(shards):
+        np.savez(os.path.join(directory, f"shard-{i:03d}.npz"),
+                 images=rng.integers(0, 256, (per, RN50_HW, RN50_HW, 3),
+                                     dtype=np.uint8),
+                 labels=rng.integers(0, 1000, per).astype(np.int64))
+    return sum(os.path.getsize(os.path.join(directory, f))
+               for f in os.listdir(directory))
+
+
+def _differing(a, b):
+    """The paths of the leaves of two trees whose bits differ."""
+    import torch
+    from apex_tpu_torch.utils.pytree import path_str, tree_leaves_with_path
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["<tree structure>"]
+    return [path_str(p) or "<leaf>" for (p, x), (_, y) in zip(la, lb)
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def _rn50_loader_steps(st, bn, loader, cfg, steps):
+    """``steps`` steps of ``resnet_train_step`` over the loader's prefetched
+    iteration: (state, bn, losses, the host's wait for each batch in s)."""
+    from apex_tpu_torch.train import resnet_train_step
+    it = iter(loader)
+    losses, waits = [], []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            x, y = next(it)
+            waits.append(time.perf_counter() - t0)
+            st, bn, loss, _ = resnet_train_step(st, bn, x, y, cfg)
+            losses.append(loss.item())
+    finally:
+        it.close()
+    return st, bn, losses, waits
+
+
+def phase_checkpoint(dev, card):
+    """Checkpoints and the resumable data plane (the imagenet example's
+    ``--data`` / ``--save`` / ``--resume`` path), three legs:
+
+    (a) ResNet-50 config 2 at full width (main_amp.py's defaults: batch
+    128 x 224^2, amp O2 + FusedAdam(lr=1e-3), bf16 activations) under
+    ``cudnn.deterministic``, fed by a ``ShardedLoader`` over 4 ``.npz``
+    shards of 1,024 uint8 records written under ``build/``: 6 steps
+    straight, against 3 steps, ``CheckpointManager(keep_last=2).save``
+    (the loader's ``data_meta()`` and ``cursor(3)`` in the manifest), a
+    state built from seed 1, ``load_latest`` -> ``resnet_resume`` ->
+    ``seek(3)`` -> 3 steps: the same bits in the fp16 weights, fp32
+    masters, Adam's m / v / count, the running statistics and the scaler,
+    and the same 6 losses; the straight run's state through
+    ``save_sharded`` / ``load_sharded`` on a world-1 NCCL group, the same
+    bits;
+    (b) corruption: the newest checkpoint truncated (``verify`` raises
+    ``CheckpointError``, ``latest()`` gives the one before it) and one
+    byte of one shard flipped (``ShardChecksumError`` names the shard and
+    the record offset);
+    (c) the O5 BERT step of phase 7 at full width (d_model 1024, 16
+    heads, vocab 30592, seq 512, batch 8), cut to 2 layers (the one cut,
+    to keep the phase short): 4 steps straight against 2 + save / load
+    into a state from seed 1 + 2, the same bits (the file holds bf16
+    leaves and the FusedLAMB state); ``ml_dtypes`` never imported; the
+    kernels' launch counts of the straight run.
+
+    (d) prints save / verify / load / restore times, the file's size and
+    MB/s, the shard scan and the loader's wait per batch while training.
+    Returns the two legs' launch counts."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp, checkpoint
+    from apex_tpu_torch.data import ShardChecksumError, ShardedDataset
+    from apex_tpu_torch.data import open_dataset
+    from apex_tpu_torch.models import (bert_large_config, resnet50_config,
+                                       resnet_init, transformer_init)
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.resilience import CheckpointManager
+    from apex_tpu_torch.resilience.ckpt import META_DATA_KEY
+    from apex_tpu_torch.train import (resnet_checkpoint_entries,
+                                      resnet_resume, resnet_sharded_batches,
+                                      train_step)
+    from apex_tpu_torch.utils import build
+    log(f"== phase 19: checkpoints and resumable data (ResNet-50 config 2 "
+        f"fed by a ShardedLoader, {CKPT_RN50_STEPS} steps straight vs "
+        f"{CKPT_RN50_SPLIT} + save / load + "
+        f"{CKPT_RN50_STEPS - CKPT_RN50_SPLIT}; corruption; O5 BERT at "
+        f"{CKPT_BERT_LAYERS} layers, {CKPT_BERT_STEPS} vs "
+        f"{CKPT_BERT_SPLIT} + {CKPT_BERT_STEPS - CKPT_BERT_SPLIT})")
+    log(f"  numpy {np.__version__}")
+    root = os.path.join(HERE, "build", "phase19")
+    data_dir = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    n_bytes = write_image_shards(data_dir, CKPT_RECORDS, CKPT_SHARDS, 0)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = open_dataset(data_dir)                     # writes INDEX.json
+    scan_s = time.perf_counter() - t0
+    require(ds.n_records == CKPT_RECORDS and len(ds.index.shards)
+            == CKPT_SHARDS, f"index: {ds.n_records} records")
+
+    # (a) ResNet-50 config 2, straight against resumed
+    cfg = resnet50_config(dtype=torch.bfloat16)
+    params, bn0 = resnet_init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    st0 = amp.initialize(params, FusedAdam(lr=RN50_LR), opt_level="O2",
+                         verbosity=0)
+    del params
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        def loader():
+            return resnet_sharded_batches(data_dir, RN50_BATCH, 0,
+                                          CKPT_RN50_STEPS, device=dev)
+        build.LAUNCHES.clear()
+        st_a, bn_a, losses_a, waits = _rn50_loader_steps(
+            st0, bn0, loader(), cfg, CKPT_RN50_STEPS)
+        torch.cuda.synchronize()
+        launches_rn50 = dict(build.LAUNCHES)
+        check_launches("rn50", launches_rn50, CKPT_RN50_STEPS, exact=True)
+
+        ld = loader()
+        st, bn, losses_b, waits_b = _rn50_loader_steps(
+            st0, bn0, ld, cfg, CKPT_RN50_SPLIT)
+        mgr = CheckpointManager(os.path.join(root, "rn50"), keep_last=2)
+        for f in os.listdir(mgr.directory) if os.path.isdir(
+                mgr.directory) else ():
+            os.remove(os.path.join(mgr.directory, f))
+        mgr.set_meta({META_DATA_KEY: dict(ld.data_meta(),
+                                          cursor=ld.cursor(CKPT_RN50_SPLIT))})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(CKPT_RN50_SPLIT, resnet_checkpoint_entries(
+            st, bn, CKPT_RN50_SPLIT))
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        checkpoint.verify(path)
+        verify_s = time.perf_counter() - t0
+        del st, bn
+
+        params, bn1 = resnet_init(torch.Generator().manual_seed(1), cfg,
+                                  device=dev)
+        st1 = amp.initialize(params, FusedAdam(lr=RN50_LR), opt_level="O2",
+                             verbosity=0)
+        del params
+        t0 = time.perf_counter()
+        step, payload, meta = mgr.load_latest(with_meta=True)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st, bn, start = resnet_resume(payload, st1, bn1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del payload, st1, bn1
+        ld = loader()
+        require(step == start == CKPT_RN50_SPLIT
+                and meta[META_DATA_KEY]["index_digest"] == ld.index_digest
+                and meta[META_DATA_KEY]["cursor"] == ld.cursor(start),
+                f"manifest: step {step}, start {start}, meta {meta}")
+        ld.seek(start)
+        st, bn, losses_c, waits_c = _rn50_loader_steps(
+            st, bn, ld, cfg, CKPT_RN50_STEPS - CKPT_RN50_SPLIT)
+        diff = []
+        for name, x, y in (("model", st.model_params, st_a.model_params),
+                           ("masters", st.master_params, st_a.master_params),
+                           ("opt", st.opt_state, st_a.opt_state),
+                           ("bn", bn, bn_a)):
+            diff += [f"{name}/{p}" for p in _differing(x, y)]
+        resumed = losses_b + losses_c
+        require(resumed == losses_a and not diff
+                and amp.state_dict(st) == amp.state_dict(st_a),
+                f"ResNet-50 resume is not the straight run's bits: losses "
+                f"{resumed} vs {losses_a}; differing leaves {diff[:8]} "
+                f"({len(diff)}); scalers {amp.state_dict(st)} vs "
+                f"{amp.state_dict(st_a)}")
+        require(all(np.isfinite(losses_a)), f"non-finite loss {losses_a}")
+        # the same state through save_sharded / load_sharded
+        # (torch.distributed.checkpoint) on a world-1 NCCL group
+        tree = {"model": st_a.model_params, "masters": st_a.master_params,
+                "opt": st_a.opt_state, "bn": bn_a}
+        store = start_process_group()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_sharded(os.path.join(root, "rn50_dcp"), tree)
+            ssave_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = checkpoint.load_sharded(os.path.join(root, "rn50_dcp"),
+                                          tree)
+            torch.cuda.synchronize()
+            sload_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(store):
+                os.remove(store)
+        diff = _differing(got, tree)
+        require(not diff, f"load_sharded differs from the saved state in "
+                f"{diff[:8]} ({len(diff)} leaves)")
+        del got, tree
+        log(f"  (a) ResNet-50 config 2: losses {losses_a} straight; "
+            f"{CKPT_RN50_SPLIT} + save / load (seed-1 state, seek to step "
+            f"{start}) + {CKPT_RN50_STEPS - CKPT_RN50_SPLIT}: the same 6 "
+            "losses and the same bits in the fp16 weights, fp32 masters, "
+            "Adam m / v / count, running statistics and the scaler "
+            f"({amp.state_dict(st)['loss_scaler0']})")
+        mb = size / 1e6
+        log(f"  [{card}] (d) the ResNet-50 checkpoint: {mb:.1f} MB; save "
+            f"{save_s * 1e3:.1f} ms ({mb / save_s:.0f} MB/s, device to "
+            f"host, pickle, CRC and write), verify {verify_s * 1e3:.1f} ms "
+            f"({mb / verify_s:.0f} MB/s), load {load_s * 1e3:.1f} ms "
+            f"({mb / load_s:.0f} MB/s, CRC and unpickle), restore_like "
+            f"{restore_s * 1e3:.1f} ms (host to device into the template's "
+            "dtypes and strides)")
+        log(f"  [{card}] (d) the same state through save_sharded / "
+            f"load_sharded (torch.distributed.checkpoint, world-1 NCCL "
+            f"group): save {ssave_s * 1e3:.1f} ms ({mb / ssave_s:.0f} MB/s), "
+            f"load {sload_s * 1e3:.1f} ms ({mb / sload_s:.0f} MB/s), the "
+            "same bits")
+        firsts = [w[0] * 1e3 for w in (waits, waits_b, waits_c)]
+        rest = waits[1:] + waits_b[1:] + waits_c[1:]
+        log(f"  [{card}] (d) shards: {n_bytes / 1e6:.1f} MB written in "
+            f"{write_s:.2f} s; index scan (CRC32 of every shard) "
+            f"{scan_s * 1e3:.1f} ms ({n_bytes / 1e6 / scan_s:.0f} MB/s); the "
+            f"loader's wait per batch while training: the first batch of "
+            f"each of the 3 loaders {[round(w, 2) for w in firsts]} ms "
+            f"(its shards read and CRC-checked), the other {len(rest)} "
+            f"median {statistics.median(rest) * 1e3:.2f} ms, max "
+            f"{max(rest) * 1e3:.2f} ms")
+
+        # (b) corruption
+        path_b = mgr.save(CKPT_RN50_STEPS, resnet_checkpoint_entries(
+            st, bn, CKPT_RN50_STEPS))
+        with open(path_b, "r+b") as f:
+            f.truncate(os.path.getsize(path_b) // 2)
+        try:
+            checkpoint.verify(path_b)
+            err = None
+        except checkpoint.CheckpointError as e:
+            err = e
+        require(err is not None and "truncated" in str(err),
+                f"verify of a truncated checkpoint: {err!r}")
+        latest = mgr.latest()
+        require(latest == (CKPT_RN50_SPLIT, path),
+                f"latest() after truncation: {latest}")
+        log(f"  (b) truncated {os.path.basename(path_b)}: "
+            f"{type(err).__name__}: {err}; latest() -> step {latest[0]}")
+        shard = ds.index.shards[2]
+        shard_path = ds.index.path_for(2)
+        with open(shard_path, "r+b") as f:
+            f.seek(os.path.getsize(shard_path) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+        rid = int(ds.index.starts[2]) + 5
+        try:
+            ShardedDataset(data_dir).gather(np.asarray([rid]))
+            err = None
+        except ShardChecksumError as e:
+            err = e
+        require(err is not None and err.shard == shard.file
+                and err.offset == 5,
+                f"flipped byte in {shard.file}: {err!r}")
+        log(f"  (b) flipped a byte of {shard.file}: "
+            f"{type(err).__name__}: {err}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del st, bn, st_a, bn_a, st0, bn0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the O5 BERT step at 2 layers: bf16 leaves, the FusedLAMB state
+    cfg = bert_large_config(num_layers=CKPT_BERT_LAYERS, attn_impl="fast",
+                            remat=True, dtype=torch.bfloat16)
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    b0 = _train_state(params, None)
+    del params
+    batches = [_batch(cfg, 8, 512, 20 + i, dev)
+               for i in range(CKPT_BERT_STEPS)]
+    build.LAUNCHES.clear()
+    st, straight = b0, []
+    for batch in batches:
+        st, loss = train_step(st, batch, cfg)
+        straight.append(loss.item())
+    launches_o5 = dict(build.LAUNCHES)
+    check_launches("ckpt_o5", launches_o5, CKPT_BERT_STEPS)
+    st_a = st
+    st, resumed = b0, []
+    for batch in batches[:CKPT_BERT_SPLIT]:
+        st, loss = train_step(st, batch, cfg)
+        resumed.append(loss.item())
+    bpath = os.path.join(root, "bert_o5.ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(bpath, step=CKPT_BERT_SPLIT, model=st.model_params,
+                    masters=st.master_params, opt=st.opt_state,
+                    amp=amp.state_dict(st))
+    bsave_s = time.perf_counter() - t0
+    params = transformer_init(cfg, torch.Generator().manual_seed(1),
+                              device=dev)
+    st = _train_state(params, None)
+    del params
+    t0 = time.perf_counter()
+    payload = checkpoint.load(bpath)
+    bload_s = time.perf_counter() - t0
+    require(payload["masters"] is None and st.master_params is None,
+            "O5 + FusedLAMB(fused): the masters live in the flat state")
+    st = amp.load_state_dict(st._replace(
+        model_params=checkpoint.restore_like(st.model_params,
+                                             payload["model"]),
+        opt_state=checkpoint.restore_like(st.opt_state, payload["opt"])),
+        payload["amp"])
+    for batch in batches[CKPT_BERT_SPLIT:]:
+        st, loss = train_step(st, batch, cfg)
+        resumed.append(loss.item())
+    diff = ([f"model/{p}" for p in _differing(st.model_params,
+                                               st_a.model_params)]
+            + [f"opt/{p}" for p in _differing(st.opt_state, st_a.opt_state)])
+    require(resumed == straight and not diff,
+            f"O5 BERT resume is not the straight run's bits: losses "
+            f"{resumed} vs {straight}; differing leaves {diff[:8]} "
+            f"({len(diff)} of the model and FusedLAMB state)")
+    require("ml_dtypes" not in sys.modules, "ml_dtypes was imported")
+    require(st.model_params["layers"]["wqkv"].dtype == torch.bfloat16,
+            "O5: bf16 model")
+    bmb = os.path.getsize(bpath) / 1e6
+    log(f"  (c) O5 BERT, {CKPT_BERT_LAYERS} layers at full width: losses "
+        f"{straight}; {CKPT_BERT_SPLIT} + save / load (bf16 model leaves, "
+        f"FusedLAMBState) + {CKPT_BERT_STEPS - CKPT_BERT_SPLIT}: the same "
+        "losses and bits in every model and FusedLAMB leaf; ml_dtypes not "
+        f"imported; launches in {CKPT_BERT_STEPS} steps {launches_o5}")
+    log(f"  [{card}] (d) the BERT checkpoint: {bmb:.1f} MB; save "
+        f"{bsave_s * 1e3:.1f} ms ({bmb / bsave_s:.0f} MB/s), load "
+        f"{bload_s * 1e3:.1f} ms ({bmb / bload_s:.0f} MB/s)")
+    del st, st_a, b0, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches_rn50, launches_o5
+
+
+# ---------------------------------------------------------------------------
 # --variants: the bf16 flash kernels' tile variants, timed against each other
 # ---------------------------------------------------------------------------
 
@@ -3545,6 +3930,7 @@ def main(argv) -> int:
     phase_dcgan_parity(dev)
     launches["dcgan_o4"] = phase_dcgan(dev, card, profile)
     torch.cuda.empty_cache()
+    launches["ckpt_rn50"], launches["ckpt_o5"] = phase_checkpoint(dev, card)
     check_dense_routes(dev)
 
     def pick(rows, **want):

@@ -371,3 +371,38 @@ def simple_ddp_steps(rank, world, params_np, X, Y, steps):
     params = {k: {n: t.numpy() for n, t in v.items()}
               for k, v in st.model_params.items()}
     return losses, scales, params
+
+
+def sharded_ckpt_roundtrip(rank, world, path):
+    """``save_sharded`` of a seeded tree (the same on every rank), then
+    ``load_sharded`` into zeros; then the same after overwriting with
+    another tree.  [first read back equal, second read back equal]."""
+    import torch
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
+    from apex_tpu_torch.utils.pytree import tree_leaves
+
+    def tree(seed):
+        g = torch.Generator().manual_seed(seed)
+        return {"w": torch.randn(8, 3, generator=g),
+                "b": torch.randn(5, generator=g).bfloat16(),
+                "opt": FusedAdamState(torch.tensor(seed, dtype=torch.int32),
+                                      torch.randn(11, generator=g),
+                                      torch.randn(11, generator=g),
+                                      torch.randn(11, generator=g))}
+
+    def zeros():
+        return {"w": torch.zeros(8, 3), "b": torch.zeros(5).bfloat16(),
+                "opt": FusedAdamState(torch.zeros((), dtype=torch.int32),
+                                      torch.zeros(11), torch.zeros(11),
+                                      torch.zeros(11))}
+
+    out = []
+    for seed in (1, 2):
+        want = tree(seed)
+        checkpoint.save_sharded(path, want)
+        got = checkpoint.load_sharded(path, zeros())
+        out.append(type(got["opt"]) is FusedAdamState and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(tree_leaves(got), tree_leaves(want))))
+    return out

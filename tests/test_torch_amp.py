@@ -85,7 +85,7 @@ def test_bad_opt_level_raises():
 
 
 @pytest.mark.parametrize("level", ["O1", "O4"])
-def test_patching_levels_are_not_ported(level):
+def test_patching_levels_turn_on_casts(level):
     """O1 / O4 (which once raised here): ``initialize`` leaves the model
     fp32, keeps the JAX package's loss scale, and turns on the casts of
     the level's low-precision type, as the JAX package's does; ``uninit``
@@ -175,3 +175,124 @@ def test_scale_loss_and_step_without_optimizer_raises():
     assert float(amp.scale_loss(torch.tensor(2.0), ps)) == 2.0 * 2 ** 16
     with pytest.raises(RuntimeError, match="optimizer"):
         amp.amp_step(ps, ps.model_params)
+
+
+# ---------------------------------------------------------------------------
+# the scaler, properties and pytree names the port had lacked
+# ---------------------------------------------------------------------------
+
+def _grads(seed, inf=False):
+    rng = np.random.default_rng(seed)
+    g = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+         "b": rng.standard_normal(5).astype(np.float16)}
+    if inf:
+        g["b"][2] = np.inf
+    return g
+
+
+@pytest.mark.parametrize("check_finite", [True, False])
+@pytest.mark.parametrize("inf", [False, True])
+def test_unscale_matches_jax(check_finite, inf):
+    from apex_tpu.amp import scaler as jscaler
+    from apex_tpu_torch.amp import scaler
+    g = _grads(1, inf)
+    js = jscaler.init(init_scale=512.0)
+    ps = scaler.init(init_scale=512.0, device="cpu")
+    jout, jfin = jscaler.unscale(js, jax.tree_util.tree_map(jnp.asarray, g),
+                                 check_finite=check_finite)
+    pout, pfin = scaler.unscale(ps, _torch_tree(g),
+                                check_finite=check_finite)
+    assert bool(pfin) == bool(jfin) == (not (inf and check_finite))
+    for k in g:
+        assert pout[k].dtype == torch.float32
+        np.testing.assert_array_equal(pout[k].numpy(), np.asarray(jout[k]))
+
+
+@pytest.mark.parametrize("inf", [False, True])
+def test_unscale_with_stashed_matches_jax(inf):
+    from apex_tpu.amp import scaler as jscaler
+    from apex_tpu_torch.amp import scaler
+    new, stashed = _grads(2, inf), _grads(3)
+    js = jscaler.init(init_scale=1024.0)
+    ps = scaler.init(init_scale=1024.0, device="cpu")
+    jout, jfin = jscaler.unscale_with_stashed(
+        js, jax.tree_util.tree_map(jnp.asarray, new),
+        jax.tree_util.tree_map(jnp.asarray, stashed))
+    pout, pfin = scaler.unscale_with_stashed(ps, _torch_tree(new),
+                                             _torch_tree(stashed))
+    assert bool(pfin) == bool(jfin) == (not inf)
+    for k in new:
+        np.testing.assert_array_equal(pout[k].numpy(), np.asarray(jout[k]))
+
+
+def test_transition_kind_matches_jax_on_a_grid():
+    """Every branch: halved, doubled, a reset pinned at the floor (and at
+    floor and ceiling at once), a reset at window - 1 (the clamped grow),
+    an earlier reset, a reset with no bounds known, no change."""
+    import itertools
+    from apex_tpu.amp import scaler as jscaler
+    from apex_tpu_torch.amp import scaler
+    seen = set()
+    for prev, new, pu, nu, window, lo, hi in itertools.product(
+            (1.0, 2.0, 4.0), (1.0, 2.0, 4.0), (0, 1, 2), (0, 1, 3),
+            (None, 2, 3), (None, 1.0, 2.0), (None, 2.0, 4.0)):
+        args = (prev, new, pu, nu, window, lo, hi)
+        got = scaler.transition_kind(*args)
+        assert got == jscaler.transition_kind(*args), args
+        seen.add(got)
+    assert seen == {"overflow", "grew", "steady"}
+    tk = scaler.transition_kind
+    assert tk(4.0, 2.0, 5, 0) == "overflow"
+    assert tk(2.0, 4.0, 1, 0) == "grew"
+    assert tk(1.0, 1.0, 3, 0, 2000, 1.0, 2.0 ** 24) == "overflow"
+    assert tk(1.0, 1.0, 3, 0, 4, 1.0, 1.0) == "steady"
+    assert tk(8.0, 8.0, 1999, 0, 2000, 1.0, 8.0) == "steady"
+    assert tk(8.0, 8.0, 5, 0, 2000, 1.0, 8.0) == "overflow"
+    assert tk(8.0, 8.0, 5, 0) == "overflow"
+    assert tk(8.0, 8.0, 5, 6) == "steady"
+
+
+@pytest.mark.parametrize("level", ["O0", "O1", "O2", "O3", "O4", "O5"])
+def test_preset_classes_match_jax_and_opt_levels(level):
+    """``properties.O<n>()(Properties())`` gives the JAX class's options
+    (dtypes mapped), today's ``opt_levels`` entry and the table the port
+    built before the classes existed."""
+    from apex_tpu.amp import properties as jprops
+    from apex_tpu_torch.amp import properties as props
+    before = {
+        "O0": ("O0", torch.float32, False, None, None, False, 1.0),
+        "O1": ("O1", None, True, torch.float16, None, None, "dynamic"),
+        "O2": ("O2", torch.float16, False, None, True, True, "dynamic"),
+        "O3": ("O3", torch.float16, False, None, False, False, 1.0),
+        "O4": ("O4", None, True, torch.bfloat16, None, None, 1.0),
+        "O5": ("O5", torch.bfloat16, False, None, True, True, 1.0)}[level]
+    keys = ("opt_level", "cast_model_type", "patch_functions",
+            "patch_functions_type", "keep_batchnorm_fp32", "master_weights",
+            "loss_scale")
+    cls = getattr(props, level)
+    got = cls()(props.Properties()).options
+    assert isinstance(props.opt_levels[level], cls)
+    assert props.opt_levels[level](props.Properties()).options == got
+    assert tuple(got[k] for k in keys) == before and got["enabled"] is True
+    j = getattr(jprops, level)()(jprops.Properties()).options
+    assert set(j) == set(got)
+    for k, v in j.items():
+        assert (_JDT[v] if isinstance(v, jnp.dtype) else v) == got[k], k
+    assert cls.brief.startswith(level + ":")
+
+
+def test_tree_cast_like_casts_float_leaves_only():
+    from apex_tpu.utils import pytree as jpt
+    from apex_tpu_torch.utils.pytree import tree_cast_like
+    src = {"a": np.linspace(-2, 2, 6, dtype=np.float32).reshape(2, 3),
+           "b": np.arange(4, dtype=np.int32), "c": np.ones(3, np.float32)}
+    like = {"a": np.zeros((2, 3), np.float16), "b": np.zeros(4, np.float32),
+            "c": np.zeros(3, np.int32)}
+    j = jpt.tree_cast_like(jax.tree_util.tree_map(jnp.asarray, src),
+                           jax.tree_util.tree_map(jnp.asarray, like))
+    t = tree_cast_like(_torch_tree(src), _torch_tree(like))
+    for k in src:
+        assert t[k].numpy().dtype == np.asarray(j[k]).dtype, k
+        np.testing.assert_array_equal(t[k].numpy(), np.asarray(j[k]))
+    assert t["a"].dtype == torch.float16 and t["b"].dtype == torch.float32
+    assert t["c"].dtype == torch.float32
