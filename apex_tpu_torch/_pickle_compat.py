@@ -44,6 +44,10 @@ STATE_CLASSES = {
         ("apex_tpu_torch.optimizers.fused_lamb", "FusedLAMBState"),
     ("apex_tpu.optimizers.fused_sgd", "FusedSGDState"):
         ("apex_tpu_torch.optimizers.fused_sgd", "FusedSGDState"),
+    ("apex_tpu.optimizers.fused_adagrad", "FusedAdagradState"):
+        ("apex_tpu_torch.optimizers.fused_adagrad", "FusedAdagradState"),
+    ("apex_tpu.optimizers.fused_novograd", "FusedNovoGradState"):
+        ("apex_tpu_torch.optimizers.fused_novograd", "FusedNovoGradState"),
 }
 
 # ml_dtypes.bfloat16's dtype state as numpy pickles it: (version, byte

@@ -24,6 +24,11 @@ for CPU tensors.  ``backward="xla"`` takes autograd of the plain
 package's name for its kernel route, kept so the amp option keeps its
 meaning) and ``"auto"`` take the kernels.  The JAX package's environment
 overrides and tuning profile keys are not ported.
+
+Its callers: the attention modules' ``impl="fast"``
+(:mod:`~apex_tpu_torch.contrib.multihead_attn.modules`:
+``SelfMultiheadAttn``, ``EncdecMultiheadAttn``) and the transformer's
+``attn_impl="fast"`` (:mod:`apex_tpu_torch.models.transformer`).
 """
 from __future__ import annotations
 

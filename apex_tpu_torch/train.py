@@ -100,6 +100,20 @@ saves and :func:`resnet_resume` what it does with them on ``--resume``::
     step, payload = mgr.load_latest()       # in a new process
     state, bn_state, start = resnet_resume(payload, state, bn_state)
     loader.seek(start)
+
+:func:`mha_train_step` trains a stack of the attention modules, the stack
+of apex's ``perf_test_multihead_attn.py`` (18 layers at 1024 wide, 16
+heads, ``--norm-add --biases``), with any of the functional optimizers::
+
+    layers = nn.ModuleList(
+        SelfMultiheadAttn(1024, 16, dropout=0.1, bias=True,
+                          include_norm_add=True, impl="fast", generator=gen)
+        for _ in range(18))
+    opt = FusedNovoGrad(impl="fused")
+    opt_state = opt.init(mha_params(layers))
+    for batch in batches:       # {"query": (T, B, E), "target", masks}
+        opt_state, loss = mha_train_step(layers, opt, opt_state, batch,
+                                         dropout_rng=gen)
 """
 from __future__ import annotations
 
@@ -125,7 +139,8 @@ __all__ = ["train_step", "zero_train_step", "mlp_train_step",
            "resnet_train_step", "resnet_eval_step", "simple_ddp_train_step",
            "bce_logits", "dcgan_train_step", "resnet_checkpoint_entries",
            "resnet_resume", "resnet_checkpoint_from_jax",
-           "resnet_sharded_batches"]
+           "resnet_sharded_batches", "mha_params", "mha_apply",
+           "mha_train_step"]
 
 
 def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
@@ -381,3 +396,55 @@ def dcgan_train_step(stateD: amp.AmpState, stateG: amp.AmpState, bn_state,
     new_stateG = amp.amp_step(stateG, tree_unflatten(g_def, list(gg)))
     return (new_stateD, new_stateG, bn4, err_real.detach(),
             err_fake.detach(), err_g.detach())
+
+
+def mha_params(model) -> Dict[str, torch.Tensor]:
+    """An attention stack's parameters as the optimizers' tree: each
+    ``named_parameters()`` name -> the detached tensor."""
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def mha_apply(model, batch: Dict[str, torch.Tensor], *, dropout_rng=None):
+    """An attention stack's training forward: ``model`` (an
+    ``nn.ModuleList`` of ``SelfMultiheadAttn`` or of
+    ``EncdecMultiheadAttn``) applied layer by layer to ``batch["query"]``
+    (T, B, E), each layer attending to ``batch["key"]`` (S, B, E) where the
+    batch has one (the encdec form), every layer with the batch's optional
+    ``key_padding_mask`` / ``attn_mask`` and ``dropout_rng`` (a
+    ``torch.Generator`` draws anew for each layer).  Returns the last
+    layer's output."""
+    masks = dict(key_padding_mask=batch.get("key_padding_mask"),
+                 attn_mask=batch.get("attn_mask"))
+    extra = (batch["key"],) if "key" in batch else ()
+    x = batch["query"]
+    for layer in model:
+        x, _ = layer(x, *extra, is_training=True, dropout_rng=dropout_rng,
+                     **masks)
+    return x
+
+
+def mha_train_step(model, opt, opt_state, batch: Dict[str, torch.Tensor],
+                   *, dropout_rng=None, mark=None):
+    """One step of an attention stack: :func:`mha_apply`, the loss
+    mean((out - ``batch["target"]``)^2) in fp32, its gradients over the
+    model's parameters, ``opt.step(opt_state, grads, params)`` (any of the
+    port's functional optimizers, its state from
+    ``opt.init(mha_params(model))``) and the new parameters copied into
+    the model.  ``mark``, if given, is called with no argument after the
+    loss and after the gradients (a timer's split points).  Returns
+    ``(new_opt_state, loss)``, the loss a 0-d fp32 tensor."""
+    names, params = zip(*model.named_parameters())
+    x = mha_apply(model, batch, dropout_rng=dropout_rng)
+    loss = ((x.float() - batch["target"].float()) ** 2).mean()
+    if mark is not None:
+        mark()
+    grads = torch.autograd.grad(loss, params)
+    if mark is not None:
+        mark()
+    new_params, new_state = opt.step(
+        opt_state, dict(zip(names, grads)),
+        {n: p.detach() for n, p in zip(names, params)})
+    with torch.no_grad():
+        for n, p in zip(names, params):
+            p.copy_(new_params[n])
+    return new_state, loss.detach()

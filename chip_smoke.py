@@ -9,7 +9,7 @@ NVIDIA GPU.
                                       # training path, each after a warm-up
                                       # call (build/profile_{serve,train,
                                       # zero,long_seq,mlp_fp16,rn50,
-                                      # dcgan}.txt)
+                                      # dcgan,mha_self,mha_encdec}.txt)
     python3 chip_smoke.py --variants  # only phases 1-2, then the bf16 flash
                                       # kernels' tile variants timed against
                                       # the shipped ones (TILE_VARIANTS) and
@@ -17,6 +17,7 @@ NVIDIA GPU.
                                       # against it and cuBLAS; no result
                                       # line
     python3 chip_smoke.py --variants flash   # (or gemm): one study only
+    python3 chip_smoke.py --seed 3    # phase 20's weights, data and masks
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -34,8 +35,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
    version on its first 8 heads, SDPA's forward as the yardstick), and the
    bf16 forward on the edges of its tiles (``FLASH_EDGE_CASES``: Sq and Sk
    of 1, 127, 129, 200 x 333, Sk below one k tile and exactly one, causal
-   with Sq != Sk, each bias shape with a dead row, dropout, D = 32 and 128,
-   the two-warpgroup kernels), checked and not timed;
+   with Sq != Sk, each bias shape with a dead row (the attention modules'
+   (1, Sq, Sk) time mask among them), dropout, D = 32 and 128, the
+   two-warpgroup kernels), checked and not timed;
 3b. the same for the training path's kernels: layer-norm backward,
    cross-entropy forward, the l2norm of the flat master-sized buffer and
    the flash backward (whose dropout case also goes against autograd of
@@ -180,13 +182,37 @@ Phases, in order; any failure exits nonzero and prints no result line:
    2, the same bits, ``ml_dtypes`` never imported, the kernels' launch
    counts; (d) save / verify / load / restore times, MB and MB/s, the
    shard scan and the loader's wait per batch;
-20. the dense cases of phase 3d once more under ``torch.profiler``: the
+20. the attention modules on the stack of apex's
+   ``perf_test_multihead_attn.py`` (hidden 1024, 16 heads, 64 tokens):
+   (a) card vs CPU, 2 layers, 8 sequences, output and every parameter's
+   gradient, fp32 within 1e-4 on the peak rule, bf16 within 2e-2 (the
+   output on the peak rule, the gradients relative in norm: their small
+   elements carry the cancellation of bf16 sums): fast and
+   default under no mask, key padding, an additive mask, a time mask and
+   the causal one; fast with dropout 0.1 and an int kernel seed (the same
+   counter-hash mask on both devices), encdec included; (b) 18 x
+   ``SelfMultiheadAttn(1024, 16, dropout=0.1, bias=True,
+   include_norm_add=True)``, 120 x 64 tokens, bf16 activations, fp32
+   params, ragged key padding from ``--seed`` (default 0),
+   ``FusedNovoGrad(lr=1e-2, impl="fused")`` through
+   ``train.mha_train_step``, one warm-up and 10 timed steps (step time,
+   tokens/s, analytic MFU, peak memory, the step's parts, a falling loss,
+   exactly 18 flash forwards, fused backwards and layer norms each way a
+   step, every other kernel 0), then the same with ``impl="default"``
+   (the perf test's ``--ref``) and the ratio; (c) the same for 18 x
+   ``EncdecMultiheadAttn(1024, 16, dropout=0.1, include_norm_add=True)``,
+   64 queries against 96 encoder positions, ``FusedAdagrad(lr=1e-3,
+   impl="fused")``; (d) one full-width layer under each time mask: the
+   strict upper triangle reaches the kernels as a zero (1, 1, S) bias
+   with ``causal=True``, any other (Sq, Sk) time mask as a (1, Sq, Sk)
+   bias, each held to ``impl="default"`` on the card (2e-3);
+21. the dense cases of phase 3d once more under ``torch.profiler``: the
    dense kernels it lists must be the kernels ``_route`` names (run last,
    so that no profiler session precedes the timed paths);
-21. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+22. one ``{"kernels": [...]}`` line: each kernel's launches from the path
    it serves (``launches_by_path`` gives every path's count, the
    ResNet-50, toy-DDP, DCGAN and phase-19 ResNet-50 paths' 0 included, the
-   phase-19 BERT leg's counts), then the card's name
+   phase-19 BERT leg's and phase 20's counts), then the card's name
    and power limit, then the last line ``{"ok": true, "device": {...}}``.
    Every process group is destroyed before exit.
 
@@ -281,8 +307,27 @@ TRAIN_LAUNCHES_PER_STEP = {
     # phase 19's O5 BERT leg at 2 layers: phase 7's counts a layer
     "ckpt_o5": dict(flash_fwd=4, ln_fwd=10, ln_bwd=6, xent_fwd=1,
                     flash_bwd=2, l2norm=1),
+    # phase 20's 18-layer attention stacks with norm-add, exactly: a step
+    # is one flash forward and one fused backward a layer (the dq partials,
+    # 1920 x 1 x 64 x 64 fp32 ~31 MB, stay under the fuse cap) and one
+    # layer norm each way; FusedNovoGrad / FusedAdagrad are eager PyTorch
+    # on the flat engine, as the JAX package's are XLA; impl="default"
+    # runs attention in plain PyTorch, the layer norms still in kernels
+    "mha_self": dict({k: 0 for k in ALL_KERNELS}, flash_fwd=18,
+                     flash_bwd=18, ln_fwd=18, ln_bwd=18),
+    "mha_encdec": dict({k: 0 for k in ALL_KERNELS}, flash_fwd=18,
+                       flash_bwd=18, ln_fwd=18, ln_bwd=18),
+    "mha_self_default": dict({k: 0 for k in ALL_KERNELS}, ln_fwd=18,
+                             ln_bwd=18),
+    "mha_encdec_default": dict({k: 0 for k in ALL_KERNELS}, ln_fwd=18,
+                               ln_bwd=18),
+    # phase 20d: four single layers, no norm-add, each a forward and a
+    # backward through the kernels (a "step" is the whole phase)
+    "mha_time_mask": dict({k: 0 for k in ALL_KERNELS}, flash_fwd=4,
+                          flash_bwd=4),
 }
-# paths that launch none of the 13 kernels: every kernel's line lists them
+# paths that launch none of the 13 kernels: every kernel's line lists
+# them, as it lists every path of TRAIN_LAUNCHES_PER_STEP
 ZERO_PATHS = ("rn50_o2", "rn50_ddp", "simple_ddp_o1", "dcgan_o4",
               "ckpt_rn50")
 
@@ -514,6 +559,10 @@ def _flash_inputs(B, heads, sq, sk, d, kind, gen, dt, dev):
         bias[..., max(1, sk - 5):] = -1e9
     elif kind == "all_dead":  # (1, 1, Sk): every key masked, every row dead
         bias = torch.full((1, 1, sk), -1e30)
+    elif kind == "time_dead":  # (1, Sq, Sk): a time mask with a dead row
+        bias = torch.where(torch.rand((1, sq, sk), generator=gen) < 0.3,
+                           torch.full((), -1e9), torch.zeros(()))
+        bias[0, sq // 2, :] = -1e30
     elif kind == "batch_pad_dead":  # (B, 1, Sk): the last batch row dead
         bias = torch.zeros((B, 1, sk))
         for b_ in range(B):
@@ -562,6 +611,11 @@ FLASH_EDGE_CASES = [
     ("causal_sq130_sk300", 2, 2, 130, 300, 64, "key_pad", True, 0.0),
     ("d32_dropout_sk255", 2, 2, 130, 255, 32, "pad_dead", True, 0.1),
     ("d128_dropout_sk129", 2, 2, 65, 129, 128, "batch_pad_dead", True, 0.1),
+    # a (1, Sq, Sk) bias, the attention modules' non-causal time mask, with
+    # a dead row: at the MHA stack's shape with dropout, ragged, causal
+    ("time_mask_mha", 2, 16, 64, 64, 64, "time_dead", False, 0.1),
+    ("time_mask_ragged", 2, 2, 129, 200, 64, "time_dead", False, 0.0),
+    ("time_mask_causal", 2, 3, 200, 130, 32, "time_dead", True, 0.1),
 ]
 
 
@@ -3637,6 +3691,440 @@ def phase_checkpoint(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the attention modules (the reference's MHA perf-test stack)
+# ---------------------------------------------------------------------------
+
+# apex's perf_test_multihead_attn.py defaults: hidden 1024, 16 heads, 64
+# tokens, up to 120 sequences, 18 layers, dropout 0.1, --norm-add --biases
+MHA_E, MHA_H, MHA_LAYERS, MHA_SEQS, MHA_SQ = 1024, 16, 18, 120, 64
+# the encoder-decoder stack's encoder positions
+MHA_SK = 96
+MHA_STEPS = 10
+# the mask kinds of the parity phase
+MHA_MASKS = ("none", "key_pad", "additive", "time", "causal")
+
+
+def _mha_mask(kind, b, sq, sk, gen, dev):
+    """(keyword, mask) of one mask kind on ``dev``: ragged key padding (no
+    row fully padded), an additive key mask, a random time mask with its
+    first key kept, the strict upper triangle; None for "none"."""
+    import torch
+    if kind == "none":
+        return None, None
+    if kind in ("key_pad", "additive"):
+        lens = torch.randint(sk // 2, sk + 1, (b,), generator=gen)
+        pad = torch.arange(sk)[None, :] >= lens[:, None]
+        if kind == "additive":
+            return "key_padding_mask", torch.where(
+                pad, torch.full((), -1e9), torch.randn(b, sk, generator=gen)
+            ).to(dev)
+        return "key_padding_mask", pad.to(dev)
+    if kind == "time":
+        m = torch.rand(sq, sk, generator=gen) < 0.3
+        m[:, 0] = False
+        return "attn_mask", m.to(dev)
+    return "attn_mask", torch.ones(sq, sk, dtype=torch.bool).triu(1).to(dev)
+
+
+def _mha_stack(module, layers, dev, seed, impl="fast", **kw):
+    """``layers`` attention modules at the perf test's width, weights from
+    ``seed`` (the same on every device)."""
+    import torch
+    from torch import nn
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+    cls = SelfMultiheadAttn if module == "self" else EncdecMultiheadAttn
+    gen = torch.Generator().manual_seed(seed)
+    return nn.ModuleList(cls(MHA_E, MHA_H, impl=impl, generator=gen,
+                             device=dev, **kw) for _ in range(layers))
+
+
+def _mha_batch(module, seqs, dtype, dev, seed, mask="key_pad"):
+    """{"query", "target"[, "key"], mask}: seeded normal activations in
+    ``dtype`` and a mask over the keys."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    sk = MHA_SQ if module == "self" else MHA_SK
+    batch = {"query": torch.randn(MHA_SQ, seqs, MHA_E, generator=gen
+                                  ).to(dev, dtype),
+             "target": torch.randn(MHA_SQ, seqs, MHA_E, generator=gen
+                                   ).to(dev, dtype)}
+    if module == "encdec":
+        batch["key"] = torch.randn(sk, seqs, MHA_E, generator=gen).to(
+            dev, dtype)
+    name, m = _mha_mask(mask, seqs, MHA_SQ, sk, gen, dev)
+    if name is not None:
+        batch[name] = m
+    return batch
+
+
+def _mha_grads(stack, batch, dropout_rng=None):
+    """(output, {name: grad}) of sum(out * target) through ``stack``."""
+    from apex_tpu_torch.train import mha_apply
+    x = mha_apply(stack, batch, dropout_rng=dropout_rng)
+    (x.float() * batch["target"].float()).sum().backward()
+    return x.detach(), {n: p.grad for n, p in stack.named_parameters()}
+
+
+def phase_mha_parity(dev):
+    """(a) 2 layers at full width, 8 sequences x 64, card vs CPU."""
+    import torch
+    log("== phase 20a: attention modules, card vs CPU (2 layers, E 1024, "
+        "16 heads, 8 x 64 tokens; fp32 1e-4 peak rule, bf16 2e-2: the "
+        "output on the peak rule, the gradients in norm)")
+    cases = [("self", impl, kind, torch.float32, None)
+             for impl in ("fast", "default") for kind in MHA_MASKS]
+    cases += [("self", "fast", "key_pad", torch.float32, 1234),
+              ("encdec", "fast", "key_pad", torch.float32, 1234),
+              ("encdec", "fast", "time", torch.float32, None),
+              ("self", "fast", "key_pad", torch.bfloat16, None),
+              ("encdec", "fast", "key_pad", torch.bfloat16, None),
+              ("encdec", "default", "key_pad", torch.bfloat16, None)]
+    for module, impl, kind, dtype, seed in cases:
+        # norm-add everywhere but where the reference refuses it (an
+        # additive mask) or where its residual dropout would draw from
+        # each device's own generator (the dropout cases)
+        kw = dict(dropout=0.1, include_norm_add=kind != "additive"
+                  and seed is None)
+        if module == "self":
+            kw.update(bias=True, mask_additive=kind == "additive")
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            stack = _mha_stack(module, 2, d, 5, impl, **kw)
+            batch = _mha_batch(module, 8, dtype, d, 6, kind)
+            runs.append(_mha_grads(stack, batch, dropout_rng=seed))
+        (g_out, g_grads), (c_out, c_grads) = runs
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        ok, err = peak_ok(g_out.cpu(), c_out, tol)
+        require(ok, f"mha parity {module} {impl} {kind} {dtype}: out err "
+                f"{err:.3g} (tol {tol}, peak rule)")
+        g_err = g_rel = 0.0
+        for n, cg in c_grads.items():
+            gg = g_grads[n].cpu()
+            rel = float((gg - cg).norm() / cg.norm())
+            g_rel = max(g_rel, rel)
+            g_err = max(g_err, float((gg - cg).abs().max()))
+            if dtype == torch.float32:
+                g_ok, _ = peak_ok(gg, cg, tol)
+            else:
+                # bf16 activations: a weight's gradient sums hundreds of
+                # rounded products of either sign, so its small elements
+                # carry the cancellation; bf16 is held in norm
+                g_ok = rel <= tol
+            require(g_ok, f"mha parity {module} {impl} {kind} {dtype}: "
+                    f"grad {n} max err {float((gg - cg).abs().max()):.3g}, "
+                    f"{rel:.3g} relative in norm (tol {tol})")
+        rule = "peak rule" if dtype == torch.float32 else "in norm"
+        log(f"  {module:6s} {impl:7s} {kind:8s} {str(dtype)[6:]:8s} "
+            f"{'dropout 0.1, seed ' + str(seed) if seed else 'no dropout':24s}"
+            f" out err {err:.3g}; grads max err {g_err:.3g}, max "
+            f"{g_rel:.3g} relative in norm (tol {tol}, {rule})")
+
+
+def mha_step_flops(module, seqs) -> float:
+    """Analytic FLOPs of one training step of the stack: the forward's
+    products (projections 2·T·E·E' each, QK^T and PV 2·B·Sq·Sk·E each) x 3
+    for forward + backward, x layers."""
+    tq = MHA_SQ * seqs
+    if module == "self":
+        fwd = 8 * tq * MHA_E ** 2 + 4 * seqs * MHA_SQ * MHA_SQ * MHA_E
+    else:
+        tk = MHA_SK * seqs
+        fwd = (4 * tq * MHA_E ** 2 + 4 * tk * MHA_E ** 2
+               + 4 * seqs * MHA_SQ * MHA_SK * MHA_E)
+    return 3.0 * fwd * MHA_LAYERS
+
+
+def _mha_timed(stack, opt, batch, label, path, card, module, gen):
+    """One warm-up and MHA_STEPS timed steps of ``mha_train_step``: the
+    launches of the timed steps, the losses and the median step time."""
+    import torch
+    from apex_tpu_torch.train import mha_params, mha_train_step
+    from apex_tpu_torch.utils import build
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = opt.init(mha_params(stack))
+    st, loss = mha_train_step(stack, opt, st, batch, dropout_rng=gen)
+    losses = [loss.item()]
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MHA_STEPS):
+        t0 = time.perf_counter()
+        st, loss = mha_train_step(stack, opt, st, batch, dropout_rng=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{label}: loss did not fall {losses}")
+    check_launches(path, launches, MHA_STEPS, exact=True)
+    step_s = statistics.median(times)
+    tokens = MHA_SQ * batch["query"].shape[1]
+    flops = mha_step_flops(module, batch["query"].shape[1])
+    log(f"  {label}: losses {[round(l, 4) for l in losses]}; launches in "
+        f"{MHA_STEPS} steps {launches}")
+    log(f"  [{card}] {label}: step {step_s * 1e3:.3f} ms (median of "
+        f"{MHA_STEPS}; all {[round(t * 1e3, 3) for t in times]}), "
+        f"{tokens / step_s:.0f} tokens/s, analytic MFU "
+        f"{100 * flops / step_s / 989e12:.2f}% ({flops / 1e12:.3f} TFLOP a "
+        f"step / 989 TFLOP/s bf16), peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    return launches, step_s, st
+
+
+def split_mha_step(stack, opt, st, batch, gen):
+    """Host-clock ms of a ``mha_train_step``'s three parts, split by its
+    ``mark`` hook, each part ending in a synchronize: the forward and
+    loss, the backward, ``opt.step`` with the copy into the modules
+    (medians of 3 steps, which the modules keep).  Returns the ms and
+    the state after the steps."""
+    import torch
+    from apex_tpu_torch.train import mha_train_step
+    parts = []
+    for _ in range(3):
+        stamps = []
+
+        def mark():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        mark()
+        st, _ = mha_train_step(stack, opt, st, batch, dropout_rng=gen,
+                               mark=mark)
+        mark()
+        parts.append([b - a for a, b in zip(stamps, stamps[1:])])
+    return [statistics.median(p[i] for p in parts) * 1e3
+            for i in range(3)], st
+
+
+def check_mha_kernels(dev, card, module, batch):
+    """The stack's kernels at its own shapes against their plain versions
+    on the same inputs, and timed: the forward (#1) and fused backward
+    (#4) in bf16 at BH = 16 x sequences, the batch's key padding as a
+    (B, 1, Sk) bias, dropout 0.1 (2e-2 on the peak rule, lse 1e-4
+    relative), beside SDPA's flash forward and backward at the same shapes
+    (no mask, no dropout: its flash route takes neither); the layer norm's
+    forward (#5) and backward (#6) at (tokens, E) bf16 with bf16 gamma /
+    beta, as the modules cast them (2e-2 scaled, mean 1e-5, invvar 1e-4
+    relative)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_fused, _flash_bwd_reference, _flash_fwd, _reference)
+    from apex_tpu_torch.ops.layer_norm import (ln_bwd, ln_bwd_reference,
+                                               ln_fwd, ln_fwd_reference)
+    aten = torch.ops.aten
+    B = batch["query"].shape[1]
+    sq, sk, d, bh = MHA_SQ, (MHA_SQ if module == "self" else MHA_SK), \
+        MHA_E // MHA_H, MHA_H * batch["query"].shape[1]
+    gen = torch.Generator().manual_seed(21)
+    q = _randn((bh, sq, d), gen, torch.bfloat16, dev, d ** -0.5)
+    k, v, do = (_randn(s_, gen, torch.bfloat16, dev)
+                for s_ in ((bh, sk, d), (bh, sk, d), (bh, sq, d)))
+    bias = torch.where(batch["key_padding_mask"], torch.full((), -1e30,
+                       device=dev), torch.zeros((), device=dev)
+                       ).reshape(B, 1, sk).contiguous()
+    args = (q, k, v, bias, False, 0.1, 5, MHA_H)
+    out, lse = _flash_fwd(*args)
+    torch.cuda.synchronize()
+    r_out, r_lse = _reference(*args)
+    ok, f_err = peak_ok(out, r_out, 2e-2)
+    live = r_lse < 1e29
+    l_err = rel_err(lse[live], r_lse[live])
+    require(ok and l_err <= 1e-4 and bool(live.all()),
+            f"flash_fwd at the {module} stack's shape: out err {f_err:.3g} "
+            f"(tol 2e-2, peak rule), lse rel err {l_err:.3g}, every row "
+            f"live {bool(live.all())}")
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    got = _flash_bwd_fused(*args, lse, delta, do)
+    torch.cuda.synchronize()
+    b_err = 0.0
+    for gname, a, r in zip(("dq", "dk", "dv"), got,
+                           _flash_bwd_reference(*args, lse, delta, do)):
+        ok, err = peak_ok(a, r, 2e-2)
+        require(ok, f"flash_bwd at the {module} stack's shape: {gname} err "
+                f"{err:.3g} (tol 2e-2, peak rule)")
+        b_err = max(b_err, err)
+    del got, r_out, r_lse
+    f_ms = device_ms(lambda: _flash_fwd(*args))
+    b_ms = device_ms(lambda: _flash_bwd_fused(*args, lse, delta, do))
+    q4, k4, v4, do4 = (t.view(B, MHA_H, -1, d) for t in (q, k, v, do))
+    (o4, lse4, cq, ck, mq, mk, rs, ro,
+     _) = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False,
+                                                   False, scale=1.0)
+    lf_ms = device_ms(lambda: aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, False, False, scale=1.0))
+    lb_ms = device_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, False, rs, ro,
+        scale=1.0))
+    fb, fby = bound((2 * bh * sq * d + 2 * bh * sk * d) * 2 + bias.numel() * 4
+                    + bh * sq * 4, 4.0 * d * sq * sk * bh, "bfloat16")
+    bb, bby = bound(7 * bh * sq * d * 2 + 2 * bh * sq * 4 + bias.numel() * 4,
+                    10.0 * d * sq * sk * bh, "bfloat16")
+    log(f"  [{card}] kernels at the {module} stack's shape (BH {bh} x {sq} x "
+        f"{sk} x {d} bf16, (B, 1, Sk) bias, dropout 0.1): flash_fwd "
+        f"{f_ms:.5f} ms, err {f_err:.3g}, lse {l_err:.3g} (SDPA's flash "
+        f"forward {lf_ms:.5f} ms, bound {fb:.5f} ms ({fby})); flash_bwd "
+        f"{b_ms:.5f} ms, err {b_err:.3g} (SDPA's flash backward "
+        f"{lb_ms:.5f} ms, bound {bb:.5f} ms ({bby}))")
+    rows = MHA_SQ * B
+    x = _randn((rows, MHA_E), gen, torch.bfloat16, dev)
+    g = _randn((rows, MHA_E), gen, torch.bfloat16, dev)
+    w = _randn((MHA_E,), gen, torch.bfloat16, dev, 0.1, 1.0)
+    b = _randn((MHA_E,), gen, torch.bfloat16, dev, 0.1)
+    y, mean, inv = ln_fwd(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    r_y, r_mean, r_inv = ln_fwd_reference(x, w, b, 1e-5)
+    ok, n_err = scaled_ok(y, r_y, 2e-2)
+    m_err = float((mean - r_mean).abs().max())
+    i_err = rel_err(inv, r_inv)
+    require(ok and m_err <= 1e-5 and i_err <= 1e-4,
+            f"ln_fwd at ({rows},{MHA_E}) bf16: out err {n_err:.3g} (tol "
+            f"2e-2), mean {m_err:.3g}, invvar {i_err:.3g}")
+    dx = ln_bwd(g, x, r_mean, r_inv, w)
+    torch.cuda.synchronize()
+    ok, d_err = scaled_ok(dx, ln_bwd_reference(g, x, r_mean, r_inv, w), 2e-2)
+    require(ok, f"ln_bwd at ({rows},{MHA_E}) bf16: err {d_err:.3g} (tol "
+            "2e-2)")
+    lnf_ms = device_ms(lambda: ln_fwd(x, w, b, 1e-5))
+    lnb_ms = device_ms(lambda: ln_bwd(g, x, r_mean, r_inv, w))
+    log(f"  [{card}] layer norm at the {module} stack's shape ({rows} x "
+        f"{MHA_E} bf16): ln_fwd {lnf_ms:.5f} ms, err {n_err:.3g}, mean "
+        f"{m_err:.2g}, invvar {i_err:.2g}; ln_bwd {lnb_ms:.5f} ms, err "
+        f"{d_err:.3g} (tol 2e-2)")
+    return dict(fwd_ms=f_ms, bwd_ms=b_ms, sdpa_fwd_ms=lf_ms,
+                sdpa_bwd_ms=lb_ms, fwd_bound_ms=fb, bwd_bound_ms=bb,
+                ln_fwd_ms=lnf_ms, ln_bwd_ms=lnb_ms)
+
+
+def phase_mha_stack(dev, card, module, seed, profile=False):
+    """(b) / (c): the 18-layer stack, fast then default, trained by
+    FusedNovoGrad (self) or FusedAdagrad (encdec) on the flat engine;
+    ``profile``: a profiler window over one fast step after both are
+    timed."""
+    import torch
+    from apex_tpu_torch.optimizers import FusedAdagrad, FusedNovoGrad
+    from apex_tpu_torch.train import mha_train_step
+    if module == "self":
+        log(f"== phase 20b: self-attention stack ({MHA_LAYERS} x "
+            f"SelfMultiheadAttn({MHA_E}, {MHA_H}, dropout=0.1, bias=True, "
+            f"include_norm_add=True), {MHA_SEQS} x {MHA_SQ} tokens, bf16 "
+            "activations, fp32 params, FusedNovoGrad(lr=1e-2, impl='fused'))")
+        kw = dict(dropout=0.1, bias=True, include_norm_add=True)
+        make_opt = lambda: FusedNovoGrad(lr=1e-2, impl="fused")  # noqa: E731
+    else:
+        log(f"== phase 20c: encoder-decoder stack ({MHA_LAYERS} x "
+            f"EncdecMultiheadAttn({MHA_E}, {MHA_H}, dropout=0.1, "
+            f"include_norm_add=True), {MHA_SEQS} x {MHA_SQ} queries against "
+            f"{MHA_SK} encoder positions, bf16 activations, fp32 params, "
+            "FusedAdagrad(lr=1e-3, impl='fused'))")
+        kw = dict(dropout=0.1, include_norm_add=True)
+        # Adagrad's first step moves every weight by ~lr: at 1e-2 the
+        # 18-layer stack diverges within 5 steps, at 1e-3 it falls
+        make_opt = lambda: FusedAdagrad(lr=1e-3, impl="fused")  # noqa: E731
+    batch = _mha_batch(module, MHA_SEQS, torch.bfloat16, dev, seed)
+    pad = batch["key_padding_mask"]
+    log(f"  key padding from seed {seed}: keys kept per sequence "
+        f"{int((~pad).sum(1).min())}..{int((~pad).sum(1).max())} of "
+        f"{pad.shape[1]}")
+    check_mha_kernels(dev, card, module, batch)
+    results, kept = {}, None
+    for impl in ("fast", "default"):
+        t0 = time.perf_counter()
+        stack = _mha_stack(module, MHA_LAYERS, dev, seed, impl, **kw)
+        n_params = sum(p.numel() for p in stack.parameters())
+        log(f"  {impl}: {n_params} parameters from seed {seed} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator().manual_seed(seed + 1)
+        path = f"mha_{module}" + ("" if impl == "fast" else "_default")
+        opt = make_opt()
+        results[impl] = _mha_timed(stack, opt, batch, f"{module} {impl}",
+                                   path, card, module, gen)
+        if impl == "fast":
+            (f_ms, b_ms, o_ms), st = split_mha_step(
+                stack, opt, results[impl][2], batch, gen)
+            log(f"  [{card}] of a fast step: forward + loss {f_ms:.3f} ms, "
+                f"backward {b_ms:.3f} ms, opt.step + copy-back {o_ms:.3f} ms "
+                "(medians of 3)")
+            if profile:
+                kept = (stack, opt, st, gen)
+        del stack, opt
+        results[impl] = results[impl][:2]
+    ratio = results["default"][1] / results["fast"][1]
+    log(f"  [{card}] {module}: impl='default' (the perf test's --ref) "
+        f"{results['default'][1] * 1e3:.3f} ms / impl='fast' "
+        f"{results['fast'][1] * 1e3:.3f} ms = {ratio:.3f}x")
+    if kept is not None:
+        stack, opt, st, gen = kept
+        profile_window(lambda: mha_train_step(stack, opt, st, batch,
+                                              dropout_rng=gen),
+                       f"mha_{module}",
+                       expect={"flash_fwd_sm90_kernel": MHA_LAYERS,
+                               "flash_bwd_kv_sm90_kernel": MHA_LAYERS})
+        del stack, opt, st, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results["fast"][0], results["default"][0]
+
+
+def phase_mha_time_masks(dev, card):
+    """(d) one full-width layer under each time mask: the routes the
+    kernels are sent, each held to impl='default' on the card."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn import modules
+    from apex_tpu_torch.utils import build
+    log("== phase 20d: one full-width layer under each time mask, fast vs "
+        "default on the card (fp32, 2e-3 peak rule)")
+    seen = []
+    real = modules.flash_attention
+
+    def spy(q, k, v, bias, seed, causal, *rest):
+        seen.append((tuple(bias.shape), bool(causal),
+                     float(bias.abs().max())))
+        return real(q, k, v, bias, seed, causal, *rest)
+
+    cases = [("self", "causal", ((1, 1, MHA_SQ), True, 0.0)),
+             ("self", "time", ((1, MHA_SQ, MHA_SQ), False, None)),
+             ("encdec", "causal", ((1, MHA_SQ, MHA_SK), False, None)),
+             ("encdec", "time", ((1, MHA_SQ, MHA_SK), False, None))]
+    build.LAUNCHES.clear()
+    modules.flash_attention = spy
+    try:
+        for module, kind, want in cases:
+            kw = dict(bias=True) if module == "self" else {}
+            outs = []
+            for impl in ("fast", "default"):
+                stack = _mha_stack(module, 1, dev, 9, impl, **kw)
+                batch = _mha_batch(module, MHA_SEQS, torch.float32, dev, 10,
+                                   kind)
+                outs.append(_mha_grads(stack, batch))
+            shape, causal, bmax = seen[-1]
+            require(shape == want[0] and causal == want[1]
+                    and (want[2] is None or bmax == want[2]),
+                    f"{module} {kind}: the kernels got bias {shape}, causal "
+                    f"{causal} (max |bias| {bmax}), expected {want}")
+            (f_out, f_g), (d_out, d_g) = outs
+            ok, err = peak_ok(f_out, d_out, 2e-3)
+            require(ok, f"{module} {kind}: fast vs default out err {err:.3g}")
+            g_err = 0.0
+            for n in d_g:
+                g_ok, e = peak_ok(f_g[n], d_g[n], 2e-3)
+                g_err = max(g_err, e)
+                require(g_ok, f"{module} {kind}: fast vs default grad {n} "
+                        f"err {e:.3g}")
+            log(f"  {module:6s} {kind:6s}: kernels got bias {shape}, causal "
+                f"{causal}; fast vs default out err {err:.3g}, grads max "
+                f"err {g_err:.3g} (tol 2e-3)")
+    finally:
+        modules.flash_attention = real
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check_launches("mha_time_mask", launches, 1, exact=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # --variants: the bf16 flash kernels' tile variants, timed against each other
 # ---------------------------------------------------------------------------
 
@@ -3855,7 +4343,8 @@ def _kernel_entry(name, source, replaces, row, launches_by_path, path):
                 path=path,
                 launches_by_path={p: c.get(name, 0)
                                   for p, c in launches_by_path.items()
-                                  if c.get(name, 0) or p in ZERO_PATHS})
+                                  if c.get(name, 0) or p in ZERO_PATHS
+                                  or p in TRAIN_LAUNCHES_PER_STEP})
 
 
 def main(argv) -> int:
@@ -3931,6 +4420,13 @@ def main(argv) -> int:
     launches["dcgan_o4"] = phase_dcgan(dev, card, profile)
     torch.cuda.empty_cache()
     launches["ckpt_rn50"], launches["ckpt_o5"] = phase_checkpoint(dev, card)
+    phase_mha_parity(dev)
+    seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv else 0
+    launches["mha_self"], launches["mha_self_default"] = phase_mha_stack(
+        dev, card, "self", seed, profile)
+    launches["mha_encdec"], launches["mha_encdec_default"] = \
+        phase_mha_stack(dev, card, "encdec", seed, profile)
+    launches["mha_time_mask"] = phase_mha_time_masks(dev, card)
     check_dense_routes(dev)
 
     def pick(rows, **want):

@@ -125,6 +125,11 @@ FLASH_EDGE_CASES = [
     ("causal_sq130_sk300", 2, 2, 130, 300, 64, "shared_pad", True, 0.0),
     ("d32_dropout_sk255", 2, 2, 130, 255, 32, "dead", True, 0.1),
     ("d128_dropout_sk129", 2, 2, 65, 129, 128, "key_dead", True, 0.1),
+    # a (1, Sq, Sk) bias (the attention modules' non-causal time mask),
+    # with a dead row: square at the MHA width, ragged, and with dropout
+    ("time_mask_mha", 2, 16, 64, 64, 64, "time", False, 0.1),
+    ("time_mask_ragged", 2, 2, 129, 200, 64, "time", False, 0.0),
+    ("time_mask_causal", 2, 3, 200, 130, 32, "time", True, 0.1),
 ]
 FLASH_CASES = FLASH_CASES + FLASH_EDGE_CASES
 
@@ -145,6 +150,10 @@ def _flash_inputs(B, heads, sq, sk, d, kind, dev, dtype, seed):
         bias[..., max(1, sk - 5):] = -1e9
     elif kind == "all_dead":                   # (1, 1, Sk): every row dead
         bias = np.full((1, 1, sk), pflash.NEG_INF, np.float32)
+    elif kind == "time":                       # (1, Sq, Sk), a dead row
+        bias = np.where(rng.random((1, sq, sk)) < 0.3, -1e9,
+                        0.0).astype(np.float32)
+        bias[0, sq // 2, :] = pflash.NEG_INF
     elif kind in ("key_pad", "key_dead"):      # (B, 1, Sk)
         bias = np.zeros((B, 1, sk), np.float32)
         for b in range(B):
@@ -799,3 +808,75 @@ def test_fp16_refused_on_the_card(cuda_device):
             call()
     torch.cuda.synchronize()
     assert dict(build.LAUNCHES) == before
+
+
+MHA_MASKS = ["none", "key_pad", "time", "causal"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", MHA_MASKS)
+@pytest.mark.parametrize("module", ["self", "encdec"])
+def test_mha_fast_path_on_the_card_matches_plain(module, mask, dtype,
+                                                 cuda_device):
+    """Both attention modules' fast path on the card (flash forward and
+    fused backward kernels, the layer-norm kernels with norm-add) against
+    the same weights on the CPU, where every wrapper takes its plain
+    version: output and every parameter's gradient, fp32 1e-4 on the peak
+    rule; bf16 2e-2, the output on the peak rule and the gradients
+    relative in norm (a weight's gradient sums rounded bf16 products of
+    either sign, so its small elements carry the cancellation).  A
+    non-causal time mask reaches the kernels as a (1, Sq, Sk) bias."""
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+    E, H, B, SQ = 256, 4, 3, 48
+    SK = SQ if module == "self" else 80
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(len(mask) + SK)
+    xq = torch.from_numpy(rng.standard_normal((SQ, B, E)).astype(np.float32))
+    xk = torch.from_numpy(rng.standard_normal((SK, B, E)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((SQ, B, E)).astype(np.float32))
+    kw = {}
+    if mask == "key_pad":
+        m = torch.zeros(B, SK, dtype=torch.bool)
+        for b in range(B):
+            m[b, SK - 3 - 4 * b:] = True
+        kw["key_padding_mask"] = m
+    elif mask == "time":
+        m = torch.from_numpy(rng.random((SQ, SK)) < 0.3)
+        m[:, 0] = False
+        kw["attn_mask"] = m
+    elif mask == "causal":
+        kw["attn_mask"] = torch.ones(SQ, SK, dtype=torch.bool).triu(1)
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        gen = torch.Generator().manual_seed(3)
+        if module == "self":
+            mod = SelfMultiheadAttn(E, H, dropout=0.1, bias=True,
+                                    include_norm_add=True, generator=gen,
+                                    device=dev)
+            args = (xq.to(dev, tdt),)
+        else:
+            mod = EncdecMultiheadAttn(E, H, dropout=0.1,
+                                      include_norm_add=True, generator=gen,
+                                      device=dev)
+            args = (xq.to(dev, tdt), xk.to(dev, tdt))
+        before = dict(build.LAUNCHES)
+        out, _ = mod(*args, is_training=True, dropout_rng=None,
+                     **{k: v.to(dev) for k, v in kw.items()})
+        (out.float() * cot.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd"):
+                assert build.LAUNCHES[name] == before.get(name, 0) + 1, name
+        results.append((out.detach().cpu(), {
+            n: p.grad.cpu() for n, p in mod.named_parameters()}))
+    (go, gg), (co, cg) = results
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert _peak_close(go, co, tol)
+    for n in cg:
+        if dtype == "float32":
+            assert _peak_close(gg[n], cg[n], tol), (n, float(
+                (gg[n] - cg[n]).abs().max()))
+        else:   # bf16 sums cancel in the small elements: held in norm
+            rel = float((gg[n] - cg[n]).norm() / cg[n].norm())
+            assert rel <= tol, (n, rel)
