@@ -8,7 +8,11 @@ fp32 bias is (1|B, 1|Sq, Sk) with its batch row taken as ``bh // heads``;
 ``causal`` masks col > row to -1e30; dropout acts on the probabilities
 after the softmax denominator, with the counter-hash mask
 :func:`_dropout_keep`; a row that saw only masked keys (max <= -5e29) is
-dead and emits zeros with lse = +1e30.
+dead and emits zeros with lse = +1e30.  q, k and v are fp32, bf16 or
+fp16 (all three of one type), as the JAX kernels take any float type: out,
+dq, dk and dv come in q's type, lse and the dq partials in fp32, and P and
+dS are rounded to the input type before their products, in the kernels as
+in the plain versions.
 
 The kernels are ``apex_tpu_torch/csrc/flash_fwd.cu`` (forward) and
 ``flash_bwd.cu``: the fused recompute backward (dq as per-k-tile fp32
@@ -194,10 +198,10 @@ def _reference(q, k, v, bias, causal, dropout_rate, seed, heads
 
 
 def _check_cuda_inputs(q, k, v, bias, dropout_rate):
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes float32/bfloat16 q, k, v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    build.dtype_code(q.dtype, "the flash kernels")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"flash bias must be float32, got {bias.dtype}")
     if q.shape[2] not in HEAD_DIMS:
@@ -223,7 +227,7 @@ def _launch_args(q, k, bias, causal, dropout_rate, seed, heads):
     bh, sq, d = q.shape
     return (bh, sq, k.shape[1], d, heads, bias.shape[0], bias.shape[1],
             int(bool(causal)), threshold, float(1.0 - dropout_rate), seed32,
-            build.dtype_code(q.dtype, build.F32_BF16, "the flash kernels"),
+            build.dtype_code(q.dtype, "the flash kernels"),
             build.stream_of(q))
 
 

@@ -87,8 +87,7 @@ def _check_cuda_inputs(logits: torch.Tensor, labels: torch.Tensor):
         labels = labels.long()
     if labels.dtype != torch.int64:
         raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
-    code = build.dtype_code(logits.dtype, build.F32_BF16,
-                            "the cross-entropy kernel")
+    code = build.dtype_code(logits.dtype, "the cross-entropy kernel")
     return labels.contiguous(), code
 
 

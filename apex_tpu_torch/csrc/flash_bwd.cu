@@ -36,8 +36,9 @@
 // Sk D = 412 GFLOP (0.42 ms at 989 TFLOP/s) against ~170 MB of inputs and
 // outputs (0.05 ms); dk/dv 8 BH Sq Sk D = 550 GFLOP (0.56 ms).
 //
-// Design of the fused and dk/dv kernels, bf16 (`flash_bwd_kv_sm90_kernel`,
-// on `sm90_attn.cuh`'s key-major ring): a CTA owns 128 keys of one head
+// Design of the fused and dk/dv kernels, fp16 and bf16
+// (`flash_bwd_kv_sm90_kernel`, a template over the element type E, on
+// `sm90_attn.cuh`'s key-major ring): a CTA owns 128 keys of one head
 // (grid: key tiles x BH; key tile 0, which every causal query row sees,
 // first).  A producer warpgroup hands its registers to the consumers, and
 // its first warp loads k and v of the CTA's keys once by TMA, then keeps a
@@ -51,10 +52,10 @@
 //     accumulator row; -1e30 past Sk), a (B, Sq, Sk) bias per element, the
 //     causal compare only on tiles that cross the warpgroup's diagonal (q
 //     tiles wholly above the CTA's keys are not loaded), dropout from the
-//     accumulator's (key, row) pairs; Pd^T and dS^T round to bf16 in
+//     accumulator's (key, row) pairs; Pd^T and dS^T round to E in
 //     registers (the TPU kernel's `astype`s) and are the register A of dV
 //     += Pd^T dO and dK += dS^T q, with dO and q as MN-major B;
-//   * fused only: both warpgroups write dS^T into one bf16 shared tile (two,
+//   * fused only: both warpgroups write dS^T into one E shared tile (two,
 //     alternating by q tile, so one named barrier a tile suffices), then
 //     each computes half of the dq-partial block, dS k over the 128 keys,
 //     with dS^T as an MN-major A and its half of k's columns as an MN-major
@@ -65,6 +66,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "dropout.cuh"
@@ -75,6 +77,7 @@ namespace {
 using sm90::kNegInf;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeF16 = 2;
 // keys per CTA of the fused and dk/dv kernels, both dtypes: the dq-partial
 // tile (flash.py BWD_K_TILE)
 constexpr int kPartKeys = 128;
@@ -122,7 +125,8 @@ __device__ __forceinline__ float keep_factor(const Params& p, int bh, int row,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the key-major kernel (TMA ring + wgmma)
+// fp16 / bf16: the key-major kernel (TMA ring + wgmma), over the element
+// type E
 // ---------------------------------------------------------------------------
 
 // Two consumer warpgroups of 64 keys each, then one producer warpgroup
@@ -136,7 +140,7 @@ using KvCfg = sm90::RingCfg<D, 2, sm90::kKvStages, kPartKeys, 2,
 
 // kEmitDq: the fused kernel (dk, dv and the dq partials); without it, the
 // split route's dk/dv kernel.
-template <int D, bool kEmitDq>
+template <typename E, int D, bool kEmitDq>
 __global__ void __launch_bounds__(KvCfg<D, kEmitDq>::kThreads, 1)
 flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
@@ -223,10 +227,10 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      sm90::Wgmma<kBq>::ss(s, Tk::kmajor(k_addr, kBk, wg * 64, kk),
-                           Tq::kmajor(q_addr, kBq, 0, kk), kk > 0);
-      sm90::Wgmma<kBq>::ss(dp, Tk::kmajor(v_addr, kBk, wg * 64, kk),
-                           Tq::kmajor(do_addr, kBq, 0, kk), kk > 0);
+      sm90::Wgmma<kBq, E>::ss(s, Tk::kmajor(k_addr, kBk, wg * 64, kk),
+                              Tq::kmajor(q_addr, kBq, 0, kk), kk > 0);
+      sm90::Wgmma<kBq, E>::ss(dp, Tk::kmajor(v_addr, kBk, wg * 64, kk),
+                              Tq::kmajor(do_addr, kBq, 0, kk), kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
@@ -257,7 +261,7 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
       }
     }
 
-    // dV += Pd^T dO and dK += dS^T q: Pd^T and dS^T round to bf16 here (the
+    // dV += Pd^T dO and dK += dS^T q: Pd^T and dS^T round to E here (the
     // TPU kernel's `pd.astype(do.dtype)` and `ds.astype(q.dtype)`) and leave
     // the accumulators as A fragments; dO and q are B as they lie, (rows,
     // D), read MN-major
@@ -266,16 +270,16 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int kk = 0; kk < kBq / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        pa[kk][r] = sm90::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-        da[kk][r] = sm90::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        pa[kk][r] = sm90::pack<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        da[kk][r] = sm90::pack<E>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
       }
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBq / 16; ++kk)
-      sm90::Wgmma<D>::rs(dv, pa[kk], Tq::mnmajor(do_addr, kBq, kk), 1);
+      sm90::Wgmma<D, E>::rs(dv, pa[kk], Tq::mnmajor(do_addr, kBq, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < kBq / 16; ++kk)
-      sm90::Wgmma<D>::rs(dk, da[kk], Tq::mnmajor(q_addr, kBq, kk), 1);
+      sm90::Wgmma<D, E>::rs(dk, da[kk], Tq::mnmajor(q_addr, kBq, kk), 1);
     sm90::wgmma_commit();
 
     if constexpr (kEmitDq) {
@@ -302,8 +306,8 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBk / 16; ++kk)
-        sm90::Wgmma<kDqN>::template ss<1, 1>(dq, Ts::mnmajor(ds_addr, kBk, kk),
-                                             Tk::mnmajor(kn_addr, kBk, kk), kk > 0);
+        sm90::Wgmma<kDqN, E>::template ss<1, 1>(dq, Ts::mnmajor(ds_addr, kBk, kk),
+                                                Tk::mnmajor(kn_addr, kBk, kk), kk > 0);
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
       sm90::fence_regs(dq);
@@ -328,23 +332,23 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
     ring.release(i, lane);
   }
 
-  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk);
-  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv);
+  E* dk_out = static_cast<E*>(p.dk);
+  E* dv_out = static_cast<E*>(p.dv);
   const size_t kbase = (size_t)bh * p.sk * D;
 #pragma unroll
   for (int nn = 0; nn < D / 8; ++nn) {
     const int c = nn * 8 + 2 * t;
     if (key_a < p.sk) {
       *reinterpret_cast<uint32_t*>(dk_out + kbase + (size_t)key_a * D + c) =
-          sm90::pack_bf16(dk[4 * nn], dk[4 * nn + 1]);
+          sm90::pack<E>(dk[4 * nn], dk[4 * nn + 1]);
       *reinterpret_cast<uint32_t*>(dv_out + kbase + (size_t)key_a * D + c) =
-          sm90::pack_bf16(dv[4 * nn], dv[4 * nn + 1]);
+          sm90::pack<E>(dv[4 * nn], dv[4 * nn + 1]);
     }
     if (key_b < p.sk) {
       *reinterpret_cast<uint32_t*>(dk_out + kbase + (size_t)key_b * D + c) =
-          sm90::pack_bf16(dk[4 * nn + 2], dk[4 * nn + 3]);
+          sm90::pack<E>(dk[4 * nn + 2], dk[4 * nn + 3]);
       *reinterpret_cast<uint32_t*>(dv_out + kbase + (size_t)key_b * D + c) =
-          sm90::pack_bf16(dv[4 * nn + 2], dv[4 * nn + 3]);
+          sm90::pack<E>(dv[4 * nn + 2], dv[4 * nn + 3]);
     }
   }
 }
@@ -490,7 +494,7 @@ flash_bwd_simt_kernel(Params p) {
 // mask hides wholly: S = q k^T and dP = dO v^T, P = exp(S + bias - lse) (a
 // dead row, lse = +1e30, gives 0), dS = P * (dP * keep / (1 - rate) -
 // delta) rounded to the input dtype (the TPU kernel's `ds.astype(k.dtype)`),
-// dQ += dS k in fp32 registers, written once in q's dtype.  bf16: the
+// dQ += dS k in fp32 registers, written once in q's dtype.  fp16 / bf16: the
 // forward's query-major design (`sm90_attn.cuh`): the first warp of a
 // producer warpgroup keeps TMA loads of 64-key k and v tiles and their key
 // bias in flight through a 2-stage mbarrier ring after loading q and dO
@@ -516,7 +520,7 @@ __device__ __forceinline__ int dq_k_tiles(const Params& p, int q0, int rows,
 template <int D, int C>
 using DqCfg = sm90::RingCfg<D, C, 2, 64 * C, 2, 64, 1>;
 
-template <int D, int C>
+template <typename E, int D, int C>
 __global__ void __launch_bounds__(DqCfg<D, C>::kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap domap,
@@ -583,10 +587,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      sm90::Wgmma<kBk>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
-                           T::kmajor(k_addr, kBk, 0, kk), kk > 0);
-      sm90::Wgmma<kBk>::ss(dp, T::kmajor(do_addr, kBq, wg * 64, kk),
-                           T::kmajor(ring.stage_addr(kt, 1), kBk, 0, kk), kk > 0);
+      sm90::Wgmma<kBk, E>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
+                              T::kmajor(k_addr, kBk, 0, kk), kk > 0);
+      sm90::Wgmma<kBk, E>::ss(dp, T::kmajor(do_addr, kBq, wg * 64, kk),
+                              T::kmajor(ring.stage_addr(kt, 1), kBk, 0, kk), kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
@@ -611,7 +615,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
 
-    // dQ += dS k: dS rounds to bf16 here (the TPU kernel's
+    // dQ += dS k: dS rounds to E here (the TPU kernel's
     // `ds.astype(k.dtype)`) and leaves the accumulators as A fragments; k is
     // B as it lies, (keys, D), read MN-major
     uint32_t da[kBk / 16][4];
@@ -619,28 +623,28 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < kBk / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        da[kk][r] = sm90::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        da[kk][r] = sm90::pack<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk)
-      sm90::Wgmma<D>::rs(dq, da[kk], T::mnmajor(k_addr, kBk, kk), 1);
+      sm90::Wgmma<D, E>::rs(dq, da[kk], T::mnmajor(k_addr, kBk, kk), 1);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(dq);
     ring.release(kt, lane);
   }
 
-  __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq);
+  E* dq_out = static_cast<E*>(p.dq);
   const size_t qbase = (size_t)bh * p.sq * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t;
     if (row_a < p.sq)
       *reinterpret_cast<uint32_t*>(dq_out + qbase + (size_t)row_a * D + c) =
-          sm90::pack_bf16(dq[4 * n], dq[4 * n + 1]);
+          sm90::pack<E>(dq[4 * n], dq[4 * n + 1]);
     if (row_b < p.sq)
       *reinterpret_cast<uint32_t*>(dq_out + qbase + (size_t)row_b * D + c) =
-          sm90::pack_bf16(dq[4 * n + 2], dq[4 * n + 3]);
+          sm90::pack<E>(dq[4 * n + 2], dq[4 * n + 3]);
   }
 }
 
@@ -746,27 +750,28 @@ flash_bwd_dq_simt_kernel(Params p) {
 
 using sm90::allow_smem;
 
-template <int D, bool kEmitDq>
+template <typename E, int D, bool kEmitDq>
 cudaError_t launch_kv_sm90(const Params& p, cudaStream_t stream) {
   using Cfg = KvCfg<D, kEmitDq>;
   static bool smem_ready = false;
-  cudaError_t err = allow_smem(flash_bwd_kv_sm90_kernel<D, kEmitDq>, Cfg::kSmem, smem_ready);
+  cudaError_t err = allow_smem(flash_bwd_kv_sm90_kernel<E, D, kEmitDq>, Cfg::kSmem, smem_ready);
   if (err != cudaSuccess) return err;
   CUtensorMap km, vm, qm, dom;
-  if ((err = sm90::encode_map<D, Cfg::kResAw>(&km, p.k, p.sk, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D, Cfg::kResAw>(&vm, p.v, p.sk, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
+  if ((err = sm90::encode_map<E, D, Cfg::kResAw>(&km, p.k, p.sk, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D, Cfg::kResAw>(&vm, p.v, p.sk, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D>(&qm, p.q, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
   dim3 grid(p.nk, p.bh_count);
-  flash_bwd_kv_sm90_kernel<D, kEmitDq><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(km, vm, qm, dom, p);
+  flash_bwd_kv_sm90_kernel<E, D, kEmitDq><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(km, vm, qm, dom, p);
   return cudaGetLastError();
 }
 
 // The fused kernel (kEmitDq) or the split route's dk/dv kernel.
 template <int D, bool kEmitDq>
 cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kDtypeBF16) return launch_kv_sm90<D, kEmitDq>(p, stream);
+  if (dtype == kDtypeBF16) return launch_kv_sm90<__nv_bfloat16, D, kEmitDq>(p, stream);
+  if (dtype == kDtypeF16) return launch_kv_sm90<__half, D, kEmitDq>(p, stream);
   static bool simt_ready = false;
   constexpr int bytes = simt_smem_bytes<D>();
   const cudaError_t err = allow_smem(flash_bwd_simt_kernel<D, kEmitDq>, bytes, simt_ready);
@@ -776,28 +781,34 @@ cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, int C>
+template <typename E, int D, int C>
 cudaError_t launch_dq_sm90(const Params& p, cudaStream_t stream) {
   using Cfg = DqCfg<D, C>;
   static bool smem_ready = false;
-  cudaError_t err = sm90::allow_smem(flash_bwd_dq_sm90_kernel<D, C>, Cfg::kSmem, smem_ready);
+  cudaError_t err = sm90::allow_smem(flash_bwd_dq_sm90_kernel<E, D, C>, Cfg::kSmem, smem_ready);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, dom, km, vm;
-  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
+  if ((err = sm90::encode_map<E, D>(&qm, p.q, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
   dim3 grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count);
-  flash_bwd_dq_sm90_kernel<D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, dom, km, vm, p);
+  flash_bwd_dq_sm90_kernel<E, D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, dom, km, vm, p);
   return cudaGetLastError();
+}
+
+// one or two consumer warpgroups (`sm90::consumer_groups`)
+template <typename E, int D>
+cudaError_t launch_dq_wgmma(const Params& p, cudaStream_t stream) {
+  return sm90::consumer_groups(p.sq, p.bh_count) == 2 ? launch_dq_sm90<E, D, 2>(p, stream)
+                                                      : launch_dq_sm90<E, D, 1>(p, stream);
 }
 
 template <int D>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kDtypeBF16)
-    return sm90::consumer_groups(p.sq, p.bh_count) == 2 ? launch_dq_sm90<D, 2>(p, stream)
-                                                        : launch_dq_sm90<D, 1>(p, stream);
+  if (dtype == kDtypeBF16) return launch_dq_wgmma<__nv_bfloat16, D>(p, stream);
+  if (dtype == kDtypeF16) return launch_dq_wgmma<__half, D>(p, stream);
   static bool simt_ready = false;
   constexpr int bytes = dq_simt_smem_bytes<D>();
   const cudaError_t err = allow_smem(flash_bwd_dq_simt_kernel<D>, bytes, simt_ready);
@@ -827,7 +838,8 @@ int run(const void* q, const void* k, const void* v, const void* bias,
         Route route, void* stream) {
   if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || bh_count > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype != kDtypeF32 && dtype != kDtypeBF16) return (int)cudaErrorInvalidValue;
+  if (dtype != kDtypeF32 && dtype != kDtypeBF16 && dtype != kDtypeF16)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;

@@ -15,8 +15,8 @@
 // training shape (BH 128, S 512) 8.6 GFLOP (8.7 us) against 34 MB (10 us),
 // the two about even.  Only Hopper's warpgroup products (wgmma) reach that
 // rate, and only when the tiles arrive while the tensor cores work on the
-// last ones, so the bf16 kernel is built as Hopper wants it
-// (`sm90_attn.cuh`):
+// last ones, so the fp16 and bf16 kernel (one template over the element
+// type E) is built as Hopper wants it (`sm90_attn.cuh`):
 //   * a producer warpgroup gives its registers to the consumers
 //     (setmaxnreg), and its first warp keeps TMA loads of 128-key k and v
 //     tiles in flight through a 2-stage ring of shared-memory stages
@@ -26,7 +26,7 @@
 //   * one or two consumer warpgroups of 64 query rows each: S = q k^T runs
 //     on wgmma with q and k read from swizzled shared memory; the online
 //     softmax runs on the accumulators in exp2 with log2(e) folded in; P is
-//     rounded to bf16 in registers and is the register A operand of O += P
+//     rounded to E in registers and is the register A operand of O += P
 //     v, where v is B as it lies, (keys, D), read MN-major; O stays in
 //     registers until the epilogue;
 //   * masks only where they bite: the per-key bias (a (1|B, 1, Sk) bias,
@@ -45,6 +45,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "dropout.cuh"
@@ -55,6 +56,7 @@ namespace {
 using sm90::kNegInf;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeF16 = 2;
 
 struct Params {
   const void* q;
@@ -86,7 +88,7 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int bh,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: TMA + mbarrier ring + wgmma kernel
+// fp16 / bf16: TMA + mbarrier ring + wgmma kernel, over the element type E
 // ---------------------------------------------------------------------------
 
 // C consumer warpgroups of 64 query rows each, then one producer
@@ -95,7 +97,7 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int bh,
 template <int D, int C>
 using FwdCfg = sm90::RingCfg<D, C, 2, 64 * C, 1, 128, 1>;
 
-template <int D, int C>
+template <typename E, int D, int C>
 __global__ void __launch_bounds__(FwdCfg<D, C>::kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
@@ -155,8 +157,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::Wgmma<kBk>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
-                           T::kmajor(ring.stage_addr(kt, 0), kBk, 0, kk), kk > 0);
+      sm90::Wgmma<kBk, E>::ss(s, T::kmajor(q_addr, kBq, wg * 64, kk),
+                              T::kmajor(ring.stage_addr(kt, 0), kBk, 0, kk), kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(s);
@@ -220,18 +222,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       o[4 * n + 3] *= sc_b;
     }
 
-    // O += P v: P leaves the accumulators as bf16 A fragments; v is B as it
-    // lies, (keys, D), read MN-major
+    // O += P v: P leaves the accumulators as A fragments rounded to E; v is
+    // B as it lies, (keys, D), read MN-major
     uint32_t pa[kBk / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        pa[kk][r] = sm90::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        pa[kk][r] = sm90::pack<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk)
-      sm90::Wgmma<D>::rs(o, pa[kk], T::mnmajor(ring.stage_addr(kt, 1), kBk, kk), 1);
+      sm90::Wgmma<D, E>::rs(o, pa[kk], T::mnmajor(ring.stage_addr(kt, 1), kBk, kk), 1);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(o);
@@ -239,7 +241,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // epilogue: normalise, dead rows -> 0 and lse = +1e30
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  E* out = static_cast<E*>(p.out);
   const size_t qbase = (size_t)bh * p.sq * D;
   const bool dead_a = m_a <= kNegInf / 2, dead_b = m_b <= kNegInf / 2;
   const float sl_a = l_a == 0.f ? 1.f : l_a, sl_b = l_b == 0.f ? 1.f : l_b;
@@ -249,7 +251,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int n = 0; n < D / 8; ++n) {
       const float x0 = dead_a ? 0.f : o[4 * n] * r_a;
       const float x1 = dead_a ? 0.f : o[4 * n + 1] * r_a;
-      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_a * D + n * 8 + 2 * t) = sm90::pack_bf16(x0, x1);
+      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_a * D + n * 8 + 2 * t) = sm90::pack<E>(x0, x1);
     }
     if (t == 0) p.lse[(size_t)bh * p.sq + row_a] = dead_a ? -kNegInf : m_a + logf(sl_a);
   }
@@ -258,7 +260,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int n = 0; n < D / 8; ++n) {
       const float x0 = dead_b ? 0.f : o[4 * n + 2] * r_b;
       const float x1 = dead_b ? 0.f : o[4 * n + 3] * r_b;
-      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_b * D + n * 8 + 2 * t) = sm90::pack_bf16(x0, x1);
+      *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_b * D + n * 8 + 2 * t) = sm90::pack<E>(x0, x1);
     }
     if (t == 0) p.lse[(size_t)bh * p.sq + row_b] = dead_b ? -kNegInf : m_b + logf(sl_b);
   }
@@ -368,27 +370,33 @@ flash_fwd_simt_kernel(Params p) {
   }
 }
 
-template <int D, int C>
+template <typename E, int D, int C>
 cudaError_t launch_sm90(const Params& p, cudaStream_t stream) {
   using Cfg = FwdCfg<D, C>;
   static bool smem_ready = false;
-  cudaError_t err = sm90::allow_smem(flash_fwd_sm90_kernel<D, C>, Cfg::kSmem, smem_ready);
+  cudaError_t err = sm90::allow_smem(flash_fwd_sm90_kernel<E, D, C>, Cfg::kSmem, smem_ready);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
-  if ((err = sm90::encode_map<D>(&qm, p.q, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
-      (err = sm90::encode_map<D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
+  if ((err = sm90::encode_map<E, D>(&qm, p.q, p.sq, p.bh_count, Cfg::kResRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
+      (err = sm90::encode_map<E, D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
   dim3 grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count);
-  flash_fwd_sm90_kernel<D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, km, vm, p);
+  flash_fwd_sm90_kernel<E, D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
+}
+
+// one or two consumer warpgroups (`sm90::consumer_groups`)
+template <typename E, int D>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  return sm90::consumer_groups(p.sq, p.bh_count) == 2 ? launch_sm90<E, D, 2>(p, stream)
+                                                      : launch_sm90<E, D, 1>(p, stream);
 }
 
 template <int D>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kDtypeBF16)
-    return sm90::consumer_groups(p.sq, p.bh_count) == 2 ? launch_sm90<D, 2>(p, stream)
-                                                        : launch_sm90<D, 1>(p, stream);
+  if (dtype == kDtypeBF16) return launch_wgmma<__nv_bfloat16, D>(p, stream);
+  if (dtype == kDtypeF16) return launch_wgmma<__half, D>(p, stream);
   dim3 grid((p.sq + kSimtBq - 1) / kSimtBq, p.bh_count);
   flash_fwd_simt_kernel<D><<<grid, kSimtThreads, 0, stream>>>(p);
   return cudaGetLastError();
@@ -409,7 +417,8 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               int seed, int dtype, void* stream) {
   if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || bh_count > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype != kDtypeF32 && dtype != kDtypeBF16) return (int)cudaErrorInvalidValue;
+  if (dtype != kDtypeF32 && dtype != kDtypeBF16 && dtype != kDtypeF16)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;

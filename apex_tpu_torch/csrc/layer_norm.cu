@@ -13,7 +13,8 @@
 // itself dominates; the design keeps one launch per call and one pass over
 // device memory:
 //   * a row is held in registers, loaded with 16-byte vector loads
-//     (8 bf16 or 4 fp32 per load), so x is read from device memory once;
+//     (8 fp16 / bf16 or 4 fp32 per load), so x is read from device memory
+//     once;
 //   * narrow rows (<= 128 vectors) take one warp per row and reduce with
 //     warp shuffles only; wider rows take a 256-thread block per row and
 //     add one shared-memory step across its warps;
@@ -25,17 +26,46 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeF16 = 2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
+// round to nearest: past fp16's range the value becomes inf, as the plain
+// version's cast gives it
+__device__ __forceinline__ void from_f32(float v, __half* dst) { *dst = __float2half_rn(v); }
+
+template <typename T>
+struct Type { using type = T; };
+
+// f(Type<element>) for a dtype code (fp32, bf16 or fp16);
+// cudaErrorInvalidValue for another code.
+template <class F>
+cudaError_t with_type(int dtype, F f) {
+  switch (dtype) {
+    case kDtypeF32: return f(Type<float>{});
+    case kDtypeBF16: return f(Type<__nv_bfloat16>{});
+    case kDtypeF16: return f(Type<__half>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f(Type<x's element>, Type<w's element>)
+template <class F>
+cudaError_t with_types(int x_dtype, int w_dtype, F f) {
+  return with_type(x_dtype, [&](auto xt) {
+    return with_type(w_dtype, [&](auto wt) { return f(xt, wt); });
+  });
+}
 
 // Sum across the TPR threads that share a row.  TPR == 32: shuffles only.
 // TPR > 32: shuffles, then one shared-memory exchange across the row's warps
@@ -271,19 +301,11 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mean);
   float* iv = static_cast<float*>(invvar);
-  cudaError_t err;
-  if (x_dtype == kDtypeF32 && w_dtype == kDtypeF32) {
-    err = launch<float, float>(x, w, b, out, m, iv, n_rows, h, eps, s);
-  } else if (x_dtype == kDtypeF32 && w_dtype == kDtypeBF16) {
-    err = launch<float, __nv_bfloat16>(x, w, b, out, m, iv, n_rows, h, eps, s);
-  } else if (x_dtype == kDtypeBF16 && w_dtype == kDtypeF32) {
-    err = launch<__nv_bfloat16, float>(x, w, b, out, m, iv, n_rows, h, eps, s);
-  } else if (x_dtype == kDtypeBF16 && w_dtype == kDtypeBF16) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, w, b, out, m, iv, n_rows, h, eps, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return (int)with_types(x_dtype, w_dtype, [&](auto xt, auto wt) {
+    using T = typename decltype(xt)::type;
+    using WT = typename decltype(wt)::type;
+    return launch<T, WT>(x, w, b, out, m, iv, n_rows, h, eps, s);
+  });
 }
 
 // g, x, dx: (n_rows, h) contiguous, 16-byte aligned, of x_dtype.
@@ -297,20 +319,11 @@ extern "C" int apex_ln_bwd(const void* g, const void* x, const void* mean,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mean);
   const float* iv = static_cast<const float*>(invvar);
-  cudaError_t err;
-  if (x_dtype == kDtypeF32 && w_dtype == kDtypeF32) {
-    err = launch_bwd<float, float>(g, x, m, iv, w, dx, n_rows, h, s);
-  } else if (x_dtype == kDtypeF32 && w_dtype == kDtypeBF16) {
-    err = launch_bwd<float, __nv_bfloat16>(g, x, m, iv, w, dx, n_rows, h, s);
-  } else if (x_dtype == kDtypeBF16 && w_dtype == kDtypeF32) {
-    err = launch_bwd<__nv_bfloat16, float>(g, x, m, iv, w, dx, n_rows, h, s);
-  } else if (x_dtype == kDtypeBF16 && w_dtype == kDtypeBF16) {
-    err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(g, x, m, iv, w, dx,
-                                                   n_rows, h, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return (int)with_types(x_dtype, w_dtype, [&](auto xt, auto wt) {
+    using T = typename decltype(xt)::type;
+    using WT = typename decltype(wt)::type;
+    return launch_bwd<T, WT>(g, x, m, iv, w, dx, n_rows, h, s);
+  });
 }
 
 // Message for an error code returned by any entry point of this library.

@@ -2,8 +2,9 @@
 //
 // 1. L2 norm.  Replaces the TPU kernel apex_tpu/multi_tensor_apply/
 // kernels.py `multi_tensor_l2norm`: sqrt(sum x^2) over the flat (total,)
-// buffer the TreeFlattener packs, read in its own dtype (bf16 or fp32) and
-// accumulated in fp32.  FusedLAMB's global-grad-norm clip rides on it.
+// buffer the TreeFlattener packs, read in its own dtype (fp32, bf16 or
+// fp16) and accumulated in fp32.  FusedLAMB's global-grad-norm clip rides
+// on it.
 //
 // What bounds it: bytes.  Each element is read once for 2 flops; the
 // BERT-large flat fp32 buffer (334,233,600 values, 1.34 GB) takes at least
@@ -25,7 +26,8 @@
 // `fused_lamb_stage1_flat` of the same file:
 //   adam:  g = g * s;  m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g;
 //          u = (m rc1) / (sqrt(v rc2) + eps);  p -= lr u   (+ wd p: in g
-//          for Adam, in u for AdamW), optional bf16/fp32 copy of p;
+//          for Adam, in u for AdamW), optional fp32 / bf16 / fp16 copy
+//          of p;
 //   lamb1: g = g * inv_scale * clip; m = b1 m + beta3 g; v as above;
 //          u as above (+ wd p likewise) -> (u, m, v).
 // The hyperparameters come from a device buffer (8 / 9 fp32, the TPU
@@ -35,7 +37,7 @@
 // into FMAs) in the TPU kernels' order, sqrtf and the division are IEEE
 // (no fast-math), so the kernels give the bits of the plain PyTorch
 // versions.  What bounds them: bytes.  Adam reads g, p, m, v and writes p,
-// m, v (28 B an fp32 element, 30 with a bf16 copy); at the BERT-large
+// m, v (28 B an fp32 element, 30 with a 16-bit copy); at the BERT-large
 // flat size (334,233,600) that is at least ~2.79 ms at 3.35 TB/s.  One
 // grid-stride pass in 16-byte vectors, a scalar tail for a length that is
 // not a whole number of vectors.
@@ -158,9 +160,10 @@ cudaError_t launch(const void* x, int64_t n, float* partials, int n_blocks,
 // Adam / AdamW and LAMB stage 1
 // ---------------------------------------------------------------------------
 
-constexpr int kCopyNone = -1;  // Adam's model copy: none, fp32 or bf16
+constexpr int kCopyNone = -1;  // Adam's model copy: none, fp32, bf16 or fp16
 constexpr int kCopyF32 = kDtypeF32;
 constexpr int kCopyBF16 = kDtypeBF16;
+constexpr int kCopyF16 = kDtypeF16;
 
 struct Hyper {
   float lr, b1, b2, eps, wd, rc1, rc2, scale, clip, c1, c2;
@@ -207,9 +210,16 @@ __device__ __forceinline__ void store_copy4(void* copy, int64_t i,
                                             const float (&x)[4], int kind) {
   if (kind == kCopyF32) {
     reinterpret_cast<float4*>(copy)[i] = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
+  } else if (kind == kCopyBF16) {
     __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
     __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<uint32_t*>(&lo);
+    w.y = *reinterpret_cast<uint32_t*>(&hi);
+    reinterpret_cast<uint2*>(copy)[i] = w;
+  } else {  // fp16, round to nearest (inf past its range, as the cast)
+    __half2 lo = __floats2half2_rn(x[0], x[1]);
+    __half2 hi = __floats2half2_rn(x[2], x[3]);
     uint2 w;
     w.x = *reinterpret_cast<uint32_t*>(&lo);
     w.y = *reinterpret_cast<uint32_t*>(&hi);
@@ -218,7 +228,7 @@ __device__ __forceinline__ void store_copy4(void* copy, int64_t i,
 }
 
 // out0 = Adam's new p or LAMB's u; `copy` (Adam only, kCopy != none) the
-// new p in fp32 or bf16.
+// new p in fp32, bf16 or fp16.
 template <bool kLamb, int kCopy>
 __global__ void __launch_bounds__(kThreads)
 flat_update_kernel(const float* __restrict__ g, const float* __restrict__ p,
@@ -262,6 +272,7 @@ flat_update_kernel(const float* __restrict__ g, const float* __restrict__ p,
     if (kCopy == kCopyF32) static_cast<float*>(copy)[i] = o;
     if (kCopy == kCopyBF16)
       static_cast<__nv_bfloat16*>(copy)[i] = __float2bfloat16(o);
+    if (kCopy == kCopyF16) static_cast<__half*>(copy)[i] = __float2half_rn(o);
   }
 }
 
@@ -408,14 +419,16 @@ extern "C" int apex_l2norm(const void* x, long long n, void* partials,
   if (dtype == kDtypeF32) return (int)launch<float>(x, n, p, n_blocks, o, s);
   if (dtype == kDtypeBF16)
     return (int)launch<__nv_bfloat16>(x, n, p, n_blocks, o, s);
+  if (dtype == kDtypeF16) return (int)launch<__half>(x, n, p, n_blocks, o, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // g, p, m, v, p_out, m_out, v_out: (n,) fp32, contiguous, 16-byte aligned,
 // outputs distinct from the inputs.  scalars: 8 fp32 on the card [lr, b1,
 // b2, eps, wd, rc1, rc2, scale].  copy: (n,) of copy_dtype (0 fp32, 1 bf16,
-// 16-byte aligned) or null with copy_dtype -1.  The kernel runs n_blocks
-// blocks of 256 threads.  Returns cudaSuccess (0) or the launch error.
+// 2 fp16; 16-byte aligned) or null with copy_dtype -1.  The kernel runs
+// n_blocks blocks of 256 threads.  Returns cudaSuccess (0) or the launch
+// error.
 extern "C" int apex_fused_adam(const void* g, const void* p, const void* m,
                                const void* v, const void* scalars,
                                void* p_out, void* m_out, void* v_out,
@@ -434,6 +447,10 @@ extern "C" int apex_fused_adam(const void* g, const void* p, const void* m,
           adam_w, s);
     case kCopyBF16:
       return (int)launch_update<false, kCopyBF16>(
+          g, p, m, v, scalars, p_out, m_out, v_out, copy, n, n_blocks,
+          adam_w, s);
+    case kCopyF16:
+      return (int)launch_update<false, kCopyF16>(
           g, p, m, v, scalars, p_out, m_out, v_out, copy, n, n_blocks,
           adam_w, s);
     default:

@@ -1,11 +1,15 @@
-// Hopper (sm_90a) building blocks shared by the bf16 attention kernels, on
-// top of the generic ones of `sm90_common.cuh` (the encode lookup,
-// descriptors, mbarriers, the register split, wgmma's fence / commit /
-// wait): TMA tensor maps over (D, S, BH) bf16 tensors; the ring, an
-// mbarrier-guarded ring of two-tile stages filled by a producer warp, with
-// its shared-memory layout; the score masks; warpgroup matrix multiplies
-// (`wgmma`, bf16) reading their operands from swizzled shared memory (A also
-// from registers); and the choice of one or two consumer warpgroups.
+// Hopper (sm_90a) building blocks shared by the fp16 and bf16 attention
+// kernels, on top of the generic ones of `sm90_common.cuh` (the encode
+// lookup, descriptors, mbarriers, the register split, wgmma's fence /
+// commit / wait): TMA tensor maps over (D, S, BH) tensors of a 16-bit
+// element type; the ring, an mbarrier-guarded ring of two-tile stages
+// filled by a producer warp, with its shared-memory layout; the score
+// masks; warpgroup matrix multiplies (`wgmma`, .f16 or .bf16 by the
+// element type) reading their operands from swizzled shared memory (A also
+// from registers); and the choice of one or two consumer warpgroups.  The
+// two element types share every layout (both are 2 bytes): only the TMA
+// data type, the wgmma instruction and the rounding of fp32 values
+// (`pack<E>`) differ.
 //
 // The ring serves two shapes of kernel.  Query-major (the flash forward,
 // the split dq): a CTA owns a tile of queries, its resident tiles are q (and
@@ -14,7 +18,7 @@
 // of 128 keys, its resident tiles are k and v, and each stage brings a q and
 // a dO tile with those rows' lse and delta.
 //
-// Tile layout.  A tile of `rows` rows of a (.., D) bf16 tensor lies in
+// Tile layout.  A tile of `rows` rows of a (.., D) 16-bit tensor lies in
 // shared memory as D / AW column chunks of (rows, AW), AW = min(D, 64)
 // elements unless a kernel asks for narrower chunks: one 128-byte swizzle
 // atom a row for AW = 64, one 64-byte atom for AW = 32, one 32-byte atom
@@ -47,8 +51,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90_common.cuh"
 
@@ -62,9 +69,16 @@ namespace sm90 {
 template <int D>
 constexpr int default_aw() { return D < 64 ? D : 64; }
 
-// Map over a contiguous (bh, s, d) bf16 tensor whose box is one column chunk
-// of AW columns and `box_rows` rows of one head.
-template <int D, int AW = default_aw<D>()>
+// The TMA data type of a 16-bit element type E (__half or __nv_bfloat16).
+template <typename E>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<E, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// Map over a contiguous (bh, s, d) tensor of E whose box is one column
+// chunk of AW columns and `box_rows` rows of one head.
+template <typename E, int D, int AW = default_aw<D>()>
 cudaError_t encode_map(CUtensorMap* map, const void* base, int s, int bh,
                        int box_rows) {
   EncodeTiled fn = encode_fn();
@@ -73,7 +87,7 @@ cudaError_t encode_map(CUtensorMap* map, const void* base, int s, int bh,
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)s * D * 2};
   const cuuint32_t box[3] = {(cuuint32_t)AW, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUresult r = fn(map, map_type<E>(), 3,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         AW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -374,7 +388,7 @@ __device__ __forceinline__ void mask_scores_t(float (&s)[N / 2], float kb_a,
 }
 
 // ---------------------------------------------------------------------------
-// device: bf16 wgmma
+// device: fp16 / bf16 wgmma
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -382,190 +396,218 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t pack_half(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);  // .x = lo (low half)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values rounded to E (__half or __nv_bfloat16), lo in the low
+// half: a register A fragment's pair, or two neighbouring output elements.
+template <typename E>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) return pack_half(lo, hi);
+  else return pack_bf16(lo, hi);
+}
+
 // Accumulator layout of m64nNk16 (fp32): thread t of the warpgroup holds
 // d[4 j + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e],
 // the mma.sync C fragment of each 8-column block for its warp's 16 rows.
 // The register A fragment of a 16-column slice kk is the same four pairs:
 // {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
-// {d[8kk+6], d[8kk+7]}, packed to bf16.
-template <int N>
-struct Wgmma;
+// {d[8kk+6], d[8kk+7]}, each packed by `pack<E>` (the same order for .f16
+// and .bf16: the lower column in the low half).
 
-template <> struct Wgmma<16> {
-  // D (64 x 16) (+)= A (64 x 16, smem) * B (16 x 16, smem); TA / TB set:
-  // the operand is MN-major (transposed)
+#define SM90_ATTN_SS_16(TY)                                                   \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %10, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                        \
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                        \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
+
+#define SM90_ATTN_SS_32(TY)                                                   \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %18, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                                  \
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                    \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
+
+#define SM90_ATTN_RS_32(TY)                                                   \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %21, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                                  \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+
+#define SM90_ATTN_SS_64(TY)                                                   \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %34, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                    \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
+
+#define SM90_ATTN_RS_64(TY)                                                   \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %37, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+
+#define SM90_ATTN_SS_128(TY)                                                  \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %66, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                              \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                              \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                              \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                              \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                \
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
+
+#define SM90_ATTN_RS_128(TY)                                                  \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %69, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                              \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                              \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                              \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                              \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+
+
+// D (64 x N) (+)= A (64 x 16) * B, A and B of type E (__half: .f16,
+// __nv_bfloat16: .bf16).  ss: A from shared memory, B (N x 16) from shared
+// memory; TA / TB set: the operand is MN-major (transposed).  rs: A from
+// registers (packed by `pack<E>`), B (16 x N) from shared memory,
+// MN-major.  scale_d 0 overwrites D.
+template <int N, typename E>
+struct Wgmma {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "N 16 to 128");
+  static_assert(std::is_same<E, __half>::value ||
+                    std::is_same<E, __nv_bfloat16>::value,
+                "fp16 or bf16 operands");
+  static constexpr bool kF16 = std::is_same<E, __half>::value;
+
   template <int TA = 0, int TB = 0>
-  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    if constexpr (N == 16) {
+      if constexpr (kF16) SM90_ATTN_SS_16("f16"); else SM90_ATTN_SS_16("bf16");
+    } else if constexpr (N == 32) {
+      if constexpr (kF16) SM90_ATTN_SS_32("f16"); else SM90_ATTN_SS_32("bf16");
+    } else if constexpr (N == 64) {
+      if constexpr (kF16) SM90_ATTN_SS_64("f16"); else SM90_ATTN_SS_64("bf16");
+    } else {
+      if constexpr (kF16) SM90_ATTN_SS_128("f16"); else SM90_ATTN_SS_128("bf16");
+    }
+  }
+
+  static __device__ __forceinline__ void rs(float (&d)[N / 2],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+    static_assert(N != 16, "no register-A product at N = 16");
+    if constexpr (N == 32) {
+      if constexpr (kF16) SM90_ATTN_RS_32("f16"); else SM90_ATTN_RS_32("bf16");
+    } else if constexpr (N == 64) {
+      if constexpr (kF16) SM90_ATTN_RS_64("f16"); else SM90_ATTN_RS_64("bf16");
+    } else if constexpr (N == 128) {
+      if constexpr (kF16) SM90_ATTN_RS_128("f16"); else SM90_ATTN_RS_128("bf16");
+    }
   }
 };
 
-template <> struct Wgmma<32> {
-  // D (64 x 32) (+)= A (64 x 16, smem) * B (32 x 16, smem); TA / TB set:
-  // the operand is MN-major (transposed)
-  template <int TA = 0, int TB = 0>
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-  // D (64 x 32) (+)= A (64 x 16, registers) * B (16 x 32, smem, MN-major)
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-template <> struct Wgmma<64> {
-  // D (64 x 64) (+)= A (64 x 16, smem) * B (64 x 16, smem); TA / TB set:
-  // the operand is MN-major (transposed)
-  template <int TA = 0, int TB = 0>
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-  // D (64 x 64) (+)= A (64 x 16, registers) * B (16 x 64, smem, MN-major)
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-template <> struct Wgmma<128> {
-  // D (64 x 128) (+)= A (64 x 16, smem) * B (128 x 16, smem); TA / TB set:
-  // the operand is MN-major (transposed)
-  template <int TA = 0, int TB = 0>
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-  // D (64 x 128) (+)= A (64 x 16, registers) * B (16 x 128, smem, MN-major)
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
+#undef SM90_ATTN_SS_16
+#undef SM90_ATTN_SS_32
+#undef SM90_ATTN_SS_64
+#undef SM90_ATTN_SS_128
+#undef SM90_ATTN_RS_32
+#undef SM90_ATTN_RS_64
+#undef SM90_ATTN_RS_128
 
 }  // namespace sm90

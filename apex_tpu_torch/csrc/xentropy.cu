@@ -11,14 +11,17 @@
 // What bounds it: bytes.  Each logit is read once (~5 flops and one exp an
 // element); at the training shape (4096 x 30592 bf16, 250.6 MB) the least
 // time is ~75 us.  Design: one 256-thread block per row walks the vocab in
-// 16-byte vectors (8 bf16 / 4 fp32; scalar loads when rows are not 16-byte
-// aligned, i.e. V not a multiple of the vector), each thread keeping an
-// online (max, sum of exp) pair, the row sum and the gold logit in fp32;
-// the pairs merge by warp shuffles and one shared-memory step.  Columns
-// past V in the last vector are masked.  Speed work is for later.
+// 16-byte vectors (8 fp16 / bf16 or 4 fp32; scalar loads when rows are not
+// 16-byte aligned, i.e. V not a multiple of the vector), each thread
+// keeping an online (max, sum of exp) pair, the row sum and the gold logit
+// in fp32; the pairs merge by warp shuffles and one shared-memory step.
+// Columns past V in the last vector are masked.  An fp16 logit that is inf
+// or NaN is read as it is, so the loss is what the plain version gives.
+// Speed work is for later.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -26,10 +29,12 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeF16 = 2;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 struct Acc {
   float m, s, xsum;  // running max, sum of exp(x - m), sum of x
@@ -136,5 +141,7 @@ extern "C" int apex_xent_fwd(const void* logits, const void* labels,
     return (int)launch<float>(logits, lab, lo, ls, n, v, smoothing, s);
   if (dtype == kDtypeBF16)
     return (int)launch<__nv_bfloat16>(logits, lab, lo, ls, n, v, smoothing, s);
+  if (dtype == kDtypeF16)
+    return (int)launch<__half>(logits, lab, lo, ls, n, v, smoothing, s);
   return (int)cudaErrorInvalidValue;
 }

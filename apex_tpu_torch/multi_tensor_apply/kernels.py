@@ -63,7 +63,7 @@ def _check_l2norm_input(flat: torch.Tensor) -> int:
     if flat.dim() != 1:
         raise ValueError(f"l2norm takes a 1-D flat buffer, got shape "
                          f"{tuple(flat.shape)}")
-    code = build.dtype_code(flat.dtype, build.F32_BF16, "the l2norm kernel")
+    code = build.dtype_code(flat.dtype, "the l2norm kernel")
     if not flat.is_contiguous() or flat.data_ptr() % _VEC_BYTES:
         raise ValueError("l2norm kernel needs a contiguous, 16-byte aligned "
                          "buffer")
@@ -71,8 +71,8 @@ def _check_l2norm_input(flat: torch.Tensor) -> int:
 
 
 def multi_tensor_l2norm(flat: torch.Tensor) -> torch.Tensor:
-    """sqrt(sum x^2) over a 1-D buffer (fp32 or bf16), accumulated in fp32;
-    a 0-d fp32 tensor on the buffer's device."""
+    """sqrt(sum x^2) over a 1-D buffer (fp32, bf16 or fp16), accumulated in
+    fp32; a 0-d fp32 tensor on the buffer's device."""
     if not flat.is_cuda:
         return multi_tensor_l2norm_reference(flat)
     code = _check_l2norm_input(flat)
@@ -160,11 +160,10 @@ def _check_update_inputs(name, bufs, scalars, n_scalars):
 
 
 def _copy_code(model_dtype: Optional[torch.dtype]) -> int:
-    """The code of Adam's model copy: none, fp32 or bf16."""
+    """The code of Adam's model copy: none, fp32, bf16 or fp16."""
     if model_dtype is None:
         return _COPY_NONE
-    return build.dtype_code(model_dtype, build.F32_BF16,
-                            "the Adam kernel's model copy")
+    return build.dtype_code(model_dtype, "the Adam kernel's model copy")
 
 
 def _update_blocks(n: int) -> int:
@@ -177,8 +176,8 @@ def fused_adam_flat(flat_g, flat_p, flat_m, flat_v, scalars, *,
     """Adam / AdamW over flat fp32 g, p, m, v.  ``scalars`` (1, 8) fp32:
     [lr, beta1, beta2, eps, wd, rc1, rc2, scale] with rc1 = 1/(1-beta1^t),
     rc2 = 1/(1-beta2^t) and ``scale`` the gradient's multiplier (unscale
-    times clip).  Returns new [p, m, v] (+ p in ``model_dtype``, fp32 or
-    bf16, when given)."""
+    times clip).  Returns new [p, m, v] (+ p in ``model_dtype``, fp32, bf16
+    or fp16, when given)."""
     if not flat_g.is_cuda:
         return fused_adam_flat_reference(flat_g, flat_p, flat_m, flat_v,
                                          scalars, adam_w_mode=adam_w_mode,
@@ -287,8 +286,8 @@ def _scale_axpby(name, key, xs, scalars, out_dtype):
     x = xs[0]
     out_dtype = out_dtype or x.dtype
     n = x.numel()
-    in_code = build.dtype_code(x.dtype, build.FLOATS, f"{name}'s input")
-    out_code = build.dtype_code(out_dtype, build.FLOATS, f"{name}'s output")
+    in_code = build.dtype_code(x.dtype, f"{name}'s input")
+    out_code = build.dtype_code(out_dtype, f"{name}'s output")
     for t in xs:
         if t.dtype != x.dtype:
             raise TypeError(f"{name} takes buffers of one dtype, got "

@@ -65,7 +65,7 @@ def _check_cuda_inputs(x, w, b):
         raise TypeError(f"fused_dense_act kernel takes x, w and b of one "
                         f"dtype, got {x.dtype}, {w.dtype}, "
                         f"{None if b is None else b.dtype}")
-    code = build.dtype_code(x.dtype, build.FLOATS, "the dense-act kernel")
+    code = build.dtype_code(x.dtype, "the dense-act kernel")
     (m, k), n = x.shape, w.shape[1]
     if min(m, n, k) < 1 or -(-m // 64) > 65535:
         raise ValueError(f"fused_dense_act kernel takes 1 <= M <= 4194240 "

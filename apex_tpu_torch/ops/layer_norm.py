@@ -21,8 +21,9 @@ from ..utils import build
 __all__ = ["ln_fwd", "ln_fwd_reference", "ln_bwd", "ln_bwd_reference",
            "LayerNormFunction", "MAX_H"]
 
-#: widest row the kernel takes: 1024 16-byte vectors (4096 fp32, 8192 bf16)
-MAX_H = {torch.float32: 4096, torch.bfloat16: 8192}
+#: widest row the kernel takes: 1024 16-byte vectors (4096 fp32, 8192 bf16
+#: or fp16)
+MAX_H = {torch.float32: 4096, torch.bfloat16: 8192, torch.float16: 8192}
 
 
 def ln_fwd_reference(x2d: torch.Tensor, weight: Optional[torch.Tensor],
@@ -44,8 +45,7 @@ def _check_cuda_inputs(x2d, weight, bias):
     if x2d.dim() != 2:
         raise ValueError(f"ln_fwd takes x (N, H), got shape {tuple(x2d.shape)}")
     n, h = x2d.shape
-    if x2d.dtype not in MAX_H:
-        raise TypeError(f"ln_fwd kernel takes float32/bfloat16, got {x2d.dtype}")
+    build.dtype_code(x2d.dtype, "the layer-norm x")
     if h % 8 or h > MAX_H[x2d.dtype] or n == 0:
         raise ValueError(f"ln_fwd kernel needs N > 0 and H a multiple of 8 up "
                          f"to {MAX_H[x2d.dtype]} for {x2d.dtype}, got ({n}, {h})")
@@ -67,7 +67,7 @@ def _check_param(t, name, x2d):
     if t.shape != (h,) or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous ({h},), got "
                          f"{tuple(t.shape)}")
-    build.dtype_code(t.dtype, build.F32_BF16, f"the layer-norm {name}")
+    build.dtype_code(t.dtype, f"the layer-norm {name}")
 
 
 def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
@@ -84,9 +84,8 @@ def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
     out = torch.empty_like(x2d)
     mean = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
     invvar = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
-    code = build.dtype_code(x2d.dtype, build.F32_BF16, "the layer-norm x")
-    w_code = (build.dtype_code(weight.dtype, build.F32_BF16,
-                               "the layer-norm weight")
+    code = build.dtype_code(x2d.dtype, "the layer-norm x")
+    w_code = (build.dtype_code(weight.dtype, "the layer-norm weight")
               if weight is not None else code)
     err = build.library().apex_ln_fwd(
         x2d.data_ptr(),
@@ -137,9 +136,8 @@ def ln_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
     if weight is not None:
         _check_param(weight, "weight", x2d)
     dx = torch.empty_like(x2d)
-    code = build.dtype_code(x2d.dtype, build.F32_BF16, "the layer-norm x")
-    w_code = (build.dtype_code(weight.dtype, build.F32_BF16,
-                               "the layer-norm weight")
+    code = build.dtype_code(x2d.dtype, "the layer-norm x")
+    w_code = (build.dtype_code(weight.dtype, "the layer-norm weight")
               if weight is not None else code)
     err = build.library().apex_ln_bwd(
         g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), invvar.data_ptr(),

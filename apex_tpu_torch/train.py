@@ -114,6 +114,30 @@ heads, ``--norm-add --biases``), with any of the functional optimizers::
     for batch in batches:       # {"query": (T, B, E), "target", masks}
         opt_state, loss = mha_train_step(layers, opt, opt_state, batch,
                                          dropout_rng=gen)
+
+:func:`rnn_lm_train_step` trains the multiplicative-LSTM byte model of
+Radford et al. 2017 (NVIDIA's ``sentiment-discovery``): a 64-wide
+embedding of 256 bytes, one 4096-unit mLSTM (:mod:`apex_tpu_torch.RNN`)
+with weight norm on its four weights
+(:mod:`apex_tpu_torch.reparameterization`), a 4096 -> 256 decoder and the
+softmax cross-entropy (kernel #7), in fp16 under the legacy
+``FP16_Optimizer`` with dynamic loss scaling; truncated backpropagation
+through time carries the hidden state from one step to the next::
+
+    params, spec, rnn = rnn_lm_init(gen)           # fp32
+    params = tree_map(lambda p: p.half(), params)  # fp16 model
+    opt = FP16_Optimizer(FusedAdam(lr=5e-4), params,
+                         dynamic_loss_scale=True)
+    hx = None
+    for tokens, targets in batches:                # (T, B) int64 each
+        params, loss, hx = rnn_lm_train_step(
+            opt, params, spec, {"tokens": tokens, "targets": targets,
+                                "hx": hx}, rnn=rnn)
+
+2:4 sparsity (ASP) needs no step of its own: ``amp.initialize(params,
+asp.wrap_optimizer(FusedLAMB(impl="fused"), masks), "O5")`` then
+:func:`train_step` reaches ``SparseOptimizer.step_flat`` through amp's
+flat fast path.
 """
 from __future__ import annotations
 
@@ -124,6 +148,8 @@ import torch
 import torch.distributed as dist
 
 from . import amp, checkpoint
+from .RNN import RNNContainer, mLSTM
+from .contrib.xentropy import softmax_xentropy_loss
 from .data.sharded import ShardedLoader, open_dataset
 from .models.dcgan import (DCGANConfig, discriminator_apply,
                            generator_apply)
@@ -131,6 +157,7 @@ from .models.resnet import ResNetConfig, resnet_apply
 from .models.transformer import TransformerConfig, transformer_loss
 from .parallel.distributed import allreduce_tree
 from .parallel.mesh import group_size, resolve_group
+from .reparameterization import apply_weight_norm, compute_weights
 from .utils.device import resolve_device
 from .utils.pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
@@ -140,7 +167,8 @@ __all__ = ["train_step", "zero_train_step", "mlp_train_step",
            "bce_logits", "dcgan_train_step", "resnet_checkpoint_entries",
            "resnet_resume", "resnet_checkpoint_from_jax",
            "resnet_sharded_batches", "mha_params", "mha_apply",
-           "mha_train_step"]
+           "mha_train_step", "rnn_lm_init", "rnn_lm_loss",
+           "rnn_lm_train_step"]
 
 
 def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
@@ -448,3 +476,69 @@ def mha_train_step(model, opt, opt_state, batch: Dict[str, torch.Tensor],
         for n, p in zip(names, params):
             p.copy_(new_params[n])
     return new_state, loss.detach()
+
+
+#: the mLSTM's weight-normed leaves (the reference's sentiment-discovery
+#: model normalises these four, over dim 0)
+RNN_LM_WN_NAMES = ("w_ih", "w_hh", "w_mih", "w_mhh")
+
+
+def rnn_lm_init(gen: torch.Generator, *, vocab: int = 256, emb: int = 64,
+                hidden: int = 4096, device=None):
+    """The byte mLSTM's fp32 parameters, drawn on the CPU from ``gen`` and
+    put on ``device`` (default ``"cuda"``): ``{"embed": (vocab, emb),
+    "rnn": {"layer0": the mLSTM's leaves, w_ih / w_hh / w_mih / w_mhh as
+    {weight_g, weight_v}}, "dec": {"w": (hidden, vocab), "b": (vocab,)}}``.
+    Returns ``(params, spec, rnn)``: the weight-norm spec for
+    :func:`~apex_tpu_torch.reparameterization.compute_weights` and the
+    :class:`~apex_tpu_torch.RNN.RNNContainer`."""
+    dev = resolve_device(device)
+    rnn = mLSTM(emb, hidden, 1)
+    std = 1.0 / hidden ** 0.5
+    params = {
+        "embed": torch.randn(vocab, emb, generator=gen).to(dev),
+        "rnn": rnn.init(gen, device=dev),
+        "dec": {"w": (torch.rand(hidden, vocab, generator=gen) * (2 * std)
+                      - std).to(dev),
+                "b": torch.zeros(vocab, device=dev)},
+    }
+    params, spec = apply_weight_norm(params, names=RNN_LM_WN_NAMES, dim=0)
+    return params, spec, rnn
+
+
+def rnn_lm_loss(params, spec, batch: Dict[str, torch.Tensor],
+                rnn: RNNContainer):
+    """The byte model's forward: the weights from their (g, v) pairs, the
+    embedding of ``batch["tokens"]`` (T, B), the mLSTM from
+    ``batch.get("hx")`` (zeros where absent), the decoder's (T * B, vocab)
+    logits and their mean cross-entropy against ``batch["targets"]``
+    (kernel #7, fp32 out of fp16 logits).  Returns ``(loss, final hidden
+    list)``."""
+    w = compute_weights(params, spec)
+    tokens = batch["tokens"]
+    x = w["embed"][tokens]
+    out, finals = rnn.apply(w["rnn"], x, batch.get("hx"))
+    logits = out.reshape(-1, out.shape[-1]) @ w["dec"]["w"] + w["dec"]["b"]
+    # every byte is a label: no padding index among 0..vocab-1
+    losses = softmax_xentropy_loss(logits, batch["targets"].reshape(-1),
+                                   padding_idx=-1, half_to_float=True)
+    return losses.mean(), finals
+
+
+def rnn_lm_train_step(fp16_opt, params, spec, batch: Dict[str, torch.Tensor],
+                      *, rnn: RNNContainer):
+    """One truncated-BPTT step of the byte model under ``fp16_opt`` (an
+    ``FP16_Optimizer`` over ``params``, the fp16 model tree): the scaled
+    loss's gradients over every leaf (g and v included), then
+    ``fp16_opt.step``, which updates the fp32 masters or skips the step
+    when a gradient overflowed.  Returns ``(new_params, loss, hidden)``:
+    the loss the unscaled 0-d fp32 tensor, the final hidden state detached
+    for the next step's ``batch["hx"]``."""
+    leaves, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss, finals = rnn_lm_loss(tree_unflatten(treedef, leaves), spec, batch,
+                               rnn)
+    grads = torch.autograd.grad(fp16_opt.scale_loss(loss), leaves)
+    new_params = fp16_opt.step(tree_unflatten(treedef, list(grads)))
+    hidden = [tuple(h.detach() for h in hs) for hs in finals]
+    return new_params, loss.detach(), hidden

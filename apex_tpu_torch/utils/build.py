@@ -14,9 +14,10 @@ an exception.  ``LAUNCHES`` counts kernel launches by name (``flash_fwd``,
 ``flash_bwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``ln_fwd``,
 ``ln_bwd``, ``xent_fwd``, ``l2norm``, ``adam``, ``lamb_stage1``,
 ``mt_scale``, ``mt_axpby``, ``dense_act``): a wrapper adds one where it
-launches its kernel and nowhere else.  :func:`dtype_code` takes the dtypes
-the calling kernel accepts, so a kernel that has no float16 branch rejects
-float16 with a ``TypeError`` before any launch.  Headers
+launches its kernel and nowhere else.  :func:`dtype_code` gives a
+dtype's C code; every kernel has an fp32, a bf16 and an fp16 branch
+(:data:`FLOATS`), and any other dtype is refused with a ``TypeError``
+before any launch.  Headers
 (``csrc/*.cuh``) are not compiled on their own but count in the hash.
 """
 from __future__ import annotations
@@ -35,7 +36,7 @@ from typing import List, Optional
 import torch
 
 __all__ = ["LAUNCHES", "BuildResult", "build", "load", "library", "check",
-           "dtype_code", "stream_of", "NVCC_FLAGS", "F32_BF16", "FLOATS"]
+           "dtype_code", "stream_of", "NVCC_FLAGS", "FLOATS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -49,10 +50,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: what a kernel may accept: the kernels of the first three slices take
-#: fp32 and bf16; the multi-tensor scale / axpby and the fused dense
-#: kernels take fp16 too
-F32_BF16 = (torch.float32, torch.bfloat16)
+#: the floating types the kernels take: each has an fp32, a bf16 and an
+#: fp16 branch, as the JAX package's kernels compute at any float type
 FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -208,12 +207,11 @@ def check(err: int, name: str) -> None:
                            f"{err} ({msg})")
 
 
-def dtype_code(dtype: torch.dtype, allowed, what: str = "the kernel") -> int:
+def dtype_code(dtype: torch.dtype, what: str = "the kernel") -> int:
     """The C code of ``dtype``; ``TypeError`` unless it is one of
-    ``allowed`` (:data:`F32_BF16` or :data:`FLOATS`), the dtypes the
-    kernel has a branch for."""
-    if dtype not in allowed:
-        names = "/".join(str(d).replace("torch.", "") for d in allowed)
+    :data:`FLOATS`, the dtypes every kernel has a branch for."""
+    if dtype not in FLOATS:
+        names = "/".join(str(d).replace("torch.", "") for d in FLOATS)
         raise TypeError(f"{what} takes {names}, got {dtype}")
     return _DTYPE_CODES[dtype]
 

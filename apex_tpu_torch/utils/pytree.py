@@ -18,7 +18,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_leaves",
-           "tree_leaves_with_path", "tree_map", "path_str", "is_norm_path",
+           "tree_leaves_with_path", "tree_map", "tree_map_with_path",
+           "path_str", "is_norm_path",
            "cast_tree", "convert_network", "cast_inputs",
            "master_params_from", "master_to_model", "tree_cast_like",
            "is_float"]
@@ -109,6 +110,31 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     leaves, treedef = tree_flatten(tree)
     others = [treedef_leaves(treedef, r) for r in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_map_with_path(fn: Callable, tree, *,
+                       is_leaf: Optional[Callable] = None) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree`` (a path is the tuple
+    of keys to the leaf), the structure kept; a node where ``is_leaf(node)``
+    is True is handed to ``fn`` whole (``jax.tree_util.tree_map_with_path``
+    with its ``is_leaf``).  ``fn`` may return a subtree."""
+    def walk(t, path):
+        if t is None:
+            return None
+        if is_leaf is not None and is_leaf(t):
+            return fn(path, t)
+        node = _children(t)
+        if node is None:
+            return fn(path, t)
+        kind, keys, kids = node
+        vals = [walk(c, path + (k,)) for k, c in zip(keys, kids)]
+        if kind == "dict":
+            return dict(zip(keys, vals))
+        if kind in (list, tuple):
+            return kind(vals)
+        return kind(*vals)          # a named tuple
+
+    return walk(tree, ())
 
 
 def treedef_leaves(treedef, tree) -> List[Any]:

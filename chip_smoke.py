@@ -17,7 +17,7 @@ NVIDIA GPU.
                                       # against it and cuBLAS; no result
                                       # line
     python3 chip_smoke.py --variants flash   # (or gemm): one study only
-    python3 chip_smoke.py --seed 3    # phase 20's weights, data and masks
+    python3 chip_smoke.py --seed 3    # phases 20-21's weights, data and masks
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -37,7 +37,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    of 1, 127, 129, 200 x 333, Sk below one k tile and exactly one, causal
    with Sq != Sk, each bias shape with a dead row (the attention modules'
    (1, Sq, Sk) time mask among them), dropout, D = 32 and 128, the
-   two-warpgroup kernels), checked and not timed;
+   two-warpgroup kernels; five of them in fp16), checked and not timed;
 3b. the same for the training path's kernels: layer-norm backward,
    cross-entropy forward, the l2norm of the flat master-sized buffer and
    the flash backward (whose dropout case also goes against autograd of
@@ -182,6 +182,35 @@ Phases, in order; any failure exits nonzero and prints no result line:
    2, the same bits, ``ml_dtypes`` never imported, the kernels' launch
    counts; (d) save / verify / load / restore times, MB and MB/s, the
    shard scan and the loader's wait per batch;
+21. (run after 19, before 20: no profiler window precedes it) fp16
+   through the kernels and the slice's new modules: (a) the fp16 instance
+   of #1-#7, #9 and #12's model copy against its plain version at the
+   shapes its paths give it (#1 / #4 at the MHA stacks' BH 1920 x 64 x
+   64 / 96 x 64 with the (B, 1, Sk) key padding and dropout 0.1 from one
+   int seed; #2 / #3 on the split route at the long shape, held on its
+   first 8 heads; #5 / #6 at 7,680 x 1024 and 4096 x 1024 with fp16
+   gamma / beta; #7 at 32,768 x 256 and 4096 x 30,592; #9 and #12's fp16
+   copy over 25,296,896 elements), each timed beside its bf16 instance,
+   the plain version and the fp16 library call; (b) the MHA perf test in
+   its own dtype: 18 fp16 ``SelfMultiheadAttn`` layers as 20b's, its
+   first two layers held to the same layers in fp32 on the card (1e-2
+   relative in norm, one int dropout seed), then forward and backward
+   timed with no optimizer (1 warm-up + 10), fast then default, exactly
+   18 each of #1, #4, #5 and #6 a step; (c) the byte mLSTM of Radford et
+   al. 2017 (vocab 256, a 64-wide embedding, a 4096-unit mLSTM with
+   weight norm on its four weights, a 4096 -> 256 decoder): card vs CPU
+   in fp32 at full width, T 8 x B 4 (the loss, the final state and every
+   gradient, g and v included, 1e-4 on the peak rule), then fp16 under
+   ``FP16_Optimizer(FusedAdam(lr=5e-4))`` with a dynamic scale from
+   2^16, batch 128 x 256 bytes of a seeded peaked Markov chain, the
+   hidden state carried across steps, 1 warm-up + 3 timed steps: step
+   time, bytes/s, analytic MFU, peak memory, the scales and skipped
+   steps, a falling loss, exactly one #7 a step; (d) ASP on phase 7's O5
+   step: 2:4 masks of ``wqkv``, ``wo``, ``w1``, ``w2`` computed on the
+   card (layers 0 and 23 the CPU's bits), pruned, FusedLAMB wrapped and
+   reached through amp's flat path, 1 warm-up + 3 timed steps, the bf16
+   model and the fp32 master 2:4 after each, the masks recomputing to
+   themselves, exactly phase 7's launches, the step beside phase 7's;
 20. the attention modules on the stack of apex's
    ``perf_test_multihead_attn.py`` (hidden 1024, 16 heads, 64 tokens):
    (a) card vs CPU, 2 layers, 8 sequences, output and every parameter's
@@ -206,13 +235,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
    strict upper triangle reaches the kernels as a zero (1, 1, S) bias
    with ``causal=True``, any other (Sq, Sk) time mask as a (1, Sq, Sk)
    bias, each held to ``impl="default"`` on the card (2e-3);
-21. the dense cases of phase 3d once more under ``torch.profiler``: the
+22. the dense cases of phase 3d once more under ``torch.profiler``: the
    dense kernels it lists must be the kernels ``_route`` names (run last,
    so that no profiler session precedes the timed paths);
-22. one ``{"kernels": [...]}`` line: each kernel's launches from the path
+23. one ``{"kernels": [...]}`` line: each kernel's launches from the path
    it serves (``launches_by_path`` gives every path's count, the
    ResNet-50, toy-DDP, DCGAN and phase-19 ResNet-50 paths' 0 included, the
-   phase-19 BERT leg's and phase 20's counts), then the card's name
+   phase-19 BERT leg's and phases 20's and 21's counts; ``fp16`` the fp16
+   instance's row of 21a), then the card's name
    and power limit, then the last line ``{"ok": true, "device": {...}}``.
    Every process group is destroyed before exit.
 
@@ -230,7 +260,11 @@ repeat bit for bit.  The Adam and LAMB stage-1 kernels are held to 1e-6
 relative (the same IEEE operations in the same order as the plain
 version).  The scale and axpby kernels must give the plain versions' bits
 and flags.  The fused dense kernel: fp32 1e-5, bf16 2e-2, fp16 4e-3 (both
-versions round one fp32 value whose sums ran in other orders).
+versions round one fp32 value whose sums ran in other orders).  The fp16
+instances of the other kernels (phase 21a and the fp16 edge cases): an
+output within 5e-3 (the peak rule for attention), a gradient within 2e-3
+relative in norm, fp32 results of fp16 inputs at their fp32 limits, the
+fp16 model copy within 1e-3 relative.
 ``max_abs_err`` reports the plain absolute difference.
 """
 from __future__ import annotations
@@ -325,7 +359,22 @@ TRAIN_LAUNCHES_PER_STEP = {
     # backward through the kernels (a "step" is the whole phase)
     "mha_time_mask": dict({k: 0 for k in ALL_KERNELS}, flash_fwd=4,
                           flash_bwd=4),
+    # phase 21b: the 18-layer self stack in fp16, forward + backward with no
+    # optimizer (a "step"), exactly; `--ref` the layer norms only
+    "fp16_mha_self": dict({k: 0 for k in ALL_KERNELS}, flash_fwd=18,
+                          flash_bwd=18, ln_fwd=18, ln_bwd=18),
+    "fp16_mha_self_default": dict({k: 0 for k in ALL_KERNELS}, ln_fwd=18,
+                                  ln_bwd=18),
+    # phase 21c: the byte mLSTM, exactly: its loss is the one kernel
+    # (matmuls in cuBLAS, the cells and weight norm eager PyTorch, the
+    # legacy FP16_Optimizer over FusedAdam's per-leaf math)
+    "rnn_lm_fp16": dict({k: 0 for k in ALL_KERNELS}, xent_fwd=1),
 }
+# phase 21d: ASP on phase 7's step launches exactly what phase 7 does
+TRAIN_LAUNCHES_PER_STEP["asp_o5_lamb"] = dict(
+    {k: 0 for k in ALL_KERNELS}, **TRAIN_LAUNCHES_PER_STEP["o5_lamb"])
+# numbers a later phase reads beside its own (phase 7's step for 21d)
+RESULTS = {}
 # paths that launch none of the 13 kernels: every kernel's line lists
 # them, as it lists every path of TRAIN_LAUNCHES_PER_STEP
 ZERO_PATHS = ("rn50_o2", "rn50_ddp", "simple_ddp_o1", "dcgan_o4",
@@ -579,7 +628,8 @@ def _flash_inputs(B, heads, sq, sk, d, kind, gen, dt, dev):
 # Edge cases of the bf16 flash kernels' tiles (the forward: 128 keys a
 # stage, 64 or 128 query rows a CTA; dq: 64 keys a stage; the fused and
 # dk/dv kernels: 128 keys a CTA, 64 query rows a stage): held to the plain
-# versions, not timed.  name, B, heads, Sq, Sk, D, bias, causal, dropout
+# versions, not timed.  name, B, heads, Sq, Sk, D, bias, causal, dropout[,
+# dtype: bf16 unless a case names fp16]
 FLASH_EDGE_CASES = [
     ("s1", 1, 4, 1, 1, 64, "zeros", False, 0.0),
     ("s1_causal", 1, 4, 1, 1, 64, "key_pad", True, 0.0),
@@ -616,6 +666,17 @@ FLASH_EDGE_CASES = [
     ("time_mask_mha", 2, 16, 64, 64, 64, "time_dead", False, 0.1),
     ("time_mask_ragged", 2, 2, 129, 200, 64, "time_dead", False, 0.0),
     ("time_mask_causal", 2, 3, 200, 130, 32, "time_dead", True, 0.1),
+    # the fp16 instances on the same edges: ragged with dropout, the
+    # two-warpgroup kernels, D = 32 and 128, the MHA stack's time mask
+    ("fp16_dropout", 2, 2, 129, 200, 64, "pad_dead", True, 0.1, "float16"),
+    ("fp16_wide_ragged", 2, 66, 200, 333, 64, "pad_dead", True, 0.1,
+     "float16"),
+    ("fp16_d32_sk255", 2, 2, 130, 255, 32, "batch_pad_dead", True, 0.1,
+     "float16"),
+    ("fp16_d128", 2, 2, 65, 129, 128, "batch_pad_dead", False, 0.0,
+     "float16"),
+    ("fp16_time_mask_mha", 2, 16, 64, 64, 64, "time_dead", False, 0.1,
+     "float16"),
 ]
 
 
@@ -637,10 +698,11 @@ def _fused_partials(args, part):
 
 
 def check_flash_edges(dev, grad: bool):
-    """The bf16 kernels on :data:`FLASH_EDGE_CASES`: the forward (out within
-    2e-2 on the peak rule, live lse within 1e-4 relative, dead rows exact)
-    or, with ``grad``, on the kernel forward's lse, each held to its plain
-    version (2e-2, the peak rule): the split dq kernel, the dk/dv kernel
+    """The bf16 and fp16 kernels on :data:`FLASH_EDGE_CASES`: the forward
+    (out within 2e-2, fp16 5e-3, on the peak rule, live lse within 1e-4
+    relative, dead rows exact) or, with ``grad``, on the kernel forward's
+    lse, each held to its plain version (bf16 2e-2 on the peak rule, fp16
+    2e-3 relative in norm): the split dq kernel, the dk/dv kernel
     and the fused kernel, whose dk and dv must be the dk/dv kernel's bits;
     and the fused kernel's dq partials, written into a NaN-filled (BH,
     ceil(Sk / BWD_K_TILE), Sq, D) buffer, must be finite everywhere (each
@@ -651,17 +713,24 @@ def check_flash_edges(dev, grad: bool):
         _flash_bwd_dq_reference, _flash_bwd_fused, _flash_bwd_reference,
         _flash_fwd, _reference)
     gen = torch.Generator().manual_seed(13 if grad else 12)
-    for name, B, heads, sq, sk, d, kind, causal, rate in FLASH_EDGE_CASES:
+    for name, B, heads, sq, sk, d, kind, causal, rate, *dt in \
+            FLASH_EDGE_CASES:
+        dtype = getattr(torch, dt[0] if dt else "bfloat16")
+        fp16 = dtype == torch.float16
         q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, gen,
-                                      torch.bfloat16, dev)
+                                      dtype, dev)
         out, lse = _flash_fwd(q, k, v, bias, causal, rate, 77, heads)
         if grad:
-            do = _randn(q.shape, gen, torch.bfloat16, dev)
+            do = _randn(q.shape, gen, dtype, dev)
             delta = (do.float() * out.float()).sum(-1, keepdim=True)
             args = (q, k, v, bias, causal, rate, 77, heads, lse, delta, do)
             # over a single key the softmax is constant: dq and dk are 0 up
             # to rounding, which the peak rule would hold to itself
             rule = scaled_ok if sk == 1 else peak_ok
+            if fp16:
+                def rule(a, r, _tol):
+                    e = norm_rel(a, r)
+                    return e <= FP16_GRAD_TOL, e
             fused = _flash_bwd_fused(*args)
             dk, dv = _flash_bwd_dkv(*args)
             errs = {}
@@ -670,13 +739,15 @@ def check_flash_edges(dev, grad: bool):
                     ("dk", dk, _flash_bwd_dkv_reference(*args)[0])):
                 ok, errs[gname] = rule(a, r, 2e-2)
                 require(ok, f"flash split edge {name} {gname}: err "
-                        f"{errs[gname]:.3g} (tol 2e-2)")
+                        f"{errs[gname]:.3g} (tol 2e-2; fp16 "
+                        f"{FP16_GRAD_TOL} in norm)")
             for gname, a, r in zip(("fused dq", "fused dk", "fused dv"),
                                    fused, _flash_bwd_reference(*args)):
-                ok, errs[gname] = (peak_ok if gname == "fused dv" else rule)(
-                    a, r, 2e-2)
+                ok, errs[gname] = (peak_ok if gname == "fused dv"
+                                   and not fp16 else rule)(a, r, 2e-2)
                 require(ok, f"flash_bwd edge {name} {gname}: err "
-                        f"{errs[gname]:.3g} (tol 2e-2)")
+                        f"{errs[gname]:.3g} (tol 2e-2; fp16 "
+                        f"{FP16_GRAD_TOL} in norm)")
             require(torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]),
                     f"flash edge {name}: the dk/dv kernel and the fused "
                     "kernel give different dk or dv")
@@ -688,23 +759,26 @@ def check_flash_edges(dev, grad: bool):
                 part.sum(dim=1).to(q.dtype), fused[0]),
                 f"flash edge {name}: dq partials {tuple(part.shape)} not all "
                 "written, or not the wrapper's dq")
+            rule_text = (f"{FP16_GRAD_TOL} in norm" if fp16
+                         else "2e-2, peak rule")
             log(f"  flash_bwd edge {name:18s} " + " ".join(
-                f"{g} {e:.3g}" for g, e in errs.items()) + " (tol 2e-2, peak "
-                f"rule); dk/dv = fused bits; partials {tuple(part.shape)} "
-                "all written")
+                f"{g} {e:.3g}" for g, e in errs.items()) + f" (tol "
+                f"{rule_text}); dk/dv = fused bits; partials "
+                f"{tuple(part.shape)} all written")
             continue
         torch.cuda.synchronize()
         r_out, r_lse = _reference(q, k, v, bias, causal, rate, 77, heads)
-        ok, err = peak_ok(out, r_out, 2e-2)
+        tol = FP16_OUT_TOL if fp16 else 2e-2
+        ok, err = peak_ok(out, r_out, tol)
         live = r_lse < 1e29
         l_err = rel_err(lse[live], r_lse[live]) if bool(live.any()) else 0.0
         dead_ok = bool((lse[~live] == r_lse[~live]).all()) and bool(
             (out[(~live)[..., 0]] == 0).all())
         require(ok and l_err <= 1e-4 and dead_ok,
-                f"flash edge {name}: out err {err:.3g} (tol 2e-2, peak "
+                f"flash edge {name}: out err {err:.3g} (tol {tol}, peak "
                 f"rule), lse rel err {l_err:.3g}, dead rows ok {dead_ok}")
-        log(f"  flash edge {name:18s} out err {err:.3g} (tol 2e-2, peak) lse "
-            f"{l_err:.2g} dead rows {int((~live).sum())}")
+        log(f"  flash edge {name:18s} out err {err:.3g} (tol {tol}, peak) "
+            f"lse {l_err:.2g} dead rows {int((~live).sum())}")
 
 
 def check_flash_bwd_graph(dev):
@@ -1826,6 +1900,7 @@ def phase_train(dev, card, profile=False):
             "O5 dtypes: bf16 model, fp32 flat masters")
     check_launches("o5_lamb", launches, 5)
     step_s = statistics.median(times)
+    RESULTS["o5_lamb_step_ms"] = step_s * 1e3
     tokens = 8 * 512
     mfu = 8 * n_params * tokens / step_s / 989e12
     log(f"  losses {[round(l, 5) for l in losses]}; launches in 5 steps "
@@ -4125,6 +4200,703 @@ def phase_mha_time_masks(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: fp16 through the kernels, the byte mLSTM, ASP on the O5 step
+# ---------------------------------------------------------------------------
+
+# phase 21c: the byte mLSTM of Radford et al. 2017 (vocab 256, a 64-wide
+# embedding, 4096 units), batch 128 x truncation 256
+RNN_VOCAB, RNN_EMB, RNN_HIDDEN, RNN_BATCH, RNN_T = 256, 64, 4096, 128, 256
+
+# the fp16 limits, set before the first card run: an output element within
+# 5e-3 on the peak rule (fp16's steps are 2^-11 relative, so both versions'
+# rounding of one fp32 value to neighbouring fp16 numbers stays far
+# inside), a gradient within 2e-3 relative in norm (its small elements
+# carry the cancellation of sums of rounded products, which a norm
+# averages out); the fp32 results of fp16 inputs (lse, the loss, the l2
+# norm) keep their fp32 limits
+FP16_OUT_TOL = 5e-3
+FP16_GRAD_TOL = 2e-3
+# the flat buffers of the fp16 l2norm and of Adam's fp16 model copy
+FP16_FLAT_N = 25_296_896
+
+
+def norm_rel(got, ref) -> float:
+    """|got - ref| / |ref| in norm, in fp32."""
+    ref = ref.float()
+    return float((got.float() - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def _by_dtype(make, dtypes=("float16", "bfloat16")):
+    """{dtype: make(torch dtype)} over ``dtypes``."""
+    import torch
+    return {dt: make(getattr(torch, dt)) for dt in dtypes}
+
+
+def _fp16_row(kernel, case, err, tol, ms, bf16_ms, pms, lms, library, bms,
+              by, extra=""):
+    lib = f"{lms:.5f} ms ({library})" if lms is not None else "none"
+    log(f"  {kernel} {case} fp16 err {err:.3g} (tol {tol}){extra} | kernel "
+        f"{ms:.5f} ms, bf16 instance {bf16_ms:.5f} ms  plain {pms:.5f} ms  "
+        f"library {lib}  bound {bms:.5f} ms ({by})")
+    return dict(kernel=kernel, case=case, dtype="float16", max_abs_err=err,
+                tol=tol, ms=ms, bf16_ms=bf16_ms, plain_ms=pms,
+                library_ms=lms, library=library, bound_ms=bms, bound_by=by)
+
+
+def check_fp16_flash(dev, module):
+    """#1 and #4 in fp16 at an MHA stack's shape (BH 1920 x 64 x Sk x 64,
+    Sk 64 for the self stack, 96 for the encdec one), with the stack's
+    (B, 1, Sk) key-padding bias and dropout 0.1 from one int seed: the
+    forward's output on the peak rule, lse 1e-4 relative, the fused
+    backward's dq, dk and dv in norm; timed beside the bf16 instances,
+    the plain versions and SDPA's flash forward and backward (no mask, no
+    dropout)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_fused, _flash_bwd_reference, _flash_fwd, _reference)
+    aten = torch.ops.aten
+    B, sq, d = MHA_SEQS, MHA_SQ, MHA_E // MHA_H
+    sk = MHA_SQ if module == "self" else MHA_SK
+    bh = B * MHA_H
+    gen = torch.Generator().manual_seed(41)
+    lens = torch.randint(sk // 2, sk + 1, (B,), generator=gen)
+    bias = torch.where(torch.arange(sk)[None, :] >= lens[:, None],
+                       torch.full((), -1e30), torch.zeros(())
+                       ).reshape(B, 1, sk).to(dev)
+    base = [torch.randn(s_, generator=gen) for s_ in
+            ((bh, sq, d), (bh, sk, d), (bh, sk, d), (bh, sq, d))]
+    base[0] = base[0] * d ** -0.5
+
+    def inputs(dt):
+        q, k, v, do = (t.to(dev, dt) for t in base)
+        args = (q, k, v, bias, False, 0.1, 5, MHA_H)
+        out, lse = _flash_fwd(*args)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        return args, out, lse, delta, do
+
+    ins = _by_dtype(inputs)
+    args, out, lse, delta, do = ins["float16"]
+    torch.cuda.synchronize()
+    r_out, r_lse = _reference(*args)
+    ok, f_err = peak_ok(out, r_out, FP16_OUT_TOL)
+    l_err = rel_err(lse, r_lse)
+    require(ok and l_err <= 1e-4 and bool((r_lse < 1e29).all()),
+            f"fp16 flash_fwd at the {module} stack's shape: out err "
+            f"{f_err:.3g} (tol {FP16_OUT_TOL}, peak rule), lse rel err "
+            f"{l_err:.3g}")
+    got = _flash_bwd_fused(*args, lse, delta, do)
+    torch.cuda.synchronize()
+    ref = _flash_bwd_reference(*args, lse, delta, do)
+    b_err = 0.0
+    for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+        require(bool(torch.isfinite(a).all()), f"fp16 flash_bwd {module} "
+                f"{gname}: not finite")
+        rel = norm_rel(a, r)
+        require(rel <= FP16_GRAD_TOL, f"fp16 flash_bwd at the {module} "
+                f"stack's shape: {gname} {rel:.3g} relative in norm (tol "
+                f"{FP16_GRAD_TOL})")
+        b_err = max(b_err, rel)
+    del got, ref, r_out, r_lse
+    times = {}
+    for dt, (a_, o_, l_, de_, do_) in ins.items():
+        times[dt] = (device_ms(lambda: _flash_fwd(*a_)),
+                     device_ms(lambda: _flash_bwd_fused(*a_, l_, de_, do_)))
+    f_pms = device_ms(lambda: _reference(*args), n=5)
+    b_pms = device_ms(lambda: _flash_bwd_reference(*args, lse, delta, do),
+                      n=5)
+    q4, k4, v4, do4 = (t.view(B, MHA_H, -1, d) for t in
+                       (args[0], args[1], args[2], do))
+    (o4, lse4, cq, ck, mq, mk, rs, ro,
+     _) = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False,
+                                                   False, scale=1.0)
+    lf = device_ms(lambda: aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, False, False, scale=1.0))
+    lb = device_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, False, rs, ro,
+        scale=1.0))
+    fb, fby = bound((2 * bh * sq * d + 2 * bh * sk * d) * 2
+                    + bias.numel() * 4 + bh * sq * 4,
+                    4.0 * d * sq * sk * bh, "float16")
+    bb, bby = bound(4 * bh * sq * d * 2 + 3 * bh * sk * d * 2
+                    + 2 * bh * sq * 4 + bias.numel() * 4,
+                    10.0 * d * sq * sk * bh, "float16")
+    case = f"{module} BH{bh}x{sq}x{sk}x{d}"
+    rows = [_fp16_row("flash_fwd", case, f_err, FP16_OUT_TOL,
+                      times["float16"][0], times["bfloat16"][0], f_pms, lf,
+                      "SDPA flash forward, no mask, no dropout", fb, fby,
+                      f", lse {l_err:.2g}"),
+            _fp16_row("flash_bwd", case, b_err, FP16_GRAD_TOL,
+                      times["float16"][1], times["bfloat16"][1], b_pms, lb,
+                      "SDPA flash backward, no mask, no dropout", bb, bby,
+                      " in norm")]
+    return rows
+
+
+def check_fp16_flash_split(dev):
+    """#2 and #3 in fp16 on the split route at the long-sequence shape (BH
+    64 x 4096 x 4096 x 64, past the fuse cap): held to the plain versions
+    on the first 8 heads in norm, timed beside the bf16 instances; the
+    plain time is that of the first 8 heads, SDPA's flash backward (dq, dk
+    and dv together) the library time."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dkv, _flash_bwd_dkv_reference, _flash_bwd_dq,
+        _flash_bwd_dq_reference, _flash_fwd, _resolve_fuse)
+    aten = torch.ops.aten
+    B, heads, S, d = LONG_SHAPE
+    bh = B * heads
+    require(not _resolve_fuse(None, bh, S, S, d), "the long shape fuses")
+    gen = torch.Generator().manual_seed(43)
+    bias = torch.zeros((1, 1, S), device=dev)
+    base = [torch.randn(s_, generator=gen) for s_ in ((bh, S, d),) * 4]
+    base[0] = base[0] * d ** -0.5
+
+    def inputs(dt):
+        q, k, v, do = (t.to(dev, dt) for t in base)
+        out, lse = _flash_fwd(q, k, v, bias, False, 0.0, 0, heads)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        return (q, k, v, bias, False, 0.0, 0, heads, lse, delta, do)
+
+    ins = _by_dtype(inputs)
+    args = ins["float16"]
+    dq = _flash_bwd_dq(*args)
+    dk, dv = _flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    q, k, v, _, _, _, _, _, lse, delta, do = args
+    sl = (q[:8], k[:8], v[:8], bias, False, 0.0, 0, 1, lse[:8], delta[:8],
+          do[:8])
+    r_dk, r_dv = _flash_bwd_dkv_reference(*sl)
+    errs = {"dq": norm_rel(dq[:8], _flash_bwd_dq_reference(*sl)),
+            "dk": norm_rel(dk[:8], r_dk), "dv": norm_rel(dv[:8], r_dv)}
+    del r_dk, r_dv, dq, dk, dv
+    for gname, e in errs.items():
+        require(e <= FP16_GRAD_TOL, f"fp16 flash split long shape {gname}: "
+                f"{e:.3g} relative in norm (tol {FP16_GRAD_TOL})")
+    q4, k4, v4, do4 = (t.view(B, heads, S, d) for t in (q, k, v, do))
+    (o4, lse4, cq, ck, mq, mk, rs, ro,
+     _) = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False,
+                                                   False, scale=1.0)
+    lms = device_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, False, rs, ro,
+        scale=1.0))
+    del o4, lse4
+    io = 4 * bh * S * d * 2 + 2 * bh * S * 4
+    pairs = bh * S * S
+    rows = []
+    for name, fn, plain, err, nbytes, flops in (
+            ("flash_bwd_dq", _flash_bwd_dq, _flash_bwd_dq_reference,
+             errs["dq"], io + bh * S * d * 2, 6.0 * d * pairs),
+            ("flash_bwd_dkv", _flash_bwd_dkv, _flash_bwd_dkv_reference,
+             max(errs["dk"], errs["dv"]), io + 2 * bh * S * d * 2,
+             8.0 * d * pairs)):
+        ms = {dt: device_ms(lambda a=a: fn(*a), n=5, reps=5)
+              for dt, a in ins.items()}
+        pms = time_ms(lambda: plain(*sl), reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        bms, by = bound(nbytes, flops, "float16")
+        rows.append(_fp16_row(
+            name, f"long BH{bh}x{S}x{S}x{d}", err, FP16_GRAD_TOL,
+            ms["float16"], ms["bfloat16"], pms, lms,
+            "SDPA flash backward: dq, dk and dv together", bms, by,
+            " in norm [plain: the first 8 heads]"))
+    return rows
+
+
+def check_fp16_layer_norm(dev):
+    """#5 and #6 in fp16 with fp16 gamma / beta at (7,680 x 1024), the MHA
+    stacks' tokens, and (4096 x 1024): out on the peak rule, mean 1e-5,
+    invvar 1e-4 relative, dx in norm; beside the bf16 instances,
+    ``F.layer_norm`` and aten's backward in fp16."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.layer_norm import (ln_bwd, ln_bwd_reference,
+                                               ln_fwd, ln_fwd_reference)
+    aten = torch.ops.aten
+    rows = []
+    gen = torch.Generator().manual_seed(44)
+    for n, h in ((MHA_SQ * MHA_SEQS, MHA_E), (4096, 1024)):
+        base = (torch.randn((n, h), generator=gen) * 2.0 + 0.5,
+                torch.randn((n, h), generator=gen),
+                torch.randn((h,), generator=gen) * 0.1 + 1.0,
+                torch.randn((h,), generator=gen) * 0.1)
+        ins = _by_dtype(lambda dt: tuple(t.to(dev, dt) for t in base))
+        x, g, w, b = ins["float16"]
+        y, mean, inv = ln_fwd(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        r_y, r_mean, r_inv = ln_fwd_reference(x, w, b, 1e-5)
+        ok, y_err = peak_ok(y, r_y, FP16_OUT_TOL)
+        m_err = float((mean - r_mean).abs().max())
+        i_err = rel_err(inv, r_inv)
+        require(ok and m_err <= 1e-5 and i_err <= 1e-4,
+                f"fp16 ln_fwd ({n},{h}): out err {y_err:.3g} (tol "
+                f"{FP16_OUT_TOL}, peak rule), mean {m_err:.3g}, invvar "
+                f"{i_err:.3g}")
+        dx = ln_bwd(g, x, r_mean, r_inv, w)
+        torch.cuda.synchronize()
+        d_err = norm_rel(dx, ln_bwd_reference(g, x, r_mean, r_inv, w))
+        require(d_err <= FP16_GRAD_TOL, f"fp16 ln_bwd ({n},{h}): {d_err:.3g} "
+                f"relative in norm (tol {FP16_GRAD_TOL})")
+        f_ms = {dt: device_ms(lambda a=a: ln_fwd(a[0], a[2], a[3], 1e-5))
+                for dt, a in ins.items()}
+        b_ms = {dt: device_ms(lambda a=a: ln_bwd(a[1], a[0], r_mean, r_inv,
+                                                 a[2]))
+                for dt, a in ins.items()}
+        f_pms = device_ms(lambda: ln_fwd_reference(x, w, b, 1e-5))
+        b_pms = device_ms(lambda: ln_bwd_reference(g, x, r_mean, r_inv, w))
+        lf = device_ms(lambda: F.layer_norm(x, (h,), w, b, 1e-5))
+        _, a_mean, a_inv = aten.native_layer_norm(x, [h], w, b, 1e-5)
+        lb = device_ms(lambda: aten.native_layer_norm_backward(
+            g, x, [h], a_mean, a_inv, w, b, [True, False, False]))
+        fb, fby = bound(2 * n * h * 2 + 2 * n * 4 + 2 * h * 2, 8.0 * n * h,
+                        "float32")
+        bb, bby = bound(3 * n * h * 2 + 2 * n * 4 + h * 2, 12.0 * n * h,
+                        "float32")
+        rows.append(_fp16_row("ln_fwd", f"({n},{h})", y_err, FP16_OUT_TOL,
+                              f_ms["float16"], f_ms["bfloat16"], f_pms, lf,
+                              "F.layer_norm", fb, fby,
+                              f", mean {m_err:.2g}, invvar {i_err:.2g}"))
+        rows.append(_fp16_row("ln_bwd", f"({n},{h})", d_err, FP16_GRAD_TOL,
+                              b_ms["float16"], b_ms["bfloat16"], b_pms, lb,
+                              "aten native_layer_norm_backward", bb, bby,
+                              " in norm"))
+    return rows
+
+
+def check_fp16_xent(dev):
+    """#7 with fp16 logits at the mLSTM's (32,768 x 256) and BERT's (4096 x
+    30,592): the fp32 loss and lse held as the other dtypes' (1e-5 scaled);
+    beside the bf16 instance and ``F.cross_entropy`` in fp16."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.xentropy.softmax_xentropy import (
+        _xent_fwd, _xent_fwd_reference)
+    rows = []
+    gen = torch.Generator().manual_seed(45)
+    for n, v in ((RNN_BATCH * RNN_T, RNN_VOCAB), (4096, 30592)):
+        labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+        base = torch.randn((n, v), generator=gen) * 3.0
+        ins = _by_dtype(lambda dt: base.to(dev, dt))
+        x = ins["float16"]
+        loss, lse = _xent_fwd(x, labels, 0.0)
+        torch.cuda.synchronize()
+        r_loss, r_lse = _xent_fwd_reference(x, labels, 0.0)
+        ok1, err = scaled_ok(loss, r_loss, 1e-5)
+        ok2, l_err = scaled_ok(lse, r_lse, 1e-5)
+        require(ok1 and ok2, f"fp16 xent ({n},{v}): loss err {err:.3g}, lse "
+                f"err {l_err:.3g} (tol 1e-5)")
+        ms = {dt: device_ms(lambda a=a: _xent_fwd(a, labels, 0.0))
+              for dt, a in ins.items()}
+        pms = device_ms(lambda: _xent_fwd_reference(x, labels, 0.0), n=5)
+        lms = device_ms(lambda: F.cross_entropy(x, labels, reduction="none"))
+        bms, by = bound(n * v * 2 + 16 * n, 5.0 * n * v, "float32")
+        rows.append(_fp16_row("xent_fwd", f"({n},{v})", max(err, l_err),
+                              1e-5, ms["float16"], ms["bfloat16"], pms, lms,
+                              "F.cross_entropy", bms, by))
+    return rows
+
+
+def check_fp16_flat(dev):
+    """#9 on an fp16 flat buffer (1e-5 relative, bit-repeatable) and #12's
+    fp16 model copy (its fp32 outputs 1e-6 relative as ever, the copy
+    within one fp16 step, 1e-3 relative), each of FP16_FLAT_N elements,
+    beside the bf16 instance, ``torch.linalg.vector_norm`` and
+    ``torch._fused_adamw_`` in fp16."""
+    import torch
+    from apex_tpu_torch.multi_tensor_apply import kernels
+    rows = []
+    n = FP16_FLAT_N
+    gen = torch.Generator(device=dev).manual_seed(46)
+    base = torch.randn(n, generator=gen, device=dev)
+    ins = _by_dtype(lambda dt: base.to(dt))
+    x = ins["float16"]
+    a, b = kernels.multi_tensor_l2norm(x), kernels.multi_tensor_l2norm(x)
+    ref = kernels.multi_tensor_l2norm_reference(x)
+    torch.cuda.synchronize()
+    err = abs(a.item() - ref.item())
+    require(torch.equal(a, b) and err <= 1e-5 * ref.item(),
+            f"fp16 l2norm ({n},): err {err:.3g} of {ref.item():.6g} (tol 1e-5 "
+            f"relative), repeats {torch.equal(a, b)}")
+    ms = {dt: device_ms(lambda t=t: kernels.multi_tensor_l2norm(t))
+          for dt, t in ins.items()}
+    pms = device_ms(lambda: kernels.multi_tensor_l2norm_reference(x), n=5)
+    lms = device_ms(lambda: torch.linalg.vector_norm(x, dtype=torch.float32))
+    bms, by = bound(2 * n + 4, 2.0 * n, "float32")
+    rows.append(_fp16_row("l2norm", f"({n},)", err / ref.item(), "1e-5 rel",
+                          ms["float16"], ms["bfloat16"], pms, lms,
+                          "torch.linalg.vector_norm", bms, by,
+                          " [repeats bit for bit]"))
+    g = torch.randn(n, generator=gen, device=dev) * 3.0
+    m = torch.randn(n, generator=gen, device=dev) * 0.1
+    v = torch.rand(n, generator=gen, device=dev) * 0.01
+    t = 3
+    scal = torch.tensor([[1e-3, 0.9, 0.999, 1e-8, 0.01, 1 / (1 - 0.9 ** t),
+                          1 / (1 - 0.999 ** t), 0.7]], device=dev)
+    got = kernels.fused_adam_flat(g, base, m, v, scal,
+                                  model_dtype=torch.float16)
+    torch.cuda.synchronize()
+    want = kernels.fused_adam_flat_reference(g, base, m, v, scal,
+                                             model_dtype=torch.float16)
+    errs = []
+    for out_name, a_, r_, tol in zip(("p", "m", "v", "fp16 copy"), got, want,
+                                     (1e-6, 1e-6, 1e-6, 1e-3)):
+        ok, e = _rel_ok(a_, r_, tol)
+        require(ok and a_.dtype == r_.dtype, f"fp16 adam {out_name}: err "
+                f"{e:.3g} (tol {tol} relative), dtype {a_.dtype}")
+        errs.append(e)
+    del got, want
+    ms = {dt: device_ms(lambda d_=getattr(torch, dt): kernels.fused_adam_flat(
+        g, base, m, v, scal, model_dtype=d_)) for dt in ins}
+    pms = device_ms(lambda: kernels.fused_adam_flat_reference(
+        g, base, m, v, scal, model_dtype=torch.float16), n=2, reps=5)
+    # the call behind torch.optim.AdamW(fused=True) on fp16 parameters,
+    # gradients and moments (no fp32 master): the yardstick
+    p16, g16, m16, v16 = (t_.half() for t_ in (base, g, m, v))
+    step = torch.full((), float(t), device=dev)
+
+    def adamw():
+        torch._fused_adamw_([p16], [g16], [m16], [v16], [], [step], lr=1e-3,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01,
+                            eps=1e-8, amsgrad=False, maximize=False)
+    lms = device_ms(adamw)
+    del p16, g16, m16, v16
+    bms, by = bound(30.0 * n, 15.0 * n, "float32")
+    rows.append(_fp16_row("adam", f"({n},) fp16 model copy", max(errs),
+                          "1e-6 rel (copy 1e-3 rel)", ms["float16"],
+                          ms["bfloat16"], pms, lms,
+                          "torch._fused_adamw_, all fp16", bms, by))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fp16_kernels(dev, card):
+    """(a) every fp16 instance against its plain version at the shapes its
+    paths give it, timed beside the bf16 instance."""
+    import torch
+    log(f"== phase 21a: fp16 kernels vs plain versions on the card [{card}] "
+        f"(outputs {FP16_OUT_TOL} on the peak rule, gradients "
+        f"{FP16_GRAD_TOL} relative in norm, fp32 results of fp16 inputs at "
+        "their fp32 limits)")
+    rows = check_fp16_flash(dev, "self") + check_fp16_flash(dev, "encdec")
+    torch.cuda.empty_cache()
+    rows += check_fp16_flash_split(dev)
+    torch.cuda.empty_cache()
+    rows += check_fp16_layer_norm(dev) + check_fp16_xent(dev)
+    rows += check_fp16_flat(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fp16_mha(dev, card, seed):
+    """(b) the reference's MHA perf test in its own dtype: the 18-layer
+    self stack in fp16 (``.half()``), forward and backward timed with no
+    optimizer, fast then default; first, its first two layers in fp16
+    against the same layers in fp32 on the card."""
+    import torch
+    from apex_tpu_torch.train import mha_apply
+    from apex_tpu_torch.utils import build
+    kw = dict(dropout=0.1, bias=True, include_norm_add=True)
+    log(f"== phase 21b: the MHA perf test in fp16 ({MHA_LAYERS} x "
+        f"SelfMultiheadAttn({MHA_E}, {MHA_H}, dropout=0.1, bias=True, "
+        f"include_norm_add=True), {MHA_SEQS} x {MHA_SQ} tokens, fp16 "
+        "parameters and activations, forward + backward, no optimizer)")
+    # the first two layers, fp16 against fp32 on the card: one int dropout
+    # seed gives both dtypes the same attention and residual masks
+    batch32 = _mha_batch("self", MHA_SEQS, torch.float32, dev, seed)
+    runs = {}
+    for dt in (torch.float32, torch.float16):
+        stack = _mha_stack("self", 2, dev, seed, "fast", **kw).to(dt)
+        batch = {k: (v.to(dt) if v.is_floating_point() else v)
+                 for k, v in batch32.items()}
+        runs[dt] = _mha_grads(stack, batch, dropout_rng=1234)
+        del stack
+    (o16, g16), (o32, g32) = runs[torch.float16], runs[torch.float32]
+    errs = {"out": norm_rel(o16, o32)}
+    errs.update({n: norm_rel(g16[n], g32[n]) for n in g32})
+    worst = max(errs, key=errs.get)
+    require(errs[worst] <= 1e-2 and bool(torch.isfinite(o16).all()),
+            f"fp16 MHA layers 0-1 vs fp32: {worst} {errs[worst]:.3g} "
+            "relative in norm (tol 1e-2)")
+    log(f"  layers 0-1, fp16 vs fp32 on the card (dropout 0.1, int seed): "
+        f"out {errs['out']:.3g}, gradients max {errs[worst]:.3g} ({worst}) "
+        "relative in norm (tol 1e-2)")
+    del runs, batch32
+    batch = _mha_batch("self", MHA_SEQS, torch.float16, dev, seed)
+    gen_g = torch.Generator().manual_seed(seed + 2)
+    grads = torch.randn(batch["query"].shape, generator=gen_g).to(
+        dev, torch.float16)
+    results = {}
+    for impl in ("fast", "default"):
+        stack = _mha_stack("self", MHA_LAYERS, dev, seed, impl, **kw).half()
+        gen = torch.Generator().manual_seed(seed + 1)
+        path = "fp16_mha_self" + ("" if impl == "fast" else "_default")
+        fwd, bwd = [], []
+        for i in range(1 + MHA_STEPS):
+            for p in stack.parameters():
+                p.grad = None
+            if i == 1:
+                build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mha_apply(stack, batch, dropout_rng=gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out.backward(grads)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i:
+                fwd.append((t1 - t0) * 1e3)
+                bwd.append((t2 - t1) * 1e3)
+        launches = dict(build.LAUNCHES)
+        check_launches(path, launches, MHA_STEPS, exact=True)
+        require(bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(p.grad).all()) for p in stack.parameters()),
+            f"fp16 MHA {impl}: non-finite output or gradient")
+        f_ms, b_ms = statistics.median(fwd), statistics.median(bwd)
+        results[impl] = (f_ms, b_ms, launches)
+        log(f"  [{card}] {impl}: forward {f_ms:.3f} ms, backward "
+            f"{b_ms:.3f} ms (medians of {MHA_STEPS} after 1 warm-up; "
+            f"forward all {[round(t, 3) for t in fwd]}); launches in "
+            f"{MHA_STEPS} steps {launches}")
+        del stack, out
+    fast = results["fast"][0] + results["fast"][1]
+    ref = results["default"][0] + results["default"][1]
+    log(f"  [{card}] fp16 self stack: impl='default' (the perf test's "
+        f"--ref) {ref:.3f} ms / impl='fast' {fast:.3f} ms = "
+        f"{ref / fast:.3f}x (forward + backward)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results["fast"][2], results["default"][2]
+
+
+def markov_bytes(batch, length, seed):
+    """(batch, length) int64 bytes from a seeded order-1 Markov chain over
+    256 symbols whose rows are peaked (Dirichlet(0.05): a few likely
+    successors each), so a byte model's loss can fall below ln 256."""
+    import torch
+    rng = np.random.default_rng(seed)
+    cdf = np.cumsum(rng.dirichlet(np.full(RNN_VOCAB, 0.05), RNN_VOCAB), 1)
+    out = np.empty((batch, length), np.int64)
+    out[:, 0] = rng.integers(0, RNN_VOCAB, batch)
+    u = rng.random((batch, length))
+    for t in range(1, length):
+        row = cdf[out[:, t - 1]]
+        out[:, t] = np.minimum((row < u[:, t:t + 1]).sum(1), RNN_VOCAB - 1)
+    return torch.from_numpy(out)
+
+
+def rnn_lm_step_flops(batch, t, emb=RNN_EMB, hidden=RNN_HIDDEN,
+                      vocab=RNN_VOCAB) -> float:
+    """Analytic FLOPs of one byte-mLSTM step: a timestep's products
+    2·B·(E·4H + E·H + H·H + H·4H), x T, plus the decoder's 2·T·B·H·V,
+    x 3 for forward + backward."""
+    per_t = 2.0 * batch * (emb * 4 * hidden + emb * hidden + hidden * hidden
+                           + hidden * 4 * hidden)
+    return 3.0 * (per_t * t + 2.0 * t * batch * hidden * vocab)
+
+
+def phase_rnn_lm(dev, card, seed):
+    """(c) the byte mLSTM at full width: card-vs-CPU parity in fp32 (T 8,
+    B 4), then fp16 training under the legacy FP16_Optimizer, batch 128 x
+    truncation 256, the hidden state carried across steps, 1 warm-up + 3
+    timed steps."""
+    import torch
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.train import (rnn_lm_init, rnn_lm_loss,
+                                      rnn_lm_train_step)
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import (tree_flatten, tree_map,
+                                             tree_unflatten)
+    log(f"== phase 21c: the byte mLSTM (vocab {RNN_VOCAB}, embedding "
+        f"{RNN_EMB}, mLSTM {RNN_HIDDEN} with weight norm, decoder "
+        f"{RNN_HIDDEN} -> {RNN_VOCAB}; fp16 + FP16_Optimizer(FusedAdam("
+        f"lr=5e-4)), dynamic loss scale; batch {RNN_BATCH} x {RNN_T})")
+    t0 = time.perf_counter()
+    params, spec, rnn = rnn_lm_init(torch.Generator().manual_seed(seed),
+                                    vocab=RNN_VOCAB, emb=RNN_EMB,
+                                    hidden=RNN_HIDDEN, device="cpu")
+    data = markov_bytes(4, 9, seed)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        p_d = tree_map(lambda p: p.to(d), params)
+        leaves, treedef = tree_flatten(p_d)
+        leaves = [p.requires_grad_(True) for p in leaves]
+        loss, finals = rnn_lm_loss(
+            tree_unflatten(treedef, leaves), spec,
+            {"tokens": data[:, :-1].t().to(d),
+             "targets": data[:, 1:].t().to(d)}, rnn)
+        grads = torch.autograd.grad(loss, leaves)
+        runs.append(([loss.detach().cpu()]
+                     + [h.detach().cpu() for h in finals[0]],
+                     [g.cpu() for g in grads]))
+        del p_d, leaves, grads
+    (c_out, c_g), (r_out, r_g) = runs
+    o_err = max(peak_ok(a, b, 1e-4)[1] for a, b in zip(c_out, r_out))
+    require(all(peak_ok(a, b, 1e-4)[0] for a, b in zip(c_out, r_out)),
+            f"byte mLSTM card vs CPU: loss / final state err {o_err:.3g} "
+            "(tol 1e-4, peak rule)")
+    g_err = 0.0
+    for a, b in zip(c_g, r_g):
+        ok, e = peak_ok(a, b, 1e-4)
+        require(ok, f"byte mLSTM card vs CPU: a gradient err {e:.3g} (tol "
+                "1e-4, peak rule)")
+        g_err = max(g_err, e)
+    log(f"  parity, fp32, full width, T 8 x B 4: loss {float(r_out[0]):.6f}, "
+        f"loss and final (h, c) max err {o_err:.3g}, {len(c_g)} gradients "
+        f"(g and v included) max err {g_err:.3g} (tol 1e-4, peak rule) "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    del runs, c_g, r_g
+    n_params = sum(p.numel() for p in tree_flatten(params)[0])
+    params = tree_map(lambda p: p.to(dev, torch.float16), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # apex amp's first dynamic scale (2^16): the legacy 2^32 start would
+    # skip the first ~16 steps of this run
+    opt = FP16_Optimizer(FusedAdam(lr=5e-4), params, dynamic_loss_scale=True,
+                         dynamic_loss_args={"init_scale": 2.0 ** 16})
+    steps = 4
+    data = markov_bytes(RNN_BATCH, steps * RNN_T + 1, seed + 1).to(dev)
+    hx, losses, times, scales, skipped = None, [], [], [], 0
+    for s in range(steps):
+        if s == 1:
+            build.LAUNCHES.clear()
+        chunk = data[:, s * RNN_T:(s + 1) * RNN_T + 1].t()
+        batch = {"tokens": chunk[:-1], "targets": chunk[1:], "hx": hx}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, loss, hx = rnn_lm_train_step(opt, params, spec, batch,
+                                             rnn=rnn)
+        torch.cuda.synchronize()
+        if s:
+            times.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+        scales.append(opt.loss_scale)
+        skipped += int(opt.overflow)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"byte mLSTM: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"byte mLSTM: loss did not fall {losses}")
+    require(params["rnn"]["layer0"]["w_hh"]["weight_v"].dtype == torch.float16
+            and opt.master_params["rnn"]["layer0"]["w_hh"]["weight_g"].dtype
+            == torch.float32, "byte mLSTM: fp16 model, fp32 masters")
+    check_launches("rnn_lm_fp16", launches, steps - 1, exact=True)
+    step_s = statistics.median(times)
+    flops = rnn_lm_step_flops(RNN_BATCH, RNN_T)
+    log(f"  {n_params} parameters from seed {seed}; losses "
+        f"{[round(l, 4) for l in losses]} (ln 256 = 5.5452); loss scale "
+        f"{scales}, {skipped} skipped steps; launches in {steps - 1} steps "
+        f"{launches}")
+    log(f"  [{card}] step {step_s * 1e3:.2f} ms (median of {steps - 1}; all "
+        f"{[round(t * 1e3, 2) for t in times]}), "
+        f"{RNN_BATCH * RNN_T / step_s:.0f} bytes/s, analytic MFU "
+        f"{100 * flops / step_s / 989e12:.2f}% ({flops / 1e12:.3f} TFLOP a "
+        f"step / 989 TFLOP/s fp16), peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    del params, opt, data, hx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _two_four(w, axis=-2) -> bool:
+    """Every aligned group of 4 along ``axis`` has at most 2 nonzeros."""
+    g = w.movedim(axis, -1).reshape(-1, 4)
+    return bool(((g != 0).sum(-1) <= 2).all())
+
+
+def phase_asp(dev, card):
+    """(d) ASP on phase 7's O5 step: masks computed on the card over the
+    fp32 parameters before ``amp.initialize`` (layers 0 and 23 held to the
+    CPU's masks bit for bit), pruned, the wrapped FusedLAMB reaching
+    ``SparseOptimizer.step_flat`` through amp's flat path; 1 warm-up + 3
+    timed steps, every eligible leaf 2:4 after each."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.contrib.sparsity import ASP, create_mask
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.train import train_step
+    from apex_tpu_torch.utils import build
+    names = ("wqkv", "wo", "w1", "w2")
+    log("== phase 21d: ASP 2:4 on the O5 step (BERT-large, 24 layers, bf16, "
+        "FusedLAMB fused with the clip, flash, remat, batch 8 x 512; "
+        f"allowed layers {names})")
+    cfg = bert_large_config(attn_impl="fast", remat=True,
+                            dtype=torch.bfloat16)
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    asp = ASP(allowed_layer_names=names).init_model_for_pruning(params)
+    want = {f"layers/{n}" for n in names}
+    got = sorted(asp._eligible_paths)
+    require(set(got) == want, f"ASP eligible {got}, expected {sorted(want)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = asp.compute_sparse_masks(params)
+    torch.cuda.synchronize()
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    for n in names:
+        for i in (0, cfg.num_layers - 1):
+            cpu = create_mask(params["layers"][n][i].cpu())
+            require(torch.equal(masks["layers"][n][i].cpu(), cpu),
+                    f"ASP mask layers/{n}[{i}]: card and CPU differ")
+    params = asp.prune(params, masks)
+    opt = asp.wrap_optimizer(FusedLAMB(lr=1e-3, weight_decay=0.01,
+                                       max_grad_norm=1.0, impl="fused"),
+                             masks)
+    torch.cuda.reset_peak_memory_stats()
+    st = amp.initialize(params, opt, opt_level="O5", verbosity=0)
+    del params
+    require(st.master_params is None and st.opt_state.master is not None,
+            "ASP O5: the masters are not the flat fused state")
+    batch = _batch(cfg, 8, 512, 7, dev)
+    fl = opt.flattener
+    losses, times = [], []
+    for s in range(4):
+        if s == 1:
+            build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, loss = train_step(st, batch, cfg)
+        torch.cuda.synchronize()
+        if s:
+            times.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+        master = fl.unflatten(st.opt_state.master)
+        for n in names:
+            require(st.model_params["layers"][n].dtype == torch.bfloat16
+                    and _two_four(st.model_params["layers"][n])
+                    and _two_four(master["layers"][n]),
+                    f"ASP step {s}: layers/{n} is not 2:4 (bf16 model or fp32 "
+                    "master)")
+        del master
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"ASP O5: non-finite loss {losses}")
+    check_launches("asp_o5_lamb", launches, 3, exact=True)
+    again = asp.compute_sparse_masks(fl.unflatten(st.opt_state.master))
+    for n in names:
+        require(torch.equal(again["layers"][n], masks["layers"][n]),
+                f"ASP: the masks of the pruned layers/{n} do not recompute "
+                "to themselves")
+    step_ms = statistics.median(times) * 1e3
+    o5 = RESULTS.get("o5_lamb_step_ms")
+    log(f"  masks on the card in {mask_ms:.1f} ms; layers 0 and 23 = the "
+        f"CPU's bits; after every step the bf16 model and the fp32 master "
+        f"2:4; the masks recompute to themselves; losses "
+        f"{[round(l, 5) for l in losses]}; launches in 3 steps {launches}")
+    log(f"  [{card}] step {step_ms:.2f} ms (median of 3; all "
+        f"{[round(t * 1e3, 2) for t in times]}) beside phase 7's "
+        + (f"{o5:.2f} ms" if o5 is not None else "(not run)")
+        + f"; peak device memory {peak / 2 ** 30:.2f} GiB")
+    del st, opt, masks, again, fl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # --variants: the bf16 flash kernels' tile variants, timed against each other
 # ---------------------------------------------------------------------------
 
@@ -4420,8 +5192,13 @@ def main(argv) -> int:
     launches["dcgan_o4"] = phase_dcgan(dev, card, profile)
     torch.cuda.empty_cache()
     launches["ckpt_rn50"], launches["ckpt_o5"] = phase_checkpoint(dev, card)
-    phase_mha_parity(dev)
     seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv else 0
+    fp16_rows = phase_fp16_kernels(dev, card)
+    launches["fp16_mha_self"], launches["fp16_mha_self_default"] = \
+        phase_fp16_mha(dev, card, seed)
+    launches["rnn_lm_fp16"] = phase_rnn_lm(dev, card, seed)
+    launches["asp_o5_lamb"] = phase_asp(dev, card)
+    phase_mha_parity(dev)
     launches["mha_self"], launches["mha_self_default"] = phase_mha_stack(
         dev, card, "self", seed, profile)
     launches["mha_encdec"], launches["mha_encdec_default"] = \
@@ -4480,6 +5257,12 @@ def main(argv) -> int:
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on its path "
                 f"{k['path']}")
+        # the fp16 instance at phase 21a's first shape for this kernel
+        row = next((r for r in fp16_rows if r["kernel"] == k["name"]), None)
+        if row is not None:
+            k["fp16"] = {key: row[key] for key in (
+                "case", "max_abs_err", "ms", "bf16_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

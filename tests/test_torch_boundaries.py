@@ -5,11 +5,12 @@
   not the JAX package).
 * Entry points default to the card: on a host without CUDA they raise
   instead of quietly running on the CPU.
-* float16 has a kernel code (the scale / axpby and fused dense kernels
-  take it), but the kernels without an fp16 branch (layer norm, l2norm,
-  cross-entropy, flash, Adam's model copy) refuse it with a ``TypeError``
-  in their wrapper's checks, before any launch.  CPU tensors reach those
-  checks here; the card's own tests launch with fp16 CUDA tensors.
+* Every kernel has an fp32, a bf16 and an fp16 branch (the layer norm,
+  l2norm, cross-entropy, flash and Adam's model copy take fp16 as the
+  JAX package's kernels do); a dtype without one (float64) is refused
+  with a ``TypeError`` in the wrapper's checks, before any launch.  CPU
+  tensors reach those checks here; the card's own tests launch with fp16
+  CUDA tensors.
 """
 import ast
 import pathlib
@@ -197,12 +198,14 @@ def test_resnet_entry_points_default_to_the_card():
         ddp.allreduce_grads({"w": torch.zeros(2, device="meta")})
 
 
-def _fp16_cases():
+def _fp16_cases(h16=torch.float16):
+    """Each wrapper's checks on inputs of ``h16`` (any dtype) where it
+    reads its dtype."""
     from apex_tpu_torch.contrib.multihead_attn import flash
     from apex_tpu_torch.contrib.xentropy import softmax_xentropy as xent
     from apex_tpu_torch.multi_tensor_apply import kernels
     from apex_tpu_torch.ops import layer_norm
-    h16, f32 = torch.float16, torch.float32
+    f32 = torch.float32
     x32 = torch.zeros(4, 64)
     q16 = torch.zeros(2, 8, 64, dtype=h16)
     return {
@@ -226,18 +229,19 @@ def _fp16_cases():
                                      "ln_bwd_weight", "l2norm", "xent",
                                      "flash", "adam_model_copy"])
 def test_fp16_refused_before_any_launch(wrapper):
+    """fp16 now passes every wrapper's checks; float64, which no kernel
+    has a branch for, is refused before any launch."""
     from apex_tpu_torch.utils import build
     before = dict(build.LAUNCHES)
-    with pytest.raises(TypeError, match="float16"):
-        _fp16_cases()[wrapper]()
+    _fp16_cases()[wrapper]()
+    with pytest.raises(TypeError, match="float64"):
+        _fp16_cases(torch.float64)[wrapper]()
     assert dict(build.LAUNCHES) == before
 
 
 def test_float16_has_a_code_only_where_allowed():
     from apex_tpu_torch.utils import build
-    assert build.dtype_code(torch.float16, build.FLOATS) == 2
-    assert build.dtype_code(torch.bfloat16, build.F32_BF16) == 1
-    with pytest.raises(TypeError, match="float32/bfloat16"):
-        build.dtype_code(torch.float16, build.F32_BF16)
-    with pytest.raises(TypeError):
-        build.dtype_code(torch.float64, build.FLOATS)
+    assert build.FLOATS == (torch.float32, torch.bfloat16, torch.float16)
+    assert [build.dtype_code(d) for d in build.FLOATS] == [0, 1, 2]
+    with pytest.raises(TypeError, match="float32/bfloat16/float16"):
+        build.dtype_code(torch.float64)

@@ -119,7 +119,9 @@ def test_kernel_input_checks(bad):
     elif bad == "too_wide":
         x, w, b = torch.zeros(2, 8192), torch.ones(8192), torch.zeros(8192)
     elif bad == "fp16":
-        x = x.half()
+        # fp16 rows are taken up to 8192 (1024 16-byte vectors), not past
+        x, w, b = (torch.zeros(2, 16384, dtype=torch.float16),
+                   torch.ones(16384), torch.zeros(16384))
     elif bad == "non_contiguous":
         x = torch.zeros(64, 4).t()
     elif bad == "half_affine":
