@@ -23,7 +23,12 @@ pass :data:`_FUSE_BUFFER_CAP_MB` (long sequences).  :func:`_flash_fwd`,
 launch them for CUDA tensors and take their plain versions
 (:func:`_reference`, :func:`_flash_bwd_reference`,
 :func:`_flash_bwd_dq_reference`, :func:`_flash_bwd_dkv_reference`) only
-for CPU tensors.  ``backward="xla"`` takes autograd of the plain
+for CPU tensors.  The kernels are built for head dims 32, 64 and 128
+(:data:`HEAD_DIMS`); a CUDA call at another D up to 128 pads q, k, v (and
+dO) with zero columns to the next instance (:func:`_pad_head_dim`) and
+slices out, dq, dk and dv back, which is exact (zero columns add nothing
+to q k^T and give zero output columns, and the dropout hash reads no D).
+D > 128 raises.  ``backward="xla"`` takes autograd of the plain
 :func:`_reference` instead, by the caller's choice; ``"pallas"`` (the JAX
 package's name for its kernel route, kept so the amp option keeps its
 meaning) and ``"auto"`` take the kernels.  The JAX package's environment
@@ -39,6 +44,7 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from ...utils import build
 
@@ -47,6 +53,7 @@ __all__ = ["flash_attention", "_flash_fwd", "_flash_bwd", "_flash_bwd_fused",
            "_flash_bwd_dq_reference", "_flash_bwd_dkv_reference",
            "_reference", "_dropout_keep", "_resolve_backward",
            "_resolve_fuse", "set_default_backward", "BACKWARD_IMPLS",
+           "_kernel_head_dim", "_pad_head_dim",
            "NEG_INF", "HEAD_DIMS", "BWD_K_TILE"]
 
 NEG_INF = -1e30
@@ -197,6 +204,32 @@ def _reference(q, k, v, bias, causal, dropout_rate, seed, heads
     return o, lse[..., None]
 
 
+def _kernel_head_dim(d: int) -> int:
+    """The head dim of the kernel instance that takes ``d``: the least of
+    :data:`HEAD_DIMS` at or above it.  D > 128 raises: it needs an instance
+    of its own."""
+    for hd in HEAD_DIMS:
+        if d <= hd:
+            return hd
+    raise ValueError(f"flash kernel supports head dims up to "
+                     f"{HEAD_DIMS[-1]} (instances {HEAD_DIMS}, smaller "
+                     f"ones padded), got {d}")
+
+
+def _pad_head_dim(tensors, d_to: int):
+    """Each (BH, S, D) tensor of ``tensors`` with zero columns appended up
+    to ``d_to``.  Zero columns of q and k add nothing to q k^T, zero
+    columns of v give zero columns of out, dO's meet v's zeros in dO v^T,
+    and the dropout hash reads (bh, row, col, seed), not D: a kernel's
+    results on the padded inputs, sliced back to D, are its results at D."""
+    return tuple(t if t.shape[-1] == d_to
+                 else F.pad(t, (0, d_to - t.shape[-1])) for t in tensors)
+
+
+def _unpad(t, d: int):
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _check_cuda_inputs(q, k, v, bias, dropout_rate):
     build.dtype_code(q.dtype, "the flash kernels")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -207,9 +240,6 @@ def _check_cuda_inputs(q, k, v, bias, dropout_rate):
     if q.shape[2] not in HEAD_DIMS:
         raise ValueError(f"flash kernel supports head dims {HEAD_DIMS}, got "
                          f"{q.shape[2]}")
-    if q.shape[0] > 65535:
-        raise ValueError(f"flash kernel takes at most 65535 batch-heads, got "
-                         f"{q.shape[0]}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -240,8 +270,10 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return _reference(q, k, v, bias, causal, dropout_rate, seed, heads)
     _check_layout(q, k, v, bias, heads)
+    d = q.shape[2]
+    q, k, v = _pad_head_dim((q, k, v), _kernel_head_dim(d))
     _check_cuda_inputs(q, k, v, bias, dropout_rate)
-    bh, sq, d = q.shape
+    bh, sq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
     err = build.library().apex_flash_fwd(
@@ -250,7 +282,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_fwd")
     build.LAUNCHES["flash_fwd"] += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
 # ---------------------------------------------------------------------------
@@ -339,10 +371,12 @@ def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
     if not q.is_cuda:
         return _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed,
                                     heads, lse, delta, do)
+    d = q.shape[2]
+    q, k, v, do = _pad_bwd(q, k, v, bias, heads, do)
     _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
-    bh, sq, d = q.shape
+    bh, sq, dp = q.shape
     nk = -(-k.shape[1] // BWD_K_TILE)
-    dq_part = torch.empty((bh, nk, sq, d), dtype=torch.float32,
+    dq_part = torch.empty((bh, nk, sq, dp), dtype=torch.float32,
                           device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -353,7 +387,15 @@ def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_bwd")
     build.LAUNCHES["flash_bwd"] += 1
-    return dq_part.sum(dim=1).to(q.dtype), dk, dv
+    return (_unpad(dq_part.sum(dim=1).to(q.dtype), d), _unpad(dk, d),
+            _unpad(dv, d))
+
+
+def _pad_bwd(q, k, v, bias, heads, do):
+    """q, k, v and dO padded to the kernel's head dim (the layout checked
+    first, so a bad shape is named as such)."""
+    _check_layout(q, k, v, bias, heads)
+    return _pad_head_dim((q, k, v, do), _kernel_head_dim(q.shape[2]))
 
 
 def _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do):
@@ -382,6 +424,8 @@ def _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
     if not q.is_cuda:
         return _flash_bwd_dq_reference(q, k, v, bias, causal, dropout_rate,
                                        seed, heads, lse, delta, do)
+    d = q.shape[2]
+    q, k, v, do = _pad_bwd(q, k, v, bias, heads, do)
     _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
     dq = torch.empty_like(q)
     err = build.library().apex_flash_bwd_dq(
@@ -390,7 +434,7 @@ def _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_bwd_dq")
     build.LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def _flash_bwd_dkv(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
@@ -400,6 +444,8 @@ def _flash_bwd_dkv(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
     if not q.is_cuda:
         return _flash_bwd_dkv_reference(q, k, v, bias, causal, dropout_rate,
                                         seed, heads, lse, delta, do)
+    d = q.shape[2]
+    q, k, v, do = _pad_bwd(q, k, v, bias, heads, do)
     _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -410,7 +456,7 @@ def _flash_bwd_dkv(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_bwd_dkv")
     build.LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def _flash_bwd(q, k, v, bias, causal, dropout_rate, seed, heads, out, lse,

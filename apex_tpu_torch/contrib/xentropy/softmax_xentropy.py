@@ -12,7 +12,9 @@ The forward saves only the log-sum-exp; the backward needs no re-reduction:
 
 The forward kernel is ``apex_tpu_torch/csrc/xentropy.cu``: :func:`_xent_fwd`
 launches it for a CUDA tensor and takes :func:`_xent_fwd_reference` only for
-a CPU tensor.  The backward is plain PyTorch, as the JAX package's is plain
+a CPU tensor.  :func:`_xent_plan` picks its instance from the row's width
+and dtype: 8, 16 or 32 lanes a row for rows of up to 2 KB, a
+shared-memory ring fed by bulk copies past that.  The backward is plain PyTorch, as the JAX package's is plain
 XLA.  ``impl``: ``"auto"`` and ``"pallas"`` (the JAX package's name for its
 kernel route, kept so the config field keeps its meaning) take
 :func:`_xent_fwd`; ``"xla"`` takes the plain forward.
@@ -26,9 +28,27 @@ import torch
 from ...utils import build
 
 __all__ = ["softmax_xentropy_loss", "SoftmaxCrossEntropyLoss", "_xent_fwd",
-           "_xent_fwd_reference", "XENT_IMPLS"]
+           "_xent_fwd_reference", "_xent_plan", "XENT_IMPLS", "XENT_PATHS"]
 
 XENT_IMPLS = ("auto", "pallas", "xla")
+#: the kernel's instances, by their C code (``xentropy.cu``): 8, 16 or 32
+#: lanes a row holding 1, 2 or 4 16-byte vectors each; the persistent
+#: blocks streaming rows through a shared-memory ring
+XENT_PATHS = ("lanes8x1", "lanes8x2", "lanes8x4", "lanes16x4", "lanes32x4",
+              "wide")
+
+
+def _xent_plan(v: int, dtype: torch.dtype) -> str:
+    """The kernel instance (one of :data:`XENT_PATHS`) for rows of ``v``
+    logits of ``dtype``, by the 16-byte vectors a row spans; the number of
+    rows does not change it (every instance walks rows with persistent
+    warps or blocks)."""
+    loads = -(-v * torch.empty((), dtype=dtype).element_size() // 16)
+    for path, most in (("lanes8x1", 8), ("lanes8x2", 16), ("lanes8x4", 32),
+                       ("lanes16x4", 64), ("lanes32x4", 128)):
+        if loads <= most:
+            return path
+    return "wide"
 
 
 def _xent_fwd_reference(logits: torch.Tensor, labels: torch.Tensor,
@@ -61,7 +81,9 @@ def _xent_fwd(logits: torch.Tensor, labels: torch.Tensor, smoothing: float
     lse = torch.empty(n, dtype=torch.float32, device=logits.device)
     err = build.library().apex_xent_fwd(
         logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-        n, v, float(smoothing), code, build.stream_of(logits))
+        n, v, float(smoothing), code,
+        XENT_PATHS.index(_xent_plan(v, logits.dtype)),
+        build.stream_of(logits))
     build.check(err, "xent_fwd")
     build.LAUNCHES["xent_fwd"] += 1
     return loss, lse
@@ -77,9 +99,8 @@ def _check_cuda_inputs(logits: torch.Tensor, labels: torch.Tensor):
     n, v = logits.shape
     if n == 0:
         raise ValueError("xent kernel needs N > 0")
-    if not logits.is_contiguous() or logits.data_ptr() % 16:
-        raise ValueError("xent kernel needs contiguous, 16-byte aligned "
-                         "logits")
+    if not logits.is_contiguous():
+        raise ValueError("xent kernel needs contiguous logits")
     if labels.device != logits.device:
         raise ValueError(f"labels are on {labels.device}, logits on "
                          f"{logits.device}")

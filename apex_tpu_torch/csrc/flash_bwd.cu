@@ -43,7 +43,7 @@
 // first).  A producer warpgroup hands its registers to the consumers, and
 // its first warp loads k and v of the CTA's keys once by TMA, then keeps a
 // 2-stage mbarrier ring of 64-row q and dO tiles in flight, each stage
-// with its rows' lse (in log2 units) and delta.  Two consumer warpgroups
+// with its rows' lse and delta.  Two consumer warpgroups
 // own 64 keys each (wgmma's M); per q tile each runs
 //   * S^T = k q^T and dP^T = v dO^T on wgmma from swizzled shared memory
 //     (k / v the K-major A, q / dO the K-major B): 64 keys x 64 rows;
@@ -163,8 +163,9 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int kt = blockIdx.x;
+  const sm90::GridPos pos = sm90::grid_pos(p.nk);
+  const int bh = pos.bh;
+  const int kt = pos.tile;
   const int k0 = kt * kBk;
   const int n_qt = (p.sq + kBq - 1) / kBq;
   // causal: q tiles whose every row lies above the CTA's first key are
@@ -243,15 +244,16 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
     // P^T = exp(S^T + bias - lse), then Pd^T = P^T keep / (1 - rate) (into
     // s) and dS^T = P^T (dP^T keep / (1 - rate) - delta) (into dp); lse and
     // delta are per column, read from the stage
-    const float* lse2 = ring.vecs(i);
-    const float* delta = lse2 + kBq;
+    const float* lse = ring.vecs(i);
+    const float* delta = lse + kBq;
 #pragma unroll
     for (int j = 0; j < kBq / 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(lse2 + j * 8 + 2 * t);
+      const float2 l = *reinterpret_cast<const float2*>(lse + j * 8 + 2 * t);
       const float2 dl = *reinterpret_cast<const float2*>(delta + j * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float pr = exp2f(fmaf(s[4 * j + e], kLog2e, -((e & 1) ? l.y : l.x)));
+        // the difference first (as the forward's exp2((s - max) log2(e)))
+        const float pr = exp2f((s[4 * j + e] - ((e & 1) ? l.y : l.x)) * kLog2e);
         float kf = 1.f;
         if (p.drop_threshold != 0u)
           kf = dropout_keep(p.seed, bh, q0 + j * 8 + 2 * t + (e & 1),
@@ -389,8 +391,9 @@ flash_bwd_simt_kernel(Params p) {
   const float* v = static_cast<const float*>(p.v);
   const float* dout = static_cast<const float*>(p.dout);
 
-  const int bh = blockIdx.y;
-  const int kt = blockIdx.x;
+  const sm90::GridPos pos = sm90::grid_pos(p.nk);
+  const int bh = pos.bh;
+  const int kt = pos.tile;
   const int k0 = kt * kBk;
   const int tid = threadIdx.x;
   const int key_l = tid % kBk;
@@ -536,10 +539,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
   const int n_qt = (p.sq + kBq - 1) / kBq;
+  const sm90::GridPos pos = sm90::grid_pos(n_qt);
+  const int bh = pos.bh;
   // causal: the longest rows first, so the grid's tail is short tiles
-  const int q0 = (p.causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x) * kBq;
+  const int q0 = (p.causal ? n_qt - 1 - pos.tile : pos.tile) * kBq;
   const int n_kt = dq_k_tiles(p, q0, kBq, kBk);
   const float* bias_rows = p.bias + (size_t)(p.bias_b == 1 ? 0 : bh / p.heads) * p.bias_q * p.sk;
   const bool full_bias = p.bias_q != 1;
@@ -563,9 +567,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg_row0 = q0 + wg * 64;
   const int row_a = wg_row0 + (warp & 3) * 16 + (lane >> 2);  // this thread's two rows
   const int row_b = row_a + 8;
-  // lse in log2 units; a row past Sq reads as dead (P = 0)
-  const float lse_a = (row_a < p.sq ? p.lse[(size_t)bh * p.sq + row_a] : -kNegInf) * kLog2e;
-  const float lse_b = (row_b < p.sq ? p.lse[(size_t)bh * p.sq + row_b] : -kNegInf) * kLog2e;
+  // a row past Sq reads as dead (P = 0)
+  const float lse_a = row_a < p.sq ? p.lse[(size_t)bh * p.sq + row_a] : -kNegInf;
+  const float lse_b = row_b < p.sq ? p.lse[(size_t)bh * p.sq + row_b] : -kNegInf;
   const float del_a = row_a < p.sq ? p.delta[(size_t)bh * p.sq + row_a] : 0.f;
   const float del_b = row_b < p.sq ? p.delta[(size_t)bh * p.sq + row_b] : 0.f;
   const float inv_keep = 1.f / p.keep_div;
@@ -606,7 +610,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool lo = e < 2;
-        const float pr = exp2f(fmaf(s[4 * j + e], kLog2e, -(lo ? lse_a : lse_b)));
+        const float pr = exp2f((s[4 * j + e] - (lo ? lse_a : lse_b)) * kLog2e);
         float kf = 1.f;
         if (p.drop_threshold != 0u)
           kf = dropout_keep(p.seed, bh, lo ? row_a : row_b, k0 + j * 8 + 2 * t + (e & 1),
@@ -680,8 +684,9 @@ flash_bwd_dq_simt_kernel(Params p) {
   const float* v = static_cast<const float*>(p.v);
   const float* dout = static_cast<const float*>(p.dout);
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kSimtDqBq;
+  const sm90::GridPos pos = sm90::grid_pos((p.sq + kSimtDqBq - 1) / kSimtDqBq);
+  const int bh = pos.bh;
+  const int q0 = pos.tile * kSimtDqBq;
   const int tid = threadIdx.x;
   const int lane_l = tid % kSimtDqBq;  // a key (dS), then a query row (dQ)
   const int grp = tid / kSimtDqBq;     // one value per warp: broadcast reads
@@ -762,7 +767,8 @@ cudaError_t launch_kv_sm90(const Params& p, cudaStream_t stream) {
       (err = sm90::encode_map<E, D>(&qm, p.q, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
       (err = sm90::encode_map<E, D>(&dom, p.dout, p.sq, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
-  dim3 grid(p.nk, p.bh_count);
+  dim3 grid;
+  if ((err = sm90::flat_grid(p.nk, p.bh_count, &grid)) != cudaSuccess) return err;
   flash_bwd_kv_sm90_kernel<E, D, kEmitDq><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(km, vm, qm, dom, p);
   return cudaGetLastError();
 }
@@ -774,9 +780,10 @@ cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == kDtypeF16) return launch_kv_sm90<__half, D, kEmitDq>(p, stream);
   static bool simt_ready = false;
   constexpr int bytes = simt_smem_bytes<D>();
-  const cudaError_t err = allow_smem(flash_bwd_simt_kernel<D, kEmitDq>, bytes, simt_ready);
+  cudaError_t err = allow_smem(flash_bwd_simt_kernel<D, kEmitDq>, bytes, simt_ready);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.nk, p.bh_count);
+  dim3 grid;
+  if ((err = sm90::flat_grid(p.nk, p.bh_count, &grid)) != cudaSuccess) return err;
   flash_bwd_simt_kernel<D, kEmitDq><<<grid, kSimtKvThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -793,7 +800,10 @@ cudaError_t launch_dq_sm90(const Params& p, cudaStream_t stream) {
       (err = sm90::encode_map<E, D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
       (err = sm90::encode_map<E, D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
-  dim3 grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count);
+  dim3 grid;
+  if ((err = sm90::flat_grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count, &grid)) !=
+      cudaSuccess)
+    return err;
   flash_bwd_dq_sm90_kernel<E, D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, dom, km, vm, p);
   return cudaGetLastError();
 }
@@ -811,9 +821,11 @@ cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == kDtypeF16) return launch_dq_wgmma<__half, D>(p, stream);
   static bool simt_ready = false;
   constexpr int bytes = dq_simt_smem_bytes<D>();
-  const cudaError_t err = allow_smem(flash_bwd_dq_simt_kernel<D>, bytes, simt_ready);
+  cudaError_t err = allow_smem(flash_bwd_dq_simt_kernel<D>, bytes, simt_ready);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.sq + kSimtDqBq - 1) / kSimtDqBq, p.bh_count);
+  dim3 grid;
+  if ((err = sm90::flat_grid((p.sq + kSimtDqBq - 1) / kSimtDqBq, p.bh_count, &grid)) != cudaSuccess)
+    return err;
   flash_bwd_dq_simt_kernel<D><<<grid, kSimtThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -836,7 +848,7 @@ int run(const void* q, const void* k, const void* v, const void* bias,
         int heads, int bias_b, int bias_q, int causal,
         unsigned int drop_threshold, float keep_div, int seed, int dtype,
         Route route, void* stream) {
-  if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || bh_count > 65535)
+  if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype != kDtypeF32 && dtype != kDtypeBF16 && dtype != kDtypeF16)
     return (int)cudaErrorInvalidValue;

@@ -112,10 +112,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
   const int n_qt = (p.sq + kBq - 1) / kBq;
+  const sm90::GridPos pos = sm90::grid_pos(n_qt);
+  const int bh = pos.bh;
   // causal: the longest rows first, so the grid's tail is short tiles
-  const int q0 = (p.causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x) * kBq;
+  const int q0 = (p.causal ? n_qt - 1 - pos.tile : pos.tile) * kBq;
   int n_kt = (p.sk + kBk - 1) / kBk;
   if (p.causal) n_kt = min(n_kt, (q0 + kBq - 1) / kBk + 1);
   const float* bias_rows = p.bias + (size_t)(p.bias_b == 1 ? 0 : bh / p.heads) * p.bias_q * p.sk;
@@ -166,7 +167,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            p.causal && k0 + kBk - 1 > wg_row0, row_a, k0, t,
                            p.sq, p.sk);
 
-    // online softmax in exp2: log2(e) folded into the scores
+    // online softmax in exp2
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
     for (int j = 0; j < kBk / 8; ++j) {
@@ -180,14 +181,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
     const float sc_a = exp2f((m_a - mn_a) * kLog2e), sc_b = exp2f((m_b - mn_b) * kLog2e);
-    const float ml_a = mn_a * kLog2e, ml_b = mn_b * kLog2e;
     float sum_a = 0.f, sum_b = 0.f;
+    // exp2((s - max) log2(e)): the difference first, exact for scores near
+    // the max, so the max's P is 1 even where the scores carry a large
+    // finite mask (-1e9, whose fp32 step is 64); s log2(e) - max log2(e)
+    // would round both products and could give P = 2^64, past fp16
 #pragma unroll
     for (int j = 0; j < kBk / 8; ++j) {
-      s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], kLog2e, -ml_a));
-      s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], kLog2e, -ml_a));
-      s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], kLog2e, -ml_b));
-      s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], kLog2e, -ml_b));
+      s[4 * j + 0] = exp2f((s[4 * j + 0] - mn_a) * kLog2e);
+      s[4 * j + 1] = exp2f((s[4 * j + 1] - mn_a) * kLog2e);
+      s[4 * j + 2] = exp2f((s[4 * j + 2] - mn_b) * kLog2e);
+      s[4 * j + 3] = exp2f((s[4 * j + 3] - mn_b) * kLog2e);
       sum_a += s[4 * j] + s[4 * j + 1];
       sum_b += s[4 * j + 2] + s[4 * j + 3];
     }
@@ -288,8 +292,9 @@ flash_fwd_simt_kernel(Params p) {
   const float* v = static_cast<const float*>(p.v);
   float* out = static_cast<float*>(p.out);
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kSimtBq;
+  const sm90::GridPos pos = sm90::grid_pos((p.sq + kSimtBq - 1) / kSimtBq);
+  const int bh = pos.bh;
+  const int q0 = pos.tile * kSimtBq;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -381,7 +386,10 @@ cudaError_t launch_sm90(const Params& p, cudaStream_t stream) {
       (err = sm90::encode_map<E, D>(&km, p.k, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess ||
       (err = sm90::encode_map<E, D>(&vm, p.v, p.sk, p.bh_count, Cfg::kStageRows)) != cudaSuccess)
     return err;
-  dim3 grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count);
+  dim3 grid;
+  if ((err = sm90::flat_grid((p.sq + Cfg::kResRows - 1) / Cfg::kResRows, p.bh_count, &grid)) !=
+      cudaSuccess)
+    return err;
   flash_fwd_sm90_kernel<E, D, C><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
 }
@@ -397,7 +405,9 @@ template <int D>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == kDtypeBF16) return launch_wgmma<__nv_bfloat16, D>(p, stream);
   if (dtype == kDtypeF16) return launch_wgmma<__half, D>(p, stream);
-  dim3 grid((p.sq + kSimtBq - 1) / kSimtBq, p.bh_count);
+  dim3 grid;
+  const cudaError_t err = sm90::flat_grid((p.sq + kSimtBq - 1) / kSimtBq, p.bh_count, &grid);
+  if (err != cudaSuccess) return err;
   flash_fwd_simt_kernel<D><<<grid, kSimtThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
@@ -415,7 +425,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               int bias_b, int bias_q, int causal,
                               unsigned int drop_threshold, float keep_div,
                               int seed, int dtype, void* stream) {
-  if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || bh_count > 65535)
+  if (bh_count <= 0 || sq <= 0 || sk <= 0 || heads <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype != kDtypeF32 && dtype != kDtypeBF16 && dtype != kDtypeF16)
     return (int)cudaErrorInvalidValue;

@@ -162,6 +162,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Consumer warpgroups a query-major CTA takes: two (128-row query tiles)
 // where those still fill the card's 132 SMs, else one (64 rows).
+// A CTA's (tile, batch-head) on the kernels' one-dimensional grid of
+// `tiles` x bh CTAs: any number of batch-heads fits (gridDim.y stops at
+// 65,535), and a batch-head's tiles stay adjacent in launch order, as they
+// were with the batch-heads on gridDim.y.
+struct GridPos {
+  int tile, bh;
+};
+__device__ __forceinline__ GridPos grid_pos(int tiles) {
+  return {(int)(blockIdx.x % (unsigned)tiles), (int)(blockIdx.x / (unsigned)tiles)};
+}
+inline cudaError_t flat_grid(int tiles, int bh, dim3* grid) {
+  const long long n = (long long)tiles * bh;
+  if (n <= 0 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  *grid = dim3((unsigned)n);
+  return cudaSuccess;
+}
+
 inline int consumer_groups(int sq, int bh) {
   return (sq + 127) / 128 * bh >= 132 ? 2 : 1;
 }
@@ -215,9 +232,9 @@ struct KeyBias {
   }
 };
 
-// A key-major kernel's stage vectors: the stage's query rows' lse in log2
-// units, then their delta; a row past Sq reads as dead (lse = +1e30, so P =
-// 0) with delta 0.
+// A key-major kernel's stage vectors: the stage's query rows' lse, then
+// their delta; a row past Sq reads as dead (lse = +1e30, so P = 0) with
+// delta 0.
 struct QueryStats {
   const float* lse;    // this head's (Sq,) rows
   const float* delta;
@@ -225,7 +242,7 @@ struct QueryStats {
   __device__ void operator()(float* v, int rows, int row0, int lane) const {
     for (int i = lane; i < rows; i += 32) {
       const int row = row0 + i;
-      v[i] = (row < sq ? lse[row] : -kNegInf) * kLog2e;
+      v[i] = row < sq ? lse[row] : -kNegInf;
       v[rows + i] = row < sq ? delta[row] : 0.f;
     }
   }

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma
-// kernels, the bf16 attention kernels (`sm90_attn.cuh`) and the fp16 / bf16
-// fused dense kernel (`fused_mlp.cu`):
+// kernels, the bf16 attention kernels (`sm90_attn.cuh`), the fp16 / bf16
+// fused dense kernel (`fused_mlp.cu`) and the cross-entropy kernel
+// (`xentropy.cu`):
 //   * host: the runtime lookup of `cuTensorMapEncodeTiled` (through
 //     cudaGetDriverEntryPoint, so the library links without -lcuda); 2-D
 //     tensor maps over a row-major matrix of 16-bit elements with a 128-byte
 //     swizzle, whose type (fp16 or bf16) is a parameter; the opt-in to more
-//     than 48 KB of dynamic shared memory;
+//     than 48 KB of dynamic shared memory; a persistent grid's size;
 //   * device: shared-memory matrix descriptors for wgmma; mbarriers (a wait
-//     that lasts 4 s traps instead of hanging the card); 2-D TMA loads that
+//     that lasts 4 s traps instead of hanging the card); 1-D bulk copies
+//     into shared memory (the cross-entropy kernel's ring); 2-D TMA loads that
 //     complete on an mbarrier, also multicast to the CTAs of a cluster, and
 //     2-D TMA stores in bulk groups; a cluster's rank, barrier and remote
 //     mbarrier arrivals; the setmaxnreg split between a producer warpgroup
@@ -92,6 +94,44 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
   return err;
 }
 
+// Blocks of `threads` (with `smem` dynamic bytes) the card holds at once
+// for `kernel`: a persistent kernel's grid.  `per_sm`, the caller's cache
+// for this kernel, and the SM count are read once (a process drives one
+// card).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int& per_sm,
+                            int* blocks) {
+  static int sms = 0;
+  cudaError_t err = cudaSuccess;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return err;
+    }
+  }
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) {
+      per_sm = 0;
+      return err;
+    }
+    if (per_sm < 1) per_sm = 1;
+  }
+  *blocks = sms * per_sm;
+  return cudaSuccess;
+}
+
+// Row groups to launch for n rows when the card holds `resident` groups at
+// once: as many as give every group the same number of rows, give or take
+// the last.
+inline int even_groups(int n, int resident) {
+  const int rows_each = (n + resident - 1) / resident;
+  return (n + rows_each - 1) / rows_each;
+}
+
 // ---------------------------------------------------------------------------
 // device: descriptors
 // ---------------------------------------------------------------------------
@@ -165,6 +205,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of device memory at `src` into shared memory at
+// `dst`, both 16-byte aligned, completing on `bar` (a 1-D bulk copy).
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

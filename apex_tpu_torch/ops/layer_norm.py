@@ -8,7 +8,9 @@ launch them for a CUDA tensor and take :func:`ln_fwd_reference` /
 TPU kernel's residual contract ``(out (N, H) in x's dtype, mean (N, 1) f32,
 invvar (N, 1) f32)``; the backward takes it back and gives dx.
 :class:`LayerNormFunction` pairs the two as a ``torch.autograd.Function``
-whose dw and db are plain fp32 column sums, as in the JAX package.
+whose dw and db are plain fp32 column sums, as in the JAX package.  The
+kernels take any width and any alignment: :func:`_ln_plan` picks their
+path (:data:`LN_PATHS`) from the row's width, dtype and alignment.
 """
 from __future__ import annotations
 
@@ -19,11 +21,42 @@ import torch
 from ..utils import build
 
 __all__ = ["ln_fwd", "ln_fwd_reference", "ln_bwd", "ln_bwd_reference",
-           "LayerNormFunction", "MAX_H"]
+           "LayerNormFunction", "MAX_H", "LN_PATHS"]
 
-#: widest row the kernel takes: 1024 16-byte vectors (4096 fp32, 8192 bf16
-#: or fp16)
+#: widest row the register paths hold: 1024 16-byte vectors (4096 fp32,
+#: 8192 bf16 or fp16); a wider row takes the wide path, not a refusal
 MAX_H = {torch.float32: 4096, torch.bfloat16: 8192, torch.float16: 8192}
+#: the kernels' paths, by their C code (``layer_norm.cu``): a row in
+#: registers held by a warp or by a 256-thread block; a 512-thread block a
+#: row with the row staged in shared memory, or re-read from device memory
+LN_PATHS = ("warp", "block", "wide_smem", "wide_reread")
+# loads a thread of the register paths holds, and their threads a row
+_MAXV, _WARP, _BLOCK = 4, 32, 256
+# a block's shared memory on Hopper less the kernels' static scratch
+_MAX_SMEM = 232448 - 1024
+
+
+def _ln_plan(h: int, dtype: torch.dtype, aligned: bool,
+             backward: bool = False) -> Tuple[str, bool]:
+    """(path in :data:`LN_PATHS`, 16-byte loads?) for rows of ``h``
+    elements of ``dtype``.  ``aligned``: every row pointer the kernel reads
+    or writes is 16-byte aligned (each tensor's data pointer is, and H is a
+    multiple of the 16-byte vector); else element loads.  The wide path
+    stages x (the backward: g and x) in shared memory while it fits."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = aligned and h % (16 // size) == 0
+    loads = h // (16 // size) if vec else h
+    if loads <= _WARP * _MAXV:
+        return "warp", vec
+    if loads <= _BLOCK * _MAXV:
+        return "block", vec
+    row_bytes = -(-h * size // 16) * 16
+    staged = (2 if backward else 1) * row_bytes <= _MAX_SMEM
+    return ("wide_smem" if staged else "wide_reread"), vec
+
+
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def ln_fwd_reference(x2d: torch.Tensor, weight: Optional[torch.Tensor],
@@ -46,11 +79,10 @@ def _check_cuda_inputs(x2d, weight, bias):
         raise ValueError(f"ln_fwd takes x (N, H), got shape {tuple(x2d.shape)}")
     n, h = x2d.shape
     build.dtype_code(x2d.dtype, "the layer-norm x")
-    if h % 8 or h > MAX_H[x2d.dtype] or n == 0:
-        raise ValueError(f"ln_fwd kernel needs N > 0 and H a multiple of 8 up "
-                         f"to {MAX_H[x2d.dtype]} for {x2d.dtype}, got ({n}, {h})")
-    if not x2d.is_contiguous() or x2d.data_ptr() % 16:
-        raise ValueError("ln_fwd kernel needs a contiguous, 16-byte aligned x")
+    if n == 0 or h == 0:
+        raise ValueError(f"ln_fwd kernel needs N > 0 and H > 0, got ({n}, {h})")
+    if not x2d.is_contiguous():
+        raise ValueError("ln_fwd kernel needs a contiguous x")
     if (weight is None) != (bias is None):
         raise ValueError("ln_fwd takes both weight and bias, or neither")
     if weight is not None:
@@ -87,12 +119,14 @@ def ln_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
     code = build.dtype_code(x2d.dtype, "the layer-norm x")
     w_code = (build.dtype_code(weight.dtype, "the layer-norm weight")
               if weight is not None else code)
+    path, vec = _ln_plan(h, x2d.dtype, _aligned(x2d, out, weight, bias))
     err = build.library().apex_ln_fwd(
         x2d.data_ptr(),
         weight.data_ptr() if weight is not None else None,
         bias.data_ptr() if bias is not None else None,
         out.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
-        n, h, float(eps), code, w_code, build.stream_of(x2d))
+        n, h, float(eps), code, w_code, LN_PATHS.index(path), int(vec),
+        build.stream_of(x2d))
     build.check(err, "ln_fwd")
     build.LAUNCHES["ln_fwd"] += 1
     return out, mean, invvar
@@ -126,8 +160,8 @@ def ln_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
             or g2d.device != x2d.device:
         raise ValueError(f"ln_bwd: g {tuple(g2d.shape)} {g2d.dtype} does not "
                          f"match x {tuple(x2d.shape)} {x2d.dtype}")
-    if not g2d.is_contiguous() or g2d.data_ptr() % 16:
-        raise ValueError("ln_bwd kernel needs a contiguous, 16-byte aligned g")
+    if not g2d.is_contiguous():
+        raise ValueError("ln_bwd kernel needs a contiguous g")
     for name, t in (("mean", mean), ("invvar", invvar)):
         if t.dtype != torch.float32 or t.numel() != n \
                 or not t.is_contiguous() or t.device != x2d.device:
@@ -139,10 +173,13 @@ def ln_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
     code = build.dtype_code(x2d.dtype, "the layer-norm x")
     w_code = (build.dtype_code(weight.dtype, "the layer-norm weight")
               if weight is not None else code)
+    path, vec = _ln_plan(h, x2d.dtype, _aligned(g2d, x2d, dx, weight),
+                         backward=True)
     err = build.library().apex_ln_bwd(
         g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
         weight.data_ptr() if weight is not None else None, dx.data_ptr(),
-        n, h, code, w_code, build.stream_of(x2d))
+        n, h, code, w_code, LN_PATHS.index(path), int(vec),
+        build.stream_of(x2d))
     build.check(err, "ln_bwd")
     build.LAUNCHES["ln_bwd"] += 1
     return dx

@@ -57,10 +57,14 @@ FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # x, w, b, out, mean, invvar, n_rows, h, eps, x_dtype, w_dtype, stream
-    "apex_ln_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
-    # g, x, mean, invvar, w, dx, n_rows, h, x_dtype, w_dtype, stream
-    "apex_ln_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # x, w, b, out, mean, invvar, n_rows, h, eps, x_dtype, w_dtype, path,
+    # vec, stream
+    "apex_ln_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _I, _I,
+                    _VP],
+    # g, x, mean, invvar, w, dx, n_rows, h, x_dtype, w_dtype, path, vec,
+    # stream
+    "apex_ln_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                    _VP],
     # q, k, v, bias, out, lse, bh, sq, sk, d, heads, bias_b, bias_q, causal,
     # drop_threshold, keep_div, seed, dtype, stream
     "apex_flash_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
@@ -78,8 +82,8 @@ _SIGNATURES = {
     "apex_flash_bwd_dkv": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                            _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I,
                            _VP],
-    # logits, labels, loss, lse, n, v, smoothing, dtype, stream
-    "apex_xent_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # logits, labels, loss, lse, n, v, smoothing, dtype, path, stream
+    "apex_xent_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
     # x, n, partials, n_blocks, out, dtype, stream
     "apex_l2norm": [_VP, _LL, _VP, _I, _VP, _I, _VP],
     # g, p, m, v, scalars, p_out, m_out, v_out, copy, n, n_blocks, adam_w,

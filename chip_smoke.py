@@ -553,7 +553,9 @@ def check_layer_norm(dev):
     from apex_tpu_torch.ops.layer_norm import ln_fwd, ln_fwd_reference
     rows = []
     gen = torch.Generator().manual_seed(0)
-    for n, h in ((512, 1024), (8, 1024), (4096, 1024)):
+    # (7,680 x 1024): the MHA stacks' tokens, in bf16 beside phase 21a's
+    # fp16
+    for n, h in ((512, 1024), (8, 1024), (4096, 1024), (7680, 1024)):
         for dtype in ("bfloat16", "float32"):
             for affine in (True, False):
                 dt = getattr(torch, dtype)
@@ -960,7 +962,7 @@ def check_ln_bwd(dev):
     rows = []
     gen = torch.Generator().manual_seed(2)
     aten_bwd = torch.ops.aten.native_layer_norm_backward
-    for n, h in ((4096, 1024), (8, 1024)):
+    for n, h in ((4096, 1024), (8, 1024), (7680, 1024)):
         for dtype in ("bfloat16", "float32"):
             for affine in (True, False):
                 dt = getattr(torch, dtype)
@@ -1003,10 +1005,11 @@ def check_xent(dev):
         _xent_fwd, _xent_fwd_reference)
     rows = []
     gen = torch.Generator().manual_seed(3)
-    n, v = 4096, 30592
-    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
-    labels[::16] = -1                          # padding rows
-    for dtype in ("bfloat16", "float32"):
+    # BERT's (4096 x 30,592) and the byte mLSTM's (32,768 x 256)
+    for n, v, dtype in ((4096, 30592, "bfloat16"), (4096, 30592, "float32"),
+                        (32768, 256, "bfloat16"), (32768, 256, "float32")):
+        labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+        labels[::16] = -1                      # padding rows
         x = _randn((n, v), gen, getattr(torch, dtype), dev, 3.0)
         for sm in (0.0, 0.1):
             loss, lse = _xent_fwd(x, labels, sm)
@@ -1336,6 +1339,266 @@ def check_flash_split(dev):
                 bms, by, f" [one call with its host cost {call_ms:.4f} ms; "
                 "plain: one call between events; library: SDPA's whole "
                 "backward]")
+    return rows
+
+
+# the any-width and any-head-dim edges, checked and timed (phase 3e):
+# layer norm at widths off the 16-byte vector, past the register paths (the
+# wide path with the row in shared memory, and re-read at 65,536) and on a
+# view one element into its storage; cross-entropy at vocabularies on each
+# side of its instances' edges; flash attention at head dims padded to the
+# 64 and 128 instances, on the forward and both backward routes
+LN_EDGES = [(32768, 33), (32768, 60), (4096, 1000), (512, 12288),
+            (64, 65536), ("unaligned", 4096, 1024)]
+XENT_EDGES = [(4096, 64), (4096, 255), (4096, 257), (2048, 1025),
+              (256, 50257)]
+FLASH_PAD_EDGES = [  # name, B, heads, Sq, Sk, D, causal
+    ("d48_causal", 8, 16, 512, 512, 48, True),
+    ("d96", 8, 16, 512, 512, 96, False),
+]
+EDGE_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def _edge_row(kernel, case, dtype, err, tol, ms, pms, lms, bms, by):
+    log(f"  {kernel} {case} {dtype:8s} err {err:.3g} (tol {tol}) | kernel "
+        f"{ms:.5f} ms  plain {pms:.5f} ms  library "
+        + (f"{lms:.5f} ms" if lms is not None else "none")
+        + f"  bound {bms:.5f} ms ({by})")
+    return dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=by)
+
+
+def check_ln_edges(dev):
+    """#5 and #6 on :data:`LN_EDGES` in fp32, bf16 and fp16, affine: out
+    1e-5 / 2e-2 scaled (fp16 5e-3 on the peak rule), mean 1e-5, invvar
+    1e-4 relative; dx 1e-4 / 2e-2 scaled (fp16 2e-3 relative in norm);
+    each launch counted, timed beside the plain versions, ``F.layer_norm``
+    and aten's backward."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.layer_norm import (ln_bwd, ln_bwd_reference,
+                                               ln_fwd, ln_fwd_reference)
+    from apex_tpu_torch.utils import build
+    aten = torch.ops.aten
+    rows = []
+    gen = torch.Generator().manual_seed(46)
+    for edge in LN_EDGES:
+        unaligned = edge[0] == "unaligned"
+        n, h = edge[-2:]
+        base = (torch.randn((n, h), generator=gen) * 2.0 + 0.5,
+                torch.randn((n, h), generator=gen),
+                torch.randn((h,), generator=gen) * 0.1 + 1.0,
+                torch.randn((h,), generator=gen) * 0.1)
+        for dtype in EDGE_DTYPES:
+            dt = getattr(torch, dtype)
+            if unaligned:
+                # each tensor one element into its storage: 2 or 4 bytes
+                # off 16
+                x, g, w, b = (torch.empty(t.numel() + 1, dtype=dt,
+                                          device=dev)[1:].view(t.shape)
+                              .copy_(t) for t in base)
+                require(x.data_ptr() % 16 != 0, "unaligned edge is aligned")
+            else:
+                x, g, w, b = (t.to(dev, dt) for t in base)
+            case = (f"({n},{h}) unaligned" if unaligned else f"({n},{h})")
+            before = dict(build.LAUNCHES)
+            y, mean, inv = ln_fwd(x, w, b, 1e-5)
+            dx = ln_bwd(g, x, mean, inv, w)
+            torch.cuda.synchronize()
+            require(build.LAUNCHES["ln_fwd"] == before.get("ln_fwd", 0) + 1
+                    and build.LAUNCHES["ln_bwd"] == before.get("ln_bwd", 0)
+                    + 1, f"ln edge {case} {dtype}: not one launch each")
+            r_y, r_mean, r_inv = ln_fwd_reference(x, w, b, 1e-5)
+            if dtype == "float16":
+                ok, y_err = peak_ok(y, r_y, FP16_OUT_TOL)
+                y_tol = FP16_OUT_TOL
+            else:
+                y_tol = 1e-5 if dtype == "float32" else 2e-2
+                ok, y_err = scaled_ok(y, r_y, y_tol)
+            m_err = float((mean - r_mean).abs().max())
+            i_err = rel_err(inv, r_inv)
+            require(ok and m_err <= 1e-5 and i_err <= 1e-4,
+                    f"ln_fwd edge {case} {dtype}: out err {y_err:.3g} (tol "
+                    f"{y_tol}), mean {m_err:.3g}, invvar {i_err:.3g}")
+            r_dx = ln_bwd_reference(g, x, mean, inv, w)
+            if dtype == "float16":
+                d_err, d_tol = norm_rel(dx, r_dx), FP16_GRAD_TOL
+                ok = d_err <= d_tol
+            else:
+                d_tol = 1e-4 if dtype == "float32" else 2e-2
+                ok, d_err = scaled_ok(dx, r_dx, d_tol)
+            require(ok, f"ln_bwd edge {case} {dtype}: dx err {d_err:.3g} "
+                    f"(tol {d_tol})")
+            es = x.element_size()
+            fb, fby = bound(2 * n * h * es + 2 * n * 4 + 2 * h * es,
+                            8.0 * n * h, "float32")
+            bb, bby = bound(3 * n * h * es + 2 * n * 4 + h * es,
+                            12.0 * n * h, "float32")
+            f_ms = device_ms(lambda: ln_fwd(x, w, b, 1e-5))
+            f_pms = device_ms(lambda: ln_fwd_reference(x, w, b, 1e-5))
+            f_lms = device_ms(lambda: F.layer_norm(x, (h,), w, b, 1e-5))
+            b_ms = device_ms(lambda: ln_bwd(g, x, mean, inv, w))
+            b_pms = device_ms(lambda: ln_bwd_reference(g, x, mean, inv, w))
+            _, a_mean, a_inv = aten.native_layer_norm(x, [h], w, b, 1e-5)
+            b_lms = device_ms(lambda: aten.native_layer_norm_backward(
+                g, x, [h], a_mean, a_inv, w, b, [True, False, False]))
+            rows.append(_edge_row("ln_fwd", case, dtype, y_err, y_tol, f_ms,
+                                  f_pms, f_lms, fb, fby))
+            rows.append(_edge_row("ln_bwd", case, dtype, d_err, d_tol, b_ms,
+                                  b_pms, b_lms, bb, bby))
+            del x, g, w, b, y, dx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_xent_edges(dev):
+    """#7 on :data:`XENT_EDGES` in fp32, bf16 and fp16, every 16th row a
+    padding row, smoothing 0.1: loss and lse 1e-5 scaled; timed beside the
+    plain version and ``F.cross_entropy``."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.xentropy.softmax_xentropy import (
+        _xent_fwd, _xent_fwd_reference, _xent_plan)
+    from apex_tpu_torch.utils import build
+    rows = []
+    gen = torch.Generator().manual_seed(47)
+    for n, v in XENT_EDGES:
+        labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+        labels[::16] = -1
+        base = torch.randn((n, v), generator=gen) * 3.0
+        for dtype in EDGE_DTYPES:
+            dt = getattr(torch, dtype)
+            x = base.to(dev, dt)
+            before = build.LAUNCHES["xent_fwd"]
+            loss, lse = _xent_fwd(x, labels, 0.1)
+            torch.cuda.synchronize()
+            require(build.LAUNCHES["xent_fwd"] == before + 1,
+                    f"xent edge ({n},{v}) {dtype}: not one launch")
+            r_loss, r_lse = _xent_fwd_reference(x, labels, 0.1)
+            ok1, err = scaled_ok(loss, r_loss, 1e-5)
+            ok2, l_err = scaled_ok(lse, r_lse, 1e-5)
+            require(ok1 and ok2, f"xent edge ({n},{v}) {dtype}: loss err "
+                    f"{err:.3g}, lse err {l_err:.3g} (tol 1e-5)")
+            bms, by = bound(n * v * x.element_size() + 16 * n, 5.0 * n * v,
+                            "float32")
+            ms = device_ms(lambda: _xent_fwd(x, labels, 0.1))
+            pms = device_ms(lambda: _xent_fwd_reference(x, labels, 0.1))
+            lms = device_ms(lambda: F.cross_entropy(
+                x, labels, reduction="none", ignore_index=-1,
+                label_smoothing=0.1))
+            rows.append(_edge_row(
+                "xent_fwd", f"({n},{v}) {_xent_plan(v, dt)}", dtype,
+                max(err, l_err), 1e-5, ms, pms, lms, bms, by))
+    return rows
+
+
+def check_flash_pad_edges(dev):
+    """#1, #4 and #2 + #3 at head dims 48 and 96 (padded to the 64 and 128
+    instances) in bf16 and fp16, zero bias: out on the peak rule (bf16
+    2e-2, fp16 5e-3), live lse 1e-4 relative; dq, dk, dv on both routes
+    (bf16 2e-2 on the peak rule, fp16 2e-3 relative in norm); timed beside
+    the plain versions and SDPA's flash forward and backward (no library
+    call computes dq or dk/dv alone)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dkv, _flash_bwd_dkv_reference, _flash_bwd_dq,
+        _flash_bwd_dq_reference, _flash_bwd_fused, _flash_bwd_reference,
+        _flash_fwd, _reference)
+    from apex_tpu_torch.utils import build
+    aten = torch.ops.aten
+    rows = []
+    gen = torch.Generator().manual_seed(48)
+    for name, B, heads, sq, sk, d, causal in FLASH_PAD_EDGES:
+        bh = B * heads
+        for dtype in ("bfloat16", "float16"):
+            dt = getattr(torch, dtype)
+            fp16 = dtype == "float16"
+            q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, "zeros", gen,
+                                          dt, dev)
+            do = _randn(q.shape, gen, dt, dev)
+            before = dict(build.LAUNCHES)
+            out, lse = _flash_fwd(q, k, v, bias, causal, 0.0, 0, heads)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            args = (q, k, v, bias, causal, 0.0, 0, heads, lse, delta, do)
+            fused = _flash_bwd_fused(*args)
+            dq = _flash_bwd_dq(*args)
+            dkv = _flash_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            for kname in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
+                          "flash_bwd_dkv"):
+                require(build.LAUNCHES[kname] == before.get(kname, 0) + 1,
+                        f"flash pad {name} {dtype}: {kname} not one launch")
+            require(out.shape == q.shape and all(
+                t.shape == q.shape for t in fused + (dq,) + dkv),
+                f"flash pad {name}: outputs not sliced back to D = {d}")
+            r_out, r_lse = _reference(q, k, v, bias, causal, 0.0, 0, heads)
+            o_tol = FP16_OUT_TOL if fp16 else 2e-2
+            ok, o_err = peak_ok(out, r_out, o_tol)
+            l_err = rel_err(lse, r_lse)
+            require(ok and l_err <= 1e-4, f"flash pad {name} {dtype}: out "
+                    f"err {o_err:.3g} (tol {o_tol}, peak), lse {l_err:.3g}")
+
+            def grad_err(a, r):
+                if fp16:
+                    e = norm_rel(a, r)
+                    return e <= FP16_GRAD_TOL, e
+                return peak_ok(a, r, 2e-2)
+            g_tol = FP16_GRAD_TOL if fp16 else 2e-2
+            ref = _flash_bwd_reference(*args)
+            errs = {}
+            for gname, a, r in (("fused dq", fused[0], ref[0]),
+                                ("fused dk", fused[1], ref[1]),
+                                ("fused dv", fused[2], ref[2]),
+                                ("dq", dq, _flash_bwd_dq_reference(*args)),
+                                ("dk", dkv[0], ref[1]),
+                                ("dv", dkv[1], ref[2])):
+                ok, errs[gname] = grad_err(a, r)
+                require(ok, f"flash pad {name} {dtype} {gname}: err "
+                        f"{errs[gname]:.3g} (tol {g_tol})")
+            del ref
+            es = q.element_size()
+            pairs = (sum(min(r + 1, sk) for r in range(sq)) if causal
+                     else sq * sk) * bh
+            io = 4 * bh * sq * d * es + 2 * bh * sq * 4
+            q4, k4, v4, do4 = (t.view(B, heads, -1, d)
+                               for t in (q, k, v, do))
+            f_lms = device_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, scale=1.0))
+            (o4, lse4, cq, ck, mq, mk, rng_seed, rng_offset,
+             _) = aten._scaled_dot_product_flash_attention(
+                q4, k4, v4, 0.0, causal, False, scale=1.0)
+            b_lms = device_ms(
+                lambda: aten._scaled_dot_product_flash_attention_backward(
+                    do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal,
+                    rng_seed, rng_offset, scale=1.0))
+            del o4, lse4
+            case = f"{name} BH{bh}x{sq}x{sk}x{d}"
+            for kname, fn, plain, err, tol, nbytes, flops, lms in (
+                    ("flash_fwd",
+                     lambda: _flash_fwd(q, k, v, bias, causal, 0.0, 0, heads),
+                     lambda: _reference(q, k, v, bias, causal, 0.0, 0, heads),
+                     o_err, o_tol, io, 4.0 * d * pairs, f_lms),
+                    ("flash_bwd", lambda: _flash_bwd_fused(*args),
+                     lambda: _flash_bwd_reference(*args),
+                     max(errs[g] for g in ("fused dq", "fused dk",
+                                           "fused dv")), g_tol,
+                     io + 3 * bh * sq * d * es, 10.0 * d * pairs, b_lms),
+                    ("flash_bwd_dq", lambda: _flash_bwd_dq(*args),
+                     lambda: _flash_bwd_dq_reference(*args), errs["dq"],
+                     g_tol, io + bh * sq * d * es, 6.0 * d * pairs, None),
+                    ("flash_bwd_dkv", lambda: _flash_bwd_dkv(*args),
+                     lambda: _flash_bwd_dkv_reference(*args),
+                     max(errs["dk"], errs["dv"]), g_tol,
+                     io + 2 * bh * sk * d * es, 8.0 * d * pairs, None)):
+                bms, by = bound(nbytes, flops, dtype)
+                ms = device_ms(fn)
+                pms = device_ms(plain, n=3)
+                rows.append(_edge_row(kname, case, dtype, err, tol, ms, pms,
+                                      lms, bms, by))
+            del q, k, v, do, out, fused, dq, dkv, args
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -5160,6 +5423,12 @@ def main(argv) -> int:
         "plain versions on the card")
     dense_rows = check_dense_act(dev)
     flat_rows = check_scale_axpby(dev)
+    log("== phase 3e: layer norm at any width, cross-entropy at its "
+        "instances' edges, flash attention at head dims 48 and 96, vs plain "
+        "versions on the card")
+    edge_rows = (check_ln_edges(dev) + check_xent_edges(dev)
+                 + check_flash_pad_edges(dev))
+    torch.cuda.empty_cache()
     phase_serve_parity(dev)
     serve_launches, _ = phase_main_path(dev, card, profile)
     phase_train_parity(dev)
@@ -5226,7 +5495,8 @@ def main(argv) -> int:
                       pick(ln_bwd_rows, shape=(4096, 1024), dtype=bf16,
                            affine=True), launches, "o5_lamb"),
         _kernel_entry("xent_fwd", csrc + "xentropy.cu", XENT_REPLACES,
-                      pick(xent_rows, dtype=bf16, smoothing=0.0), launches,
+                      pick(xent_rows, shape=(4096, 30592), dtype=bf16,
+                           smoothing=0.0), launches,
                       "o5_lamb"),
         _kernel_entry("l2norm", csrc + "multi_tensor.cu", L2NORM_REPLACES,
                       pick(l2_rows, dtype="float32"), launches, "o5_lamb"),
@@ -5263,6 +5533,13 @@ def main(argv) -> int:
             k["fp16"] = {key: row[key] for key in (
                 "case", "max_abs_err", "ms", "bf16_ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by")}
+        # phase 3e's rows of this kernel (widths, vocabularies, head dims)
+        edges = [{key: r[key] for key in (
+            "case", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")} for r in edge_rows
+            if r["kernel"] == k["name"]]
+        if edges:
+            k["edges"] = edges
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

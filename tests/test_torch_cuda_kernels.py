@@ -76,10 +76,15 @@ def _norm_close(got, ref, tol):
 FP16_OUT_TOL, FP16_GRAD_TOL = 5e-3, 2e-3
 
 
+#: layer-norm widths off the 16-byte vector and past the register paths
+#: (the wide path staged in shared memory, and re-read at 65,536)
+LN_EDGE_SHAPES = [(7, 33), (9, 60), (64, 1000), (16, 12288), (4, 65536)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("affine", [True, False])
 @pytest.mark.parametrize("n,h", [(512, 1024), (8, 1024), (33, 4096),
-                                 (5, 40)])
+                                 (5, 40)] + LN_EDGE_SHAPES)
 def test_ln_fwd_kernel_matches_plain(n, h, affine, dtype, cuda_device):
     rng = np.random.default_rng(n + h)
     tdt = getattr(torch, dtype)
@@ -150,6 +155,15 @@ FLASH_EDGE_CASES = [
     ("time_mask_ragged", 2, 2, 129, 200, 64, "time", False, 0.0),
     ("time_mask_causal", 2, 3, 200, 130, 32, "time", True, 0.1),
 ]
+# head dims between the kernel instances: padded to 64 and 128 in the
+# wrappers and sliced back, on the forward and both backward routes
+FLASH_PAD_CASES = [
+    ("d48_dropout", 2, 2, 130, 200, 48, "key_pad", True, 0.1),
+    ("d48_dead", 2, 2, 64, 130, 48, "dead", False, 0.0),
+    ("d96_ragged", 2, 3, 129, 129, 96, "key_dead", False, 0.0),
+    ("d96_time_dropout", 2, 2, 200, 130, 96, "time", False, 0.1),
+]
+FLASH_EDGE_CASES = FLASH_EDGE_CASES + FLASH_PAD_CASES
 FLASH_CASES = FLASH_CASES + FLASH_EDGE_CASES
 
 
@@ -205,19 +219,70 @@ def test_flash_fwd_kernel_matches_plain(case, dtype, cuda_device):
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda_device):
-    x = torch.zeros(4, 60, device=cuda_device)          # H % 8 != 0
+    """A CUDA tensor launches a kernel or raises: H = 60 (off the 16-byte
+    vector) launches and matches the plain version; float64 and a head
+    dim past 128 raise and launch nothing."""
+    x = torch.randn(4, 60, device=cuda_device)          # H % 8 != 0
+    before = build.LAUNCHES["ln_fwd"]
+    out, mean, inv = port_ln.ln_fwd(x, None, None, 1e-5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ln_fwd"] == before + 1
+    assert _close(out, port_ln.ln_fwd_reference(x, None, None, 1e-5)[0],
+                  1e-5)
+    launches = dict(build.LAUNCHES)
+    with pytest.raises(TypeError):
+        port_ln.ln_fwd(x.double(), None, None, 1e-5)
+    bias = torch.zeros(1, 1, 8, device=cuda_device)
+    q = torch.zeros(2, 8, 160, device=cuda_device)      # D > 128
     with pytest.raises(ValueError):
-        port_ln.ln_fwd(x, None, None, 1e-5)
-    q = torch.zeros(2, 8, 48, device=cuda_device)       # unsupported D
-    with pytest.raises(ValueError):
-        pflash._flash_fwd(q, q, q, torch.zeros(1, 1, 8, device=cuda_device),
-                          False, 0.0, 0, 1)
+        pflash._flash_fwd(q, q, q, bias, False, 0.0, 0, 1)
+    q = torch.zeros(2, 8, 48, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        pflash._flash_fwd(q, q, q, bias, False, 0.0, 0, 1)
+    assert dict(build.LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("h", [1024, 33, 12288])
+def test_ln_kernels_take_unaligned_views(h, affine, dtype, cuda_device):
+    """x, g and the weight as views one element into their storage (2 or 4
+    bytes off 16): the element-load paths, held as the aligned ones."""
+    rng = np.random.default_rng(h)
+    tdt = getattr(torch, dtype)
+    n = 6
+
+    def view(shape):
+        flat = torch.from_numpy(rng.standard_normal(
+            int(np.prod(shape)) + 1).astype(np.float32)).to(cuda_device, tdt)
+        return flat[1:].view(shape)
+
+    x, g, w, b = view((n, h)), view((n, h)), view((h,)), view((h,))
+    x.mul_(2.0).add_(0.5)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16 and w.data_ptr() % 16
+    if not affine:
+        w = b = None
+    before = dict(build.LAUNCHES)
+    out, mean, inv = port_ln.ln_fwd(x, w, b, 1e-5)
+    dx = port_ln.ln_bwd(g, x, mean, inv, w)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ln_fwd"] == before.get("ln_fwd", 0) + 1
+    assert build.LAUNCHES["ln_bwd"] == before.get("ln_bwd", 0) + 1
+    r_out, r_mean, r_inv = port_ln.ln_fwd_reference(x, w, b, 1e-5)
+    assert _close(out, r_out, {"float32": 1e-5, "bfloat16": 2e-2,
+                               "float16": FP16_OUT_TOL}[dtype])
+    assert (mean - r_mean).abs().max().item() <= 1e-5
+    ref = port_ln.ln_bwd_reference(g, x, mean, inv, w)
+    if dtype == "float16":
+        assert _norm_close(dx, ref, FP16_GRAD_TOL)
+    else:
+        assert _close(dx, ref, 1e-4 if dtype == "float32" else 2e-2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("affine", [True, False])
 @pytest.mark.parametrize("n,h", [(4096, 1024), (8, 1024), (33, 4096),
-                                 (5, 40)])
+                                 (5, 40), (7680, 1024)] + LN_EDGE_SHAPES)
 def test_ln_bwd_kernel_matches_plain(n, h, affine, dtype, cuda_device):
     rng = np.random.default_rng(n * h)
     tdt = getattr(torch, dtype)
@@ -244,7 +309,8 @@ def test_ln_bwd_kernel_matches_plain(n, h, affine, dtype, cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 @pytest.mark.parametrize("n,v", [(4096, 30592), (32768, 256), (7, 1001),
-                                 (3, 8)])
+                                 (3, 8), (4096, 64), (1000, 255), (999, 257),
+                                 (513, 1025), (64, 50257)])
 def test_xent_fwd_kernel_matches_plain(n, v, smoothing, dtype, cuda_device):
     from apex_tpu_torch.contrib.xentropy import softmax_xentropy as xent
     rng = np.random.default_rng(n + v)
@@ -257,6 +323,27 @@ def test_xent_fwd_kernel_matches_plain(n, v, smoothing, dtype, cuda_device):
     torch.cuda.synchronize()
     assert build.LAUNCHES["xent_fwd"] == before + 1
     r_loss, r_lse = xent._xent_fwd_reference(logits, labels, smoothing)
+    assert _close(lse, r_lse, 1e-5) and _close(loss, r_loss, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n,v", [(300, 256), (40, 30592)])
+def test_xent_fwd_kernel_takes_an_unaligned_view(n, v, dtype, cuda_device):
+    """Logits one element into their storage: every row's scalar head and
+    tail around its aligned body, on the warp and ring instances."""
+    from apex_tpu_torch.contrib.xentropy import softmax_xentropy as xent
+    rng = np.random.default_rng(v)
+    flat = torch.from_numpy((rng.standard_normal(n * v + 1) * 3).astype(
+        np.float32)).to(cuda_device, getattr(torch, dtype))
+    logits = flat[1:].view(n, v)
+    assert logits.data_ptr() % 16
+    labels = torch.from_numpy(rng.integers(0, v, n)).to(cuda_device)
+    labels[::7] = -1
+    before = build.LAUNCHES["xent_fwd"]
+    loss, lse = xent._xent_fwd(logits, labels, 0.1)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["xent_fwd"] == before + 1
+    r_loss, r_lse = xent._xent_fwd_reference(logits, labels, 0.1)
     assert _close(lse, r_lse, 1e-5) and _close(loss, r_loss, 1e-5)
 
 
@@ -372,6 +459,90 @@ def test_flash_bwd_split_kernels_match_plain(case, dtype, cuda_device):
         xla = pflash._xla_bwd(q, k, v, bias, causal, rate, 5, heads, do)
         for a, r in zip((dq, dk, dv), xla):
             assert _close(a, r, 1e-4)
+
+
+@pytest.mark.parametrize("shape,nshape", [((64, 33), (33,)),
+                                          ((6, 32, 16, 16), (32, 16, 16)),
+                                          ((16, 12288), (12288,))],
+                         ids=["h33", "32x16x16", "h12288"])
+def test_fused_layer_norm_module_any_width_on_the_card(shape, nshape,
+                                                       cuda_device):
+    """``FusedLayerNorm`` at widths the kernels once refused, forward and
+    backward on the card, fp32: one launch of each kernel, out 1e-5 and
+    dx, dw, db 1e-4 against the same module on the CPU."""
+    from apex_tpu_torch.normalization import FusedLayerNorm
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape).astype(np.float32) * 2.0 + 0.5
+    g = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(nshape).astype(np.float32)
+    b = rng.standard_normal(nshape).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        mod = FusedLayerNorm(nshape, device=dev)
+        with torch.no_grad():
+            mod.weight.copy_(torch.from_numpy(w))
+            mod.bias.copy_(torch.from_numpy(b))
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        before = dict(build.LAUNCHES)
+        out = mod(xt)
+        grads = torch.autograd.grad(out, [xt, mod.weight, mod.bias],
+                                    torch.from_numpy(g).to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["ln_fwd"] == before.get("ln_fwd", 0) + 1
+            assert build.LAUNCHES["ln_bwd"] == before.get("ln_bwd", 0) + 1
+        outs[str(dev)] = [t.detach().cpu() for t in (out,) + grads]
+    ref, got = outs["cpu"], outs[str(cuda_device)]
+    assert _close(got[0], ref[0], 1e-5)
+    for a, r in zip(got[1:], ref[1:]):
+        assert _close(a, r, 1e-4)
+
+
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("d", [48, 96])
+def test_flash_attention_odd_head_dims_on_the_card(d, route, cuda_device,
+                                                   monkeypatch):
+    """``flash_attention`` with its gradients at head dims the kernels are
+    not built for: the forward and the chosen backward route launch once
+    each, and out, dq, dk, dv match autograd of the plain forward (fp32,
+    1e-4)."""
+    if route == "split":
+        monkeypatch.setattr(pflash, "_FUSE_BUFFER_CAP_MB", 0.0)
+    q, k, v, bias = _flash_inputs(2, 2, 130, 200, d, "key_pad", cuda_device,
+                                  torch.float32, seed=d)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)
+                     ).to(cuda_device)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(build.LAUNCHES)
+    out = pflash.flash_attention(*qkv, bias, seed=5, causal=True,
+                                 dropout_rate=0.1, heads=2)
+    grads = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    want = ({"flash_fwd": 1, "flash_bwd": 1} if route == "fused" else
+            {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1})
+    for name, n in want.items():
+        assert build.LAUNCHES[name] == before.get(name, 0) + n, name
+    r_out, _ = pflash._reference(q, k, v, bias, True, 0.1, 5, 2)
+    assert out.shape == q.shape and _peak_close(out, r_out, 1e-4)
+    for a, r in zip(grads, pflash._xla_bwd(q, k, v, bias, True, 0.1, 5, 2,
+                                           do)):
+        assert a.shape == r.shape and _close(a, r, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_fwd_past_65535_batch_heads(dtype, cuda_device):
+    """BH = 65,536 (past gridDim.y's 65,535): the batch-heads ride the
+    one-dimensional grid; out and lse match the plain version."""
+    q, k, v, bias = _flash_inputs(4096, 16, 32, 32, 64, "zeros", cuda_device,
+                                  getattr(torch, dtype), seed=65536)
+    assert q.shape[0] == 65536
+    before = build.LAUNCHES["flash_fwd"]
+    out, lse = pflash._flash_fwd(q, k, v, bias, True, 0.1, 3, 16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd"] == before + 1
+    r_out, r_lse = pflash._reference(q, k, v, bias, True, 0.1, 3, 16)
+    assert _peak_close(out, r_out, 1e-4 if dtype == "float32" else 2e-2)
+    assert _close(lse, r_lse, 1e-4)
 
 
 def test_flash_split_route_runs_on_the_card(cuda_device):

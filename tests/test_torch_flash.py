@@ -324,3 +324,86 @@ def test_bias_gets_no_gradient():
                                  b, heads=2)
     out.sum().backward()
     assert b.grad is None and qt.grad is not None
+
+
+# head dims between the kernel instances: (D, causal, dropout)
+PAD_CASES = [(d, causal, rate) for d in (48, 80, 96)
+             for causal in (False, True) for rate in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize("d,causal,rate", PAD_CASES,
+                         ids=[f"d{c[0]}-{'causal' if c[1] else 'full'}-"
+                              f"p{c[2]}" for c in PAD_CASES])
+def test_head_dim_padding_is_exact(d, causal, rate):
+    """What a CUDA call at D not in HEAD_DIMS does around the kernels: pad
+    q, k, v and dO with zero columns to the next instance, slice out, dq,
+    dk and dv back.  On the CPU, the plain forward, the plain backward and
+    autograd of the plain forward on the padded inputs, sliced, equal their
+    unpadded results within 1e-6."""
+    dp = pflash._kernel_head_dim(d)
+    assert dp == (64 if d <= 64 else 128)
+    q, k, v, bias = _inputs(2, 2, 24, 20, d, "key_pad", seed=d + 7)
+    do = _dout(q.shape, seed=d)
+    t = [torch.from_numpy(a) for a in (q, k, v, bias, do)]
+    pq, pk, pv, pdo = pflash._pad_head_dim((t[0], t[1], t[2], t[4]), dp)
+    for a, p in zip((t[0], t[1], t[2], t[4]), (pq, pk, pv, pdo)):
+        assert p.shape[-1] == dp and p.is_contiguous()
+        assert torch.equal(p[..., :d], a) and bool((p[..., d:] == 0).all())
+    args = (t[3], causal, rate, 31, 2)
+    out, lse = pflash._reference(t[0], t[1], t[2], *args)
+    p_out, p_lse = pflash._reference(pq, pk, pv, *args)
+    assert bool((p_out[..., d:] == 0).all())
+    np.testing.assert_allclose(p_out[..., :d].numpy(), out.numpy(),
+                               atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(p_lse.numpy(), lse.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    delta = (t[4] * out).sum(-1, keepdim=True)
+    ref = pflash._flash_bwd_reference(t[0], t[1], t[2], *args, lse, delta,
+                                      t[4])
+    got = pflash._flash_bwd_reference(pq, pk, pv, *args, lse, delta, pdo)
+    auto = pflash._xla_bwd(t[0], t[1], t[2], *args, t[4])
+    p_auto = pflash._xla_bwd(pq, pk, pv, *args, pdo)
+    for name, a, r in zip(("dq", "dk", "dv", "auto dq", "auto dk",
+                           "auto dv"), got + p_auto, ref + auto):
+        np.testing.assert_allclose(a[..., :d].numpy(), r.numpy(), atol=1e-6,
+                                   rtol=1e-6, err_msg=name)
+        assert bool((a[..., d:] == 0).all()), name
+
+
+@pytest.mark.parametrize("d", [16, 32, 33, 64, 65, 128, 129, 160, 256])
+def test_kernel_head_dim(d):
+    if d > 128:
+        with pytest.raises(ValueError, match="up to 128"):
+            pflash._kernel_head_dim(d)
+    else:
+        want = next(h for h in pflash.HEAD_DIMS if d <= h)
+        assert pflash._kernel_head_dim(d) == want
+
+
+@pytest.mark.parametrize("d", [48, 96])
+def test_flash_attention_odd_head_dims_match_jax(d):
+    """flash_attention at a head dim the kernels are not built for, with
+    its gradients, against the JAX package (which computes at any D)."""
+    q, k, v, bias = _inputs(2, 2, 24, 24, d, "key_pad", seed=d)
+    do = _dout(q.shape, seed=d + 1)
+    seed, causal, rate = 11, True, 0.1
+
+    def jloss(q_, k_, v_):
+        out = jflash.flash_attention(q_, k_, v_, jnp.asarray(bias), seed,
+                                     causal, rate, 2)
+        return jnp.sum(out * jnp.asarray(do))
+
+    j_out = jflash.flash_attention(*(jnp.asarray(a) for a in (q, k, v,
+                                                               bias)),
+                                   seed, causal, rate, 2)
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v))
+    qkv = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = pflash.flash_attention(*qkv, torch.from_numpy(bias), seed=seed,
+                                 causal=causal, dropout_rate=rate, heads=2)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               atol=TOL, rtol=TOL)
+    got = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=BWD_TOL,
+                                   rtol=BWD_TOL, err_msg=name)

@@ -106,22 +106,24 @@ def test_normalized_shape_mismatch_raises():
         fused_layer_norm(torch.zeros(2, 16), (8,))
 
 
-@pytest.mark.parametrize("bad", ["h_not_multiple_of_8", "too_wide",
-                                 "fp16", "non_contiguous", "half_affine",
+@pytest.mark.parametrize("bad", ["float64_x", "mixed_affine_dtypes",
+                                 "weight_on_another_device",
+                                 "non_contiguous", "half_affine",
                                  "weight_shape"])
 def test_kernel_input_checks(bad):
     """The checks the CUDA wrapper applies before a launch (run here on CPU
-    tensors; the launch itself needs the card)."""
+    tensors; the launch itself needs the card).  Any width, any alignment
+    and fp16 are taken (:func:`test_ln_plan_pins_paths`); float64, a weight
+    and bias of two dtypes, a weight on another device, a non-contiguous x
+    and wrong shapes are refused."""
     x = torch.zeros(4, 64)
     w, b = torch.ones(64), torch.zeros(64)
-    if bad == "h_not_multiple_of_8":
-        x, w, b = torch.zeros(4, 60), torch.ones(60), torch.zeros(60)
-    elif bad == "too_wide":
-        x, w, b = torch.zeros(2, 8192), torch.ones(8192), torch.zeros(8192)
-    elif bad == "fp16":
-        # fp16 rows are taken up to 8192 (1024 16-byte vectors), not past
-        x, w, b = (torch.zeros(2, 16384, dtype=torch.float16),
-                   torch.ones(16384), torch.zeros(16384))
+    if bad == "float64_x":
+        x = x.double()
+    elif bad == "mixed_affine_dtypes":
+        w = w.bfloat16()
+    elif bad == "weight_on_another_device":
+        w = torch.ones(64, device="meta")
     elif bad == "non_contiguous":
         x = torch.zeros(64, 4).t()
     elif bad == "half_affine":
@@ -202,3 +204,97 @@ def test_ln_bwd_kernel_input_checks(bad, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     with pytest.raises((ValueError, TypeError)):
         port_ln.ln_bwd(g, x, mean, inv, None)
+
+
+# (H, dtype, every pointer 16-byte aligned, backward) -> (path, 16-byte
+# loads): a warp a row up to 128 loads, a 256-thread block up to 1024, then
+# the wide path, its row (the backward: g and x) staged in shared memory
+# while it fits in a block's 227 KB
+PLAN_CASES = [
+    (1024, "bfloat16", True, False, ("warp", True)),
+    (1024, "float16", True, True, ("warp", True)),
+    (1024, "float32", True, True, ("block", True)),
+    (512, "float32", True, False, ("warp", True)),
+    (16, "bfloat16", True, False, ("warp", True)),
+    (33, "float32", True, False, ("warp", False)),
+    (60, "bfloat16", True, True, ("warp", False)),
+    (100, "float16", True, False, ("warp", False)),
+    (1000, "bfloat16", True, True, ("warp", True)),
+    (1000, "float32", True, False, ("block", True)),
+    (1024, "float16", False, True, ("block", False)),
+    (4096, "float32", True, True, ("block", True)),
+    (4096, "float32", False, False, ("wide_smem", False)),
+    (8192, "bfloat16", True, True, ("block", True)),
+    (8200, "bfloat16", True, False, ("wide_smem", True)),
+    (12288, "bfloat16", True, False, ("wide_smem", True)),
+    (12288, "float32", True, True, ("wide_smem", True)),
+    (65536, "bfloat16", True, False, ("wide_smem", True)),
+    (65536, "bfloat16", True, True, ("wide_reread", True)),
+    (65536, "float32", True, False, ("wide_reread", True)),
+    (65536, "float16", False, True, ("wide_reread", False)),
+]
+
+
+@pytest.mark.parametrize("h,dtype,aligned,backward,want", PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'al' if c[2] else 'unal'}-"
+                              f"{'bwd' if c[3] else 'fwd'}"
+                              for c in PLAN_CASES])
+def test_ln_plan_pins_paths(h, dtype, aligned, backward, want):
+    got = port_ln._ln_plan(h, getattr(torch, dtype), aligned, backward)
+    assert got == want
+    assert got[0] in port_ln.LN_PATHS
+    # the register paths end at MAX_H for aligned rows
+    if aligned and h % (16 // torch.empty((), dtype=getattr(
+            torch, dtype)).element_size()) == 0:
+        assert (got[0] in ("warp", "block")) == (
+            h <= port_ln.MAX_H[getattr(torch, dtype)])
+
+
+def test_ln_plan_reads_alignment_from_every_pointer():
+    x = torch.zeros(4, 1024, dtype=torch.bfloat16)
+    assert port_ln._aligned(x, None, torch.ones(1024))
+    # a view one element in: 2 bytes off 16
+    assert not port_ln._aligned(x.view(-1)[1:1 + 8 * 1024 - 8])
+    assert not port_ln._aligned(x, torch.ones(1025)[1:])
+
+
+# widths off the 16-byte vector, past the register paths, and a 3-d
+# normalized shape in fp32: the port against the JAX package's
+# fused_layer_norm_affine (out and jax.grad's dx, dw, db)
+WIDE_CASES = [((5, 33), (33,)), ((3, 32, 16, 16), (32, 16, 16)),
+              ((4, 12288), (12288,))]
+
+
+@pytest.mark.parametrize("shape,nshape", WIDE_CASES,
+                         ids=["h33", "32x16x16", "h12288"])
+def test_any_width_matches_jax(shape, nshape):
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal(shape) * 1.5 + 0.3).astype(np.float32)
+    w = rng.standard_normal(nshape).astype(np.float32)
+    b = rng.standard_normal(nshape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+
+    def jloss(x_, w_, b_):
+        return jnp.sum(jax_ln_affine(x_, w_, b_, nshape) * jnp.asarray(g))
+
+    ref = jax_ln_affine(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                        nshape)
+    j_grads = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    mod = FusedLayerNorm(nshape, device="cpu")
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(w))
+        mod.bias.copy_(torch.from_numpy(b))
+    out = mod(xt)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-5)
+    p_grads = torch.autograd.grad(out, [xt, mod.weight, mod.bias],
+                                  torch.from_numpy(g))
+    for name, a, r in zip(("dx", "dw", "db"), p_grads, j_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    fn_out = fused_layer_norm_affine(torch.from_numpy(x), torch.from_numpy(w),
+                                     torch.from_numpy(b), nshape)
+    np.testing.assert_allclose(fn_out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)

@@ -118,3 +118,42 @@ def test_int32_labels_accepted():
     b = softmax_xentropy_loss(torch.from_numpy(logits),
                               torch.from_numpy(labels), 0.1, 0)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# (V, dtype) -> instance, by the 16-byte vectors a row spans: 8 lanes a
+# row holding 1, 2 or 4 a lane up to 8, 16, 32; 16 lanes holding 4 up to
+# 64; 32 lanes up to 128 (2 KB); the shared-memory ring past that;
+# unaligned widths count their vectors rounded up (a scalar head and tail
+# take the rest)
+XENT_PLAN_CASES = [
+    (256, "float16", "lanes8x4"), (256, "bfloat16", "lanes8x4"),
+    (256, "float32", "lanes16x4"), (64, "float16", "lanes8x1"),
+    (64, "float32", "lanes8x2"), (8, "float32", "lanes8x1"),
+    (255, "float16", "lanes8x4"), (257, "float16", "lanes16x4"),
+    (257, "float32", "lanes32x4"), (500, "float32", "lanes32x4"),
+    (1001, "bfloat16", "lanes32x4"), (1024, "float16", "lanes32x4"),
+    (1025, "float16", "wide"), (1025, "float32", "wide"),
+    (30592, "bfloat16", "wide"), (50257, "float16", "wide"),
+]
+
+
+@pytest.mark.parametrize("n", [1, 4096, 32768])
+@pytest.mark.parametrize("v,dtype,want", XENT_PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in XENT_PLAN_CASES])
+def test_xent_plan_pins_instances(v, dtype, want, n):
+    """The instance depends on the row alone, not on N."""
+    assert px._xent_plan(v, getattr(torch, dtype)) == want
+    assert want in px.XENT_PATHS
+    logits = torch.zeros(n, v, dtype=getattr(torch, dtype))
+    px._check_cuda_inputs(logits, torch.zeros(n, dtype=torch.long))
+
+
+def test_unaligned_logits_pass_the_checks():
+    """A contiguous view whose rows start off 16 bytes is taken (the kernel
+    reads a scalar head and tail around each row's aligned body)."""
+    flat = torch.zeros(3 * 255 + 1, dtype=torch.float16)
+    logits = flat[1:].view(3, 255)
+    assert logits.data_ptr() % 16
+    labels, code = px._check_cuda_inputs(logits, torch.zeros(3,
+                                                             dtype=torch.int32))
+    assert labels.dtype == torch.int64 and code == 2
