@@ -14,6 +14,18 @@ dq, dk and dv come in q's type, lse and the dq partials in fp32, and P and
 dS are rounded to the input type before their products, in the kernels as
 in the plain versions.
 
+The backward rebuilds P from two fp32 residuals a row that the forward
+keeps apart, the row max m and log l (the log of the softmax
+denominator), as exp((s - m) - log l) (:func:`_recompute`): the public
+lse = m + log l cannot carry log l where m is a large finite mask (at m =
+-1e9 fp32's step is 64), and P rebuilt from it would be l times too large
+on a row whose every visible key carries such a mask.  The forward's
+:func:`_flash_fwd_res` returns them as one (BH, Sq, 2) ``stats`` tensor
+beside out and lse (a dead row: m = +1e30, log l = 0, so P = 0); each
+backward takes it where it takes ``lse``, and a public (BH, Sq, 1) lse
+given there instead reads as m = lse, log l = 0 (:func:`_stats_of`), the
+rebuild of the JAX package's kernels.
+
 The kernels are ``apex_tpu_torch/csrc/flash_fwd.cu`` (forward) and
 ``flash_bwd.cu``: the fused recompute backward (dq as per-k-tile fp32
 partials summed here) and the split route's two kernels, dq alone and
@@ -23,12 +35,13 @@ pass :data:`_FUSE_BUFFER_CAP_MB` (long sequences).  :func:`_flash_fwd`,
 launch them for CUDA tensors and take their plain versions
 (:func:`_reference`, :func:`_flash_bwd_reference`,
 :func:`_flash_bwd_dq_reference`, :func:`_flash_bwd_dkv_reference`) only
-for CPU tensors.  The kernels are built for head dims 32, 64 and 128
-(:data:`HEAD_DIMS`); a CUDA call at another D up to 128 pads q, k, v (and
-dO) with zero columns to the next instance (:func:`_pad_head_dim`) and
-slices out, dq, dk and dv back, which is exact (zero columns add nothing
-to q k^T and give zero output columns, and the dropout hash reads no D).
-D > 128 raises.  ``backward="xla"`` takes autograd of the plain
+for CPU tensors.  The kernels are built for head dims 32, 64, 128 and 256
+(:data:`HEAD_DIMS`; D = 256 on the scalar-FMA kernels in every dtype); a
+CUDA call at another D up to 256 pads q, k, v (and dO) with zero columns
+to the next instance (:func:`_pad_head_dim`) and slices out, dq, dk and dv
+back, which is exact (zero columns add nothing to q k^T and give zero
+output columns, and the dropout hash reads no D).  D > 256 raises: it
+needs a q k^T chunked over D.  ``backward="xla"`` takes autograd of the plain
 :func:`_reference` instead, by the caller's choice; ``"pallas"`` (the JAX
 package's name for its kernel route, kept so the amp option keeps its
 meaning) and ``"auto"`` take the kernels.  The JAX package's environment
@@ -53,12 +66,13 @@ __all__ = ["flash_attention", "_flash_fwd", "_flash_bwd", "_flash_bwd_fused",
            "_flash_bwd_dq_reference", "_flash_bwd_dkv_reference",
            "_reference", "_dropout_keep", "_resolve_backward",
            "_resolve_fuse", "set_default_backward", "BACKWARD_IMPLS",
-           "_kernel_head_dim", "_pad_head_dim",
+           "_kernel_head_dim", "_pad_head_dim", "_flash_fwd_res",
+           "_stats_of",
            "NEG_INF", "HEAD_DIMS", "BWD_K_TILE"]
 
 NEG_INF = -1e30
 #: head dims the kernels are built for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 #: keys per CTA of the fused and dk/dv kernels (``kPartKeys`` in
 #: ``flash_bwd.cu``), the JAX package's default backward ``bk``: the dq
 #: partials are (BH, ceil(Sk / BWD_K_TILE), Sq, D) fp32
@@ -176,6 +190,13 @@ def _reference(q, k, v, bias, causal, dropout_rate, seed, heads
     """Plain PyTorch version of the kernel: (out (BH, Sq, D), lse (BH, Sq, 1)
     f32).  Mirrors the TPU package's ``_xla_reference`` (softmax over keys,
     then dropout with the same hash mask, dead rows -> 0) and adds the lse."""
+    return _reference_res(q, k, v, bias, causal, dropout_rate, seed,
+                          heads)[:2]
+
+
+def _reference_res(q, k, v, bias, causal, dropout_rate, seed, heads):
+    """:func:`_reference` and the backward's residual: (out, lse, stats
+    (BH, Sq, 2) f32 = (m, log l), a dead row (+1e30, 0))."""
     _check_layout(q, k, v, bias, heads)
     bh, sq, _ = q.shape
     sk = k.shape[1]
@@ -200,14 +221,17 @@ def _reference(q, k, v, bias, causal, dropout_rate, seed, heads
         p = p * keep / (1.0 - dropout_rate)
     o = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
     o = torch.where(dead[..., None], torch.zeros_like(o), o).to(q.dtype)
-    lse = torch.where(dead, torch.full_like(m, -NEG_INF), m + torch.log(safe_l))
-    return o, lse[..., None]
+    log_l = torch.log(safe_l)
+    lse = torch.where(dead, torch.full_like(m, -NEG_INF), m + log_l)
+    stats = torch.stack((torch.where(dead, torch.full_like(m, -NEG_INF), m),
+                         torch.where(dead, torch.zeros_like(m), log_l)), -1)
+    return o, lse[..., None], stats
 
 
 def _kernel_head_dim(d: int) -> int:
     """The head dim of the kernel instance that takes ``d``: the least of
-    :data:`HEAD_DIMS` at or above it.  D > 128 raises: it needs an instance
-    of its own."""
+    :data:`HEAD_DIMS` at or above it.  D > 256 raises: it needs a q k^T
+    chunked over D."""
     for hd in HEAD_DIMS:
         if d <= hd:
             return hd
@@ -267,8 +291,17 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (BH, Sq, D), k/v (BH, Sk, D), bias (1|B, 1|Sq, Sk) f32.
     Returns out (BH, Sq, D), lse (BH, Sq, 1) f32."""
+    return _flash_fwd_res(q, k, v, bias, causal, dropout_rate, seed,
+                          heads)[:2]
+
+
+def _flash_fwd_res(q, k, v, bias, causal, dropout_rate, seed, heads
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_flash_fwd` and the backward's residual: (out, lse, stats
+    (BH, Sq, 2) f32 = (row max m, log l)), from one launch."""
     if not q.is_cuda:
-        return _reference(q, k, v, bias, causal, dropout_rate, seed, heads)
+        return _reference_res(q, k, v, bias, causal, dropout_rate, seed,
+                              heads)
     _check_layout(q, k, v, bias, heads)
     d = q.shape[2]
     q, k, v = _pad_head_dim((q, k, v), _kernel_head_dim(d))
@@ -276,13 +309,24 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, sq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
+    stats = torch.empty((bh, sq, 2), dtype=torch.float32, device=q.device)
     err = build.library().apex_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), stats.data_ptr(),
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_fwd")
     build.LAUNCHES["flash_fwd"] += 1
-    return _unpad(out, d), lse
+    return _unpad(out, d), lse, stats
+
+
+def _stats_of(lse: torch.Tensor) -> torch.Tensor:
+    """The backward's (BH, Sq, 2) f32 residual (m, log l): ``lse`` itself
+    when it is one (the forward's ``stats``), else a public (BH, Sq, 1) lse
+    read as m = lse, log l = 0."""
+    if lse.shape[-1] == 2:
+        return lse
+    lse = lse.float()
+    return torch.cat((lse, torch.zeros_like(lse)), -1)
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +338,8 @@ def _recompute(q, k, v, bias, causal, dropout_rate, seed, heads, lse, delta,
     """The backward's recompute over whole rows (the TPU package's
     ``_recompute_p`` and the kernels' shared prologue): (P, the dropout
     factor keep / (1 - rate) or None, dS = P * (dP * keep - delta)), fp32
-    (BH, Sq, Sk)."""
+    (BH, Sq, Sk).  P = exp((s - m) - log l) from ``lse`` read through
+    :func:`_stats_of`."""
     _check_layout(q, k, v, bias, heads)
     bh, sq, _ = q.shape
     sk = k.shape[1]
@@ -307,7 +352,8 @@ def _recompute(q, k, v, bias, causal, dropout_rate, seed, heads, lse, delta,
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
         s = torch.where(cols <= rows, s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - lse.float())
+    stats = _stats_of(lse).float()
+    p = torch.exp((s - stats[..., :1]) - stats[..., 1:])
     del s
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
     keep = None
@@ -366,13 +412,15 @@ def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
                      delta, do
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from one kernel: dk and dv directly, dq as per-k-tile
-    fp32 partials (BH, nk, Sq, D) summed here.  lse and delta are (BH, Sq,
-    1) f32; ``do`` is (BH, Sq, D) in q's dtype."""
+    fp32 partials (BH, nk, Sq, D) summed here.  ``lse`` is the forward's
+    (BH, Sq, 2) stats or a (BH, Sq, 1) lse (:func:`_stats_of`), delta (BH,
+    Sq, 1) f32; ``do`` is (BH, Sq, D) in q's dtype."""
     if not q.is_cuda:
         return _flash_bwd_reference(q, k, v, bias, causal, dropout_rate, seed,
                                     heads, lse, delta, do)
     d = q.shape[2]
     q, k, v, do = _pad_bwd(q, k, v, bias, heads, do)
+    lse = _stats_of(lse).contiguous()
     _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
     bh, sq, dp = q.shape
     nk = -(-k.shape[1] // BWD_K_TILE)
@@ -411,9 +459,10 @@ def _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash backward needs a contiguous, 16-byte "
                              f"aligned {name} on {q.device}")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or t.numel() != bh * sq:
-            raise ValueError(f"{name} must be float32 (BH, Sq, 1)")
+    if lse.dtype != torch.float32 or lse.numel() != 2 * bh * sq:
+        raise ValueError("stats must be float32 (BH, Sq, 2)")
+    if delta.dtype != torch.float32 or delta.numel() != bh * sq:
+        raise ValueError("delta must be float32 (BH, Sq, 1)")
 
 
 def _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
@@ -426,6 +475,7 @@ def _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
                                        seed, heads, lse, delta, do)
     d = q.shape[2]
     q, k, v, do = _pad_bwd(q, k, v, bias, heads, do)
+    lse = _stats_of(lse).contiguous()
     _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
     dq = torch.empty_like(q)
     err = build.library().apex_flash_bwd_dq(
@@ -446,6 +496,7 @@ def _flash_bwd_dkv(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
                                         seed, heads, lse, delta, do)
     d = q.shape[2]
     q, k, v, do = _pad_bwd(q, k, v, bias, heads, do)
+    lse = _stats_of(lse).contiguous()
     _check_bwd_inputs(q, k, v, bias, dropout_rate, heads, lse, delta, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -490,15 +541,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, causal, dropout_rate, heads,
                 backward):
-        out, lse = _flash_fwd(q, k, v, bias, causal, dropout_rate, seed,
-                              heads)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
+        out, _, stats = _flash_fwd_res(q, k, v, bias, causal, dropout_rate,
+                                       seed, heads)
+        ctx.save_for_backward(q, k, v, bias, out, stats)
         ctx.args = (seed, causal, dropout_rate, heads, backward)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, out, lse = ctx.saved_tensors
+        q, k, v, bias, out, stats = ctx.saved_tensors
         seed, causal, dropout_rate, heads, backward = ctx.args
         do = do.contiguous()
         if _resolve_backward(backward) == "xla":
@@ -506,7 +557,7 @@ class _FlashAttention(torch.autograd.Function):
                                   heads, do)
         else:
             dq, dk, dv = _flash_bwd(q, k, v, bias, causal, dropout_rate,
-                                    seed, heads, out, lse, do)
+                                    seed, heads, out, stats, do)
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -4,16 +4,20 @@
 // Fused: replaces the TPU kernel apex_tpu/contrib/multihead_attn/flash.py
 // `_bwd_fused_kernel` (reached through `_flash_bwd_fused`): from q (BH, Sq,
 // D) pre-scaled, k/v (BH, Sk, D), the fp32 bias (1|B, 1|Sq, Sk), the
-// forward's lse (BH, Sq) and delta = rowsum(dO * O) (BH, Sq), one recompute
-// of P per (q tile, k tile) feeds all three gradients:
-//   P  = exp(q k^T + bias - lse)        (causal: col > row gives P = 0)
+// forward's stats (BH, Sq, 2) = (row max m, log l) and delta = rowsum(dO *
+// O) (BH, Sq), one recompute of P per (q tile, k tile) feeds all three
+// gradients:
+//   P  = exp((q k^T + bias - m) - log l) (causal: col > row gives P = 0)
 //   Pd = P * keep / (1 - rate)          (keep: the forward's dropout hash)
 //   dV += Pd^T dO
 //   dP = (dO v^T) * keep / (1 - rate)
 //   dS = P * (dP - delta)
 //   dK += dS^T q
 //   dQ partial[bh, k tile] = dS k       (fp32, summed over k tiles outside)
-// Dead rows (lse = +1e30) and masked scores give P = 0.  Ragged Sq / Sk are
+// m and log l are kept apart because lse = m + log l cannot carry log l
+// where m is a large finite mask (-1e9, whose fp32 step is 64): P rebuilt
+// from it would be l times too large on a row whose every visible key
+// carries such a mask.  Dead rows (m = +1e30) and masked scores give P = 0.  Ragged Sq / Sk are
 // masked inside the kernel.  The dq partials are the TPU layout (BH, nk,
 // Sq, D) with nk = ceil(Sk / 128) (kPartKeys, flash.py BWD_K_TILE): every
 // (k tile, q tile) block is written exactly once (zeros for a
@@ -43,11 +47,11 @@
 // first).  A producer warpgroup hands its registers to the consumers, and
 // its first warp loads k and v of the CTA's keys once by TMA, then keeps a
 // 2-stage mbarrier ring of 64-row q and dO tiles in flight, each stage
-// with its rows' lse and delta.  Two consumer warpgroups
+// with its rows' m, log l and delta.  Two consumer warpgroups
 // own 64 keys each (wgmma's M); per q tile each runs
 //   * S^T = k q^T and dP^T = v dO^T on wgmma from swizzled shared memory
 //     (k / v the K-major A, q / dO the K-major B): 64 keys x 64 rows;
-//   * P^T = exp2(S^T log2e + bias - lse log2e) in registers, the key bias
+//   * P^T = exp2((S^T + bias - m) log2e - log l log2e) in registers, the key bias
 //     read once per CTA (a (1|B, 1, Sk) bias is per key, so per
 //     accumulator row; -1e30 past Sk), a (B, Sq, Sk) bias per element, the
 //     causal compare only on tiles that cross the warpgroup's diagonal (q
@@ -61,8 +65,11 @@
 //     with dS^T as an MN-major A and its half of k's columns as an MN-major
 //     B (k lies in chunks of D / 2 columns for this), and writes it once.
 //   dK and dV stay in registers until the epilogue.
-// fp32 (the numerics oracle): one CTA of 512 threads per (bh, 128-key
-// tile), q tiles of 32 rows, scalar FMA out of shared memory.
+// fp32 (the numerics oracle), and every dtype at D = 256 (whose k / v and
+// q / dO tiles the ring cannot hold): one CTA of 512 threads per (bh,
+// 128-key tile), in passes of 128 keys (64 at D = 256), q tiles of 32 rows,
+// scalar FMA on fp32 copies in shared memory, Pd and dS rounded to E before
+// their products.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,8 +95,8 @@ struct Params {
   const void* v;
   const void* dout;
   const float* bias;
-  const float* lse;    // (bh, sq)
-  const float* delta;  // (bh, sq)
+  const float2* stats;  // (bh, sq): (row max m, log l)
+  const float* delta;   // (bh, sq)
   float* dq_part;      // (bh, nk, sq, d): fused kernel only
   void* dq;            // (bh, sq, d): dq kernel only
   void* dk;
@@ -104,8 +111,8 @@ struct Params {
 
 // Recomputed probability of (row, col): 0 outside the ragged edges and
 // above the causal diagonal (exp(-1e30 - lse) underflows to 0 on the TPU).
-__device__ __forceinline__ float prob(const Params& p, float s, float lse,
-                                      int bh, int row, int col) {
+__device__ __forceinline__ float prob(const Params& p, float s, float m,
+                                      float log_l, int bh, int row, int col) {
   if (row >= p.sq || col >= p.sk) return 0.f;
   if (p.causal && col > row) return 0.f;
   if (p.bias != nullptr) {
@@ -113,7 +120,12 @@ __device__ __forceinline__ float prob(const Params& p, float s, float lse,
     const int br = p.bias_q == 1 ? 0 : row;
     s += p.bias[((size_t)bb * p.bias_q + br) * p.sk + col];
   }
-  return expf(s - lse);
+  return expf((s - m) - log_l);
+}
+
+// A row's (m, log l); a row past Sq reads as dead (P = 0).
+__device__ __forceinline__ float2 row_stats(const Params& p, int bh, int row) {
+  return row < p.sq ? p.stats[(size_t)bh * p.sq + row] : make_float2(-kNegInf, 0.f);
 }
 
 // Dropout factor of (row, col): keep / (1 - rate), or 1 without dropout.
@@ -132,10 +144,10 @@ __device__ __forceinline__ float keep_factor(const Params& p, int bh, int row,
 // Two consumer warpgroups of 64 keys each, then one producer warpgroup
 // whose first warp starts the loads: k and v of the CTA's 128 keys once, in
 // chunks of D / 2 columns, then stages of a q and a dO tile with their
-// rows' lse and delta.  The fused kernel's own bytes: two dS^T tiles.
+// rows' m, log l and delta.  The fused kernel's own bytes: two dS^T tiles.
 template <int D, bool kEmitDq>
 using KvCfg = sm90::RingCfg<D, 2, sm90::kKvStages, kPartKeys, 2,
-                            sm90::kKvStageRows, 2, D / 2,
+                            sm90::kKvStageRows, 3, D / 2,
                             kEmitDq ? 2 * kPartKeys * sm90::kKvStageRows * 2 : 0>;
 
 // kEmitDq: the fused kernel (dk, dv and the dq partials); without it, the
@@ -177,13 +189,13 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
 
   ring.init();
   if (warp >= 8) {
-    // ---- producer: k and v once, then q / dO tiles with lse and delta
+    // ---- producer: k and v once, then q / dO tiles with m, log l, delta
     sm90::producer_release_registers();
     if (warp == 8) {
       const CUtensorMap* kv[2] = {&kmap, &vmap};
       const size_t rows = (size_t)bh * p.sq;
       ring.produce(kv, k0, &qmap, &domap, bh, qt0, n, lane,
-                   sm90::QueryStats{p.lse + rows, p.delta + rows, p.sq});
+                   sm90::QueryStats{p.stats + rows, p.delta + rows, p.sq});
     }
     return;
   }
@@ -241,19 +253,22 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
                              p.causal && q0 < k0 + wg * 64 + 63, key_a, q0, t,
                              p.sq, p.sk);
 
-    // P^T = exp(S^T + bias - lse), then Pd^T = P^T keep / (1 - rate) (into
-    // s) and dS^T = P^T (dP^T keep / (1 - rate) - delta) (into dp); lse and
-    // delta are per column, read from the stage
-    const float* lse = ring.vecs(i);
-    const float* delta = lse + kBq;
+    // P^T = exp((S^T + bias - m) - log l), then Pd^T = P^T keep / (1 -
+    // rate) (into s) and dS^T = P^T (dP^T keep / (1 - rate) - delta) (into
+    // dp); m, log l log2(e) and delta are per column, read from the stage
+    const float* mrow = ring.vecs(i);
+    const float* ll2 = mrow + kBq;
+    const float* delta = mrow + 2 * kBq;
 #pragma unroll
     for (int j = 0; j < kBq / 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(lse + j * 8 + 2 * t);
+      const float2 m2 = *reinterpret_cast<const float2*>(mrow + j * 8 + 2 * t);
+      const float2 g2 = *reinterpret_cast<const float2*>(ll2 + j * 8 + 2 * t);
       const float2 dl = *reinterpret_cast<const float2*>(delta + j * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // the difference first (as the forward's exp2((s - max) log2(e)))
-        const float pr = exp2f((s[4 * j + e] - ((e & 1) ? l.y : l.x)) * kLog2e);
+        const float pr = exp2f(fmaf(s[4 * j + e] - ((e & 1) ? m2.y : m2.x), kLog2e,
+                                    -((e & 1) ? g2.y : g2.x)));
         float kf = 1.f;
         if (p.drop_threshold != 0u)
           kf = dropout_keep(p.seed, bh, q0 + j * 8 + 2 * t + (e & 1),
@@ -361,21 +376,30 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
 
 constexpr int kSimtBq = 32;  // q rows per step
 constexpr int kSimtKvThreads = 512;
-constexpr int kSimtGroups = kSimtKvThreads / kPartKeys;  // 4 groups of 128
+
+// keys a pass of the scalar key-major kernel holds: the CTA's 128, or 64
+// at D = 256, where 128 keys' fp32 k and v alone would pass shared memory
+template <int D>
+__host__ __device__ constexpr int simt_pass_keys() { return D > 128 ? 64 : kPartKeys; }
 
 template <int D>
 constexpr int simt_smem_bytes() {
-  return (2 * kPartKeys * (D + 1) + 2 * kSimtBq * (D + 1) +
-          2 * kSimtBq * (kPartKeys + 1) + 2 * kSimtBq) * 4;
+  constexpr int kBk = simt_pass_keys<D>();
+  return (2 * kBk * (D + 1) + 2 * kSimtBq * (D + 1) +
+          2 * kSimtBq * (kBk + 1) + 3 * kSimtBq) * 4;
 }
 
-template <int D, bool kEmitDq>
+template <typename E, int D, bool kEmitDq>
 __global__ void __launch_bounds__(kSimtKvThreads)
 flash_bwd_simt_kernel(Params p) {
-  constexpr int kBk = kPartKeys;
+  constexpr int kBk = simt_pass_keys<D>();
+  constexpr int kPasses = kPartKeys / kBk;
+  constexpr int kGroups = kSimtKvThreads / kBk;   // 4, or 8 at D = 256
   constexpr int kS = D + 1;    // +1: lane-per-key reads hit distinct banks
   constexpr int kP = kBk + 1;
-  constexpr int kPerThread = D / kSimtGroups;  // dK / dV columns a thread owns
+  constexpr int kPerThread = D / kGroups;  // dK / dV columns a thread owns
+  using sm90::to_f32;
+  using sm90::round_to;
   extern __shared__ float sm[];
   float* ks = sm;
   float* vs = ks + kBk * kS;
@@ -383,18 +407,18 @@ flash_bwd_simt_kernel(Params p) {
   float* dos = qs + kSimtBq * kS;
   float* pds = dos + kSimtBq * kS;  // Pd[q][key]
   float* dss = pds + kSimtBq * kP;  // dS[q][key]
-  float* lse_s = dss + kSimtBq * kP;
-  float* delta_s = lse_s + kSimtBq;
+  float* m_s = dss + kSimtBq * kP;
+  float* ll_s = m_s + kSimtBq;
+  float* delta_s = ll_s + kSimtBq;
 
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-  const float* dout = static_cast<const float*>(p.dout);
+  const E* q = static_cast<const E*>(p.q);
+  const E* k = static_cast<const E*>(p.k);
+  const E* v = static_cast<const E*>(p.v);
+  const E* dout = static_cast<const E*>(p.dout);
 
   const sm90::GridPos pos = sm90::grid_pos(p.nk);
   const int bh = pos.bh;
   const int kt = pos.tile;
-  const int k0 = kt * kBk;
   const int tid = threadIdx.x;
   const int key_l = tid % kBk;
   const int grp = tid / kBk;  // one value per warp: broadcast reads
@@ -402,89 +426,98 @@ flash_bwd_simt_kernel(Params p) {
   const size_t kbase = (size_t)bh * p.sk * D;
   float* dqp = kEmitDq ? p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D
                        : nullptr;
-
-  for (int i = tid; i < kBk * D; i += kSimtKvThreads) {
-    const int r = i / D, c = i % D;
-    const bool in = k0 + r < p.sk;
-    ks[r * kS + c] = in ? k[kbase + (size_t)(k0 + r) * D + c] : 0.f;
-    vs[r * kS + c] = in ? v[kbase + (size_t)(k0 + r) * D + c] : 0.f;
-  }
-
-  float dk_acc[kPerThread], dv_acc[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) dk_acc[j] = dv_acc[j] = 0.f;
-
   const int n_qt = (p.sq + kSimtBq - 1) / kSimtBq;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kSimtBq;
-    if (p.causal && q0 + kSimtBq - 1 < k0) {
+
+  // each pass owns kBk of the CTA's keys: its own dK / dV, and a share of
+  // the dq partials (the first pass writes them, a later one adds to them;
+  // the same thread owns an element in every pass)
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int k0 = kt * kPartKeys + pass * kBk;
+    __syncthreads();
+    for (int i = tid; i < kBk * D; i += kSimtKvThreads) {
+      const int r = i / D, c = i % D;
+      const bool in = k0 + r < p.sk;
+      ks[r * kS + c] = in ? to_f32(k[kbase + (size_t)(k0 + r) * D + c]) : 0.f;
+      vs[r * kS + c] = in ? to_f32(v[kbase + (size_t)(k0 + r) * D + c]) : 0.f;
+    }
+
+    float dk_acc[kPerThread], dv_acc[kPerThread];
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * kSimtBq;
+      if (p.causal && q0 + kSimtBq - 1 < k0) {
+        if (!kEmitDq || pass > 0) continue;
+        for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
+          const int r = i / D;
+          if (q0 + r < p.sq) dqp[(size_t)(q0 + r) * D + i % D] = 0.f;
+        }
+        continue;
+      }
+      __syncthreads();
+      for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
+        const int r = i / D, c = i % D;
+        const bool in = q0 + r < p.sq;
+        qs[r * kS + c] = in ? to_f32(q[qbase + (size_t)(q0 + r) * D + c]) : 0.f;
+        dos[r * kS + c] = in ? to_f32(dout[qbase + (size_t)(q0 + r) * D + c]) : 0.f;
+      }
+      for (int r = tid; r < kSimtBq; r += kSimtKvThreads) {
+        const float2 st = row_stats(p, bh, q0 + r);
+        m_s[r] = st.x;
+        ll_s[r] = st.y;
+        delta_s[r] = q0 + r < p.sq ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      for (int q_l = grp; q_l < kSimtBq; q_l += kGroups) {
+        float s = 0.f, dp = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < D; ++d) {
+          s = fmaf(qs[q_l * kS + d], ks[key_l * kS + d], s);
+          dp = fmaf(dos[q_l * kS + d], vs[key_l * kS + d], dp);
+        }
+        const int row = q0 + q_l, col = k0 + key_l;
+        const float pr = prob(p, s, m_s[q_l], ll_s[q_l], bh, row, col);
+        const float kf = keep_factor(p, bh, row, col);
+        pds[q_l * kP + key_l] = round_to<E>(pr * kf);
+        dss[q_l * kP + key_l] = round_to<E>(pr * (dp * kf - delta_s[q_l]));
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const int d = grp + kGroups * j;
+        float a = dv_acc[j], b = dk_acc[j];
+        for (int q_l = 0; q_l < kSimtBq; ++q_l) {
+          a = fmaf(pds[q_l * kP + key_l], dos[q_l * kS + d], a);
+          b = fmaf(dss[q_l * kP + key_l], qs[q_l * kS + d], b);
+        }
+        dv_acc[j] = a;
+        dk_acc[j] = b;
+      }
       if (!kEmitDq) continue;
       for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
-        const int r = i / D;
-        if (q0 + r < p.sq) dqp[(size_t)(q0 + r) * D + i % D] = 0.f;
-      }
-      continue;
-    }
-    __syncthreads();
-    for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = q0 + r < p.sq;
-      qs[r * kS + c] = in ? q[qbase + (size_t)(q0 + r) * D + c] : 0.f;
-      dos[r * kS + c] = in ? dout[qbase + (size_t)(q0 + r) * D + c] : 0.f;
-    }
-    for (int r = tid; r < kSimtBq; r += kSimtKvThreads) {
-      const bool in = q0 + r < p.sq;
-      lse_s[r] = in ? p.lse[(size_t)bh * p.sq + q0 + r] : -kNegInf;
-      delta_s[r] = in ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    for (int q_l = grp; q_l < kSimtBq; q_l += kSimtGroups) {
-      float s = 0.f, dp = 0.f;
+        const int q_l = i / D, d = i % D;
+        if (q0 + q_l >= p.sq) continue;
+        float s = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qs[q_l * kS + d], ks[key_l * kS + d], s);
-        dp = fmaf(dos[q_l * kS + d], vs[key_l * kS + d], dp);
+        for (int kk = 0; kk < kBk; ++kk)
+          s = fmaf(dss[q_l * kP + kk], ks[kk * kS + d], s);
+        float* at = dqp + (size_t)(q0 + q_l) * D + d;
+        *at = pass == 0 ? s : *at + s;
       }
-      const int row = q0 + q_l, col = k0 + key_l;
-      const float pr = prob(p, s, lse_s[q_l], bh, row, col);
-      const float kf = keep_factor(p, bh, row, col);
-      pds[q_l * kP + key_l] = pr * kf;
-      dss[q_l * kP + key_l] = pr * (dp * kf - delta_s[q_l]);
     }
-    __syncthreads();
 
+    E* dk = static_cast<E*>(p.dk);
+    E* dv = static_cast<E*>(p.dv);
+    if (k0 + key_l < p.sk) {
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int d = grp + kSimtGroups * j;
-      float a = dv_acc[j], b = dk_acc[j];
-      for (int q_l = 0; q_l < kSimtBq; ++q_l) {
-        a = fmaf(pds[q_l * kP + key_l], dos[q_l * kS + d], a);
-        b = fmaf(dss[q_l * kP + key_l], qs[q_l * kS + d], b);
+      for (int j = 0; j < kPerThread; ++j) {
+        const size_t o = kbase + (size_t)(k0 + key_l) * D + grp + kGroups * j;
+        dk[o] = sm90::from_f32<E>(dk_acc[j]);
+        dv[o] = sm90::from_f32<E>(dv_acc[j]);
       }
-      dv_acc[j] = a;
-      dk_acc[j] = b;
-    }
-    if (!kEmitDq) continue;
-    for (int i = tid; i < kSimtBq * D; i += kSimtKvThreads) {
-      const int q_l = i / D, d = i % D;
-      if (q0 + q_l >= p.sq) continue;
-      float s = 0.f;
-#pragma unroll 16
-      for (int kk = 0; kk < kBk; ++kk)
-        s = fmaf(dss[q_l * kP + kk], ks[kk * kS + d], s);
-      dqp[(size_t)(q0 + q_l) * D + d] = s;
-    }
-  }
-
-  float* dk = static_cast<float*>(p.dk);
-  float* dv = static_cast<float*>(p.dv);
-  if (k0 + key_l < p.sk) {
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const size_t o = kbase + (size_t)(k0 + key_l) * D + grp + kSimtGroups * j;
-      dk[o] = dk_acc[j];
-      dv[o] = dv_acc[j];
     }
   }
 }
@@ -494,8 +527,8 @@ flash_bwd_simt_kernel(Params p) {
 // ---------------------------------------------------------------------------
 
 // One CTA per (bh, query tile) walks the k tiles, skipping those a causal
-// mask hides wholly: S = q k^T and dP = dO v^T, P = exp(S + bias - lse) (a
-// dead row, lse = +1e30, gives 0), dS = P * (dP * keep / (1 - rate) -
+// mask hides wholly: S = q k^T and dP = dO v^T, P = exp((S + bias - m) -
+// log l) (a dead row, m = +1e30, gives 0), dS = P * (dP * keep / (1 - rate) -
 // delta) rounded to the input dtype (the TPU kernel's `ds.astype(k.dtype)`),
 // dQ += dS k in fp32 registers, written once in q's dtype.  fp16 / bf16: the
 // forward's query-major design (`sm90_attn.cuh`): the first warp of a
@@ -506,7 +539,8 @@ flash_bwd_simt_kernel(Params p) {
 // shared memory, turn them into dS in registers in exp2 (the key bias read
 // once per tile, the causal compare only on tiles crossing the diagonal),
 // and feed dS as the register A operand of dQ += dS k with k's tile as an
-// MN-major B.  fp32: 256 threads of scalar FMA, dS through shared memory.
+// MN-major B.  fp32, and every dtype at D = 256: 256 threads of scalar FMA
+// on fp32 copies, dS (rounded to E) through shared memory.
 
 // k tiles a query tile at q0 of `rows` rows reads: under a causal mask,
 // none past the tile's last row.
@@ -567,9 +601,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg_row0 = q0 + wg * 64;
   const int row_a = wg_row0 + (warp & 3) * 16 + (lane >> 2);  // this thread's two rows
   const int row_b = row_a + 8;
-  // a row past Sq reads as dead (P = 0)
-  const float lse_a = row_a < p.sq ? p.lse[(size_t)bh * p.sq + row_a] : -kNegInf;
-  const float lse_b = row_b < p.sq ? p.lse[(size_t)bh * p.sq + row_b] : -kNegInf;
+  // (m, log l log2(e)) of each row; a row past Sq reads as dead (P = 0)
+  const float2 st_a = row_stats(p, bh, row_a), st_b = row_stats(p, bh, row_b);
+  const float m_a = st_a.x, m_b = st_b.x;
+  const float ll2_a = st_a.y * kLog2e, ll2_b = st_b.y * kLog2e;
   const float del_a = row_a < p.sq ? p.delta[(size_t)bh * p.sq + row_a] : 0.f;
   const float del_b = row_b < p.sq ? p.delta[(size_t)bh * p.sq + row_b] : 0.f;
   const float inv_keep = 1.f / p.keep_div;
@@ -604,13 +639,15 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            p.causal && k0 + kBk - 1 > wg_row0, row_a, k0, t,
                            p.sq, p.sk);
 
-    // P = exp(S + bias - lse), dS = P * (dP * keep / (1 - rate) - delta)
+    // P = exp((S + bias - m) - log l), dS = P * (dP * keep / (1 - rate) -
+    // delta)
 #pragma unroll
     for (int j = 0; j < kBk / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool lo = e < 2;
-        const float pr = exp2f((s[4 * j + e] - (lo ? lse_a : lse_b)) * kLog2e);
+        const float pr = exp2f(fmaf(s[4 * j + e] - (lo ? m_a : m_b), kLog2e,
+                                    -(lo ? ll2_a : ll2_b)));
         float kf = 1.f;
         if (p.drop_threshold != 0u)
           kf = dropout_keep(p.seed, bh, lo ? row_a : row_b, k0 + j * 8 + 2 * t + (e & 1),
@@ -652,76 +689,83 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-constexpr int kSimtDqBq = 64;  // query rows per CTA of the fp32 dq kernel
-constexpr int kSimtDqBk = 64;  // keys per k tile of the fp32 dq kernel
+// query rows per CTA of the scalar dq kernel, and keys per k tile (equal:
+// a thread's lane is a key for dS, then a query row for dQ): 64, or 32 at
+// D = 256
+template <int D>
+__host__ __device__ constexpr int dq_simt_rows() { return D > 128 ? 32 : 64; }
 constexpr int kSimtThreads = 256;
 
 template <int D>
 constexpr int dq_simt_smem_bytes() {
-  return (2 * kSimtDqBq * (D + 1) + 2 * kSimtDqBk * (D + 1) +
-          kSimtDqBq * (kSimtDqBk + 1) + 2 * kSimtDqBq) * 4;
+  constexpr int kB = dq_simt_rows<D>();
+  return (4 * kB * (D + 1) + kB * (kB + 1) + 3 * kB) * 4;
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_bwd_dq_simt_kernel(Params p) {
-  constexpr int kBk = kSimtDqBk;
+  constexpr int kBq = dq_simt_rows<D>();
+  constexpr int kBk = kBq;
   constexpr int kS = D + 1;  // +1: lane-per-row reads hit distinct banks
   constexpr int kP = kBk + 1;
-  constexpr int kPerThread = kSimtDqBq * D / kSimtThreads;  // dQ values
-  constexpr int kGroups = kSimtThreads / kSimtDqBq;         // 4
+  constexpr int kPerThread = kBq * D / kSimtThreads;  // dQ values
+  constexpr int kGroups = kSimtThreads / kBq;         // 4, or 8 at D = 256
+  using sm90::to_f32;
   extern __shared__ float sm[];
   float* qs = sm;
-  float* dos = qs + kSimtDqBq * kS;
-  float* ks = dos + kSimtDqBq * kS;
+  float* dos = qs + kBq * kS;
+  float* ks = dos + kBq * kS;
   float* vs = ks + kBk * kS;
   float* dss = vs + kBk * kS;  // dS[q][key]
-  float* lse_s = dss + kSimtDqBq * kP;
-  float* delta_s = lse_s + kSimtDqBq;
+  float* m_s = dss + kBq * kP;
+  float* ll_s = m_s + kBq;
+  float* delta_s = ll_s + kBq;
 
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-  const float* dout = static_cast<const float*>(p.dout);
+  const E* q = static_cast<const E*>(p.q);
+  const E* k = static_cast<const E*>(p.k);
+  const E* v = static_cast<const E*>(p.v);
+  const E* dout = static_cast<const E*>(p.dout);
 
-  const sm90::GridPos pos = sm90::grid_pos((p.sq + kSimtDqBq - 1) / kSimtDqBq);
+  const sm90::GridPos pos = sm90::grid_pos((p.sq + kBq - 1) / kBq);
   const int bh = pos.bh;
-  const int q0 = pos.tile * kSimtDqBq;
+  const int q0 = pos.tile * kBq;
   const int tid = threadIdx.x;
-  const int lane_l = tid % kSimtDqBq;  // a key (dS), then a query row (dQ)
-  const int grp = tid / kSimtDqBq;     // one value per warp: broadcast reads
+  const int lane_l = tid % kBq;  // a key (dS), then a query row (dQ)
+  const int grp = tid / kBq;     // one value per warp: broadcast reads
   const size_t qbase = (size_t)bh * p.sq * D;
   const size_t kbase = (size_t)bh * p.sk * D;
 
-  for (int i = tid; i < kSimtDqBq * D; i += kSimtThreads) {
+  for (int i = tid; i < kBq * D; i += kSimtThreads) {
     const int r = i / D, c = i % D;
     const bool in = q0 + r < p.sq;
-    qs[r * kS + c] = in ? q[qbase + (size_t)(q0 + r) * D + c] : 0.f;
-    dos[r * kS + c] = in ? dout[qbase + (size_t)(q0 + r) * D + c] : 0.f;
+    qs[r * kS + c] = in ? to_f32(q[qbase + (size_t)(q0 + r) * D + c]) : 0.f;
+    dos[r * kS + c] = in ? to_f32(dout[qbase + (size_t)(q0 + r) * D + c]) : 0.f;
   }
-  for (int r = tid; r < kSimtDqBq; r += kSimtThreads) {
-    const bool in = q0 + r < p.sq;
-    lse_s[r] = in ? p.lse[(size_t)bh * p.sq + q0 + r] : -kNegInf;
-    delta_s[r] = in ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
+  for (int r = tid; r < kBq; r += kSimtThreads) {
+    const float2 st = row_stats(p, bh, q0 + r);
+    m_s[r] = st.x;
+    ll_s[r] = st.y;
+    delta_s[r] = q0 + r < p.sq ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
   }
 
   float acc[kPerThread];
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) acc[j] = 0.f;
 
-  const int n_kt = dq_k_tiles(p, q0, kSimtDqBq, kBk);
+  const int n_kt = dq_k_tiles(p, q0, kBq, kBk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBk;
     __syncthreads();
     for (int i = tid; i < kBk * D; i += kSimtThreads) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < p.sk;
-      ks[r * kS + c] = in ? k[kbase + (size_t)(k0 + r) * D + c] : 0.f;
-      vs[r * kS + c] = in ? v[kbase + (size_t)(k0 + r) * D + c] : 0.f;
+      ks[r * kS + c] = in ? to_f32(k[kbase + (size_t)(k0 + r) * D + c]) : 0.f;
+      vs[r * kS + c] = in ? to_f32(v[kbase + (size_t)(k0 + r) * D + c]) : 0.f;
     }
     __syncthreads();
 
-    for (int q_l = grp; q_l < kSimtDqBq; q_l += kGroups) {
+    for (int q_l = grp; q_l < kBq; q_l += kGroups) {
       float s = 0.f, dp = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) {
@@ -729,9 +773,9 @@ flash_bwd_dq_simt_kernel(Params p) {
         dp = fmaf(dos[q_l * kS + d], vs[lane_l * kS + d], dp);
       }
       const int row = q0 + q_l, col = k0 + lane_l;
-      const float pr = prob(p, s, lse_s[q_l], bh, row, col);
+      const float pr = prob(p, s, m_s[q_l], ll_s[q_l], bh, row, col);
       const float kf = keep_factor(p, bh, row, col);
-      dss[q_l * kP + lane_l] = pr * (dp * kf - delta_s[q_l]);
+      dss[q_l * kP + lane_l] = sm90::round_to<E>(pr * (dp * kf - delta_s[q_l]));
     }
     __syncthreads();
 
@@ -745,11 +789,12 @@ flash_bwd_dq_simt_kernel(Params p) {
     }
   }
 
-  float* dq_out = static_cast<float*>(p.dq);
+  E* dq_out = static_cast<E*>(p.dq);
   if (q0 + lane_l < p.sq) {
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j)
-      dq_out[qbase + (size_t)(q0 + lane_l) * D + grp + kGroups * j] = acc[j];
+      dq_out[qbase + (size_t)(q0 + lane_l) * D + grp + kGroups * j] =
+          sm90::from_f32<E>(acc[j]);
   }
 }
 
@@ -773,19 +818,30 @@ cudaError_t launch_kv_sm90(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The fused kernel (kEmitDq) or the split route's dk/dv kernel.
-template <int D, bool kEmitDq>
-cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kDtypeBF16) return launch_kv_sm90<__nv_bfloat16, D, kEmitDq>(p, stream);
-  if (dtype == kDtypeF16) return launch_kv_sm90<__half, D, kEmitDq>(p, stream);
+template <typename E, int D, bool kEmitDq>
+cudaError_t launch_kv_simt(const Params& p, cudaStream_t stream) {
   static bool simt_ready = false;
   constexpr int bytes = simt_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_simt_kernel<D, kEmitDq>, bytes, simt_ready);
+  cudaError_t err = allow_smem(flash_bwd_simt_kernel<E, D, kEmitDq>, bytes, simt_ready);
   if (err != cudaSuccess) return err;
   dim3 grid;
   if ((err = sm90::flat_grid(p.nk, p.bh_count, &grid)) != cudaSuccess) return err;
-  flash_bwd_simt_kernel<D, kEmitDq><<<grid, kSimtKvThreads, bytes, stream>>>(p);
+  flash_bwd_simt_kernel<E, D, kEmitDq><<<grid, kSimtKvThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The fused kernel (kEmitDq) or the split route's dk/dv kernel: fp16 / bf16
+// on the ring up to D = 128; fp32, and every dtype at D = 256, scalar.
+template <int D, bool kEmitDq>
+cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
+  if constexpr (D <= 128) {
+    if (dtype == kDtypeBF16) return launch_kv_sm90<__nv_bfloat16, D, kEmitDq>(p, stream);
+    if (dtype == kDtypeF16) return launch_kv_sm90<__half, D, kEmitDq>(p, stream);
+  } else {
+    if (dtype == kDtypeBF16) return launch_kv_simt<__nv_bfloat16, D, kEmitDq>(p, stream);
+    if (dtype == kDtypeF16) return launch_kv_simt<__half, D, kEmitDq>(p, stream);
+  }
+  return launch_kv_simt<float, D, kEmitDq>(p, stream);
 }
 
 template <typename E, int D, int C>
@@ -815,19 +871,30 @@ cudaError_t launch_dq_wgmma(const Params& p, cudaStream_t stream) {
                                                       : launch_dq_sm90<E, D, 1>(p, stream);
 }
 
-template <int D>
-cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kDtypeBF16) return launch_dq_wgmma<__nv_bfloat16, D>(p, stream);
-  if (dtype == kDtypeF16) return launch_dq_wgmma<__half, D>(p, stream);
+template <typename E, int D>
+cudaError_t launch_dq_simt(const Params& p, cudaStream_t stream) {
   static bool simt_ready = false;
   constexpr int bytes = dq_simt_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_dq_simt_kernel<D>, bytes, simt_ready);
+  constexpr int rows = dq_simt_rows<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_simt_kernel<E, D>, bytes, simt_ready);
   if (err != cudaSuccess) return err;
   dim3 grid;
-  if ((err = sm90::flat_grid((p.sq + kSimtDqBq - 1) / kSimtDqBq, p.bh_count, &grid)) != cudaSuccess)
+  if ((err = sm90::flat_grid((p.sq + rows - 1) / rows, p.bh_count, &grid)) != cudaSuccess)
     return err;
-  flash_bwd_dq_simt_kernel<D><<<grid, kSimtThreads, bytes, stream>>>(p);
+  flash_bwd_dq_simt_kernel<E, D><<<grid, kSimtThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
+  if constexpr (D <= 128) {
+    if (dtype == kDtypeBF16) return launch_dq_wgmma<__nv_bfloat16, D>(p, stream);
+    if (dtype == kDtypeF16) return launch_dq_wgmma<__half, D>(p, stream);
+  } else {
+    if (dtype == kDtypeBF16) return launch_dq_simt<__nv_bfloat16, D>(p, stream);
+    if (dtype == kDtypeF16) return launch_dq_simt<__half, D>(p, stream);
+  }
+  return launch_dq_simt<float, D>(p, stream);
 }
 
 enum class Route { kFused, kDkv, kDq };
@@ -843,7 +910,7 @@ cudaError_t launch(const Params& p, Route route, int dtype,
 }
 
 int run(const void* q, const void* k, const void* v, const void* bias,
-        const void* dout, const void* lse, const void* delta, void* dq_part,
+        const void* dout, const void* stats, const void* delta, void* dq_part,
         void* dq, void* dk, void* dv, int bh_count, int sq, int sk, int d,
         int heads, int bias_b, int bias_q, int causal,
         unsigned int drop_threshold, float keep_div, int seed, int dtype,
@@ -858,7 +925,7 @@ int run(const void* q, const void* k, const void* v, const void* bias,
   p.v = v;
   p.dout = dout;
   p.bias = static_cast<const float*>(bias);
-  p.lse = static_cast<const float*>(lse);
+  p.stats = static_cast<const float2*>(stats);
   p.delta = static_cast<const float*>(delta);
   p.dq_part = static_cast<float*>(dq_part);
   p.dq = dq;
@@ -880,6 +947,7 @@ int run(const void* q, const void* k, const void* v, const void* bias,
     case 32: return (int)launch<32>(p, route, dtype, s);
     case 64: return (int)launch<64>(p, route, dtype, s);
     case 128: return (int)launch<128>(p, route, dtype, s);
+    case 256: return (int)launch<256>(p, route, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -888,19 +956,20 @@ int run(const void* q, const void* k, const void* v, const void* bias,
 
 // q, dout (bh, sq, d), k/v (bh, sk, d), dk/dv (bh, sk, d): contiguous,
 // 16-byte aligned, of `dtype`.  bias: fp32 (bias_b, bias_q, sk) or null.
-// lse, delta: fp32 (bh, sq).  dq_part: fp32 (bh, ceil(sk / 128), sq, d),
-// fully written.  d in {32, 64, 128}.  drop_threshold = rate * 2^32 (0 = no
+// stats: fp32 (bh, sq, 2) = (row max m, log l), the forward's; delta: fp32
+// (bh, sq).  dq_part: fp32 (bh, ceil(sk / 128), sq, d), fully written.  d in
+// {32, 64, 128, 256}.  drop_threshold = rate * 2^32 (0 = no
 // dropout), keep_div = 1 - rate.  Returns cudaSuccess (0) or the launch
 // error.
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* bias, const void* dout,
-                              const void* lse, const void* delta,
+                              const void* stats, const void* delta,
                               void* dq_part, void* dk, void* dv,
                               int bh_count, int sq, int sk, int d, int heads,
                               int bias_b, int bias_q, int causal,
                               unsigned int drop_threshold, float keep_div,
                               int seed, int dtype, void* stream) {
-  return run(q, k, v, bias, dout, lse, delta, dq_part, nullptr, dk, dv,
+  return run(q, k, v, bias, dout, stats, delta, dq_part, nullptr, dk, dv,
              bh_count, sq, sk, d, heads, bias_b, bias_q, causal,
              drop_threshold, keep_div, seed, dtype, Route::kFused, stream);
 }
@@ -908,14 +977,14 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
 // The split route's dk/dv: as apex_flash_bwd without the dq partials.
 extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const void* bias,
-                                  const void* dout, const void* lse,
+                                  const void* dout, const void* stats,
                                   const void* delta, void* dk, void* dv,
                                   int bh_count, int sq, int sk, int d,
                                   int heads, int bias_b, int bias_q,
                                   int causal, unsigned int drop_threshold,
                                   float keep_div, int seed, int dtype,
                                   void* stream) {
-  return run(q, k, v, bias, dout, lse, delta, nullptr, nullptr, dk, dv,
+  return run(q, k, v, bias, dout, stats, delta, nullptr, nullptr, dk, dv,
              bh_count, sq, sk, d, heads, bias_b, bias_q, causal,
              drop_threshold, keep_div, seed, dtype, Route::kDkv, stream);
 }
@@ -923,13 +992,13 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
 // The split route's dq: (bh, sq, d) of `dtype`, the inputs as above.
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* bias, const void* dout,
-                                 const void* lse, const void* delta, void* dq,
+                                 const void* stats, const void* delta, void* dq,
                                  int bh_count, int sq, int sk, int d,
                                  int heads, int bias_b, int bias_q,
                                  int causal, unsigned int drop_threshold,
                                  float keep_div, int seed, int dtype,
                                  void* stream) {
-  return run(q, k, v, bias, dout, lse, delta, nullptr, dq, nullptr, nullptr,
+  return run(q, k, v, bias, dout, stats, delta, nullptr, dq, nullptr, nullptr,
              bh_count, sq, sk, d, heads, bias_b, bias_q, causal,
              drop_threshold, keep_div, seed, dtype, Route::kDq, stream);
 }

@@ -7,7 +7,11 @@
 // masked scores = -1e30), dropout on the probabilities after the denominator
 // is accumulated (the squirrel3 hash of flash.py `_dropout_keep` over global
 // (bh, row, col) and seed), dead rows (max <= -5e29) written as 0 with
-// lse = +1e30.  Emits out (BH, Sq, D) in q's dtype and lse (BH, Sq) fp32.
+// lse = +1e30.  Emits out (BH, Sq, D) in q's dtype, lse (BH, Sq) fp32, and,
+// where the caller asks, the backward's residual stats (BH, Sq, 2) fp32: the
+// row max m and log l kept apart (lse = m + log l cannot carry log l where m
+// is a large finite mask such as -1e9, whose fp32 step is 64); a dead row
+// gives (+1e30, 0).
 //
 // What bounds it: operations.  Attention does 4 BH Sq Sk D flops on ~4 BH S D
 // elements: at the long-sequence shape (BH 64, S 4096, D 64, bf16) that is
@@ -37,9 +41,12 @@
 //   * the grid: 128-row query tiles (two warpgroups) where they still fill
 //     the 132 SMs, else 64 (serving's BH 16 x 512 causal gives 128 CTAs of
 //     64 rows, not 64 of 128); causal grids take the longest rows first.
-// fp32 (the numerics oracle): one CTA of 4 warps per (bh, 16-row q tile),
-// scalar FMA, one lane per key of a 32-key tile; rows' running max/sum live
-// in registers, the output accumulator in registers (D/32 per lane).
+// fp32 (the numerics oracle), and every dtype at D = 256 (whose k / v
+// stages the 128-key ring cannot hold): one CTA of 4 warps per (bh, 16-row
+// q tile), scalar FMA on fp32 copies in shared memory, one lane per key of
+// a 32-key tile; rows' running max/sum live in registers, the output
+// accumulator in registers (D/32 per lane); P rounds to E before P v, as
+// the plain version's `p.to(v.dtype)`.
 // Ragged Sq / Sk edges need no padding copies: the TMA maps are 3-D over
 // (D, S, BH), so rows past S arrive as zeros and never from the next head.
 
@@ -65,6 +72,7 @@ struct Params {
   const float* bias;
   void* out;
   float* lse;
+  float* stats;            // (bh, sq, 2): m, log l; may be null
   int bh_count, sq, sk, heads;
   int bias_b, bias_q;      // bias shape (bias_b, bias_q, sk), bias_b in {1, B}
   int causal;
@@ -85,6 +93,17 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int bh,
   }
   if (p.causal && col > row) s = kNegInf;
   return s;
+}
+
+// A row's lse and, where asked, its (m, log l); sl is l, 1 where l is 0.
+__device__ __forceinline__ void write_stats(const Params& p, int bh, int row,
+                                            bool dead, float m, float sl) {
+  const size_t r = (size_t)bh * p.sq + row;
+  const float log_l = logf(sl);
+  p.lse[r] = dead ? -kNegInf : m + log_l;
+  if (p.stats != nullptr)
+    reinterpret_cast<float2*>(p.stats)[r] =
+        dead ? make_float2(-kNegInf, 0.f) : make_float2(m, log_l);
 }
 
 // ---------------------------------------------------------------------------
@@ -257,7 +276,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       const float x1 = dead_a ? 0.f : o[4 * n + 1] * r_a;
       *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_a * D + n * 8 + 2 * t) = sm90::pack<E>(x0, x1);
     }
-    if (t == 0) p.lse[(size_t)bh * p.sq + row_a] = dead_a ? -kNegInf : m_a + logf(sl_a);
+    if (t == 0) write_stats(p, bh, row_a, dead_a, m_a, sl_a);
   }
   if (row_b < p.sq) {
 #pragma unroll
@@ -266,7 +285,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       const float x1 = dead_b ? 0.f : o[4 * n + 3] * r_b;
       *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row_b * D + n * 8 + 2 * t) = sm90::pack<E>(x0, x1);
     }
-    if (t == 0) p.lse[(size_t)bh * p.sq + row_b] = dead_b ? -kNegInf : m_b + logf(sl_b);
+    if (t == 0) write_stats(p, bh, row_b, dead_b, m_b, sl_b);
   }
 }
 
@@ -280,17 +299,25 @@ constexpr int kSimtThreads = 128;
 constexpr int kSimtRowsPerWarp = kSimtBq / (kSimtThreads / 32);
 
 template <int D>
+constexpr int fwd_simt_smem_bytes() {
+  return (kSimtBq * D + kSimtBk * (D + 1) + kSimtBk * D) * 4;
+}
+
+template <typename E, int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_simt_kernel(Params p) {
   constexpr int kPer = D / 32;  // output columns per lane
-  __shared__ float qs[kSimtBq][D];
-  __shared__ float ks[kSimtBk][D + 1];  // +1: lane-per-key reads hit distinct banks
-  __shared__ float vs[kSimtBk][D];
+  extern __shared__ float sm[];
+  float (*qs)[D] = reinterpret_cast<float (*)[D]>(sm);
+  // +1: lane-per-key reads hit distinct banks
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(sm + kSimtBq * D);
+  float (*vs)[D] = reinterpret_cast<float (*)[D]>(sm + kSimtBq * D + kSimtBk * (D + 1));
 
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-  float* out = static_cast<float*>(p.out);
+  const E* q = static_cast<const E*>(p.q);
+  const E* k = static_cast<const E*>(p.k);
+  const E* v = static_cast<const E*>(p.v);
+  E* out = static_cast<E*>(p.out);
+  using sm90::to_f32;
 
   const sm90::GridPos pos = sm90::grid_pos((p.sq + kSimtBq - 1) / kSimtBq);
   const int bh = pos.bh;
@@ -303,7 +330,7 @@ flash_fwd_simt_kernel(Params p) {
 
   for (int i = tid; i < kSimtBq * D; i += kSimtThreads) {
     const int r = i / D, c = i % D;
-    qs[r][c] = q0 + r < p.sq ? q[qbase + (size_t)(q0 + r) * D + c] : 0.f;
+    qs[r][c] = q0 + r < p.sq ? to_f32(q[qbase + (size_t)(q0 + r) * D + c]) : 0.f;
   }
 
   float m[kSimtRowsPerWarp], l[kSimtRowsPerWarp], o[kSimtRowsPerWarp][kPer];
@@ -324,8 +351,8 @@ flash_fwd_simt_kernel(Params p) {
     for (int i = tid; i < kSimtBk * D; i += kSimtThreads) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < p.sk;
-      ks[r][c] = in ? k[kbase + (size_t)(k0 + r) * D + c] : 0.f;
-      vs[r][c] = in ? v[kbase + (size_t)(k0 + r) * D + c] : 0.f;
+      ks[r][c] = in ? to_f32(k[kbase + (size_t)(k0 + r) * D + c]) : 0.f;
+      vs[r][c] = in ? to_f32(v[kbase + (size_t)(k0 + r) * D + c]) : 0.f;
     }
     __syncthreads();
 
@@ -351,6 +378,7 @@ flash_fwd_simt_kernel(Params p) {
       m[rr] = mn;
       if (p.drop_threshold != 0u)
         pr = dropout_keep(p.seed, bh, row, col, p.drop_threshold) ? pr / p.keep_div : 0.f;
+      pr = sm90::round_to<E>(pr);
 #pragma unroll
       for (int c = 0; c < kPer; ++c) o[rr][c] *= sc;
 #pragma unroll
@@ -370,8 +398,9 @@ flash_fwd_simt_kernel(Params p) {
     const float sl = l[rr] == 0.f ? 1.f : l[rr];
 #pragma unroll
     for (int c = 0; c < kPer; ++c)
-      out[qbase + (size_t)row * D + lane + 32 * c] = dead ? 0.f : o[rr][c] / sl;
-    if (lane == 0) p.lse[(size_t)bh * p.sq + row] = dead ? -kNegInf : m[rr] + logf(sl);
+      out[qbase + (size_t)row * D + lane + 32 * c] =
+          sm90::from_f32<E>(dead ? 0.f : o[rr][c] / sl);
+    if (lane == 0) write_stats(p, bh, row, dead, m[rr], sl);
   }
 }
 
@@ -401,27 +430,44 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
                                                       : launch_sm90<E, D, 1>(p, stream);
 }
 
+template <typename E, int D>
+cudaError_t launch_simt(const Params& p, cudaStream_t stream) {
+  static bool smem_ready = false;
+  constexpr int bytes = fwd_simt_smem_bytes<D>();
+  cudaError_t err = sm90::allow_smem(flash_fwd_simt_kernel<E, D>, bytes, smem_ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if ((err = sm90::flat_grid((p.sq + kSimtBq - 1) / kSimtBq, p.bh_count, &grid)) != cudaSuccess)
+    return err;
+  flash_fwd_simt_kernel<E, D><<<grid, kSimtThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// fp16 / bf16 on the ring up to D = 128; fp32, and every dtype at D = 256,
+// on the scalar-FMA kernel
 template <int D>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kDtypeBF16) return launch_wgmma<__nv_bfloat16, D>(p, stream);
-  if (dtype == kDtypeF16) return launch_wgmma<__half, D>(p, stream);
-  dim3 grid;
-  const cudaError_t err = sm90::flat_grid((p.sq + kSimtBq - 1) / kSimtBq, p.bh_count, &grid);
-  if (err != cudaSuccess) return err;
-  flash_fwd_simt_kernel<D><<<grid, kSimtThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+  if constexpr (D <= 128) {
+    if (dtype == kDtypeBF16) return launch_wgmma<__nv_bfloat16, D>(p, stream);
+    if (dtype == kDtypeF16) return launch_wgmma<__half, D>(p, stream);
+  } else {
+    if (dtype == kDtypeBF16) return launch_simt<__nv_bfloat16, D>(p, stream);
+    if (dtype == kDtypeF16) return launch_simt<__half, D>(p, stream);
+  }
+  return launch_simt<float, D>(p, stream);
 }
 
 }  // namespace
 
 // q (bh, sq, d), k/v (bh, sk, d), out (bh, sq, d): contiguous, 16-byte
 // aligned, of `dtype`.  bias: fp32 (bias_b, bias_q, sk) or null.
-// lse: fp32 (bh, sq).  d in {32, 64, 128}.  drop_threshold = rate * 2^32
+// lse: fp32 (bh, sq); stats: fp32 (bh, sq, 2) = (row max, log l), or null.
+// d in {32, 64, 128, 256}.  drop_threshold = rate * 2^32
 // (0 = no dropout), keep_div = 1 - rate.  Returns cudaSuccess (0) or the
 // launch error.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* bias, void* out, void* lse,
-                              int bh_count, int sq, int sk, int d, int heads,
+                              void* stats, int bh_count, int sq, int sk, int d, int heads,
                               int bias_b, int bias_q, int causal,
                               unsigned int drop_threshold, float keep_div,
                               int seed, int dtype, void* stream) {
@@ -436,6 +482,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
   p.bias = static_cast<const float*>(bias);
   p.out = out;
   p.lse = static_cast<float*>(lse);
+  p.stats = static_cast<float*>(stats);
   p.bh_count = bh_count;
   p.sq = sq;
   p.sk = sk;
@@ -451,6 +498,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
     case 32: return (int)launch<32>(p, dtype, s);
     case 64: return (int)launch<64>(p, dtype, s);
     case 128: return (int)launch<128>(p, dtype, s);
+    case 256: return (int)launch<256>(p, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -232,18 +232,20 @@ struct KeyBias {
   }
 };
 
-// A key-major kernel's stage vectors: the stage's query rows' lse, then
-// their delta; a row past Sq reads as dead (lse = +1e30, so P = 0) with
-// delta 0.
+// A key-major kernel's stage vectors: the stage's query rows' max m, their
+// log l times log2(e), then their delta (P = exp2((s - m) log2(e) - log l
+// log2(e))); a row past Sq reads as dead (m = +1e30, so P = 0) with delta 0.
 struct QueryStats {
-  const float* lse;    // this head's (Sq,) rows
+  const float2* stats;  // this head's (Sq,) rows: (m, log l)
   const float* delta;
   int sq;
   __device__ void operator()(float* v, int rows, int row0, int lane) const {
     for (int i = lane; i < rows; i += 32) {
       const int row = row0 + i;
-      v[i] = row < sq ? lse[row] : -kNegInf;
-      v[rows + i] = row < sq ? delta[row] : 0.f;
+      const float2 st = row < sq ? stats[row] : make_float2(-kNegInf, 0.f);
+      v[i] = st.x;
+      v[rows + i] = st.y * kLog2e;
+      v[2 * rows + i] = row < sq ? delta[row] : 0.f;
     }
   }
 };
@@ -424,6 +426,28 @@ template <typename E>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   if constexpr (std::is_same<E, __half>::value) return pack_half(lo, hi);
   else return pack_bf16(lo, hi);
+}
+
+// The scalar-FMA kernels' element conversions: E (float, __half or
+// __nv_bfloat16) to fp32 and back (to nearest), and an fp32 value rounded
+// to E (the plain versions' `.to(dtype).float()` before a product).
+template <typename E>
+__device__ __forceinline__ float to_f32(E x) {
+  if constexpr (std::is_same<E, float>::value) return x;
+  else if constexpr (std::is_same<E, __half>::value) return __half2float(x);
+  else return __bfloat162float(x);
+}
+
+template <typename E>
+__device__ __forceinline__ E from_f32(float x) {
+  if constexpr (std::is_same<E, float>::value) return x;
+  else if constexpr (std::is_same<E, __half>::value) return __float2half_rn(x);
+  else return __float2bfloat16_rn(x);
+}
+
+template <typename E>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32<E>(from_f32<E>(x));
 }
 
 // Accumulator layout of m64nNk16 (fp32): thread t of the warpgroup holds

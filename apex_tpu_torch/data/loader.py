@@ -7,9 +7,9 @@ telemetry hooks, and the ``SyntheticSource`` / ``ArraySource``
 descriptions.  The JAX package's ``NativeLoader`` (ctypes over
 ``csrc/prefetch.cpp``) and ``native_available`` are not ported yet.
 
-The telemetry hooks import ``..telemetry.events`` / ``..telemetry.trace``
-when called and return when the package has none, as the JAX module does
-when used on its own; numpy is the only import at module scope.
+The telemetry hooks report through ``..telemetry.events`` and
+``..telemetry.trace``: a single attribute check each when no default
+registry or tracer is installed.
 """
 from __future__ import annotations
 
@@ -17,6 +17,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+
+from ..telemetry import events as _tel_events
+from ..telemetry import trace as _trace
 
 
 class LoaderStallError(RuntimeError):
@@ -40,24 +43,15 @@ def _fault_stall(step: int) -> float:
 
 def _record_loader(depth, wait_s) -> None:
     """Telemetry loader meter: consumer wait per batch + queue depth
-    after the dequeue.  Returns at once while the package has no
-    ``telemetry.events`` (the JAX module's standalone behaviour)."""
-    try:
-        from ..telemetry import events as _tel_events
-    except ImportError:  # the package has no telemetry.events yet
-        return
+    after the dequeue (also a ``loader.wait`` span when a tracer is
+    installed)."""
     _tel_events.record_loader(depth, wait_s)
 
 
 def _record_retry(batch_index, attempt, waited_s, next_wait_s) -> None:
     """Telemetry for one bounded-retry attempt inside the timed wait
     (``loader.retry`` event + counter): the stall did not escalate YET
-    — the consumer is waiting again with a doubled budget.  Returns at
-    once while the package has no ``telemetry.events``."""
-    try:
-        from ..telemetry import events as _tel_events
-    except ImportError:  # the package has no telemetry.events yet
-        return
+    — the consumer is waiting again with a doubled budget."""
     _tel_events.record_loader_retry(batch_index, attempt, waited_s,
                                     next_wait_s)
 
@@ -110,12 +104,8 @@ def _timed_get(q, batch_index: int, wait_timeout, stall_retries: int):
 
 def _note_fill_span(batch_index, fill_s) -> None:
     """Producer-side ``loader.fill`` span: how long each batch took to
-    assemble, recorded from the fill thread.  Returns at once while the
-    package has no ``telemetry.trace``."""
-    try:
-        from ..telemetry import trace as _trace
-    except ImportError:  # the package has no telemetry.trace yet
-        return
+    assemble, recorded from the fill thread (a no-op without a
+    tracer)."""
     _trace.note_span("loader.fill", fill_s, batch=batch_index)
 
 

@@ -46,6 +46,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..telemetry import events as _tel_events
+
 INDEX = "INDEX.json"
 
 
@@ -314,13 +316,9 @@ def locate_step(index: ShardIndex, seed: int, step: int, global_batch: int,
 # ---------------------------------------------------------------------------
 
 def _record_checksum_failure(shard: str, offset: Optional[int]) -> None:
-    """Telemetry shim (loader.py pattern): one ``data.checksum_failed``
-    event before the typed error propagates.  Returns at once while the
-    package has no ``telemetry.events``."""
-    try:
-        from ..telemetry import events as _tel_events
-    except ImportError:      # the package has no telemetry.events yet
-        return
+    """Telemetry hook (loader.py pattern): one ``data.checksum_failed``
+    event through the default registry/tracer before the typed error
+    propagates."""
     _tel_events.record_shard_checksum(shard, offset)
 
 
@@ -450,8 +448,8 @@ class ShardedLoader:
     bitwise for resume/rollback.  ``iter(loader)`` walks
     ``[start_step, num_steps)`` with a background fill thread over a
     bounded queue: ``loader.fill`` spans producer-side, ``loader.wait``
-    + queue-depth gauges consumer-side (telemetry hooks that return at
-    once while the package has no telemetry), injected ``loader_stall``
+    + queue-depth gauges consumer-side (through the default registry
+    and tracer, when installed), injected ``loader_stall``
     faults inside the timed wait, bounded retry/backoff, then
     :class:`~apex_tpu_torch.data.loader.LoaderStallError`.
 

@@ -18,15 +18,17 @@ from typing import Sequence
 
 import torch
 
+from ..amp import amp as _amp
 from ..ops.fused_mlp import ACTIVATIONS, mlp_pallas
 from ..utils.device import from_numpy, resolve_device
 
 __all__ = ["MLP", "mlp_function", "mlp_params_from_jax"]
 
-#: the chained forward, as the JAX package's ``mlp_function`` (an amp
-#: half function there, the identity until amp patches it; amp O1 / O4
-#: are not ported)
-mlp_function = mlp_pallas
+#: the chained forward, an amp half function as the JAX package's
+#: ``mlp_function`` and ``_mlp_pallas_function``: while amp O1 / O4 casts
+#: are on, x is cast to the low-precision type (the weights and biases
+#: are not, as in the JAX package), else it is :func:`mlp_pallas` itself
+mlp_function = _amp.half_function(mlp_pallas)
 
 
 class MLP:
@@ -65,8 +67,8 @@ class MLP:
         return params
 
     def apply(self, params, x: torch.Tensor) -> torch.Tensor:
-        return mlp_pallas(x, params["weights"], params["biases"],
-                          self.activation)
+        return mlp_function(x, params["weights"], params["biases"],
+                            self.activation)
 
     __call__ = apply
 

@@ -107,13 +107,19 @@ def fused_dense_act(x: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor] = None,
                     activation: str = "relu") -> torch.Tensor:
     """act(x @ w + b) for x (M, K), w (K, N), b (N,) or None; the product
-    accumulates in fp32, the output is in x's dtype.  x, w and b share one
-    dtype (fp32, bf16 or fp16) on the card; any M, N, K >= 1.
+    accumulates in fp32, the output is in x's dtype.  x, w and b are fp32,
+    bf16 or fp16; any M, N, K >= 1.  Where their dtypes differ (amp O1 / O4
+    cast x alone, as the JAX package's ``half_function`` does) the kernel
+    takes them widened to fp32, which is the plain version's arithmetic.
 
     A CUDA tensor launches the kernel :func:`_route` names (or raises); a
     CPU tensor takes the plain version."""
     if not x.is_cuda:
         return fused_dense_act_reference(x, w, b, activation)
+    if w.dtype != x.dtype or (b is not None and b.dtype != x.dtype):
+        return fused_dense_act(
+            x.float(), w.float(), None if b is None else b.float(),
+            activation).to(x.dtype)
     act = _activation_code(activation)
     code = _check_cuda_inputs(x, w, b)
     (m, k), n = x.shape, w.shape[1]

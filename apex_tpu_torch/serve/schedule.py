@@ -3,13 +3,14 @@ interleaving at a fixed decode width, mid-flight eviction with page
 recycling, typed load shedding.
 
 Counterpart of ``apex_tpu/serve/schedule.py``.  Each scheduler step (a)
-admits queued requests into free decode slots — allocating their prompt
-pages and running prefill one request at a time, (b) grows each active
-slot's page table when its context crosses a page boundary — pool
+fires any scheduled ``request_flood`` chaos (:mod:`..resilience.faults`),
+(b) admits queued requests into free decode slots — allocating their
+prompt pages and running prefill one request at a time, (c) grows each
+active slot's page table when its context crosses a page boundary — pool
 exhaustion here (or at admission) sheds the request via the typed
 :class:`~apex_tpu_torch.serve.cache.KVCacheExhaustedError` path instead of
 running the device out of memory, with its pages recycled and the shed time
-metered, (c) runs ONE batched decode step over all active slots, and (d)
+metered, (d) runs ONE batched decode step over all active slots, and (e)
 performs the step's single batched device-to-host read.
 
 Host-read discipline: device values cross to the host in EXACTLY ONE
@@ -21,7 +22,13 @@ page-table and position update is host arithmetic that needs no sync.
 Every request's life is metered in the per-request latency ledger
 (:mod:`apex_tpu_torch.telemetry.serve_ledger`): ``queue`` from submit to
 admission, ``prefill`` to its first boundary, ``decode`` per step, and a
-``shed`` tail when load shedding ends it early.
+``shed`` tail when load shedding ends it early.  With a ``tracer``, spans
+wrap each prefill (``serve.prefill``) and each decode step
+(``serve.decode``); with a ``registry``, submissions, admissions,
+finishes and sheds emit ``serve.*`` events and every step refreshes the
+ledger's ``serve.*`` gauges (host floats, read at the registry's next
+flush); the live OpenMetrics export starts at construction when
+``APEX_TPU_METRICS_PORT`` is set.
 
 Determinism: sampling generators are seeded by ``(request.seed,
 position)`` and every engine op is row-independent across slots, so a
@@ -30,12 +37,15 @@ batch.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..resilience import faults as _faults
+from ..telemetry import export as _export
 from ..telemetry.serve_ledger import ServeLedger
 from .cache import KVCacheExhaustedError, PagePool
 
@@ -81,20 +91,39 @@ class _Slot:
 class ContinuousBatcher:
     """Drives an :class:`~apex_tpu_torch.serve.engine.InferenceEngine`."""
 
-    def __init__(self, engine, *, ledger: Optional[ServeLedger] = None):
+    def __init__(self, engine, *, ledger: Optional[ServeLedger] = None,
+                 registry=None, tracer=None):
         self.engine = engine
         self.cache = engine.cache
         self.pool = PagePool(self.cache)
         self.ledger = ledger if ledger is not None else ServeLedger()
+        self.registry = registry
+        self.tracer = tracer
+        # live export: a serving process arms the endpoint itself (a
+        # no-op unless APEX_TPU_METRICS_PORT is set)
+        _export.maybe_start(run_id=getattr(registry, "run_id", None))
         self.queue: List[Request] = []
         self.slots: List[Optional[_Slot]] = [None] * engine.decode_width
         self.results: Dict[str, ServedResult] = {}
         self.host_reads = 0
         self._step_idx = 0
+        self._flood_seq = 0
+
+    # -- bookkeeping helpers -------------------------------------------------
+    def _event(self, name: str, **fields) -> None:
+        if self.registry is not None and getattr(self.registry, "enabled",
+                                                 False):
+            self.registry.event(name, **fields)
+
+    def _span(self, name: str, **attrs):
+        if self.tracer is not None:
+            return self.tracer.span(name, **attrs)
+        return contextlib.nullcontext()
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
         self.ledger.submit(req.rid, prompt_len=len(req.prompt))
+        self._event("serve.submit", rid=req.rid)
 
     def _shed(self, req: Request, reason: str,
               pages: Optional[List[int]] = None) -> None:
@@ -105,6 +134,7 @@ class ContinuousBatcher:
         self.ledger.finish(req.rid, status="shed")
         self.results[req.rid] = ServedResult(
             req.rid, "shed", [], len(req.prompt), reason=reason)
+        self._event("serve.shed", rid=req.rid, reason=reason)
 
     def _finish(self, slot: _Slot, w: int) -> None:
         self.pool.free(slot.pages)
@@ -113,6 +143,8 @@ class ContinuousBatcher:
         self.results[slot.req.rid] = ServedResult(
             slot.req.rid, "done", list(slot.generated),
             len(slot.req.prompt))
+        self._event("serve.finish", rid=slot.req.rid,
+                    tokens=len(slot.generated))
 
     def _slot_done(self, slot: _Slot, token: int) -> bool:
         if slot.req.eos_id is not None and token == slot.req.eos_id:
@@ -130,8 +162,30 @@ class ContinuousBatcher:
         self.host_reads += 1
         return torch.cat(parts).cpu().tolist()
 
+    # -- the chaos hook ------------------------------------------------------
+    def _maybe_flood(self) -> None:
+        """A scheduled ``request_flood:K`` fault at this step submits K
+        short requests at once (``flood-<n>``), as the JAX scheduler
+        does."""
+        plan = _faults.active_plan()
+        spec = plan.fire("request_flood", self._step_idx) if plan else None
+        if spec is None:
+            return
+        k = int(spec.arg)
+        for _ in range(k):
+            self._flood_seq += 1
+            rid = f"flood-{self._flood_seq}"
+            self.submit(Request(
+                rid=rid, prompt=[1] * min(4, self.cache.max_ctx - 1),
+                max_new_tokens=4, seed=1000 + self._flood_seq))
+        self._event("serve.request_flood", step=self._step_idx, count=k)
+        if self.tracer is not None:
+            self.tracer.instant("serve.request_flood",
+                                step=self._step_idx, count=k)
+
     # -- one scheduler step --------------------------------------------------
     def step(self) -> None:
+        self._maybe_flood()
         admitted: List[int] = []
 
         # admission: queued requests into free slots, one prefill each
@@ -155,10 +209,12 @@ class ContinuousBatcher:
             table[:len(pages)] = pages
             tokens = np.zeros(self.cache.max_ctx, np.int64)
             tokens[:plen] = req.prompt
-            first, _ = self.engine.prefill(tokens, plen, table, req.seed,
-                                           req.temperature, req.top_k)
+            with self._span("serve.prefill", rid=req.rid, prompt_len=plen):
+                first, _ = self.engine.prefill(tokens, plen, table, req.seed,
+                                               req.temperature, req.top_k)
             slot.pending_first = first
             admitted.append(w)
+            self._event("serve.admit", rid=req.rid)
 
         # page growth + the batched decode step over established slots
         decoding: List[int] = []
@@ -194,8 +250,10 @@ class ContinuousBatcher:
                 seeds[w] = s.req.seed
                 temps[w] = s.req.temperature
                 topks[w] = s.req.top_k
-            dec_out, _ = self.engine.decode_step(
-                toks, positions, tables, seeds, temps, topks)
+            with self._span("serve.decode", step=self._step_idx,
+                            active=len(decoding)):
+                dec_out, _ = self.engine.decode_step(
+                    toks, positions, tables, seeds, temps, topks)
 
         # THE step's one batched host read: decode tokens + first tokens
         pending = [self.slots[w].pending_first for w in admitted]
@@ -225,6 +283,12 @@ class ContinuousBatcher:
                 if self._slot_done(s, tok):
                     self._finish(s, w)
         self._step_idx += 1
+        if self.registry is not None and getattr(self.registry, "enabled",
+                                                 False):
+            # serve.* gauges refreshed every scheduler step (host
+            # arithmetic over the ledger), so the registry's next flush,
+            # and the live scrape riding it, carry the current picture
+            self.ledger.observe(self.registry)
 
     @property
     def active(self) -> int:

@@ -1,1 +1,63 @@
-"""Host-side telemetry of the port (no device work, no host syncs)."""
+"""apex_tpu_torch.telemetry: the port's training and serving telemetry.
+
+Counterpart of the JAX package's ``apex_tpu.telemetry``; every record,
+document and artifact keeps the JAX schema, so the JAX validators accept
+the port's output.  Host-side throughout: the registry reads the device
+once a flush, and nothing else here touches it.
+
+  * :mod:`registry` -- counters / gauges / histograms / meters behind a
+    ``step()`` context, one device read a flush, rank-0-gated JSONL
+    validated against :data:`SCHEMA`, a no-op disabled mode;
+  * :mod:`events` -- amp scaler transitions, loader / shard / checkpoint
+    / collective hooks through a process-default registry;
+  * :mod:`trace` -- host span tracer (Chrome export), the flight
+    recorder, the slow-step sentinel (one-shot ``torch.profiler``
+    capture);
+  * :mod:`memory` -- live allocator gauges and the OOM post-mortem;
+  * :mod:`goodput` -- the run's wall-clock partition and
+    ``GOODPUT.json``;
+  * :mod:`export` -- the live OpenMetrics endpoint;
+  * :mod:`serve_ledger` -- the per-request serving ledger and
+    ``SERVE.json``;
+  * :mod:`report` -- JSONL summary and the ``python -m
+    apex_tpu_torch.telemetry`` CLI.
+
+Not ported yet, so absent from ``__all__`` (the JAX package exports
+them): the modules ``timeline`` (device-timeline decomposition),
+``fleet`` (``build_fleet``, ``fleet_violations``) and ``attrib``, and
+memory's static half (``memory_table``, ``memory_model``,
+``format_memory_table``).
+"""
+from . import trace
+from . import registry
+from . import events
+from . import memory
+from . import goodput
+from . import export
+from .registry import (SCHEMA, Registry, Counter, Gauge, Histogram,
+                       AverageMeter, Throughput, JsonlSink, MemorySink,
+                       NULL_METRIC, record_violations, records_violations)
+from .events import (set_default, get_default, active, observe_scaler,
+                     observe_amp, record_collective, record_loader,
+                     record_ckpt)
+from .trace import (Tracer, FlightRecorder, SlowStepSentinel, NULL_SPAN,
+                    set_tracer, get_tracer, span, traced)
+from .memory import MemoryMonitor
+from .goodput import GoodputLedger, goodput_violations, FAULT_BADPUT
+from .export import MetricsExporter
+
+__all__ = [
+    "trace", "registry", "events", "memory", "goodput", "export",
+    "SCHEMA",
+    "Registry",
+    "Counter", "Gauge",
+    "Histogram", "AverageMeter", "Throughput", "JsonlSink", "MemorySink",
+    "NULL_METRIC", "record_violations", "records_violations",
+    "set_default", "get_default", "active", "observe_scaler",
+    "observe_amp", "record_collective", "record_loader", "record_ckpt",
+    "Tracer", "FlightRecorder", "SlowStepSentinel", "NULL_SPAN",
+    "set_tracer", "get_tracer", "span", "traced",
+    "MemoryMonitor",
+    "GoodputLedger", "goodput_violations", "FAULT_BADPUT",
+    "MetricsExporter",
+]

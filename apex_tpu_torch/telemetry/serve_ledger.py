@@ -37,7 +37,7 @@ from typing import Any, Dict, List, Optional
 
 __all__ = [
     "CLASSES", "ARTIFACT_NAME", "ServeLedger", "serve_violations",
-    "format_ledger", "load_artifact",
+    "format_ledger", "load_artifact", "cli",
 ]
 
 #: the per-request partition; every microsecond of a request's wall
@@ -454,3 +454,32 @@ def load_artifact(path: str) -> dict:
     if not (isinstance(doc, dict) and doc.get("kind") == "serve_ledger"):
         raise ValueError(f"{path}: not a serve ledger artifact")
     return doc
+
+
+def cli(argv=None) -> int:
+    """``python -m apex_tpu_torch.telemetry serve <SERVE.json|run-dir>``."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m apex_tpu_torch.telemetry serve",
+        description="Render the per-request serving latency ledger "
+                    "(queue/prefill/decode/exposed-comm/shed "
+                    "attribution) from a SERVE.json artifact or a run "
+                    "directory holding one.")
+    ap.add_argument("path", help="SERVE.json or a run dir")
+    ap.add_argument("--json", action="store_true",
+                    help="print the ledger doc as one JSON document")
+    args = ap.parse_args(argv)
+    try:
+        doc = load_artifact(args.path)
+    except (OSError, ValueError) as err:
+        print(f"serve: {err}")
+        return 1
+    if args.json:
+        print(json.dumps(doc))
+    else:
+        print(format_ledger(doc))
+    bad = serve_violations(doc)
+    if bad:
+        print("SCHEMA VIOLATIONS:\n  " + "\n  ".join(bad))
+        return 1
+    return 0

@@ -65,20 +65,21 @@ _SIGNATURES = {
     # stream
     "apex_ln_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                     _VP],
-    # q, k, v, bias, out, lse, bh, sq, sk, d, heads, bias_b, bias_q, causal,
-    # drop_threshold, keep_div, seed, dtype, stream
-    "apex_flash_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _U, _F, _I, _I, _VP],
-    # q, k, v, bias, dout, lse, delta, dq_part, dk, dv, bh, sq, sk, d, heads,
-    # bias_b, bias_q, causal, drop_threshold, keep_div, seed, dtype, stream
+    # q, k, v, bias, out, lse, stats, bh, sq, sk, d, heads, bias_b, bias_q,
+    # causal, drop_threshold, keep_div, seed, dtype, stream
+    "apex_flash_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _U, _F, _I, _I, _VP],
+    # q, k, v, bias, dout, stats, delta, dq_part, dk, dv, bh, sq, sk, d,
+    # heads, bias_b, bias_q, causal, drop_threshold, keep_div, seed, dtype,
+    # stream
     "apex_flash_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I, _VP],
-    # q, k, v, bias, dout, lse, delta, dq, bh, sq, sk, d, heads, bias_b,
+    # q, k, v, bias, dout, stats, delta, dq, bh, sq, sk, d, heads, bias_b,
     # bias_q, causal, drop_threshold, keep_div, seed, dtype, stream
     "apex_flash_bwd_dq": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                           _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I,
                           _VP],
-    # q, k, v, bias, dout, lse, delta, dk, dv, then as apex_flash_bwd_dq
+    # q, k, v, bias, dout, stats, delta, dk, dv, then as apex_flash_bwd_dq
     "apex_flash_bwd_dkv": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                            _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _I,
                            _VP],

@@ -154,14 +154,25 @@ FLASH_EDGE_CASES = [
     ("time_mask_mha", 2, 16, 64, 64, 64, "time", False, 0.1),
     ("time_mask_ragged", 2, 2, 129, 200, 64, "time", False, 0.0),
     ("time_mask_causal", 2, 3, 200, 130, 32, "time", True, 0.1),
+    # rows whose every visible key carries -1e9 (the backward rebuilds P
+    # from the forward's (m, log l)): a (1, Sq, Sk) bias, with and without
+    # a causal mask, dropout, and the two-warpgroup kernels
+    ("masked_rows", 2, 2, 129, 200, 64, "masked", False, 0.0),
+    ("masked_rows_causal", 2, 2, 200, 130, 64, "masked", True, 0.1),
+    ("masked_rows_wide", 2, 66, 129, 129, 64, "masked", True, 0.0),
 ]
-# head dims between the kernel instances: padded to 64 and 128 in the
-# wrappers and sliced back, on the forward and both backward routes
+# head dims between the kernel instances: padded to 64, 128 and 256 in the
+# wrappers and sliced back, on the forward and both backward routes; D =
+# 256 itself (the scalar kernels in every dtype)
 FLASH_PAD_CASES = [
     ("d48_dropout", 2, 2, 130, 200, 48, "key_pad", True, 0.1),
     ("d48_dead", 2, 2, 64, 130, 48, "dead", False, 0.0),
     ("d96_ragged", 2, 3, 129, 129, 96, "key_dead", False, 0.0),
-    ("d96_time_dropout", 2, 2, 200, 130, 96, "time", False, 0.1),
+    ("d96_time_dropout", 2, 2, 200, 130, 96, "time", True, 0.1),
+    ("d160_dropout", 2, 2, 130, 200, 160, "key_pad", True, 0.1),
+    ("d192_dead", 2, 2, 64, 130, 192, "dead", False, 0.0),
+    ("d256_ragged", 2, 3, 129, 129, 256, "key_dead", False, 0.0),
+    ("d256_masked_causal", 2, 2, 200, 130, 256, "masked", True, 0.1),
 ]
 FLASH_EDGE_CASES = FLASH_EDGE_CASES + FLASH_PAD_CASES
 FLASH_CASES = FLASH_CASES + FLASH_EDGE_CASES
@@ -187,6 +198,13 @@ def _flash_inputs(B, heads, sq, sk, d, kind, dev, dtype, seed):
         bias = np.where(rng.random((1, sq, sk)) < 0.3, -1e9,
                         0.0).astype(np.float32)
         bias[0, sq // 2, :] = pflash.NEG_INF
+    elif kind == "masked":                     # (1, Sq, Sk)
+        # the first rows and every 7th: -1e9 on every key; every 5th past
+        # its third key; the rest unmasked
+        bias = np.zeros((1, sq, sk), np.float32)
+        bias[0, 4::5, 3:] = -1e9
+        bias[0, :4, :] = -1e9
+        bias[0, ::7, :] = -1e9
     elif kind in ("key_pad", "key_dead"):      # (B, 1, Sk)
         bias = np.zeros((B, 1, sk), np.float32)
         for b in range(B):
@@ -206,10 +224,18 @@ def test_flash_fwd_kernel_matches_plain(case, dtype, cuda_device):
     q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, cuda_device,
                                   getattr(torch, dtype), seed=sq + sk)
     before = build.LAUNCHES["flash_fwd"]
-    out, lse = pflash._flash_fwd(q, k, v, bias, causal, rate, 99, heads)
+    out, lse, stats = pflash._flash_fwd_res(q, k, v, bias, causal, rate, 99,
+                                            heads)
     torch.cuda.synchronize()
     assert build.LAUNCHES["flash_fwd"] == before + 1
-    r_out, r_lse = pflash._reference(q, k, v, bias, causal, rate, 99, heads)
+    r_out, r_lse, r_stats = pflash._reference_res(q, k, v, bias, causal,
+                                                  rate, 99, heads)
+    # the backward's residual: the row max and log l, kept apart
+    live = r_lse[..., 0] < 1e29
+    assert _close(stats[..., 0][live], r_stats[..., 0][live], 1e-4)
+    assert bool((torch.abs(stats[..., 1] - r_stats[..., 1])[live]
+                 <= 1e-3).all())
+    assert torch.equal(stats[~live], r_stats[~live])
     assert _peak_close(out, r_out, {"float32": 1e-4, "bfloat16": 2e-2,
                                     "float16": FP16_OUT_TOL}[dtype])
     live = r_lse < 1e29
@@ -221,7 +247,7 @@ def test_flash_fwd_kernel_matches_plain(case, dtype, cuda_device):
 def test_wrappers_raise_instead_of_falling_back(cuda_device):
     """A CUDA tensor launches a kernel or raises: H = 60 (off the 16-byte
     vector) launches and matches the plain version; float64 and a head
-    dim past 128 raise and launch nothing."""
+    dim past 256 raise and launch nothing."""
     x = torch.randn(4, 60, device=cuda_device)          # H % 8 != 0
     before = build.LAUNCHES["ln_fwd"]
     out, mean, inv = port_ln.ln_fwd(x, None, None, 1e-5)
@@ -233,7 +259,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(TypeError):
         port_ln.ln_fwd(x.double(), None, None, 1e-5)
     bias = torch.zeros(1, 1, 8, device=cuda_device)
-    q = torch.zeros(2, 8, 160, device=cuda_device)      # D > 128
+    q = torch.zeros(2, 8, 257, device=cuda_device)      # D > 256
     with pytest.raises(ValueError):
         pflash._flash_fwd(q, q, q, bias, False, 0.0, 0, 1)
     q = torch.zeros(2, 8, 48, device=cuda_device, dtype=torch.float64)
@@ -390,15 +416,16 @@ def test_flash_bwd_kernel_matches_plain(case, dtype, cuda_device):
     rng = np.random.default_rng(d)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(
         np.float32)).to(cuda_device, tdt)
-    out, lse = pflash._flash_fwd(q, k, v, bias, causal, rate, 7, heads)
+    out, _, stats = pflash._flash_fwd_res(q, k, v, bias, causal, rate, 7,
+                                          heads)
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
     before = build.LAUNCHES["flash_bwd"]
-    got = pflash._flash_bwd_fused(q, k, v, bias, causal, rate, 7, heads, lse,
-                                  delta, do)
+    got = pflash._flash_bwd_fused(q, k, v, bias, causal, rate, 7, heads,
+                                  stats, delta, do)
     torch.cuda.synchronize()
     assert build.LAUNCHES["flash_bwd"] == before + 1
     ref = pflash._flash_bwd_reference(q, k, v, bias, causal, rate, 7, heads,
-                                      lse, delta, do)
+                                      stats, delta, do)
     tol = 1e-4 if dtype == "float32" else 2e-2
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == tdt and a.shape == r.shape, name
@@ -429,9 +456,10 @@ def test_flash_bwd_split_kernels_match_plain(case, dtype, cuda_device):
     rng = np.random.default_rng(d + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(
         np.float32)).to(cuda_device, tdt)
-    out, lse = pflash._flash_fwd(q, k, v, bias, causal, rate, 5, heads)
+    out, _, stats = pflash._flash_fwd_res(q, k, v, bias, causal, rate, 5,
+                                          heads)
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
-    args = (q, k, v, bias, causal, rate, 5, heads, lse, delta, do)
+    args = (q, k, v, bias, causal, rate, 5, heads, stats, delta, do)
     before = dict(build.LAUNCHES)
     dq = pflash._flash_bwd_dq(*args)
     dk, dv = pflash._flash_bwd_dkv(*args)
@@ -499,7 +527,7 @@ def test_fused_layer_norm_module_any_width_on_the_card(shape, nshape,
 
 
 @pytest.mark.parametrize("route", ["fused", "split"])
-@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("d", [48, 96, 160, 200])
 def test_flash_attention_odd_head_dims_on_the_card(d, route, cuda_device,
                                                    monkeypatch):
     """``flash_attention`` with its gradients at head dims the kernels are
@@ -623,9 +651,10 @@ def test_flash_bwd_partials_fill_their_buffer(case, cuda_device):
     rng = np.random.default_rng(sk)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(
         np.float32)).to(cuda_device, torch.bfloat16)
-    out, lse = pflash._flash_fwd(q, k, v, bias, causal, rate, 9, heads)
+    out, _, stats = pflash._flash_fwd_res(q, k, v, bias, causal, rate, 9,
+                                          heads)
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
-    args = (q, k, v, bias, causal, rate, 9, heads, lse, delta, do)
+    args = (q, k, v, bias, causal, rate, 9, heads, stats, delta, do)
     dq, dk, dv = pflash._flash_bwd_fused(*args)
     assert pflash.BWD_K_TILE == 128
     nk = -(-sk // pflash.BWD_K_TILE)
@@ -634,7 +663,7 @@ def test_flash_bwd_partials_fill_their_buffer(case, cuda_device):
     pdk, pdv = torch.empty_like(k), torch.empty_like(v)
     err = build.library().apex_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part.data_ptr(),
+        do.data_ptr(), stats.data_ptr(), delta.data_ptr(), part.data_ptr(),
         pdk.data_ptr(), pdv.data_ptr(),
         *pflash._launch_args(q, k, bias, causal, rate, 9, heads))
     torch.cuda.synchronize()
@@ -884,6 +913,34 @@ def test_dense_act_backward_on_the_card(cuda_device):
         .backward()
     for g, a in zip(got, ins):
         assert _close(g, a.grad, 1e-4)
+
+
+@pytest.mark.parametrize("low", ["float16", "bfloat16"])
+def test_mlp_function_under_amp_casts_on_the_card(low, cuda_device):
+    """fp32 x, w and b under amp O1 / O4 casts: ``mlp_function`` casts x
+    alone, and each layer's mixed dtypes run the fp32 kernel on the
+    widened inputs (one launch a layer), out in the low type, matching
+    the plain version within the fused MLP's 16-bit limits (fp16 2e-3,
+    bf16 2e-2: one rounding of each layer's fp32 output)."""
+    from apex_tpu_torch.amp import amp as amp_mod
+    from apex_tpu_torch.mlp import mlp_function
+    from apex_tpu_torch.ops import fused_mlp
+    rng = np.random.default_rng(3)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device)
+    x, ws, bs = t(32, 64), [t(64, 48), t(48, 16)], [t(48), t(16)]
+    before = build.LAUNCHES["dense_act"]
+    with amp_mod.autocast(getattr(torch, low)):
+        out = mlp_function(x, ws, bs, "relu")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dense_act"] == before + 2
+    assert out.dtype == getattr(torch, low)
+    h = x.to(getattr(torch, low))
+    for w, b in zip(ws, bs):
+        h = fused_mlp.fused_dense_act_reference(h, w, b, "relu")
+    assert _close(out, h, {"float16": 2e-3, "bfloat16": 2e-2}[low])
 
 
 # -- multi_tensor_scale / multi_tensor_axpby ----------------------------------

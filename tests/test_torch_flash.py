@@ -11,7 +11,12 @@ The split route's plain versions (dq alone, dk/dv alone) go against the
 JAX package's ``_flash_bwd_dq`` / ``_flash_bwd_dkv`` kernels (interpret
 mode) at the same 5e-5, and the port's two routes give the same bits on
 the CPU.
-The dropout hash is compared bit for bit.  The CUDA kernels themselves are
+The dropout hash is compared bit for bit.  Rows whose every visible key
+carries a large finite mask (-1e9) go through the port's kernel route
+(``backward="pallas"``, its plain recompute here) and are held to the JAX
+package's ``backward="xla"`` at 1e-4 on the peak rule: the backward
+rebuilds P from the row max and log l kept apart, where the JAX kernels'
+rebuild from lse alone is wrong.  The CUDA kernels themselves are
 compared with the plain versions on the card by
 ``tests/test_torch_cuda_kernels.py``.
 """
@@ -370,10 +375,11 @@ def test_head_dim_padding_is_exact(d, causal, rate):
         assert bool((a[..., d:] == 0).all()), name
 
 
-@pytest.mark.parametrize("d", [16, 32, 33, 64, 65, 128, 129, 160, 256])
+@pytest.mark.parametrize("d", [16, 32, 33, 64, 65, 128, 129, 160, 256,
+                               257, 320])
 def test_kernel_head_dim(d):
-    if d > 128:
-        with pytest.raises(ValueError, match="up to 128"):
+    if d > 256:
+        with pytest.raises(ValueError, match="up to 256"):
             pflash._kernel_head_dim(d)
     else:
         want = next(h for h in pflash.HEAD_DIMS if d <= h)
@@ -407,3 +413,64 @@ def test_flash_attention_odd_head_dims_match_jax(d):
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=BWD_TOL,
                                    rtol=BWD_TOL, err_msg=name)
+
+
+def _peak_close(got, ref, tol, name):
+    ref = np.asarray(ref, np.float32)
+    err = np.abs(np.asarray(got, np.float32) - ref)
+    scale = np.maximum(np.abs(ref), min(1.0, float(np.abs(ref).max())))
+    assert (err <= tol * scale).all(), (name, float(err.max()))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_all_masked_rows_backward_matches_jax_xla(causal):
+    """BH 2, S 8, D 32, fp32, a (1, S, S) bias.  Non-causal: row 0 is -1e9
+    everywhere, row 1 past key 3.  Causal: rows 0-3 are -1e9 everywhere, so
+    each sees only masked keys (a time mask's first rows).  The forward's
+    lse there is -1e9 + log n, whose log n fp32 cannot hold; the port's
+    kernel route rebuilds P from (m, log l) and gives autograd of the
+    plain forward (the JAX package's ``backward="xla"``) within 1e-4 on
+    the peak rule, and so does its fused plain backward given the
+    forward's stats, while given the public lse it is far off."""
+    bh, s, d = 2, 8, 32
+    rng = np.random.default_rng(21)
+    q = (rng.standard_normal((bh, s, d)) / np.sqrt(d)).astype(np.float32)
+    k = rng.standard_normal((bh, s, d)).astype(np.float32)
+    v = rng.standard_normal((bh, s, d)).astype(np.float32)
+    do = _dout(q.shape, seed=22)
+    bias = np.zeros((1, s, s), np.float32)
+    if causal:
+        bias[0, :4, :] = -1e9
+    else:
+        bias[0, 0, :] = -1e9
+        bias[0, 1, 3:] = -1e9
+
+    def jloss(q_, k_, v_):
+        out = jflash.flash_attention(q_, k_, v_, jnp.asarray(bias), 0,
+                                     causal, 0.0, 1, "xla")
+        return jnp.sum(out * jnp.asarray(do))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v))
+    qkv = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = pflash.flash_attention(*qkv, torch.from_numpy(bias), seed=0,
+                                 causal=causal, dropout_rate=0.0, heads=1,
+                                 backward="pallas")
+    got = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        _peak_close(a.numpy(), r, 1e-4, name)
+    t = [torch.from_numpy(a) for a in (q, k, v, bias, do)]
+    o, lse, stats = pflash._flash_fwd_res(t[0], t[1], t[2], t[3], causal,
+                                          0.0, 0, 1)
+    assert torch.equal(o, out.detach())
+    np.testing.assert_allclose(lse.numpy(), (stats[..., :1]
+                                             + stats[..., 1:]).numpy())
+    delta = (t[4] * o).sum(-1, keepdim=True)
+    args = (t[0], t[1], t[2], t[3], causal, 0.0, 0, 1)
+    fused = pflash._flash_bwd_fused(*args, stats, delta, t[4])
+    for name, a, r in zip(("dq", "dk", "dv"), fused, ref):
+        _peak_close(a.numpy(), r, 1e-4, name)
+    # the public lse alone cannot carry log l on these rows
+    old = pflash._flash_bwd_fused(*args, lse, delta, t[4])
+    assert max(float(np.abs(a.numpy() - np.asarray(r)).max())
+               for a, r in zip(old, ref)) > 1.0

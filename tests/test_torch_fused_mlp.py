@@ -16,6 +16,9 @@ and False, through ``mlp_params_from_jax``: fp32 within 1e-5, fp16 within
 by ``tests/test_torch_cuda_kernels.py``; here ``_route``, which picks one
 of them before a launch, is checked on CPU tensors (it reads shapes,
 dtypes and addresses only), and a CPU tensor is shown to reach no route.
+Under amp's casts (O1's fp16, O4's bf16), ``mlp_function`` and
+``MLP.apply`` on fp32 x, w and b give the JAX package's dtype and values
+(the 16-bit limits above): both cast x alone.
 """
 import numpy as np
 import pytest
@@ -24,13 +27,18 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from apex_tpu.amp import amp as jamp_mod
 from apex_tpu.mlp import MLP as JaxMLP
+from apex_tpu.mlp import mlp_function as jax_mlp_function
 from apex_tpu.ops import dense_act as jax_dense_act
 from apex_tpu.ops import fused_dense_act as jax_fused_dense_act
 
+from apex_tpu_torch.amp import amp as amp_mod
 from apex_tpu_torch.mlp import MLP, mlp_function, mlp_params_from_jax
 from apex_tpu_torch.ops import fused_mlp
 from apex_tpu_torch.ops.fused_mlp import dense_act, fused_dense_act
+
+from _torch_port import amp_uninit  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-3}
 
@@ -220,3 +228,34 @@ def test_cpu_tensor_reaches_no_route(dtype, monkeypatch):
     assert torch.equal(out, fused_mlp.fused_dense_act_reference(x, w, b,
                                                                 "relu"))
     assert dict(build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("level,low", [("O1", "float16"), ("O4", "bfloat16")])
+def test_mlp_function_under_amp_casts_matches_jax(level, low):
+    """fp32 x, w and b under amp's casts: the JAX package's ``mlp_function``
+    and both ``MLP`` routes are half functions, so x is cast to the
+    low-precision type (the weights are not) and the output comes in it;
+    the port's ``mlp_function`` and ``MLP.apply`` give the same dtype and
+    values."""
+    sizes = [16, 32, 8]
+    jparams = JaxMLP(sizes).init(jax.random.PRNGKey(5))
+    params = mlp_params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                                 device="cpu")
+    x = np.random.default_rng(11).standard_normal((6, 16)).astype(np.float32)
+    with jamp_mod.autocast(jnp.dtype(low)):
+        refs = [jax_mlp_function(jnp.asarray(x), jparams["weights"],
+                                 jparams["biases"], "relu")]
+        refs += [JaxMLP(sizes, use_pallas=p).apply(jparams, jnp.asarray(x))
+                 for p in (True, False)]
+    with amp_mod.autocast(getattr(torch, low)):
+        gots = [mlp_function(torch.from_numpy(x), params["weights"],
+                             params["biases"], "relu"),
+                MLP(sizes, use_pallas=True)(params, torch.from_numpy(x))]
+    for ref in refs:
+        assert ref.dtype == jnp.dtype(low), level
+        for got in gots:
+            assert got.dtype == getattr(torch, low), level
+            _close(got, ref.astype(jnp.float32), TOL[low])
+    # without the casts the function is mlp_pallas: fp32 in, fp32 out
+    assert mlp_function(torch.from_numpy(x), params["weights"],
+                        params["biases"], "relu").dtype == torch.float32

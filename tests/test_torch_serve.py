@@ -7,7 +7,11 @@ same tokens.  The JAX engine's bitwise claims are not the port's bar: the
 port is held to these tolerances.  Within the port: sampled replay is
 deterministic, pool exhaustion sheds with the typed error, one host read
 per scheduler step, and the ledger passes the JAX package's
-``serve_violations``.
+``serve_violations``.  With a registry and a tracer, the port's scheduler
+emits the JAX scheduler's ``serve.*`` event sequence on the same
+requests, its ``serve.prefill`` / ``serve.decode`` spans and ``serve.*``
+gauges; a ``request_flood`` fault submits its burst in both; the
+serve-ledger CLI renders the port's ``SERVE.json``.
 """
 import numpy as np
 import pytest
@@ -21,9 +25,16 @@ from apex_tpu.serve import CacheConfig as JaxCache
 from apex_tpu.serve import ContinuousBatcher as JaxBatcher
 from apex_tpu.serve import InferenceEngine as JaxEngine
 from apex_tpu.serve import Request as JaxRequest
+from apex_tpu.resilience import faults as jax_faults
+from apex_tpu.telemetry import registry as jax_registry
+from apex_tpu.telemetry import trace as jax_trace
 from apex_tpu.telemetry.serve_ledger import serve_violations
 
 from apex_tpu_torch.models import TransformerConfig, params_from_jax
+from apex_tpu_torch.resilience import faults as port_faults
+from apex_tpu_torch.telemetry import registry as port_registry
+from apex_tpu_torch.telemetry import serve_ledger as port_serve_ledger
+from apex_tpu_torch.telemetry import trace as port_trace
 from apex_tpu_torch.serve import (CacheConfig, ContinuousBatcher,
                                   InferenceEngine, KVCacheExhaustedError,
                                   PagePool, Request, prepare_olevel,
@@ -223,3 +234,71 @@ def test_top_k_keeps_ties_and_sampling_is_keyed():
     a = int(sample_token(logits, request_key(7, 3), 5.0, 0))
     assert a == int(sample_token(logits, request_key(7, 3), 5.0, 0))
     assert request_key(7, 3) != request_key(7, 4) != request_key(8, 3)
+
+
+def _telemetry_run(bat_cls, req_cls, engine, rmod, tmod, specs):
+    sink = rmod.MemorySink()
+    reg = rmod.Registry(sink=sink, rank0_only=False, flush_interval=0,
+                        **({"memory": False, "goodput": False,
+                            "exporter": False} if rmod is port_registry
+                           else {}))
+    tracer = tmod.Tracer(enabled=True)
+    bat = bat_cls(engine, registry=reg, tracer=tracer)
+    for spec in specs:
+        bat.submit(req_cls(**spec))
+    res = bat.run()
+    reg.flush()
+    events = [(r["name"], r["fields"].get("rid"))
+              for r in sink.records if r["kind"] == "event"]
+    gauges = {r["name"] for r in sink.records
+              if r["kind"] == "metric" and r["type"] == "gauge"}
+    spans = [e["name"] for e in tracer.export()["traceEvents"]
+             if e.get("ph") == "X"]
+    return res, events, gauges, spans, sink.records, bat
+
+
+@pytest.mark.parametrize("flood", [False, True], ids=["plain", "flood"])
+def test_batcher_telemetry_matches_jax(jax_params, port_params, flood):
+    specs = _specs(seed=4)
+    plans = [None, None]
+    if flood:
+        plans = [jax_faults.parse("request_flood@2:3"),
+                 port_faults.parse("request_flood@2:3")]
+    prev = (jax_faults.install(plans[0]), port_faults.install(plans[1]))
+    try:
+        jres, jev, jg, jspans, _, _ = _telemetry_run(
+            JaxBatcher, JaxRequest, _jax_engine(jax_params), jax_registry,
+            jax_trace, specs)
+        pres, pev, pg, pspans, precs, pbat = _telemetry_run(
+            ContinuousBatcher, Request, _port_engine(port_params),
+            port_registry, port_trace, specs)
+    finally:
+        jax_faults.install(prev[0])
+        port_faults.install(prev[1])
+    assert pev == jev
+    assert {n for n, _ in pev} >= {"serve.submit", "serve.admit",
+                                   "serve.finish"}
+    assert ("serve.request_flood", None) in pev if flood else True
+    assert len(pres) == len(jres) == len(specs) + (3 if flood else 0)
+    assert all(r.status == "done" for r in pres.values())
+    assert pg == jg and "serve.p99_ms" in pg
+    assert sorted(pspans) == sorted(jspans)
+    assert pspans.count("serve.prefill") == len(pres)
+    assert jax_registry.records_violations(precs) == []
+    doc = pbat.ledger.snapshot(olevel="fp32", decode_width=4)
+    assert serve_violations(doc) == []
+
+
+def test_serve_ledger_cli_renders_the_port_artifact(port_params, tmp_path,
+                                                    capsys):
+    bat = ContinuousBatcher(_port_engine(port_params))
+    for spec in _specs(seed=2):
+        bat.submit(Request(**spec))
+    bat.run()
+    path = bat.ledger.write(directory=str(tmp_path), olevel="fp32",
+                            decode_width=4)
+    assert port_serve_ledger.cli([path]) == 0
+    assert "served" in capsys.readouterr().out
+    assert port_serve_ledger.cli([str(tmp_path)]) == 0
+    capsys.readouterr()
+    assert port_serve_ledger.cli([str(tmp_path / "none")]) == 1
