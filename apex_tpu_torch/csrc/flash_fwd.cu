@@ -7,11 +7,14 @@
 // masked scores = -1e30), dropout on the probabilities after the denominator
 // is accumulated (the squirrel3 hash of flash.py `_dropout_keep` over global
 // (bh, row, col) and seed), dead rows (max <= -5e29) written as 0 with
-// lse = +1e30.  Emits out (BH, Sq, D) in q's dtype, lse (BH, Sq) fp32, and,
-// where the caller asks, the backward's residual stats (BH, Sq, 2) fp32: the
-// row max m and log l kept apart (lse = m + log l cannot carry log l where m
-// is a large finite mask such as -1e9, whose fp32 step is 64); a dead row
-// gives (+1e30, 0).
+// lse = +1e30.  Emits out (BH, Sq, D) in q's dtype, lse (BH, Sq) fp32, and
+// the backward's residual stats (BH, Sq, 2) fp32: the row max m and log l
+// kept apart (lse = m + log l cannot carry log l where m is a large finite
+// mask such as -1e9, whose fp32 step is 64); a dead row gives (+1e30, 0).
+// Both row outputs are written, though lse is m + log l: lse is the public
+// output (serving reads it), and deriving it from the stats would add one
+// elementwise launch a call to a path that the host's launch rate bounds,
+// for 4 bytes a row saved here.
 //
 // What bounds it: operations.  Attention does 4 BH Sq Sk D flops on ~4 BH S D
 // elements: at the long-sequence shape (BH 64, S 4096, D 64, bf16) that is
@@ -72,7 +75,7 @@ struct Params {
   const float* bias;
   void* out;
   float* lse;
-  float* stats;            // (bh, sq, 2): m, log l; may be null
+  float* stats;            // (bh, sq, 2): m, log l
   int bh_count, sq, sk, heads;
   int bias_b, bias_q;      // bias shape (bias_b, bias_q, sk), bias_b in {1, B}
   int causal;
@@ -95,15 +98,14 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int bh,
   return s;
 }
 
-// A row's lse and, where asked, its (m, log l); sl is l, 1 where l is 0.
+// A row's lse and its (m, log l); sl is l, 1 where l is 0.
 __device__ __forceinline__ void write_stats(const Params& p, int bh, int row,
                                             bool dead, float m, float sl) {
   const size_t r = (size_t)bh * p.sq + row;
   const float log_l = logf(sl);
   p.lse[r] = dead ? -kNegInf : m + log_l;
-  if (p.stats != nullptr)
-    reinterpret_cast<float2*>(p.stats)[r] =
-        dead ? make_float2(-kNegInf, 0.f) : make_float2(m, log_l);
+  reinterpret_cast<float2*>(p.stats)[r] =
+      dead ? make_float2(-kNegInf, 0.f) : make_float2(m, log_l);
 }
 
 // ---------------------------------------------------------------------------
@@ -461,7 +463,7 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
 
 // q (bh, sq, d), k/v (bh, sk, d), out (bh, sq, d): contiguous, 16-byte
 // aligned, of `dtype`.  bias: fp32 (bias_b, bias_q, sk) or null.
-// lse: fp32 (bh, sq); stats: fp32 (bh, sq, 2) = (row max, log l), or null.
+// lse: fp32 (bh, sq); stats: fp32 (bh, sq, 2) = (row max, log l).
 // d in {32, 64, 128, 256}.  drop_threshold = rate * 2^32
 // (0 = no dropout), keep_div = 1 - rate.  Returns cudaSuccess (0) or the
 // launch error.

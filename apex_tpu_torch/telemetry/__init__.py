@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``apex_tpu.telemetry``; every record,
 document and artifact keeps the JAX schema, so the JAX validators accept
 the port's output.  Host-side throughout: the registry reads the device
-once a flush, and nothing else here touches it.
+once a flush, and :func:`events.observe_scaler` (so :func:`observe_amp`)
+once a call, a sync of its own outside the registry's count; nothing else
+here reads a device tensor.
 
   * :mod:`registry` -- counters / gauges / histograms / meters behind a
     ``step()`` context, one device read a flush, rank-0-gated JSONL

@@ -690,6 +690,7 @@ FLASH_EDGE_CASES = [
     ("masked_rows", 2, 2, 129, 200, 64, "masked", False, 0.0),
     ("masked_rows_causal", 2, 2, 200, 130, 64, "masked", True, 0.1),
     ("masked_rows_wide", 2, 66, 129, 129, 64, "masked", True, 0.0),
+    ("masked_rows_d128", 2, 66, 129, 129, 128, "masked", True, 0.0),
     ("fp16_masked_rows", 2, 2, 200, 130, 64, "masked", True, 0.1,
      "float16"),
     # D = 256: the scalar kernels in 16-bit
@@ -698,6 +699,24 @@ FLASH_EDGE_CASES = [
     ("fp16_d256", 2, 2, 65, 129, 256, "batch_pad_dead", False, 0.0,
      "float16"),
 ]
+
+
+#: edge cases whose bf16 gradients are held to 2e-2 relative in norm, with
+#: the peak rule's reading logged: rows with three visible keys give dS near
+#: |dP|, which grows as sqrt(D); the kernels and the plain version round dS
+#: to bf16 and may land on neighbouring numbers (up to 2^-7 apart
+#: relative), which moves an element of dq by up to 2^-7 sum_j |dS_j|
+#: |k_j|, past the peak rule's 2e-2 on a value near 1 at D = 128
+NORM_RULE_CASES = {"masked_rows_d128"}
+
+
+def _peak_ratios(got, ref):
+    """The peak rule's readings, element by element: |got - ref| /
+    max(|ref|, min(1, max|ref|)), whose max :func:`peak_ok` holds to its
+    tol."""
+    a = ref.float().abs()
+    return (got.float() - ref.float()).abs() / a.clamp(
+        min=min(1.0, float(a.max())))
 
 
 def _fused_partials(args, part):
@@ -722,8 +741,9 @@ def check_flash_edges(dev, grad: bool):
     (out within 2e-2, fp16 5e-3, on the peak rule, live lse within 1e-4
     relative, its (m, log l) residual within 1e-4 relative / 1e-3, dead
     rows exact) or, with ``grad``, on the kernel forward's (m, log l),
-    each held to its plain version (bf16 2e-2 on the peak rule, fp16 2e-3
-    relative in norm), and on the "masked" cases also to autograd of the
+    each held to its plain version (bf16 2e-2 on the peak rule, or in norm
+    on :data:`NORM_RULE_CASES`, fp16 2e-3 relative in norm), and on the
+    "masked" cases also to autograd of the
     plain forward (bf16 2e-2, fp16 2e-3 relative in norm): the split dq
     kernel, the dk/dv kernel
     and the fused kernel, whose dk and dv must be the dk/dv kernel's bits;
@@ -755,6 +775,10 @@ def check_flash_edges(dev, grad: bool):
                 def rule(a, r, _tol):
                     e = norm_rel(a, r)
                     return e <= FP16_GRAD_TOL, e
+            elif name in NORM_RULE_CASES:
+                def rule(a, r, tol):
+                    e = norm_rel(a, r)
+                    return e <= tol, e
             fused = _flash_bwd_fused(*args)
             dk, dv = _flash_bwd_dkv(*args)
             errs = {}
@@ -800,7 +824,31 @@ def check_flash_edges(dev, grad: bool):
                 f"flash edge {name}: dq partials {tuple(part.shape)} not all "
                 "written, or not the wrapper's dq")
             rule_text = (f"{FP16_GRAD_TOL} in norm" if fp16
+                         else "2e-2 in norm" if name in NORM_RULE_CASES
                          else "2e-2, peak rule")
+            if name in NORM_RULE_CASES:
+                # the peak rule's readings, and which side of float64
+                # autograd the kernel and the plain version lie
+                ref = _flash_bwd_reference(*args)
+                x64 = [t.double() for t in (q, k, v, do)]
+                tru = _xla_bwd(*x64[:3], bias, causal, rate, 77, heads,
+                               x64[3])
+                for gname, a, r, t in (("dq", _flash_bwd_dq(*args),
+                                        _flash_bwd_dq_reference(*args),
+                                        tru[0]),
+                                       ("fused dq", fused[0], ref[0], tru[0]),
+                                       ("dk", dk, ref[1], tru[1])):
+                    ratio = _peak_ratios(a, r)
+                    i = int(ratio.argmax())
+                    log(f"  flash_bwd edge {name} {gname}: the peak rule's "
+                        f"reading {float(ratio.max()):.4g} (not gated; its "
+                        f"tol 2e-2) at flat index {i}: kernel "
+                        f"{float(a.flatten()[i]):.5g}, plain "
+                        f"{float(r.flatten()[i]):.5g}, float64 autograd "
+                        f"{float(t.flatten()[i]):.5g}; in norm from float64 "
+                        f"autograd: kernel {norm_rel(a, t):.3g}, plain "
+                        f"{norm_rel(r, t):.3g}")
+                del ref, tru, x64
             log(f"  flash_bwd edge {name:18s} " + " ".join(
                 f"{g} {e:.3g}" for g, e in errs.items()) + f" (tol "
                 f"{rule_text}); dk/dv = fused bits; partials "
@@ -1552,10 +1600,12 @@ def check_flash_pad_edges(dev):
     instance) in fp32 too, zero bias: out on the peak rule (fp32 1e-4,
     bf16 2e-2, fp16 5e-3), live lse 1e-4 relative; dq, dk, dv on both
     routes (fp32 1e-4 and bf16 2e-2 on the peak rule, fp16 2e-3 relative
-    in norm); timed beside the plain versions and SDPA's flash forward and
-    backward (16-bit only; no library call computes dq or dk/dv alone)."""
+    in norm); timed beside the plain versions and SDPA's forward and
+    backward (the flash backend's in 16 bits, the memory-efficient one's in
+    fp32; no library call computes dq or dk/dv alone)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from apex_tpu_torch.contrib.multihead_attn.flash import (
         _flash_bwd_dkv, _flash_bwd_dkv_reference, _flash_bwd_dq,
         _flash_bwd_dq_reference, _flash_bwd_fused, _flash_bwd_reference,
@@ -1622,8 +1672,18 @@ def check_flash_pad_edges(dev):
             io = 4 * bh * sq * d * es + 2 * bh * sq * 4
             q4, k4, v4, do4 = (t.view(B, heads, -1, d)
                                for t in (q, k, v, do))
-            f_lms = b_lms = None
-            if not fp32:      # SDPA's flash kernels take 16-bit only
+            if fp32:    # SDPA's flash kernels take 16-bit only
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    f_lms = device_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=causal, scale=1.0))
+                (o4, lse4, rng_seed,
+                 rng_offset) = aten._scaled_dot_product_efficient_attention(
+                    q4, k4, v4, None, True, 0.0, causal, scale=1.0)
+                b_lms = device_ms(
+                    lambda: aten._scaled_dot_product_efficient_attention_backward(
+                        do4, q4, k4, v4, None, o4, lse4, rng_seed, rng_offset,
+                        0.0, [True, True, True, False], causal, scale=1.0))
+            else:
                 f_lms = device_ms(lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=causal, scale=1.0))
                 (o4, lse4, cq, ck, mq, mk, rng_seed, rng_offset,
@@ -1633,7 +1693,7 @@ def check_flash_pad_edges(dev):
                     lambda: aten._scaled_dot_product_flash_attention_backward(
                         do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0,
                         causal, rng_seed, rng_offset, scale=1.0))
-                del o4, lse4
+            del o4, lse4
             case = f"{name} BH{bh}x{sq}x{sk}x{d}"
             for kname, fn, plain, err, tol, nbytes, flops, lms in (
                     ("flash_fwd",
@@ -2150,8 +2210,8 @@ def phase_telemetry(dev, card, launches_by_path):
     registry (JSONL sink), a tracer and a scraped ``MetricsExporter``;
     (b) phase 7's O5 step with each step in ``registry.step()``, the
     metric calls under ``torch.cuda.set_sync_debug_mode("error")``,
-    ``observe_amp`` a step, a ``MemoryMonitor`` and a ``GoodputLedger``;
-    (c) a real ``torch.cuda.OutOfMemoryError`` through ``dump_oom``; (d) an
+    ``observe_amp`` a step, a ``MemoryMonitor`` and a ``GoodputLedger``,
+    then as many steps with telemetry off, timed beside them; (c) a real ``torch.cuda.OutOfMemoryError`` through ``dump_oom``; (d) an
     injected slow step through the sentinel's ``torch.profiler`` capture.
     Every artifact passes the port's validators (the JAX package's
     schemas), the launch counts are phases 5 and 7's, and each flush reads
@@ -2302,6 +2362,29 @@ def phase_telemetry(dev, card, launches_by_path):
         led.detach(tracer)
         gdoc = led.snapshot(status="completed")
         gpath = led.write(directory=TELEMETRY_DIR, doc=gdoc)
+        # observe_amp syncs once a call (one read of the scaler's four
+        # scalars), outside the registry's count: its cost on an idle card
+        areg = tel.Registry(sink=tel.MemorySink(), enabled=True,
+                            rank0_only=False, memory=False, goodput=False,
+                            exporter=False)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tel.observe_amp(areg, prev, st)
+        amp_ms = (time.perf_counter() - t0) / 20 * 1e3
+        areg.close()
+        # the same step with telemetry off, just after in this phase, the
+        # process defaults cleared (phase 7's steps ran minutes earlier)
+        saved = (tel.set_tracer(None), tel.set_default(None),
+                 goodput.install(None))
+        off = []
+        for _ in range(TEL_STEPS):
+            t0 = time.perf_counter()
+            st, loss = train_step(st, batch, cfg)
+            torch.cuda.synchronize()
+            off.append(time.perf_counter() - t0)
+        tel.set_tracer(saved[0])
+        tel.set_default(saved[1])
+        goodput.install(saved[2])
         require(reads == TEL_STEPS // TEL_FLUSH and reg.device_reads == reads,
                 f"registry device reads {reads} (then {reg.device_reads}) "
                 f"for {TEL_STEPS // TEL_FLUSH} flushes")
@@ -2320,17 +2403,22 @@ def phase_telemetry(dev, card, launches_by_path):
                 f"!= max_memory_allocated {peak}")
         summ = report.summarize(recs)
         step_ms = statistics.median(times) * 1e3
-        log(f"  {TEL_STEPS} steps, {reads} flushes of one device read each; "
+        log(f"  {TEL_STEPS} steps, {reads} flushes of one device read each "
+            f"(the registry's); observe_amp one read a step, outside that "
+            f"count, {amp_ms:.3f} ms a call on an idle card; "
             f"goodput {gdoc['goodput_fraction']:.4f} of {gdoc['wall_ms']:.1f} "
             f"ms ({gpath}); peak {peak / 2 ** 30:.2f} GiB (monitor = "
             f"max_memory_allocated); summary step time "
             f"{summ['step_time_ms']['mean']:.2f} ms; launches phase 7's a "
             f"step")
+        off_ms = statistics.median(off) * 1e3
+        p7_ms = RESULTS.get("o5_lamb_step_ms", float("nan"))
         log(f"  [{card}] O5 step with telemetry {step_ms:.2f} ms (median of "
-            f"{TEL_STEPS}; all {[round(t * 1e3, 2) for t in times]}), "
-            f"phase 7 without "
-            f"{RESULTS.get('o5_lamb_step_ms', float('nan')):.2f} ms (host "
-            f"clock; not gated)")
+            f"{TEL_STEPS}; all {[round(t * 1e3, 2) for t in times]}); "
+            f"without, just after: {off_ms:.2f} ms (all "
+            f"{[round(t * 1e3, 2) for t in off]}; {step_ms / off_ms - 1:+.1%}"
+            f"); phase 7 without {p7_ms:.2f} ms ({step_ms / p7_ms - 1:+.1%})"
+            f" (host clock; not gated)")
 
         # (c) a real OOM through the post-mortem
         try:

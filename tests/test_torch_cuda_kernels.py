@@ -160,7 +160,15 @@ FLASH_EDGE_CASES = [
     ("masked_rows", 2, 2, 129, 200, 64, "masked", False, 0.0),
     ("masked_rows_causal", 2, 2, 200, 130, 64, "masked", True, 0.1),
     ("masked_rows_wide", 2, 66, 129, 129, 64, "masked", True, 0.0),
+    ("masked_rows_d128", 2, 66, 129, 129, 128, "masked", True, 0.0),
 ]
+#: cases whose bf16 gradients are held to 2e-2 relative in norm, not on the
+#: peak rule: rows with three visible keys give dS near |dP|, which grows
+#: as sqrt(D); the kernels and the plain version round dS to bf16 and may
+#: land on neighbouring numbers (up to 2^-7 apart relative), which moves an
+#: element of dq by up to 2^-7 sum_j |dS_j| |k_j|, past the peak rule's
+#: 2e-2 on a value near 1 at D = 128
+NORM_RULE_CASES = {"masked_rows_d128"}
 # head dims between the kernel instances: padded to 64, 128 and 256 in the
 # wrappers and sliced back, on the forward and both backward routes; D =
 # 256 itself (the scalar kernels in every dtype)
@@ -435,6 +443,8 @@ def test_flash_bwd_kernel_matches_plain(case, dtype, cuda_device):
         if dtype == "float16":
             close, tol = (_close, FP16_OUT_TOL) if sk == 1 and name != "dv" \
                 else (_norm_close, FP16_GRAD_TOL)
+        elif dtype == "bfloat16" and case[0] in NORM_RULE_CASES:
+            close = _norm_close
         assert close(a, r, tol), (name, float((a.float() - r.float())
                                               .abs().max()))
     if dtype == "float32":
@@ -479,6 +489,8 @@ def test_flash_bwd_split_kernels_match_plain(case, dtype, cuda_device):
         if dtype == "float16":
             close, tol = (_close, FP16_OUT_TOL) if sk == 1 and name != "dv" \
                 else (_norm_close, FP16_GRAD_TOL)
+        elif dtype == "bfloat16" and case[0] in NORM_RULE_CASES:
+            close = _norm_close
         assert close(a, r, tol), (name, float((a.float() - r.float())
                                               .abs().max()))
     if dtype == "float32":
