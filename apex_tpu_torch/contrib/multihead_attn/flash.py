@@ -35,13 +35,17 @@ pass :data:`_FUSE_BUFFER_CAP_MB` (long sequences).  :func:`_flash_fwd`,
 launch them for CUDA tensors and take their plain versions
 (:func:`_reference`, :func:`_flash_bwd_reference`,
 :func:`_flash_bwd_dq_reference`, :func:`_flash_bwd_dkv_reference`) only
-for CPU tensors.  The kernels are built for head dims 32, 64, 128 and 256
-(:data:`HEAD_DIMS`; D = 256 on the scalar-FMA kernels in every dtype); a
-CUDA call at another D up to 256 pads q, k, v (and dO) with zero columns
-to the next instance (:func:`_pad_head_dim`) and slices out, dq, dk and dv
+for CPU tensors.  :func:`_head_dim_plan` picks the kernel for a head dim:
+the instances built for 32, 64, 128 and 256 (:data:`HEAD_DIMS`; D = 256
+on the scalar-FMA kernels in every dtype), or past 256 the column-chunked
+scalar kernels, which take any multiple of :data:`CHUNK_D` (one CTA per
+tile and 128-column output chunk, q k^T summed over all of D in 128-wide
+pieces).  A CUDA call at another D pads q, k, v (and dO) with zero columns
+up to the plan's D (:func:`_pad_head_dim`) and slices out, dq, dk and dv
 back, which is exact (zero columns add nothing to q k^T and give zero
-output columns, and the dropout hash reads no D).  D > 256 raises: it
-needs a q k^T chunked over D.  ``backward="xla"`` takes autograd of the plain
+output columns, and the dropout hash reads no D).  No head dim lacks a
+kernel; only a grid of more than 2**31 - 1 CTAs (tiles x chunks x BH, far
+past the card's memory) is refused by the launch.  ``backward="xla"`` takes autograd of the plain
 :func:`_reference` instead, by the caller's choice; ``"pallas"`` (the JAX
 package's name for its kernel route, kept so the amp option keeps its
 meaning) and ``"auto"`` take the kernels.  The JAX package's environment
@@ -54,7 +58,7 @@ Its callers: the attention modules' ``impl="fast"``
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -66,13 +70,17 @@ __all__ = ["flash_attention", "_flash_fwd", "_flash_bwd", "_flash_bwd_fused",
            "_flash_bwd_dq_reference", "_flash_bwd_dkv_reference",
            "_reference", "_dropout_keep", "_resolve_backward",
            "_resolve_fuse", "set_default_backward", "BACKWARD_IMPLS",
-           "_kernel_head_dim", "_pad_head_dim", "_flash_fwd_res",
+           "_kernel_head_dim", "_head_dim_plan", "HeadDimPlan",
+           "_pad_head_dim", "_flash_fwd_res",
            "_stats_of",
-           "NEG_INF", "HEAD_DIMS", "BWD_K_TILE"]
+           "NEG_INF", "HEAD_DIMS", "CHUNK_D", "BWD_K_TILE"]
 
 NEG_INF = -1e30
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 128, 256)
+#: output columns a CTA of the D > 256 kernels owns (``kChunk`` in
+#: ``flash_fwd.cu`` / ``flash_bwd.cu``): D past 256 pads to a multiple of it
+CHUNK_D = 128
 #: keys per CTA of the fused and dk/dv kernels (``kPartKeys`` in
 #: ``flash_bwd.cu``), the JAX package's default backward ``bk``: the dq
 #: partials are (BH, ceil(Sk / BWD_K_TILE), Sq, D) fp32
@@ -228,16 +236,29 @@ def _reference_res(q, k, v, bias, causal, dropout_rate, seed, heads):
     return o, lse[..., None], stats
 
 
-def _kernel_head_dim(d: int) -> int:
-    """The head dim of the kernel instance that takes ``d``: the least of
-    :data:`HEAD_DIMS` at or above it.  D > 256 raises: it needs a q k^T
-    chunked over D."""
+class HeadDimPlan(NamedTuple):
+    """The kernel a head dim takes: the padded head dim ``d`` it runs at,
+    and its ``route``, ``"instance"`` (one of :data:`HEAD_DIMS`) or
+    ``"chunked"`` (the column-chunked scalar kernels, D > 256)."""
+    d: int
+    route: str
+
+
+def _head_dim_plan(d: int) -> HeadDimPlan:
+    """The least of :data:`HEAD_DIMS` at or above ``d``, else (D > 256) the
+    chunked kernels at ``d`` rounded up to a multiple of :data:`CHUNK_D`."""
+    if d < 1:
+        raise ValueError(f"head dim must be positive, got {d}")
     for hd in HEAD_DIMS:
         if d <= hd:
-            return hd
-    raise ValueError(f"flash kernel supports head dims up to "
-                     f"{HEAD_DIMS[-1]} (instances {HEAD_DIMS}, smaller "
-                     f"ones padded), got {d}")
+            return HeadDimPlan(hd, "instance")
+    return HeadDimPlan(-(-d // CHUNK_D) * CHUNK_D, "chunked")
+
+
+def _kernel_head_dim(d: int) -> int:
+    """The head dim the kernel that takes ``d`` runs at
+    (:func:`_head_dim_plan`)."""
+    return _head_dim_plan(d).d
 
 
 def _pad_head_dim(tensors, d_to: int):
@@ -261,8 +282,9 @@ def _check_cuda_inputs(q, k, v, bias, dropout_rate):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"flash bias must be float32, got {bias.dtype}")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head dims {HEAD_DIMS}, got "
+    if _kernel_head_dim(q.shape[2]) != q.shape[2]:
+        raise ValueError(f"flash kernel runs at head dims {HEAD_DIMS} and "
+                         f"multiples of {CHUNK_D} past them, got "
                          f"{q.shape[2]}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if t.device != q.device:

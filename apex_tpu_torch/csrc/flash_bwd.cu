@@ -70,6 +70,10 @@
 // 128-key tile), in passes of 128 keys (64 at D = 256), q tiles of 32 rows,
 // scalar FMA on fp32 copies in shared memory, Pd and dS rounded to E before
 // their products.
+// D > 256 (padded to a multiple of 128), every dtype, all three kernels:
+// the scalar kernels split over columns (`flash_bwd_chunk_kernel`,
+// `flash_bwd_dq_chunk_kernel`), one CTA per (tile, 128-column chunk, bh),
+// S and dP summed over all of D in 128-wide pieces.  Right, not fast.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -798,6 +802,286 @@ flash_bwd_dq_simt_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// D > 256: the column-chunked scalar kernels, every dtype
+// ---------------------------------------------------------------------------
+
+// Output columns a CTA owns (flash.py `CHUNK_D`): the wrapper pads D to a
+// multiple of it, and each grid gains a chunk axis.  Every CTA forms S =
+// q k^T and dP = dO v^T summed over all of D in kChunk-wide pieces staged
+// through shared memory, then its own chunk of dq / dk / dv (and of the dq
+// partials).  The chunk CTAs of one tile run the same sums in the same
+// order, so they agree on P and dS bit for bit.  d is the padded head dim.
+constexpr int kChunk = 128;
+constexpr int kChunkS = kChunk + 1;  // +1: lane-per-row reads hit distinct banks
+constexpr int kChunkRows = 32;       // q rows (and the dq kernel's keys) a step
+constexpr int kChunkPassKeys = 64;   // keys a pass of the key-major kernel
+
+constexpr int kv_chunk_smem_bytes() {
+  return (2 * kChunkPassKeys * kChunkS + 2 * kChunkRows * kChunkS +
+          2 * kChunkRows * (kChunkPassKeys + 1) + 3 * kChunkRows) * 4;
+}
+
+// Rows [r0, r0 + rows) of a (., d) tensor at base, columns [c0, c0 +
+// kChunk), into dst (rows x kChunkS fp32); rows past n read as 0.
+template <typename E, int kThreads>
+__device__ __forceinline__ void stage_piece(float* dst, const E* src, size_t base, int r0,
+                                            int rows, int n, int d, int c0) {
+  for (int i = threadIdx.x; i < rows * kChunk; i += kThreads) {
+    const int r = i / kChunk, c = i % kChunk;
+    dst[r * kChunkS + c] =
+        r0 + r < n ? sm90::to_f32(src[base + (size_t)(r0 + r) * d + c0 + c]) : 0.f;
+  }
+}
+
+// The fused kernel (kEmitDq) or the split dk/dv kernel at D > 256: one CTA
+// of 512 threads per (bh, 128-key tile, column chunk), in passes of 64
+// keys, q tiles of 32 rows; the scalar key-major kernel above with the
+// piecewise S and dP.
+template <typename E, bool kEmitDq>
+__global__ void __launch_bounds__(kSimtKvThreads)
+flash_bwd_chunk_kernel(Params p, int d) {
+  constexpr int kBk = kChunkPassKeys;
+  constexpr int kPasses = kPartKeys / kBk;
+  constexpr int kGroups = kSimtKvThreads / kBk;    // 8
+  constexpr int kRows = kChunkRows / kGroups;      // S rows a thread
+  constexpr int kPerThread = kChunk / kGroups;     // dK / dV columns a thread
+  constexpr int kP = kBk + 1;
+  extern __shared__ float sm[];
+  float* ks = sm;
+  float* vs = ks + kBk * kChunkS;
+  float* qs = vs + kBk * kChunkS;
+  float* dos = qs + kChunkRows * kChunkS;
+  float* pds = dos + kChunkRows * kChunkS;  // Pd[q][key]
+  float* dss = pds + kChunkRows * kP;       // dS[q][key]
+  float* m_s = dss + kChunkRows * kP;
+  float* ll_s = m_s + kChunkRows;
+  float* delta_s = ll_s + kChunkRows;
+
+  const E* q = static_cast<const E*>(p.q);
+  const E* k = static_cast<const E*>(p.k);
+  const E* v = static_cast<const E*>(p.v);
+  const E* dout = static_cast<const E*>(p.dout);
+
+  const int n_chunks = d / kChunk;
+  const sm90::GridPos pos = sm90::grid_pos(p.nk * n_chunks);
+  const int bh = pos.bh;
+  const int cc = pos.tile % n_chunks * kChunk;  // the CTA's first column
+  const int kt = pos.tile / n_chunks;
+  const int tid = threadIdx.x;
+  const int key_l = tid % kBk;
+  const int grp = tid / kBk;  // one value per warp: broadcast reads
+  const size_t qbase = (size_t)bh * p.sq * d;
+  const size_t kbase = (size_t)bh * p.sk * d;
+  float* dqp = kEmitDq ? p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * d : nullptr;
+  const int n_qt = (p.sq + kChunkRows - 1) / kChunkRows;
+
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int k0 = kt * kPartKeys + pass * kBk;
+    float dk_acc[kPerThread], dv_acc[kPerThread];
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * kChunkRows;
+      if (p.causal && q0 + kChunkRows - 1 < k0) {
+        if (!kEmitDq || pass > 0) continue;
+        for (int i = tid; i < kChunkRows * kChunk; i += kSimtKvThreads) {
+          const int r = i / kChunk;
+          if (q0 + r < p.sq) dqp[(size_t)(q0 + r) * d + cc + i % kChunk] = 0.f;
+        }
+        continue;
+      }
+      float s[kRows], dp[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) s[i] = dp[i] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += kChunk) {
+        __syncthreads();
+        stage_piece<E, kSimtKvThreads>(ks, k, kbase, k0, kBk, p.sk, d, c0);
+        stage_piece<E, kSimtKvThreads>(vs, v, kbase, k0, kBk, p.sk, d, c0);
+        stage_piece<E, kSimtKvThreads>(qs, q, qbase, q0, kChunkRows, p.sq, d, c0);
+        stage_piece<E, kSimtKvThreads>(dos, dout, qbase, q0, kChunkRows, p.sq, d, c0);
+        if (c0 == 0) {
+          for (int r = tid; r < kChunkRows; r += kSimtKvThreads) {
+            const float2 st = row_stats(p, bh, q0 + r);
+            m_s[r] = st.x;
+            ll_s[r] = st.y;
+            delta_s[r] = q0 + r < p.sq ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const int q_l = grp + kGroups * i;
+          float a = s[i], b = dp[i];
+#pragma unroll 16
+          for (int c = 0; c < kChunk; ++c) {
+            a = fmaf(qs[q_l * kChunkS + c], ks[key_l * kChunkS + c], a);
+            b = fmaf(dos[q_l * kChunkS + c], vs[key_l * kChunkS + c], b);
+          }
+          s[i] = a;
+          dp[i] = b;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int q_l = grp + kGroups * i;
+        const int row = q0 + q_l, col = k0 + key_l;
+        const float pr = prob(p, s[i], m_s[q_l], ll_s[q_l], bh, row, col);
+        const float kf = keep_factor(p, bh, row, col);
+        pds[q_l * kP + key_l] = sm90::round_to<E>(pr * kf);
+        dss[q_l * kP + key_l] = sm90::round_to<E>(pr * (dp[i] * kf - delta_s[q_l]));
+      }
+      __syncthreads();
+      // the CTA's own chunk of q and dO (and of k, for the dq partials)
+      stage_piece<E, kSimtKvThreads>(qs, q, qbase, q0, kChunkRows, p.sq, d, cc);
+      stage_piece<E, kSimtKvThreads>(dos, dout, qbase, q0, kChunkRows, p.sq, d, cc);
+      if (kEmitDq) stage_piece<E, kSimtKvThreads>(ks, k, kbase, k0, kBk, p.sk, d, cc);
+      __syncthreads();
+
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const int c = grp + kGroups * j;
+        float a = dv_acc[j], b = dk_acc[j];
+        for (int q_l = 0; q_l < kChunkRows; ++q_l) {
+          a = fmaf(pds[q_l * kP + key_l], dos[q_l * kChunkS + c], a);
+          b = fmaf(dss[q_l * kP + key_l], qs[q_l * kChunkS + c], b);
+        }
+        dv_acc[j] = a;
+        dk_acc[j] = b;
+      }
+      if (!kEmitDq) continue;
+      for (int i = tid; i < kChunkRows * kChunk; i += kSimtKvThreads) {
+        const int q_l = i / kChunk, c = i % kChunk;
+        if (q0 + q_l >= p.sq) continue;
+        float a = 0.f;
+#pragma unroll 16
+        for (int kk = 0; kk < kBk; ++kk) a = fmaf(dss[q_l * kP + kk], ks[kk * kChunkS + c], a);
+        float* at = dqp + (size_t)(q0 + q_l) * d + cc + c;
+        *at = pass == 0 ? a : *at + a;
+      }
+    }
+
+    E* dk = static_cast<E*>(p.dk);
+    E* dv = static_cast<E*>(p.dv);
+    if (k0 + key_l < p.sk) {
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const size_t o = kbase + (size_t)(k0 + key_l) * d + cc + grp + kGroups * j;
+        dk[o] = sm90::from_f32<E>(dk_acc[j]);
+        dv[o] = sm90::from_f32<E>(dv_acc[j]);
+      }
+    }
+  }
+}
+
+constexpr int dq_chunk_smem_bytes() {
+  return (4 * kChunkRows * kChunkS + kChunkRows * (kChunkRows + 1) + 3 * kChunkRows) * 4;
+}
+
+// The split route's dq at D > 256: one CTA of 256 threads per (bh, 32-row
+// q tile, column chunk) walking 32-key tiles; the scalar dq kernel above
+// with the piecewise S and dP.
+template <typename E>
+__global__ void __launch_bounds__(kSimtThreads)
+flash_bwd_dq_chunk_kernel(Params p, int d) {
+  constexpr int kB = kChunkRows;                   // q rows = keys a tile
+  constexpr int kGroups = kSimtThreads / kB;       // 8
+  constexpr int kRows = kB / kGroups;              // S rows a thread
+  constexpr int kPerThread = kChunk / kGroups;     // dQ columns a thread
+  constexpr int kP = kB + 1;
+  extern __shared__ float sm[];
+  float* qs = sm;
+  float* dos = qs + kB * kChunkS;
+  float* ks = dos + kB * kChunkS;
+  float* vs = ks + kB * kChunkS;
+  float* dss = vs + kB * kChunkS;  // dS[q][key]
+  float* m_s = dss + kB * kP;
+  float* ll_s = m_s + kB;
+  float* delta_s = ll_s + kB;
+
+  const E* q = static_cast<const E*>(p.q);
+  const E* k = static_cast<const E*>(p.k);
+  const E* v = static_cast<const E*>(p.v);
+  const E* dout = static_cast<const E*>(p.dout);
+
+  const int n_chunks = d / kChunk;
+  const sm90::GridPos pos = sm90::grid_pos((p.sq + kB - 1) / kB * n_chunks);
+  const int bh = pos.bh;
+  const int cc = pos.tile % n_chunks * kChunk;
+  const int q0 = pos.tile / n_chunks * kB;
+  const int tid = threadIdx.x;
+  const int lane_l = tid % kB;  // a key (dS), then a query row (dQ)
+  const int grp = tid / kB;     // one value per warp: broadcast reads
+  const size_t qbase = (size_t)bh * p.sq * d;
+  const size_t kbase = (size_t)bh * p.sk * d;
+
+  for (int r = tid; r < kB; r += kSimtThreads) {
+    const float2 st = row_stats(p, bh, q0 + r);
+    m_s[r] = st.x;
+    ll_s[r] = st.y;
+    delta_s[r] = q0 + r < p.sq ? p.delta[(size_t)bh * p.sq + q0 + r] : 0.f;
+  }
+
+  float acc[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.f;
+
+  const int n_kt = dq_k_tiles(p, q0, kB, kB);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kB;
+    float s[kRows], dp[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) s[i] = dp[i] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kChunk) {
+      __syncthreads();
+      stage_piece<E, kSimtThreads>(qs, q, qbase, q0, kB, p.sq, d, c0);
+      stage_piece<E, kSimtThreads>(dos, dout, qbase, q0, kB, p.sq, d, c0);
+      stage_piece<E, kSimtThreads>(ks, k, kbase, k0, kB, p.sk, d, c0);
+      stage_piece<E, kSimtThreads>(vs, v, kbase, k0, kB, p.sk, d, c0);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int q_l = grp + kGroups * i;
+        float a = s[i], b = dp[i];
+#pragma unroll 16
+        for (int c = 0; c < kChunk; ++c) {
+          a = fmaf(qs[q_l * kChunkS + c], ks[lane_l * kChunkS + c], a);
+          b = fmaf(dos[q_l * kChunkS + c], vs[lane_l * kChunkS + c], b);
+        }
+        s[i] = a;
+        dp[i] = b;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int q_l = grp + kGroups * i;
+      const int row = q0 + q_l, col = k0 + lane_l;
+      const float pr = prob(p, s[i], m_s[q_l], ll_s[q_l], bh, row, col);
+      const float kf = keep_factor(p, bh, row, col);
+      dss[q_l * kP + lane_l] = sm90::round_to<E>(pr * (dp[i] * kf - delta_s[q_l]));
+    }
+    __syncthreads();
+    stage_piece<E, kSimtThreads>(ks, k, kbase, k0, kB, p.sk, d, cc);  // the own chunk of k
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int c = grp + kGroups * j;
+      float a = acc[j];
+      for (int kk = 0; kk < kB; ++kk) a = fmaf(dss[lane_l * kP + kk], ks[kk * kChunkS + c], a);
+      acc[j] = a;
+    }
+  }
+
+  E* dq_out = static_cast<E*>(p.dq);
+  if (q0 + lane_l < p.sq) {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      dq_out[qbase + (size_t)(q0 + lane_l) * d + cc + grp + kGroups * j] =
+          sm90::from_f32<E>(acc[j]);
+  }
+}
+
 using sm90::allow_smem;
 
 template <typename E, int D, bool kEmitDq>
@@ -899,6 +1183,41 @@ cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
 
 enum class Route { kFused, kDkv, kDq };
 
+template <typename E, bool kEmitDq>
+cudaError_t launch_kv_chunk(const Params& p, int d, cudaStream_t stream) {
+  static bool ready = false;
+  constexpr int bytes = kv_chunk_smem_bytes();
+  cudaError_t err = allow_smem(flash_bwd_chunk_kernel<E, kEmitDq>, bytes, ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if ((err = sm90::flat_grid(p.nk * (d / kChunk), p.bh_count, &grid)) != cudaSuccess) return err;
+  flash_bwd_chunk_kernel<E, kEmitDq><<<grid, kSimtKvThreads, bytes, stream>>>(p, d);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_dq_chunk(const Params& p, int d, cudaStream_t stream) {
+  static bool ready = false;
+  constexpr int bytes = dq_chunk_smem_bytes();
+  cudaError_t err = allow_smem(flash_bwd_dq_chunk_kernel<E>, bytes, ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if ((err = sm90::flat_grid((p.sq + kChunkRows - 1) / kChunkRows * (d / kChunk), p.bh_count,
+                             &grid)) != cudaSuccess)
+    return err;
+  flash_bwd_dq_chunk_kernel<E><<<grid, kSimtThreads, bytes, stream>>>(p, d);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_chunk(const Params& p, Route route, int d, cudaStream_t stream) {
+  switch (route) {
+    case Route::kFused: return launch_kv_chunk<E, true>(p, d, stream);
+    case Route::kDkv: return launch_kv_chunk<E, false>(p, d, stream);
+    default: return launch_dq_chunk<E>(p, d, stream);
+  }
+}
+
 template <int D>
 cudaError_t launch(const Params& p, Route route, int dtype,
                    cudaStream_t stream) {
@@ -948,8 +1267,12 @@ int run(const void* q, const void* k, const void* v, const void* bias,
     case 64: return (int)launch<64>(p, route, dtype, s);
     case 128: return (int)launch<128>(p, route, dtype, s);
     case 256: return (int)launch<256>(p, route, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if (d <= 256 || d % kChunk) return (int)cudaErrorInvalidValue;
+  if (dtype == kDtypeBF16) return (int)launch_chunk<__nv_bfloat16>(p, route, d, s);
+  if (dtype == kDtypeF16) return (int)launch_chunk<__half>(p, route, d, s);
+  return (int)launch_chunk<float>(p, route, d, s);
 }
 
 }  // namespace
@@ -958,8 +1281,9 @@ int run(const void* q, const void* k, const void* v, const void* bias,
 // 16-byte aligned, of `dtype`.  bias: fp32 (bias_b, bias_q, sk) or null.
 // stats: fp32 (bh, sq, 2) = (row max m, log l), the forward's; delta: fp32
 // (bh, sq).  dq_part: fp32 (bh, ceil(sk / 128), sq, d), fully written.  d in
-// {32, 64, 128, 256}.  drop_threshold = rate * 2^32 (0 = no
-// dropout), keep_div = 1 - rate.  Returns cudaSuccess (0) or the launch
+// {32, 64, 128, 256}, or a multiple of 128 past 256 (the chunked kernels;
+// their chunk CTAs write disjoint columns of dq_part).  drop_threshold =
+// rate * 2^32 (0 = no dropout), keep_div = 1 - rate.  Returns cudaSuccess (0) or the launch
 // error.
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* bias, const void* dout,

@@ -50,6 +50,10 @@
 // a 32-key tile; rows' running max/sum live in registers, the output
 // accumulator in registers (D/32 per lane); P rounds to E before P v, as
 // the plain version's `p.to(v.dtype)`.
+// D > 256 (padded to a multiple of 128): the scalar kernel split over
+// columns, one CTA per (bh, 16-row q tile, 128-column output chunk), q k^T
+// summed over all of D in 128-wide pieces through shared memory
+// (`flash_fwd_chunk_kernel`).  Right, not fast.
 // Ragged Sq / Sk edges need no padding copies: the TMA maps are 3-D over
 // (D, S, BH), so rows past S arrive as zeros and never from the next head.
 
@@ -406,6 +410,139 @@ flash_fwd_simt_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// D > 256: the column-chunked scalar kernel, every dtype
+// ---------------------------------------------------------------------------
+
+// Output columns a CTA owns (flash.py `CHUNK_D`): the wrapper pads D to a
+// multiple of it, and the grid gains a chunk axis (tile, chunk, bh).
+constexpr int kChunk = 128;
+
+constexpr int fwd_chunk_smem_bytes() {
+  return (kSimtBq * kChunk + kSimtBk * (kChunk + 1) + kSimtBk * kChunk) * 4;
+}
+
+// The scalar kernel above with q k^T summed over all of D in kChunk-wide
+// pieces staged through shared memory (q and k held whole would pass it:
+// 164 KB at D = 512), then P v over the CTA's own chunk of v alone.  The
+// chunk CTAs of one (bh, q tile) run the same sums in the same order, so
+// they agree on m, l and P bit for bit; chunk 0 alone writes lse and the
+// (m, log l) residual.  d is the padded head dim, a multiple of kChunk.
+template <typename E>
+__global__ void __launch_bounds__(kSimtThreads)
+flash_fwd_chunk_kernel(Params p, int d) {
+  constexpr int kPer = kChunk / 32;  // output columns per lane
+  extern __shared__ float sm[];
+  float (*qs)[kChunk] = reinterpret_cast<float (*)[kChunk]>(sm);
+  float (*ks)[kChunk + 1] = reinterpret_cast<float (*)[kChunk + 1]>(sm + kSimtBq * kChunk);
+  float (*vs)[kChunk] =
+      reinterpret_cast<float (*)[kChunk]>(sm + kSimtBq * kChunk + kSimtBk * (kChunk + 1));
+
+  const E* q = static_cast<const E*>(p.q);
+  const E* k = static_cast<const E*>(p.k);
+  const E* v = static_cast<const E*>(p.v);
+  E* out = static_cast<E*>(p.out);
+  using sm90::to_f32;
+
+  const int n_chunks = d / kChunk;
+  const sm90::GridPos pos = sm90::grid_pos((p.sq + kSimtBq - 1) / kSimtBq * n_chunks);
+  const int bh = pos.bh;
+  const int cc = pos.tile % n_chunks * kChunk;  // the CTA's first column
+  const int q0 = pos.tile / n_chunks * kSimtBq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const size_t qbase = (size_t)bh * p.sq * d;
+  const size_t kbase = (size_t)bh * p.sk * d;
+
+  float m[kSimtRowsPerWarp], l[kSimtRowsPerWarp], o[kSimtRowsPerWarp][kPer];
+#pragma unroll
+  for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) o[rr][c] = 0.f;
+  }
+
+  int n_tiles = (p.sk + kSimtBk - 1) / kSimtBk;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kSimtBq - 1) / kSimtBk + 1);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kSimtBk;
+    float s[kSimtRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) s[rr] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kChunk) {
+      __syncthreads();
+      for (int i = tid; i < kSimtBq * kChunk; i += kSimtThreads) {
+        const int r = i / kChunk, c = i % kChunk;
+        qs[r][c] = q0 + r < p.sq ? to_f32(q[qbase + (size_t)(q0 + r) * d + c0 + c]) : 0.f;
+      }
+      for (int i = tid; i < kSimtBk * kChunk; i += kSimtThreads) {
+        const int r = i / kChunk, c = i % kChunk;
+        ks[r][c] = k0 + r < p.sk ? to_f32(k[kbase + (size_t)(k0 + r) * d + c0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
+        const int lr = warp * kSimtRowsPerWarp + rr;
+        float a = s[rr];
+#pragma unroll 16
+        for (int c = 0; c < kChunk; ++c) a = fmaf(qs[lr][c], ks[lane][c], a);
+        s[rr] = a;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kSimtBk * kChunk; i += kSimtThreads) {
+      const int r = i / kChunk, c = i % kChunk;
+      vs[r][c] = k0 + r < p.sk ? to_f32(v[kbase + (size_t)(k0 + r) * d + cc + c]) : 0.f;
+    }
+    __syncthreads();
+
+    const int col = k0 + lane;
+#pragma unroll
+    for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
+      const int row = q0 + warp * kSimtRowsPerWarp + rr;
+      const float sv = masked_score(p, s[rr], bh, row, col);
+      float mx = sv;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[rr], mx);
+      const float sc = expf(m[rr] - mn);
+      float pr = expf(sv - mn);
+      float sum = pr;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[rr] = l[rr] * sc + sum;
+      m[rr] = mn;
+      if (p.drop_threshold != 0u)
+        pr = dropout_keep(p.seed, bh, row, col, p.drop_threshold) ? pr / p.keep_div : 0.f;
+      pr = sm90::round_to<E>(pr);
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) o[rr][c] *= sc;
+#pragma unroll
+      for (int j = 0; j < kSimtBk; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pr, j);
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) o[rr][c] = fmaf(pj, vs[j][lane + 32 * c], o[rr][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
+    const int row = q0 + warp * kSimtRowsPerWarp + rr;
+    if (row >= p.sq) continue;
+    const bool dead = m[rr] <= kNegInf / 2;
+    const float sl = l[rr] == 0.f ? 1.f : l[rr];
+#pragma unroll
+    for (int c = 0; c < kPer; ++c)
+      out[qbase + (size_t)row * d + cc + lane + 32 * c] =
+          sm90::from_f32<E>(dead ? 0.f : o[rr][c] / sl);
+    if (cc == 0 && lane == 0) write_stats(p, bh, row, dead, m[rr], sl);
+  }
+}
+
 template <typename E, int D, int C>
 cudaError_t launch_sm90(const Params& p, cudaStream_t stream) {
   using Cfg = FwdCfg<D, C>;
@@ -445,6 +582,20 @@ cudaError_t launch_simt(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename E>
+cudaError_t launch_chunk(const Params& p, int d, cudaStream_t stream) {
+  static bool smem_ready = false;
+  constexpr int bytes = fwd_chunk_smem_bytes();
+  cudaError_t err = sm90::allow_smem(flash_fwd_chunk_kernel<E>, bytes, smem_ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if ((err = sm90::flat_grid((p.sq + kSimtBq - 1) / kSimtBq * (d / kChunk), p.bh_count, &grid)) !=
+      cudaSuccess)
+    return err;
+  flash_fwd_chunk_kernel<E><<<grid, kSimtThreads, bytes, stream>>>(p, d);
+  return cudaGetLastError();
+}
+
 // fp16 / bf16 on the ring up to D = 128; fp32, and every dtype at D = 256,
 // on the scalar-FMA kernel
 template <int D>
@@ -464,9 +615,9 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
 // q (bh, sq, d), k/v (bh, sk, d), out (bh, sq, d): contiguous, 16-byte
 // aligned, of `dtype`.  bias: fp32 (bias_b, bias_q, sk) or null.
 // lse: fp32 (bh, sq); stats: fp32 (bh, sq, 2) = (row max, log l).
-// d in {32, 64, 128, 256}.  drop_threshold = rate * 2^32
-// (0 = no dropout), keep_div = 1 - rate.  Returns cudaSuccess (0) or the
-// launch error.
+// d in {32, 64, 128, 256}, or a multiple of 128 past 256 (the chunked
+// kernel).  drop_threshold = rate * 2^32 (0 = no dropout), keep_div =
+// 1 - rate.  Returns cudaSuccess (0) or the launch error.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* bias, void* out, void* lse,
                               void* stats, int bh_count, int sq, int sk, int d, int heads,
@@ -501,6 +652,10 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
     case 64: return (int)launch<64>(p, dtype, s);
     case 128: return (int)launch<128>(p, dtype, s);
     case 256: return (int)launch<256>(p, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if (d <= 256 || d % kChunk) return (int)cudaErrorInvalidValue;
+  if (dtype == kDtypeBF16) return (int)launch_chunk<__nv_bfloat16>(p, d, s);
+  if (dtype == kDtypeF16) return (int)launch_chunk<__half>(p, d, s);
+  return (int)launch_chunk<float>(p, d, s);
 }

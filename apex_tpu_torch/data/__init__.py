@@ -3,11 +3,12 @@
 Counterpart of ``apex_tpu/data``: checksummed ``.npz`` shard datasets with
 a pure ``(seed, epoch, step, world) -> (shard, offset)`` addressing
 function, so ``ShardedLoader(step)`` replays any global step bit for bit
-(:mod:`.sharded`), and the loader pieces it rides on (:mod:`.loader`).
-The JAX package's ``NativeLoader`` and ``native_available`` (the C++
-prefetch ring) are not ported yet.
+(:mod:`.sharded`), and the native prefetch loader (:class:`NativeLoader`
+over the C++ ring, :func:`native_available`) with the loader pieces the
+data plane rides on (:mod:`.loader`).
 """
-from .loader import ArraySource, LoaderStallError, SyntheticSource
+from .loader import (ArraySource, LoaderStallError, NativeLoader,
+                     SyntheticSource, native_available)
 from .sharded import (INDEX, DatasetError, IndexMissingWarning,
                       ShardChecksumError, ShardIndex, ShardInfo,
                       ShardedDataset, ShardedLoader, build_index,
@@ -15,7 +16,8 @@ from .sharded import (INDEX, DatasetError, IndexMissingWarning,
                       load_index, locate_step, open_dataset,
                       steps_per_epoch)
 
-__all__ = ["ArraySource", "LoaderStallError", "SyntheticSource",
+__all__ = ["ArraySource", "LoaderStallError", "NativeLoader",
+           "SyntheticSource", "native_available",
            "INDEX", "DatasetError", "IndexMissingWarning",
            "ShardChecksumError", "ShardIndex", "ShardInfo",
            "ShardedDataset", "ShardedLoader", "build_index",

@@ -134,6 +134,32 @@ through time carries the hidden state from one step to the next::
             opt, params, spec, {"tokens": tokens, "targets": targets,
                                 "hx": hx}, rnn=rnn)
 
+The imagenet example's ``--auto-resume`` path
+(``examples/imagenet/main_amp.py:337-400``): :func:`resnet_guarded_run`
+drives :func:`resnet_train_step` under the
+:class:`~apex_tpu_torch.resilience.TrainGuard` of
+:func:`resnet_auto_resume_guard` (checkpoints every ``save_every`` steps,
+a health check every ``print_freq``, scaler-floor escalation after 3
+checks), over one of the example's three batch sources
+(:func:`resnet_guard_batches`): the seekable ``.npz`` shards (the
+manifest records the data cursor), the native prefetch ring over
+memmapped ``images.npy`` / ``labels.npy`` (an iterator: a resume
+continues it, a needed rollback aborts with ``GuardAbort``), or the
+step-addressable synthetic batches (:func:`resnet_synthetic_batch_at`).
+It returns the status the example exits with (0 when the run completed,
+3 otherwise) for the caller to act on::
+
+    batches = resnet_guard_batches(None, "python", 128, seed, steps)
+    guard = resnet_auto_resume_guard(cfg, steps, ckpt_dir=save_dir,
+                                     save_every=50, print_freq=10)
+    st, bn, report, code = resnet_guarded_run(st, bn, guard, batches,
+                                              steps)
+
+:func:`o5_guard_step` is :func:`train_step` as a ``TrainGuard`` step
+function; a ``(AmpState, torch.Generator)`` carry draws the step's
+dropout from the generator, which the guard saves and restores with the
+state.
+
 2:4 sparsity (ASP) needs no step of its own: ``amp.initialize(params,
 asp.wrap_optimizer(FusedLAMB(impl="fused"), masks), "O5")`` then
 :func:`train_step` reaches ``SparseOptimizer.step_flat`` through amp's
@@ -141,7 +167,9 @@ flat fast path.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import os
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -150,6 +178,7 @@ import torch.distributed as dist
 from . import amp, checkpoint
 from .RNN import RNNContainer, mLSTM
 from .contrib.xentropy import softmax_xentropy_loss
+from .data.loader import ArraySource, NativeLoader, SyntheticSource
 from .data.sharded import ShardedLoader, open_dataset
 from .models.dcgan import (DCGANConfig, discriminator_apply,
                            generator_apply)
@@ -166,7 +195,11 @@ __all__ = ["train_step", "zero_train_step", "mlp_train_step",
            "resnet_train_step", "resnet_eval_step", "simple_ddp_train_step",
            "bce_logits", "dcgan_train_step", "resnet_checkpoint_entries",
            "resnet_resume", "resnet_checkpoint_from_jax",
-           "resnet_sharded_batches", "mha_params", "mha_apply",
+           "resnet_sharded_batches", "resnet_synthetic_batch_at",
+           "resnet_native_batches", "resnet_guard_batches",
+           "resnet_auto_resume_guard", "resnet_guarded_run",
+           "o5_guard_step",
+           "mha_params", "mha_apply",
            "mha_train_step", "rnn_lm_init", "rnn_lm_loss",
            "rnn_lm_train_step"]
 
@@ -322,6 +355,157 @@ def resnet_sharded_batches(directory: str, batch: int, seed: int,
 
     return ShardedLoader(open_dataset(directory), global_batch=batch,
                          seed=seed, num_steps=steps, transform=tf)
+
+
+#: the synthetic pool's learnable classes and its seed (the example's
+#: ``_SYN_CLASSES`` and prototype seed)
+SYN_CLASSES, SYN_POOL_SEED = 64, 1234
+_SYN_POOLS: Dict[int, np.ndarray] = {}
+
+
+def _syn_protos(hw: int) -> np.ndarray:
+    """The example's prototype pool: one uniform image a class, seeded
+    apart from the batches (built once a process and size)."""
+    if hw not in _SYN_POOLS:
+        _SYN_POOLS[hw] = np.random.RandomState(SYN_POOL_SEED).rand(
+            SYN_CLASSES, hw, hw, 3).astype(np.float32)
+    return _SYN_POOLS[hw]
+
+
+def resnet_synthetic_batch_at(batch: int, seed: int, step: int, *,
+                              hw: int = 224, device=None):
+    """The example's ``synthetic_batch_at``: the batch of global ``step``,
+    seeded by (seed, step), so a resume or a rollback replays it exactly.
+    Prototypes of the pool sampled by label plus N(0, 0.08^2) noise, made
+    in numpy (the example's numbers) and copied to ``device`` (default
+    ``"cuda"``): NHWC fp32 images and int32 labels."""
+    dev = resolve_device(device)
+    rng = np.random.Generator(np.random.PCG64(
+        np.random.SeedSequence([seed, step])))
+    labels = rng.integers(0, SYN_CLASSES, size=(batch,))
+    images = _syn_protos(hw)[labels] + 0.08 * rng.standard_normal(
+        (batch, hw, hw, 3), dtype=np.float32)
+    return (torch.from_numpy(images).to(dev),
+            torch.from_numpy(labels.astype(np.int32)).to(dev))
+
+
+def resnet_native_batches(data: Optional[str], batch: int, seed: int,
+                          steps: int, *, hw: int = 224, device=None,
+                          wait_timeout: Optional[float] = None):
+    """The example's ``native_batches``: an iterator of (images, labels)
+    from the native prefetch ring, over ``data``'s memmapped
+    ``images.npy`` (fp32 NHWC) and ``labels.npy`` (int32), or over the
+    ring's uniform synthetic source without ``data``.  On the card the
+    ring hands out pinned tensors, copied with ``non_blocking=True``."""
+    dev = resolve_device(device)
+    if data:
+        img = os.path.join(data, "images.npy")
+        lab = os.path.join(data, "labels.npy")
+        if not (os.path.exists(img) and os.path.exists(lab)):
+            raise FileNotFoundError(
+                f"the native loader with a data directory needs {img} and "
+                f"{lab} (fp32 NHWC and int32, memmapped, not loaded)")
+        src = ArraySource(data=np.load(img, mmap_mode="r"),
+                          labels=np.load(lab, mmap_mode="r"))
+    else:
+        src = SyntheticSource(shape=(hw, hw, 3), n_classes=1000)
+    pinned = dev.type == "cuda"
+    loader = NativeLoader(src, batch_size=batch, steps=steps, seed=seed,
+                          device_put=pinned, wait_timeout=wait_timeout)
+    for x, y in loader:
+        if not pinned:
+            x, y = torch.from_numpy(x), torch.from_numpy(y)
+        yield (x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))
+
+
+def resnet_guard_batches(data: Optional[str], loader: str, batch: int,
+                         seed: int, steps: int, *, hw: int = 224,
+                         device=None, wait_timeout: Optional[float] = None):
+    """The example's ``--auto-resume`` batch source: a directory of
+    ``.npz`` shards -> :func:`resnet_sharded_batches` (seekable; the guard
+    records its cursor); another ``data`` directory or ``loader ==
+    "native"`` -> :func:`resnet_native_batches` (an iterator); else the
+    step-addressable :func:`resnet_synthetic_batch_at` as a callable."""
+    if data and any(f.endswith(".npz") for f in os.listdir(data)):
+        return resnet_sharded_batches(data, batch, seed, steps,
+                                      device=device)
+    if data or loader == "native":
+        return resnet_native_batches(data, batch, seed, steps, hw=hw,
+                                     device=device,
+                                     wait_timeout=wait_timeout)
+    return lambda step: resnet_synthetic_batch_at(batch, seed, step, hw=hw,
+                                                  device=device)
+
+
+def resnet_auto_resume_guard(cfg: ResNetConfig, total_steps: int, *,
+                             ckpt_dir: str, save_every: int = 0,
+                             print_freq: int = 10, plan=None, registry=None,
+                             ddp=None,
+                             log: Optional[Callable[[str], None]] = print):
+    """The example's ``--auto-resume`` guard: a ``TrainGuard`` over
+    :func:`resnet_train_step` on an ``(amp_state, bn_state)`` carry, with
+    ``GuardConfig(ckpt_dir, save_every_steps=save_every, check_every=max(1,
+    print_freq), floor_patience=3)`` and an ``on_check`` that gives ``log``
+    the example's line (speed and loss); None logs nothing."""
+    from .resilience import GuardConfig, TrainGuard
+    if not ckpt_dir:
+        raise ValueError("the auto-resume run needs a checkpoint directory")
+    seen = {"batch": 0, "t": time.perf_counter()}
+
+    def gstep(carry, batch):
+        st, bn = carry
+        seen["batch"] = batch[1].shape[0]     # host metadata, no read
+        st, bn, loss, acc = resnet_train_step(st, bn, *batch, cfg, ddp=ddp)
+        return (st, bn), loss, acc
+
+    def on_check(step, losses):
+        now = time.perf_counter()
+        ips = len(losses) * seen["batch"] / max(now - seen["t"], 1e-9)
+        seen["t"] = now
+        if log is not None:
+            log(f"Step [{step}/{total_steps}]  Speed {ips:.1f} img/s  "
+                f"Loss {losses[-1]:.4f}")
+
+    return TrainGuard(gstep, GuardConfig(
+        ckpt_dir=ckpt_dir, save_every_steps=save_every,
+        check_every=max(1, print_freq), floor_patience=3),
+        plan=plan, registry=registry, on_check=on_check)
+
+
+def resnet_guarded_run(amp_state: amp.AmpState, bn_state, guard, batches,
+                       total_steps: int, *,
+                       log: Optional[Callable[[str], None]] = print):
+    """The example's ``--auto-resume`` run: ``guard`` (from
+    :func:`resnet_auto_resume_guard`) over ``batches`` (from
+    :func:`resnet_guard_batches`), resuming from its checkpoint
+    directory's newest checkpoint; ``log`` gets "resumed from" and the
+    status line.  Returns ``(amp_state, bn_state, report, status)``:
+    status 0 when the run completed, 3 otherwise (preempted: rerun to
+    resume), the example's exit code, for the caller to act on."""
+    (amp_state, bn_state), rep = guard.run((amp_state, bn_state), batches,
+                                           total_steps)
+    if log is not None:
+        if rep.resumed_from is not None:
+            log(f"=> guard resumed from step {rep.resumed_from}")
+        log(f"=> guard: {rep.status} at step {rep.final_step}/{total_steps}"
+            f"  (rollbacks {rep.rollbacks}, faults {rep.faults_injected}, "
+            f"checkpoints {rep.checkpoints})")
+    return amp_state, bn_state, rep, 0 if rep.status == "completed" else 3
+
+
+def o5_guard_step(cfg: TransformerConfig, *, smoothing: float = 0.0):
+    """:func:`train_step` as a ``TrainGuard`` step function: ``state`` an
+    ``AmpState`` -> ``(state, loss)``, or an ``(AmpState,
+    torch.Generator)`` carry whose generator draws the step's dropout ->
+    ``((state, generator), loss)``."""
+    def step(state, batch):
+        if isinstance(state, tuple):
+            st, gen = state
+            st, loss = train_step(st, batch, cfg, dropout_rng=gen,
+                                  smoothing=smoothing)
+            return (st, gen), loss
+        return train_step(state, batch, cfg, smoothing=smoothing)
+    return step
 
 
 def _grad_leaves(tree):

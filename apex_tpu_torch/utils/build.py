@@ -8,6 +8,11 @@ library that is loaded with ``ctypes``.  The library lands in
 the sources and the flags, so an edited source builds anew and an unchanged
 one is loaded as it is.
 
+The host code ``csrc/prefetch.cpp`` (the data loader's prefetch ring, no
+kernel) is built apart, with the host C++ compiler and no ``nvcc``, into
+``build/apex_tpu_torch/host/<hash>/`` at first use (:func:`host_library`),
+so a host without the CUDA toolkit builds it too.
+
 Each wrapper passes ``data_ptr()``s, sizes and the current stream; each C
 entry point returns ``cudaGetLastError()``, which :func:`check` turns into
 an exception.  ``LAUNCHES`` counts kernel launches by name (``flash_fwd``,
@@ -36,7 +41,8 @@ from typing import List, Optional
 import torch
 
 __all__ = ["LAUNCHES", "BuildResult", "build", "load", "library", "check",
-           "dtype_code", "stream_of", "NVCC_FLAGS", "FLOATS"]
+           "dtype_code", "stream_of", "NVCC_FLAGS", "FLOATS", "HOST_FLAGS",
+           "build_host", "host_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -219,6 +225,75 @@ def dtype_code(dtype: torch.dtype, what: str = "the kernel") -> int:
         names = "/".join(str(d).replace("torch.", "") for d in FLOATS)
         raise TypeError(f"{what} takes {names}, got {dtype}")
     return _DTYPE_CODES[dtype]
+
+
+# ---------------------------------------------------------------------------
+# host code: the prefetch ring
+# ---------------------------------------------------------------------------
+
+HOST_SOURCE = CSRC / "prefetch.cpp"
+HOST_LIB_NAME = "libapex_tpu_torch_prefetch.so"
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+
+_HOST_LIB: Optional[ctypes.CDLL] = None
+_HOST_TRIED = False
+
+
+def _host_cxx() -> str:
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    raise RuntimeError("no host C++ compiler ($CXX, g++ or c++ on PATH): "
+                       "the prefetch ring cannot be built")
+
+
+def build_host(src: Path = HOST_SOURCE) -> BuildResult:
+    """Compile the host source ``src`` with the host C++ compiler into a
+    shared library unless one for this source and these flags exists."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / "host" / h.hexdigest()[:16]
+    lib = out_dir / HOST_LIB_NAME
+    if lib.exists():
+        return BuildResult(lib, 0.0, True, "")
+    cxx = _host_cxx()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{HOST_LIB_NAME}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {src.name}:\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return BuildResult(lib, time.perf_counter() - t0, False, proc.stdout)
+
+
+def host_library() -> Optional[ctypes.CDLL]:
+    """The prefetch ring's library with its entry points' signatures set,
+    built at first use; None where it cannot be built or loaded (no host
+    compiler), which the loader reports through ``native_available``."""
+    global _HOST_LIB, _HOST_TRIED
+    if _HOST_LIB is not None or _HOST_TRIED:
+        return _HOST_LIB
+    _HOST_TRIED = True
+    try:
+        lib = ctypes.CDLL(str(build_host().path))
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return None
+    lib.pf_create.restype = ctypes.c_void_p
+    lib.pf_create.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_uint64]
+    lib.pf_acquire.restype = ctypes.c_int32
+    lib.pf_acquire.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)]
+    lib.pf_release.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.pf_destroy.argtypes = [ctypes.c_void_p]
+    _HOST_LIB = lib
+    return lib
 
 
 def stream_of(t: torch.Tensor) -> int:

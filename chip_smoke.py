@@ -378,7 +378,7 @@ RESULTS = {}
 # paths that launch none of the 13 kernels: every kernel's line lists
 # them, as it lists every path of TRAIN_LAUNCHES_PER_STEP
 ZERO_PATHS = ("rn50_o2", "rn50_ddp", "simple_ddp_o1", "dcgan_o4",
-              "ckpt_rn50")
+              "ckpt_rn50", "guard_rn50")
 
 
 _T0 = time.perf_counter()
@@ -1718,6 +1718,155 @@ def check_flash_pad_edges(dev):
                 rows.append(_edge_row(kname, case, dtype, err, tol, ms, pms,
                                       lms, bms, by))
             del q, k, v, do, out, fused, dq, dkv, args
+            torch.cuda.empty_cache()
+    return rows
+
+
+# past D = 256: the column-chunked scalar kernels (D padded to a multiple
+# of 128, one CTA per 128-column output chunk), causal, the "masked" bias
+# (rows whose every visible key carries -1e9), dropout 0.1
+FLASH_CHUNK_EDGES = [  # name, B, heads, Sq, Sk, D
+    ("d320_masked_causal", 1, 16, 256, 256, 320),
+    ("d512_masked_causal", 1, 16, 256, 256, 512),
+]
+CHUNK_RATE, CHUNK_SEED = 0.1, 17
+# the peak rule's tolerances of the chunked kernels' outputs and gradients:
+# fp32 1e-4, bf16 2e-2; fp16 takes bf16's, its rounding steps being 8x
+# finer (the fp16 gradients' norm rule is logged beside it)
+CHUNK_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
+
+
+def _sdpa_yardstick(q4, k4, v4, mask, do4, rate):
+    """SDPA's time for the same attention, forward and backward (the
+    autograd backward of one call, dq, dk and dv together), CUDA events
+    around each call: the memory-efficient backend where it takes the
+    shape, else the math backend.  Returns (forward ms, backward ms,
+    backend name)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name, backend in (("sdpa_efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("sdpa_math", SDPBackend.MATH)):
+        qkv = [t.detach().clone().requires_grad_(True)
+               for t in (q4, k4, v4)]
+        try:
+            with sdpa_kernel(backend):
+                def fwd():
+                    return F.scaled_dot_product_attention(
+                        *qkv, attn_mask=mask, dropout_p=rate, scale=1.0)
+                out = fwd()
+                torch.autograd.grad(out, qkv, do4, retain_graph=True)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel(backend):
+            with torch.no_grad():
+                f_ms = time_ms(fwd, reps=10, warmup=2)
+            b_ms = time_ms(lambda: torch.autograd.grad(
+                out, qkv, do4, retain_graph=True), reps=10, warmup=2)
+        return f_ms, b_ms, name
+    raise SmokeFailure("no SDPA backend takes the chunked flash edge shape")
+
+
+def check_flash_chunk_edges(dev):
+    """#1, #4 and #2 + #3 past D = 256 (:data:`FLASH_CHUNK_EDGES`: the
+    column-chunked kernels) in fp32, bf16 and fp16: one launch each, out
+    and live lse, dq, dk, dv on both backward routes on the peak rule
+    (:data:`CHUNK_TOL`) against the plain versions; timed beside the
+    plain versions and SDPA (:func:`_sdpa_yardstick`, its backend named;
+    the dq and dk/dv rows carry SDPA's whole backward, no library call
+    computing either alone)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dkv, _flash_bwd_dkv_reference, _flash_bwd_dq,
+        _flash_bwd_dq_reference, _flash_bwd_fused, _flash_bwd_reference,
+        _flash_fwd, _flash_fwd_res, _head_dim_plan, _reference)
+    from apex_tpu_torch.utils import build
+    rows = []
+    gen = torch.Generator().manual_seed(49)
+    for name, B, heads, sq, sk, d in FLASH_CHUNK_EDGES:
+        plan = _head_dim_plan(d)
+        require(plan.route == "chunked", f"D {d}: plan {plan}")
+        bh = B * heads
+        for dtype in EDGE_DTYPES:
+            dt = getattr(torch, dtype)
+            tol = CHUNK_TOL[dtype]
+            q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, "masked", gen,
+                                          dt, dev)
+            do = _randn(q.shape, gen, dt, dev)
+            fargs = (q, k, v, bias, True, CHUNK_RATE, CHUNK_SEED, heads)
+            before = dict(build.LAUNCHES)
+            out, lse, stats = _flash_fwd_res(*fargs)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            args = fargs + (stats, delta, do)
+            fused = _flash_bwd_fused(*args)
+            dq = _flash_bwd_dq(*args)
+            dkv = _flash_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            for kname in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
+                          "flash_bwd_dkv"):
+                require(build.LAUNCHES[kname] == before.get(kname, 0) + 1,
+                        f"flash chunk {name} {dtype}: {kname} not one "
+                        "launch")
+            r_out, r_lse = _reference(*fargs)
+            ok, o_err = peak_ok(out, r_out, tol)
+            live = r_lse < 1e29
+            l_err = rel_err(lse[live], r_lse[live])
+            require(ok and l_err <= 1e-4, f"flash chunk {name} {dtype}: out "
+                    f"err {o_err:.3g} (tol {tol}, peak), lse {l_err:.3g}")
+            ref = _flash_bwd_reference(*args)
+            errs, norms = {}, {}
+            for gname, a, r in (("fused dq", fused[0], ref[0]),
+                                ("fused dk", fused[1], ref[1]),
+                                ("fused dv", fused[2], ref[2]),
+                                ("dq", dq, _flash_bwd_dq_reference(*args)),
+                                ("dk", dkv[0], ref[1]),
+                                ("dv", dkv[1], ref[2])):
+                ok, errs[gname] = peak_ok(a, r, tol)
+                norms[gname] = norm_rel(a, r)
+                require(ok, f"flash chunk {name} {dtype} {gname}: err "
+                        f"{errs[gname]:.3g} (tol {tol}, peak); in norm "
+                        f"{norms[gname]:.3g}")
+            require(torch.equal(fused[1], dkv[0])
+                    and torch.equal(fused[2], dkv[1]),
+                    f"flash chunk {name} {dtype}: the fused and dk/dv "
+                    "kernels' dk / dv differ")
+            log(f"  flash chunk {name} {dtype}: gradients in norm "
+                + ", ".join(f"{g} {e:.3g}" for g, e in norms.items()))
+            del ref
+            es = q.element_size()
+            pairs = sum(min(r + 1, sk) for r in range(sq)) * bh
+            io = 4 * bh * sq * d * es + 2 * bh * sq * 4 + sq * sk * 4
+            q4, k4, v4, do4 = (t.view(B, heads, -1, d)
+                               for t in (q, k, v, do))
+            causal = torch.ones(sq, sk, dtype=torch.bool,
+                                device=dev).triu(1)
+            mask = bias[0].masked_fill(causal, float("-inf")).to(dt)
+            f_lms, b_lms, lib = _sdpa_yardstick(q4, k4, v4, mask, do4,
+                                                CHUNK_RATE)
+            case = f"{name} BH{bh}x{sq}x{sk}x{d} ({lib})"
+            for kname, fn, plain, err, nbytes, flops, lms in (
+                    ("flash_fwd", lambda: _flash_fwd(*fargs),
+                     lambda: _reference(*fargs), o_err, io,
+                     4.0 * d * pairs, f_lms),
+                    ("flash_bwd", lambda: _flash_bwd_fused(*args),
+                     lambda: _flash_bwd_reference(*args),
+                     max(errs[g] for g in ("fused dq", "fused dk",
+                                           "fused dv")),
+                     io + 3 * bh * sq * d * es, 10.0 * d * pairs, b_lms),
+                    ("flash_bwd_dq", lambda: _flash_bwd_dq(*args),
+                     lambda: _flash_bwd_dq_reference(*args), errs["dq"],
+                     io + bh * sq * d * es, 6.0 * d * pairs, b_lms),
+                    ("flash_bwd_dkv", lambda: _flash_bwd_dkv(*args),
+                     lambda: _flash_bwd_dkv_reference(*args),
+                     max(errs["dk"], errs["dv"]),
+                     io + 2 * bh * sk * d * es, 8.0 * d * pairs, b_lms)):
+                bms, by = bound(nbytes, flops, dtype)
+                ms = device_ms(fn, n=5, reps=5)
+                pms = device_ms(plain, n=3, reps=5)
+                rows.append(_edge_row(kname, case, dtype, err, tol, ms, pms,
+                                      lms, bms, by))
+            del q, k, v, do, out, fused, dq, dkv, args, fargs
             torch.cuda.empty_cache()
     return rows
 
@@ -5791,6 +5940,328 @@ def study_variants(dev, rounds: int = 3):
     return times
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the self-resuming training guard
+# ---------------------------------------------------------------------------
+
+GUARD_DIR = os.path.join(HERE, "build", "phase24")
+GUARD_RN50_STEPS, GUARD_SAVE_EVERY, GUARD_CHECK_EVERY = 12, 4, 2
+GUARD_NATIVE_RECORDS = 256
+GUARD_BERT_LAYERS, GUARD_BERT_STEPS = 2, 8
+
+
+def _guard_spans(tracer) -> dict:
+    """Seconds spent in each of the guard's checkpoint spans."""
+    out = {}
+    for e in tracer.export()["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] in ("ckpt.write", "ckpt.restore",
+                                                "guard.backoff"):
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
+    return out
+
+
+def _guarded_rn50(st, bn, cfg, batches, ckpt, steps, **kw):
+    """The imagenet ``--auto-resume`` entry at phase 24's cadence:
+    (amp_state, bn_state, report, status, guard)."""
+    from apex_tpu_torch.train import (resnet_auto_resume_guard,
+                                      resnet_guarded_run)
+    g = resnet_auto_resume_guard(cfg, steps, ckpt_dir=ckpt,
+                                 save_every=GUARD_SAVE_EVERY,
+                                 print_freq=GUARD_CHECK_EVERY, log=None,
+                                 **kw)
+    out = resnet_guarded_run(st, bn, g, batches, steps, log=log)
+    require(g.host_reads == g.health_checks + out[2].checkpoints,
+            f"guard reads {g.host_reads} != checks {g.health_checks} + "
+            f"snapshots {out[2].checkpoints}")
+    return out + (g,)
+
+
+def phase_guard(dev, card):
+    """The self-resuming ``TrainGuard`` on the card, three legs:
+
+    (a) ResNet-50 config 2 at full width (batch 128 x 224^2, amp O2 +
+    FusedAdam, bf16 activations, ``cudnn.deterministic``) through the
+    imagenet ``--auto-resume`` entry (``train.resnet_auto_resume_guard`` /
+    ``resnet_guarded_run``: a save every 4 steps, a check every 2) over the
+    example's step-addressable synthetic batches: 12 steps unguarded; 12
+    guarded with ``preempt@6`` (status 3), then a rerun from a seed-1
+    state that resumes (status 0); 12 with ``nan@5x3`` (exactly one
+    rollback).  Both guarded runs end on the unguarded run's bits, and
+    every guard's host reads are its checks plus its snapshots.  A real
+    ``SIGTERM`` raised mid-run preempts, and the previous handler comes
+    back.  The checkpoint write, restore and backoff seconds and the
+    GOODPUT.json fraction of the guarded runs are printed.
+    (b) the same path over the native prefetch ring on memmapped ``.npy``
+    files under ``build/``: the ring is built (``native_available``) and
+    hands out pinned tensors; 4 steps complete; ``loader_stall@3:1.5``
+    with ``wait_timeout`` 0.5 raises ``LoaderStallError``; a needed
+    rollback raises ``GuardAbort``.
+    (c) phase 19's O5 BERT leg (full width, 2 layers, FusedLAMB) under
+    ``train.o5_guard_step``: 8 steps clean and 8 with ``nan@3x3`` (one
+    rollback to step 0, 6 steps replayed), the final state bitwise the
+    clean run's, the launches exactly phase 7's a layer times the steps
+    run, replays included; between checks the guard's own code runs under
+    ``set_sync_debug_mode("error")``.  Returns the legs' launch counts."""
+    import shutil
+    import signal
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.data import (ArraySource, LoaderStallError,
+                                     NativeLoader, native_available)
+    from apex_tpu_torch.models import (bert_large_config, resnet50_config,
+                                       resnet_init, transformer_init)
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.resilience import (GuardAbort, GuardConfig,
+                                           TrainGuard, faults)
+    from apex_tpu_torch.telemetry import trace
+    from apex_tpu_torch.train import (o5_guard_step, resnet_guard_batches,
+                                      resnet_synthetic_batch_at,
+                                      resnet_train_step)
+    from apex_tpu_torch.utils import build
+    log(f"== phase 24: the training guard (ResNet-50 config 2, "
+        f"{GUARD_RN50_STEPS} steps: unguarded, preempt@6 + resume, "
+        f"nan@5x3 + rollback, a real SIGTERM; the native ring; O5 BERT at "
+        f"{GUARD_BERT_LAYERS} layers with nan@3x3)")
+    shutil.rmtree(GUARD_DIR, ignore_errors=True)
+    os.makedirs(GUARD_DIR)
+    t_phase = time.perf_counter()
+
+    # (a) ResNet-50 config 2 over the synthetic step-addressable batches
+    cfg = resnet50_config(dtype=torch.bfloat16)
+
+    def start(seed):
+        params, bn = resnet_init(torch.Generator().manual_seed(seed), cfg,
+                                 device=dev)
+        return amp.initialize(params, FusedAdam(lr=RN50_LR),
+                              opt_level="O2", verbosity=0), bn
+
+    cache = {}
+
+    def batches(step):
+        # the example's batch of ``step``, made once: still step-addressable
+        if step not in cache:
+            cache[step] = resnet_synthetic_batch_at(RN50_BATCH, 0, step,
+                                                    device=dev)
+        return cache[step]
+    require(callable(resnet_guard_batches(None, "python", RN50_BATCH, 0,
+                                          GUARD_RN50_STEPS, device=dev)),
+            "the synthetic source is not step-addressable")
+    tracer = trace.Tracer(enabled=True,
+                          flight_dir=os.path.join(GUARD_DIR, "flight"))
+    prev_tracer = trace.set_tracer(tracer)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    build.LAUNCHES.clear()
+    try:
+        st0, bn0 = start(0)
+        st, bn = st0, bn0
+        for i in range(GUARD_RN50_STEPS):
+            st, bn, _, _ = resnet_train_step(st, bn, *batches(i), cfg)
+        ref = (st, bn)
+        torch.cuda.synchronize()
+        ck = os.path.join(GUARD_DIR, "rn50_preempt")
+        plan = faults.parse("preempt@6")
+        *_, rep1, code1, g1 = _guarded_rn50(st0, bn0, cfg, batches, ck,
+                                            GUARD_RN50_STEPS, plan=plan)
+        require(code1 == 3 and rep1.status == "preempted"
+                and rep1.final_step == 6, f"preempt@6: {rep1}")
+        st1, bn1 = start(1)
+        st, bn, rep2, code2, g2 = _guarded_rn50(st1, bn1, cfg, batches, ck,
+                                                GUARD_RN50_STEPS, plan=plan)
+        del st1, bn1
+        diff = _differing((st.model_params, st.master_params, st.opt_state,
+                           bn), (ref[0].model_params, ref[0].master_params,
+                                 ref[0].opt_state, ref[1]))
+        require(code2 == 0 and rep2.resumed_from == 6 and not diff
+                and amp.state_dict(st) == amp.state_dict(ref[0]),
+                f"preempt + resume is not the unguarded run's bits: "
+                f"{rep2}; differing {diff[:8]} ({len(diff)})")
+        ck = os.path.join(GUARD_DIR, "rn50_nan")
+        st, bn, rep3, code3, g3 = _guarded_rn50(
+            st0, bn0, cfg, batches, ck, GUARD_RN50_STEPS,
+            plan=faults.parse("nan@5x3"))
+        diff = _differing((st.model_params, st.master_params, st.opt_state,
+                           bn), (ref[0].model_params, ref[0].master_params,
+                                 ref[0].opt_state, ref[1]))
+        require(code3 == 0 and rep3.rollbacks == 1
+                and rep3.faults_injected == 3 and not diff
+                and amp.state_dict(st) == amp.state_dict(ref[0]),
+                f"nan@5x3: {rep3}; differing {diff[:8]} ({len(diff)})")
+        del st, bn
+        launches_rn50 = dict(build.LAUNCHES)
+        check_launches("rn50", launches_rn50, 1, exact=True)
+        spans = _guard_spans(tracer)
+        fraction = (rep3.goodput or {}).get("goodput_fraction")
+        require(rep3.goodput_path is not None
+                and os.path.exists(rep3.goodput_path),
+                f"GOODPUT.json not written: {rep3.goodput_path}")
+        # a real SIGTERM, delivered from inside the batch source at step 2
+        before = signal.getsignal(signal.SIGTERM)
+
+        def signalling(step):
+            if step == 2:
+                signal.raise_signal(signal.SIGTERM)
+            return batches(step)
+        *_, rep4, code4, _ = _guarded_rn50(
+            st0, bn0, cfg, signalling, os.path.join(GUARD_DIR, "rn50_sig"),
+            4)
+        require(code4 == 3 and rep4.status == "preempted"
+                and signal.getsignal(signal.SIGTERM) is before,
+                f"SIGTERM: {rep4}, handler restored "
+                f"{signal.getsignal(signal.SIGTERM) is before}")
+        log(f"  (a) ResNet-50 config 2: preempt@6 -> status {code1}, "
+            f"resumed from {rep2.resumed_from} -> status {code2}; nan@5x3 -> "
+            f"{rep3.rollbacks} rollback; both the unguarded run's bits; "
+            f"SIGTERM at step 2 -> {rep4.status} at {rep4.final_step}, "
+            f"handler restored; reads = checks + snapshots: "
+            f"{[(g.host_reads, g.health_checks) for g in (g1, g2, g3)]}, "
+            f"checkpoints {[r.checkpoints for r in (rep1, rep2, rep3)]}")
+        log(f"  [{card}] (a) the guard's checkpoint writes "
+            f"{spans.get('ckpt.write', 0.0):.3f} s, restores "
+            f"{spans.get('ckpt.restore', 0.0):.3f} s, backoff "
+            f"{spans.get('guard.backoff', 0.0):.3f} s over the guarded "
+            f"runs; GOODPUT.json fraction of the nan@5x3 run {fraction}")
+        del ref, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the native ring over memmapped .npy files
+        require(native_available(), "the native prefetch ring did not build")
+        npy = os.path.join(GUARD_DIR, "npy")
+        os.makedirs(npy)
+        rng = np.random.default_rng(24)
+        np.save(os.path.join(npy, "images.npy"), rng.random(
+            (GUARD_NATIVE_RECORDS, RN50_HW, RN50_HW, 3), dtype=np.float32))
+        np.save(os.path.join(npy, "labels.npy"), rng.integers(
+            0, 1000, GUARD_NATIVE_RECORDS).astype(np.int32))
+        src = ArraySource(
+            data=np.load(os.path.join(npy, "images.npy"), mmap_mode="r"),
+            labels=np.load(os.path.join(npy, "labels.npy"), mmap_mode="r"))
+        x, y = next(iter(NativeLoader(src, batch_size=RN50_BATCH, steps=1)))
+        require(x.is_pinned() and y.is_pinned()
+                and x.shape == (RN50_BATCH, RN50_HW, RN50_HW, 3),
+                f"native batch: pinned {x.is_pinned()}, {tuple(x.shape)}")
+
+        def native(steps, timeout=None):
+            b = resnet_guard_batches(npy, "native", RN50_BATCH, 0, steps,
+                                     device=dev, wait_timeout=timeout)
+            require(not callable(b), "the native source is step-addressable")
+            return b
+        *_, rep5, code5, _ = _guarded_rn50(
+            st0, bn0, cfg, native(4), os.path.join(GUARD_DIR, "native_a"), 4)
+        require(code5 == 0, f"native run: {rep5}")
+        prev_plan = faults.install(faults.parse("loader_stall@3:1.5"))
+        try:
+            _guarded_rn50(st0, bn0, cfg, native(6, 0.5),
+                          os.path.join(GUARD_DIR, "native_b"), 6)
+            stall = None
+        except LoaderStallError as e:
+            stall = e
+        finally:
+            faults.install(prev_plan)
+        require(stall is not None, "loader_stall@3:1.5 did not raise")
+        try:
+            _guarded_rn50(st0, bn0, cfg, native(8),
+                          os.path.join(GUARD_DIR, "native_c"), 8,
+                          plan=faults.parse("nan@1x4"))
+            abort = None
+        except GuardAbort as e:
+            abort = e
+        require(abort is not None and "plain iterator" in str(abort),
+                f"a rollback on the native source: {abort!r}")
+        log(f"  (b) native ring (native_available True, pinned batches): 4 "
+            f"steps {rep5.status}; loader_stall@3:1.5 with wait_timeout 0.5 "
+            f"-> {type(stall).__name__}: {stall}; a needed rollback -> "
+            f"{type(abort).__name__}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        trace.set_tracer(prev_tracer)
+    del st0, bn0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the O5 BERT leg under the guard
+    bcfg = bert_large_config(num_layers=GUARD_BERT_LAYERS, attn_impl="fast",
+                             remat=True, dtype=torch.bfloat16)
+    params = transformer_init(bcfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    b0 = _train_state(params, None)
+    del params
+    bbatches = []
+    for i in range(GUARD_BERT_STEPS):
+        b = _batch(bcfg, 8, 512, 40 + i, dev)
+        b["weights"] = torch.ones_like(b["tokens"],    # a float leaf
+                                       dtype=torch.float32)
+        bbatches.append(b)
+    inner = o5_guard_step(bcfg)
+    window = {"on": False}
+
+    def step(state, batch):
+        # the guard's own code between two step calls that no check
+        # separates runs with any host sync raising
+        torch.cuda.set_sync_debug_mode(0)
+        out = inner(state, batch)
+        if window["on"]:
+            torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def bsource(i):
+        window["on"] = (i + 1) % GUARD_CHECK_EVERY != 0 \
+            and i + 1 < GUARD_BERT_STEPS
+        return bbatches[i]
+
+    def run(name, plan):
+        build.LAUNCHES.clear()
+        g = TrainGuard(step, GuardConfig(
+            ckpt_dir=os.path.join(GUARD_DIR, name), enabled=True,
+            save_every_steps=GUARD_BERT_STEPS,
+            check_every=GUARD_CHECK_EVERY, backoff_seconds=0.25),
+            plan=plan)
+        try:
+            st, rep = g.run(b0, bsource, GUARD_BERT_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        require(g.host_reads == g.health_checks + rep.checkpoints,
+                f"O5 {name}: reads {g.host_reads} != checks "
+                f"{g.health_checks} + snapshots {rep.checkpoints}")
+        return st, rep, dict(build.LAUNCHES)
+    st_clean, rep_c, launches_clean = run("o5_clean", None)
+    st, rep_n, launches_nan = run("o5_nan", faults.parse("nan@3x3"))
+    steps_run = GUARD_BERT_STEPS + 6      # rollback to 0 at the check at 6
+    require(rep_c.status == rep_n.status == "completed"
+            and rep_n.rollbacks == 1, f"O5 guard: {rep_c}, {rep_n}")
+    check_launches("ckpt_o5", launches_clean, GUARD_BERT_STEPS, exact=True)
+    check_launches("ckpt_o5", launches_nan, steps_run, exact=True)
+    diff = ([f"model/{p}" for p in _differing(st.model_params,
+                                               st_clean.model_params)]
+            + [f"opt/{p}" for p in _differing(st.opt_state,
+                                              st_clean.opt_state)])
+    require(not diff and amp.state_dict(st) == amp.state_dict(st_clean),
+            f"O5 nan@3x3 + rollback is not the clean guarded run's bits: "
+            f"{diff[:8]} ({len(diff)})")
+    # does the step itself sync?  (one step under the error mode)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inner(st, bbatches[0])
+        step_syncs = "no"
+    except RuntimeError as e:
+        step_syncs = f"yes ({str(e).splitlines()[0][:80]})"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"  (c) O5 BERT, {GUARD_BERT_LAYERS} layers at full width: clean "
+        f"{GUARD_BERT_STEPS} steps and nan@3x3 ({rep_n.rollbacks} rollback, "
+        f"{steps_run} steps run) end on the same bits; launches exactly "
+        f"phase 7's a layer x steps run: {launches_nan}; the guard's code "
+        f"between checks ran under set_sync_debug_mode('error'); the step "
+        f"itself syncs: {step_syncs}")
+    del st, st_clean, b0, bbatches
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [{card}] phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return launches_rn50, launches_nan
+
+
 def _kernel_entry(name, source, replaces, row, launches_by_path, path):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches_by_path[path].get(name, 0),
@@ -5846,10 +6317,10 @@ def main(argv) -> int:
     dense_rows = check_dense_act(dev)
     flat_rows = check_scale_axpby(dev)
     log("== phase 3e: layer norm at any width, cross-entropy at its "
-        "instances' edges, flash attention at head dims 48, 96, 160, 192 "
-        "and 256, vs plain versions on the card")
+        "instances' edges, flash attention at head dims 48, 96, 160, 192, "
+        "256, 320 and 512, vs plain versions on the card")
     edge_rows = (check_ln_edges(dev) + check_xent_edges(dev)
-                 + check_flash_pad_edges(dev))
+                 + check_flash_pad_edges(dev) + check_flash_chunk_edges(dev))
     torch.cuda.empty_cache()
     phase_serve_parity(dev)
     serve_launches, _ = phase_main_path(dev, card, profile)
@@ -5897,6 +6368,7 @@ def main(argv) -> int:
     launches["mha_time_mask"] = phase_mha_time_masks(dev, card)
     check_dense_routes(dev)
     phase_telemetry(dev, card, launches)
+    launches["guard_rn50"], launches["guard_o5"] = phase_guard(dev, card)
 
     def pick(rows, **want):
         return next(r for r in rows

@@ -171,7 +171,7 @@ FLASH_EDGE_CASES = [
 NORM_RULE_CASES = {"masked_rows_d128"}
 # head dims between the kernel instances: padded to 64, 128 and 256 in the
 # wrappers and sliced back, on the forward and both backward routes; D =
-# 256 itself (the scalar kernels in every dtype)
+# 256 itself (the scalar kernels in every dtype); D 320 and 512
 FLASH_PAD_CASES = [
     ("d48_dropout", 2, 2, 130, 200, 48, "key_pad", True, 0.1),
     ("d48_dead", 2, 2, 64, 130, 48, "dead", False, 0.0),
@@ -181,6 +181,12 @@ FLASH_PAD_CASES = [
     ("d192_dead", 2, 2, 64, 130, 192, "dead", False, 0.0),
     ("d256_ragged", 2, 3, 129, 129, 256, "key_dead", False, 0.0),
     ("d256_masked_causal", 2, 2, 200, 130, 256, "masked", True, 0.1),
+    # past 256: the column-chunked kernels (D padded to a multiple of 128,
+    # one CTA per 128-column chunk), ragged, dead and masked rows, dropout
+    ("d320_masked_causal", 2, 2, 130, 200, 320, "masked", True, 0.1),
+    ("d320_dead", 2, 2, 64, 130, 320, "dead", False, 0.0),
+    ("d512_ragged", 2, 3, 129, 129, 512, "key_dead", False, 0.0),
+    ("d512_time_dropout", 2, 2, 200, 130, 512, "time", True, 0.1),
 ]
 FLASH_EDGE_CASES = FLASH_EDGE_CASES + FLASH_PAD_CASES
 FLASH_CASES = FLASH_CASES + FLASH_EDGE_CASES
@@ -254,8 +260,9 @@ def test_flash_fwd_kernel_matches_plain(case, dtype, cuda_device):
 
 def test_wrappers_raise_instead_of_falling_back(cuda_device):
     """A CUDA tensor launches a kernel or raises: H = 60 (off the 16-byte
-    vector) launches and matches the plain version; float64 and a head
-    dim past 256 raise and launch nothing."""
+    vector) launches and matches the plain version; float64 and a
+    non-contiguous q raise and launch nothing.  (A head dim past 256 once
+    raised here; the chunked kernels take it now.)"""
     x = torch.randn(4, 60, device=cuda_device)          # H % 8 != 0
     before = build.LAUNCHES["ln_fwd"]
     out, mean, inv = port_ln.ln_fwd(x, None, None, 1e-5)
@@ -267,8 +274,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(TypeError):
         port_ln.ln_fwd(x.double(), None, None, 1e-5)
     bias = torch.zeros(1, 1, 8, device=cuda_device)
-    q = torch.zeros(2, 8, 257, device=cuda_device)      # D > 256
-    with pytest.raises(ValueError):
+    q = torch.zeros(2, 64, 8, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
         pflash._flash_fwd(q, q, q, bias, False, 0.0, 0, 1)
     q = torch.zeros(2, 8, 48, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -539,7 +546,7 @@ def test_fused_layer_norm_module_any_width_on_the_card(shape, nshape,
 
 
 @pytest.mark.parametrize("route", ["fused", "split"])
-@pytest.mark.parametrize("d", [48, 96, 160, 200])
+@pytest.mark.parametrize("d", [48, 96, 160, 200, 257, 400])
 def test_flash_attention_odd_head_dims_on_the_card(d, route, cuda_device,
                                                    monkeypatch):
     """``flash_attention`` with its gradients at head dims the kernels are
@@ -650,7 +657,8 @@ def test_flash_kernels_capture_in_a_cuda_graph(cuda_device):
                                   if c[0] in ("sk127_sq64", "sk255_causal",
                                               "causal_sq300_sk130",
                                               "d32_dropout_sk255",
-                                              "d128_dropout_sk129")],
+                                              "d128_dropout_sk129",
+                                              "d512_time_dropout")],
                          ids=lambda c: c[0])
 def test_flash_bwd_partials_fill_their_buffer(case, cuda_device):
     """The fused kernel's dq partials are (BH, ceil(Sk / 128), Sq, D) fp32:
@@ -1157,3 +1165,29 @@ def test_mha_fast_path_on_the_card_matches_plain(module, mask, dtype,
         else:   # bf16 sums cancel in the small elements: held in norm
             rel = float((gg[n] - cg[n]).norm() / cg[n].norm())
             assert rel <= tol, (n, rel)
+
+
+def test_native_loader_hands_out_pinned_batches(cuda_device, tmp_path):
+    """The native prefetch ring on the card's host: built
+    (``native_available``), its batches pinned CPU tensors equal to the
+    numpy copies of the same stream, and a ``non_blocking`` copy to the
+    card carries the same values."""
+    from apex_tpu_torch.data import ArraySource, NativeLoader, \
+        native_available
+    assert native_available()
+    rng = np.random.default_rng(5)
+    np.save(tmp_path / "x.npy", rng.standard_normal((10, 3, 4)).astype(
+        np.float32))
+    np.save(tmp_path / "y.npy", rng.integers(0, 9, 10).astype(np.int32))
+    src = ArraySource(data=np.load(tmp_path / "x.npy", mmap_mode="r"),
+                      labels=np.load(tmp_path / "y.npy", mmap_mode="r"))
+    pinned = list(NativeLoader(src, batch_size=4, steps=3, seed=2))
+    plain = list(NativeLoader(src, batch_size=4, steps=3, seed=2,
+                              device_put=False))
+    for (x, y), (nx, ny) in zip(pinned, plain):
+        assert x.is_pinned() and y.is_pinned()
+        assert np.array_equal(x.numpy(), nx) and np.array_equal(y.numpy(),
+                                                                ny)
+        xd = x.to(cuda_device, non_blocking=True)
+        torch.cuda.synchronize()
+        assert torch.equal(xd.cpu(), x)

@@ -378,12 +378,85 @@ def test_head_dim_padding_is_exact(d, causal, rate):
 @pytest.mark.parametrize("d", [16, 32, 33, 64, 65, 128, 129, 160, 256,
                                257, 320])
 def test_kernel_head_dim(d):
+    """D up to 256 takes the next instance; past it, the column-chunked
+    kernels at D rounded up to a multiple of CHUNK_D (257 and 320 at 384)."""
     if d > 256:
-        with pytest.raises(ValueError, match="up to 256"):
-            pflash._kernel_head_dim(d)
+        assert pflash.CHUNK_D == 128
+        assert pflash._kernel_head_dim(d) == 384
+        assert pflash._head_dim_plan(d) == (384, "chunked")
     else:
         want = next(h for h in pflash.HEAD_DIMS if d <= h)
         assert pflash._kernel_head_dim(d) == want
+        assert pflash._head_dim_plan(d) == (want, "instance")
+
+
+@pytest.mark.parametrize("d,want", [(384, 384), (385, 512), (512, 512),
+                                    (1000, 1024), (4096, 4096)])
+def test_head_dim_plan_past_256_is_chunked(d, want):
+    """Every head dim past 256 has a kernel: the chunked route at the next
+    multiple of 128, which the wrappers' checks accept; zero or a negative
+    head dim is refused."""
+    plan = pflash._head_dim_plan(d)
+    assert plan.d == want and plan.route == "chunked"
+    with pytest.raises(ValueError, match="positive"):
+        pflash._head_dim_plan(0)
+
+
+def _masked_bias(sq, sk):
+    """(1, Sq, Sk): the first rows and every 7th carry -1e9 on every key,
+    every 5th past its third key (the card tests' "masked" kind)."""
+    bias = np.zeros((1, sq, sk), np.float32)
+    bias[0, 4::5, 3:] = -1e9
+    bias[0, :4, :] = -1e9
+    bias[0, ::7, :] = -1e9
+    return bias
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_flash_attention_past_256_matches_jax(d):
+    """flash_attention at D 320 and 512 (the chunked kernels' route on the
+    card, padded to 384 and 512), fp32, causal, dropout 0.1 and the
+    "masked" bias, with its gradients, against the JAX package at the
+    tolerances of the D 48 / 96 cases.  The JAX gradients come from its
+    ``backward="xla"``: its kernel route rebuilds P from lse alone, wrong on
+    the rows whose every visible key carries -1e9.
+
+    Causal row 0 sees one key, so its softmax is constant and its dq is 0
+    in exact arithmetic; the recompute forms it as P (dP - delta), the
+    difference of two D-long fp32 sums of the same products (dO v^T and
+    rowsum(dO O)) in other orders.  That row's dq is held to the standard
+    bound of that difference, D 2^-24 sum_i |dO_i v_i| / (1 - rate) times
+    |k|, and every other element to the D 48 / 96 tolerance."""
+    q, k, v, _ = _inputs(1, 2, 24, 24, d, "zeros", seed=d)
+    bias = _masked_bias(24, 24)
+    do = _dout(q.shape, seed=d + 1)
+    seed, causal, rate = 13, True, 0.1
+
+    def jloss(q_, k_, v_):
+        out = jflash.flash_attention(q_, k_, v_, jnp.asarray(bias), seed,
+                                     causal, rate, 2, "xla")
+        return jnp.sum(out * jnp.asarray(do))
+
+    j_out = jflash.flash_attention(*(jnp.asarray(a) for a in (q, k, v,
+                                                               bias)),
+                                   seed, causal, rate, 2)
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v))
+    qkv = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = pflash.flash_attention(*qkv, torch.from_numpy(bias), seed=seed,
+                                 causal=causal, dropout_rate=rate, heads=2)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               atol=TOL, rtol=TOL)
+    got = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    dq, rdq = got[0].numpy(), np.asarray(ref[0])
+    slack = d * 2.0 ** -24 * (np.abs(do[:, 0]) * np.abs(v[:, 0])).sum(
+        -1, keepdims=True) / (1 - rate) * np.abs(k[:, 0])
+    assert (np.abs(dq[:, 0] - rdq[:, 0]) <= slack).all()
+    np.testing.assert_allclose(dq[:, 1:], rdq[:, 1:], atol=BWD_TOL,
+                               rtol=BWD_TOL, err_msg="dq")
+    for name, a, r in zip(("dk", "dv"), got[1:], ref[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=BWD_TOL,
+                                   rtol=BWD_TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("d", [48, 96])

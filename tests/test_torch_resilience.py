@@ -171,10 +171,13 @@ def test_straggler_delay_matches_jax(arg):
 
 
 def test_exports_match_jax_minus_the_guard():
+    """The JAX package's exports; the guard's names, once missing, are
+    among them now (``tests/test_torch_guard.py`` tests the guard)."""
     import apex_tpu.resilience as jres
     guard = {"guard", "TrainGuard", "GuardConfig", "GuardReport",
              "GuardAbort"}
-    assert set(resilience.__all__) == set(jres.__all__) - guard
+    assert guard <= set(resilience.__all__)
+    assert set(resilience.__all__) == set(jres.__all__)
     assert all(hasattr(resilience, n) for n in resilience.__all__)
 
 
