@@ -337,7 +337,7 @@ def _flash_fwd_res(q, k, v, bias, causal, dropout_rate, seed, heads
         out.data_ptr(), lse.data_ptr(), stats.data_ptr(),
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_fwd")
-    build.LAUNCHES["flash_fwd"] += 1
+    build.launched("flash_fwd", q, k, v, bias, out, lse, stats)
     return _unpad(out, d), lse, stats
 
 
@@ -456,7 +456,8 @@ def _flash_bwd_fused(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
         dk.data_ptr(), dv.data_ptr(),
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_bwd")
-    build.LAUNCHES["flash_bwd"] += 1
+    build.launched("flash_bwd", q, k, v, bias, do, lse, delta, dq_part,
+                   dk, dv)
     return (_unpad(dq_part.sum(dim=1).to(q.dtype), d), _unpad(dk, d),
             _unpad(dv, d))
 
@@ -505,7 +506,7 @@ def _flash_bwd_dq(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_bwd_dq")
-    build.LAUNCHES["flash_bwd_dq"] += 1
+    build.launched("flash_bwd_dq", q, k, v, bias, do, lse, delta, dq)
     return _unpad(dq, d)
 
 
@@ -528,7 +529,8 @@ def _flash_bwd_dkv(q, k, v, bias, causal, dropout_rate, seed, heads, lse,
         dv.data_ptr(),
         *_launch_args(q, k, bias, causal, dropout_rate, seed, heads))
     build.check(err, "flash_bwd_dkv")
-    build.LAUNCHES["flash_bwd_dkv"] += 1
+    build.launched("flash_bwd_dkv", q, k, v, bias, do, lse, delta, dk,
+                   dv)
     return _unpad(dk, d), _unpad(dv, d)
 
 

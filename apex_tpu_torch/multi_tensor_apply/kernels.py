@@ -87,7 +87,7 @@ def multi_tensor_l2norm(flat: torch.Tensor) -> torch.Tensor:
         flat.data_ptr(), n, partials.data_ptr(), n_blocks, out.data_ptr(),
         code, build.stream_of(flat))
     build.check(err, "l2norm")
-    build.LAUNCHES["l2norm"] += 1
+    build.launched("l2norm", flat, partials, out)
     return out
 
 
@@ -198,7 +198,8 @@ def fused_adam_flat(flat_g, flat_p, flat_m, flat_v, scalars, *,
         copy.data_ptr() if copy is not None else None, n, _update_blocks(n),
         int(bool(adam_w_mode)), code, build.stream_of(flat_g))
     build.check(err, "adam")
-    build.LAUNCHES["adam"] += 1
+    build.launched("adam", flat_g, flat_p, flat_m, flat_v, scalars, p_out,
+                   m_out, v_out, copy)
     return [p_out, m_out, v_out] + ([copy] if copy is not None else [])
 
 
@@ -223,7 +224,8 @@ def fused_lamb_stage1_flat(flat_g, flat_p, flat_m, flat_v, scalars, *,
         m_out.data_ptr(), v_out.data_ptr(), n, _update_blocks(n),
         int(bool(adam_w_mode)), build.stream_of(flat_g))
     build.check(err, "lamb_stage1")
-    build.LAUNCHES["lamb_stage1"] += 1
+    build.launched("lamb_stage1", flat_g, flat_p, flat_m, flat_v, scalars,
+                   u, m_out, v_out)
     return [u, m_out, v_out]
 
 
@@ -310,7 +312,7 @@ def _scale_axpby(name, key, xs, scalars, out_dtype):
         b_ptr, b, out.data_ptr(), flag.data_ptr(), n, _update_blocks(n),
         in_code, out_code, build.stream_of(x))
     build.check(err, name)
-    build.LAUNCHES[key] += 1
+    build.launched(key, *xs, a_keep, b_keep, out, flag)
     return out, flag
 
 

@@ -131,7 +131,7 @@ def fused_dense_act(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
         out.data_ptr(), m, n, k, act, code, build.stream_of(x))
     build.check(err, "dense_act")
-    build.LAUNCHES["dense_act"] += 1
+    build.launched("dense_act", x, w, b, out)
     return out
 
 

@@ -48,6 +48,17 @@ def resolve(value, count):
     return value
 
 
+def lr_tensor(lr, device) -> torch.Tensor:
+    """A learning rate as a 0-d fp32 tensor on ``device``.  A Python number
+    is written by a fill on the device (``torch.full``), not copied from
+    the host: a host-to-device copy of pageable memory synchronizes with
+    the stream, which the JAX step (the rate a constant of the jitted
+    program) never does."""
+    if isinstance(lr, torch.Tensor):
+        return lr.to(device=device, dtype=torch.float32)
+    return torch.full((), float(lr), dtype=torch.float32, device=device)
+
+
 def resolve_state_dtype(state_dtype) -> torch.dtype:
     """Validate and default the moment-storage dtype."""
     if state_dtype is None:
@@ -111,7 +122,7 @@ class FusedOptimizer:
         corrections 1 / (1 - beta^t), 1 without ``bias_correction``."""
         count = state.count + 1
         lr = resolve(lr if lr is not None else self.lr, count)
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
+        lr = lr_tensor(lr, count.device)
         if self.bias_correction:
             t = count.float()
             rc1 = 1.0 / (1.0 - torch.pow(self.beta1, t))

@@ -13,7 +13,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ._base import FusedOptimizer, resolve, tree_zeros_f32
+from ._base import FusedOptimizer, lr_tensor, resolve, tree_zeros_f32
 from ..utils.device import from_numpy
 from ..utils.pytree import tree_flatten, tree_leaves, tree_unflatten
 
@@ -47,8 +47,7 @@ class FusedAdagrad(FusedOptimizer):
     def _lr(self, state, lr):
         count = state.count + 1
         lr = resolve(lr if lr is not None else self.lr, count)
-        return count, torch.as_tensor(lr, dtype=torch.float32,
-                                      device=count.device)
+        return count, lr_tensor(lr, count.device)
 
     def _update(self, g, p, h, lr):
         """(new p, new h) from the scaled fp32 gradient."""

@@ -18,7 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ._base import FusedOptimizer, resolve, tree_zeros_f32
+from ._base import FusedOptimizer, lr_tensor, resolve, tree_zeros_f32
 from ..multi_tensor_apply.flattener import LANE
 from ..utils.device import from_numpy
 from ..utils.pytree import tree_flatten, tree_leaves, tree_map, \
@@ -71,7 +71,7 @@ class FusedNovoGrad(FusedOptimizer):
         """(count, lr, first, 1 / (1 - beta1^t) or None)."""
         count = state.count + 1
         lr = resolve(lr if lr is not None else self.lr, count)
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
+        lr = lr_tensor(lr, count.device)
         rc1 = None
         if self.bias_correction:
             rc1 = 1.0 - torch.pow(self.beta1, count.float())

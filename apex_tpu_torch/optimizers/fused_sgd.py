@@ -14,7 +14,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ._base import FusedOptimizer, resolve, tree_zeros_f32
+from ._base import FusedOptimizer, lr_tensor, resolve, tree_zeros_f32
 from ..utils.pytree import tree_flatten, tree_leaves, tree_unflatten
 
 __all__ = ["FusedSGD", "FusedSGDState"]
@@ -51,8 +51,7 @@ class FusedSGD(FusedOptimizer):
     def _lr(self, state, lr):
         count = state.count + 1
         lr = resolve(lr if lr is not None else self.lr, count)
-        return count, torch.as_tensor(lr, dtype=torch.float32,
-                                      device=count.device)
+        return count, lr_tensor(lr, count.device)
 
     def step_flat(self, state, flat_grads, *, scale=1.0, lr=None):
         """Momentum SGD over the flat buffers: a new state whose ``master``

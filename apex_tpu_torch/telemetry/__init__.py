@@ -15,26 +15,33 @@ here reads a device tensor.
   * :mod:`trace` -- host span tracer (Chrome export), the flight
     recorder, the slow-step sentinel (one-shot ``torch.profiler``
     capture);
-  * :mod:`memory` -- live allocator gauges and the OOM post-mortem;
+  * :mod:`attrib` -- per-op FLOPs / bytes attribution of one recorded
+    call (dispatched aten ops and hand-kernel launches), with
+    blas / conv / pointwise / reduction / collective / memory / other
+    rollups;
+  * :mod:`memory` -- peak-memory attribution from a liveness sweep over
+    one recorded call (``memory_table`` / ``memory_model``), live
+    allocator gauges and the OOM post-mortem;
+  * :mod:`timeline` -- per-device, per-step decomposition of a
+    ``torch.profiler`` capture: compute vs collective vs EXPOSED
+    collective ms (exact interval subtraction), idle time, straggler
+    z-scores, a correlated host + device Chrome merge;
   * :mod:`goodput` -- the run's wall-clock partition and
     ``GOODPUT.json``;
+  * :mod:`fleet` -- N per-host run dirs merged into one ``FLEET.json``;
   * :mod:`export` -- the live OpenMetrics endpoint;
   * :mod:`serve_ledger` -- the per-request serving ledger and
     ``SERVE.json``;
   * :mod:`report` -- JSONL summary and the ``python -m
     apex_tpu_torch.telemetry`` CLI.
-
-Not ported yet, so absent from ``__all__`` (the JAX package exports
-them): the modules ``timeline`` (device-timeline decomposition),
-``fleet`` (``build_fleet``, ``fleet_violations``) and ``attrib``, and
-memory's static half (``memory_table``, ``memory_model``,
-``format_memory_table``).
 """
 from . import trace
 from . import registry
 from . import events
 from . import memory
+from . import timeline
 from . import goodput
+from . import fleet
 from . import export
 from .registry import (SCHEMA, Registry, Counter, Gauge, Histogram,
                        AverageMeter, Throughput, JsonlSink, MemorySink,
@@ -44,12 +51,15 @@ from .events import (set_default, get_default, active, observe_scaler,
                      record_ckpt)
 from .trace import (Tracer, FlightRecorder, SlowStepSentinel, NULL_SPAN,
                     set_tracer, get_tracer, span, traced)
-from .memory import MemoryMonitor
+from .memory import (MemoryMonitor, memory_table, memory_model,
+                     format_memory_table)
 from .goodput import GoodputLedger, goodput_violations, FAULT_BADPUT
+from .fleet import build_fleet, fleet_violations
 from .export import MetricsExporter
 
 __all__ = [
-    "trace", "registry", "events", "memory", "goodput", "export",
+    "trace", "registry", "events", "memory", "timeline", "goodput",
+    "fleet", "export",
     "SCHEMA",
     "Registry",
     "Counter", "Gauge",
@@ -59,7 +69,8 @@ __all__ = [
     "observe_amp", "record_collective", "record_loader", "record_ckpt",
     "Tracer", "FlightRecorder", "SlowStepSentinel", "NULL_SPAN",
     "set_tracer", "get_tracer", "span", "traced",
-    "MemoryMonitor",
+    "MemoryMonitor", "memory_table", "memory_model",
+    "format_memory_table",
     "GoodputLedger", "goodput_violations", "FAULT_BADPUT",
-    "MetricsExporter",
+    "build_fleet", "fleet_violations", "MetricsExporter",
 ]

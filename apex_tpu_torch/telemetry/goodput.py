@@ -6,9 +6,9 @@ its public names, classes, priority rules and ``GOODPUT.json`` schema (the
 JAX ``goodput_violations`` accepts the port's artifacts).  A
 :class:`GoodputLedger` attached to a :class:`~.trace.Tracer` takes every
 completed span and counted event as it happens and partitions the run's
-wall-clock by exact interval arithmetic (the ledger keeps its own copies
-of ``_clip`` / ``_merge`` / ``_subtract`` / ``_total_us``, which the JAX
-module takes from ``telemetry.timeline``).
+wall-clock by exact interval arithmetic (``telemetry.timeline``'s
+``_clip`` / ``_merge`` / ``_subtract`` / ``_total_us``, as in the JAX
+module).
 
 The classes (each wall-clock second lands in exactly ONE)::
 
@@ -51,6 +51,8 @@ import json
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
+
+from .timeline import _clip, _merge, _subtract, _total_us
 
 __all__ = [
     "CLASSES", "BADPUT_CLASSES", "ABORT", "FAULT_BADPUT",
@@ -165,56 +167,6 @@ def _now_us() -> float:
 
 
 # ---------------------------------------------------------------------------
-# interval arithmetic (the JAX package keeps it in telemetry.timeline)
-# ---------------------------------------------------------------------------
-
-def _merge(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
-    """Sorted union of half-open intervals (empty/negative spans drop)."""
-    out: List[Tuple[float, float]] = []
-    for s, e in sorted(i for i in intervals if i[1] > i[0]):
-        if out and s <= out[-1][1]:
-            if e > out[-1][1]:
-                out[-1] = (out[-1][0], e)
-        else:
-            out.append((s, e))
-    return out
-
-
-def _subtract(a: List[Tuple[float, float]],
-              b: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
-    """``a - b`` for MERGED interval lists: the parts of ``a`` no
-    interval of ``b`` covers."""
-    out: List[Tuple[float, float]] = []
-    j = 0
-    for s, e in a:
-        cur = s
-        while j < len(b) and b[j][1] <= cur:
-            j += 1
-        k = j
-        while k < len(b) and b[k][0] < e:
-            bs, be = b[k]
-            if bs > cur:
-                out.append((cur, bs))
-            cur = max(cur, be)
-            if cur >= e:
-                break
-            k += 1
-        if cur < e:
-            out.append((cur, e))
-    return out
-
-
-def _clip(intervals: List[Tuple[float, float]], t0: float,
-          t1: float) -> List[Tuple[float, float]]:
-    return [(max(s, t0), min(e, t1)) for s, e in intervals
-            if e > t0 and s < t1]
-
-
-def _total_us(intervals: List[Tuple[float, float]]) -> float:
-    return sum(e - s for s, e in intervals)
-
-
-# ---------------------------------------------------------------------------
 # the ledger
 # ---------------------------------------------------------------------------
 
@@ -313,10 +265,10 @@ class GoodputLedger:
         self.counts[key] += 1
 
     def set_decomposition(self, decomp: dict) -> None:
-        """Feed a device-timeline decomposition (the JAX package's
-        ``timeline.decompose`` shape)
-        so the measured exposed-comm share is carved out of productive
-        step time — per step where the capture has that step's window,
+        """Feed a device-timeline decomposition
+        (:func:`.timeline.decompose`; the slow-step sentinel feeds its
+        capture's) so the measured exposed-comm share is carved out of
+        productive step time — per step where the capture has that step's window,
         via the capture's overall fraction otherwise."""
         if not self.enabled or not isinstance(decomp, dict):
             return

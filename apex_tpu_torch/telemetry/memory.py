@@ -22,11 +22,24 @@ accepts the port's ``flight-oom-*.json``).  Two pieces:
     live-memory history, the registered static attribution, the faulting
     step).
 
-The static half of the JAX module -- ``memory_table``, ``memory_model``,
-``hlo_liveness``, ``compiled_memory_stats`` and ``format_memory_table``,
-which read a compiled XLA executable -- needs a base of its own in the
-port (the torch profiler and FLOP counting) and is not ported yet;
-:func:`set_attribution` takes any dict of that shape.
+The static half -- "where do the bytes go at the step's peak" --
+is :func:`memory_table` / :func:`memory_model` / :func:`format_memory_table`
+with the JAX dict shapes (``peak_bytes``, ``peak_op``, ``by_class``,
+``live_at_peak``, ``stats``), but its liveness sweep is the port's own:
+the step RUNS once under :class:`.attrib.Recording`, whose rows are its
+dispatched ops and kernel launches in order.  Each op's output storages get
+a def at that op and a death at the first op after their storage has gone
+(polled through ``StorageWeakRef``: autograd holds saved tensors in C++);
+the caller's argument storages live for the whole call, classed by their
+keypaths (:func:`classify_arg`, the JAX package's rules); storages the
+result holds are ``output``; the rest live at the peak are
+``activations`` (held across it) or ``temps`` (dead after it).  ``stats``
+holds the caching allocator's own peak over the call on the card
+(``torch.cuda.max_memory_allocated``), None on the CPU.  The JAX module's
+``hlo_liveness`` and ``compiled_memory_stats`` read a compiled XLA
+executable and have no counterpart.  ``memory_model(register=True)``
+installs its result as the attribution the OOM dump embeds
+(:func:`set_attribution`).
 """
 from __future__ import annotations
 
@@ -40,7 +53,9 @@ import torch
 from . import trace as _trace
 
 __all__ = [
-    "device_memory_stats", "device_memory_json", "MemoryMonitor",
+    "MEM_CLASSES", "classify_arg", "memory_table", "memory_model",
+    "format_memory_table", "device_memory_stats", "device_memory_json",
+    "MemoryMonitor",
     "InjectedOomError", "synthetic_oom", "is_oom_error",
     "parse_allocator_report", "set_attribution", "get_attribution",
     "oom_violations", "dump_oom", "cli",
@@ -56,6 +71,228 @@ def _human(n, unit: str = "") -> str:
         if abs(n) >= mag:
             return f"{n / mag:.2f} {suffix}{unit}"
     return f"{n:.0f} {unit}".rstrip()
+
+
+# ---------------------------------------------------------------------------
+# static attribution: the liveness sweep over one recorded call
+# ---------------------------------------------------------------------------
+
+#: Peak-memory attribution classes.  ``params``/``optimizer``/``batch``/
+#: ``args`` come from the call's argument keypaths; ``activations`` are
+#: storages HELD across the peak op (live before and after it -- the
+#: forward's tensors a backward is keeping), ``temps`` die at the peak,
+#: ``output`` storages are the result's.  ``constants`` stays empty in the
+#: port (no compiled constants), kept for the JAX partition.
+MEM_CLASSES = ("params", "optimizer", "batch", "args", "constants",
+               "activations", "temps", "output")
+
+_OPT_KEYS = ("master", "opt_state", "scaler", "moment", "exp_avg",
+             "'m'", "'v'", ".m[", ".v[", "adam", "lamb", "mu'", "nu'")
+_PARAM_KEYS = ("model_params", "param", "weight", "kernel", "embed")
+_BATCH_KEYS = ("token", "image", "label", "target", "batch", "input",
+               "boost")
+#: a bare terminal ``.m`` / ``.v`` / ``['m']`` / ``['v']`` field -- the
+#: fused optimizer state's moment buffers; terminal-only, so
+#: ``vectors`` / ``m_tokens`` never false-positive
+_MOMENT_FIELD_RE = re.compile(r"(?:\.|\[')([mv])(?:'\])?$")
+
+
+def classify_arg(path: str) -> str:
+    """Bin one argument keypath (``state.master_params['w']``, ``tokens``)
+    into its memory class, by the JAX package's rules.  Optimizer keys win
+    over param keys: ``master_params`` is optimizer STATE (the fp32
+    shadow), not the serving weights."""
+    p = (path or "").replace("\\", "").lower()
+    if any(k in p for k in _OPT_KEYS):
+        return "optimizer"
+    if any(k in p for k in _PARAM_KEYS):
+        return "params"
+    if _MOMENT_FIELD_RE.search(p):
+        return "optimizer"
+    if any(k in p for k in _BATCH_KEYS) or p in ("x", "y"):
+        return "batch"
+    return "args"
+
+
+def liveness(rec, device) -> dict:
+    """The sweep over a finished liveness :class:`.attrib.Recording`,
+    counting the storages on ``device``: ``{peak_bytes, peak_index,
+    peak_op, n_instructions, n_buffers, live_at_peak: [rows], by_class,
+    timeline: [{i, bytes}]}``, ``by_class`` partitioning ``peak_bytes``
+    exactly."""
+    n = len(rec.rows)
+    bufs = [b for b in rec.buffers
+            if b["device"] == device and b["bytes"] > 0]
+    if n == 0:
+        return {"peak_bytes": 0, "peak_index": 0, "peak_op": "",
+                "n_instructions": 0, "n_buffers": 0, "live_at_peak": [],
+                "by_class": {}, "timeline": []}
+    delta = [0] * (n + 1)
+    for b in bufs:
+        end = n - 1 if b["end"] is None else min(b["end"], n - 1)
+        b["last"] = end
+        delta[min(b["start"], n - 1)] += b["bytes"]
+        delta[end + 1] -= b["bytes"]
+    series: List[int] = []
+    acc = 0
+    for i in range(n):
+        acc += delta[i]
+        series.append(acc)
+    peak_idx = max(range(n), key=lambda i: series[i])
+    flops = {r["op"]: r["flops"] for r in rec.rows}
+    rows: List[dict] = []
+    by_class: Dict[str, int] = {}
+    for b in bufs:
+        if not (b["start"] <= peak_idx <= b["last"]):
+            continue
+        if b["cls"] is not None:
+            cls = b["cls"]
+        elif b.get("is_output"):
+            cls = "output"
+        elif b["last"] > peak_idx:
+            cls = "activations"
+        else:
+            cls = "temps"
+        rows.append({"op": b["op"], "opcode": b["opcode"], "class": cls,
+                     "jax_op": b["op"] if b["opcode"] == "parameter"
+                     else "", "bytes": b["bytes"],
+                     "def_index": b["start"], "last_use": b["last"],
+                     "flops": flops.get(b["op"], 0.0)})
+        by_class[cls] = by_class.get(cls, 0) + b["bytes"]
+    rows.sort(key=lambda r: -r["bytes"])
+    stride = max(1, n // 256)
+    return {"peak_bytes": series[peak_idx], "peak_index": peak_idx,
+            "peak_op": rec.rows[peak_idx]["op"], "n_instructions": n,
+            "n_buffers": len(bufs), "live_at_peak": rows,
+            "by_class": by_class,
+            "timeline": [{"i": i, "bytes": series[i]}
+                         for i in range(0, n, stride)]}
+
+
+def memory_table(fn, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` once under a liveness recording and
+    return the peak-memory attribution of the device its arguments live
+    on: the sweep (:func:`liveness`) plus ``stats`` -- on the card the
+    allocator's peak over the call (``peak_bytes``), what was allocated
+    before it (``allocated_before``), the argument storages' bytes
+    (``argument_bytes``) and ``call_peak_bytes`` = peak - before +
+    arguments, the allocator's count of what the sweep counts (it also
+    holds the cuBLAS workspace and the 512-byte rounding), and
+    ``allocated_at_peak_op_bytes``, the allocator's live bytes just after
+    the sweep's peak op on the same terms; None on the CPU -- and
+    ``platform``.  Unreachable garbage is collected first, so that
+    ``before`` holds no tensor the call would free."""
+    import gc
+    from ..pyprof.prof import platform_of
+    from .attrib import _device_of_args, record
+    dev = _device_of_args(args, kwargs)
+    on_card = dev.type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    _, rec = record(fn, *args, liveness=True,
+                    allocator=dev if on_card else None, **kwargs)
+    table = liveness(rec, dev)
+    table["stats"] = None
+    if on_card:
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        arg_bytes = sum(b["bytes"] for b in rec.buffers
+                        if b["opcode"] == "parameter" and b["device"] == dev)
+        ambient = before - arg_bytes
+        at_peak = (rec.allocated[table["peak_index"]]
+                   if rec.allocated else before)
+        table["stats"] = {"peak_bytes": int(peak),
+                          "allocated_before": int(before),
+                          "argument_bytes": int(arg_bytes),
+                          "call_peak_bytes": int(peak - ambient),
+                          "allocated_at_peak_op_bytes": int(at_peak
+                                                            - ambient)}
+    table["platform"] = platform_of(dev)
+    return table
+
+
+def memory_model(fn=None, *args, table: Optional[dict] = None,
+                 register: bool = True, update_sharding_world: int = 1,
+                 **kwargs) -> dict:
+    """The compact per-class memory cost model (the shape the OOM
+    post-mortem embeds).  Pass a precomputed ``table`` or let it run
+    ``fn(*args)`` itself.  ``register=True`` installs the result as the
+    process attribution (:func:`set_attribution`).
+    ``update_sharding_world``: shard count of a weight-update-sharded
+    run; ``optimizer_bytes_per_replica`` divides the optimizer class by
+    it.  The named ``*_bytes`` keys partition ``peak_hbm_bytes``."""
+    if table is None:
+        table = memory_table(fn, *args, **kwargs)
+    cls = table["by_class"]
+    world = max(1, int(update_sharding_world))
+    model = {
+        "peak_hbm_bytes": int(table["peak_bytes"]),
+        "platform": table.get("platform", "?"),
+        "peak_op": table["peak_op"],
+        "by_class": {k: int(v) for k, v in cls.items()},
+        "params_bytes": int(cls.get("params", 0)),
+        "optimizer_bytes": int(cls.get("optimizer", 0)),
+        "optimizer_bytes_per_replica": int(cls.get("optimizer", 0)) // world,
+        "update_sharding_world": world,
+        "batch_bytes": int(cls.get("batch", 0)),
+        "activations_bytes": int(cls.get("activations", 0)),
+        "temps_bytes": int(cls.get("temps", 0)),
+        "output_bytes": int(cls.get("output", 0)),
+        "args_bytes": int(cls.get("args", 0)),
+        "constants_bytes": int(cls.get("constants", 0)),
+        "compiled": table.get("stats"),
+        "top": [{"op": r["op"], "class": r["class"],
+                 "bytes": int(r["bytes"]), "opcode": r["opcode"]}
+                for r in table["live_at_peak"][:12]],
+    }
+    if register:
+        set_attribution(model)
+    return model
+
+
+def format_memory_table(table: dict, top: int = 16) -> str:
+    """Render the per-class peak table + the largest live storages --
+    the ``python -m apex_tpu_torch.telemetry mem`` output."""
+    peak = table["peak_bytes"]
+    lines = [
+        f"peak-memory attribution ({table.get('platform', '?')}; "
+        f"{table['n_buffers']} storages over {table['n_instructions']} "
+        f"ops; peak at #{table['peak_index']} ({table['peak_op']}))",
+        "per-class residency at peak",
+    ]
+    by_class = table["by_class"]
+    for cls in MEM_CLASSES:
+        b = by_class.get(cls)
+        if b is None:
+            continue
+        pct = 100.0 * b / peak if peak else 0.0
+        lines.append(f"  {cls:<12} {_human(b, 'B'):>12} {pct:>6.1f}%")
+    lines.append(f"  {'total':<12} {_human(peak, 'B'):>12} "
+                 f"(= liveness-sweep peak)")
+    rows = table["live_at_peak"][:top]
+    if rows:
+        lines.append(f"largest live storages at peak (top {len(rows)})")
+        lines.append(f"  {'op':<28} {'opcode':<12} {'class':<12} "
+                     f"{'bytes':>12} {'flops':>10}")
+        for r in rows:
+            name = r["op"] if len(r["op"]) <= 28 else r["op"][:25] + "..."
+            opcode = r["opcode"] if len(r["opcode"]) <= 12 \
+                else r["opcode"][:9] + "..."
+            lines.append(
+                f"  {name:<28} {opcode:<12} {r['class']:<12} "
+                f"{_human(r['bytes'], 'B'):>12} "
+                f"{_human(r.get('flops', 0.0)):>10}")
+    stats = table.get("stats")
+    if stats:
+        lines.append(
+            f"allocator: peak {_human(stats['peak_bytes'], 'B')} over the "
+            f"call, {_human(stats['allocated_before'], 'B')} allocated "
+            f"before it, arguments {_human(stats['argument_bytes'], 'B')}"
+            f"  -> call peak {_human(stats['call_peak_bytes'], 'B')}")
+    return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -425,17 +662,42 @@ def _render_oom_dump(doc: dict, top: int) -> int:
 
 
 def cli(argv=None) -> int:
-    """``python -m apex_tpu_torch.telemetry mem <flight-oom-*.json>
-    [--top N]``: render an OOM post-mortem.  (The JAX package's
-    no-argument form compiles a step and renders its static peak-memory
-    table; that half is not ported.)"""
+    """``python -m apex_tpu_torch.telemetry mem [flight-oom-*.json]
+    [--top N]``: with a path, render an OOM post-mortem; with none, run
+    the demo transformer step once on ``--device`` (default the card) and
+    render its peak-memory table."""
     import argparse
     ap = argparse.ArgumentParser(
         prog="python -m apex_tpu_torch.telemetry mem",
-        description="Render a flight-oom-*.json OOM post-mortem.")
-    ap.add_argument("artifact", help="a flight-oom-*.json dump")
+        description="Peak-memory attribution: with no argument, run the "
+                    "demo transformer train step once and render the "
+                    "per-class liveness table; with a path, render a "
+                    "flight-oom-*.json post-mortem.")
+    ap.add_argument("artifact", nargs="?", default=None,
+                    help="a flight-oom-*.json dump")
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--device", default=None,
+                    help="the demo's device (default: cuda)")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
+    if args.artifact is None:
+        from .report import demo_step_fn
+        train_step, state, make_batch = demo_step_fn(
+            layers=args.layers, batch=args.batch, seq=args.seq,
+            device=args.device)
+        tokens, targets = make_batch(0)
+        boost = torch.ones((), device=tokens.device)
+        table = memory_table(train_step, state, tokens, targets, boost)
+        print(format_memory_table(table, top=args.top))
+        model = memory_model(table=table)    # registers the attribution
+        print(f"memory_model: peak {_human(model['peak_hbm_bytes'], 'B')}  "
+              f"params {_human(model['params_bytes'], 'B')}  "
+              f"optimizer {_human(model['optimizer_bytes'], 'B')}  "
+              f"activations {_human(model['activations_bytes'], 'B')}  "
+              f"temps {_human(model['temps_bytes'], 'B')}")
+        return 0
     with open(args.artifact) as f:
         doc = json.load(f)
     bad = oom_violations(doc)

@@ -8,11 +8,11 @@ step-time stats, items/sec, overflow events + final loss scale,
 collective bytes/calls and loader wait.  With no path it runs the demo
 (:func:`run_demo`): the port's transformer under amp O5 + FusedAdam,
 instrumented through the real registry/event wiring, with an amp
-overflow forced on one step.  Subcommands ``trace``, ``goodput``, ``mem``
-(an OOM post-mortem) and ``serve`` render the other artifacts;
-``timeline``, ``fleet`` and ``control`` are not ported yet and exit 2.
-The JAX demo's per-op FLOPs/bytes table (``telemetry.attrib``) is not
-ported.
+overflow forced on one step, then the per-op FLOPs/bytes table
+(:mod:`.attrib`) of the same step.  Subcommands ``trace``, ``goodput``,
+``mem``, ``serve``, ``timeline`` and ``fleet`` render the other artifacts;
+``control`` (the JAX package's run controller) is not ported yet and
+exits 2.
 """
 from __future__ import annotations
 
@@ -357,7 +357,7 @@ def run_demo(path: str, steps: int = 6, overflow_at: int = 3,
 
 
 #: the JAX CLI's subcommands whose modules the port does not have yet
-_NOT_PORTED = ("timeline", "fleet", "control")
+_NOT_PORTED = ("control",)
 
 
 def main(argv=None) -> int:
@@ -380,6 +380,12 @@ def main(argv=None) -> int:
     if argv and argv[0] == "serve":
         from . import serve_ledger as _serve_ledger
         return _serve_ledger.cli(argv[1:])
+    if argv and argv[0] == "timeline":
+        from . import timeline as _timeline
+        return _timeline.cli(argv[1:])
+    if argv and argv[0] == "fleet":
+        from . import fleet as _fleet
+        return _fleet.cli(argv[1:])
     if argv and argv[0] in _NOT_PORTED:
         print(f"python -m apex_tpu_torch.telemetry {argv[0]}: not ported "
               "yet (the JAX package's telemetry.{argv[0]} has no "
@@ -400,6 +406,10 @@ def main(argv=None) -> int:
                     help="the demo's device (default: cuda)")
     ap.add_argument("--out", default=None,
                     help="demo JSONL destination (default: temp file)")
+    ap.add_argument("--top", type=int, default=15,
+                    help="rows in the per-op table")
+    ap.add_argument("--no-attrib", action="store_true",
+                    help="skip the per-op table (summary only)")
     args = ap.parse_args(argv)
 
     if args.jsonl is not None:
@@ -409,8 +419,18 @@ def main(argv=None) -> int:
 
     path = args.out or os.path.join(
         tempfile.mkdtemp(prefix="apex_tpu_torch_telemetry_"), "demo.jsonl")
-    summary = run_demo(path, steps=args.steps, layers=args.layers,
-                       batch=args.batch, seq=args.seq, device=args.device)
+    cfg = dict(layers=args.layers, batch=args.batch, seq=args.seq,
+               device=args.device)
+    summary = run_demo(path, steps=args.steps, **cfg)
+    if not args.no_attrib:
+        import torch
+        from . import attrib
+        train_step, state, make_batch = demo_step_fn(**cfg)
+        tokens, targets = make_batch(0)
+        table = attrib.op_table(train_step, state, tokens, targets,
+                                torch.ones((), device=tokens.device))
+        print(attrib.format_op_table(table, top=args.top))
+        print()
     print(format_summary(summary))
     print(f"\nrecords: {path}")
     return 0

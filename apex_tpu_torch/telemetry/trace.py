@@ -21,13 +21,12 @@ the same public names, record shapes and dump schema (the JAX
     open a one-shot ``torch.profiler`` capture over the next few steps,
     written as a Chrome trace under ``profile_dir``.
 
-Divergences from the JAX module: the capture is ``torch.profiler`` where
-the JAX package opens ``jax.profiler``; the decomposition of a finished
-capture into a per-step device table (``_attach_timeline``) waits for the
-port of ``telemetry.timeline`` and is a documented no-op (the dump schema
-allows a flight dump without its ``timeline`` section); :func:`load_chrome`
-reads Chrome JSON (plain, gzip, or a streaming array) and profiler
-directories with its own reader in place of ``pyprof.parse``.
+Divergence from the JAX module: the capture is ``torch.profiler`` where
+the JAX package opens ``jax.profiler``.  As there, a finished capture is
+decomposed into a per-step device table (:mod:`.timeline`) and dumped as
+a ``slow_step_timeline`` flight document, and :func:`load_chrome` reads
+Chrome JSON (plain, gzip, or a streaming array) and profiler directories
+through ``pyprof.parse``.
 
 Nothing here touches the device: the profiler is imported inside the
 sentinel's capture only.  Library hooks route through the process-default
@@ -393,13 +392,39 @@ class SlowStepSentinel:
         self._attach_timeline()
 
     def _attach_timeline(self) -> None:
-        """The JAX package decomposes the finished capture into a
-        per-step device table and dumps it as a ``slow_step_timeline``
-        flight document.  That decomposition is ``telemetry.timeline``,
-        which the port does not have yet: this is a no-op that only
-        drops the capture's tracer, and the capture's Chrome trace stands
-        on its own."""
+        """Best-effort: decompose the just-written capture
+        (:func:`.timeline.summarize`) and dump the per-step device table
+        as a ``slow_step_timeline`` flight document with a ``timeline``
+        section -- the slow-step dump names WHEN it happened, this one
+        WHERE the device time went.  A goodput ledger on the capture's
+        tracer takes the decomposition, so its exposed-comm carve is the
+        measured one.  Any failure (no device lanes, a full disk) is
+        swallowed: observability must never kill the train loop."""
+        tr = self._capture_tracer
         self._capture_tracer = None
+        if tr is None or not self.capture_paths:
+            return
+        try:
+            from . import timeline as _timeline
+            decomp = _timeline.summarize(self.capture_paths[-1])
+            if not decomp["devices"]:
+                return
+            led = getattr(tr, "ledger", None)
+            if led is not None:
+                led.set_decomposition(decomp)
+            tr.recorder.dump(
+                "slow_step_timeline",
+                directory=(self.dump_dir or tr.recorder.directory
+                           or self.profile_dir),
+                fields={"profile_dir": self.profile_dir,
+                        "n_devices": len(decomp["devices"]),
+                        "exposed_comm_ms":
+                            decomp["totals"]["exposed_comm_ms"]},
+                sections={"timeline": {
+                    "decomposition": decomp,
+                    "table": _timeline.format_decomposition(decomp)}})
+        except Exception:
+            pass
 
     def _maybe_stop_capture(self) -> None:
         if not self._capturing:
@@ -764,97 +789,15 @@ def note_step(step: int, seconds: float, registry=None) -> None:
 # CLI)
 # ---------------------------------------------------------------------------
 
-class EventList(list):
-    """Complete-span events plus ``dropped_events``: "X" records that
-    lacked ``ts`` or ``dur`` (a truncated capture)."""
-
-    dropped_events = 0
-
-
-def events_from_chrome(raw: list) -> EventList:
-    """Complete-span ("X") events from a raw Chrome ``traceEvents`` list,
-    each annotated with its process / thread display names (from the "M"
-    metadata events): ``{name, ts, dur, pid, tid, process, thread,
-    args}``.  "X" records missing ``ts`` or ``dur`` are dropped and
-    counted in the list's ``dropped_events``."""
-    pname: Dict[Any, str] = {}
-    tname: Dict[tuple, str] = {}
-    for e in raw:
-        if isinstance(e, dict) and e.get("ph") == "M":
-            if e.get("name") == "process_name":
-                pname[e.get("pid")] = e["args"]["name"]
-            elif e.get("name") == "thread_name":
-                tname[(e.get("pid"), e.get("tid"))] = e["args"]["name"]
-    out = EventList()
-    for e in raw:
-        if not isinstance(e, dict) or e.get("ph") != "X":
-            continue
-        if e.get("ts") is None or e.get("dur") is None:
-            out.dropped_events += 1
-            continue
-        out.append({
-            "name": e.get("name", "?"),
-            "ts": float(e["ts"]),
-            "dur": float(e["dur"]),
-            "pid": e.get("pid"),
-            "tid": e.get("tid"),
-            "process": pname.get(e.get("pid"), str(e.get("pid"))),
-            "thread": tname.get((e.get("pid"), e.get("tid")),
-                                str(e.get("tid"))),
-            "args": e.get("args", {}),
-        })
-    return out
-
-
-def _self_times(events: List[dict]) -> None:
-    """Self time in place: ``self_us = dur - sum(child durs)``.  Spans of
-    one (pid, tid) timeline nest by time containment; a sweep with an
-    open-span stack debits each span's direct children, clamped at zero
-    (equal-bound twin spans may come in either order)."""
-    by_thread: Dict[tuple, List[dict]] = {}
-    for e in events:
-        by_thread.setdefault((e["pid"], e["tid"]), []).append(e)
-    for evs in by_thread.values():
-        # parents first: earlier start, then longer duration
-        evs.sort(key=lambda e: (e["ts"], -e["dur"], e.get("name", "")))
-        stack: List[dict] = []
-        for e in evs:
-            e["self_us"] = e["dur"]
-            while stack and e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"]:
-                stack.pop()
-            if stack:
-                p = stack[-1]
-                if e["ts"] + e["dur"] <= p["ts"] + p["dur"]:
-                    p["self_us"] -= min(e["dur"], max(p["self_us"], 0.0))
-            stack.append(e)
-
-
-_TRACE_SUFFIXES = (".json", ".json.gz")
-
-
-def _newest_trace(directory: str) -> str:
-    """The newest Chrome-trace file under ``directory`` (a profiler run
-    dir: ``torch.profiler``'s ``*.pt.trace.json``, a tensorboard plugin
-    tree's ``*.trace.json.gz``)."""
-    found = []
-    for root, _, files in os.walk(directory):
-        for f in files:
-            if f.endswith(_TRACE_SUFFIXES) and "trace" in f:
-                p = os.path.join(root, f)
-                found.append((os.path.getmtime(p), p))
-    if not found:
-        raise FileNotFoundError(f"no *trace.json[.gz] under {directory}")
-    return max(found)[1]
-
-
 def load_chrome(path: str) -> List[dict]:
     """Load chrome-trace events from ``path``: a :meth:`Tracer.write`
     file, a profiler run dir (its newest trace file), or a *streaming*
     JSON-array file (events appended without ever closing the array, as
     the Trace Event Format allows).  Returns complete spans in the
-    :func:`events_from_chrome` shape."""
+    ``pyprof.parse`` event shape."""
+    from ..pyprof import parse as _parse
     if os.path.isdir(path):
-        path = _newest_trace(path)
+        return _parse.load(path)
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         text = f.read()
@@ -880,7 +823,7 @@ def load_chrome(path: str) -> List[dict]:
                 f"{path}: neither complete JSON nor a streaming "
                 "chrome-trace array") from None
     raw = data.get("traceEvents", []) if isinstance(data, dict) else data
-    return events_from_chrome(raw)
+    return _parse.events_from_chrome(raw)
 
 
 def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -893,9 +836,11 @@ def _percentile(sorted_vals: List[float], q: float) -> float:
 
 def span_summary(events: List[dict]) -> List[dict]:
     """Per-name rollup over complete spans: count, total, SELF time
-    (duration minus nested children, :func:`_self_times`) with p50/p99
+    (duration minus nested children, ``pyprof.parse._self_times``) with
+    p50/p99
     over the per-span self times."""
-    _self_times(events)
+    from ..pyprof import parse as _parse
+    _parse._self_times(events)
     groups: Dict[str, List[dict]] = {}
     for e in events:
         groups.setdefault(e["name"], []).append(e)

@@ -19,7 +19,11 @@ an exception.  ``LAUNCHES`` counts kernel launches by name (``flash_fwd``,
 ``flash_bwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``ln_fwd``,
 ``ln_bwd``, ``xent_fwd``, ``l2norm``, ``adam``, ``lamb_stage1``,
 ``mt_scale``, ``mt_axpby``, ``dense_act``): a wrapper adds one where it
-launches its kernel and nowhere else.  :func:`dtype_code` gives a
+launches its kernel and nowhere else, through :func:`launched`, which also
+reports the launch to a recording open in the calling thread
+(``telemetry.attrib.op_table``, ``telemetry.memory.memory_table``).
+:data:`KERNEL_FUNCTIONS` names the CUDA functions behind each launch name,
+as a profiler lists them (:func:`launch_name`).  :func:`dtype_code` gives a
 dtype's C code; every kernel has an fp32, a bf16 and an fp16 branch
 (:data:`FLOATS`), and any other dtype is refused with a ``TypeError``
 before any launch.  Headers
@@ -33,6 +37,7 @@ import dataclasses
 import hashlib
 import os
 import shutil
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -42,7 +47,8 @@ import torch
 
 __all__ = ["LAUNCHES", "BuildResult", "build", "load", "library", "check",
            "dtype_code", "stream_of", "NVCC_FLAGS", "FLOATS", "HOST_FLAGS",
-           "build_host", "host_library"]
+           "build_host", "host_library", "launched", "KERNEL_FUNCTIONS",
+           "AUX_FUNCTIONS", "launch_name", "is_port_kernel"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -54,6 +60,115 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches by kernel name, counted by the wrappers
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: the CUDA functions a launch of each name runs, as a profiler lists them:
+#: (function names, {template argument index: value}); the template argument
+#: tells apart two launch names that share a function (flash_bwd's fused
+#: kernel emits dq, flash_bwd_dkv's does not; flat_update_kernel<kLamb, ..>;
+#: scale_axpby_kernel<.., kAxpby>).  Each launch runs exactly one of its
+#: name's functions, apart from l2norm's second, :data:`AUX_FUNCTIONS`.
+_FLASH_KV = ("flash_bwd_kv_sm90_kernel", "flash_bwd_simt_kernel",
+             "flash_bwd_chunk_kernel")
+KERNEL_FUNCTIONS = {
+    "flash_fwd": (("flash_fwd_sm90_kernel", "flash_fwd_simt_kernel",
+                   "flash_fwd_chunk_kernel"), {}),
+    "flash_bwd": (_FLASH_KV, {-1: "true"}),
+    "flash_bwd_dkv": (_FLASH_KV, {-1: "false"}),
+    "flash_bwd_dq": (("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_simt_kernel",
+                      "flash_bwd_dq_chunk_kernel"), {}),
+    "ln_fwd": (("ln_fwd_kernel", "ln_fwd_wide_kernel"), {}),
+    "ln_bwd": (("ln_bwd_kernel", "ln_bwd_wide_kernel"), {}),
+    "xent_fwd": (("xent_warp_kernel", "xent_wide_kernel"), {}),
+    "l2norm": (("sumsq_partials_kernel",), {}),
+    "adam": (("flat_update_kernel",), {0: "false"}),
+    "lamb_stage1": (("flat_update_kernel",), {0: "true"}),
+    "mt_scale": (("scale_axpby_kernel",), {-1: "false"}),
+    "mt_axpby": (("scale_axpby_kernel",), {-1: "true"}),
+    "dense_act": (("dense_act_sm90_kernel", "dense_act_mma_kernel",
+                   "dense_act_f32_kernel"), {}),
+}
+#: the port's CUDA functions that run beside a counted one
+AUX_FUNCTIONS = ("finish_kernel",)
+_FUNC_RE = re.compile(r"\b(\w+_kernel)\b\s*(<)?")
+
+
+def _template_args(kernel: str, start: int) -> List[str]:
+    """The top-level template arguments of the demangled name ``kernel``
+    whose ``<`` is at ``start``."""
+    depth, args, cur = 0, [], ""
+    for ch in kernel[start:]:
+        if ch == "<":
+            depth += 1
+            if depth == 1:
+                continue
+        elif ch == ">":
+            depth -= 1
+            if depth == 0:
+                args.append(cur.strip())
+                break
+        elif ch == "," and depth == 1:
+            args.append(cur.strip())
+            cur = ""
+            continue
+        cur += ch
+    return args
+
+
+def launch_name(kernel: str) -> Optional[str]:
+    """The launch name (a key of ``LAUNCHES``) whose wrapper runs the CUDA
+    function a profiler lists as ``kernel`` (its demangled name), else
+    None: a library's kernel, or :data:`AUX_FUNCTIONS`."""
+    for m in _FUNC_RE.finditer(kernel):
+        func = m.group(1)
+        args = _template_args(kernel, m.start(2)) if m.group(2) else []
+        for name, (funcs, flags) in KERNEL_FUNCTIONS.items():
+            if func in funcs and all(
+                    -len(args) <= i < len(args) and args[i] == v
+                    for i, v in flags.items()):
+                return name
+    return None
+
+
+def is_port_kernel(kernel: str) -> bool:
+    """Does the profiler's ``kernel`` name one of the port's functions?"""
+    if launch_name(kernel) is not None:
+        return True
+    return any(m.group(1) in AUX_FUNCTIONS
+               for m in _FUNC_RE.finditer(kernel))
+
+
+#: open launch recordings in any thread; 0 keeps :func:`launched` to one
+#: counter bump
+_recordings = 0
+
+
+def open_recording() -> None:
+    global _recordings
+    _recordings += 1
+
+
+def close_recording() -> None:
+    global _recordings
+    _recordings -= 1
+
+
+def launched(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Count one launch of ``name`` in ``LAUNCHES``, and report it to every
+    recording on this thread's dispatch-mode stack (a recording's mode
+    object with a ``note_kernel(name, tensors)`` method).  ``tensors`` are
+    the operands the kernel reads and the outputs it writes (None skipped).
+    The dispatch-mode stack is thread-local, and autograd carries it into
+    the threads that run a backward, so a kernel launched from a backward
+    reports to the recording that the forward ran under."""
+    LAUNCHES[name] += 1
+    if not _recordings:
+        return
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    live = [t for t in tensors if t is not None]
+    for mode in _get_current_dispatch_mode_stack():
+        note = getattr(mode, "note_kernel", None)
+        if note is not None:
+            note(name, live)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the floating types the kernels take: each has an fp32, a bf16 and an

@@ -238,6 +238,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
 22. the dense cases of phase 3d once more under ``torch.profiler``: the
    dense kernels it lists must be the kernels ``_route`` names (run last,
    so that no profiler session precedes the timed paths);
+22b. (phases 23-25, last) the telemetry on the serving and O5 paths
+   (23), the self-resuming guard (24), and the profiling layer on the
+   port's own traces (25: ``pyprof.trace`` over the O5 and ZeRO LAMB
+   steps decomposed per device step window, their host syncs, the per-op
+   and peak-memory tables of one O5 step held to ``FlopCounterMode`` and
+   the allocator, the sentinel's ``slow_step_timeline`` dump, the fleet
+   view over phase 24's two ResNet-50 hosts; a trimmed trace of one step
+   lands in ``chiprun_out/phase25/``);
 23. one ``{"kernels": [...]}`` line: each kernel's launches from the path
    it serves (``launches_by_path`` gives every path's count, the
    ResNet-50, toy-DDP, DCGAN and phase-19 ResNet-50 paths' 0 included, the
@@ -2777,23 +2785,17 @@ def split_train_step(st, batch, cfg):
     return statistics.median(fb) * 1e3, statistics.median(opt) * 1e3
 
 
-# the port's kernels by their CUDA function names, as the profiler lists them
-PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_simt_kernel",
-                "flash_bwd_kv_sm90_kernel", "flash_bwd_simt_kernel",
-                "flash_bwd_dq_sm90_kernel", "flash_bwd_dq_simt_kernel",
-                "ln_fwd_kernel", "ln_bwd_kernel", "xent_fwd_kernel",
-                "sumsq_partials_kernel", "finish_kernel", "flat_update_kernel",
-                "scale_axpby_kernel", "dense_act_sm90_kernel",
-                "dense_act_mma_kernel", "dense_act_f32_kernel")
-
-
 def port_kernel_events(prof) -> dict:
-    """Device events of the port's kernels in a profile, by kernel."""
+    """Device events of the port's kernels in a profile, by CUDA function
+    (``build.KERNEL_FUNCTIONS`` and ``AUX_FUNCTIONS``)."""
     from torch.autograd import DeviceType
+    from apex_tpu_torch.utils import build
+    funcs = sorted({f for names, _ in build.KERNEL_FUNCTIONS.values()
+                    for f in names} | set(build.AUX_FUNCTIONS))
     counts = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            for k in PORT_KERNELS:
+            for k in funcs:
                 if f"::{k}<" in e.name or f"::{k}(" in e.name:
                     counts[k] = counts.get(k, 0) + 1
     return counts
@@ -5948,6 +5950,8 @@ GUARD_DIR = os.path.join(HERE, "build", "phase24")
 GUARD_RN50_STEPS, GUARD_SAVE_EVERY, GUARD_CHECK_EVERY = 12, 4, 2
 GUARD_NATIVE_RECORDS = 256
 GUARD_BERT_LAYERS, GUARD_BERT_STEPS = 2, 8
+#: phase 24's two ResNet-50 hosts for phase 25's fleet view
+FLEET_HOSTS_DIR = os.path.join(GUARD_DIR, "hosts")
 
 
 def _guard_spans(tracer) -> dict:
@@ -5958,6 +5962,22 @@ def _guard_spans(tracer) -> dict:
                                                 "guard.backoff"):
             out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
     return out
+
+
+def _keep_host(name, rep, flight_reason=None):
+    """A run dir for phase 25's fleet view: ``rep``'s ``GOODPUT.json`` and
+    the flight dumps of ``flight_reason`` (the guard writes both into the
+    shared flight dir, one run after another)."""
+    import shutil
+    require(rep.goodput is not None, f"{name}: the guard wrote no goodput")
+    d = os.path.join(FLEET_HOSTS_DIR, name)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "GOODPUT.json"), "w") as f:
+        json.dump(rep.goodput, f, indent=1)
+    flights = os.path.join(GUARD_DIR, "flight")
+    for f in sorted(os.listdir(flights)) if flight_reason else ():
+        if f.startswith(f"flight-{flight_reason}-"):
+            shutil.copy(os.path.join(flights, f), d)
 
 
 def _guarded_rn50(st, bn, cfg, batches, ckpt, steps, **kw):
@@ -6076,6 +6096,7 @@ def phase_guard(dev, card):
                 and amp.state_dict(st) == amp.state_dict(ref[0]),
                 f"preempt + resume is not the unguarded run's bits: "
                 f"{rep2}; differing {diff[:8]} ({len(diff)})")
+        _keep_host("rn50_preempt_resume", rep2, "preempt")
         ck = os.path.join(GUARD_DIR, "rn50_nan")
         st, bn, rep3, code3, g3 = _guarded_rn50(
             st0, bn0, cfg, batches, ck, GUARD_RN50_STEPS,
@@ -6150,6 +6171,7 @@ def phase_guard(dev, card):
         *_, rep5, code5, _ = _guarded_rn50(
             st0, bn0, cfg, native(4), os.path.join(GUARD_DIR, "native_a"), 4)
         require(code5 == 0, f"native run: {rep5}")
+        _keep_host("rn50_clean", rep5)
         prev_plan = faults.install(faults.parse("loader_stall@3:1.5"))
         try:
             _guarded_rn50(st0, bn0, cfg, native(6, 0.5),
@@ -6262,6 +6284,421 @@ def phase_guard(dev, card):
     return launches_rn50, launches_nan
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the profiling layer on the port's own traces
+# ---------------------------------------------------------------------------
+
+PROFILE_DIR = os.path.join(HERE, "build", "phase25")
+PROFILE_OUT = os.path.join(HERE, "chiprun_out", "phase25")
+PROFILE_STEPS = 4
+#: the sentinel leg's steps, the slow one and its sleep
+SENT_STEPS, SENT_SLOW, SENT_SLEEP_S = 12, 8, 0.5
+
+
+def _traced_steps(step, n, log_dir, warmup=None):
+    """One ``pyprof.trace`` over a warm-up call (``warmup``, default
+    ``step``, under ``pyprof.annotate("warmup")``: a session's first
+    kernels can be missing from its trace, two of the O5 step's ln_fwd
+    were in a whole smoke) and ``n`` calls of ``step``, each under
+    ``pyprof.annotate("train.step")``; (events, decomposition, launches
+    counted around the ``n`` calls)."""
+    import torch
+    from apex_tpu_torch import pyprof
+    from apex_tpu_torch.telemetry import timeline
+    from apex_tpu_torch.utils import build
+    torch.cuda.synchronize()
+    with pyprof.trace(log_dir):
+        with pyprof.annotate("warmup"):
+            (warmup or step)()
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        for _ in range(n):
+            with pyprof.annotate("train.step"):
+                step()
+    launches = dict(build.LAUNCHES)
+    events = timeline.load_events(log_dir)
+    return events, timeline.decompose(events), launches
+
+
+def _check_windows(what, events, decomp, n):
+    """Each step's device window is busy + idle within 0.1 ms; returns
+    the per-step rows (one device)."""
+    from apex_tpu_torch.telemetry import timeline
+    require(decomp["devices"] == ["GPU:0"] and decomp["n_steps"] == n,
+            f"{what}: devices {decomp['devices']}, {decomp['n_steps']} "
+            f"device step windows, expected one card and {n}")
+    windows = timeline.step_windows(events)
+    rows = []
+    for s, (_, t0, t1) in zip(decomp["steps"], windows):
+        d = s["devices"]["GPU:0"]
+        require(abs(d["busy_ms"] + d["idle_ms"] - s["dur_ms"]) <= 0.1,
+                f"{what} step {s['step']}: busy {d['busy_ms']} + idle "
+                f"{d['idle_ms']} != window {s['dur_ms']} ms")
+        work = [e for e in events if e.get("cat") in timeline.DEVICE_CATS
+                and t0 <= e["ts"] < t1]
+        rows.append(dict(d, step=s["step"], dur_ms=s["dur_ms"],
+                         work_ms=sum(e["dur"] for e in work) / 1e3,
+                         streams=len({(e["pid"], e["tid"]) for e in work})))
+    return rows
+
+
+def _trim_trace(events, path):
+    """The device work of the first device step window (and the step
+    ranges, host and device) as a small Chrome trace: the CPU tests'
+    fixture of a full-width O5 step."""
+    import gzip
+    from apex_tpu_torch.telemetry import timeline
+    _, t0, t1 = timeline.step_windows(events)[0]
+    first = next(e["args"].get("External id") for e in events
+                 if e.get("cat") == "gpu_user_annotation"
+                 and e["ts"] == t0)
+    keep = []
+    for e in events:
+        cat = e.get("cat")
+        if cat in timeline.DEVICE_CATS and t0 <= e["ts"] < t1:
+            args = {k: e["args"][k] for k in ("device", "stream")
+                    if k in e["args"]}
+        elif (e["name"] == "train.step"
+              and cat in ("gpu_user_annotation", "user_annotation")
+              and e["args"].get("External id") == first):
+            args = {"External id": first}
+        else:
+            continue
+        keep.append({"ph": "X", "cat": cat, "name": e["name"],
+                     "pid": e["pid"], "tid": e["tid"], "ts": e["ts"],
+                     "dur": e["dur"], "args": args})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        json.dump({"traceEvents": keep}, f)
+    return len(keep)
+
+
+def _sync_sites(fn):
+    """The host syncs of one ``fn()``, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: (message, the innermost
+    frame of the port or the smoke, as file:line) each."""
+    import traceback
+    import warnings
+    import torch
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()
+                  if "apex_tpu_torch" in f.filename
+                  or f.filename.endswith("chip_smoke.py")]
+        at = frames[-1] if frames else None
+        sites.append((str(message).splitlines()[0][:80],
+                      f"{os.path.relpath(at.filename, HERE)}:{at.lineno} "
+                      f"({at.line})" if at else f"{filename}:{lineno}"))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def phase_profiling(dev, card):
+    """The profiling layer (``pyprof``, ``telemetry.attrib`` /
+    ``timeline`` / ``fleet``, memory's static half) on the port's own
+    paths: (a) phase 7's O5 step, a warm-up step and 4 steps inside
+    ``pyprof.trace``, decomposed per device step window (each window busy
+    + idle, its compute the sum of its kernels' durations on one stream,
+    its hand-kernel launches by name exactly phase 7's a step), and its
+    host syncs under ``set_sync_debug_mode("warn")``; (b) phase 9's ZeRO
+    LAMB step on a world-1 NCCL group the same way, the decomposition fed
+    to a ``GoodputLedger`` whose ``GOODPUT.json`` passes
+    ``goodput_violations``; (c) ``attrib.op_table`` over one O5 step: its
+    blas FLOPs ``FlopCounterMode``'s count of the same step, its kernel
+    rows phase 7's launches, beside ``pyprof.prof.cost_report``; (d)
+    ``memory.memory_model`` over one O5 step: params and optimizer
+    classes the state's bytes, the peak within 5 % of the allocator's;
+    (e) phase 23's sentinel case (12 fp32 4096^2 steps, a 0.5 s stall in
+    the ninth and, so that the one-shot capture opened by the ninth holds
+    them, in the tenth and eleventh), whose capture now dumps a
+    ``slow_step_timeline`` with >= 450 ms of device idle in a stalled
+    step; (f)
+    ``fleet.build_fleet`` over phase 24's two ResNet-50 hosts.
+    Runs after phase 24 and before the kernels line: no timed path
+    follows a profiler session."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from apex_tpu_torch import telemetry as tel
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.pyprof import prof
+    from apex_tpu_torch.telemetry import (attrib, fleet, goodput, memory,
+                                          timeline)
+    from apex_tpu_torch.train import train_step, zero_train_step
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    log("== phase 25: the profiling layer on the port's traces (pyprof "
+        "trace, device timeline, per-op and memory attribution, the "
+        "sentinel's timeline dump, the fleet view)")
+    t_phase = time.perf_counter()
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    os.makedirs(PROFILE_OUT, exist_ok=True)
+    o5 = {k: v for k, v in TRAIN_LAUNCHES_PER_STEP["o5_lamb"].items() if v}
+
+    # (a) the O5 step's device timeline
+    cfg = bert_large_config(attn_impl="fast", remat=True,
+                            dtype=torch.bfloat16)
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    box = {"st": _train_state(params, None)}
+    del params
+    batch = _batch(cfg, 8, 512, 7, dev)
+
+    def o5_step():
+        box["st"], _ = train_step(box["st"], batch, cfg)
+    o5_step()                                           # warm-up
+    syncs = _sync_sites(o5_step)
+    events, decomp, launches = _traced_steps(
+        o5_step, PROFILE_STEPS, os.path.join(PROFILE_DIR, "o5"))
+    rows = _check_windows("O5", events, decomp, PROFILE_STEPS)
+    traced = timeline.port_launches(events)
+    for s, got in traced.items():
+        require(got == o5, f"O5 step {s}: the trace's hand-kernel launches "
+                f"{got}, phase 7's a step {o5}")
+    require(all(launches.get(k, 0) == v * PROFILE_STEPS
+                for k, v in o5.items()),
+            f"O5 launches counted around the traced steps {launches}")
+    for r in rows:
+        require(r["comm_ms"] == 0.0 and r["streams"] == 1
+                and abs(r["compute_ms"] - r["work_ms"]) <= 0.1,
+                f"O5 step {r['step']}: comm {r['comm_ms']} ms on "
+                f"{r['streams']} streams, compute {r['compute_ms']} ms vs "
+                f"its kernels' {r['work_ms']:.3f} ms")
+        log(f"  [{card}] (a) O5 step {r['step']}: device window "
+            f"{r['dur_ms']:.3f} ms = compute {r['compute_ms']:.3f} + idle "
+            f"{r['idle_ms']:.3f} ms (collective {r['comm_ms']:.3f}, exposed "
+            f"{r['exposed_comm_ms']:.3f}); its kernels' durations on "
+            f"{r['streams']} stream sum to {r['work_ms']:.3f} ms")
+    n = _trim_trace(events, os.path.join(PROFILE_OUT,
+                                         "o5_step_trace.json.gz"))
+    with open(os.path.join(PROFILE_OUT, "o5_timeline.json"), "w") as f:
+        json.dump(decomp, f)
+    log(f"  (a) hand-kernel launches a step, by kernel name in the trace: "
+        f"{traced[0]} (phase 7's); host syncs of one step: {len(syncs)}"
+        + "".join(f"\n    sync: {m} at {at}" for m, at in syncs)
+        + f"\n  (a) trimmed trace of step 0 ({n} events) for the CPU tests")
+    require(not syncs, f"the O5 step syncs the host at {syncs}")
+
+    # (c) the per-op table of one step, beside FlopCounterMode's count
+    st = box["st"]
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    table = attrib.op_table(train_step, st, batch, cfg)
+    op_s = time.perf_counter() - t0
+    fc = FlopCounterMode(display=False)
+    with fc:
+        train_step(st, batch, cfg)
+    blas = table["by_class"]["blas"]["flops"]
+    kernel_rows = {}
+    for r in table["rows"]:
+        if r["class"] == "other" and r["opcode"] in build.KERNEL_FUNCTIONS:
+            kernel_rows[r["opcode"]] = kernel_rows.get(r["opcode"], 0) + 1
+    require(blas == fc.get_total_flops() and blas > 0,
+            f"attrib blas flops {blas} != FlopCounterMode's "
+            f"{fc.get_total_flops()}")
+    require(kernel_rows == o5, f"attrib's kernel rows {kernel_rows}, "
+            f"phase 7's launches a step {o5}")
+    rep = prof.cost_report(train_step, st, batch, cfg)
+    step_ms = RESULTS.get("o5_lamb_step_ms")
+    log(f"  (c) op table of one O5 step ({len(table['rows'])} rows, recorded "
+        f"in {op_s:.1f} s): blas {blas:.6g} FLOPs = FlopCounterMode's; kernel "
+        f"rows {kernel_rows}")
+    for line in attrib.format_op_table(table, top=20).splitlines():
+        log(f"    {line}")
+    for line in prof.format_report(rep).splitlines():
+        log(f"    {line}")
+    if step_ms:
+        log(f"  [{card}] (c) roofline projection {rep['projected_ms']:.3f} ms "
+            f"beside phase 7's measured step {step_ms:.2f} ms "
+            f"({100 * rep['projected_ms'] / step_ms:.1f}%)")
+
+    # (d) memory's static half over one step
+    mtab = memory.memory_table(train_step, st, batch, cfg)
+    model = memory.memory_model(table=mtab)
+
+    def nbytes(tree):
+        seen = {}
+        for _, t in attrib.keyed_tensors(tree, "x"):
+            s = t.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+        return sum(seen.values())
+    p_bytes = nbytes(st.model_params)
+    o_bytes = nbytes((st.opt_state, st.scalers, st.master_params))
+    stats = mtab["stats"]
+    rel = abs(mtab["peak_bytes"] - stats["call_peak_bytes"]) \
+        / stats["call_peak_bytes"]
+    for line in memory.format_memory_table(mtab, top=8).splitlines():
+        log(f"    {line}")
+    log(f"  [{card}] (d) sweep peak {mtab['peak_bytes']} B, allocator's "
+        f"call peak {stats['call_peak_bytes']} B (peak "
+        f"{stats['peak_bytes']} - before {stats['allocated_before']} + "
+        f"arguments {stats['argument_bytes']}): {100 * rel:.3f} % apart; "
+        f"the allocator just after the sweep's peak op "
+        f"{stats['allocated_at_peak_op_bytes']} B; params {p_bytes} B (bf16 "
+        f"model), optimizer {o_bytes} B (fp32 master, m, v, scaler)")
+    require(model["params_bytes"] == p_bytes
+            and model["optimizer_bytes"] == o_bytes,
+            f"memory classes params {model['params_bytes']} optimizer "
+            f"{model['optimizer_bytes']}, the state's {p_bytes} / {o_bytes}")
+    require(rel <= 0.05, f"sweep peak {mtab['peak_bytes']} vs the "
+            f"allocator's {stats['call_peak_bytes']}: {100 * rel:.2f} %")
+    require(memory.get_attribution() is model, "memory_model did not "
+            "register its attribution")
+    memory.set_attribution(None)
+    del box, st, batch, table, mtab, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the ZeRO LAMB step's timeline, fed to a goodput ledger
+    store = start_process_group()
+    try:
+        params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                                  device=dev)
+        opt = DistributedFusedLAMB(lr=1e-3, weight_decay=0.01,
+                                   max_grad_norm=1.0, bf16_allgather=True,
+                                   impl="fused")
+        zbox = {"p": params, "st": opt.init(params)}
+        del params
+        mbatch = _mlm_batch(cfg, 8, 512, 11, dev)
+        def zero_warm():
+            zbox["p"], zbox["st"], _ = zero_train_step(
+                zbox["p"], zbox["st"], mbatch, cfg, opt)
+        zero_warm()
+        tracer = tel.Tracer(enabled=True)
+        led = goodput.GoodputLedger()
+        led.attach(tracer)
+        count = {"i": 0}
+
+        def zero_step():
+            # the ledger's productive step spans, on the host's clock
+            with tracer.span("train.step", step=count["i"]):
+                zbox["p"], zbox["st"], _ = zero_train_step(
+                    zbox["p"], zbox["st"], mbatch, cfg, opt)
+                torch.cuda.synchronize()
+            count["i"] += 1
+        zevents, zdecomp, zlaunches = _traced_steps(
+            zero_step, PROFILE_STEPS, os.path.join(PROFILE_DIR, "zero"),
+            warmup=zero_warm)
+        led.set_decomposition(zdecomp)
+        led.detach(tracer)
+        gdoc = led.snapshot(status="completed")
+        gpath = led.write(directory=os.path.join(PROFILE_DIR, "zero"),
+                          doc=gdoc)
+        zrows = _check_windows("ZeRO", zevents, zdecomp, PROFILE_STEPS)
+        zero = {k: v for k, v in
+                TRAIN_LAUNCHES_PER_STEP["zero_lamb"].items() if v}
+        for s, got in timeline.port_launches(zevents).items():
+            require(got == zero, f"ZeRO step {s}: traced launches {got}, "
+                    f"phase 9's {zero}")
+        require(all(zlaunches.get(k, 0) == v * PROFILE_STEPS
+                    for k, v in zero.items()),
+                f"ZeRO launches counted around the traced steps "
+                f"{zlaunches}")
+        bad = goodput.goodput_violations(json.load(open(gpath)))
+        require(not bad and gdoc["steps"] == PROFILE_STEPS,
+                f"ZeRO GOODPUT.json: {bad}, steps {gdoc['steps']}")
+        for r in zrows:
+            log(f"  [{card}] (b) ZeRO LAMB step {r['step']}: window "
+                f"{r['dur_ms']:.3f} ms, compute {r['compute_ms']:.3f}, "
+                f"collective {r['comm_ms']:.3f}, exposed "
+                f"{r['exposed_comm_ms']:.3f}, idle {r['idle_ms']:.3f} ms")
+        classes = gdoc["classes"]
+        log(f"  (b) world 1: {zdecomp['totals']['comm_ms']} ms of NCCL "
+            f"kernels (one rank copies, it does not reduce); GOODPUT.json "
+            f"passes goodput_violations: productive "
+            f"{classes['productive']['ms']:.1f} ms, exposed_comm "
+            f"{classes['exposed_comm']['ms']:.3f} ms, idle "
+            f"{classes['idle']['ms']:.1f} ms of {gdoc['wall_ms']:.1f} ms")
+        del zbox, opt, mbatch
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) phase 23's sentinel case: the capture now dumps its timeline.
+    # The sentinel fires on the slow step's time, after it ran, and
+    # captures the next two, so the stall lasts three steps (the ninth
+    # fires, the tenth and eleventh are captured: a session's first
+    # kernels can be missing from its trace, as they were in a whole
+    # smoke, and with them the first window's start), and it sits between
+    # a step's launches: a device window spans its first to last kernel
+    from apex_tpu_torch import pyprof
+    sdir = os.path.join(PROFILE_DIR, "sentinel")
+    sent = tel.SlowStepSentinel(
+        window=16, warmup=6, cooldown=4, dump_dir=sdir,
+        profile_dir=os.path.join(sdir, "profile"), profile_steps=2)
+    tracer = tel.Tracer(enabled=True, sentinel=sent)
+    prev_tracer = tel.set_tracer(tracer)
+    sreg = tel.Registry(sink=tel.MemorySink(), flush_interval=0,
+                        rank0_only=False, memory=False, goodput=False,
+                        exporter=False)
+    try:
+        x = torch.randn(SENTINEL_N, SENTINEL_N, device=dev)
+        for i in range(SENT_STEPS):
+            with sreg.step(), pyprof.annotate("train.step"):
+                for j in range(4):
+                    x = torch.tanh(x @ x * 1e-3)
+                    if j == 1 and SENT_SLOW <= i <= SENT_SLOW + 2:
+                        torch.cuda.synchronize()
+                        time.sleep(SENT_SLEEP_S)    # the injected stall
+                torch.cuda.synchronize()
+        sent.stop_capture()
+    finally:
+        tel.set_tracer(prev_tracer)
+    dumps = sorted(f for f in os.listdir(sdir)
+                   if f.startswith("flight-slow_step_timeline-"))
+    require(sent.fires == 1 and len(dumps) == 1,
+            f"sentinel fires {sent.fires}, timeline dumps {dumps}")
+    tdoc = json.load(open(os.path.join(sdir, dumps[0])))
+    require(not tel.trace.dump_violations(tdoc), "slow_step_timeline dump "
+            "off-schema")
+    tsteps = tdoc["timeline"]["decomposition"]["steps"]
+    idle = [s["devices"]["GPU:0"]["idle_ms"] for s in tsteps]
+    require(idle and max(idle) >= 450.0, f"the captured stalled steps' "
+            f"device idle {idle} ms, expected >= 450 (a {SENT_SLEEP_S} s "
+            f"sleep)")
+    log(f"  [{card}] (e) sentinel fired at step {SENT_SLOW}; its capture "
+        f"({len(tsteps)} device step windows) dumped {dumps[0]}: idle "
+        f"{[round(v, 3) for v in idle]} ms a window, compute "
+        f"{[round(s['devices']['GPU:0']['compute_ms'], 3) for s in tsteps]}")
+
+    # (f) the fleet view over phase 24's two ResNet-50 hosts
+    hosts = [os.path.join(FLEET_HOSTS_DIR, h)
+             for h in ("rn50_clean", "rn50_preempt_resume")]
+    doc, ftrace = fleet.build_fleet(hosts)
+    fpath = fleet.write_fleet(doc, os.path.join(PROFILE_DIR, "fleet"),
+                              ftrace)
+    require(not fleet.fleet_violations(json.load(open(fpath))),
+            "FLEET.json off-schema")
+    resumed = doc["per_host"]["rn50_preempt_resume"]
+    own = json.load(open(os.path.join(hosts[1], "GOODPUT.json")))
+    require(resumed["goodput_source"] == "artifact"
+            and resumed["goodput"] == own
+            and resumed["flight_dumps"] >= 1,
+            f"the resumed host's goodput {resumed['goodput_source']}, "
+            f"{resumed['flight_dumps']} flight dumps")
+    for line in fleet.format_fleet(doc).splitlines():
+        log(f"    {line}")
+    log(f"  (f) FLEET.json passes fleet_violations; the resumed host's "
+        f"goodput {own['goodput_fraction']:.4f} read from its GOODPUT.json")
+    took = time.perf_counter() - t_phase
+    log(f"  [{card}] phase 25 took {took:.1f} s")
+
+
 def _kernel_entry(name, source, replaces, row, launches_by_path, path):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches_by_path[path].get(name, 0),
@@ -6369,6 +6806,7 @@ def main(argv) -> int:
     check_dense_routes(dev)
     phase_telemetry(dev, card, launches)
     launches["guard_rn50"], launches["guard_o5"] = phase_guard(dev, card)
+    phase_profiling(dev, card)
 
     def pick(rows, **want):
         return next(r for r in rows

@@ -1191,3 +1191,59 @@ def test_native_loader_hands_out_pinned_batches(cuda_device, tmp_path):
         xd = x.to(cuda_device, non_blocking=True)
         torch.cuda.synchronize()
         assert torch.equal(xd.cpu(), x)
+
+
+def _o5_step_inputs(cuda_device, layers=2):
+    """A small O5 BERT-shaped step on the card: (state, batch, cfg)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import TransformerConfig, transformer_init
+    from apex_tpu_torch.optimizers import FusedLAMB
+    cfg = TransformerConfig(vocab_size=512, max_len=128, num_layers=layers,
+                            d_model=256, num_heads=4, d_ff=1024,
+                            dtype=torch.bfloat16, attn_impl="fast",
+                            remat=True)
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=cuda_device)
+    st = amp.initialize(params, FusedLAMB(lr=1e-3, impl="fused"),
+                        opt_level="O5", verbosity=0)
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, 512, (2, 128), generator=gen).to(
+        cuda_device) for k in ("tokens", "targets")}
+    return st, batch, cfg
+
+
+def test_kernel_launches_reach_the_recording_from_the_backward(cuda_device):
+    """``attrib.op_table`` over an O5 step on the card: every hand-kernel
+    launch is one ``other`` row, the backward's (flash_bwd, ln_bwd, run
+    on autograd's device thread) included, as many as ``LAUNCHES``
+    counts."""
+    from apex_tpu_torch.telemetry import attrib
+    from apex_tpu_torch.train import train_step
+    st, batch, cfg = _o5_step_inputs(cuda_device)
+    train_step(st, batch, cfg)
+    build.LAUNCHES.clear()
+    table = attrib.op_table(train_step, st, batch, cfg)
+    rows = {}
+    for r in table["rows"]:
+        if r["class"] == "other" and r["opcode"] in build.KERNEL_FUNCTIONS:
+            rows[r["opcode"]] = rows.get(r["opcode"], 0) + 1
+            assert r["flops"] == 0.0 and r["bytes"] > 0
+    assert rows == dict(build.LAUNCHES)
+    assert rows["flash_bwd"] == 2 and rows["ln_bwd"] == 6
+    assert rows["flash_fwd"] == 4 and rows["ln_fwd"] == 10
+
+
+def test_o5_step_makes_no_host_sync(cuda_device):
+    """One O5 step (FusedLAMB fused, flash, remat) under
+    ``set_sync_debug_mode("error")``: no op of the step waits on the
+    card (the learning rate is filled on the device, not copied)."""
+    from apex_tpu_torch.train import train_step
+    st, batch, cfg = _o5_step_inputs(cuda_device)
+    st, _ = train_step(st, batch, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, loss = train_step(st, batch, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(loss))

@@ -11,6 +11,15 @@ out-of-memory texts; ``parse_allocator_report`` reads torch's requested
 size and the snapshot's live blocks, and the JAX package's stanzas as the
 JAX parser does.  Without CUDA the monitor finds no allocator, stops
 probing and leaves the registry's records alone.  The CLI renders a dump.
+
+The static half: ``classify_arg`` bins every keypath as the JAX one does;
+``memory_table`` over a 2-layer, 64-wide O5 BERT step on the CPU puts
+exactly the state's bytes in the params, optimizer and batch classes
+(the bf16 model; the fp32 flat master, moments and scalers; the token
+tensors), its classes partition the sweep's peak, and ``memory_model`` of
+the port's table is the JAX ``memory_model`` of the same table; a
+hand-made call pins the sweep's def / death semantics; the registered
+model rides into the OOM dump the JAX schema accepts.
 """
 import json
 
@@ -163,3 +172,122 @@ def test_mem_cli_renders_a_dump(tmp_path, capsys):
     other = tmp_path / "x.json"
     other.write_text("{}")
     assert port_memory.cli([str(other)]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the static half: the liveness sweep over one recorded call
+# ---------------------------------------------------------------------------
+
+KEY_PATHS = ["state['model_params']['w']", r"state[\'opt\'][\'m\']",
+             "state.master_params['fc']", "state.scalers[0].loss_scale",
+             "tokens", "x", "y", "mystery_arg", "state.m", "state.v",
+             "amp_state.opt_state.master", "amp_state.opt_state.count",
+             "amp_state.model_params['layers']['wqkv']",
+             "batch['targets']", "model_params['m']", "m_tokens",
+             "vectors", "boost", "images", "state.exp_avg['w']"]
+
+
+def test_classify_arg_equals_jax():
+    assert port_memory.MEM_CLASSES == jax_memory.MEM_CLASSES
+    for path in KEY_PATHS:
+        assert port_memory.classify_arg(path) == \
+            jax_memory.classify_arg(path), path
+
+
+def _storage_bytes(tree):
+    from apex_tpu_torch.telemetry.attrib import keyed_tensors
+    seen = {}
+    for _, t in keyed_tensors(tree, "x"):
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def test_memory_table_classes_are_the_states_bytes():
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import TransformerConfig, transformer_init
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.train import train_step
+    cfg = TransformerConfig(vocab_size=128, max_len=32, num_layers=2,
+                            d_model=64, num_heads=4, d_ff=256,
+                            dtype=torch.bfloat16, attn_impl="fast",
+                            remat=True)
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    st = amp.initialize(params, FusedLAMB(impl="fused"), opt_level="O5",
+                        verbosity=0)
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, 128, (2, 32), generator=gen)
+             for k in ("tokens", "targets")}
+    table = port_memory.memory_table(train_step, st, batch, cfg)
+    by = table["by_class"]
+    assert by["params"] == _storage_bytes(st.model_params)
+    assert by["optimizer"] == _storage_bytes((st.opt_state, st.scalers))
+    assert by["optimizer"] >= 3 * 4 * st.opt_state.master.numel()
+    assert by["batch"] == _storage_bytes(batch)
+    assert sum(by.values()) == table["peak_bytes"]
+    assert by["activations"] > 0 and table["stats"] is None
+    assert table["platform"] == "cpu"
+    assert table["peak_op"] == f"{table['peak_op'].rsplit('.', 1)[0]}." \
+        f"{table['peak_index']}"
+    model = port_memory.memory_model(table=table, register=False)
+    assert model == jax_memory.memory_model(table=dict(table),
+                                            register=False)
+    assert model["params_bytes"] == by["params"]
+    assert sum(v for k, v in model.items() if k.endswith("_bytes") and k
+               not in ("peak_hbm_bytes", "optimizer_bytes_per_replica")) \
+        == model["peak_hbm_bytes"]
+    text = port_memory.format_memory_table(table, top=4)
+    assert "per-class residency at peak" in text and "optimizer" in text
+
+
+def test_liveness_sweep_semantics():
+    """Defs at the producing op, deaths at the first op after the storage
+    is gone; the caller's arguments live throughout; at the peak, a
+    storage that dies there is ``temps``, one held across it
+    ``activations``, one the result holds ``output``."""
+    def fn(x):                     # x: 1024 fp32, 4 KB
+        a = x * 2.0                # 0: a, 4 KB, returned
+        b = torch.cat([a, a])      # 1: b, 8 KB, read by op 2 only
+        c = b.sum()                # 2: c, 4 B -- the peak
+        del b
+        d = a * c                  # 3: d, 4 KB (b found dead here)
+        return d.sum(), a          # 4: the sum, 4 B
+
+    x = torch.ones(1024)
+    table = port_memory.memory_table(fn, x)
+    kb = 4096
+    assert table["n_instructions"] == 5
+    assert table["peak_index"] == 2 and table["peak_op"] == "sum.2"
+    assert table["peak_bytes"] == 4 * kb + 4      # x, a, b, c
+    rows = {r["op"]: r for r in table["live_at_peak"]}
+    assert rows["x"]["class"] == "batch" and rows["x"]["def_index"] == 0
+    assert rows["mul.0"]["class"] == "output"
+    assert rows["cat.1"]["class"] == "temps"
+    assert (rows["cat.1"]["def_index"], rows["cat.1"]["last_use"]) == (1, 2)
+    assert rows["sum.2"]["class"] == "activations"
+    assert table["by_class"] == {"batch": kb, "output": kb,
+                                 "temps": 2 * kb, "activations": 4}
+    assert [p["bytes"] for p in table["timeline"]] == \
+        [2 * kb, 4 * kb, 4 * kb + 4, 3 * kb + 4, 3 * kb + 8]
+
+
+def test_registered_model_rides_into_the_oom_dump(tmp_path):
+    table = port_memory.memory_table(lambda x: (x * 2).sum(),
+                                     torch.ones(256))
+    model = port_memory.memory_model(table=table)
+    assert port_memory.get_attribution() is model
+    path = port_memory.dump_oom(step=3, error=port_memory.synthetic_oom(3),
+                                directory=str(tmp_path), snapshot=False)
+    doc = json.load(open(path))
+    assert jax_memory.oom_violations(doc) == []
+    assert doc["oom"]["attribution"]["peak_hbm_bytes"] == \
+        model["peak_hbm_bytes"]
+
+
+def test_mem_cli_renders_the_demo_step(capsys):
+    assert port_memory.cli(["--device", "cpu", "--layers", "1", "--batch",
+                            "2", "--seq", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "peak-memory attribution (cpu;" in out
+    assert "memory_model: peak" in out

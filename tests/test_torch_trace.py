@@ -9,8 +9,10 @@ Flight dumps (a rollback reason, the sentinel's slow-step dump) pass the
 JAX ``dump_violations``.  The sentinel fires on the same step in both
 packages for the same step times, and its one-shot ``torch.profiler``
 capture (on the CPU here) lands as a Chrome trace the port's
-``load_chrome`` reads.  A disabled tracer hands out the shared null span
-and records nothing.  Every test restores the default tracer.
+``load_chrome`` reads; a capture holding a card's device lanes is
+decomposed into a ``slow_step_timeline`` dump the JAX ``dump_violations``
+accepts, its decomposition fed to the tracer's goodput ledger.  A
+disabled tracer hands out the shared null span and records nothing.  Every test restores the default tracer.
 """
 import json
 import threading
@@ -173,6 +175,66 @@ def test_sentinel_capture_writes_a_torch_profiler_trace(tmp_path):
     assert port_trace.load_chrome(str(tmp_path / "prof")) is not None
     sent.stop_capture()                      # idempotent
     assert len(sent.capture_paths) == 1
+
+
+def _card_capture_events():
+    """What a capture of two steps on a card parses to: each step's
+    range mirrored onto the stream, a GEMM and an NCCL kernel that
+    outlasts it (partly exposed), and a 0.5 ms gap in the first step."""
+    from apex_tpu_torch.pyprof import parse
+    raw = []
+    for s, t0 in enumerate((0.0, 2000.0)):
+        raw += [
+            {"ph": "X", "cat": "gpu_user_annotation", "name": "train.step",
+             "pid": 0, "tid": 7, "ts": t0, "dur": 1500.0 - 500.0 * s,
+             "args": {"External id": s}},
+            {"ph": "X", "cat": "kernel", "name": "nvjet_tst_256x128_NNT",
+             "pid": 0, "tid": 7, "ts": t0, "dur": 400.0,
+             "args": {"device": 0}},
+            {"ph": "X", "cat": "kernel",
+             "name": "ncclDevKernel_AllReduce_Sum_f32_RING_LL", "pid": 0,
+             "tid": 21, "ts": t0 + 300.0, "dur": 200.0,
+             "args": {"device": 0}},
+            {"ph": "X", "cat": "kernel", "name": "nvjet_tst_128x64_TNT",
+             "pid": 0, "tid": 7, "ts": t0 + 1000.0 - 500.0 * s,
+             "dur": 500.0, "args": {"device": 0}}]
+    return parse.events_from_chrome(raw)
+
+
+def test_sentinel_capture_dumps_its_timeline(tmp_path, monkeypatch):
+    """A closing capture is decomposed (``timeline.summarize``) into a
+    ``slow_step_timeline`` flight dump that the JAX ``dump_violations``
+    accepts, and the tracer's goodput ledger takes the measured
+    decomposition."""
+    from apex_tpu_torch.telemetry import goodput as port_goodput
+    from apex_tpu_torch.telemetry import timeline as port_timeline
+    events = _card_capture_events()
+    monkeypatch.setattr(port_timeline, "load_events", lambda path: events)
+    times = [0.01] * 6 + [0.2] + [0.01] * 4
+    led = port_goodput.GoodputLedger()
+    tr = port_trace.Tracer(enabled=True, flight_dir=str(tmp_path))
+    led.attach(tr)
+    sent = port_trace.SlowStepSentinel(
+        window=8, warmup=4, z_threshold=3.0, min_slowdown=1.5,
+        cooldown=2, profile_dir=str(tmp_path / "prof"), profile_steps=2)
+    reg = port_registry.Registry(sink=port_registry.MemorySink(),
+                                 flush_interval=0, rank0_only=False,
+                                 memory=False, goodput=False, exporter=False)
+    for i, t in enumerate(times):
+        sent.observe(i, t, tracer=tr, registry=reg)
+    assert sent.fires == 1 and len(sent.capture_paths) == 1
+    dumps = sorted(tmp_path.glob("flight-slow_step_timeline-*.json"))
+    assert len(dumps) == 1
+    doc = json.loads(dumps[0].read_text())
+    assert jax_trace.dump_violations(doc) == []
+    decomp = doc["timeline"]["decomposition"]
+    assert decomp == port_timeline.decompose(events)
+    assert [s["devices"]["GPU:0"]["idle_ms"] for s in decomp["steps"]] == \
+        [0.5, 0.0]
+    assert decomp["totals"]["exposed_comm_ms"] == 0.2
+    assert doc["fields"]["exposed_comm_ms"] == 0.2
+    assert "device timeline decomposition" in doc["timeline"]["table"]
+    assert led._exposed_frac == {0: 0.1, 1: 0.1}
 
 
 def test_trace_cli(tmp_path, capsys):
