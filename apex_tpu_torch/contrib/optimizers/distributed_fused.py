@@ -24,8 +24,12 @@ The stage-2 segment sums use the segments' contiguity: each leaf's row
 range clipped to this shard, summed in a fixed order, so the trust ratios
 repeat bit for bit (no ``index_add_`` atomics).  Every step returns new
 tensors; nothing is updated in place, so a skipped step keeps the old
-state.  The compressed reduce-scatter schemes and the error-feedback
-``residual`` are not ported yet (ROADMAP.md): they raise.
+state.  The gradient reduce-scatter takes every scheme of
+:mod:`~apex_tpu_torch.parallel.collectives` (``collective_scheme``: fp32,
+bf16, int8_blockscale with the error-feedback ``residual``, adasum), the
+param all-gather fp32, bf16 or int8_blockscale (``allgather_scheme``,
+``bf16_allgather``); both are metered as ``zero.reduce_scatter`` /
+``zero.allgather`` through ``telemetry.events.record_collective``.
 
 Usage, one process per card (``apex_tpu_torch.parallel.
 initialize_distributed``)::
@@ -36,6 +40,7 @@ initialize_distributed``)::
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,6 +52,7 @@ from ...multi_tensor_apply.flattener import LANE, TreeFlattener
 from ...optimizers._base import resolve, resolve_state_dtype
 from ...parallel import collectives as _coll
 from ...parallel.mesh import group_rank, group_size
+from ...telemetry import events as _tel_events
 from ...utils.device import resolve_device
 from ...utils.pytree import tree_flatten
 
@@ -140,26 +146,96 @@ class _DistributedFusedBase:
 
     # -- collectives ---------------------------------------------------------
 
-    def _reduce_scatter(self, flat_g):
+    def _resolve_scheme(self, which):
+        """The gradient reduce-scatter's scheme: the constructor's, else
+        the live override, else ``APEX_TPU_COLLECTIVES``; the param
+        all-gather's: the constructor's only (quantizing params is an
+        accuracy trade the ambient knob must not flip)."""
+        if which == "ag":
+            if self.allgather_scheme is None:
+                return None
+            return _coll.resolve(self.allgather_scheme)
+        return _coll.resolve(self.collective_scheme)
+
+    def _meter(self, op, logical, wire, seconds, scheme, dtype):
+        """One ``zero.<op>`` record a collective, free without a registry
+        or tracer."""
+        if _tel_events.metering():
+            _tel_events.record_collective(
+                _coll.axis_label(self.shard_group), int(logical), 1,
+                seconds, wire_bytes=int(wire), dtype=dtype, scheme=scheme,
+                op=op)
+
+    def _reduce_scatter(self, flat_g, residual=None):
         """Local full flat grads -> this rank's reduced shard: RS over
-        ``shard_group``, then an all-reduce over ``replica_group``."""
+        ``shard_group``, then an all-reduce over ``replica_group``.  A
+        compressed ``collective_scheme`` ships its wire form
+        (:func:`~apex_tpu_torch.parallel.collectives.reduce_scatter_flat`)
+        with the int8 error-feedback ``residual`` (full flat fp32); the
+        replica all-reduce stays fp32.  Returns ``(g_shard,
+        new_residual)``."""
+        spec = self._resolve_scheme("rs")
         world = self._world()
-        if self.predivide:
-            flat_g = flat_g * (1.0 / world)
-        g_shard = _coll.reduce_scatter_flat(
-            flat_g, self.shard_group, _coll.resolve(self.collective_scheme))
+        t0 = time.perf_counter()
+        if spec is None or spec.scheme == "fp32":
+            if self.predivide:
+                flat_g = flat_g * (1.0 / world)
+            g_shard, _ = _coll.reduce_scatter_flat(flat_g, self.shard_group,
+                                                   spec)
+            if self.replica_group is not None:
+                dist.all_reduce(g_shard, op=dist.ReduceOp.SUM,
+                                group=self.replica_group)
+            if not self.predivide:
+                g_shard = g_shard / world
+            nbytes = flat_g.numel() * flat_g.element_size()
+            self._meter("reduce_scatter", nbytes, nbytes,
+                        time.perf_counter() - t0,
+                        spec.scheme if spec else None,
+                        _coll.dtype_name(flat_g.dtype))
+            return g_shard, residual
+        info = _coll.get_scheme(spec.scheme)
+        x = flat_g.to(torch.float32)
+        if self.predivide and not info.self_scaling:
+            x = x * (1.0 / world)
+        g_shard, new_residual = _coll.reduce_scatter_flat(
+            x, self.shard_group, spec, residual=residual,
+            label="zero.reduce_scatter")
         if self.replica_group is not None:
             dist.all_reduce(g_shard, op=dist.ReduceOp.SUM,
                             group=self.replica_group)
-        if not self.predivide:
+            if info.self_scaling:
+                # adasum across replica groups: the mean of the groups'
+                # merges (each carries its own magnitude)
+                g_shard = g_shard / group_size(self.replica_group)
+        if not self.predivide and not info.self_scaling:
             g_shard = g_shard / world
-        return g_shard
+        self._meter("reduce_scatter", x.numel() * 4,
+                    info.wire_bytes(x.numel(), spec.block),
+                    time.perf_counter() - t0, spec.scheme, info.wire_dtype)
+        return g_shard, new_residual
+
+    def init_residual(self, params):
+        """Zero int8 error-feedback residual of the reduce-scatter: full
+        flat, fp32, on the params' device; carry it through ``step(...,
+        residual=...)``."""
+        fl = self._flattener(params, group_size(self.shard_group))
+        dev = tree_flatten(params)[0][0].device
+        return torch.zeros(fl.total, dtype=torch.float32, device=dev)
 
     def _allgather(self, p_shard):
-        spec = _coll.resolve(self.allgather_scheme)
+        spec = self._resolve_scheme("ag")
+        if spec is not None and spec.scheme == "adasum":
+            raise ValueError("adasum is a reduction rule; it has no "
+                             "allgather meaning")
         if self.bf16_allgather and (spec is None or spec.scheme == "fp32"):
             spec = _coll.CollectiveSpec(scheme="bf16")
-        return _coll.allgather_flat(p_shard, self.shard_group, spec)
+        t0 = time.perf_counter()
+        full, wire, wdtype = _coll.allgather_flat(
+            p_shard, self.shard_group, spec, label="zero.allgather")
+        self._meter("allgather", p_shard.numel() * 4, wire,
+                    time.perf_counter() - t0,
+                    spec.scheme if spec is not None else None, wdtype)
+        return full
 
     def _global_sumsq(self, x_shard):
         """Global sum of squares from the shards, over ``shard_group``
@@ -188,13 +264,10 @@ class _DistributedFusedBase:
     def _begin(self, state, grads, params, scale, lr, residual):
         """Flatten, reduce-scatter, overflow flag, global norm and the
         step's scalars, all on the params' device."""
-        if residual is not None:
-            raise NotImplementedError(
-                "the error-feedback residual (compressed reduce-scatter) is "
-                "not ported yet; see ROADMAP.md")
         n = group_size(self.shard_group)
         fl = self._flattener(params, n)
-        g_shard = self._reduce_scatter(fl.flatten(grads))
+        g_shard, new_residual = self._reduce_scatter(fl.flatten(grads),
+                                                     residual)
         dev = g_shard.device
         ok = (self._finite_flag(g_shard) if self.check_overflow
               else torch.ones((), dtype=torch.float32, device=dev))
@@ -220,7 +293,8 @@ class _DistributedFusedBase:
             rc2 = 1.0 / (1.0 - torch.pow(self.beta2, t))
         else:
             rc1 = rc2 = torch.ones((), dtype=torch.float32, device=dev)
-        return fl, g_shard, ok, inv_scale, gnorm, clip, count, lr_v, rc1, rc2
+        return (fl, g_shard, new_residual, ok, inv_scale, gnorm, clip,
+                count, lr_v, rc1, rc2)
 
     def _const(self, dev, *values):
         """Fixed hyperparameters as one fp32 tensor on ``dev``, copied
@@ -231,9 +305,15 @@ class _DistributedFusedBase:
                                              device=dev)
         return self._consts[key]
 
-    def _finish(self, ok, new_state, state, gnorm, fl):
+    def _finish(self, ok, new_state, state, gnorm, fl, residual,
+                new_residual):
         new_state = self._select(ok, new_state, state._replace(gnorm=gnorm))
-        return fl.unflatten(self._allgather(new_state.p)), new_state
+        params = fl.unflatten(self._allgather(new_state.p))
+        if residual is None:
+            return params, new_state
+        # a skipped step's quantization error was never applied
+        return params, new_state, torch.where(ok > 0, new_residual,
+                                              residual)
 
     # -- state bring-up ------------------------------------------------------
 
@@ -275,9 +355,11 @@ class DistributedFusedAdam(_DistributedFusedBase):
     def step(self, state: ShardedAdamState, grads, params, *, scale=1.0,
              lr=None, residual=None):
         """One collective step.  ``grads``: this rank's local, unreduced
-        gradients (the full model); returns ``(new_params, new_state)``."""
-        (fl, g_shard, ok, inv_scale, gnorm, clip, count, lr_v, rc1,
-         rc2) = self._begin(state, grads, params, scale, lr, residual)
+        gradients (the full model); returns ``(new_params, new_state)``,
+        or ``(new_params, new_state, new_residual)`` when ``residual``
+        threads the int8 error-feedback state (:meth:`init_residual`)."""
+        (fl, g_shard, new_residual, ok, inv_scale, gnorm, clip, count, lr_v,
+         rc1, rc2) = self._begin(state, grads, params, scale, lr, residual)
         b1, b2 = self.beta1, self.beta2
         eff_scale = inv_scale * clip
         wd = self.weight_decay
@@ -303,7 +385,8 @@ class DistributedFusedAdam(_DistributedFusedBase):
             p_new = p - lr_v * u
         new_state = ShardedAdamState(count, p_new, self._store_moment(m_new),
                                      self._store_moment(v_new), gnorm)
-        return self._finish(ok, new_state, state, gnorm, fl)
+        return self._finish(ok, new_state, state, gnorm, fl, residual,
+                            new_residual)
 
 
 class DistributedFusedLAMB(_DistributedFusedBase):
@@ -340,8 +423,8 @@ class DistributedFusedLAMB(_DistributedFusedBase):
     def step(self, state: ShardedLAMBState, grads, params, *, scale=1.0,
              lr=None, residual=None):
         """One collective step; as :meth:`DistributedFusedAdam.step`."""
-        (fl, g_shard, ok, inv_scale, gnorm, clip, count, lr_v, rc1,
-         rc2) = self._begin(state, grads, params, scale, lr, residual)
+        (fl, g_shard, new_residual, ok, inv_scale, gnorm, clip, count, lr_v,
+         rc1, rc2) = self._begin(state, grads, params, scale, lr, residual)
         plan = self._shard_plan(fl, group_size(self.shard_group))
         b1, b2 = self.beta1, self.beta2
         beta3 = 1.0 - b1 if self.grad_averaging else 1.0
@@ -382,7 +465,8 @@ class DistributedFusedLAMB(_DistributedFusedBase):
                      state.p.shape)
         new_state = ShardedLAMBState(count, p_new, self._store_moment(m_new),
                                      self._store_moment(v_new), gnorm)
-        return self._finish(ok, new_state, state, gnorm, fl)
+        return self._finish(ok, new_state, state, gnorm, fl, residual,
+                            new_residual)
 
 
 def state_from_jax(state_np, rank: int, world: int, device=None):

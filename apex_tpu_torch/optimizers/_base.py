@@ -78,6 +78,14 @@ class FusedOptimizer:
     The arithmetic stays fp32 (moments are upcast at read, cast back at
     store); master params always stay fp32."""
 
+    #: the flat update is strictly per element, so a contiguous slice of
+    #: the flat buffers updates as the whole does and weight-update
+    #: sharding runs ``step_flat`` on each rank's slice unchanged;
+    #: optimizers with per-tensor reductions in their flat math (LAMB's
+    #: trust ratios, NovoGrad's second moment) set it False and override
+    #: :meth:`step_flat_shard`
+    elementwise_flat_update = True
+
     def __init__(self, lr, weight_decay=0.0, impl="xla", state_dtype=None):
         if impl not in ("xla", "fused"):
             raise ValueError(f"impl must be 'xla' or 'fused', got {impl!r}")
@@ -94,14 +102,22 @@ class FusedOptimizer:
     def _store_moment(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.state_dtype)
 
-    def flattener_for(self, params) -> TreeFlattener:
+    def flattener_for(self, params, chunk=None) -> TreeFlattener:
         """Packing plan for ``params`` (cached per structure, shapes and
-        dtypes)."""
+        dtypes).  ``chunk`` pins the padding quantum (weight-update
+        sharding passes ``LANE * n_shards`` so the total splits into whole
+        128-element shards); ``None`` keeps the cached plan, or the default
+        chunk when building fresh."""
         leaves, treedef = tree_flatten(params)
         key = (treedef, tuple(tuple(l.shape) for l in leaves),
                tuple(l.dtype for l in leaves))
-        if self._flattener is None or self._flattener_key != key:
-            self._flattener = TreeFlattener(params)
+        rebuild = self._flattener is None or self._flattener_key != key
+        if not rebuild and chunk is not None \
+                and self._flattener.chunk != int(chunk):
+            rebuild = True
+        if rebuild:
+            self._flattener = (TreeFlattener(params) if chunk is None
+                               else TreeFlattener(params, chunk=int(chunk)))
             self._flattener_key = key
         return self._flattener
 
@@ -138,8 +154,16 @@ class FusedOptimizer:
         return self.flattener.unflatten(state.master, dtype=dtype)
 
     def step_flat_shard(self, state, g_shard, *, shard, scale=1.0, lr=None):
-        """Sharded flat update of weight-update sharding (zero1): not
-        ported yet (ROADMAP.md, Queue 1 item 5)."""
-        raise NotImplementedError(
-            "step_flat_shard (weight-update sharding) is not ported yet; see "
-            "ROADMAP.md")
+        """Sharded flat update (:mod:`~apex_tpu_torch.parallel.
+        weight_update`): ``state``'s flat fields and ``g_shard`` hold this
+        rank's contiguous 1/N slice of the flat buffers; ``shard`` is a
+        :class:`~apex_tpu_torch.parallel.weight_update.ShardContext` (the
+        group, the packing plan and the per-tensor reductions across
+        shards).  The default covers every elementwise flat update: the
+        slice is the full math."""
+        if not self.elementwise_flat_update:
+            raise NotImplementedError(
+                f"{type(self).__name__} has cross-tensor reductions in its "
+                "flat update and no sharded override — weight-update "
+                "sharding needs a step_flat_shard implementation")
+        return self.step_flat(state, g_shard, scale=scale, lr=lr)

@@ -33,6 +33,9 @@ class FusedLAMBState(NamedTuple):
 
 class FusedLAMB(FusedOptimizer):
 
+    # the trust ratios are per-tensor reductions: step_flat_shard below
+    elementwise_flat_update = False
+
     def __init__(self, lr=1e-3, bias_correction=True, betas=(0.9, 0.999),
                  eps=1e-6, weight_decay=0.01, amsgrad=False,
                  adam_w_mode=True, grad_averaging=True, set_grad_none=True,
@@ -122,10 +125,22 @@ class FusedLAMB(FusedOptimizer):
         return self._flat_update(state, g, self.flattener, count, lr, rc1,
                                  rc2)
 
+    def step_flat_shard(self, state, g_shard, *, shard, scale=1.0, lr=None):
+        """Sharded two-stage LAMB (weight-update sharding): the chain of
+        :meth:`step_flat` on this rank's slice, the global norm and the
+        per-tensor norms taken across shards from ``shard`` (a
+        :class:`~apex_tpu_torch.parallel.weight_update.ShardContext`)."""
+        count, lr, rc1, rc2 = self._prep(state, lr)
+        inv_scale = 1.0 / float(scale)
+        gnorm = torch.sqrt(shard.global_sumsq(g_shard)) * inv_scale
+        g = g_shard.float() * (inv_scale * self._clip_coeff(gnorm))
+        return self._flat_update(state, g, shard, count, lr, rc1, rc2)
+
     def _flat_update(self, state, g, reducer, count, lr, rc1, rc2):
-        """Stage 1 + 2 over flat buffers; ``g`` is the unscaled, clipped
-        fp32 gradient buffer; ``reducer`` gives ``per_tensor_sumsq`` and
-        ``broadcast_rows`` (the flattener)."""
+        """Stage 1 + 2 over flat buffers (whole or one shard); ``g`` is the
+        unscaled, clipped fp32 gradient buffer; ``reducer`` gives
+        ``per_tensor_sumsq`` and ``broadcast_rows`` over the whole model
+        (the flattener, or the shard context): one chain for both."""
         wd = self.weight_decay
         b1, b2, eps = self.beta1, self.beta2, self.eps
         beta3 = 1.0 - b1 if self.grad_averaging else 1.0

@@ -36,6 +36,9 @@ class FusedNovoGradState(NamedTuple):
 
 class FusedNovoGrad(FusedOptimizer):
 
+    # v is a per-tensor norm: step_flat_shard below
+    elementwise_flat_update = False
+
     def __init__(self, lr=1e-3, bias_correction=True, betas=(0.95, 0.98),
                  eps=1e-8, weight_decay=0.0, amsgrad=False,
                  reg_inside_moment=False, grad_averaging=True, norm_type=2,
@@ -135,13 +138,27 @@ class FusedNovoGrad(FusedOptimizer):
         """NovoGrad over the flat buffers: the per-tensor norms from the
         flattener's static row ranges, then one elementwise chain; a new
         state whose ``master`` holds the updated flat fp32 params."""
-        fl = self.flattener
+        return self._flat_update(state, flat_grads, self.flattener,
+                                 scale=scale, lr=lr)
+
+    def step_flat_shard(self, state, g_shard, *, shard, scale=1.0, lr=None):
+        """Sharded NovoGrad (weight-update sharding): the chain of
+        :meth:`step_flat` on this rank's slice of ``m`` / ``master``; the
+        per-tensor ``v`` stays whole on every rank, from the norms ``shard``
+        (a :class:`~apex_tpu_torch.parallel.weight_update.ShardContext`)
+        takes across shards."""
+        return self._flat_update(state, g_shard, shard, scale=scale, lr=lr)
+
+    def _flat_update(self, state, flat_grads, reducer, *, scale, lr):
+        """The chain over flat buffers (whole or one shard); ``reducer``
+        gives ``per_tensor_sumsq`` / ``per_tensor_maxabs`` /
+        ``broadcast_rows`` over the whole model."""
         count, lr, first, rc1 = self._prep_step(state, lr)
         g = flat_grads.float() * (1.0 / float(scale))
-        norm_val = (fl.per_tensor_sumsq(g) if self.norm_type == 2
-                    else fl.per_tensor_maxabs(g))
+        norm_val = (reducer.per_tensor_sumsq(g) if self.norm_type == 2
+                    else reducer.per_tensor_maxabs(g))
         v_new, denom = self._v_and_denom(norm_val, state.v, first)
-        denom_rows = fl.broadcast_rows(denom)
+        denom_rows = reducer.broadcast_rows(denom)
         # padding rows broadcast 0: keep 0/0 from seeding NaNs into m
         denom_rows = torch.where(denom_rows > 0, denom_rows,
                                  torch.ones_like(denom_rows))

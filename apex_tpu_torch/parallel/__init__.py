@@ -1,12 +1,15 @@
 """Distributed training over process groups (counterpart of
 ``apex_tpu/parallel``, a subset so far: process-group set-up and the grouped
-scope, the flat collectives the ZeRO optimizers ride on, data-parallel
-gradient reduction, SyncBatchNorm and LARC; weight-update sharding, overlap
-and the parallel engines are queued in ROADMAP.md)."""
+scope, the collective schemes (:mod:`.collectives`), data-parallel gradient
+reduction with its overlapped buckets (:mod:`.distributed`,
+:mod:`.overlap`), weight-update sharding (:mod:`.weight_update`),
+SyncBatchNorm and LARC; the device-mesh counterpart, ``multiproc`` and the
+parallel engines are queued in ROADMAP.md)."""
 import copy
 
-from . import collectives, mesh  # noqa: F401
+from . import collectives, mesh, overlap, weight_update  # noqa: F401
 from .collectives import CollectiveSpec  # noqa: F401
+from .weight_update import ShardedUpdate  # noqa: F401
 from .distributed import (DistributedDataParallel, Reducer,  # noqa: F401
                           allreduce_tree)
 from .LARC import LARC  # noqa: F401

@@ -27,8 +27,12 @@ Inference O-levels:
 
     fp32   everything float32 (the numerics oracle)
     bf16   weights + activations bf16
-    int8   not ported yet: it needs the block-scale codec of the parallel
-           collectives (see ROADMAP.md)
+    int8   every float leaf of two or more dimensions stored as block-scaled
+           int8 codes (the codec of :mod:`~apex_tpu_torch.parallel.
+           collectives`: one fp32 scale per 128 elements) and dequantized
+           to bf16 when a step reads it; one-dimensional float leaves
+           stored as bf16; compute in bf16.  ``compression_ratio`` (fp32
+           bytes over stored bytes, ~3.9) goes to the serve ledger.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import torch
 from ..models import transformer as tm
 from ..models.transformer import TransformerConfig
 from ..utils.device import resolve_device
+from ..utils.pytree import tree_flatten, tree_unflatten
 from .cache import CacheConfig
 from .sample import request_key, sample_batch, sample_token
 
@@ -61,17 +66,53 @@ def _cast_floats(params, dtype: torch.dtype):
 
 def prepare_olevel(params, olevel: str):
     """-> (packed_params, unpack_fn, compute_dtype, compression_ratio), the
-    JAX signature.  ``unpack_fn`` is the identity for fp32 and bf16;
-    ``compression_ratio`` is None below int8."""
+    JAX signature.  ``unpack_fn(packed)`` runs inside each step and gives
+    the parameter tree in the compute dtype (int8's dequantize-on-read
+    point); it is the identity for fp32 and bf16.  ``compression_ratio`` is
+    fp32 bytes over stored bytes, None below int8."""
     if olevel not in OLEVELS:
         raise ValueError(f"olevel must be one of {OLEVELS}, got {olevel!r}")
-    if olevel == "int8":
-        raise NotImplementedError(
-            "the int8 inference O-level needs the int8 block-scale codec of "
-            "the parallel collectives, which is not ported yet; see "
-            "ROADMAP.md (PyTorch/CUDA port queue)")
-    dt = _DTYPES[olevel]
-    return _cast_floats(params, dt), (lambda p: p), dt, None
+    if olevel != "int8":
+        dt = _DTYPES[olevel]
+        return _cast_floats(params, dt), (lambda p: p), dt, None
+
+    from ..parallel.collectives import (dequantize_blockscale,
+                                        quantize_blockscale)
+    leaves, treedef = tree_flatten(params)
+    packed, meta = [], []
+    bytes_fp32 = bytes_stored = 0
+    for leaf in leaves:
+        isf = leaf.is_floating_point()
+        bytes_fp32 += leaf.numel() * (4 if isf else leaf.element_size())
+        if isf and leaf.dim() >= 2:
+            q, scales = quantize_blockscale(
+                leaf.to(torch.float32).reshape(-1))
+            packed.append((q, scales))
+            meta.append(("q", tuple(leaf.shape), leaf.numel()))
+            bytes_stored += q.numel() + scales.numel() * 4
+        elif isf:
+            cast = leaf.to(torch.bfloat16)
+            packed.append(cast)
+            meta.append(("raw", None, None))
+            bytes_stored += cast.numel() * 2
+        else:
+            packed.append(leaf)
+            meta.append(("raw", None, None))
+            bytes_stored += leaf.numel() * leaf.element_size()
+
+    def unpack(packed_leaves):
+        out = []
+        for entry, (kind, shape, n) in zip(packed_leaves, meta):
+            if kind == "q":
+                q, scales = entry
+                out.append(dequantize_blockscale(q, scales, n).reshape(
+                    shape).to(torch.bfloat16))
+            else:
+                out.append(entry)
+        return tree_unflatten(treedef, out)
+
+    return packed, unpack, torch.bfloat16, \
+        bytes_fp32 / max(bytes_stored, 1)
 
 
 class InferenceEngine:

@@ -184,14 +184,16 @@ from .models.dcgan import (DCGANConfig, discriminator_apply,
                            generator_apply)
 from .models.resnet import ResNetConfig, resnet_apply
 from .models.transformer import TransformerConfig, transformer_loss
-from .parallel.distributed import allreduce_tree
+from .optimizers import FusedAdam
+from .parallel.distributed import DistributedDataParallel
 from .parallel.mesh import group_size, resolve_group
 from .reparameterization import apply_weight_norm, compute_weights
 from .utils.device import resolve_device
 from .utils.pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
-__all__ = ["train_step", "zero_train_step", "mlp_train_step",
+__all__ = ["train_step", "zero_train_step", "build_flagship_step",
+           "mlp_train_step",
            "resnet_train_step", "resnet_eval_step", "simple_ddp_train_step",
            "bce_logits", "dcgan_train_step", "resnet_checkpoint_entries",
            "resnet_resume", "resnet_checkpoint_from_jax",
@@ -223,23 +225,85 @@ def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
 
 
 def zero_train_step(params, opt_state, batch: Dict[str, torch.Tensor],
-                    cfg: TransformerConfig, opt):
+                    cfg: TransformerConfig, opt, *, residual=None):
     """One ZeRO step: the loss and gradients of ``transformer_loss`` over
     this rank's batch, then ``opt.step`` (a collective over
     ``opt.shard_group``), then the loss averaged over ``opt.shard_group``.
     ``params`` stay fp32 and the activations run in ``cfg.dtype``, with no
     amp, as in the JAX example.  Returns ``(new_params, new_opt_state,
-    loss)``, the loss a 0-d fp32 tensor."""
+    loss)``, the loss a 0-d fp32 tensor; with ``residual`` (the int8
+    error-feedback state, ``opt.init_residual(params)``) ``(new_params,
+    new_opt_state, loss, new_residual)``."""
     leaves, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     loss = transformer_loss(tree_unflatten(treedef, leaves), batch, cfg)
     grads = torch.autograd.grad(loss, leaves)
-    new_params, new_state = opt.step(opt_state,
-                                     tree_unflatten(treedef, list(grads)),
-                                     params)
+    out = opt.step(opt_state, tree_unflatten(treedef, list(grads)), params,
+                   **({} if residual is None else {"residual": residual}))
     loss = loss.detach().to(torch.float32)
     dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=opt.shard_group)
-    return new_params, new_state, loss / group_size(opt.shard_group)
+    loss = loss / group_size(opt.shard_group)
+    if residual is None:
+        return out[0], out[1], loss
+    return out[0], out[1], loss, out[2]
+
+
+def build_flagship_step(cfg: TransformerConfig, *, ddp_kwargs=None,
+                        params=None, seed: int = 0, lr: float = 1e-2,
+                        device=None):
+    """The flagship transformer's DDP + ``FusedAdam(impl="fused")`` step,
+    the counterpart of the JAX package's ``parallel.plan.
+    build_flagship_step``: ``(carry0, step)`` with ``step(carry, tokens) ->
+    (carry, loss)``, ``tokens`` this rank's ``(batch, seq)`` int64 (the
+    targets are the tokens), the loss averaged over the group.
+
+    The knobs come through ``ddp_kwargs`` (``DistributedDataParallel``'s)
+    or the environment (``APEX_TPU_OVERLAP``, ``APEX_TPU_UPDATE_SHARDING``,
+    ``APEX_TPU_COLLECTIVES``), resolved when the step is built.  With
+    ``update_sharding`` off the gradients come from
+    :meth:`~apex_tpu_torch.parallel.DistributedDataParallel.grad` (reduced
+    during the backward under ``overlap="bucketed"``), then ``step_flat``
+    and the overflow select; with ``"zero1"`` the local gradients go
+    through :meth:`~apex_tpu_torch.parallel.weight_update.ShardedUpdate.
+    step`.  ``params`` (default ``transformer_init`` from ``seed``) are the
+    starting weights; ``lr`` defaults to the JAX step's 1e-2."""
+    from .models.transformer import transformer_init
+    dev = resolve_device(device)
+    params0 = params if params is not None else transformer_init(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    opt = FusedAdam(lr=lr, impl="fused")
+    ddp = DistributedDataParallel(device=dev, **(ddp_kwargs or {}))
+    su = ddp.weight_update(opt)
+    group = resolve_group(ddp.axis_name)
+    state0 = opt.init(params0) if su is None else su.init(params0)
+
+    def step(carry, tokens):
+        params, state = carry
+        leaves, treedef = _grad_leaves(params)
+        loss = transformer_loss(tree_unflatten(treedef, leaves),
+                                {"tokens": tokens, "targets": tokens}, cfg)
+        if su is None:
+            grads = ddp.grad(loss, tree_unflatten(treedef, leaves))
+            fl = opt.flattener_for(params)
+            flat = fl.flatten(grads)
+            ok = torch.isfinite(flat).all()
+            new_state = opt.step_flat(state, flat)
+            state = tree_map(lambda nw, old: torch.where(ok, nw, old),
+                             new_state, state)
+            params = fl.unflatten(state.master, like=params)
+        else:
+            grads = torch.autograd.grad(loss, leaves)
+            params, state = su.step(state, tree_unflatten(treedef,
+                                                          list(grads)),
+                                    params)
+        loss = loss.detach().to(torch.float32)
+        if group is not None:
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+            loss = loss / group_size(group)
+        return (params, state), loss
+
+    step.ddp = ddp
+    return (params0, state0), step
 
 
 def mlp_train_step(fp16_opt, params, batch: Dict[str, torch.Tensor], mlp):
@@ -274,10 +338,13 @@ def resnet_train_step(amp_state: amp.AmpState, bn_state, images, labels,
     lp = torch.log_softmax(logits.float(), dim=-1)
     loss = -lp.gather(1, labels.long()[:, None]).mean()
     acc = (logits.argmax(dim=1) == labels).float().mean()
-    grads = torch.autograd.grad(amp.scale_loss(loss, amp_state), leaves)
-    grads = tree_unflatten(treedef, list(grads))
-    if ddp is not None:
-        grads = ddp.allreduce_grads(grads)
+    scaled = amp.scale_loss(loss, amp_state)
+    if ddp is None:
+        grads = tree_unflatten(treedef,
+                               list(torch.autograd.grad(scaled, leaves)))
+    else:
+        # reduced during the backward when ddp's overlap is "bucketed"
+        grads = ddp.grad(scaled, tree_unflatten(treedef, leaves))
     return (amp.amp_step(amp_state, grads), new_bn, loss.detach(),
             acc.detach())
 
@@ -542,9 +609,11 @@ def simple_ddp_train_step(amp_state: amp.AmpState, X, Y, *, group=None,
                    + p["fc1"]["b"])
     pred = torch.matmul(h, p["fc2"]["w"]) + p["fc2"]["b"]
     loss = torch.mean((pred.to(torch.float32) - Y) ** 2)
-    grads = torch.autograd.grad(amp.scale_loss(loss, amp_state), leaves)
-    grads = allreduce_tree(tree_unflatten(treedef, list(grads)),
-                           axis_name=group)
+    # averaged over the group (during the backward under
+    # APEX_TPU_OVERLAP=bucketed), as allreduce_tree averages it
+    ddp = DistributedDataParallel(axis_name=group,
+                                  device=resolve_device(device))
+    grads = ddp.grad(amp.scale_loss(loss, amp_state), p)
     loss = loss.detach()
     g = resolve_group(group)
     if g is not None:

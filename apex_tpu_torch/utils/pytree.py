@@ -18,6 +18,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_leaves",
+           "tree_flatten_with_keystr",
            "tree_leaves_with_path", "tree_map", "tree_map_with_path",
            "path_str", "is_norm_path",
            "cast_tree", "convert_network", "cast_inputs",
@@ -103,6 +104,35 @@ def tree_leaves_with_path(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     for key, kid in zip(keys, kids):
         out += tree_leaves_with_path(kid, prefix + (key,))
     return out
+
+
+def tree_flatten_with_keystr(tree) -> Tuple[List[Any], List[str], Any]:
+    """(leaves, key strings, treedef): each leaf's path spelled as
+    ``jax.tree_util.keystr`` spells it (``['key']`` for a dict key, ``[i]``
+    for a list or tuple index, ``.field`` for a named tuple's field)."""
+    leaves: List[Any] = []
+    keys: List[str] = []
+
+    def walk(t, prefix):
+        if t is None:
+            return
+        node = _children(t)
+        if node is None:
+            leaves.append(t)
+            keys.append(prefix)
+            return
+        kind, names, kids = node
+        for name, kid in zip(names, kids):
+            if kind == "dict":
+                part = f"[{name!r}]"
+            elif kind in (list, tuple):
+                part = f"[{name}]"
+            else:
+                part = f".{name}"
+            walk(kid, prefix + part)
+
+    walk(tree, "")
+    return leaves, keys, tree_flatten(tree)[1]
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

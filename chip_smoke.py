@@ -211,6 +211,34 @@ Phases, in order; any failure exits nonzero and prints no result line:
    reached through amp's flat path, 1 warm-up + 3 timed steps, the bf16
    model and the fp32 master 2:4 after each, the masks recomputing to
    themselves, exactly phase 7's launches, the step beside phase 7's;
+26. (run after 21, before 20: no profiler window precedes its timed
+   steps) the collective schemes, the overlapped DDP buckets and zero1,
+   all on a world-1 NCCL group (a collective is a copy there: this shows
+   correctness, launch order and bytes, not hidden wire time): (a) each of
+   fp32, bf16, int8_blockscale and adasum through ``allreduce_tree`` at
+   2^16, 2^20 and 2^23 elements, equal to the plain math on the card (fp32
+   and adasum the input, bf16 one rounding, int8 ``dequantize(quantize(
+   x))``), the codec's codes and scales the CPU's bits on the same data,
+   the metered logical and wire bytes (int8 >= 3.5x), each timed; the flat
+   reduce-scatter and all-gather of each scheme at 334,233,600 elements;
+   (b) the flagship DDP step (``train.build_flagship_step``: BERT-large,
+   fp32 params and activations, flash attention, batch 8 x 512,
+   ``FusedAdam(impl="fused", lr=1e-4)``), 1 warm-up + 4 timed steps in
+   each of ``FLAGSHIP_MODES`` from the same weights: off, bucketed, zero1
+   and zero1 + bucketed bit-equal in losses and parameters, the int8
+   all-gather's losses within 5 % and its metered ratio >= 3.5, bucket 0
+   launched before the last gradient hook, one bucketed step under
+   ``set_sync_debug_mode("error")``, each mode's launches of #1 / #4 /
+   #5 / #6 / #7 exactly the step's without DDP; (c) ResNet-50 config 3
+   under ``APEX_TPU_OVERLAP=bucketed`` against ``off``, 1 + 3 steps each
+   under ``cudnn.deterministic``: the same bits; (d) phase 9's ZeRO LAMB
+   step with ``collective_scheme="int8_blockscale"`` and its
+   error-feedback residual, 1 + 3 steps, against the fp32 scheme: losses
+   within 5 %, the residual finite and not all zero, the same launches;
+   (e) phase 5's engine and 16-request trace at ``olevel="int8"``: every
+   request done, no ledger violation, compression ratio >= 3.5, #1 and #5
+   launched as often as by phase 5's bf16 engine, tokens/s beside phase
+   5's;
 20. the attention modules on the stack of apex's
    ``perf_test_multihead_attn.py`` (hidden 1024, 16 heads, 64 tokens):
    (a) card vs CPU, 2 layers, 8 sequences, output and every parameter's
@@ -386,7 +414,8 @@ RESULTS = {}
 # paths that launch none of the 13 kernels: every kernel's line lists
 # them, as it lists every path of TRAIN_LAUNCHES_PER_STEP
 ZERO_PATHS = ("rn50_o2", "rn50_ddp", "simple_ddp_o1", "dcgan_o4",
-              "ckpt_rn50", "guard_rn50")
+              "ckpt_rn50", "guard_rn50", "ddp_collectives",
+              "rn50_ddp_bucketed")
 
 
 _T0 = time.perf_counter()
@@ -6699,6 +6728,560 @@ def phase_profiling(dev, card):
     log(f"  [{card}] phase 25 took {took:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the collective schemes, the overlapped DDP buckets and zero1
+# ---------------------------------------------------------------------------
+
+# the JAX collectives leg's sizes on the TPU (bench.py:694), elements
+COLL_SIZES = (2 ** 16, 2 ** 20, 2 ** 23)
+COLL_SCHEMES = ("fp32", "bf16", "int8_blockscale", "adasum")
+# the flagship DDP step's modes (parallel.plan.build_flagship_step's knobs)
+FLAGSHIP_MODES = (
+    ("off", {}),
+    ("bucketed", {"overlap": "bucketed"}),
+    ("zero1", {"update_sharding": "zero1"}),
+    ("zero1_bucketed", {"update_sharding": "zero1", "overlap": "bucketed"}),
+    ("zero1_int8", {"update_sharding": "zero1",
+                    "allgather_scheme": "int8_blockscale"}),
+)
+FLAGSHIP_BATCH = (8, 512)
+FLAGSHIP_LR = 1e-4
+FLAGSHIP_STEPS = 4
+# the five kernels the flagship step launches (#1, #4, #5, #6, #7)
+FLAGSHIP_KERNELS = ("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd", "xent_fwd")
+
+
+def _metered(fn):
+    """(fn's result, the port registry's readings over the call)."""
+    from apex_tpu_torch.telemetry import events
+    from apex_tpu_torch.telemetry.registry import MemorySink, Registry
+    reg = Registry(sink=MemorySink(), flush_interval=0, rank0_only=False)
+    events.set_default(reg)
+    try:
+        out = fn()
+        vals = reg.read()
+    finally:
+        events.set_default(None)
+    return out, vals
+
+
+def _plain_scheme(x, scheme):
+    """What one rank's value becomes through ``scheme`` at world 1."""
+    import torch
+    from apex_tpu_torch.parallel import collectives as C
+    if scheme == "bf16":
+        return x.to(torch.bfloat16).to(torch.float32)
+    if scheme == "int8_blockscale":
+        q, s = C.quantize_blockscale(x.reshape(-1))
+        return C.dequantize_blockscale(q, s, x.numel()).reshape(x.shape)
+    return x
+
+
+def check_collectives(dev, card):
+    """26a: each scheme through ``allreduce_tree`` at ``COLL_SIZES`` and
+    through the flat reduce-scatter / all-gather at ``FLAT_N``, held to the
+    plain math on the card; the codec's codes and scales against the CPU's
+    on the same data; the metered bytes."""
+    import torch
+    from apex_tpu_torch.parallel import allreduce_tree
+    from apex_tpu_torch.parallel import collectives as C
+    from apex_tpu_torch.utils import build
+    rows = []
+    build.LAUNCHES.clear()
+    for n in COLL_SIZES:
+        x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(dev)
+        qg, sg = C.quantize_blockscale(x)
+        qc, sc = C.quantize_blockscale(x.cpu())
+        require(torch.equal(qg.cpu(), qc) and torch.equal(
+            sg.cpu().view(torch.int32), sc.view(torch.int32)),
+            f"int8 codec at {n}: the card's codes / scales are not the "
+            "CPU's bits")
+        times = {}
+        for s in COLL_SCHEMES:
+            out, vals = _metered(lambda: allreduce_tree(
+                {"g": x}, scheme=s, min_compress_bytes=0)["g"])
+            want = _plain_scheme(x, s)
+            require(torch.equal(out, want), f"allreduce_tree {s} at {n}: "
+                    f"max diff {float((out - want).abs().max()):.3g} from "
+                    "the plain math (world 1: exact)")
+            logical = vals.get("ddp.allreduce_bytes")
+            wire = vals.get("ddp.allreduce_compressed_bytes")
+            require(logical == 4 * n and wire == C.wire_bytes(s, n),
+                    f"allreduce_tree {s} at {n}: metered {logical} logical "
+                    f"/ {wire} wire bytes, expected {4 * n} / "
+                    f"{C.wire_bytes(s, n)}")
+            if s == "int8_blockscale":
+                ratio = logical / wire
+                require(ratio >= 3.5, f"int8 ratio {ratio:.3f} < 3.5")
+            times[s] = time_ms(lambda: allreduce_tree(
+                {"g": x}, scheme=s, min_compress_bytes=0), reps=10,
+                warmup=2)
+            rows.append(dict(op="allreduce_tree", n=n, scheme=s,
+                             logical=logical, wire=wire, ms=times[s]))
+        log(f"  [{card}] allreduce_tree at {n}: " + ", ".join(
+            f"{s} {times[s]:.4f} ms" for s in COLL_SCHEMES)
+            + f" (CUDA events, median of 10; exact to the plain math; int8 "
+            f"ratio {4 * n / C.wire_bytes('int8_blockscale', n):.3f}; the "
+            f"codec's bits are the CPU's)")
+        del x, qg, sg
+    x = torch.randn(FLAT_N, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    for s in COLL_SCHEMES:
+        spec = C.resolve(s)
+        shard, _ = C.reduce_scatter_flat(x, None, spec)
+        require(torch.equal(shard, _plain_scheme(x, s)),
+                f"reduce_scatter_flat {s} at {FLAT_N}: not the plain math")
+        rs_ms = time_ms(lambda: C.reduce_scatter_flat(x, None, spec),
+                        reps=5, warmup=1)
+        del shard
+        if s == "adasum":
+            try:
+                C.allgather_flat(x, None, spec)
+                require(False, "allgather_flat adasum did not raise")
+            except ValueError:
+                pass
+            ag_ms, wire, dt = None, None, None
+        else:
+            full, wire, dt = C.allgather_flat(x, None, spec)
+            require(torch.equal(full, _plain_scheme(x, s))
+                    and wire == C.wire_bytes(s, FLAT_N) if s != "fp32"
+                    else torch.equal(full, x) and wire == 4 * FLAT_N,
+                    f"allgather_flat {s} at {FLAT_N}: not the plain math or "
+                    f"{wire} wire bytes")
+            del full
+            ag_ms = time_ms(lambda: C.allgather_flat(x, None, spec),
+                            reps=5, warmup=1)
+        rows.append(dict(op="flat", n=FLAT_N, scheme=s, rs_ms=rs_ms,
+                         ag_ms=ag_ms, ag_wire=wire, ag_dtype=dt))
+        log(f"  [{card}] {s} at {FLAT_N}: reduce_scatter_flat "
+            f"{rs_ms:.3f} ms, allgather_flat "
+            f"{'raises (no meaning)' if ag_ms is None else f'{ag_ms:.3f} ms'}"
+            f"{'' if wire is None else f', {wire} wire bytes ({dt})'}")
+    del x
+    torch.cuda.empty_cache()
+    require(not any(build.LAUNCHES.values()), f"the collectives launched "
+            f"port kernels: {dict(build.LAUNCHES)}")
+    return rows
+
+
+def _flagship_tokens(cfg, dev, n):
+    import torch
+    gen = torch.Generator().manual_seed(26)
+    return [torch.randint(0, cfg.vocab_size, FLAGSHIP_BATCH,
+                          generator=gen).to(dev) for _ in range(n)]
+
+
+def _no_ddp_step(cfg, params, tokens):
+    """The flagship step without DDP: the loss, ``torch.autograd.grad``,
+    ``step_flat`` and the overflow select; for the launch reference."""
+    import torch
+    from apex_tpu_torch.models import transformer_loss
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_map, \
+        tree_unflatten
+    opt = FusedAdam(lr=FLAGSHIP_LR, impl="fused")
+    state = opt.init(params)
+
+    def step(params, state, toks):
+        leaves, td = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss = transformer_loss(tree_unflatten(td, leaves),
+                                {"tokens": toks, "targets": toks}, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        fl = opt.flattener_for(params)
+        flat = fl.flatten(tree_unflatten(td, list(grads)))
+        ok = torch.isfinite(flat).all()
+        new = opt.step_flat(state, flat)
+        state = tree_map(lambda a, b: torch.where(ok, a, b), new, state)
+        return fl.unflatten(state.master, like=params), state, loss
+
+    return step, state
+
+
+def phase_flagship_ddp(dev, card):
+    """26b: the flagship DDP step at full width in each of
+    ``FLAGSHIP_MODES`` from the same weights."""
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.train import build_flagship_step
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    cfg = bert_large_config(attn_impl="fast")
+    params0 = transformer_init(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    toks = _flagship_tokens(cfg, dev, 1 + FLAGSHIP_STEPS)
+
+    # the launches a step makes without DDP
+    step, state = _no_ddp_step(cfg, params0, toks)
+    p, state, _ = step(params0, state, toks[0])
+    build.LAUNCHES.clear()
+    p, state, _ = step(p, state, toks[1])
+    torch.cuda.synchronize()
+    ref_launches = dict(build.LAUNCHES)
+    del p, state
+    for k in ALL_KERNELS:
+        require((ref_launches.get(k, 0) > 0) == (k in FLAGSHIP_KERNELS),
+                f"the flagship step without DDP launched {k} "
+                f"{ref_launches.get(k, 0)} times; expected only "
+                f"{FLAGSHIP_KERNELS}")
+    log(f"  the step without DDP: launches a step {ref_launches}")
+
+    runs, launches = {}, {}
+    for name, kw in FLAGSHIP_MODES:
+        torch.cuda.empty_cache()
+        (carry, step) = build_flagship_step(cfg, ddp_kwargs=kw,
+                                            params=params0, lr=FLAGSHIP_LR,
+                                            device=dev)
+        carry, loss = step(carry, toks[0])
+        losses = [loss.item()]
+        if name == "bucketed":
+            # one more step with every host sync an error: the hooked
+            # backward, the buckets' waits and the update make none
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                warm, _ = step(carry, toks[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            del warm
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        times = []
+
+        def timed():
+            nonlocal carry
+            out = []
+            for t in toks[1:]:
+                t0 = time.perf_counter()
+                carry, l = step(carry, t)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                out.append(l.item())
+            return out
+
+        more, vals = _metered(timed)
+        losses += more
+        launches[name] = dict(build.LAUNCHES)
+        require(all(np.isfinite(losses)), f"flagship {name}: non-finite "
+                f"loss {losses}")
+        for k in ALL_KERNELS:
+            require(launches[name].get(k, 0)
+                    == FLAGSHIP_STEPS * ref_launches.get(k, 0),
+                    f"flagship {name}: {k} launched "
+                    f"{launches[name].get(k, 0)} times in {FLAGSHIP_STEPS} "
+                    f"steps, the step without DDP {ref_launches.get(k, 0)}")
+        eng = step.ddp.last_reduction
+        extra = ""
+        if name == "bucketed":
+            require(eng is not None, "bucketed: no hooked reduction ran")
+            ev = eng.events
+            last_hook = max(i for i, (kind, _) in enumerate(ev)
+                            if kind == "hook")
+            first = ev.index(("launch", 0))
+            require(first < last_hook and eng.launch_log == list(
+                range(len(eng.buckets))),
+                f"bucketed: bucket 0 launched at event {first}, the last "
+                f"hook at {last_hook}; launch order {eng.launch_log}")
+            order = _hook_order(eng)
+            extra = (f"; {len(eng.buckets)} buckets (sizes "
+                     f"{[b.elems for b in eng.buckets]}), launched in order,"
+                     f" bucket 0 at event {first} of {len(ev)}, the last "
+                     f"hook at {last_hook}, then {order[1]} of the "
+                     f"{order[3]} hooks of later buckets; no host sync "
+                     "under set_sync_debug_mode('error')")
+        if name == "zero1_int8":
+            ratio = vals["ddp.param_allgather_bytes"] / \
+                vals["ddp.param_allgather_compressed_bytes"]
+            require(ratio >= 3.5, f"zero1 int8 all-gather ratio {ratio:.3f}")
+            extra = f"; int8 all-gather ratio {ratio:.3f} (metered)"
+        if name.startswith("zero1"):
+            extra += (f"; opt state per replica "
+                      f"{vals['ddp.opt_state_bytes_per_replica'] / 2 ** 30:.3f}"
+                      " GiB")
+        ms = statistics.median(times) * 1e3
+        runs[name] = (losses, carry[0], ms, times)
+        RESULTS[f"flagship_{name}_ms"] = ms
+        log(f"  [{card}] {name}: step {ms:.2f} ms (median of "
+            f"{FLAGSHIP_STEPS}; all {[round(t * 1e3, 2) for t in times]}), "
+            f"{FLAGSHIP_BATCH[0] * FLAGSHIP_BATCH[1] / ms * 1e3:.0f} "
+            f"tokens/s; losses {[round(l, 6) for l in losses]}{extra}")
+        del carry, step
+    base_l, base_p = runs["off"][0], runs["off"][1]
+    for name in ("bucketed", "zero1", "zero1_bucketed"):
+        require(runs[name][0] == base_l and _same_bits(runs[name][1],
+                                                       base_p),
+                f"flagship {name} is not off's bits: losses {runs[name][0]}"
+                f" vs {base_l}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(runs["zero1_int8"][0],
+                                                  base_l))
+    int8_l = runs["zero1_int8"][0]
+    require(err <= 0.05, f"zero1 int8 all-gather losses {int8_l} vs fp32 "
+            f"{base_l}: {err:.3g} relative (tol 5e-2)")
+    log(f"  off, bucketed, zero1 and zero1 + bucketed: the same losses and "
+        f"parameter bits after {1 + FLAGSHIP_STEPS} steps; zero1 int8 "
+        f"all-gather losses within {err:.3g} relative of fp32 (tol 5e-2); "
+        f"{n_params} parameters, fp32, batch {FLAGSHIP_BATCH[0]} x "
+        f"{FLAGSHIP_BATCH[1]}, FusedAdam(lr={FLAGSHIP_LR}, impl='fused')")
+    del runs, params0
+    torch.cuda.empty_cache()
+    return {f"ddp_flagship_{k}": v for k, v in launches.items()}
+
+
+def _hook_order(eng):
+    """(bucket 0's launch event, the hooks of later buckets' leaves that
+    fired after it, the events, those later leaves) of a hooked backward:
+    a hook after bucket 0's launch is backward work that bucket 0's
+    all-reduce can overlap."""
+    ev = eng.events
+    first = ev.index(("launch", 0))
+    later = {i for b in eng.buckets[1:] for i in b.leaf_ids}
+    after = sum(1 for kind, i in ev[first:] if kind == "hook" and i in later)
+    return first, after, len(ev), len(later)
+
+
+def phase_rn50_overlap(dev, card):
+    """26c: ResNet-50 config 3 under ``APEX_TPU_OVERLAP=bucketed`` against
+    ``off`` from the same weights, 1 + 3 steps each under
+    ``cudnn.deterministic``: the same bits."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import resnet50_config, resnet_init
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel import overlap
+    from apex_tpu_torch.utils import build
+    cfg = resnet50_config(dtype=torch.bfloat16)
+    params, bn0 = resnet_init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    st0 = amp.initialize(params, FusedAdam(lr=RN50_LR), opt_level="O2",
+                         verbosity=0)
+    del params
+    batches = syn_batches(dev, RN50_BATCH, 0, 4)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    runs, launches = {}, {}
+    try:
+        for mode in ("off", "bucketed"):
+            os.environ[overlap.ENV_KNOB] = mode
+            ddp = DistributedDataParallel()
+            st, bn, losses, scales, _ = _rn50_steps(st0, bn0, batches[:1],
+                                                    cfg, ddp=ddp)
+            build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            st, bn, l2, s2, times = _rn50_steps(st, bn, batches[1:], cfg,
+                                                ddp=ddp, sync=True)
+            launches[mode] = dict(build.LAUNCHES)
+            check_launches("rn50", launches[mode], len(times), exact=True)
+            eng = ddp.last_reduction
+            require((eng is not None) == (mode == "bucketed"),
+                    f"config 3 {mode}: hooked reduction {eng}")
+            order = None
+            if eng is not None:
+                order = _hook_order(eng)
+                require(order[1] > 0 and eng.launch_log == list(
+                    range(len(eng.buckets))),
+                    f"config 3 bucketed: launch order {eng.launch_log}; "
+                    f"{order[1]} hooks of later buckets followed bucket "
+                    "0's launch")
+            runs[mode] = (losses + l2, scales + s2, st, bn, times,
+                          None if eng is None else (len(eng.buckets),
+                                                    order))
+    finally:
+        os.environ.pop(overlap.ENV_KNOB, None)
+        torch.backends.cudnn.deterministic = False
+    off, on = runs["off"], runs["bucketed"]
+    require(off[0] == on[0] and off[1] == on[1]
+            and _same_bits(off[2].model_params, on[2].model_params)
+            and _same_bits(off[2].master_params, on[2].master_params)
+            and _same_bits(off[3], on[3]),
+            f"config 3 bucketed is not off's bits: losses {on[0]} vs "
+            f"{off[0]}")
+    for mode, r in runs.items():
+        ms = statistics.median(r[4]) * 1e3
+        RESULTS[f"rn50_ddp_{mode}_ms"] = ms
+        log(f"  [{card}] config 3 {mode}: step {ms:.2f} ms (median of "
+            f"{len(r[4])}, cudnn.deterministic; all "
+            f"{[round(t * 1e3, 2) for t in r[4]]})"
+            + ("" if r[5] is None else
+               f", {r[5][0]} buckets launched in order, bucket 0 at event "
+               f"{r[5][1][0]} of {r[5][1][2]}, then {r[5][1][1]} of the "
+               f"{r[5][1][3]} hooks of later buckets"))
+    log(f"  config 3 bucketed = off bit for bit over 4 steps: losses "
+        f"{[round(l, 5) for l in on[0]]}, scales, fp16 weights, fp32 "
+        "masters, running statistics")
+    del runs, st0, bn0, batches
+    torch.cuda.empty_cache()
+    return {"rn50_ddp_bucketed": launches["bucketed"]}
+
+
+def phase_zero_int8(dev, card):
+    """26d: phase 9's ZeRO LAMB step with the int8 reduce-scatter and its
+    error-feedback residual, 1 + 3 steps, against the fp32 scheme from
+    the same weights."""
+    import torch
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.train import zero_train_step
+    from apex_tpu_torch.utils import build
+    cfg = bert_large_config(attn_impl="fast", remat=True,
+                            dtype=torch.bfloat16)
+    params0 = transformer_init(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    batch = _mlm_batch(cfg, 8, 512, 11, dev)
+    runs = {}
+    for name, scheme in (("fp32", None), ("int8", "int8_blockscale")):
+        opt = DistributedFusedLAMB(lr=1e-3, weight_decay=0.01,
+                                   max_grad_norm=1.0, bf16_allgather=True,
+                                   impl="fused", collective_scheme=scheme)
+        st = opt.init(params0)
+        res = opt.init_residual(params0) if scheme else None
+
+        def one(params, st, res):
+            if res is None:
+                p, s, l = zero_train_step(params, st, batch, cfg, opt)
+                return p, s, l, None
+            return zero_train_step(params, st, batch, cfg, opt,
+                                   residual=res)
+
+        p, st, loss, res = one(params0, st, res)
+        losses = [loss.item()]
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        times = []
+
+        def timed():
+            nonlocal p, st, res
+            for _ in range(3):
+                t0 = time.perf_counter()
+                p, st, l, res = one(p, st, res)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(l.item())
+
+        _, vals = _metered(timed)
+        runs[name] = (losses, dict(build.LAUNCHES), times, vals, res)
+        check_launches("zero_lamb", runs[name][1], 3)
+        del p, st, opt
+        torch.cuda.empty_cache()
+    (fl, flaunch, ft, fv, _), (il, ilaunch, it, iv, res) = runs["fp32"], \
+        runs["int8"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(il, fl))
+    require(err <= 0.05, f"ZeRO int8 losses {il} vs fp32 {fl}: {err:.3g} "
+            "relative (tol 5e-2)")
+    require(bool(torch.isfinite(res).all()) and bool((res != 0).any()),
+            "ZeRO int8 residual: not finite, or all zero")
+    require(ilaunch == flaunch, f"ZeRO int8 launches {ilaunch} != fp32 "
+            f"{flaunch}")
+    ratio = iv["zero.reduce_scatter_bytes"] / \
+        iv["zero.reduce_scatter_compressed_bytes"]
+    require(ratio >= 3.5, f"ZeRO int8 reduce-scatter ratio {ratio:.3f}")
+    for name, r in runs.items():
+        ms = statistics.median(r[2]) * 1e3
+        RESULTS[f"zero_lamb_{name}_ms"] = ms
+        log(f"  [{card}] ZeRO LAMB {name} reduce-scatter: step {ms:.2f} ms "
+            f"(median of 3; all {[round(t * 1e3, 2) for t in r[2]]}); "
+            f"losses {[round(l, 5) for l in r[0]]}")
+    log(f"  int8 losses within {err:.3g} relative of fp32 (tol 5e-2); "
+        f"reduce-scatter ratio {ratio:.3f} (metered); residual finite, "
+        f"|r| max {float(res.abs().max()):.3g}, not all zero; launches "
+        f"{ilaunch} = the fp32 scheme's")
+    del params0, res, runs
+    torch.cuda.empty_cache()
+    return {"zero_lamb_int8": ilaunch}
+
+
+def phase_serve_int8(dev, card, serve_ref=None):
+    """26e: phase 5's engine and trace at ``olevel="int8"``.  ``serve_ref``
+    is phase 5's (launches, tokens/s); None runs the bf16 engine here."""
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.serve import (CacheConfig, ContinuousBatcher,
+                                      InferenceEngine, Request)
+    from apex_tpu_torch.telemetry.serve_ledger import serve_violations
+    from apex_tpu_torch.utils import build
+    cfg = bert_large_config(causal=True, attn_impl="fast")
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    cache = CacheConfig(page_size=16, num_pages=257, max_ctx=512)
+    out = {}
+    for olevel in (("int8",) if serve_ref else ("bf16", "int8")):
+        eng = InferenceEngine(params, cfg, cache=cache, olevel=olevel,
+                              decode_width=8, device=dev)
+        warm = ContinuousBatcher(eng)
+        for i in range(2):
+            warm.submit(Request(rid=f"w{i}", prompt=[5 + i] * (40 + i),
+                                max_new_tokens=4, seed=100 + i))
+        warm.run()
+        bat = ContinuousBatcher(eng)
+        reqs = _trace(cfg)
+        for r in reqs:
+            bat.submit(r)
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        results = bat.run()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        require(all(r.status == "done" for r in results.values())
+                and len(results) == len(reqs),
+                f"int8 serving: not every request done")
+        doc = bat.ledger.snapshot(olevel=olevel, decode_width=8,
+                                  compression_ratio=eng.compression_ratio)
+        bad = serve_violations(doc)
+        require(not bad, f"{olevel} serve ledger violations: {bad}")
+        out[olevel] = (launches, doc, eng.compression_ratio, len(results))
+        del eng, warm, bat
+        torch.cuda.empty_cache()
+    del params
+    ref_launches, ref_tps = serve_ref if serve_ref else (
+        out["bf16"][0], out["bf16"][1]["tokens_per_sec"])
+    launches, doc, ratio, n_done = out["int8"]
+    require(ratio >= 3.5, f"int8 compression ratio {ratio:.3f} < 3.5")
+    for k in ("flash_fwd", "ln_fwd"):
+        require(launches.get(k, 0) == ref_launches.get(k, 0) > 0,
+                f"int8 serving launched {k} {launches.get(k, 0)} times, "
+                f"the bf16 engine {ref_launches.get(k, 0)}")
+    lat = doc["latency_ms"]
+    log(f"  [{card}] int8 serving: {n_done} requests done, compression ratio {ratio:.3f} (ledger "
+        f"{doc['compression_ratio']}), tokens/s {doc['tokens_per_sec']} "
+        f"against bf16's {ref_tps}; TTFT p50 {lat['ttft_p50']} ms, latency "
+        f"p50 {lat['p50']} ms, p99 {lat['p99']} ms; launches {launches} "
+        "= the bf16 engine's")
+    RESULTS["serve_int8_tokens_per_sec"] = doc["tokens_per_sec"]
+    return {"serve_int8": launches}
+
+
+def phase_collectives(dev, card, serve_ref=None):
+    """Phase 26 (after 21, before 20): (a)-(e) on a world-1 NCCL group,
+    destroyed before it returns.  Returns its paths' launch counts."""
+    import torch.distributed as dist
+    log("== phase 26: collective schemes (fp32 / bf16 / int8 block-scale / "
+        "Adasum), the flagship DDP step in 5 modes, ResNet-50 config 3 "
+        "under the overlap knob, ZeRO LAMB with int8, int8 serving "
+        "(world-1 NCCL: a collective is a copy; correctness, launch order "
+        "and bytes, not hidden wire time)")
+    store = start_process_group()
+    launches = {}
+    try:
+        log("  -- 26a: the schemes, the codec and the meters")
+        RESULTS["collective_rows"] = check_collectives(dev, card)
+        launches["ddp_collectives"] = {}
+        log("  -- 26b: the flagship DDP step (BERT-large, fp32, batch 8 x "
+            "512, FusedAdam fused, lr 1e-4)")
+        launches.update(phase_flagship_ddp(dev, card))
+        log("  -- 26c: ResNet-50 config 3, APEX_TPU_OVERLAP bucketed vs off")
+        launches.update(phase_rn50_overlap(dev, card))
+        log("  -- 26d: ZeRO LAMB (phase 9) with the int8 reduce-scatter")
+        launches.update(phase_zero_int8(dev, card))
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    log("  -- 26e: int8 serving (phase 5's engine and trace)")
+    launches.update(phase_serve_int8(dev, card, serve_ref))
+    return launches
+
+
 def _kernel_entry(name, source, replaces, row, launches_by_path, path):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches_by_path[path].get(name, 0),
@@ -6760,7 +7343,7 @@ def main(argv) -> int:
                  + check_flash_pad_edges(dev) + check_flash_chunk_edges(dev))
     torch.cuda.empty_cache()
     phase_serve_parity(dev)
-    serve_launches, _ = phase_main_path(dev, card, profile)
+    serve_launches, serve_doc = phase_main_path(dev, card, profile)
     phase_train_parity(dev)
     launches = {"serve": serve_launches,
                 "o5_lamb": phase_train(dev, card, profile)}
@@ -6797,6 +7380,10 @@ def main(argv) -> int:
         phase_fp16_mha(dev, card, seed)
     launches["rnn_lm_fp16"] = phase_rnn_lm(dev, card, seed)
     launches["asp_o5_lamb"] = phase_asp(dev, card)
+    torch.cuda.empty_cache()
+    launches.update(phase_collectives(
+        dev, card, (serve_launches, serve_doc["tokens_per_sec"])))
+    torch.cuda.empty_cache()
     phase_mha_parity(dev)
     launches["mha_self"], launches["mha_self_default"] = phase_mha_stack(
         dev, card, "self", seed, profile)

@@ -139,17 +139,40 @@ def zero_optimizer_cases(rank, world, cases, params_np, grads_np):
         opt = classes[case["opt"]](shard_group=sg, replica_group=rg, **kw)
         params = {k: torch.from_numpy(v.copy()) for k, v in params_np.items()}
         state = opt.init(params)
+        res = opt.init_residual(params) if case.get("residual") else None
         scale = case.get("grad_scale", 1.0)
-        for i, gl in enumerate(grads_np):
-            g = {k: torch.from_numpy(v[rank] * scale) for k, v in gl.items()}
-            if case.get("poison_iter") == i and rank == 0:
-                g = {k: torch.full_like(v, float("inf")) for k, v in g.items()}
-            params, state = opt.step(state, g, params, scale=scale)
+        reg = None
+        if case.get("meter"):
+            from apex_tpu_torch.telemetry import events
+            from apex_tpu_torch.telemetry.registry import MemorySink, \
+                Registry
+            reg = Registry(sink=MemorySink(), flush_interval=0,
+                           rank0_only=False)
+            events.set_default(reg)
+        try:
+            for i, gl in enumerate(grads_np):
+                g = {k: torch.from_numpy(v[rank] * scale)
+                     for k, v in gl.items()}
+                if case.get("poison_iter") == i and rank == 0:
+                    g = {k: torch.full_like(v, float("inf"))
+                         for k, v in g.items()}
+                if res is None:
+                    params, state = opt.step(state, g, params, scale=scale)
+                else:
+                    params, state, res = opt.step(state, g, params,
+                                                  scale=scale, residual=res)
+        finally:
+            if reg is not None:
+                events.set_default(None)
         out[case["name"]] = dict(
             params={k: v.numpy() for k, v in params.items()},
             p=state.p.numpy(), m=state.m.float().numpy(),
             v=state.v.float().numpy(), m_dtype=str(state.m.dtype),
-            count=int(state.count), gnorm=float(state.gnorm))
+            count=int(state.count), gnorm=float(state.gnorm),
+            residual=None if res is None else res.numpy(),
+            meters=None if reg is None else {
+                k: v for k, v in reg.read().items()
+                if k.startswith("zero.")})
     return out
 
 
@@ -274,7 +297,8 @@ def ddp_cases(rank, world, grads_np, params_np):
         "one_bucket": DistributedDataParallel(
             delay_allreduce=True, device="cpu").allreduce_grads(local()),
         "small_buckets": DistributedDataParallel(
-            message_size=40, device="cpu").allreduce_grads(local()),
+            message_size=40, overlap="bucketed",
+            device="cpu").allreduce_grads(local()),
         "predivide": DistributedDataParallel(
             gradient_predivide_factor=2.0, allreduce_always_fp32=True,
             device="cpu").allreduce_grads(local()),
@@ -405,4 +429,286 @@ def sharded_ckpt_roundtrip(rank, world, path):
         out.append(type(got["opt"]) is FusedAdamState and all(
             a.dtype == b.dtype and torch.equal(a, b)
             for a, b in zip(tree_leaves(got), tree_leaves(want))))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collective schemes, overlap and weight-update sharding
+# ---------------------------------------------------------------------------
+
+def _np_tree(tree):
+    return {k: v.detach().float().numpy() for k, v in tree.items()}
+
+
+def collective_cases(rank, world, tree_np, res_np, flat_np, shard_np):
+    """Every scheme through ``allreduce_tree``, the flat reduce-scatter and
+    all-gather, the bucketed reduction and the zero1 chunked forms, on this
+    rank's row of each (world, ...) input.  Returns {case: numpy}; the
+    meters and the chaos gate's firings ride along."""
+    import torch
+    from apex_tpu_torch.parallel import collectives as C
+    from apex_tpu_torch.parallel import overlap as O
+    from apex_tpu_torch.parallel import allreduce_tree
+    from apex_tpu_torch.resilience import faults
+    from apex_tpu_torch.telemetry import events
+    from apex_tpu_torch.telemetry.registry import MemorySink, Registry
+
+    def local(tree):
+        return {k: torch.from_numpy(v[rank].copy()) for k, v in tree.items()}
+
+    out = {}
+    for s in ("fp32", "bf16", "int8_blockscale", "adasum"):
+        out[f"tree_{s}"] = _np_tree(allreduce_tree(
+            local(tree_np), scheme=s, min_compress_bytes=0))
+    red, res = allreduce_tree(local(tree_np), scheme="int8_blockscale",
+                              residuals=local(res_np))
+    out["tree_int8_res"], out["tree_int8_res_new"] = _np_tree(red), \
+        _np_tree(res)
+    out["tree_per_leaf"] = _np_tree(allreduce_tree(
+        local(tree_np), scheme=lambda p, l: "int8_blockscale:min_bytes=0"
+        if "b" in p else None, predivide_factor=2.0))
+    flat = torch.from_numpy(flat_np[rank].copy())
+    for s in ("fp32", "bf16", "int8_blockscale", "adasum"):
+        shard, _ = C.reduce_scatter_flat(flat, None, C.resolve(s))
+        out[f"rs_{s}"] = shard.numpy()
+    shard, new_r = C.reduce_scatter_flat(
+        flat, None, C.resolve("int8_blockscale"),
+        residual=torch.from_numpy(flat_np[(rank + 1) % world] * 0.01))
+    out["rs_int8_res"], out["rs_int8_res_new"] = shard.numpy(), \
+        new_r.numpy()
+    sh = torch.from_numpy(shard_np[rank].copy())
+    for s in ("fp32", "bf16", "int8_blockscale"):
+        full, wire, dt = C.allgather_flat(sh, None, C.resolve(s))
+        out[f"ag_{s}"] = full.numpy()
+        out[f"ag_{s}_wire"] = (wire, dt)
+    # the bucketed path: fp32 / none bitwise the deferred one
+    for name, s in (("none", None), ("fp32", "fp32"),
+                    ("int8", "int8_blockscale:min_bytes=0")):
+        out[f"bucketed_{name}"] = _np_tree(O.bucketed_allreduce(
+            local(tree_np), scheme=s, message_size=700))
+    red, res = O.bucketed_allreduce(local(tree_np),
+                                    scheme="int8_blockscale:min_bytes=0",
+                                    residuals=local(res_np),
+                                    message_size=700)
+    out["bucketed_int8_res"], out["bucketed_int8_res_new"] = \
+        _np_tree(red), _np_tree(res)
+    # zero1 chunked / segmented forms against the whole-buffer ones
+    for s in ("fp32", "int8_blockscale"):
+        spec = C.resolve(s)
+        g, r, n = O.chunked_reduce_scatter(
+            flat, None, spec, residual=torch.zeros_like(flat),
+            message_size=128)
+        whole, wr = C.reduce_scatter_flat(flat, None, spec,
+                                          residual=torch.zeros_like(flat))
+        out[f"chunked_{s}"] = (g.numpy(), r.numpy(), n,
+                               bool(torch.equal(g, whole)),
+                               bool(torch.equal(r, wr)))
+        full, wire, dt, n = O.segmented_allgather(sh, None, spec,
+                                                  message_size=128)
+        wfull, _, _ = C.allgather_flat(sh, None, spec)
+        out[f"segmented_{s}"] = (full.numpy(), wire, dt, n,
+                                 bool(torch.equal(full, wfull)))
+    # the meters
+    reg = Registry(sink=MemorySink(), flush_interval=0, rank0_only=False)
+    events.set_default(reg)
+    try:
+        allreduce_tree(local(tree_np), scheme="int8_blockscale:min_bytes=1024")
+        O.bucketed_allreduce(local(tree_np), message_size=700)
+        vals = reg.read()
+    finally:
+        events.set_default(None)
+    out["meters"] = {k: v for k, v in vals.items()
+                     if k.startswith("ddp.allreduce")}
+    # the chaos gate: each scheme's reduction and the compressed flat
+    # collectives raise on a collective_fail scheduled at their first call
+    calls = {f"tree_{s}": (lambda s=s: allreduce_tree(
+        local(tree_np), scheme=s, min_compress_bytes=0))
+        for s in ("fp32", "bf16", "int8_blockscale", "adasum")}
+    calls.update({f"rs_{s}": (lambda s=s: C.reduce_scatter_flat(
+        flat, None, C.resolve(s))) for s in ("bf16", "int8_blockscale",
+                                             "adasum")})
+    calls["ag_int8_blockscale"] = lambda: C.allgather_flat(
+        sh, None, C.resolve("int8_blockscale"))
+    fired = {}
+    for name, call in calls.items():
+        prev = faults.install(faults.parse("collective_fail@0"))
+        try:
+            call()
+            fired[name] = False
+        except faults.CollectiveFault:
+            fired[name] = True
+        finally:
+            faults.install(prev)
+    out["chaos"] = fired
+    return out
+
+
+def tiny_transformer_cfg(**kw):
+    from apex_tpu_torch.models import TransformerConfig
+    base = dict(vocab_size=64, max_len=16, num_layers=1, d_model=32,
+                num_heads=2, d_ff=64)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def hooked_grad_cases(rank, world, params_np, tokens_np, cfg_kw):
+    """``DistributedDataParallel.grad`` on a tiny transformer (remat, tied
+    embedding) in both modes and against ``allreduce_grads`` of the plain
+    backward's gradients; this rank takes its rows of ``tokens_np``.
+    Returns the bitwise verdicts, the event log and the reduced grads."""
+    import torch
+    from apex_tpu_torch.models import transformer_loss
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.utils.device import from_numpy
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_leaves, \
+        tree_unflatten
+    cfg = tiny_transformer_cfg(**cfg_kw)
+    params = from_numpy(params_np, "cpu")
+    per = tokens_np.shape[0] // world
+    toks = torch.from_numpy(tokens_np[rank * per:(rank + 1) * per])
+    batch = {"tokens": toks, "targets": toks}
+
+    def fresh():
+        leaves, td = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        return tree_unflatten(td, leaves), leaves, td
+
+    out = {}
+    for name, kw in (("off", {}),
+                     ("bucketed", dict(overlap="bucketed", message_size=900)),
+                     ("bucketed_int8", dict(
+                         overlap="bucketed", message_size=900,
+                         collective_scheme="int8_blockscale:min_bytes=0")),
+                     ("off_int8", dict(
+                         collective_scheme="int8_blockscale:min_bytes=0"))):
+        ddp = DistributedDataParallel(device="cpu", **kw)
+        tree, leaves, td = fresh()
+        loss = transformer_loss(tree, batch, cfg)
+        res = ddp.init_residuals(tree)
+        grads, new_res = ddp.grad(loss, tree, residuals=res)
+        tree2, leaves2, _ = fresh()
+        raw = torch.autograd.grad(transformer_loss(tree2, batch, cfg),
+                                  leaves2)
+        ref, ref_res = ddp.allreduce_grads(tree_unflatten(td, list(raw)),
+                                           residuals=res)
+        eng = ddp.last_reduction
+        out[name] = dict(
+            grads=[g.numpy() for g in tree_leaves(grads)],
+            same_as_allreduce_grads=all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(grads),
+                                                  tree_leaves(ref))),
+            same_residual=all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(new_res),
+                                                  tree_leaves(ref_res))),
+            events=None if eng is None else list(eng.events),
+            launch_log=None if eng is None else list(eng.launch_log),
+            buckets=None if eng is None else [list(b.leaf_ids)
+                                              for b in eng.buckets])
+    return out
+
+
+def flagship_cases(rank, world, tokens_np, cfg_kw, steps, params_np):
+    """``build_flagship_step`` in each DDP mode from the same weights
+    (``params_np``, the JAX package's); this rank takes its rows of each
+    global batch.  Returns {mode: (losses, params as numpy, the ddp.*
+    meters)}."""
+    import torch
+    from apex_tpu_torch.models import params_from_jax
+    from apex_tpu_torch.telemetry import events
+    from apex_tpu_torch.telemetry.registry import MemorySink, Registry
+    from apex_tpu_torch.train import build_flagship_step
+    cfg = tiny_transformer_cfg(**cfg_kw)
+    per = tokens_np.shape[1] // world
+    modes = {
+        "off": {},
+        "bucketed": dict(overlap="bucketed", message_size=1000),
+        "zero1": dict(update_sharding="zero1"),
+        "zero1_bucketed": dict(update_sharding="zero1", overlap="bucketed",
+                               message_size=256),
+        "zero1_int8": dict(update_sharding="zero1",
+                           collective_scheme="int8_blockscale:min_bytes=0",
+                           allgather_scheme="int8_blockscale"),
+    }
+    out = {}
+    for name, kw in modes.items():
+        reg = Registry(sink=MemorySink(), flush_interval=0,
+                       rank0_only=False)
+        events.set_default(reg)
+        try:
+            carry, step = build_flagship_step(
+                cfg, ddp_kwargs=kw, device="cpu",
+                params=params_from_jax(params_np, "cpu"))
+            losses = []
+            for i in range(steps):
+                toks = torch.from_numpy(
+                    tokens_np[i, rank * per:(rank + 1) * per].copy())
+                carry, loss = step(carry, toks)
+                losses.append(float(loss))
+            vals = reg.read()
+        finally:
+            events.set_default(None)
+        out[name] = (losses, {g: {k: v.numpy() for k, v in leaves.items()}
+                              for g, leaves in carry[0].items()},
+                     {k: v for k, v in vals.items()
+                      if k.startswith("ddp.")})
+    return out
+
+
+def sharded_optimizer_cases(rank, world, params_np, grads_np, cases):
+    """Each case: ``ShardedUpdate`` over a fused optimizer (the port's
+    ``step_flat_shard``) and the same optimizer's unsharded ``step_flat``
+    on the reduced gradients, 3 steps; this rank takes its row of each
+    (world, ...) gradient.  Returns (sharded params, unsharded params,
+    residual facts) as numpy."""
+    import torch
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, \
+        FusedNovoGrad
+    from apex_tpu_torch.parallel import ShardedUpdate
+    from apex_tpu_torch.resilience import faults
+    classes = {"adam": FusedAdam, "lamb": FusedLAMB,
+               "novograd": FusedNovoGrad}
+    out = {}
+    for case in cases:
+        make = lambda: classes[case["opt"]](impl="fused", **case["kw"])
+        params = {k: torch.from_numpy(v.copy()) for k, v in params_np.items()}
+        su = ShardedUpdate(make(), **case.get("su", {}))
+        st = su.init(params)
+        res = su.init_residual(params) if case.get("residual") else None
+        opt = make()
+        fst = opt.init(params)
+        ps, pu = params, params
+        skipped_res = None
+        for i, gl in enumerate(grads_np):
+            g = {k: torch.from_numpy(v[rank].copy()) for k, v in gl.items()}
+            if case.get("poison_iter") == i and rank == 0:
+                g = {k: torch.full_like(v, float("inf")) for k, v in g.items()}
+            if res is None:
+                ps, st = su.step(st, g, ps)
+            else:
+                prev = res
+                ps, st, res = su.step(st, g, ps, residual=res)
+                if case.get("poison_iter") == i:
+                    skipped_res = bool(torch.equal(prev, res))
+            mean = {k: torch.from_numpy(v.mean(axis=0, dtype=np.float32))
+                    for k, v in gl.items()}
+            if case.get("poison_iter") != i:
+                fl = opt.flattener_for(pu)
+                fst = opt.step_flat(fst, fl.flatten(mean))
+                pu = fl.unflatten(fst.master, like=pu)
+        chaos = None
+        if case.get("chaos"):
+            prev_plan = faults.install(faults.parse("collective_fail@0"))
+            try:
+                su.step(st, g, ps, residual=res)
+                chaos = False
+            except faults.CollectiveFault:
+                chaos = True
+            finally:
+                faults.install(prev_plan)
+        out[case["name"]] = dict(
+            sharded={k: v.numpy() for k, v in ps.items()},
+            unsharded={k: v.numpy() for k, v in pu.items()},
+            master_len=int(st.master.numel()), skipped_res=skipped_res,
+            res_nonzero=None if res is None else bool(res.abs().sum() > 0),
+            chaos=chaos)
     return out

@@ -131,13 +131,33 @@ def test_novograd_matches_jax(name, kw, impl):
                  _tree()))
 
 
-def test_novograd_refuses_amsgrad_and_bad_norm():
+def test_novograd_refuses_amsgrad_and_bad_norm(tmp_path):
+    """The refusals; and the sharded update (weight-update sharding), once
+    refused, over a world-1 shard is ``step_flat``'s bits in both norm
+    types."""
+    import _torch_dist
+    from apex_tpu_torch.parallel.weight_update import ShardContext
+    from apex_tpu_torch.utils.pytree import tree_map
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedNovoGrad(amsgrad=True)
     with pytest.raises(ValueError, match="norm_type"):
         FusedNovoGrad(norm_type=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedNovoGrad(impl="fused").step_flat_shard(None, None, shard=None)
+
+    def run(rank, world):
+        out = []
+        for norm_type in (2, 0):
+            opt = FusedNovoGrad(impl="fused", lr=1e-2, norm_type=norm_type)
+            params = tree_map(torch.from_numpy, _tree())
+            st = opt.init(params)
+            g = opt.flattener.flatten(tree_map(lambda v: v * 0.5 + 0.1,
+                                               params))
+            whole = opt.step_flat(st, g)
+            shard = opt.step_flat_shard(
+                st, g, shard=ShardContext(None, opt.flattener, 1))
+            out.append(all(torch.equal(a, b) for a, b in zip(whole, shard)))
+        return out
+
+    assert _torch_dist.run_in_process(run, tmp_path) == [True, True]
 
 
 @pytest.mark.parametrize("wd", [0.0, 0.01])

@@ -1247,3 +1247,79 @@ def test_o5_step_makes_no_host_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(loss))
+
+
+# -- the hooked bucketed backward (overlap="bucketed") ---------------------------
+
+def _hooked_step_inputs(cuda_device):
+    from apex_tpu_torch.models import TransformerConfig, transformer_init
+    cfg = TransformerConfig(vocab_size=512, max_len=128, num_layers=4,
+                            d_model=256, num_heads=4, d_ff=1024,
+                            attn_impl="fast", remat=True)
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=cuda_device)
+    toks = torch.randint(0, 512, (4, 128),
+                         generator=torch.Generator().manual_seed(1)).to(
+                             cuda_device)
+    return cfg, params, {"tokens": toks, "targets": toks}
+
+
+def _hooked_grad(ddp, cfg, params, batch):
+    from apex_tpu_torch.models import transformer_loss
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+    leaves, td = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    tree = tree_unflatten(td, leaves)
+    return ddp.grad(transformer_loss(tree, batch, cfg), tree)
+
+
+def test_hooked_bucketed_backward_makes_no_host_sync(nccl_world1,
+                                                     cuda_device):
+    """The hooked backward's copies into the buckets, their asynchronous
+    NCCL all-reduces and the waits run under
+    ``set_sync_debug_mode("error")``; the result is the deferred path's
+    bits."""
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    cfg, params, batch = _hooked_step_inputs(cuda_device)
+    ddp = DistributedDataParallel(overlap="bucketed", message_size=200_000)
+    _hooked_grad(ddp, cfg, params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _hooked_grad(ddp, cfg, params, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = _hooked_grad(DistributedDataParallel(overlap="off"), cfg, params,
+                       batch)
+    assert ddp.last_reduction is not None
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(ref)))
+
+
+def test_hooked_bucket_zero_launches_before_the_last_hook(nccl_world1,
+                                                          cuda_device):
+    """Bucket 0 (the last layers' largest leaves, reverse flat order) is
+    enqueued while the backward still runs: before the last gradient hook
+    fires; buckets launch in the layout's order, each after its leaves."""
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel.overlap import partition_buckets
+    cfg, params, batch = _hooked_step_inputs(cuda_device)
+    ddp = DistributedDataParallel(overlap="bucketed", message_size=200_000)
+    _hooked_grad(ddp, cfg, params, batch)
+    torch.cuda.synchronize()
+    eng = ddp.last_reduction
+    layout = partition_buckets(params, message_size=200_000)
+    assert [list(b.leaf_ids) for b in eng.buckets] == \
+        [list(b.leaf_ids) for b in layout.buckets]
+    assert len(eng.buckets) > 1
+    assert eng.launch_log == list(range(len(eng.buckets)))
+    last_hook = max(i for i, (kind, _) in enumerate(eng.events)
+                    if kind == "hook")
+    assert eng.events.index(("launch", 0)) < last_hook
+    seen = set()
+    for kind, i in eng.events:
+        if kind == "hook":
+            seen.add(i)
+        else:
+            assert set(layout.buckets[i].leaf_ids) <= seen

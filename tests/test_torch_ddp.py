@@ -11,8 +11,9 @@ are powers of 2, so fp32 leaves agree bit for bit and the bf16 leaf within
 one bf16 step (2^-8 relative).  ``message_size`` buckets (the reverse flat
 order of the JAX ``partition_buckets``) give the same bits as one bucket;
 ``broadcast_params`` gives every rank rank 0's values.  The no-op knobs
-warn, and the schemes the port does not lower yet raise
-``NotImplementedError``.
+warn, and every scheme, overlap and zero1 knob builds (their reductions are
+held to the JAX package in ``test_torch_collectives.py``,
+``test_torch_overlap.py`` and ``test_torch_weight_update.py``).
 
 The ``--distributed --sync-bn`` step: two steps of ``resnet_train_step``
 with a ``DistributedDataParallel`` at world 2 (each rank on half of each
@@ -50,7 +51,8 @@ from apex_tpu.parallel.overlap import partition_buckets
 import _torch_dist
 from apex_tpu_torch.parallel import (DistributedDataParallel, Reducer,
                                      allreduce_tree)
-from apex_tpu_torch.parallel.distributed import bucket_order
+from apex_tpu_torch.parallel.overlap import \
+    partition_buckets as port_partition_buckets
 
 SHAPES = {"a": (3, 5), "b": (7,), "c": (4, 4, 3, 2), "d": (11,)}
 BF16_RTOL = 2.0 ** -8
@@ -145,9 +147,11 @@ def test_broadcast_params_gives_rank0s(world2):
 def test_bucket_order_is_the_jax_partition(message_size):
     tree = {k: jnp.zeros(s) for k, s in SHAPES.items()}
     layout = partition_buckets(tree, message_size=message_size)
-    sizes = [int(np.prod(SHAPES[k])) for k in sorted(SHAPES)]
-    assert bucket_order(sizes, message_size) == \
-        [list(b.leaf_ids) for b in layout.buckets]
+    got = port_partition_buckets(
+        {k: torch.zeros(s) for k, s in SHAPES.items()},
+        message_size=message_size)
+    assert [b.leaf_ids for b in got.buckets] == \
+        [b.leaf_ids for b in layout.buckets]
 
 
 def test_ddp_noop_knobs_warn():
@@ -155,6 +159,8 @@ def test_ddp_noop_knobs_warn():
         DistributedDataParallel(num_allreduce_streams=2, device="cpu")
     with pytest.warns(UserWarning):
         DistributedDataParallel(retain_allreduce_buffers=True, device="cpu")
+    with pytest.warns(UserWarning, match="prof"):
+        DistributedDataParallel(prof=True, device="cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         ddp = DistributedDataParallel(message_size=1, device="cpu")
@@ -167,25 +173,36 @@ def test_ddp_noop_knobs_warn():
                                   "tree_bf16", "residuals", "reducer_int8",
                                   "overlap", "zero1", "per_leaf"])
 def test_schemes_not_ported_raise(what):
+    """Every knob that raised before the schemes, the overlap and zero1
+    were ported now builds and, with no process group, reduces as the
+    identity (the JAX package's outside a mapped context); the residuals
+    come back with the tree."""
     g = {"w": torch.ones(4)}
     calls = {
         "ddp_int8": lambda: DistributedDataParallel(
-            collective_scheme="int8_blockscale", device="cpu"),
+            collective_scheme="int8_blockscale",
+            device="cpu").allreduce_grads(g),
         "ddp_bf16": lambda: DistributedDataParallel(
-            collective_scheme="bf16", device="cpu"),
+            collective_scheme="bf16", device="cpu").allreduce_grads(g),
         "ddp_adasum": lambda: DistributedDataParallel(
-            collective_scheme="adasum", device="cpu"),
+            collective_scheme="adasum", device="cpu").allreduce_grads(g),
         "tree_bf16": lambda: allreduce_tree(g, scheme="bf16"),
-        "residuals": lambda: allreduce_tree(g, residuals={"w": g["w"]}),
-        "reducer_int8": lambda: Reducer(collective_scheme="int8_blockscale"),
-        "overlap": lambda: DistributedDataParallel(overlap="bucketed",
-                                                   device="cpu"),
-        "zero1": lambda: DistributedDataParallel(update_sharding="zero1",
-                                                 device="cpu"),
+        "residuals": lambda: allreduce_tree(g, residuals={"w": g["w"]})[0],
+        "reducer_int8": lambda: Reducer(
+            collective_scheme="int8_blockscale").reduce(g),
+        "overlap": lambda: DistributedDataParallel(
+            overlap="bucketed", device="cpu").allreduce_grads(g),
+        "zero1": lambda: DistributedDataParallel(
+            update_sharding="zero1", device="cpu").allreduce_grads(g),
         "per_leaf": lambda: allreduce_tree(g, scheme=lambda p, l: "bf16"),
     }
-    with pytest.raises(NotImplementedError):
-        calls[what]()
+    assert calls[what]() is g
+    if what == "residuals":
+        r = {"w": torch.zeros(4)}
+        out, res = allreduce_tree(g, residuals=r)
+        assert out is g and res is r
+    with pytest.raises(ValueError):
+        DistributedDataParallel(collective_scheme="fp8", device="cpu")
 
 
 def test_no_group_is_the_identity():

@@ -27,6 +27,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 from apex_tpu.contrib.optimizers import DistributedFusedAdam as JaxAdam
 from apex_tpu.contrib.optimizers import DistributedFusedLAMB as JaxLAMB
 from apex_tpu.parallel.mesh import shard_map
+from apex_tpu.telemetry import events as jevents
+from apex_tpu.telemetry.registry import MemorySink as JMemorySink
+from apex_tpu.telemetry.registry import Registry as JRegistry
 
 import _torch_dist
 from apex_tpu_torch.contrib.optimizers import (DistributedFusedLAMB,
@@ -82,7 +85,10 @@ def _grads(n_ranks):
 
 def _jax_run(case, params_np, grads_np, n_ranks, iters=ITERS):
     """The JAX optimizer inside shard_map, as the JAX package's tests
-    drive it; returns (params, global state)."""
+    drive it; returns (params, global state), and the residual (world,
+    total) after them for a case that threads one."""
+    if case.get("residual"):
+        return _jax_run_residual(case, params_np, grads_np, n_ranks)
     two_level = case.get("topology") == "2x2"
     devs = np.array(jax.devices()[:n_ranks])
     if two_level:
@@ -122,6 +128,47 @@ def _jax_run(case, params_np, grads_np, n_ranks, iters=ITERS):
             g = {k: v.at[0].set(jnp.inf) for k, v in g.items()}
         p, state = step(state, g, p)
     return p, state
+
+
+def _jax_run_residual(case, params_np, grads_np, n_ranks):
+    """:func:`_jax_run` threading the int8 error-feedback residual, each
+    device's in a (world, total) array; metered into a JAX registry."""
+    mesh = Mesh(np.array(jax.devices()[:n_ranks]), ("data",))
+    opt = (JaxLAMB if case["opt"] == "lamb" else JaxAdam)(
+        shard_axis="data", **case["kw"])
+    rep = {k: P() for k in params_np}
+    sspec = opt.state_pspecs()
+    vma_kw = {"check_vma": False} if opt.impl == "fused" else {}
+
+    @functools.partial(shard_map, mesh=mesh, in_specs=(rep,),
+                       out_specs=(sspec, P("data")), **vma_kw)
+    def init(p):
+        return opt.init(p), opt.init_residual(p)[None]
+
+    @functools.partial(shard_map, mesh=mesh,
+                       in_specs=(sspec, P("data"),
+                                 {k: P("data") for k in params_np}, rep),
+                       out_specs=(rep, sspec, P("data")), **vma_kw)
+    def step(state, res, grads_local, p):
+        grads_local = {k: g[0] for k, g in grads_local.items()}
+        p, state, r = opt.step(state, grads_local, p, residual=res[0])
+        return p, state, r[None]
+
+    reg = JRegistry(sink=JMemorySink(), flush_interval=0, rank0_only=False)
+    jevents.set_default(reg)
+    try:
+        p = {k: jnp.asarray(v) for k, v in params_np.items()}
+        state, res = jax.jit(init)(p)
+        step = jax.jit(step)
+        for i, gl in enumerate(grads_np):
+            g = {k: jnp.asarray(v) for k, v in gl.items()}
+            if case.get("poison_iter") == i:
+                g = {k: v.at[0].set(jnp.inf) for k, v in g.items()}
+            p, state, res = step(state, res, g, p)
+        meters = reg.read()
+    finally:
+        jevents.set_default(None)
+    return p, state, np.asarray(res), meters
 
 
 def _compare(case, port_ranks, j_params, j_state, n_shards):
@@ -217,23 +264,39 @@ def test_state_from_jax_continues_a_jax_run(tmp_path):
     assert int(state.count) == 3
 
 
-def test_collective_schemes_not_ported_raise():
+def test_collective_schemes_not_ported_raise(tmp_path):
+    """Every scheme the reduce-scatter and the all-gather once refused now
+    lowers (world 1 in this process: the plain math); Adasum still has no
+    all-gather meaning, and an unknown scheme is refused."""
     assert collectives.resolve(None) is None
     assert collectives.resolve("bf16").scheme == "bf16"
     spec = collectives.CollectiveSpec("bf16")
     assert collectives.resolve(spec) is spec
     with pytest.raises(ValueError, match="unknown collective scheme"):
         collectives.resolve("fp8")
-    x = torch.zeros(8)
-    for scheme in ("bf16", "int8_blockscale", "adasum"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            collectives.reduce_scatter_flat(x, None,
-                                            collectives.resolve(scheme))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        collectives.allgather_flat(x, None,
-                                   collectives.resolve("int8_blockscale"))
-    with pytest.raises(ValueError, match="adasum"):
-        collectives.allgather_flat(x, None, collectives.resolve("adasum"))
+
+    def run(rank, world):
+        x = torch.linspace(-1, 1, 256)
+        out = {}
+        for scheme in ("bf16", "int8_blockscale", "adasum"):
+            out[scheme] = collectives.reduce_scatter_flat(
+                x, None, collectives.resolve(scheme))[0]
+        out["ag_int8"] = collectives.allgather_flat(
+            x, None, collectives.resolve("int8_blockscale"))
+        with pytest.raises(ValueError, match="adasum"):
+            collectives.allgather_flat(x, None,
+                                       collectives.resolve("adasum"))
+        return x, out
+
+    x, out = _torch_dist.run_in_process(run, tmp_path)
+    q, s = collectives.quantize_blockscale(x)
+    deq = collectives.dequantize_blockscale(q, s, 256)
+    assert torch.equal(out["bf16"], x.bfloat16().float())
+    assert torch.equal(out["int8_blockscale"], deq)
+    assert torch.equal(out["adasum"], x)
+    full, wire, dt = out["ag_int8"]
+    assert torch.equal(full, deq) and dt == "int8"
+    assert wire == collectives.wire_bytes("int8_blockscale", 256)
 
 
 def test_residual_and_bad_impl_raise(tmp_path):
@@ -243,10 +306,99 @@ def test_residual_and_bad_impl_raise(tmp_path):
         DistributedFusedLAMB(amsgrad=True)
 
     def step_with_residual(rank, world):
-        opt = DistributedFusedLAMB(impl="xla")
+        opt = DistributedFusedLAMB(impl="xla",
+                                   collective_scheme="int8_blockscale")
         params = {"w": torch.ones(4)}
         state = opt.init(params)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            opt.step(state, {"w": torch.ones(4)}, params,
-                     residual=torch.zeros(128))
-    _torch_dist.run_in_process(step_with_residual, tmp_path)
+        res = opt.init_residual(params)
+        out = opt.step(state, {"w": torch.linspace(0.1, 0.37, 4)}, params,
+                       residual=res)
+        return len(out), tuple(res.shape), out[2]
+
+    n, shape, new_res = _torch_dist.run_in_process(step_with_residual,
+                                                   tmp_path)
+    assert n == 3 and shape == (128,) and new_res.shape == (128,)
+    assert float(new_res.abs().sum()) > 0
+
+
+# the compressed and adaptive reduce-scatters, the int8 all-gather and the
+# error-feedback residual, world 2 against the JAX package (its int8 codec
+# jitted: the scales can sit one ulp off the codec's own, see
+# test_torch_collectives.py, so everything is held to TOL)
+SCHEME_CASES = [
+    dict(name="lamb_fused_int8_residual", opt="lamb", residual=True,
+         meter=True,
+         kw=dict(lr=1e-2, impl="fused", collective_scheme="int8_blockscale")),
+    dict(name="adam_xla_bf16", opt="adam",
+         kw=dict(lr=1e-2, impl="xla", collective_scheme="bf16")),
+    dict(name="lamb_xla_adasum", opt="lamb",
+         kw=dict(lr=1e-2, impl="xla", collective_scheme="adasum")),
+    dict(name="adam_fused_int8_allgather", opt="adam",
+         kw=dict(lr=1e-2, impl="fused", allgather_scheme="int8_blockscale")),
+    dict(name="adam_xla_int8_residual_skip", opt="adam", residual=True,
+         poison_iter=1,
+         kw=dict(lr=1e-2, impl="xla", collective_scheme="int8_blockscale")),
+]
+
+
+@pytest.fixture(scope="module")
+def schemes2(tmp_path_factory):
+    return _torch_dist.run_ranks(
+        _torch_dist.zero_optimizer_cases, 2,
+        tmp_path_factory.mktemp("zero_schemes"), SCHEME_CASES, _params(),
+        _grads(2))
+
+
+@pytest.mark.parametrize("case", SCHEME_CASES,
+                         ids=[c["name"] for c in SCHEME_CASES])
+def test_world2_schemes_match_jax(schemes2, case):
+    ref = _jax_run(case, _params(), _grads(2), 2)
+    j_params, j_state = ref[0], ref[1]
+    _compare(case, [r[case["name"]] for r in schemes2], j_params, j_state, 2)
+    if case.get("residual"):
+        j_res = ref[2]
+        for rank, got in enumerate(schemes2):
+            res = got[case["name"]]["residual"]
+            np.testing.assert_allclose(res, j_res[rank], atol=TOL, rtol=0)
+            assert np.abs(res).sum() > 0
+    if case.get("meter"):
+        got = schemes2[0][case["name"]]["meters"]
+        jm = ref[3]
+        for op in ("reduce_scatter", "allgather"):
+            for key in (f"zero.{op}_bytes", f"zero.{op}_compressed_bytes"):
+                assert got[key] / got[f"zero.{op}_calls"] == \
+                    jm[key] / jm[f"zero.{op}_calls"], key
+        assert got["zero.reduce_scatter_bytes"] / \
+            got["zero.reduce_scatter_compressed_bytes"] >= 3.5
+
+
+def test_overflow_skip_keeps_the_residual_of_the_step_before(schemes2):
+    """The poisoned step is skipped on every rank and its residual is the
+    one from the step before: three steps with the second poisoned leave
+    count 2."""
+    for got in schemes2:
+        assert got["adam_xla_int8_residual_skip"]["count"] == 2
+
+
+def test_chaos_gate_fires_through_the_zero_collectives(tmp_path):
+    from apex_tpu_torch.resilience import faults
+
+    def run(rank, world):
+        fired = []
+        for kw in (dict(collective_scheme="int8_blockscale"),
+                   dict(collective_scheme="bf16"),
+                   dict(allgather_scheme="int8_blockscale")):
+            opt = DistributedFusedLAMB(impl="xla", **kw)
+            params = {"w": torch.ones(256)}
+            state = opt.init(params)
+            prev = faults.install(faults.parse("collective_fail@0"))
+            try:
+                opt.step(state, {"w": torch.ones(256)}, params)
+                fired.append(False)
+            except faults.CollectiveFault:
+                fired.append(True)
+            finally:
+                faults.install(prev)
+        return fired
+
+    assert _torch_dist.run_in_process(run, tmp_path) == [True, True, True]

@@ -117,10 +117,36 @@ def test_bad_options_raise(bad):
         FusedLAMB(**kw)
 
 
-def test_step_flat_shard_waits_for_the_distributed_slice():
-    opt = FusedLAMB(impl="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        opt.step_flat_shard(None, None, shard=None)
+def test_step_flat_shard_waits_for_the_distributed_slice(tmp_path):
+    """The sharded LAMB update (weight-update sharding) over a world-1
+    shard is ``step_flat``'s bits; an optimizer with per-tensor
+    reductions and no sharded form refuses."""
+    import _torch_dist
+    from apex_tpu_torch.optimizers import FusedOptimizer
+    from apex_tpu_torch.parallel.weight_update import ShardContext
+
+    def run(rank, world):
+        rng = np.random.default_rng(3)
+        params = {"a": torch.from_numpy(rng.standard_normal((5, 7)).astype(
+            np.float32)), "b": torch.from_numpy(rng.standard_normal(
+                300).astype(np.float32))}
+        grads = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(
+            np.float32)) for k, v in params.items()}
+        opt = FusedLAMB(impl="fused", lr=1e-2)
+        st = opt.init(params)
+        g = opt.flattener.flatten(grads)
+        whole = opt.step_flat(st, g)
+        shard = opt.step_flat_shard(
+            st, g, shard=ShardContext(None, opt.flattener, 1))
+        return all(torch.equal(a, b) for a, b in zip(whole, shard))
+
+    assert _torch_dist.run_in_process(run, tmp_path)
+    assert not FusedLAMB.elementwise_flat_update
+
+    class Coupled(FusedOptimizer):
+        elementwise_flat_update = False
+    with pytest.raises(NotImplementedError, match="step_flat_shard"):
+        Coupled(1e-3, impl="fused").step_flat_shard(None, None, shard=None)
 
 
 # name, impl, kwargs

@@ -208,8 +208,9 @@ def test_engine_validation(port_params):
 
 
 def test_olevels(port_params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_olevel(port_params, "int8")
+    packed, unpack, dt, ratio = prepare_olevel(port_params, "int8")
+    assert dt == torch.bfloat16 and ratio > 3.5
+    assert unpack(packed)["layers"]["wqkv"].dtype == torch.bfloat16
     with pytest.raises(ValueError):
         prepare_olevel(port_params, "fp8")
     packed, unpack, dt, ratio = prepare_olevel(port_params, "bf16")
@@ -219,6 +220,75 @@ def test_olevels(port_params):
     assert eng.k_pool.dtype == torch.bfloat16
     assert eng.k_pool.shape == (2, CACHE["num_pages"], CACHE["page_size"],
                                 2, 16)
+
+
+def test_int8_packing_is_the_jax_codec_bit_for_bit(jax_params, port_params):
+    """int8: every float leaf of two or more dimensions packed as the JAX
+    ``prepare_olevel`` packs it (codes and scales bit-equal), the rest
+    bf16; the same compression ratio; the unpacked weights equal."""
+    from apex_tpu.serve.engine import prepare_olevel as jax_prepare
+    jpacked, junpack, _, jratio = jax_prepare(jax_params, "int8")
+    packed, unpack, _, ratio = prepare_olevel(port_params, "int8")
+    assert ratio == pytest.approx(jratio, rel=0, abs=1e-12)
+    assert len(packed) == len(jpacked)
+    for got, ref in zip(packed, jpacked):
+        if isinstance(ref, tuple):
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+            np.testing.assert_array_equal(
+                got[1].numpy().view(np.int32),
+                np.asarray(ref[1]).view(np.int32))
+        else:
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(ref, np.float32))
+    ju = jax.tree_util.tree_leaves(junpack(jpacked))
+    pu = jax.tree_util.tree_leaves(unpack(packed))
+    for got, ref in zip(pu, ju):
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(ref, np.float32))
+
+
+# bf16 weights and activations over 2 layers: 2^-8 a rounding, a few
+# dozen of them along a logit's path, so 2e-2 of the largest logit
+BF16_LOGIT_TOL = 2e-2
+
+
+def test_int8_first_logits_match_jax(jax_params, port_params):
+    """The int8 engines' first prefill logits (bf16 compute on the same
+    dequantized weights) agree to ``BF16_LOGIT_TOL`` of the largest;
+    the int8 engine's to its own bf16 engine's likewise."""
+    jeng = JaxEngine(jax_params, JaxConfig(**DIMS, causal=True,
+                                           attn_impl="fast"),
+                     cache=JaxCache(**CACHE), olevel="int8", decode_width=4)
+    peng = _port_engine(port_params, olevel="int8")
+    beng = _port_engine(port_params, olevel="bf16")
+    assert peng.compression_ratio == pytest.approx(jeng.compression_ratio)
+    tokens = np.zeros(CACHE["max_ctx"], np.int32)
+    tokens[:9] = np.arange(1, 10)
+    _, jlast = jeng.prefill(tokens, 9, np.array([1, 2, 0, 0], np.int32),
+                            seed=0)
+    _, plast = peng.prefill(tokens, 9, np.array([1, 2, 0, 0]), seed=0)
+    _, blast = beng.prefill(tokens, 9, np.array([1, 2, 0, 0]), seed=0)
+    ref = np.asarray(jlast, np.float32)
+    scale = np.abs(ref).max()
+    assert np.abs(plast.float().numpy() - ref).max() <= BF16_LOGIT_TOL * scale
+    assert np.abs(plast.float().numpy() - blast.float().numpy()).max() \
+        <= BF16_LOGIT_TOL * scale
+
+
+def test_int8_batcher_serves_and_ledgers_the_ratio(port_params):
+    """Six requests through the int8 engine: all done, the ledger valid
+    with its compression ratio."""
+    eng = _port_engine(port_params, olevel="int8")
+    bat = ContinuousBatcher(eng)
+    for spec in _specs():
+        bat.submit(Request(**spec))
+    results = bat.run()
+    assert all(r.status == "done" for r in results.values())
+    doc = bat.ledger.snapshot(olevel="int8", decode_width=4,
+                              compression_ratio=eng.compression_ratio)
+    assert doc["compression_ratio"] > 3.5
+    assert serve_violations(doc) == []
 
 
 def test_greedy_ties_go_to_first_index():
