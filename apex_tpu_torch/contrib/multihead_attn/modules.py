@@ -16,8 +16,14 @@ or the split pair past the fuse cap); ``impl="default"`` the plain
 :func:`~apex_tpu_torch.contrib.multihead_attn.functional.attention_core`.
 ``include_norm_add`` puts the layer-norm kernels
 (:func:`~apex_tpu_torch.normalization.fused_layer_norm_affine`) in front
-and adds the residual.  ``impl="ring"`` / ``"ulysses"`` (sequence
-parallelism) are not ported (ROADMAP.md, Queue 1 item 7) and raise.
+and adds the residual.  ``SelfMultiheadAttn``'s ``impl="ring"`` /
+``"ulysses"`` run sequence parallelism
+(:mod:`apex_tpu_torch.parallel.sequence`): the (T, B, C) input is this
+rank's block of the sequence over ``seq_parallel_axis`` (a mesh axis name
+or a process group), causality is the constructor's ``causal`` flag (a
+per-call mask cannot express global structure under sequence sharding, so
+masks and attention dropout raise), and ``seq_inner_impl="fast"`` runs
+Ulysses' gathered-sequence core on the flash kernels.
 
 Dropout: with no ``dropout_rng`` there is no dropout on any impl.
 ``dropout_rng`` is a ``torch.Generator`` or an int.  The fast path's kernel
@@ -31,6 +37,7 @@ package's ``jax.random`` bits.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -155,8 +162,10 @@ class _MHABase(nn.Module):
 class SelfMultiheadAttn(_MHABase):
     """Self-attention over (T, B, C) inputs with the reference's options:
     ``bias``, ``include_norm_add``, ``separate_qkv_params``,
-    ``mask_additive``; ``impl`` "fast" (the flash kernels) or "default"
-    (plain PyTorch); ``backward`` "auto" / "pallas" (the backward kernels)
+    ``mask_additive``; ``impl`` "fast" (the flash kernels), "default"
+    (plain PyTorch), or "ring" / "ulysses" (sequence parallelism over
+    ``seq_parallel_axis``, causal by ``causal``; ``seq_inner_impl="fast"``
+    puts Ulysses' core on the flash kernels); ``backward`` "auto" / "pallas" (the backward kernels)
     or "xla" (autograd of the plain forward).  Parameters are fp32, drawn
     from ``generator`` (default torch's global one) by the JAX package's
     Xavier rule, on ``device`` (default ``"cuda"``).
@@ -185,7 +194,9 @@ class SelfMultiheadAttn(_MHABase):
         self.scaling = self.head_dim ** -0.5
         self.separate_qkv_params = separate_qkv_params
         self.mask_additive = mask_additive
-        del seq_parallel_axis, causal      # the ring / ulysses options
+        self.seq_parallel_axis = seq_parallel_axis
+        self.causal = causal        # ring / ulysses only (global causality)
+        self.seq_inner_impl = seq_inner_impl
         self.backward = backward
         if mask_additive and include_norm_add:
             raise AssertionError("additive mask not supported with layer norm")
@@ -198,10 +209,6 @@ class SelfMultiheadAttn(_MHABase):
         if seq_inner_impl == "fast" and impl != "ulysses":
             raise AssertionError(
                 "seq_inner_impl='fast' applies to impl='ulysses' only")
-        if impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"impl={impl!r} (sequence parallelism) is not ported yet; "
-                "see ROADMAP.md, Queue 1 item 7")
 
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.default_generator
@@ -228,6 +235,28 @@ class SelfMultiheadAttn(_MHABase):
             self.out_proj_bias = param(torch.zeros(E))
         if include_norm_add:
             _norm_params(self, E, dev)
+
+    def _attend_seq(self, q, k, v, mask, drop):
+        """The sequence-parallel core: q (pre-scaled), k, v this rank's
+        (B, H, S_local, D) blocks."""
+        if drop > 0.0:
+            raise NotImplementedError(
+                f"impl={self.impl!r} does not support attention dropout")
+        if mask is not None:
+            raise NotImplementedError(
+                f"impl={self.impl!r} takes causality from the constructor "
+                "causal= flag; per-call masks are unsupported")
+        from ...parallel.sequence import (ring_attention, ulysses_attention,
+                                          ulysses_flash_attention)
+        if self.impl == "ring":
+            seq_fn = ring_attention
+        elif self.seq_inner_impl == "fast":
+            seq_fn = functools.partial(ulysses_flash_attention,
+                                       backward=self.backward)
+        else:
+            seq_fn = ulysses_attention
+        return seq_fn(q, k, v, axis_name=self.seq_parallel_axis,
+                      causal=self.causal, scale=1.0)
 
     def _input_weights(self):
         """(3E, E) weight and (3E,) bias or None; separate q/k/v interleave
@@ -273,8 +302,11 @@ class SelfMultiheadAttn(_MHABase):
         drop = self.dropout if is_training and dropout_rng is not None \
             else 0.0
         attn_rng, resid_rng = _rngs(dropout_rng)
-        ctx = self._attend(q, k, v, mask, use_time_mask, self.mask_additive,
-                           drop, attn_rng)
+        if self.impl in ("ring", "ulysses"):
+            ctx = self._attend_seq(q, k, v, mask, drop)
+        else:
+            ctx = self._attend(q, k, v, mask, use_time_mask,
+                               self.mask_additive, drop, attn_rng)
         out = self._finish(ctx, query, is_training, resid_rng,
                            getattr(self, "out_proj_bias", None))
         return out, None

@@ -7,3 +7,6 @@ from .resnet import (ResNetConfig, resnet18_config,  # noqa: F401
 from .dcgan import (DCGANConfig, dcgan_init,  # noqa: F401
                     dcgan_params_from_jax, discriminator_apply,
                     generator_apply)
+from .moe_transformer import (MoETransformerConfig,  # noqa: F401
+                              moe_params_from_jax, moe_transformer_apply,
+                              moe_transformer_init, moe_transformer_loss)

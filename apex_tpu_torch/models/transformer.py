@@ -194,22 +194,39 @@ def attention_core(q, k, v, cfg: TransformerConfig, mask=None, seed=0,
     return probs @ v
 
 
-def attention(h, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0):
+def attention(h, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0,
+              attn_override=None):
     """Self-attention block output ``(B, S, D)`` plus this layer's k, v in
-    (B, S, H, hd) (the layout the serving engine pages)."""
+    (B, S, H, hd) (the layout the serving engine pages).
+
+    ``attn_override``: a callable ``(q, k, v, *, causal) -> ctx`` over the
+    (B, H, S, hd) layout that replaces the attention core, the hook the
+    sequence-parallel engine (:mod:`apex_tpu_torch.parallel.spmd`) routes
+    ring / Ulysses attention through.  It owns the 1/sqrt(hd) scaling; a
+    key-padding mask does not compose with it and raises."""
     B, S, D = h.shape
     q, k, v = qkv_heads(h, lp, cfg)
-    ctx = attention_core(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), cfg, mask, seed, rate)
+    if attn_override is not None:
+        if mask is not None:
+            raise ValueError(
+                "attn_override does not compose with a key-padding mask "
+                "(the sequence-parallel collectives carry no mask plumbing)")
+        ctx = attn_override(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=cfg.causal)
+        ctx = ctx.to(h.dtype)
+    else:
+        ctx = attention_core(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), cfg, mask, seed, rate)
     ctx = ctx.transpose(1, 2).reshape(B, S, D)
     dt = h.dtype
     return ctx @ lp["wo"].to(dt) + lp["bo"].to(dt), k, v
 
 
-def block(x, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0):
+def block(x, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0,
+          attn_override=None):
     """One pre-LN layer: ``x + attn(ln1(x))``, then the MLP block."""
     h = ln(x, lp["ln1_g"], lp["ln1_b"], cfg)
-    out, _, _ = attention(h, lp, cfg, mask, seed, rate)
+    out, _, _ = attention(h, lp, cfg, mask, seed, rate, attn_override)
     return mlp(x + out, lp, cfg)
 
 
@@ -226,17 +243,26 @@ def _layer_seeds(n_layers: int, dropout_rng: Optional[torch.Generator]
 def transformer_apply(params: Params, tokens: torch.Tensor,
                       cfg: TransformerConfig, *,
                       mask: Optional[torch.Tensor] = None,
-                      dropout_rng: Optional[torch.Generator] = None
+                      dropout_rng: Optional[torch.Generator] = None,
+                      attn_override=None, pos_offset: Optional[int] = None
                       ) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V).  Pre-LN blocks, tied head.
     ``mask``: optional key-padding mask (B, S), nonzero = PAD.
     ``dropout_rng``: a (CPU) ``torch.Generator``; with it, attention
-    dropout at ``cfg.dropout``."""
+    dropout at ``cfg.dropout``.
+
+    ``attn_override`` / ``pos_offset`` are the sequence-parallel hooks
+    (:mod:`apex_tpu_torch.parallel.spmd`): the override replaces every
+    layer's attention core (see :func:`attention`), and ``pos_offset``
+    (this rank's global position of its first local token) slices the
+    position rows at that offset, so a sequence-sharded rank reads its own
+    positions, not ``[0, S_local)``."""
     if cfg.attn_impl not in ("default", "fast"):
         raise ValueError(
             f"attn_impl must be 'default' or 'fast', got {cfg.attn_impl!r}")
     S = tokens.shape[1]
-    x = embed(params, tokens, params["embed"]["pos"][:S][None], cfg)
+    off = 0 if pos_offset is None else int(pos_offset)
+    x = embed(params, tokens, params["embed"]["pos"][off:off + S][None], cfg)
     # one unbind per stacked leaf: its backward stacks the layer grads once
     stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
     n_layers = params["layers"]["wqkv"].shape[0]
@@ -244,7 +270,7 @@ def transformer_apply(params: Params, tokens: torch.Tensor,
     for i, seed in enumerate(_layer_seeds(n_layers, dropout_rng)):
         lp = {k: v[i] for k, v in stacked.items()}
         fn = functools.partial(block, lp=lp, cfg=cfg, mask=mask, seed=seed,
-                               rate=rate)
+                               rate=rate, attn_override=attn_override)
         if cfg.remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
         else:
@@ -255,15 +281,20 @@ def transformer_apply(params: Params, tokens: torch.Tensor,
 def transformer_loss(params: Params, batch: Dict[str, torch.Tensor],
                      cfg: TransformerConfig, *,
                      dropout_rng: Optional[torch.Generator] = None,
-                     smoothing: float = 0.0) -> torch.Tensor:
+                     smoothing: float = 0.0, attn_override=None,
+                     pos_offset: Optional[int] = None) -> torch.Tensor:
     """Masked-LM cross-entropy through the fused xentropy kernel.  batch:
     ``tokens`` (B, S) int, ``targets`` (B, S) int, optional ``weights``
     (B, S) float and ``mask`` (B, S).  ``padding_idx=-1``: padding is
-    expressed through ``weights``, and vocab id 0 is a legal target."""
+    expressed through ``weights``, and vocab id 0 is a legal target.
+    ``attn_override`` / ``pos_offset`` thread through to
+    :func:`transformer_apply` (sequence parallelism)."""
     from ..contrib.xentropy import softmax_xentropy_loss
     logits = transformer_apply(params, batch["tokens"], cfg,
                                mask=batch.get("mask"),
-                               dropout_rng=dropout_rng)
+                               dropout_rng=dropout_rng,
+                               attn_override=attn_override,
+                               pos_offset=pos_offset)
     B, S, V = logits.shape
     nll = softmax_xentropy_loss(logits.reshape(B * S, V),
                                 batch["targets"].reshape(B * S), smoothing,

@@ -1,20 +1,37 @@
 """Distributed training over process groups (counterpart of
-``apex_tpu/parallel``, a subset so far: process-group set-up and the grouped
-scope, the collective schemes (:mod:`.collectives`), data-parallel gradient
-reduction with its overlapped buckets (:mod:`.distributed`,
-:mod:`.overlap`), weight-update sharding (:mod:`.weight_update`),
-SyncBatchNorm and LARC; the device-mesh counterpart, ``multiproc`` and the
-parallel engines are queued in ROADMAP.md)."""
+``apex_tpu/parallel``): process-group set-up, the named mesh and the
+grouped scope (:mod:`.mesh`), the launcher (:mod:`.multiproc`), the
+collective schemes (:mod:`.collectives`), data-parallel gradient reduction
+with its overlapped buckets (:mod:`.distributed`, :mod:`.overlap`),
+weight-update sharding (:mod:`.weight_update`), sequence, pipeline and
+expert parallelism (:mod:`.sequence`, :mod:`.pipeline`, :mod:`.expert`
+over the differentiable collectives of :mod:`.comm`), parallel plans and
+their step engine (:mod:`.plan`, :mod:`.spmd`), SyncBatchNorm and LARC.
+The tensor-parallel engine and the planner's cost model are queued in
+ROADMAP.md."""
 import copy
 
-from . import collectives, mesh, overlap, weight_update  # noqa: F401
+from . import (collectives, comm, expert, mesh, overlap,  # noqa: F401
+               pipeline, plan, sequence, spmd, weight_update)
+from .expert import EXPERT_AXIS, MoELayer, moe_ffn  # noqa: F401
+from .pipeline import (PIPE_AXIS, pipeline_apply,  # noqa: F401
+                       stack_stage_params, unstack_local)
+from .plan import Plan, default_plan  # noqa: F401
+from .sequence import (SequenceShardingError, ring_attention,  # noqa: F401
+                       ulysses_attention, ulysses_flash_attention,
+                       validate_sp)
+from .spmd import build_plan_step  # noqa: F401
 from .collectives import CollectiveSpec  # noqa: F401
 from .weight_update import ShardedUpdate  # noqa: F401
 from .distributed import (DistributedDataParallel, Reducer,  # noqa: F401
                           allreduce_tree)
 from .LARC import LARC  # noqa: F401
-from .mesh import (GroupedMesh, create_grouped_mesh,  # noqa: F401
-                   group_rank, group_size, initialize_distributed)
+from .mesh import (DATA_AXIS, GROUP_AXIS, MODEL_AXIS,  # noqa: F401
+                   SEQ_AXIS, GroupedMesh, Mesh, Placement, axis_is_bound,
+                   axis_size, bound_axes, create_grouped_mesh, create_mesh,
+                   current_mesh, data_sharding, group_rank, group_size,
+                   initialize_distributed, lax_axis_size, num_slices,
+                   replicated, set_mesh, use_mesh)
 from .sync_batchnorm import (SyncBatchNorm, batch_norm_stats,  # noqa: F401
                              sync_batch_norm)
 

@@ -240,12 +240,65 @@ def zero_train_step(params, opt_state, batch: Dict[str, torch.Tensor],
     grads = torch.autograd.grad(loss, leaves)
     out = opt.step(opt_state, tree_unflatten(treedef, list(grads)), params,
                    **({} if residual is None else {"residual": residual}))
-    loss = loss.detach().to(torch.float32)
-    dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=opt.shard_group)
-    loss = loss / group_size(opt.shard_group)
+    loss = mean_loss(loss, opt.shard_group)
     if residual is None:
         return out[0], out[1], loss
     return out[0], out[1], loss, out[2]
+
+
+def mean_loss(loss: torch.Tensor, group) -> torch.Tensor:
+    """``loss`` detached, in fp32 and averaged over ``group`` (one
+    all-reduce), which resolves as a collective's does
+    (:func:`~apex_tpu_torch.parallel.mesh.resolve_group`: ``None`` is the
+    default group once torch.distributed is up, else no group and the
+    loss as it is)."""
+    loss = loss.detach().to(torch.float32).clone()
+    group = resolve_group(group)
+    if group is None:
+        return loss
+    dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+    return loss / group_size(group)
+
+
+#: flat elements a chunk of :func:`flat_update` covers
+UPDATE_CHUNK = 1 << 26
+
+
+def flat_update(opt, state, params, held):
+    """The fused-flat update with the amp overflow select: the (already
+    reduced) gradient tree ``held[0]`` flattened and stepped through
+    ``opt.step_flat``; a step whose gradients are not all finite leaves
+    the state as it was.  Returns ``(new_params, new_state)``.
+
+    The tree comes in a one-item list that this function empties, and no
+    full-size buffer outlives its last use, so at billions of parameters a
+    step holds one gradient-sized buffer at a time beside the two states.
+    ``step_flat`` runs over chunks of ``UPDATE_CHUNK`` elements of the
+    flat buffers, each chunk's result selected into the new buffers, so
+    its temporaries stay chunk-sized; the math is elementwise, so the bits
+    are those of one step over the whole buffers."""
+    fl = opt.flattener_for(params)
+    flat = fl.flatten(held.pop())
+    n = flat.numel()
+    ok = torch.isfinite(flat).all()
+    is_flat = [isinstance(l, torch.Tensor) and l.dim() == 1
+               and l.shape[0] == n for l in state]
+    out = [torch.empty_like(l) if f else None
+           for l, f in zip(state, is_flat)]
+    for i in range(0, n, UPDATE_CHUNK):
+        j = min(i + UPDATE_CHUNK, n)
+        part = type(state)(*[l[i:j] if f else l
+                             for l, f in zip(state, is_flat)])
+        new = opt.step_flat(part, flat[i:j])
+        for k, f in enumerate(is_flat):
+            if f:
+                torch.where(ok, new[k], part[k], out=out[k][i:j])
+            elif i == 0:
+                out[k] = torch.where(ok, new[k], state[k])
+        del new, part
+    del flat
+    state = type(state)(*out)
+    return fl.unflatten(state.master, like=params), state
 
 
 def build_flagship_step(cfg: TransformerConfig, *, ddp_kwargs=None,
@@ -283,24 +336,14 @@ def build_flagship_step(cfg: TransformerConfig, *, ddp_kwargs=None,
         loss = transformer_loss(tree_unflatten(treedef, leaves),
                                 {"tokens": tokens, "targets": tokens}, cfg)
         if su is None:
-            grads = ddp.grad(loss, tree_unflatten(treedef, leaves))
-            fl = opt.flattener_for(params)
-            flat = fl.flatten(grads)
-            ok = torch.isfinite(flat).all()
-            new_state = opt.step_flat(state, flat)
-            state = tree_map(lambda nw, old: torch.where(ok, nw, old),
-                             new_state, state)
-            params = fl.unflatten(state.master, like=params)
+            held = [ddp.grad(loss, tree_unflatten(treedef, leaves))]
+            params, state = flat_update(opt, state, params, held)
         else:
             grads = torch.autograd.grad(loss, leaves)
             params, state = su.step(state, tree_unflatten(treedef,
                                                           list(grads)),
                                     params)
-        loss = loss.detach().to(torch.float32)
-        if group is not None:
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
-            loss = loss / group_size(group)
-        return (params, state), loss
+        return (params, state), mean_loss(loss, group)
 
     step.ddp = ddp
     return (params0, state0), step

@@ -51,41 +51,46 @@ def _children(tree):
     return None
 
 
+# The walkers recurse through module-level functions, not nested closures:
+# a closure that calls itself is a reference cycle, which would keep the
+# leaves it reached (a model's gradients, say) alive until the cyclic
+# garbage collector happened to run.
+
+def _flatten_into(t, leaves: List[Any]):
+    if t is None:
+        return None
+    node = _children(t)
+    if node is None:
+        leaves.append(t)
+        return "*"
+    kind, keys, kids = node
+    return (kind, keys, tuple(_flatten_into(c, leaves) for c in kids))
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, treedef): ``treedef`` is a hashable description of the
     structure that :func:`tree_unflatten` rebuilds from."""
     leaves: List[Any] = []
+    treedef = _flatten_into(tree, leaves)
+    return leaves, treedef
 
-    def walk(t):
-        if t is None:
-            return None
-        node = _children(t)
-        if node is None:
-            leaves.append(t)
-            return "*"
-        kind, keys, kids = node
-        return (kind, keys, tuple(walk(c) for c in kids))
 
-    return leaves, walk(tree)
+def _build(d, it):
+    if d is None:
+        return None
+    if d == "*":
+        return next(it)
+    kind, keys, kids = d
+    vals = [_build(c, it) for c in kids]
+    if kind == "dict":
+        return dict(zip(keys, vals))
+    if kind in (list, tuple):
+        return kind(vals)
+    return kind(*vals)          # a named tuple
 
 
 def tree_unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == "*":
-            return next(it)
-        kind, keys, kids = d
-        vals = [build(c) for c in kids]
-        if kind == "dict":
-            return dict(zip(keys, vals))
-        if kind in (list, tuple):
-            return kind(vals)
-        return kind(*vals)          # a named tuple
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -112,27 +117,27 @@ def tree_flatten_with_keystr(tree) -> Tuple[List[Any], List[str], Any]:
     for a list or tuple index, ``.field`` for a named tuple's field)."""
     leaves: List[Any] = []
     keys: List[str] = []
-
-    def walk(t, prefix):
-        if t is None:
-            return
-        node = _children(t)
-        if node is None:
-            leaves.append(t)
-            keys.append(prefix)
-            return
-        kind, names, kids = node
-        for name, kid in zip(names, kids):
-            if kind == "dict":
-                part = f"[{name!r}]"
-            elif kind in (list, tuple):
-                part = f"[{name}]"
-            else:
-                part = f".{name}"
-            walk(kid, prefix + part)
-
-    walk(tree, "")
+    _keystr_into(tree, "", leaves, keys)
     return leaves, keys, tree_flatten(tree)[1]
+
+
+def _keystr_into(t, prefix, leaves, keys):
+    if t is None:
+        return
+    node = _children(t)
+    if node is None:
+        leaves.append(t)
+        keys.append(prefix)
+        return
+    kind, names, kids = node
+    for name, kid in zip(names, kids):
+        if kind == "dict":
+            part = f"[{name!r}]"
+        elif kind in (list, tuple):
+            part = f"[{name}]"
+        else:
+            part = f".{name}"
+        _keystr_into(kid, prefix + part, leaves, keys)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:
@@ -148,23 +153,25 @@ def tree_map_with_path(fn: Callable, tree, *,
     of keys to the leaf), the structure kept; a node where ``is_leaf(node)``
     is True is handed to ``fn`` whole (``jax.tree_util.tree_map_with_path``
     with its ``is_leaf``).  ``fn`` may return a subtree."""
-    def walk(t, path):
-        if t is None:
-            return None
-        if is_leaf is not None and is_leaf(t):
-            return fn(path, t)
-        node = _children(t)
-        if node is None:
-            return fn(path, t)
-        kind, keys, kids = node
-        vals = [walk(c, path + (k,)) for k, c in zip(keys, kids)]
-        if kind == "dict":
-            return dict(zip(keys, vals))
-        if kind in (list, tuple):
-            return kind(vals)
-        return kind(*vals)          # a named tuple
+    return _map_path(fn, tree, (), is_leaf)
 
-    return walk(tree, ())
+
+def _map_path(fn, t, path, is_leaf):
+    if t is None:
+        return None
+    if is_leaf is not None and is_leaf(t):
+        return fn(path, t)
+    node = _children(t)
+    if node is None:
+        return fn(path, t)
+    kind, keys, kids = node
+    vals = [_map_path(fn, c, path + (k,), is_leaf)
+            for k, c in zip(keys, kids)]
+    if kind == "dict":
+        return dict(zip(keys, vals))
+    if kind in (list, tuple):
+        return kind(vals)
+    return kind(*vals)          # a named tuple
 
 
 def treedef_leaves(treedef, tree) -> List[Any]:

@@ -239,6 +239,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
    request done, no ledger violation, compression ratio >= 3.5, #1 and #5
    launched as often as by phase 5's bf16 engine, tokens/s beside phase
    5's;
+27. (run after 26, before 20) sequence, pipeline and expert parallelism
+   on a world-1 NCCL group (a collective is a copy: paths, launches and
+   numbers, not wire time): (a) ``ulysses_flash_attention`` at (1, 16,
+   4096, 64) bf16, causal and not, bit-equal in out, dq, dk and dv to the
+   flash kernels called directly, one #1 and one backward (by the fuse
+   rule) a call; ``ring_attention`` and ``ulysses_attention`` at (2, 16,
+   2048, 64) fp32 against plain attention, gradients included (1e-4,
+   peak rule), no kernel launch; (b) ``SelfMultiheadAttn(1024, 16,
+   impl="ulysses", seq_inner_impl="fast", causal=True)`` and
+   ``impl="ring"`` at 64 x 120 tokens against ``impl="default"`` with
+   the causal time mask (2e-3, peak rule), #1 and #4 once a call for the
+   first; (c) the switch-MoE step at BERT-large's widths with 8 experts
+   (1.74 B parameters) through the ep engine at world 1, fp32, 8 x 512,
+   ``FusedAdam(impl="fused", lr=1e-4)``, 1 + 4 steps on one batch: a
+   falling loss, a finite aux loss, exactly #1 24, #4 24, #5 49, #6 49,
+   #7 1 a step, step ms, tokens/s and peak memory; (d) the sp engine (ring
+   and Ulysses) at the flagship's width, 1 + 2 steps, each loss within 2e-2
+   relative (or 5e-3) of phase 26's off step from the same weights,
+   exactly #5 50, #6 50, #7 1 a step and no flash; (e) ``pipeline_apply``
+   at one stage over 4 microbatches of the flagship batch: output and
+   layer gradients within 1e-5 of their peaks of the plain stack;
 20. the attention modules on the stack of apex's
    ``perf_test_multihead_attn.py`` (hidden 1024, 16 heads, 64 tokens):
    (a) card vs CPU, 2 layers, 8 sequences, output and every parameter's
@@ -7002,6 +7023,7 @@ def phase_flagship_ddp(dev, card):
         ms = statistics.median(times) * 1e3
         runs[name] = (losses, carry[0], ms, times)
         RESULTS[f"flagship_{name}_ms"] = ms
+        RESULTS[f"flagship_{name}_losses"] = losses
         log(f"  [{card}] {name}: step {ms:.2f} ms (median of "
             f"{FLAGSHIP_STEPS}; all {[round(t * 1e3, 2) for t in times]}), "
             f"{FLAGSHIP_BATCH[0] * FLAGSHIP_BATCH[1] / ms * 1e3:.0f} "
@@ -7282,6 +7304,523 @@ def phase_collectives(dev, card, serve_ref=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 27: sequence, pipeline and expert parallelism, the MoE step and the
+# sp engine at world 1
+# ---------------------------------------------------------------------------
+
+# (a) the long-sequence Ulysses-flash shape and the ring / Ulysses shape
+SEQ_FLASH_SHAPE = (1, 16, 4096, 64)
+SEQ_PLAIN_SHAPE = (2, 16, 2048, 64)
+SEQ_PLAIN_TOL = 1e-4
+# (c) the switch-MoE flagship: BERT-large's widths, 8 experts
+MOE_CFG = dict(vocab_size=30592, max_len=512, num_layers=24, d_model=1024,
+               num_heads=16, d_ff=4096, num_experts=8, capacity_factor=1.25,
+               attn_impl="fast")
+MOE_STEPS = 4
+# (c) one MoE FFN layer's fp32 card gradients against float64, and the
+# band of |z| / sum |x_i w_i| inside which fp32 may flip relu's mask: 5x
+# sqrt(1024) * 2^-24, a 1024-term dot product's typical rounding
+MOE_GRAD_TOL = 1e-4
+MOE_KINK_BAND = 1e-5
+# (d) the sp engine's first loss against phase 26's, relative
+SP_STEP0_TOL = 1e-5
+# (e) the pipeline's microbatches of the flagship batch
+PIPE_MICRO = 4
+PIPE_TOL = 1e-5
+
+TRAIN_LAUNCHES_PER_STEP.update({
+    # 27c: a step is one flash forward and one fused backward a layer,
+    # two layer norms a layer each way plus the head's, the loss; the MoE
+    # FFN, the router and FusedAdam's step_flat are cuBLAS / eager PyTorch
+    "moe_ep": dict({k: 0 for k in ALL_KERNELS}, flash_fwd=24, flash_bwd=24,
+                   ln_fwd=49, ln_bwd=49, xent_fwd=1),
+    # 27d: the sequence core replaces attention: no flash; the embedding's,
+    # two a layer and the head's layer norms each way, the loss
+    "sp_ring": dict({k: 0 for k in ALL_KERNELS}, ln_fwd=50, ln_bwd=50,
+                    xent_fwd=1),
+    "sp_ulysses": dict({k: 0 for k in ALL_KERNELS}, ln_fwd=50, ln_bwd=50,
+                       xent_fwd=1),
+})
+
+
+def _plain_attention(q, k, v, causal):
+    import torch
+    s = (q @ k.transpose(-1, -2)) / (q.shape[-1] ** 0.5)
+    if causal:
+        S = s.shape[-1]
+        keep = torch.ones((S, S), dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.softmax(s, dim=-1) @ v
+
+
+def _fwd_bwd(fn, q, k, v, cot):
+    """(out, dq, dk, dv) of sum(fn(q, k, v) * cot)."""
+    import torch
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v)
+    dq, dk, dv = torch.autograd.grad((out.float() * cot.float()).sum(),
+                                     (q, k, v))
+    return out.detach(), dq, dk, dv
+
+
+def check_seq_ops(dev, card):
+    """27a: Ulysses-flash bit-equal to the flash kernels called directly
+    at (1, 16, 4096, 64) bf16; ring and Ulysses against plain attention at
+    (2, 16, 2048, 64) fp32 under the peak rule.  Returns (timing rows,
+    the Ulysses-flash calls' launches)."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _resolve_fuse, flash_attention)
+    from apex_tpu_torch.parallel import (ring_attention, ulysses_attention,
+                                         ulysses_flash_attention)
+    from apex_tpu_torch.utils import build
+    gen = torch.Generator().manual_seed(27)
+    B, H, S, D = SEQ_FLASH_SHAPE
+    q, k, v, cot = (torch.randn(SEQ_FLASH_SHAPE, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(4))
+    fused = _resolve_fuse(None, B * H, S, S, D)
+    bwd = "flash_bwd" if fused else "flash_bwd_dq"
+    scale = D ** -0.5
+
+    def direct(q, k, v, causal):
+        out = flash_attention(
+            (q * scale).reshape(B * H, S, D), k.reshape(B * H, S, D),
+            v.reshape(B * H, S, D),
+            torch.zeros((1, 1, S), dtype=torch.float32, device=dev),
+            causal=causal, heads=H)
+        return out.reshape(B, H, S, D)
+
+    rows, uf_launches = [], {}
+    for causal in (False, True):
+        build.LAUNCHES.clear()
+        got = _fwd_bwd(lambda q, k, v: ulysses_flash_attention(
+            q, k, v, axis_name=None, causal=causal), q, k, v, cot)
+        torch.cuda.synchronize()
+        seen = dict(build.LAUNCHES)
+        for name, n in seen.items():
+            uf_launches[name] = uf_launches.get(name, 0) + n
+        want = {"flash_fwd": 1, bwd: 1}
+        if not fused:
+            want["flash_bwd_dkv"] = 1
+        require(seen == want, f"ulysses-flash causal={causal}: launches "
+                f"{seen}, expected {want}")
+        ref = _fwd_bwd(lambda q, k, v: direct(q, k, v, causal), q, k, v,
+                       cot)
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+            require(torch.equal(a, b), f"ulysses-flash causal={causal}: "
+                    f"{name} is not the direct flash call's bits (max diff "
+                    f"{(a.float() - b.float()).abs().max().item():.3g})")
+        u_ms = time_ms(lambda: _fwd_bwd(lambda q, k, v:
+                                         ulysses_flash_attention(
+                                             q, k, v, axis_name=None,
+                                             causal=causal), q, k, v, cot),
+                       reps=10, warmup=2)
+        d_ms = time_ms(lambda: _fwd_bwd(lambda q, k, v: direct(
+            q, k, v, causal), q, k, v, cot), reps=10, warmup=2)
+        log(f"  [{card}] ulysses-flash {SEQ_FLASH_SHAPE} bf16 causal="
+            f"{causal}: out, dq, dk, dv bit-equal to the direct flash call;"
+            f" launches {seen} ({'fused' if fused else 'split'} backward); "
+            f"fwd+bwd {u_ms:.2f} ms vs direct {d_ms:.2f} ms (CUDA events, "
+            "median of 10)")
+        rows.append(dict(case=f"ulysses_flash_causal{int(causal)}",
+                         ms=u_ms, direct_ms=d_ms))
+    del q, k, v, cot
+    gen = torch.Generator().manual_seed(28)
+    q, k, v, cot = (torch.randn(SEQ_PLAIN_SHAPE, generator=gen).to(dev)
+                    for _ in range(4))
+    for causal in (False, True):
+        ref = _fwd_bwd(lambda q, k, v: _plain_attention(q, k, v, causal),
+                       q, k, v, cot)
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            build.LAUNCHES.clear()
+            got = _fwd_bwd(lambda q, k, v: fn(q, k, v, axis_name=None,
+                                              causal=causal), q, k, v, cot)
+            torch.cuda.synchronize()
+            require(not build.LAUNCHES, f"{name}: launched "
+                    f"{dict(build.LAUNCHES)}")
+            errs = []
+            for part, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+                ok, err = peak_ok(a, b, SEQ_PLAIN_TOL)
+                require(ok, f"{name} causal={causal}: {part} err {err:.3g} "
+                        f"(peak rule, tol {SEQ_PLAIN_TOL})")
+                errs.append(err)
+            ms = time_ms(lambda: _fwd_bwd(lambda q, k, v: fn(
+                q, k, v, axis_name=None, causal=causal), q, k, v, cot),
+                reps=10, warmup=2)
+            log(f"  [{card}] {name} {SEQ_PLAIN_SHAPE} fp32 causal={causal}:"
+                f" out/dq/dk/dv max err {[f'{e:.3g}' for e in errs]} vs "
+                f"plain attention (peak rule, tol {SEQ_PLAIN_TOL}); fwd+bwd "
+                f"{ms:.2f} ms (CUDA events, median of 10)")
+            rows.append(dict(case=f"{name}_causal{int(causal)}", ms=ms,
+                             max_abs_err=max(errs)))
+    del q, k, v, cot, ref, got
+    torch.cuda.empty_cache()
+    return rows, uf_launches
+
+
+def check_seq_mha(dev, card):
+    """27b: SelfMultiheadAttn impl="ulysses" (flash inner) and "ring",
+    causal, at the MHA stack's tokens, held to impl="default" under the
+    causal time mask (phase 20d's 2e-3 peak rule).  Returns the Ulysses
+    module's launches."""
+    import torch
+    from apex_tpu_torch.utils import build
+    batch = _mha_batch("self", MHA_SEQS, torch.float32, dev, 10, "causal")
+    ref_out, ref_g = _mha_grads(_mha_stack("self", 1, dev, 9, "default"),
+                                batch)
+    plain = {k: v for k, v in batch.items() if k != "attn_mask"}
+    for impl, kw, want in (
+            ("ulysses", dict(seq_inner_impl="fast"),
+             {"flash_fwd": 1, "flash_bwd": 1}),
+            ("ring", {}, {})):
+        stack = _mha_stack("self", 1, dev, 9, impl, causal=True,
+                           seq_parallel_axis=None, **kw)
+        build.LAUNCHES.clear()
+        out, g = _mha_grads(stack, plain)
+        torch.cuda.synchronize()
+        seen = dict(build.LAUNCHES)
+        require(seen == want, f"MHA {impl}: launches {seen}, expected "
+                f"{want}")
+        if impl == "ulysses":
+            mha_launches = seen
+        ok, err = peak_ok(out, ref_out, 2e-3)
+        require(ok, f"MHA {impl} vs default out err {err:.3g}")
+        g_err = 0.0
+        for n in ref_g:
+            g_ok, e = peak_ok(g[n], ref_g[n], 2e-3)
+            g_err = max(g_err, e)
+            require(g_ok, f"MHA {impl} vs default grad {n} err {e:.3g}")
+        log(f"  [{card}] SelfMultiheadAttn(1024, 16, impl={impl!r}"
+            f"{', seq_inner_impl=fast' if kw else ''}, causal=True), "
+            f"{MHA_SQ} x {MHA_SEQS} tokens: out err {err:.3g}, grads max err "
+            f"{g_err:.3g} vs impl='default' + causal time mask (tol 2e-3); "
+            f"launches {seen}")
+    torch.cuda.empty_cache()
+    return mha_launches
+
+
+def _plain_switch_ffn(x, router, w_in, w_out, expert, capacity):
+    """A top-1 switch FFN written apart from the port's one-hot products:
+    each expert gathers its queue (the first ``capacity`` of its tokens in
+    order), runs relu(x w_in) w_out and scales it by the chosen softmax
+    probability; a token past capacity gets 0.  ``expert`` (T,) is the
+    routing decision.  Returns (out, the load-balancing aux loss)."""
+    import torch
+    T, E = x.shape[0], router.shape[1]
+    probs = torch.softmax(x @ router, dim=-1)
+    gate = probs.gather(1, expert[:, None])[:, 0]
+    out = torch.zeros_like(x)
+    for e in range(E):
+        idx = torch.nonzero(expert == e)[:, 0][:capacity]
+        y = torch.relu(x[idx] @ w_in[e]) @ w_out[e]
+        out = out.index_put((idx,), y * gate[idx, None])
+    frac = torch.bincount(expert, minlength=E).to(x.dtype) / T
+    return out, E * (frac * probs.mean(dim=0)).sum()
+
+
+def _relu_kink_allowance(x, w_in, w_out, expert, cot, gate, capacity):
+    """float64 bounds on what relu's kink may move in an fp32 run's dx and
+    w_in gradients: where a pre-activation z lies within MOE_KINK_BAND of
+    the scale of its products (sum |x_i w_i|), fp32 rounding may give it
+    the other sign, so its derivative mask may flip, adding or dropping
+    |dL/dh| |w_in| in dx and |x| |dL/dh| in dw_in.  Returns (dx bound,
+    dw_in bound, ambiguous elements)."""
+    import torch
+    dx, dw_in, n_amb = torch.zeros_like(x), torch.zeros_like(w_in), 0
+    for e in range(w_in.shape[0]):
+        idx = torch.nonzero(expert == e)[:, 0][:capacity]
+        xe = x[idx]
+        amb = (xe @ w_in[e]).abs() <= MOE_KINK_BAND * (xe.abs()
+                                                       @ w_in[e].abs())
+        d_h = ((cot[idx] * gate[idx, None]) @ w_out[e].T).abs() * amb
+        dx[idx] = d_h @ w_in[e].abs().T
+        dw_in[e] = xe.abs().T @ d_h
+        n_amb += int(amb.sum())
+    return dx, dw_in, n_amb
+
+
+def check_moe_layer_grads(dev, card, lyr, cfg):
+    """27c: one MoE layer's FFN (``moe_ffn`` with the step's trained
+    layer-0 weights, fp32 on the card) against :func:`_plain_switch_ffn`
+    in float64, on the step's token count: output, aux loss and the
+    gradients of sum(out * cot) + T aux (the token count T weighs the
+    aux term's router gradient to the gate's order) in x, the router,
+    w_in and w_out, each element within MOE_GRAD_TOL of its float64 peak.  dx and dw_in
+    may also carry what relu's kink moves at the pre-activations fp32 can
+    put on its other side (:func:`_relu_kink_allowance`); the others are
+    continuous there.  The routing decision is the fp32 logits' argmax in
+    both, so a near-tie cannot split them."""
+    import torch
+    from apex_tpu_torch.parallel import moe_ffn
+    T = FLAGSHIP_BATCH[0] * FLAGSHIP_BATCH[1]
+    gen = torch.Generator().manual_seed(30)
+    x, cot = (torch.randn(T, cfg.d_model, generator=gen).to(dev)
+              for _ in range(2))
+    names = ("router", "w_in", "w_out")
+    expert = torch.softmax(x @ lyr["router"].float(), dim=-1).argmax(-1)
+    capacity = max(int(cfg.capacity_factor * T / cfg.num_experts), 1)
+
+    def run(fn, dtype):
+        ins = [x.to(dtype).requires_grad_(True)] + [
+            lyr[n].detach().to(dtype).requires_grad_(True) for n in names]
+        out, aux = fn(*ins)
+        g = torch.autograd.grad((out * cot.to(dtype)).sum() + T * aux, ins)
+        return [out.detach(), aux.detach()] + list(g)
+
+    got = run(lambda *a: moe_ffn(*a, axis_name=None,
+                                 capacity_factor=cfg.capacity_factor),
+              torch.float32)
+    want = run(lambda *a: _plain_switch_ffn(*a, expert, capacity),
+               torch.float64)
+    x64, r64, wi64, wo64 = (t.detach().double() for t in
+                            [x] + [lyr[n] for n in names])
+    gate = torch.softmax(x64 @ r64, dim=-1).gather(1, expert[:, None])[:, 0]
+    kink_dx, kink_dw_in, n_amb = _relu_kink_allowance(
+        x64, wi64, wo64, expert, cot.double(), gate, capacity)
+    kinks = {"dx": kink_dx, "dw_in": kink_dw_in}
+    errs, used = {}, {}
+    for part, a, b in zip(("out", "aux", "dx") + tuple(f"d{n}" for n in
+                                                       names), got, want):
+        diff = (a.double() - b).abs()
+        peak = float(b.abs().max())
+        allow = MOE_GRAD_TOL * peak + kinks.get(part, 0.0)
+        worst = float((diff - allow).max())
+        require(worst <= 0, f"MoE layer {part}: err {float(diff.max()):.3g}"
+                f" passes its allowance by {worst:.3g} (tol {MOE_GRAD_TOL} "
+                f"of the float64 peak {peak:.3g}, plus the kink bound)")
+        errs[part] = float(diff.max()) / peak
+        used[part] = int((diff > MOE_GRAD_TOL * peak).sum())
+    over = int((torch.bincount(expert, minlength=cfg.num_experts)
+                - capacity).clamp(min=0).sum())
+    log(f"  [{card}] MoE layer 0 FFN, {T} tokens (capacity {capacity}, "
+        f"{over} past it), fp32 vs a float64 gather-based switch FFN: max "
+        f"err of the peak {({k: f'{v:.3g}' for k, v in errs.items()})} "
+        f"(tol {MOE_GRAD_TOL}); {n_amb} pre-activations within the kink "
+        f"band {MOE_KINK_BAND}, elements past the tol inside their kink "
+        f"bound {used}")
+    RESULTS["moe_layer_grad_errs"] = errs
+    del got, want, kinks, kink_dx, kink_dw_in
+    torch.cuda.empty_cache()
+
+
+def phase_moe(dev, card):
+    """27c: the switch-MoE step at full width through the ep engine at
+    world 1 (the dp-MoE twin)."""
+    import torch
+    from apex_tpu_torch.models import (MoETransformerConfig,
+                                       moe_transformer_apply)
+    from apex_tpu_torch.parallel import Plan, create_mesh, spmd
+    from apex_tpu_torch.utils import build
+    from apex_tpu_torch.utils.pytree import tree_leaves
+    # remat stays off: the step peaks under the 75 GB it would be turned
+    # on past (PERF.md section 4)
+    cfg = MoETransformerConfig(**MOE_CFG)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = create_mesh({"data": 1})
+    t0 = time.perf_counter()
+    carry, step, info = spmd._build_ep_step(
+        cfg, mesh, Plan(dp=1), FLAGSHIP_BATCH[0], FLAGSHIP_LR, True, None, 0,
+        dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(carry[0]))
+    n_expert = sum(l[k].numel() for l in carry[0]["layers"]
+                   for k in ("w_in", "w_out"))
+    # one batch every step, as the JAX engine tests train each family;
+    # check_moe_layer_grads below holds the step's gradients apart from
+    # the loss's fall (PERF.md section 4)
+    toks = _flagship_tokens(cfg, dev, 1)[0]
+    carry, loss = step(carry, toks)
+    losses = [loss.item()]
+    build.LAUNCHES.clear()
+    times = []
+    for _ in range(MOE_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        carry, loss = step(carry, toks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # the forward and backward alone (no update): where the peak sits
+    torch.cuda.reset_peak_memory_stats()
+    step.grads_of(carry[0], toks)
+    grads_peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, aux = moe_transformer_apply(carry[0], toks, cfg)
+    aux = aux.item()
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"MoE: losses {losses} not finite and falling")
+    require(np.isfinite(aux), f"MoE: aux loss {aux}")
+    check_launches("moe_ep", launches, MOE_STEPS, exact=True)
+    check_moe_layer_grads(dev, card, carry[0]["layers"][0], cfg)
+    ms = statistics.median(times) * 1e3
+    tok_s = FLAGSHIP_BATCH[0] * FLAGSHIP_BATCH[1] / ms * 1e3
+    RESULTS.update(moe_step_ms=ms, moe_tokens_per_s=tok_s,
+                   moe_peak_gib=peak / 2 ** 30,
+                   moe_grads_peak_gib=grads_peak / 2 ** 30)
+    log(f"  [{card}] MoE {n_params} parameters ({n_expert} in the experts),"
+        f" fp32, remat off, batch {FLAGSHIP_BATCH[0]} x "
+        f"{FLAGSHIP_BATCH[1]}, FusedAdam(lr={FLAGSHIP_LR}, impl='fused'): "
+        f"step {ms:.2f} ms (median of {MOE_STEPS}; all "
+        f"{[round(t * 1e3, 2) for t in times]}), {tok_s:.0f} tokens/s, "
+        f"peak {peak / 2 ** 30:.2f} GiB allocated (the forward and "
+        f"backward alone {grads_peak / 2 ** 30:.2f}), build {init_s:.1f} s; "
+        f"losses {[round(l, 6) for l in losses]}, aux {aux:.6f}; launches "
+        f"a step {({k: v // MOE_STEPS for k, v in launches.items()})}; "
+        f"engine {info['engine']}, experts {info['experts']}")
+    del carry, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sp_engine(dev, card):
+    """27d: the sp engine at world 1 at the flagship's width, ring and
+    Ulysses, held to phase 26's off flagship step from the same weights."""
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.parallel import Plan, create_mesh, spmd
+    from apex_tpu_torch.utils import build
+    cfg = bert_large_config(attn_impl="fast")
+    ref = RESULTS["flagship_off_losses"]
+    toks = _flagship_tokens(cfg, dev, 3)
+    mesh = create_mesh({"data": 1, "seq": 1})
+    launches = {}
+    for strategy in ("ring", "ulysses"):
+        torch.cuda.empty_cache()
+        params0 = transformer_init(cfg, torch.Generator().manual_seed(0),
+                                   device=dev)
+        carry, step, info = spmd._build_sp_step(
+            cfg, mesh, Plan(dp=1, sp_strategy=strategy), FLAGSHIP_BATCH[0],
+            FLAGSHIP_LR, True, params0, 0, dev)
+        carry, loss = step(carry, toks[0])
+        losses = [loss.item()]
+        build.LAUNCHES.clear()
+        times = []
+        for t in toks[1:]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            carry, loss = step(carry, t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(loss.item())
+        path = f"sp_{strategy}"
+        launches[path] = dict(build.LAUNCHES)
+        check_launches(path, launches[path], 2, exact=True)
+        # step 0 is one forward from the same weights: only the attention
+        # core's order of operations differs
+        require(abs(losses[0] - ref[0]) <= SP_STEP0_TOL * abs(ref[0]),
+                f"sp {strategy} step 0: loss {losses[0]} vs the flagship "
+                f"step's {ref[0]} (tol {SP_STEP0_TOL} relative)")
+        for i, (a, b) in enumerate(zip(losses, ref)):
+            require(abs(a - b) <= max(2e-2 * abs(b), 5e-3),
+                    f"sp {strategy} step {i}: loss {a} vs the flagship "
+                    f"step's {b}")
+        ms = statistics.median(times) * 1e3
+        RESULTS[f"sp_{strategy}_ms"] = ms
+        log(f"  [{card}] sp {strategy} (engine {info['engine']}): step "
+            f"{ms:.2f} ms (median of 2; all "
+            f"{[round(t * 1e3, 2) for t in times]}); losses "
+            f"{[round(l, 6) for l in losses]} vs phase 26 off "
+            f"{[round(l, 6) for l in ref[:3]]} (step 0 tol {SP_STEP0_TOL} "
+            f"relative, then 2e-2 relative or 5e-3); wire {info['sp_wire']['logical_bytes']} B a step "
+            "(static schedule)")
+        del carry, step, params0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_pipeline_s1(dev, card):
+    """27e: pipeline_apply with the flagship's 24 layers as one stage
+    over 4 microbatches of the 8 x 512 batch, against the plain stack."""
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.models.transformer import block, embed
+    from apex_tpu_torch.parallel import create_mesh, pipeline_apply
+    cfg = bert_large_config(attn_impl="fast")
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    mesh = create_mesh({"pipe": 1})
+    toks = _flagship_tokens(cfg, dev, 1)[0]
+    B, S = FLAGSHIP_BATCH
+    with torch.no_grad():
+        x = embed(params, toks, params["embed"]["pos"][:S][None], cfg)
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(29)
+                      ).to(dev)
+    names = sorted(params["layers"])
+
+    def stage_fn(lp, h):
+        for i in range(cfg.num_layers):
+            h = block(h, {k: v[i] for k, v in lp.items()}, cfg)
+        return h
+
+    def run(pipe):
+        lp = {k: params["layers"][k].detach().requires_grad_(True)
+              for k in names}
+        if pipe:
+            out = pipeline_apply(stage_fn, lp, x.reshape(
+                PIPE_MICRO, B // PIPE_MICRO, S, cfg.d_model),
+                axis_name=mesh.group("pipe")).reshape(x.shape)
+        else:
+            out = stage_fn(lp, x)
+        grads = torch.autograd.grad((out * cot).sum(), [lp[k] for k in
+                                                        names])
+        return out.detach(), dict(zip(names, grads))
+
+    ms_pipe = time_ms(lambda: run(True), reps=1, warmup=0)
+    p_out, p_g = run(True)
+    r_out, r_g = run(False)
+    worst = float((p_out - r_out).abs().max() / r_out.abs().max())
+    require(worst <= PIPE_TOL, f"pipeline S=1 output err {worst:.3g} of the "
+            f"peak (tol {PIPE_TOL})")
+    g_worst = 0.0
+    for k in names:
+        e = float((p_g[k] - r_g[k]).abs().max() / r_g[k].abs().max())
+        g_worst = max(g_worst, e)
+        require(e <= PIPE_TOL, f"pipeline S=1 grad {k} err {e:.3g} of the "
+                f"peak (tol {PIPE_TOL})")
+    log(f"  [{card}] pipeline_apply S=1, {cfg.num_layers} layers, M="
+        f"{PIPE_MICRO} of {B} x {S}: output err {worst:.3g}, layer grads max"
+        f" err {g_worst:.3g} of their peaks vs the plain stack (tol "
+        f"{PIPE_TOL}); fwd+bwd {ms_pipe:.1f} ms (CUDA events, one run)")
+    del params, p_out, p_g, r_out, r_g
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(dev, card):
+    """Phase 27 (after 26, before 20): (a)-(e) on a world-1 NCCL group,
+    destroyed before it returns.  Returns its paths' launch counts."""
+    import torch.distributed as dist
+    log("== phase 27: sequence / pipeline / expert parallelism, the MoE step"
+        " and the sp engine (world-1 NCCL: a collective is a copy; paths, "
+        "launches and numbers, not wire time)")
+    store = start_process_group()
+    launches = {}
+    try:
+        log("  -- 27a: Ulysses-flash at 4096 tokens, ring and Ulysses vs "
+            "plain attention")
+        RESULTS["seq_rows"], launches["ulysses_flash"] = check_seq_ops(
+            dev, card)
+        log("  -- 27b: SelfMultiheadAttn impl='ulysses' / 'ring'")
+        launches["mha_ulysses"] = check_seq_mha(dev, card)
+        log("  -- 27c: the switch-MoE step at full width (ep engine, world "
+            "1)")
+        launches["moe_ep"] = phase_moe(dev, card)
+        log("  -- 27d: the sp engine at the flagship's width, ring and "
+            "Ulysses")
+        launches.update(phase_sp_engine(dev, card))
+        log("  -- 27e: pipeline_apply at S=1 over the flagship's layers")
+        check_pipeline_s1(dev, card)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, row, launches_by_path, path):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches_by_path[path].get(name, 0),
@@ -7383,6 +7922,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     launches.update(phase_collectives(
         dev, card, (serve_launches, serve_doc["tokens_per_sec"])))
+    torch.cuda.empty_cache()
+    launches.update(phase_parallel(dev, card))
     torch.cuda.empty_cache()
     phase_mha_parity(dev)
     launches["mha_self"], launches["mha_self_default"] = phase_mha_stack(

@@ -1323,3 +1323,102 @@ def test_hooked_bucket_zero_launches_before_the_last_hook(nccl_world1,
             seen.add(i)
         else:
             assert set(layout.buckets[i].leaf_ids) <= seen
+
+
+# -- the parallel engines' card paths ------------------------------------------
+
+def test_ulysses_flash_is_the_flash_kernels_bits(nccl_world1, cuda_device):
+    """At world 1 the Ulysses exchanges are copies: ``ulysses_flash_
+    attention`` gives the direct flash call's bits in out, dq, dk and dv,
+    one forward and one backward launch a call."""
+    from apex_tpu_torch.parallel import ulysses_flash_attention
+    gen = torch.Generator().manual_seed(0)
+    B, H, S, D = 1, 4, 512, 64
+    q, k, v, cot = (torch.randn(B, H, S, D, generator=gen).to(
+        cuda_device, torch.bfloat16) for _ in range(4))
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qq, kk, vv)
+        grads = torch.autograd.grad((out.float() * cot.float()).sum(),
+                                    (qq, kk, vv))
+        return (out.detach(),) + grads
+
+    def direct(qq, kk, vv):
+        bias = torch.zeros((1, 1, S), dtype=torch.float32,
+                           device=cuda_device)
+        return pflash.flash_attention(
+            (qq * D ** -0.5).reshape(B * H, S, D), kk.reshape(B * H, S, D),
+            vv.reshape(B * H, S, D), bias, causal=True,
+            heads=H).reshape(B, H, S, D)
+
+    before = dict(build.LAUNCHES)
+    got = run(lambda qq, kk, vv: ulysses_flash_attention(
+        qq, kk, vv, axis_name=None, causal=True))     # the default group
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd"):
+        assert build.LAUNCHES[name] == before.get(name, 0) + 1, name
+    ref = run(direct)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_sequence_ops_refuse_cuda_tensors_on_gloo(nccl_world1, cuda_device):
+    """A CUDA tensor on a gloo group raises before any exchange."""
+    from apex_tpu_torch.parallel import ring_attention, ulysses_attention
+    q = torch.ones(1, 2, 8, 4, device=cuda_device)
+    for fn in (ring_attention, ulysses_attention):
+        with pytest.raises(RuntimeError, match="NCCL only"):
+            fn(q, q, q, axis_name=nccl_world1)
+
+
+def test_moe_fast_step_launches(cuda_device):
+    """The MoE model with ``attn_impl="fast"``: a forward and backward
+    launches #1 and #4 once a layer, #5 and #6 twice a layer plus the
+    head's, #7 once."""
+    from apex_tpu_torch.models import (MoETransformerConfig,
+                                       moe_transformer_init,
+                                       moe_transformer_loss)
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+    cfg = MoETransformerConfig(vocab_size=1024, max_len=128, num_layers=2,
+                               d_model=256, num_heads=4, d_ff=512,
+                               attn_impl="fast")
+    params = moe_transformer_init(cfg, torch.Generator().manual_seed(0),
+                                  device=cuda_device)
+    leaves, td = tree_flatten(params)
+    leaves = [p.requires_grad_(True) for p in leaves]
+    toks = torch.randint(0, 1024, (2, 128),
+                         generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    before = dict(build.LAUNCHES)
+    loss = moe_transformer_loss(tree_unflatten(td, leaves),
+                                {"tokens": toks, "targets": toks}, cfg)
+    torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    want = {"flash_fwd": 2, "flash_bwd": 2, "ln_fwd": 5, "ln_bwd": 5,
+            "xent_fwd": 1}
+    got = {k: build.LAUNCHES[k] - before.get(k, 0) for k in build.LAUNCHES
+           if build.LAUNCHES[k] != before.get(k, 0)}
+    assert got == want
+    assert torch.isfinite(loss)
+
+
+def test_reduction_releases_its_buffers(nccl_world1, cuda_device):
+    """A DDP reduction on the card leaves nothing allocated once its
+    input and output trees are dropped, the cyclic collector off."""
+    import gc
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        grads = {"a": torch.ones(2 ** 22, device=cuda_device),
+                 "b": torch.ones(2 ** 22, device=cuda_device)}
+        red = DistributedDataParallel().allreduce_grads(grads)
+        del grads, red
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == base
+    finally:
+        if was:
+            gc.enable()

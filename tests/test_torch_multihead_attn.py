@@ -328,9 +328,21 @@ def test_constructor_checks(cls, kw, exc):
     if exc is AssertionError:      # the JAX modules refuse the same
         with pytest.raises(AssertionError):
             jcls(E, H, **kw)
-    with pytest.raises(exc, match="Queue 1 item 7" if exc is
-                       NotImplementedError else None):
-        cls(E, H, device="cpu", **kw)
+        with pytest.raises(exc):
+            cls(E, H, device="cpu", **kw)
+        return
+    # the sequence-parallel impls construct, and refuse a per-call mask
+    # before any collective, as the JAX modules do
+    jm = jcls(E, H, **kw)
+    params = jm.init_params(jax.random.PRNGKey(0))
+    mask = np.zeros((2, 8), bool)
+    with pytest.raises(exc, match="per-call masks"):
+        jm(params, jnp.asarray(_x((8, 2, E), 21)),
+           key_padding_mask=jnp.asarray(mask), is_training=False)
+    pm = cls(E, H, device="cpu", **kw)
+    with pytest.raises(exc, match="per-call masks"):
+        pm(t(_x((8, 2, E), 21)), key_padding_mask=t(mask),
+           is_training=False)
 
 
 def test_call_checks():
