@@ -1,6 +1,7 @@
 from .transformer import (TransformerConfig, bert_large_config,  # noqa: F401
-                          params_from_jax, transformer_apply,
-                          transformer_init, transformer_loss)
+                          params_from_jax, tp_gather_params, tp_shard_params,
+                          transformer_apply, transformer_init,
+                          transformer_loss, transformer_pspecs)
 from .resnet import (ResNetConfig, resnet18_config,  # noqa: F401
                      resnet50_config, resnet_apply, resnet_init,
                      resnet_params_from_jax)

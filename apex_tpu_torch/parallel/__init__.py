@@ -6,9 +6,8 @@ with its overlapped buckets (:mod:`.distributed`, :mod:`.overlap`),
 weight-update sharding (:mod:`.weight_update`), sequence, pipeline and
 expert parallelism (:mod:`.sequence`, :mod:`.pipeline`, :mod:`.expert`
 over the differentiable collectives of :mod:`.comm`), parallel plans and
-their step engine (:mod:`.plan`, :mod:`.spmd`), SyncBatchNorm and LARC.
-The tensor-parallel engine and the planner's cost model are queued in
-ROADMAP.md."""
+their step engine with its tensor-parallel family and the planner's cost
+model and search (:mod:`.plan`, :mod:`.spmd`), SyncBatchNorm and LARC."""
 import copy
 
 from . import (collectives, comm, expert, mesh, overlap,  # noqa: F401

@@ -24,6 +24,15 @@ runs the same backward collectives everywhere.
   rank 0 receives zeros.  Backward: the hop back.
 - :func:`psum` — all-reduce sum.  Backward: the all-reduce of the
   cotangents (each rank's loss is its own term of the global objective).
+- :func:`copy_to_tp` / :func:`reduce_from_tp` — Megatron's conjugate
+  pair for a column / row split over the tensor-parallel group: the
+  first is the identity forward and an all-reduce of the cotangents
+  backward (*f*), the second an all-reduce forward and the identity
+  backward (*g*).
+- :func:`gather_from_tp` — all-gather along a dim (the vocab-sharded
+  logits a sampler reads whole); backward: this rank's slice.
+- :func:`all_reduce_stat` — a non-differentiable all-reduce (sum or max)
+  of statistics, such as a vocab-parallel cross-entropy's row maxima.
 
 :func:`recording` collects what these collectives ship, forward and
 backward, by the compiled program's opcode names (``all-to-all``,
@@ -41,7 +50,9 @@ import torch.distributed as dist
 
 from .mesh import check_group_device
 
-__all__ = ["rotate", "all_to_all", "shift_next", "psum", "recording"]
+__all__ = ["rotate", "all_to_all", "shift_next", "psum", "copy_to_tp",
+           "reduce_from_tp", "gather_from_tp", "all_reduce_stat",
+           "recording"]
 
 _TAPE: Optional[dict] = None
 
@@ -222,3 +233,83 @@ class _Psum(torch.autograd.Function):
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """``lax.psum(x, axis)``, differentiable."""
     return _Psum.apply(x, group)
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    check_group_device(x, group)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    _note("all-reduce", out)
+    return out
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f*: ``x`` as it is forward; the cotangents of the
+    ranks' column shards summed over ``group`` backward (each rank's
+    column slice gives a partial gradient of the replicated input)."""
+    return _CopyToTp.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *g*: the ranks' partial sums of a row-split product
+    summed over ``group`` forward; the cotangent passed through backward
+    (every rank's output is the same replicated tensor)."""
+    return _ReduceFromTp.apply(x, group)
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    check_group_device(x, group)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    out = torch.cat(parts, dim)
+    _note("all-gather", out)
+    return out
+
+
+class _GatherFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, me * ctx.size, ctx.size), None, None
+
+
+def gather_from_tp(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+    bits are the same on every rank); backward: this rank's slice."""
+    return _GatherFromTp.apply(x, group, dim % x.dim())
+
+
+def all_reduce_stat(x: torch.Tensor, group, op: str = "sum"
+                    ) -> torch.Tensor:
+    """``x`` (no gradient) reduced over ``group`` by ``op`` (``"sum"`` or
+    ``"max"``): statistics such as a vocab-parallel cross-entropy's row
+    maxima and sums of exponentials."""
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+    return _all_reduce(x.detach(), group, ops[op])

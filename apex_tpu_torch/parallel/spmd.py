@@ -2,9 +2,9 @@
 plan.Plan` as an executable, metered train step of the flagship
 transformer.
 
-Counterpart of ``apex_tpu/parallel/spmd.py``, every family but tp.  Each
-rank runs the step body over its own block of the batch; the mesh's
-process groups (:func:`~apex_tpu_torch.parallel.mesh.create_mesh`, which
+Counterpart of ``apex_tpu/parallel/spmd.py``.  Each rank runs the step
+body over its own block of the batch; the mesh's process groups
+(:func:`~apex_tpu_torch.parallel.mesh.create_mesh`, which
 :meth:`Plan.apply` builds) carry the collectives:
 
 ``dp``
@@ -38,6 +38,20 @@ process groups (:func:`~apex_tpu_torch.parallel.mesh.create_mesh`, which
 ``zero``
     :class:`~apex_tpu_torch.contrib.optimizers.DistributedFusedAdam` over
     ``data`` (:func:`~apex_tpu_torch.train.zero_train_step`).
+``tp``
+    Megatron's column / row splits over ``model`` (the transformer's
+    ``tp_group`` path, :func:`~apex_tpu_torch.models.transformer.
+    tp_shard_params`): each rank holds its shards and the replicated
+    leaves, runs the plain attention and the vocab-parallel cross-entropy
+    (the JAX engine forces ``attn_impl="default"``, ``xent_impl="xla"``),
+    reduces its gradients over ``data`` (fp32 wire) and updates a
+    fused-flat Adam over its own leaves (or zero1's ``ShardedUpdate`` of
+    that flat over ``data``), the finite flag a MIN over the whole mesh so
+    that every rank skips together.  ``amp_dtype="bfloat16"`` runs the
+    model copy in bf16 off the fp32 master.  The JAX engine lets GSPMD
+    place the collectives and meters its compiled program; the port
+    issues Megatron's all-reduces itself and meters the executed ones
+    (``tp.psum``).
 
 ``build_plan_step`` returns ``(carry0, step, info)``; ``step(carry,
 tokens)`` takes the GLOBAL ``(global_batch, seq)`` tokens, as the JAX
@@ -47,25 +61,64 @@ the JAX keys; where the JAX engine reads its compiled program
 (``collectives``, ``metered``), the port fills them from the first
 executed step (:func:`~apex_tpu_torch.parallel.comm.recording`: the
 collectives the engine itself issues — ring rotations, Ulysses and
-expert exchanges, pipeline hops and sums — by opcode; the DDP wire keeps
-its own ``ddp.*`` meters).  The tp family raises ``NotImplementedError``:
-it comes with the next slice of the port.
+expert exchanges, pipeline hops and sums, Megatron's all-reduces — by
+opcode; the DDP wire keeps its own ``ddp.*`` meters).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+import dataclasses
+
 from . import comm
-from .mesh import DATA_AXIS, SEQ_AXIS, Placement
+from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Placement
 from ..utils.device import resolve_device
-from ..utils.pytree import (tree_flatten, tree_leaves_with_path,
+from ..utils.pytree import (tree_flatten, tree_leaves_with_path, tree_map,
                             tree_map_with_path, tree_unflatten)
 
-__all__ = ["build_plan_step", "SPMD_FAMILIES"]
+__all__ = ["build_plan_step", "plan_param_pspecs", "serve_shardings",
+           "SPMD_FAMILIES"]
 
 #: plan families the JAX engine materialises (Plan.family values)
 SPMD_FAMILIES = ("dp", "tp", "sp", "zero", "pp", "ep")
+
+
+# ---------------------------------------------------------------------------
+# placements
+# ---------------------------------------------------------------------------
+
+def plan_param_pspecs(cfg, plan):
+    """The placement tree of ``cfg``'s parameters under ``plan``: the
+    Megatron specs of :func:`~apex_tpu_torch.models.transformer.
+    transformer_pspecs` at tp > 1, every leaf ``"replicated"`` otherwise
+    (the dp wire reduces gradients; sp shards activations)."""
+    from ..models.transformer import REPLICATED, transformer_pspecs
+    specs = transformer_pspecs(cfg, dp=DATA_AXIS, tp=MODEL_AXIS)
+    if plan.tp > 1:
+        return specs
+    return tree_map(lambda _: REPLICATED, specs)
+
+
+def serve_shardings(mesh, cfg, *, packed):
+    """The serving engine's placements over ``mesh``: ``{"params": ...,
+    "kv": ...}``.  With a ``model`` axis the parameters take the Megatron
+    specs and the KV pools ``(L, pages, page_size, H, hd)`` split dim 3
+    (each rank pages its own heads); the int8 O-level's packed
+    ``(codes, scales)`` list stays whole on every rank (block-scale codes
+    do not slice along Megatron dims; the engine slices after the
+    dequantize), the pools still split."""
+    from ..models.transformer import REPLICATED, transformer_pspecs
+    tp = int(mesh.shape.get(MODEL_AXIS, 1))
+    if tp > 1 and cfg.num_heads % tp:
+        raise ValueError(f"num_heads {cfg.num_heads} not divisible by "
+                         f"model-axis size {tp}")
+    if tp > 1 and isinstance(packed, dict):
+        params = transformer_pspecs(cfg, dp=DATA_AXIS, tp=MODEL_AXIS)
+    else:
+        params = tree_map(lambda _: REPLICATED, packed)
+    kv = f"{MODEL_AXIS}:3" if tp > 1 else REPLICATED
+    return {"params": params, "kv": kv}
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +171,24 @@ def _ep_schedule_bytes(cfg, n_dp: int, n_ep: int, global_batch: int) -> dict:
             "capacity": capacity}
 
 
+def _tp_schedule_bytes(cfg, n_dp: int, global_batch: int) -> dict:
+    """Per-rank all-reduce bytes of one tp step, the executed Megatron
+    schedule: per layer the attention's and the MLP's row outputs
+    forward and their column inputs' cotangents backward (4 activation
+    blocks (B_local, S, D), the cost model's ``t_tp`` payload); the
+    embedding's lookup forward and the head's input cotangent backward
+    (one block each); the vocab-parallel cross-entropy's row maxima, sums
+    of exponentials and gold logits (3 fp32 rows of B_local * S)."""
+    rows = (global_batch // n_dp) * cfg.max_len
+    blk = rows * cfg.d_model * _esize(cfg.dtype)
+    layers = max(int(cfg.num_layers), 1)
+    parts = {"layers": 4 * layers * blk, "embed": blk, "head": blk,
+             "xent": 3 * rows * 4}
+    return {"op": "psum", "logical_bytes": sum(parts.values()),
+            "count": 4 * layers + 2 + 3, "per_layer_block_bytes": blk,
+            "layers": layers, "parts": parts}
+
+
 def _record_schedule(mesh, axis, sched, n_calls, dtype, family):
     from ..telemetry import events as _events
     from .collectives import axis_label, dtype_name
@@ -147,10 +218,10 @@ def _sum_over(tensors, group, divide: float = 1.0):
     return out
 
 
-def _flat_body(grads_of, opt, ddp, tokens_at):
+def _flat_body(grads_of, opt, ddp, tokens_at, finite_group=None):
     """``body(carry, tokens)``: ``grads_of`` on this rank's block, the
     DDP reduction over ``ddp``'s group, then :func:`~apex_tpu_torch.train.
-    flat_update`."""
+    flat_update` (its finite flag a MIN over ``finite_group`` if given)."""
     from ..train import flat_update
 
     def body(carry, tokens):
@@ -158,7 +229,8 @@ def _flat_body(grads_of, opt, ddp, tokens_at):
         loss, grads = grads_of(params, tokens_at.local(tokens))
         held = [ddp.allreduce_grads(grads)]
         del grads
-        return flat_update(opt, state, params, held), loss
+        return flat_update(opt, state, params, held,
+                           finite_group=finite_group), loss
     return body
 
 
@@ -207,10 +279,9 @@ def build_plan_step(cfg, mesh, plan, *, global_batch: int, lr: float = 1e-2,
     whole model on every rank: the engines take their slices), default
     drawn from ``seed``; ``device`` defaults to ``"cuda"``.  Knobs without
     an argument here resolve through their environment surfaces, which
-    :meth:`Plan.apply` sets.  ``amp_dtype`` (the bf16 model copy) belongs
-    to the tp engine, not ported yet, and is ignored by the others, as
-    in the JAX engine."""
-    del amp_dtype
+    :meth:`Plan.apply` sets.  ``amp_dtype`` (``"bfloat16"``: the model
+    copy and activations in bf16 off the fp32 master) belongs to the tp
+    engine and is ignored by the others, as in the JAX engine."""
     if plan.allgather_scheme != "fp32" and not plan.shards_update:
         raise ValueError(
             f"allgather_scheme={plan.allgather_scheme!r} needs a sharded "
@@ -221,10 +292,7 @@ def build_plan_step(cfg, mesh, plan, *, global_batch: int, lr: float = 1e-2,
     if plan.zero:
         return _build_zero_step(*args)
     if plan.tp > 1:
-        raise NotImplementedError(
-            "the tp family (the tensor-parallel engine) is not ported yet: "
-            "it comes with the next slice of the port (ROADMAP.md, Queue 1 "
-            "item 7)")
+        return _build_tp_step(*args, amp_dtype=amp_dtype)
     if plan.sp > 1:
         return _build_sp_step(*args)
     if plan.pp_stages > 1:
@@ -258,6 +326,100 @@ def _init_params(cfg, params, seed, dev):
         return params
     return transformer_init(cfg, torch.Generator().manual_seed(seed),
                             device=dev)
+
+
+def _amp_dtype(amp_dtype):
+    if amp_dtype is None or isinstance(amp_dtype, torch.dtype):
+        return amp_dtype
+    return getattr(torch, str(amp_dtype))
+
+
+def _build_tp_step(cfg, mesh, plan, global_batch, lr, meter, params, seed,
+                   dev, amp_dtype=None):
+    """The tensor-parallel engine (see the module docstring).  The mesh's
+    ``model`` axis (size 1 included) carries the Megatron all-reduces; a
+    mesh without one runs the unsplit model."""
+    from ..models.transformer import tp_shard_params, transformer_loss
+    from ..optimizers import FusedAdam
+    from ..train import mean_loss
+    from .collectives import axis_label, dtype_name
+    from .distributed import DistributedDataParallel
+
+    n_dp = int(mesh.shape[DATA_AXIS])
+    n_tp = int(mesh.shape.get(MODEL_AXIS, 1))
+    _check_batch(global_batch, n_dp, "data axis")
+    if cfg.num_heads % n_tp:
+        raise ValueError(f"num_heads {cfg.num_heads} must divide over the "
+                         f"model axis ({n_tp}) — the attention shard unit")
+    if plan.collective_scheme != "fp32":
+        raise ValueError(f"the tp engine's data wire is fp32 (the planner "
+                         f"enumerates no other); got "
+                         f"{plan.collective_scheme!r}")
+    amp = _amp_dtype(amp_dtype)
+    # the JAX engine's configuration: GSPMD cannot partition its Pallas
+    # attention and cross-entropy, so both engines run the plain paths
+    run_cfg = dataclasses.replace(cfg, attn_impl="default", xent_impl="xla")
+    if amp is not None:
+        run_cfg = dataclasses.replace(run_cfg, dtype=amp)
+    tp_group = mesh.group(MODEL_AXIS) if MODEL_AXIS in mesh.shape else None
+    tp_rank = mesh.axis_index(MODEL_AXIS) if tp_group is not None else 0
+    params0 = tp_shard_params(_init_params(cfg, params, seed, dev), cfg,
+                              tp_rank, n_tp)
+    opt = FusedAdam(lr=lr, impl="fused")
+    data_group = mesh.group(DATA_AXIS)
+    ddp = DistributedDataParallel(axis_name=data_group,
+                                  collective_scheme="fp32",
+                                  allgather_scheme=_allgather(plan),
+                                  device=dev)
+    su = ddp.weight_update(opt)
+    state0 = opt.init(params0) if su is None else su.init(params0)
+    tokens_at = Placement(mesh, (DATA_AXIS,))
+
+    def grads_of(params, tokens):
+        leaves, treedef = _leaves(params)
+        model = leaves if amp is None else [p.to(amp) for p in leaves]
+        loss = transformer_loss(tree_unflatten(treedef, model),
+                                {"tokens": tokens, "targets": tokens},
+                                run_cfg, tp_group=tp_group)
+        grads = torch.autograd.grad(loss, leaves)
+        return mean_loss(loss, data_group), tree_unflatten(treedef,
+                                                           list(grads))
+
+    if su is None:
+        body = _flat_body(grads_of, opt, ddp, tokens_at,
+                          finite_group=mesh.world)
+    else:
+        def body(carry, tokens):
+            params, state = carry
+            loss, grads = grads_of(params, tokens_at.local(tokens))
+            return su.step(state, grads, params,
+                           finite_group=mesh.world), loss
+
+    info = {"family": plan.family, "engine": "megatron", "tp": n_tp,
+            "dp": n_dp,
+            "flat_world": n_tp * (n_dp if plan.shards_update else 1),
+            "amp_dtype": None if amp is None else dtype_name(amp)}
+    if meter:
+        info["tp_wire"] = _tp_schedule_bytes(run_cfg, n_dp, global_batch)
+    inner = _metered_step(body, info, meter)
+
+    def step(carry, tokens):
+        out = inner(carry, tokens)
+        if meter and "metered" not in info:
+            from ..telemetry import events as _events
+            agg = dict(info["collectives"].get(
+                "all-reduce", {"count": 0, "logical_bytes": 0}))
+            _events.record_collective(
+                axis_label(tp_group), agg["logical_bytes"], agg["count"],
+                0.0, wire_bytes=agg["logical_bytes"], scheme="fp32",
+                dtype=dtype_name(run_cfg.dtype), op="psum", family="tp")
+            info["metered"] = {"all-reduce": agg}
+        return out
+
+    step.grads_of = lambda params, tokens: grads_of(params,
+                                                    tokens_at.local(tokens))
+    step.cfg = run_cfg
+    return (params0, state0), step, info
 
 
 def _build_sp_step(cfg, mesh, plan, global_batch, lr, meter, params, seed,

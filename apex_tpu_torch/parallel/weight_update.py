@@ -288,11 +288,14 @@ class ShardedUpdate:
     # -- the step ------------------------------------------------------------
 
     def step(self, state, grads, params, *, scale=1.0, lr=None,
-             residual=None):
+             residual=None, finite_group=None):
         """One collective step: this rank's local unreduced gradients (the
         whole model) in; ``(new_params, new_state)`` out, or a 3-tuple
         ending in the new residual when ``residual`` is passed.  ``params``
-        gives the structure and dtypes; ``scale`` divides the gradients."""
+        gives the structure and dtypes; ``scale`` divides the gradients.
+        ``finite_group`` (default the update's group): the group the
+        finite flag's MIN runs over, wider for ranks that hold different
+        leaves (tensor-parallel shards)."""
         group = self.group
         mode = _ov.resolve_mode(self.overlap)
         msize = (self.message_size if self.message_size is not None
@@ -305,7 +308,9 @@ class ShardedUpdate:
         # scatter, MIN over the group: every rank skips together
         if self.check_overflow:
             ok = torch.isfinite(flat_g).all().to(torch.float32)
-            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN,
+                            group=group if finite_group is None
+                            else finite_group)
         else:
             ok = torch.ones((), dtype=torch.float32, device=flat_g.device)
 

@@ -17,6 +17,16 @@ Counterpart of ``apex_tpu/serve/engine.py``.  Two steps serve every request:
     contribute exactly 0, so mid-flight eviction and page recycling are
     invisible to surviving slots.
 
+With ``mesh=`` (a named mesh with a ``model`` axis) the engine is
+tensor-parallel: each rank holds its Megatron shards of the weights
+(:func:`~apex_tpu_torch.models.transformer.tp_shard_params`) and its
+heads' slice of the KV pools, ``(L, pages, page_size, H / tp, hd)``;
+prefill runs flash on its heads, decode attends over them, the row
+products are summed over the axis, and the vocabulary-split logits are
+gathered whole, so every rank samples the same tokens from the same bits.
+The int8 O-level keeps its packed codes whole on every rank and takes the
+rank's shards after the dequantize.
+
 Every layer norm on both steps runs on the layer-norm kernel.  The pools
 are updated in place (the JAX engine threads new pool arrays through each
 step; in place saves a pool-sized copy per step).  Steps run under
@@ -43,7 +53,9 @@ import numpy as np
 import torch
 
 from ..models import transformer as tm
-from ..models.transformer import TransformerConfig
+from ..models.transformer import TransformerConfig, tp_shard_params
+from ..parallel import comm
+from ..parallel.mesh import MODEL_AXIS
 from ..utils.device import resolve_device
 from ..utils.pytree import tree_flatten, tree_unflatten
 from .cache import CacheConfig
@@ -117,12 +129,14 @@ def prepare_olevel(params, olevel: str):
 
 class InferenceEngine:
     """Owns the KV pools and the two steps.  All device work, no host
-    syncs: both steps return device tensors."""
+    syncs: both steps return device tensors.  ``mesh``: a named mesh
+    whose ``model`` axis makes the engine tensor-parallel (the module
+    docstring); every rank of the axis serves the same requests."""
 
     def __init__(self, params, model_cfg: TransformerConfig, *,
                  cache: Optional[CacheConfig] = None,
                  olevel: str = "bf16", decode_width: int = 4,
-                 device=None):
+                 device=None, mesh=None):
         cache = cache or CacheConfig()
         if decode_width < 2:
             raise ValueError(
@@ -137,18 +151,42 @@ class InferenceEngine:
         self.cache = cache
         self.decode_width = int(decode_width)
         self.olevel = str(olevel)
+        self.mesh = mesh
+        self.tp_group, rank, tp = None, 0, 1
+        if mesh is not None and MODEL_AXIS in mesh.shape:
+            from ..parallel.spmd import serve_shardings
+            serve_shardings(mesh, model_cfg, packed=params)
+            self.tp_group = mesh.group(MODEL_AXIS)
+            rank, tp = mesh.axis_index(MODEL_AXIS), mesh.shape[MODEL_AXIS]
         on_dev = {k: {n: t.to(self.device) for n, t in v.items()}
                   for k, v in params.items()}
-        self._packed, self._unpack, dt, self.compression_ratio = \
+        if self.tp_group is not None and olevel != "int8":
+            on_dev = tp_shard_params(on_dev, model_cfg, rank, tp)
+        self._packed, unpack, dt, self.compression_ratio = \
             prepare_olevel(on_dev, olevel)
+        if self.tp_group is not None and olevel == "int8":
+            # the codes stay whole; each step slices the dequantized tree
+            def unpack(packed, _whole=unpack):
+                return tp_shard_params(_whole(packed), model_cfg, rank, tp)
+        self._unpack = unpack
         self.cfg = dataclasses.replace(model_cfg, dtype=dt, causal=True,
                                        dropout=0.0)
-        L, H, hd = self.cfg.num_layers, self.cfg.num_heads, self.cfg.head_dim
-        pool_shape = (L, cache.num_pages, cache.page_size, H, hd)
+        L, hd = self.cfg.num_layers, self.cfg.head_dim
+        self.heads = self.cfg.num_heads // tp
+        pool_shape = (L, cache.num_pages, cache.page_size, self.heads, hd)
         self.k_pool = torch.zeros(pool_shape, dtype=dt, device=self.device)
         self.v_pool = torch.zeros(pool_shape, dtype=dt, device=self.device)
         self.prefills = 0        # steps run, for launch-count checks
         self.decode_steps = 0
+
+    def _logits(self, params, x):
+        """The head's logits, whole: a tensor-parallel rank's vocabulary
+        columns gathered over the axis in rank order (the same bits on
+        every rank)."""
+        logits = tm.head(params, x, self.cfg, self.tp_group)
+        if self.tp_group is None:
+            return logits
+        return comm.gather_from_tp(logits, self.tp_group, -1)
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(
@@ -170,16 +208,17 @@ class InferenceEngine:
             raise ValueError(f"prompt_len {plen} outside (0, {S}]")
         toks = self._tensor(tokens, torch.long)[None]              # (1, S)
         table = self._tensor(page_table, torch.long)
-        x = tm.embed(params, toks, params["embed"]["pos"][:S][None], cfg)
+        tp = self.tp_group
+        x = tm.embed(params, toks, params["embed"]["pos"][:S][None], cfg, tp)
         for i in range(cfg.num_layers):
             lp = tm.layer(params, i)
             h = tm.ln(x, lp["ln1_g"], lp["ln1_b"], cfg)
-            out, k, v = tm.attention(h, lp, cfg)
+            out, k, v = tm.attention(h, lp, cfg, tp_group=tp)
             # whole-page write of this layer's (S, H, hd) into the pages
             self.k_pool[i, table] = k[0].reshape(PPR, PS, *k.shape[2:])
             self.v_pool[i, table] = v[0].reshape(PPR, PS, *v.shape[2:])
-            x = tm.mlp(x + out, lp, cfg)
-        last = tm.head(params, x[:, plen - 1], cfg)[0]             # (V,)
+            x = tm.mlp(x + out, lp, cfg, tp)
+        last = self._logits(params, x[:, plen - 1])[0]             # (V,)
         first = sample_token(last, request_key(seed, plen),
                              float(temperature), int(top_k))
         self.prefills += 1
@@ -195,7 +234,7 @@ class InferenceEngine:
         cfg, cache = self.cfg, self.cache
         params = self._unpack(self._packed)
         W, S, PS = self.decode_width, cache.max_ctx, cache.page_size
-        H, hd = cfg.num_heads, cfg.head_dim
+        H, hd, tp = self.heads, cfg.head_dim, self.tp_group
         pos_host = np.asarray(positions, np.int64)
         toks = self._tensor(tokens, torch.long)
         pos = self._tensor(pos_host, torch.long)
@@ -203,7 +242,7 @@ class InferenceEngine:
         pages = tables.gather(1, (pos // PS)[:, None])[:, 0]
         slots = pos % PS
         x = tm.embed(params, toks[:, None],
-                     params["embed"]["pos"][pos][:, None], cfg)    # (W, 1, D)
+                     params["embed"]["pos"][pos][:, None], cfg, tp)  # (W,1,D)
         valid = torch.arange(S, device=self.device)[None, None, None, :] \
             <= pos[:, None, None, None]                            # (W,1,1,S)
         scale = torch.sqrt(torch.tensor(float(hd), dtype=cfg.dtype,
@@ -222,10 +261,10 @@ class InferenceEngine:
             scores = (q.transpose(1, 2) @ kg.transpose(-1, -2)) / scale
             scores = scores.masked_fill(~valid, float("-inf"))
             probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
-            ctx = (probs @ vg).transpose(1, 2).reshape(W, 1, cfg.d_model)
-            out = ctx @ lp["wo"].to(cfg.dtype) + lp["bo"].to(cfg.dtype)
-            x = tm.mlp(x + out, lp, cfg)
-        logits = tm.head(params, x, cfg)[:, 0]                     # (W, V)
+            ctx = (probs @ vg).transpose(1, 2).reshape(W, 1, H * hd)
+            out = tm._row_out(ctx, lp["wo"], lp["bo"], tp)
+            x = tm.mlp(x + out, lp, cfg, tp)
+        logits = self._logits(params, x)[:, 0]                     # (W, V)
         toks_out = sample_batch(logits, seeds, pos_host + 1, temperatures,
                                 top_ks)
         self.decode_steps += 1

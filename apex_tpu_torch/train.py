@@ -264,11 +264,13 @@ def mean_loss(loss: torch.Tensor, group) -> torch.Tensor:
 UPDATE_CHUNK = 1 << 26
 
 
-def flat_update(opt, state, params, held):
+def flat_update(opt, state, params, held, finite_group=None):
     """The fused-flat update with the amp overflow select: the (already
     reduced) gradient tree ``held[0]`` flattened and stepped through
     ``opt.step_flat``; a step whose gradients are not all finite leaves
     the state as it was.  Returns ``(new_params, new_state)``.
+    ``finite_group``: the flag is a MIN over it, for ranks that hold
+    different leaves (tensor-parallel shards) and must skip together.
 
     The tree comes in a one-item list that this function empties, and no
     full-size buffer outlives its last use, so at billions of parameters a
@@ -281,6 +283,10 @@ def flat_update(opt, state, params, held):
     flat = fl.flatten(held.pop())
     n = flat.numel()
     ok = torch.isfinite(flat).all()
+    if finite_group is not None:
+        flag = ok.to(torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=finite_group)
+        ok = flag.bool()
     is_flat = [isinstance(l, torch.Tensor) and l.dim() == 1
                and l.shape[0] == n for l in state]
     out = [torch.empty_like(l) if f else None

@@ -260,6 +260,21 @@ Phases, in order; any failure exits nonzero and prints no result line:
    exactly #5 50, #6 50, #7 1 a step and no flash; (e) ``pipeline_apply``
    at one stage over 4 microbatches of the flagship batch: output and
    layer gradients within 1e-5 of their peaks of the plain stack;
+28. (run after 27, before 20) the tensor-parallel family and the planner
+   on a world-1 NCCL group: (a) ``_build_tp_step`` with a model axis
+   of 1 at the flagship's width (plain attention and the vocab-parallel
+   cross-entropy, as the JAX tp engine runs), fp32, 8 x 512, lr 1e-4, on
+   phase 26's batches, 1 + 4 steps: step 0 within 1e-5 relative of phase
+   26 off's, every step within 2e-2 relative (or 5e-3); then the bf16
+   model copy, 1 + 4 steps: fp32 master, finite and falling; exactly #5
+   50 and #6 50 a step, nothing else; the all-reduce tape equal to the
+   static schedule; step ms, tokens/s, peak memory; (b) phase 5's engine
+   and trace through ``InferenceEngine(mesh=)`` with a model axis of 1:
+   phase 5's tokens and launches, and 8 prefills and 3 decode steps
+   bit-equal to the plain engine's; (c) ``flagship_profile()`` at
+   BERT-large, global batch 8, on the h100 row, ``format_plans(search())``
+   at 1, 4 and 8 chips, and Plan(dp=1)'s predicted step ms and memory
+   beside the measured ones;
 20. the attention modules on the stack of apex's
    ``perf_test_multihead_attn.py`` (hidden 1024, 16 heads, 64 tokens):
    (a) card vs CPU, 2 layers, 8 sequences, output and every parameter's
@@ -427,6 +442,12 @@ TRAIN_LAUNCHES_PER_STEP = {
     # legacy FP16_Optimizer over FusedAdam's per-leaf math)
     "rnn_lm_fp16": dict({k: 0 for k in ALL_KERNELS}, xent_fwd=1),
 }
+# phase 28a: the tp engine at the flagship's width, fp32 and bf16 model
+# copy: plain attention and the vocab-parallel cross-entropy (the JAX tp
+# engine's configuration), so the layer norms alone, each way, exactly
+for _path in ("tp_train", "tp_train_bf16"):
+    TRAIN_LAUNCHES_PER_STEP[_path] = dict({k: 0 for k in ALL_KERNELS},
+                                          ln_fwd=50, ln_bwd=50)
 # phase 21d: ASP on phase 7's step launches exactly what phase 7 does
 TRAIN_LAUNCHES_PER_STEP["asp_o5_lamb"] = dict(
     {k: 0 for k in ALL_KERNELS}, **TRAIN_LAUNCHES_PER_STEP["o5_lamb"])
@@ -2335,6 +2356,8 @@ def phase_main_path(dev, card, profile=False):
     doc = bat.ledger.snapshot(olevel="bf16", decode_width=8)
     bad = serve_violations(doc)
     require(not bad, f"serve ledger violations: {bad}")
+    RESULTS["serve_tokens"] = {rid: list(r.tokens)
+                               for rid, r in results.items()}
     L = cfg.num_layers
     require(prefills == len(reqs), f"{prefills} prefills for {len(reqs)} "
             "requests")
@@ -2349,6 +2372,7 @@ def phase_main_path(dev, card, profile=False):
         f"reads; launches {launches}")
     lat = doc["latency_ms"]
     RESULTS["serve_wall_s"] = wall
+    RESULTS["serve_tokens_per_sec"] = doc["tokens_per_sec"]
     log(f"  [{card}] tokens/s {doc['tokens_per_sec']}  TTFT p50 "
         f"{lat['ttft_p50']} ms  latency p50 {lat['p50']} ms  p99 "
         f"{lat['p99']} ms  (trace wall {wall:.3f} s)")
@@ -7821,6 +7845,256 @@ def phase_parallel(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the tensor-parallel family and the planner at world 1
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 4
+TP_STEP0_TOL = 1e-5
+TP_PLAN_CHIPS = (1, 4, 8)
+
+
+def phase_tp_train(dev, card):
+    """28a: ``_build_tp_step`` with a model axis of 1 at the
+    flagship's width, on phase 26's batches, fp32 then the bf16 model
+    copy."""
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.parallel import Plan, create_mesh, spmd
+    from apex_tpu_torch.utils import build
+    cfg = bert_large_config(attn_impl="fast")
+    ref = RESULTS["flagship_off_losses"]
+    toks = _flagship_tokens(cfg, dev, 1 + TP_STEPS)
+    mesh = create_mesh({"data": 1, "model": 1})
+    launches = {}
+    for amp in (None, "bfloat16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params0 = transformer_init(cfg, torch.Generator().manual_seed(0),
+                                   device=dev)
+        t0 = time.perf_counter()
+        carry, step, info = spmd._build_tp_step(
+            cfg, mesh, Plan(dp=1), FLAGSHIP_BATCH[0], FLAGSHIP_LR, True,
+            params0, 0, dev, amp_dtype=amp)
+        del params0
+        build_s = time.perf_counter() - t0
+        carry, loss = step(carry, toks[0])
+        losses = [loss.item()]
+        build.LAUNCHES.clear()
+        times = []
+        for t in toks[1:]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            carry, loss = step(carry, t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(loss.item())
+        path = "tp_train" if amp is None else "tp_train_bf16"
+        launches[path] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(path, launches[path], TP_STEPS, exact=True)
+        require(step.cfg.attn_impl == "default"
+                and step.cfg.xent_impl == "xla",
+                f"tp engine ran attn {step.cfg.attn_impl}, xent "
+                f"{step.cfg.xent_impl}")
+        tape = info["collectives"]["all-reduce"]
+        require(tape == info["metered"]["all-reduce"]
+                and tape["logical_bytes"] == info["tp_wire"]["logical_bytes"]
+                and tape["count"] == info["tp_wire"]["count"],
+                f"tp tape {tape} vs the schedule {info['tp_wire']}")
+        master = carry[1].master
+        require(master.dtype == torch.float32,
+                f"tp {path}: master {master.dtype}")
+        require(all(np.isfinite(losses)), f"tp {path}: losses {losses}")
+        if amp is None:
+            require(abs(losses[0] - ref[0]) <= TP_STEP0_TOL * abs(ref[0]),
+                    f"tp step 0: loss {losses[0]} vs phase 26 off's "
+                    f"{ref[0]} (tol {TP_STEP0_TOL} relative)")
+            for i, (a, b) in enumerate(zip(losses, ref)):
+                require(abs(a - b) <= max(2e-2 * abs(b), 5e-3),
+                        f"tp step {i}: loss {a} vs phase 26 off's {b}")
+            cmp = (f" vs phase 26 off {[round(l, 6) for l in ref]} (step 0 "
+                   f"tol {TP_STEP0_TOL} relative, then 2e-2 relative or "
+                   "5e-3)")
+        else:
+            require(losses[-1] < losses[0],
+                    f"tp bf16 model copy: losses {losses} not falling")
+            cmp = " (finite and falling; master fp32)"
+        ms = statistics.median(times) * 1e3
+        tok_s = FLAGSHIP_BATCH[0] * FLAGSHIP_BATCH[1] / ms * 1e3
+        RESULTS[f"{path}_ms"] = ms
+        RESULTS[f"{path}_peak_bytes"] = peak
+        log(f"  [{card}] tp engine ({info['engine']}, model axis 1, "
+            f"amp_dtype {info['amp_dtype']}): step {ms:.2f} ms (median of "
+            f"{TP_STEPS}; all {[round(t * 1e3, 2) for t in times]}), "
+            f"{tok_s:.0f} tokens/s, peak {peak / 2 ** 30:.2f} GiB allocated,"
+            f" build {build_s:.1f} s; losses {[round(l, 6) for l in losses]}"
+            f"{cmp}; all-reduce tape {tape['count']} calls, "
+            f"{tape['logical_bytes']} B a step (copies at world 1; the "
+            f"layers' {info['tp_wire']['parts']['layers']} B = 4 L blocks);"
+            f" launches a step "
+            f"{({k: v // TP_STEPS for k, v in launches[path].items()})}")
+        del carry, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tp_serve(dev, card, serve_launches):
+    """28b: phase 5's engine and trace through ``InferenceEngine(mesh=)``
+    with a model axis of 1: the tokens of phase 5, its launches, and the
+    plain engine's logits bit for bit."""
+    import torch
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.parallel import create_mesh
+    from apex_tpu_torch.serve import (CacheConfig, ContinuousBatcher,
+                                      InferenceEngine, Request)
+    from apex_tpu_torch.telemetry.serve_ledger import serve_violations
+    from apex_tpu_torch.utils import build
+    cfg = bert_large_config(causal=True, attn_impl="fast")
+    params = transformer_init(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    cache = CacheConfig(page_size=16, num_pages=257, max_ctx=512)
+    mesh = create_mesh({"data": 1, "model": 1})
+    eng = InferenceEngine(params, cfg, cache=cache, olevel="bf16",
+                          decode_width=8, device=dev, mesh=mesh)
+    require(eng.tp_group is not None
+            and eng.k_pool.shape[3] == cfg.num_heads,
+            f"tp engine pools {tuple(eng.k_pool.shape)}")
+    warm = ContinuousBatcher(eng)
+    for i in range(2):
+        warm.submit(Request(rid=f"w{i}", prompt=[5 + i] * (40 + i),
+                            max_new_tokens=4, seed=100 + i))
+    warm.run()
+    bat = ContinuousBatcher(eng)
+    for r in _trace(cfg):
+        bat.submit(r)
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = bat.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    doc = bat.ledger.snapshot(olevel="bf16", decode_width=8)
+    require(not serve_violations(doc), "tp serve ledger violations")
+    got = {rid: list(r.tokens) for rid, r in results.items()}
+    require(got == RESULTS["serve_tokens"],
+            "tp engine's tokens differ from phase 5's: "
+            f"{[k for k in got if got[k] != RESULTS['serve_tokens'].get(k)]}")
+    for k in ALL_KERNELS:
+        require(launches.get(k, 0) == serve_launches.get(k, 0),
+                f"tp serving launched {k} {launches.get(k, 0)} times, phase "
+                f"5 {serve_launches.get(k, 0)}")
+    del warm, bat
+    # the logits: the plain engine and the tp one on the same inputs
+    plain = InferenceEngine(params, cfg, cache=cache, olevel="bf16",
+                            decode_width=8, device=dev)
+    del params
+    S, PPR = cache.max_ctx, cache.pages_per_request
+    tokens = np.zeros(S, np.int64)
+    tokens[:448] = np.arange(448) % (cfg.vocab_size - 1) + 1
+    # each slot its own pages (slots sharing a page write it in no fixed
+    # order once their sampled tokens differ), each prefilled
+    tables = np.arange(1, 8 * PPR + 1).reshape(8, PPR)
+    temps = np.where(np.arange(8) % 2, 0.8, 0.0).astype(np.float32)
+    topks = np.where(np.arange(8) % 2, 8, 0)
+    outs = []
+    for e in (plain, eng):
+        steps = [(int(f), l) for f, l in (
+            e.prefill(tokens, 448, tables[w], w) for w in range(8))]
+        cur = np.array([t for t, _ in steps])
+        pos = np.full(8, 448)
+        for _ in range(3):
+            tok, lg = e.decode_step(cur, pos, tables, np.arange(8), temps,
+                                    topks)
+            steps.append((tok.cpu().tolist(), lg))
+            cur, pos = tok.cpu().numpy(), pos + 1
+        outs.append(steps)
+    same = all(a[0] == b[0] and torch.equal(a[1], b[1])
+               for a, b in zip(*outs))
+    require(same, "tp engine at model axis 1: tokens or logits not the "
+            "plain engine's bits")
+    lat = doc["latency_ms"]
+    log(f"  [{card}] tp serving (model axis 1, bf16): {len(got)} requests, "
+        f"tokens = phase 5's; tokens/s {doc['tokens_per_sec']} (phase 5 "
+        f"{RESULTS.get('serve_tokens_per_sec')}), TTFT p50 "
+        f"{lat['ttft_p50']} ms, p99 {lat['p99']} ms, trace wall {wall:.3f} "
+        f"s; launches {launches} = phase 5's; 8 448-token prefills and 3 "
+        "decode steps (8 slots, half sampled): tokens and logits bit-equal "
+        "to the plain engine's")
+    RESULTS["tp_serve_tokens_per_sec"] = doc["tokens_per_sec"]
+    del eng, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_planner(dev, card):
+    """28c: the cost model on the card: the BERT-large profile at global
+    batch 8 (h100 row), the ranked plans for 1, 4 and 8 chips, and
+    Plan(dp=1)'s prediction beside the measured flagship step."""
+    import torch
+    from apex_tpu_torch.parallel import plan as P
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prof, cfg, gb = P.flagship_profile(device=dev)
+    prof_s = time.perf_counter() - t0
+    require(prof.platform == "h100" or "H100" not in card,
+            f"profile platform {prof.platform} on {card}")
+    log(f"  profiled {prof.name} (global batch {gb}, seq {cfg.max_len}, "
+        f"attn {cfg.attn_impl}) on {prof.platform} in {prof_s:.1f} s: "
+        f"{prof.flops / 1e12:.3f} TFLOP, {prof.bytes_accessed / 1e9:.1f} GB "
+        f"a step, peak {prof.peak_hbm_bytes / 2 ** 30:.2f} GiB (the sweep)")
+    for chips in TP_PLAN_CHIPS:
+        ranked = P.search(prof, chips)
+        require(ranked, f"no feasible plan at {chips} chips")
+        for line in P.format_plans(ranked, chips=chips, top=6).splitlines():
+            log("    " + line)
+    p1 = P.predict(prof, P.Plan(dp=1))
+    meas_ms = RESULTS["flagship_off_ms"]
+    tp_ms = RESULTS["tp_train_ms"]
+    tp_peak = RESULTS["tp_train_peak_bytes"]
+    require(np.isfinite(p1.predicted_step_ms) and p1.predicted_step_ms > 0
+            and p1.predicted_hbm_bytes > 0,
+            f"Plan(dp=1) prediction {p1.predicted_step_ms} ms, "
+            f"{p1.predicted_hbm_bytes} B")
+    RESULTS["plan_dp1_predicted_ms"] = p1.predicted_step_ms
+    RESULTS["plan_dp1_predicted_hbm"] = p1.predicted_hbm_bytes
+    log(f"  [{card}] Plan(dp=1): predicted {p1.predicted_step_ms:.3f} ms "
+        f"(train {p1.breakdown['train_ms']:.3f}, update "
+        f"{p1.breakdown['update_ms']:.3f}) against phase 26 off's measured "
+        f"{meas_ms:.2f} ms (flash attention; x"
+        f"{meas_ms / p1.predicted_step_ms:.2f}) and 28a's {tp_ms:.2f} ms "
+        f"(the profiled configuration: plain attention; x"
+        f"{tp_ms / p1.predicted_step_ms:.2f}); predicted HBM "
+        f"{p1.predicted_hbm_bytes / 2 ** 30:.2f} GiB against 28a's measured "
+        f"peak {tp_peak / 2 ** 30:.2f} GiB (x"
+        f"{tp_peak / p1.predicted_hbm_bytes:.3f})")
+
+
+def phase_tensor_parallel(dev, card, serve_launches):
+    """Phase 28 (after 27, before 20): (a)-(c) on a world-1 NCCL group,
+    destroyed before it returns.  Returns its paths' launch counts."""
+    import torch.distributed as dist
+    log("== phase 28: the tensor-parallel family (model axis 1) and the "
+        "planner (world-1 NCCL: a collective is a copy)")
+    t0 = time.perf_counter()
+    store = start_process_group()
+    try:
+        log("  -- 28a: the tp engine at the flagship's width, fp32 and the "
+            "bf16 model copy")
+        launches = phase_tp_train(dev, card)
+        log("  -- 28b: phase 5's serving through InferenceEngine(mesh=)")
+        launches["tp_serve"] = phase_tp_serve(dev, card, serve_launches)
+        log("  -- 28c: the cost model and search on the card")
+        phase_planner(dev, card)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    log(f"  phase 28 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _kernel_entry(name, source, replaces, row, launches_by_path, path):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches_by_path[path].get(name, 0),
@@ -7831,7 +8105,8 @@ def _kernel_entry(name, source, replaces, row, launches_by_path, path):
                 launches_by_path={p: c.get(name, 0)
                                   for p, c in launches_by_path.items()
                                   if c.get(name, 0) or p in ZERO_PATHS
-                                  or p in TRAIN_LAUNCHES_PER_STEP})
+                                  or p in TRAIN_LAUNCHES_PER_STEP
+                                  or p.startswith("tp_")})
 
 
 def main(argv) -> int:
@@ -7924,6 +8199,8 @@ def main(argv) -> int:
         dev, card, (serve_launches, serve_doc["tokens_per_sec"])))
     torch.cuda.empty_cache()
     launches.update(phase_parallel(dev, card))
+    torch.cuda.empty_cache()
+    launches.update(phase_tensor_parallel(dev, card, serve_launches))
     torch.cuda.empty_cache()
     phase_mha_parity(dev)
     launches["mha_self"], launches["mha_self_default"] = phase_mha_stack(

@@ -187,10 +187,12 @@ def expert_cases(rank, world, data):
 def spmd_engine_cases(rank, world, cases, tokens_np, params_np, moe_np,
                       steps):
     """Each case: ``Plan(**knobs).apply()``, ``build_plan_step`` from the
-    JAX weights (``moe_np`` for the ep family), ``steps`` steps on the same
-    global tokens.  Returns per case the losses, the info (minus the
-    callables), the telemetry meters of the first step, and with
-    ``"grads"`` the first step's gradients (before any dp reduction)."""
+    JAX weights (``moe_np`` for the ep family; ``"amp_dtype"`` passed
+    through), ``steps`` steps on the same global tokens.  Returns per case
+    the losses, the info (minus the callables), the telemetry meters of
+    the first step, with ``"grads"`` the first step's gradients (before
+    any dp reduction), with ``"step1_params"`` this rank's parameters
+    after the first step, and the master's dtype."""
     import torch
     from apex_tpu_torch.models import moe_params_from_jax, params_from_jax
     from apex_tpu_torch.parallel import Plan, build_plan_step
@@ -213,7 +215,8 @@ def spmd_engine_cases(rank, world, cases, tokens_np, params_np, moe_np,
                 carry, step, info = build_plan_step(
                     cfg, mesh, plan, global_batch=toks.shape[0],
                     params=params, device="cpu",
-                    meter=case.get("meter", True))
+                    meter=case.get("meter", True),
+                    amp_dtype=case.get("amp_dtype"))
                 res = {}
                 if case.get("grads"):
                     loss0, g = step.grads_of(carry[0], toks)
@@ -225,8 +228,13 @@ def spmd_engine_cases(rank, world, cases, tokens_np, params_np, moe_np,
                     if i == 0:
                         res["meters"] = {k: v for k, v in reg.read().items()
                                          if k.split(".")[0] in
-                                         ("sp", "pp", "ep")}
+                                         ("sp", "pp", "ep", "tp")}
+                        if case.get("step1_params"):
+                            res["step1_params"] = _np_tree(carry[0])
                 res["losses"] = losses
+                master = getattr(carry[1], "master", None)
+                if master is not None:
+                    res["master_dtype"] = str(master.dtype)
                 res["info"] = {k: v for k, v in info.items()
                                if not callable(v)}
                 if case.get("params"):
@@ -303,14 +311,13 @@ def flagship_pair(rank, world, tokens_np, params_np, steps):
         out["ag_error"] = None
     except ValueError as e:
         out["ag_error"] = str(e)
-    try:
-        with Plan(dp=world // 2 or 1, tp=2 if world > 1 else 1).apply() \
-                as mesh:
-            build_plan_step(cfg, mesh, Plan(dp=1, tp=2), global_batch=8,
-                            device="cpu")
-        out["tp_error"] = None
-    except NotImplementedError as e:
-        out["tp_error"] = str(e)
+    plan = Plan(dp=world // 2, tp=2)
+    with plan.apply() as mesh:
+        carry, step, info = build_plan_step(
+            cfg, mesh, plan, global_batch=toks.shape[0],
+            params=params_from_jax(params_np, "cpu"), device="cpu")
+        losses = run(step, carry, False)[0]
+    out["tp_plan"] = (losses, info["engine"], info["tp"])
     return out
 
 
@@ -358,4 +365,109 @@ def mesh_cases(rank, world):
         out["bad"] = None
     except ValueError as e:
         out["bad"] = str(e)
+    return out
+
+
+# -- tensor parallelism ----------------------------------------------------------
+
+def tp_cases(rank, world, data):
+    """At world 2 over a ``model`` mesh: (1) the pieces, each from this
+    rank's Megatron shards of the JAX weights: the embedding's output and
+    gradients of sum(out * cot), the head's whole logits (gathered) and
+    gradients, the vocab-parallel cross-entropy's losses and logit
+    gradients, the model's loss and gradients, and the conjugate
+    operators' gradients; (2) serving: the tiny config's staggered
+    requests through ``InferenceEngine(mesh=)`` and the unsharded engine
+    at each O-level, greedy and sampled, and the fp32 engine's prefill and
+    decode logits on fixed inputs."""
+    import dataclasses
+    import torch
+    from apex_tpu_torch.models import (TransformerConfig, params_from_jax,
+                                       tp_shard_params, transformer_loss)
+    from apex_tpu_torch.models import transformer as tm
+    from apex_tpu_torch.parallel import comm, create_mesh
+    from apex_tpu_torch.serve import (CacheConfig, ContinuousBatcher,
+                                      InferenceEngine, Request)
+    from apex_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+    mesh = create_mesh({"model": world})
+    group = mesh.group("model")
+    out = {}
+
+    cfg = TransformerConfig(**data["cfg"])
+    whole = params_from_jax(data["params"], "cpu")
+    shards = tp_shard_params(whole, cfg, rank, world)
+    leaves, td = tree_flatten(shards)
+    leaves = [p.detach().clone().requires_grad_(True) for p in leaves]
+    p = tree_unflatten(td, leaves)
+    toks = _t(data["tokens"]).long()
+    S = toks.shape[1]
+    x = tm.embed(p, toks, p["embed"]["pos"][:S][None], cfg, group)
+    (x * _t(data["cot"])).sum().backward()
+    out["embed"] = (x.detach().numpy(), p["embed"]["tok"].grad.numpy(),
+                    p["embed"]["ln_g"].grad.numpy())
+    for l in leaves:
+        l.grad = None
+    h = _t(data["h"], True)
+    logits = tm.head(p, h, cfg, group)
+    (logits * _t(_block(data["cot_v"], rank, world, 2))).sum().backward()
+    out["head"] = (comm.gather_from_tp(logits.detach(), group).numpy(),
+                   h.grad.numpy(), p["embed"]["tok"].grad.numpy())
+    for smoothing in (0.0, 0.1):
+        z = _t(_block(data["logits"], rank, world, 1), True)
+        loss = tm.vocab_parallel_xentropy(z, _t(data["labels"]).long(),
+                                          group, smoothing)
+        (loss * _t(data["g"])).sum().backward()
+        out[("xent", smoothing)] = (loss.detach().numpy(), z.grad.numpy())
+    for l in leaves:
+        l.grad = None
+    loss = transformer_loss(p, {"tokens": toks, "targets": toks}, cfg,
+                            tp_group=group)
+    grads = torch.autograd.grad(loss, leaves)
+    out["model"] = (float(loss), _np_tree(tree_unflatten(td, list(grads))))
+    a = _t(data["a"], True)
+    (comm.reduce_from_tp(a * (rank + 1), group) * _t(data["a"])).sum() \
+        .backward()
+    b = _t(data["a"], True)
+    (comm.copy_to_tp(b, group) * (rank + 1)).sum().backward()
+    out["ops"] = (a.grad.numpy(), b.grad.numpy())
+
+    scfg = TransformerConfig(**data["serve_cfg"])
+    sparams = params_from_jax(data["serve_params"], "cpu")
+    cache = CacheConfig(**data["cache"])
+    for olevel in ("fp32", "bf16", "int8"):
+        for sampled in (False, True):
+            for name, m in (("tp", mesh), ("plain", None)):
+                eng = InferenceEngine(sparams, scfg, cache=cache,
+                                      olevel=olevel, decode_width=4,
+                                      device="cpu", mesh=m)
+                bat = ContinuousBatcher(eng)
+                for spec in data["specs"][sampled]:
+                    bat.submit(Request(**spec))
+                res = bat.run()
+                out[("serve", olevel, sampled, name)] = {
+                    k: (r.status, r.tokens) for k, r in res.items()}
+        eng = InferenceEngine(sparams, scfg, cache=cache, olevel=olevel,
+                              decode_width=4, device="cpu", mesh=mesh)
+        if olevel == "fp32":
+            out["pool_shape"] = tuple(eng.k_pool.shape)
+        logits = []
+        cur, pos, tables = (np.array(v) for v in data["decode"])
+        for plen, pages, tokens, seed in data["prefills"]:
+            first, last = eng.prefill(np.array(tokens), plen,
+                                      np.array(pages), seed=seed)
+            logits.append(last.float().numpy())
+        zeros = np.zeros(4, np.int64)
+        for _ in range(3):
+            tok, lg = eng.decode_step(cur, pos, tables, zeros,
+                                      np.zeros(4, np.float32), zeros)
+            logits.append(lg.float().numpy())
+            cur[:2] = tok.numpy()[:2]
+            pos[:2] += 1
+        out[("logits", olevel)] = logits
+    try:
+        InferenceEngine(sparams, dataclasses.replace(scfg, num_heads=1),
+                        cache=cache, device="cpu", mesh=mesh)
+        out["heads_error"] = None
+    except ValueError as e:
+        out["heads_error"] = str(e)
     return out

@@ -21,15 +21,24 @@ conftest's CPU devices (``Plan.apply(devices=jax.devices()[:W])``):
 - the sp and pp meters equal JAX's ``_sp_schedule_bytes`` /
   ``_pp_schedule_bytes``; the ep exchanges metered over one executed step
   equal ``_ep_schedule_bytes``;
+- the tp family (Megatron splits): dp1 x tp2 (world 2), dp2 x tp2 and
+  dp1 x tp4 (world 4), and dp2 x tp2 with zero1, against the JAX tp
+  engine (GSPMD) at dp2 x tp2 on 4 CPU devices; after one step the
+  gathered shards equal the port's dp engine's parameters within 1e-5 of
+  each leaf's peak; with ``amp_dtype="bfloat16"`` the master stays fp32
+  and the losses, finite and falling, stay within 2e-2 relative of JAX's
+  bf16 run; ``tp.psum`` meters the executed tape once, and its layer
+  all-reduces are the cost model's ``4 L`` activation payload;
 - ``build_plan_step(Plan(dp=2))`` is bit-equal to ``train.
   build_flagship_step``, and so is a zero1 plan's int8 parameter
-  all-gather to the flagship step with those DDP knobs; the tp family
-  raises; ``train.flat_update``'s chunks are one ``step_flat``, bit for
-  bit.
+  all-gather to the flagship step with those DDP knobs; a tp plan builds
+  and trains there too; ``train.flat_update``'s chunks are one
+  ``step_flat``, bit for bit.
 
-Plans: ``family`` / ``axis_sizes`` / ``knobs`` / ``env`` / ``describe`` /
-``complexity`` as JAX's, every JAX name but the listed cost-model ones;
-``Plan.apply`` sets and restores the environment.
+Plans: ``family`` / ``measurable`` / ``axis_sizes`` / ``knobs`` / ``env``
+/ ``describe`` / ``complexity`` as JAX's, every JAX name but
+``from_tuning``; ``Plan.apply`` sets and restores the environment and
+``Plan.pspecs`` gives the Megatron specs at tp > 1.
 The mesh: row-major layout, one group per axis, axis names resolving
 through the ambient mesh, ``Placement`` blocks.  The launcher runs a
 2-rank gloo all-reduce script.
@@ -84,13 +93,13 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _jax_losses(plan, world, build=None):
+def _jax_losses(plan, world, build=None, **kw):
     toks = jnp.asarray(_tokens())
     with plan.apply(devices=jax.devices()[:world]) as mesh:
         if build is None:
             carry, step, _ = jspmd.build_plan_step(CFG, mesh, plan,
                                                    global_batch=GB,
-                                                   meter=False)
+                                                   meter=False, **kw)
         else:
             carry, step, _ = build(mesh)
         losses = []
@@ -113,11 +122,18 @@ W4_CASES = {
     "sp-ulysses": {"plan": dict(dp=2, sp=2, sp_strategy="ulysses")},
     "pp": {"plan": dict(dp=2, pp_stages=2, pp_microbatches=2)},
     "ep": {"plan": dict(dp=2, ep=2)},
+    "tp-dp2": {"plan": dict(dp=2, tp=2), "step1_params": True},
+    "tp-dp1": {"plan": dict(dp=1, tp=4)},
+    "tp-zero1": {"plan": dict(dp=2, tp=2, update_sharding="zero1")},
+    "tp-bf16": {"plan": dict(dp=2, tp=2), "amp_dtype": "bfloat16",
+                "meter": False},
+    "dp": {"plan": dict(dp=4), "step1_params": True, "meter": False},
 }
 W2_CASES = {
     "zero": {"plan": dict(dp=2, zero=True)},
     "pp-grads": {"plan": dict(dp=1, pp_stages=2, pp_microbatches=2),
                  "grads": True},
+    "tp-dp1": {"plan": dict(dp=1, tp=2)},
 }
 
 
@@ -252,7 +268,7 @@ def test_engine_info_keeps_the_jax_keys(world4, world2):
     for name in W4_CASES:
         info = world4[0][name]["info"]
         assert info["family"] == Plan(**W4_CASES[name]["plan"]).family
-        assert "collectives" in info
+        assert ("collectives" in info) == W4_CASES[name].get("meter", True)
     assert world4[0]["sp-ring"]["info"]["engine"] == "shard_map.sp.ring"
     assert world4[0]["pp"]["info"]["engine"] == "shard_map.pp"
     assert world2[0]["zero"]["info"]["engine"] == "shard_map.zero"
@@ -260,6 +276,110 @@ def test_engine_info_keeps_the_jax_keys(world4, world2):
     # skips the last, whose output nothing reads)
     ring = world4[0]["sp-ring"]["info"]["collectives"]["collective-permute"]
     assert ring["count"] == CFG.num_layers * (2 * 2 + 2 * 1)
+
+
+@pytest.fixture(scope="module")
+def jax_tp():
+    """The JAX tp engine (GSPMD) at dp2 x tp2 on 4 CPU devices."""
+    return _jax_losses(jplan.Plan(dp=2, tp=2), 4)
+
+
+@pytest.mark.parametrize("world,name", [(2, "tp-dp1"), (4, "tp-dp2"),
+                                        (4, "tp-dp1"), (4, "tp-zero1")])
+def test_tp_matches_the_jax_tp_engine(world4, world2, jax_tp, world, name):
+    ranks = world4 if world == 4 else world2
+    losses = _same_on_every_rank(ranks, name)
+    print(f"tp {name} at world {world}: port {losses}, jax {jax_tp}, "
+          f"step errors {[abs(a - b) for a, b in zip(losses, jax_tp)]}")
+    _assert_fp32_tolerance(losses, jax_tp)
+    info = ranks[0][name]["info"]
+    plan = Plan(**(W4_CASES if world == 4 else W2_CASES)[name]["plan"])
+    assert info["engine"] == "megatron" and info["family"] == "tp"
+    assert (info["tp"], info["dp"]) == (plan.tp, plan.dp)
+    assert info["flat_world"] == plan.tp * (plan.dp if plan.shards_update
+                                            else 1)
+    assert info["amp_dtype"] is None
+    assert ranks[0][name]["master_dtype"] == "torch.float32"
+
+
+def test_tp_shards_after_one_step_are_the_dp_engine_parameters(world4,
+                                                                weights):
+    """The dp2 x tp2 ranks' shards after one step, gathered over the model
+    axis (ranks 0, 1 and 2, 3 are the two data replicas), equal the dp4
+    engine's parameters within 1e-5 of each leaf's peak wherever the
+    step's gradient is at least 100 x Adam's eps: Adam's first update is
+    lr g / (|g| + eps), which turns the ~1e-10 that two reduction orders
+    leave on a gradient of ~eps into ~lr / 4 (a few dozen elements of
+    each matrix); those stay within 2 lr."""
+    import torch
+    from apex_tpu_torch.models import tp_gather_params
+    from apex_tpu_torch.parallel.plan import _flagship_cfg
+    params, _ = weights
+    toks = jnp.asarray(_tokens())
+    g = jax.grad(lambda p: jtransformer_loss(
+        p, {"tokens": toks, "targets": toks}, CFG))(
+            jax.tree_util.tree_map(jnp.asarray, params))
+    cfg = _flagship_cfg(False)
+    want = jax.tree_util.tree_leaves(world4[0]["dp"]["step1_params"])
+    lr, eps = 1e-2, 1e-8
+    for replica in (world4[:2], world4[2:]):
+        got = tp_gather_params([jax.tree_util.tree_map(
+            torch.from_numpy, r["tp-dp2"]["step1_params"])
+            for r in replica], cfg)
+        got = jax.tree_util.tree_leaves(
+            jax.tree_util.tree_map(lambda t: t.numpy(), got))
+        for a, b, gl in zip(got, want, jax.tree_util.tree_leaves(_np(g))):
+            err = np.abs(a - b)
+            live = np.abs(gl) >= 100 * eps
+            assert err[live].max(initial=0.0) <= 1e-5 * np.abs(b).max()
+            assert err.max() <= 2 * lr
+
+
+def test_tp_bf16_model_copy_over_the_fp32_master(world4):
+    """``amp_dtype="bfloat16"``: the master stays fp32, the losses are
+    finite and fall, and each is within 2e-2 relative of the JAX engine's
+    bf16 run (bf16 activations round each product to 8 bits of
+    mantissa; the two engines order their reductions differently)."""
+    ref = _jax_losses(jplan.Plan(dp=2, tp=2), 4, amp_dtype="bfloat16")
+    losses = _same_on_every_rank(world4, "tp-bf16")
+    print("tp bf16: port", losses, "jax", ref)
+    assert world4[0]["tp-bf16"]["master_dtype"] == "torch.float32"
+    assert world4[0]["tp-bf16"]["info"]["amp_dtype"] == "bfloat16"
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    for a, b in zip(losses, ref):
+        assert abs(a - b) <= 2e-2 * abs(b), (losses, ref)
+
+
+def test_tp_meter_is_the_executed_tape(world4, world2):
+    """``tp.psum`` records the first step's all-reduce tape once; the tape
+    is the static Megatron schedule: 4 activation blocks a layer (the
+    cost model's ``t_tp`` payload, ``4 L act_layer_bytes / dp``), one for
+    the embedding's lookup and one for the head's input cotangent, and
+    the cross-entropy's three fp32 rows."""
+    S, D, L = CFG.max_len, CFG.d_model, CFG.num_layers
+    prof = pplan.ModelProfile(
+        name="t", flops=1.0, bytes_accessed=1.0, params_bytes=0,
+        optimizer_bytes=0, activations_bytes=0, batch_bytes=0,
+        temps_bytes=0, output_bytes=0, layers=L,
+        act_layer_bytes=GB * S * D * 4)
+    for ranks, name, dp in ((world4, "tp-dp2", 2), (world4, "tp-dp1", 1),
+                            (world2, "tp-dp1", 1)):
+        for r in ranks:
+            res = r[name]
+            tape = res["info"]["collectives"]["all-reduce"]
+            assert res["meters"]["tp.psum_bytes"] == tape["logical_bytes"]
+            assert res["meters"]["tp.psum_calls"] == 1
+            assert res["info"]["metered"]["all-reduce"] == tape
+            rows = GB // dp * S
+            parts = res["info"]["tp_wire"]["parts"]
+            assert parts["layers"] == 4 * L * rows * D * 4
+            assert parts["layers"] == 4 * prof.layers * \
+                prof.act_layer_bytes // dp
+            assert parts == {"layers": 4 * L * rows * D * 4,
+                             "embed": rows * D * 4, "head": rows * D * 4,
+                             "xent": 3 * rows * 4}
+            assert tape["logical_bytes"] == sum(parts.values())
+            assert tape["count"] == 4 * L + 2 + 3
 
 
 @pytest.fixture(scope="module")
@@ -279,7 +399,9 @@ def test_dp_plan_is_bit_equal_to_the_flagship_step(flagship_pairs):
         for a, b in zip(jax.tree_util.tree_leaves(pp),
                         jax.tree_util.tree_leaves(fp)):
             np.testing.assert_array_equal(a, b)
-        assert "next slice" in r["tp_error"]
+        tl, engine, tp = r["tp_plan"]
+        assert engine == "megatron" and tp == 2
+        assert all(np.isfinite(tl)) and tl[-1] < tl[0]
 
 
 def test_plan_allgather_scheme_reaches_the_sharded_update(flagship_pairs):
@@ -309,8 +431,8 @@ def test_plan_surface_matches_jax(knobs):
     j, p = jplan.Plan(**knobs), Plan(**knobs)
     for attr in ("family", "chips", "shards_update", "complexity"):
         assert getattr(p, attr) == getattr(j, attr), attr
-    # every JAX family has an engine; the port's tp engine is queued
-    assert j.measurable and p.measurable == (p.family != "tp")
+    # every family has an engine in both packages
+    assert j.measurable and p.measurable
     assert p.axis_sizes() == j.axis_sizes()
     assert p.knobs() == j.knobs()
     assert p.env() == j.env()
@@ -319,24 +441,18 @@ def test_plan_surface_matches_jax(knobs):
     assert pplan.EP_DEFAULT_EXPERTS == jplan.EP_DEFAULT_EXPERTS
 
 
-#: JAX ``parallel.plan`` names the port leaves out, with the reason: the
-#: cost model, the search, the tuning hooks and the CLI, which come with
-#: the next slice (ROADMAP.md), with the Plan fields only they fill;
-#: ``build_flagship_step`` is ``apex_tpu_torch.train``'s
-PLAN_NO_COUNTERPART = {
-    "ModelProfile", "profile_step", "flagship_profile", "collective_time_s",
-    "compute_time_s", "predict", "plan_hbm_bytes",
-    "resolve_overlap_fraction", "ENV_OVERLAP", "enumerate_plans", "search",
-    "from_tuning", "set_replan_hook", "get_replan_hook", "format_plans",
-    "PLAN_SCHEMES", "TUNING_KEYS", "build_flagship_step"}
-PLAN_FIELDS_NO_COUNTERPART = {"predicted_step_ms", "predicted_hbm_bytes",
-                              "hbm_by_class", "breakdown", "feasible"}
+#: JAX ``parallel.plan`` names the port leaves out, with the reason:
+#: ``from_tuning`` reads a tuning profile, which the port does not have
+#: (ROADMAP.md, Queue 1 item 11); ``build_flagship_step`` is
+#: ``apex_tpu_torch.train``'s
+PLAN_NO_COUNTERPART = {"from_tuning", "build_flagship_step"}
+PLAN_FIELDS_NO_COUNTERPART = set()
 
 
 def test_every_jax_plan_name_has_a_counterpart():
     """Each name of the JAX plan module's ``__all__`` and each ``Plan``
-    field exists in the port, apart from the listed cost-model names,
-    which the port must not carry unread."""
+    field exists in the port, apart from the listed names, which the port
+    must not carry unread."""
     import dataclasses
     from apex_tpu_torch import train
     assert PLAN_NO_COUNTERPART <= set(jplan.__all__)
@@ -403,10 +519,9 @@ def _apply_env(rank, world):
     specs = Plan(dp=1).pspecs(_flagship_cfg(False))
     seen.append(sorted(specs["layers"].values()) ==
                 ["replicated"] * len(specs["layers"]))
-    try:
-        Plan(tp=2).pspecs(_flagship_cfg(False))
-    except NotImplementedError as e:
-        seen.append("next slice" in str(e))
+    from apex_tpu_torch.models import transformer_pspecs
+    seen.append(Plan(tp=2).pspecs(_flagship_cfg(False))
+                == transformer_pspecs(_flagship_cfg(False)))
     return seen
 
 
