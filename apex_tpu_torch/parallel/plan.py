@@ -27,9 +27,10 @@ The cost model, arithmetic for arithmetic the JAX package's:
 
 :func:`search` enumerates the plans for a chip count, prunes those that
 do not fit, and ranks the rest by predicted step time, near ties going
-to the simpler plan.  The JAX package's ``from_tuning`` reads a tuning
-profile, which the port does not have (ROADMAP.md); the re-plan hook it
-consults is here.  ``build_flagship_step`` lives in
+to the simpler plan.  :func:`from_tuning` reads the measured winner
+plan from the tuning profile (:mod:`apex_tpu_torch.utils.tuning`), and a
+plan tuned at another chip count goes through the elastic re-plan hook
+(:func:`set_replan_hook`).  ``build_flagship_step`` lives in
 :mod:`apex_tpu_torch.train`.
 
 CLI::
@@ -55,7 +56,8 @@ __all__ = [
     "ModelProfile", "Plan", "profile_step", "flagship_profile",
     "collective_time_s", "compute_time_s", "predict", "plan_hbm_bytes",
     "resolve_overlap_fraction", "ENV_OVERLAP", "enumerate_plans", "search",
-    "default_plan", "set_replan_hook", "get_replan_hook", "format_plans",
+    "default_plan", "set_replan_hook", "get_replan_hook", "from_tuning",
+    "format_plans",
     "PLAN_SCHEMES", "TUNING_KEYS", "EP_DEFAULT_EXPERTS",
 ]
 
@@ -82,21 +84,33 @@ SP_MIN_SEQ = 2048
 EP_DEFAULT_EXPERTS = 8
 
 #: the comm model's overlap factor (the exposed share of the dp wire):
-#: an explicit ``predict`` argument > this variable > 1.0 (fully exposed)
+#: an explicit ``predict`` argument > this variable > the tuning profile's
+#: ``overlap_fraction_<scheme>`` > its ``overlap_measured_fraction`` > 1.0
+#: (fully exposed)
 ENV_OVERLAP = "APEX_TPU_OVERLAP_FRACTION"
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
 
 
 def resolve_overlap_fraction(explicit: Optional[float] = None, *,
                              scheme: Optional[str] = None) -> float:
-    """The dp wire's exposed fraction, clamped to [0, 1]: ``explicit`` >
-    ``APEX_TPU_OVERLAP_FRACTION`` > 1.0.  The JAX package also reads a
-    per-scheme measurement from its tuning profile (``scheme`` names
-    it); the port has no tuning profile, so ``scheme`` selects
-    nothing."""
-    del scheme
+    """The dp wire's exposed fraction, clamped to [0, 1].  Precedence:
+    ``explicit`` > ``APEX_TPU_OVERLAP_FRACTION`` > the tuning profile's
+    ``overlap_fraction_<scheme>`` (when ``scheme`` is given: how much wire
+    bucketed execution hides depends on the wire's bytes) > its
+    ``overlap_measured_fraction`` > 1.0."""
     if explicit is None:
         env = os.environ.get(ENV_OVERLAP)
-        explicit = float(env) if env else 1.0
+        if env:
+            explicit = float(env)
+        else:
+            from ..utils import tuning
+            v = tuning.get(f"overlap_fraction_{scheme}") if scheme else None
+            if not _is_number(v):
+                v = tuning.get("overlap_measured_fraction")
+            explicit = v if _is_number(v) else 1.0
     return min(max(float(explicit), 0.0), 1.0)
 
 
@@ -807,9 +821,7 @@ def search(profile: ModelProfile, chips: int, *,
 # hooks, rendering, CLI
 # ---------------------------------------------------------------------------
 
-#: the tuning-profile keys of a measured winner plan (the JAX package's
-#: ``from_tuning`` reads them; the port keeps the names for its tuning
-#: profile to come)
+#: the tuning-profile keys of a measured winner plan (:func:`from_tuning`)
 TUNING_KEYS = ("plan_dp", "plan_tp", "plan_sp", "plan_sp_strategy",
                "plan_pp_stages", "plan_pp_microbatches", "plan_ep",
                "plan_zero", "plan_update_sharding",
@@ -831,6 +843,40 @@ def set_replan_hook(hook):
 
 def get_replan_hook():
     return _REPLAN_HOOK
+
+
+def from_tuning(chips: Optional[int] = None, *,
+                gpu_only: bool = True) -> Optional[Plan]:
+    """The measured winner plan of the tuning profile (the ``plan_*``
+    keys), or None when the profile has none.  With ``chips`` given, a
+    plan tuned at another chip count is a re-plan trigger when the
+    elastic hook is installed (:func:`set_replan_hook`: the hook re-runs
+    the search at the live count), else None: a winner measured at one
+    chip count says nothing about another.  ``gpu_only`` reads the
+    profile as runtime defaults do (only on the card,
+    :func:`~apex_tpu_torch.utils.tuning.get_on_gpu`); pass False for
+    rendering and tooling.  The JAX package's flag is ``tpu_only``."""
+    from ..utils import tuning
+    get = tuning.get_on_gpu if gpu_only else tuning.get
+    dp = get("plan_dp")
+    if dp is None:
+        return None
+    plan = Plan(
+        dp=int(dp), tp=int(get("plan_tp", 1)), sp=int(get("plan_sp", 1)),
+        sp_strategy=get("plan_sp_strategy", "none"),
+        pp_stages=int(get("plan_pp_stages", 1) or 1),
+        pp_microbatches=int(get("plan_pp_microbatches", 1) or 1),
+        ep=int(get("plan_ep", 1) or 1),
+        zero=bool(get("plan_zero", False)),
+        update_sharding=get("plan_update_sharding", "off"),
+        collective_scheme=get("plan_collective_scheme", "fp32"),
+        allgather_scheme=get("plan_allgather_scheme", "fp32"),
+    )
+    if chips is not None and plan.chips != int(chips):
+        if _REPLAN_HOOK is not None:
+            return _REPLAN_HOOK(plan, int(chips))
+        return None
+    return plan
 
 
 def _human_bytes(n) -> str:

@@ -46,7 +46,7 @@ META_DATA_KEY = "data"
 
 class WorldSizeMismatchError(CheckpointError):
     """A checkpoint written at one world size is being resumed at
-    another, with no elastic reshard to carry it across.
+    another without ``apex_tpu_torch.elastic`` installed to reshard it.
     Carries both counts so the operator sees exactly what changed."""
 
     def __init__(self, saved_world: int, live_world: int,
@@ -55,8 +55,9 @@ class WorldSizeMismatchError(CheckpointError):
         self.live_world = int(live_world)
         msg = (f"checkpoint was written at world size {saved_world} but "
                f"this run has world size {live_world}; resuming across "
-               "a device-count change needs an elastic reshard, which "
-               "apex_tpu_torch does not have yet — a blind restore would "
+               "a device-count change needs apex_tpu_torch.elastic "
+               "(install it with apex_tpu_torch.elastic.install(), or "
+               "pass elastic= to TrainGuard) — a blind restore would "
                "produce garbage optimizer shards, not a training run")
         if detail:
             msg += f" [{detail}]"

@@ -46,17 +46,58 @@ snapshots (``GuardReport.checkpoints``).  A disabled guard
 function and nothing else: no read, no thread, no signal handler, no
 checkpoint directory.
 
+Snapshots under a process group (``state_shards=``): a zero1 rank holds
+only its 1/N slice of the flat master and moments, and its own int8
+error-feedback residual.  ``state_shards`` names those leaves (a prefix
+tree of the state: ``"shard"`` for a 1/N slice of a canonical flat
+field, ``"stack"`` for a per-rank full-flat buffer, anything else
+replicated; ``train.flagship_guard_step`` returns it) over the data group
+``shard_group=`` (the weight update's group; default the default process
+group).  At world N > 1 (N the data group's size) a snapshot all-gathers
+them over that group before its one host read: each shard field becomes
+the canonical flat of length ``layout["flat_total"]`` and the stack
+leaves become ``(N, flat_total)``, the JAX package's payload.  A
+``layout`` in ``ckpt_meta`` is held against the shard fields at the run's
+start (``ValueError`` when a shard times N is not its ``flat_total``, as
+when the group is not the one the layout was built for).  The gathers are
+counted beside the reads, in :attr:`TrainGuard.gathers`: at most two a
+snapshot (every shard leaf's bytes in one, every stack leaf's in the
+other), none at world 1, where the snapshot is the plain one, byte for
+byte.  Rank 0 of the data group writes the checkpoint (under other mesh
+axes each data group holds its own state, so give each its own
+``ckpt_dir``); every rank takes the same checks, snapshots and exits (the
+step's loss is the group's mean, and a fault plan fires at the same step
+everywhere), so ``host_reads == health_checks + checkpoints`` on every
+rank.  At restore each rank takes its slice of the canonical payload,
+through the resharder when the saved world differs.  A run returns on no
+rank before its group's checkpoints are on disk, and a rollback reads
+only after them (barriers over the data group).  A
+``save_every_seconds`` cadence, which each rank's clock would decide on
+its own, is refused at world > 1.
+
+The run controller (``controller=``, :mod:`apex_tpu_torch.control`) rides
+the health check: after the window's one read the guard feeds it per-rank
+busy rows from host step timing and calls ``on_window`` with the losses
+that read resolved; it makes no read of its own.  Under a process group
+of more than one rank each rank's controller decides on global rank 0's
+signals: once a window they are broadcast over a gloo group (the default
+group when it is gloo, else one the guard makes once), a host
+collective counted in :attr:`TrainGuard.control_syncs`, so that every
+rank takes the same decisions and the same actions (a wire scheme that
+changed on one rank alone would mismatch the collectives).  A disabled
+controller is dropped before the loop starts, so the run is the
+controller-free one bit for bit, with the same reads.  Its
+``CONTROL.json`` is written beside ``GOODPUT.json``, by global rank 0
+alone under a process group.  A world-size mismatch at resume raises
+``WorldSizeMismatchError`` unless a resharder is installed
+(:func:`set_resharder`, ``apex_tpu_torch.elastic.install``, or
+``elastic=``).
+
 Whatever way a run ends (completed, preempted, ``GuardAbort``, an OOM or
 any other exception) the guard leaves the process as it found it: the
 signal handlers, the installed goodput ledger and the tracer's ledger
 hook, the installed fault plan (the plan's one-shot firings stay
 consumed, as the JAX package's do), and no writer thread left running.
-
-Not ported: the ``controller=`` hook (``apex_tpu.control`` is ROADMAP
-item 10; passing one raises ``NotImplementedError``).  A world-size
-mismatch at resume raises ``WorldSizeMismatchError`` unless a resharder
-is installed with :func:`set_resharder` (``apex_tpu.elastic`` is not
-ported either), as the JAX guard does without it.
 """
 from __future__ import annotations
 
@@ -162,8 +203,7 @@ class GuardReport:
     """What a :meth:`TrainGuard.run` did.  ``status`` is ``"completed"``
     (reached num_steps), ``"preempted"`` (SIGTERM / SIGINT / an injected
     preemption: state snapshotted, a rerun resumes), or ``"disabled"``.
-    The fields are the JAX package's; ``control`` and ``control_path``
-    stay None (no controller is ported)."""
+    The fields are the JAX package's."""
     status: str
     final_step: int
     resumed_from: Optional[int] = None
@@ -179,6 +219,9 @@ class GuardReport:
     #: written to (None when no tracer was active)
     goodput: Optional[dict] = None
     goodput_path: Optional[str] = None
+    #: the run controller's decision-ledger doc and the ``CONTROL.json``
+    #: path it was written to (None when no enabled controller rode the
+    #: run)
     control: Optional[dict] = None
     control_path: Optional[str] = None
     #: the live OpenMetrics scrape URL this run served (None unless
@@ -255,6 +298,21 @@ class _AsyncWriter:
         self._thread.join(timeout=60.0)
 
 
+class _NullWriter:
+    """The writer of a rank that writes no checkpoint (every rank of a
+    process group but rank 0): the hand-offs are dropped."""
+    written = 0
+
+    def submit(self, step: int, payload) -> None:
+        pass
+
+    def drain(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def _find_scaler(state):
     """The ``ScalerState`` the floor detector reads: ``state.scalers[0]``
     of an ``AmpState``, or of any element one level into a tuple / list /
@@ -325,6 +383,43 @@ def _rebuild(template, it):
         f.name: v for f, v in zip(dataclasses.fields(template), new)})
 
 
+#: ``state_shards`` leaf kinds: a 1/N slice of a canonical flat field, and
+#: a per-rank full-flat buffer (the int8 error-feedback residual)
+SHARD, STACK = "shard", "stack"
+
+
+def _leaf_kinds(tree, spec) -> list:
+    """The ``state_shards`` kind of each of ``tree``'s leaves, in leaf
+    order: ``spec`` is a prefix tree of ``tree`` whose leaves are kinds
+    (a kind, or None, covers every leaf under it)."""
+    if spec is None or isinstance(spec, str):
+        return [spec] * len(_leaves(tree))
+    kids, skids = _children(tree), _children(spec)
+    if kids is None or skids is None or len(kids) != len(skids) or (
+            isinstance(tree, dict) and sorted(tree) != sorted(spec)):
+        raise ValueError(
+            f"state_shards does not match the state's structure at a "
+            f"{type(tree).__name__} (spec: {type(spec).__name__})")
+    return [k for t, sp in zip(kids, skids) for k in _leaf_kinds(t, sp)]
+
+
+def _gather_bytes(tensors, group) -> List[torch.Tensor]:
+    """Each rank's ``tensors``, all-gathered over ``group`` in ONE
+    collective of their bytes: for each tensor, ``(world, *shape)``."""
+    from ..parallel.collectives import _gather
+    parts = [t.detach().reshape(-1).view(torch.uint8) for t in tensors]
+    full = _gather(torch.cat(parts), group)
+    world = full.numel() // sum(p.numel() for p in parts)
+    rows = full.view(world, -1)
+    out, off = [], 0
+    for t, p in zip(tensors, parts):
+        n = p.numel()
+        out.append(rows[:, off:off + n].contiguous().view(t.dtype)
+                   .view((world,) + tuple(t.shape)))
+        off += n
+    return out
+
+
 def _numpy_dtype(dt: torch.dtype):
     return torch.empty((), dtype=dt).numpy().dtype
 
@@ -368,17 +463,17 @@ class TrainGuard:
     probe; ``elastic`` pins a checkpoint resharder (default: the one
     :func:`set_resharder` installed); ``on_check(step, losses)`` gets the
     resolved loss window at every health check (host floats: printing
-    them costs no read).  ``controller`` is not ported."""
+    them costs no read); ``controller`` pins an
+    :class:`apex_tpu_torch.control.RunController` that rides the same
+    window.  ``state_shards`` names the state's leaves that are sharded
+    over ``shard_group`` (default: the default process group), as the
+    module docstring sets out."""
 
     def __init__(self, step_fn: Callable, config: GuardConfig, *,
                  plan=None, registry=None, scaler_fn=None, elastic=None,
                  on_check: Optional[Callable[[int, List[float]],
                                              None]] = None,
-                 controller=None):
-        if controller is not None:
-            raise NotImplementedError(
-                "TrainGuard(controller=...) needs apex_tpu.control, which "
-                "is not ported (ROADMAP Queue 1 item 10)")
+                 controller=None, state_shards=None, shard_group=None):
         self.step_fn = step_fn
         self.cfg = config
         self._plan = plan
@@ -386,14 +481,79 @@ class TrainGuard:
         self._scaler_fn = scaler_fn
         self._elastic = elastic
         self._on_check = on_check
+        self._controller = controller
+        self._state_shards = state_shards
+        self._group = shard_group
+        self._sync_group = None     # the controller's gloo group (NCCL)
+        self._report: Optional[GuardReport] = None
         self._stop = False
         #: batched device-to-host reads, and the health checks that made
         #: one, over this guard's runs
         self.host_reads = 0
         self.health_checks = 0
+        #: collective gathers the snapshots made (world > 1 only)
+        self.gathers = 0
+        #: controller windows whose signals came from global rank 0
+        #: (a process group of more than one rank only)
+        self.control_syncs = 0
         self.manager = (CheckpointManager(config.ckpt_dir,
                                           keep_last=config.keep_last)
                         if config.enabled and config.ckpt_dir else None)
+
+    # -- the process group -----------------------------------------------------
+    def _shard_group(self):
+        """``(group, world, rank)`` of a sharded state's snapshots (the
+        data group): world 1 and rank 0 without ``state_shards`` or a
+        process group."""
+        import torch.distributed as dist
+        if self._state_shards is None or not (dist.is_available()
+                                              and dist.is_initialized()):
+            return None, 1, 0
+        group = self._group if self._group is not None else dist.group.WORLD
+        return group, dist.get_world_size(group), dist.get_rank(group)
+
+    def _check_layout(self, state, world: int) -> None:
+        """Each shard field of ``state`` times the data group's ``world``
+        must be the ``flat_total`` of the layout in ``ckpt_meta``."""
+        layout = (self.cfg.ckpt_meta or {}).get(META_LAYOUT_KEY)
+        if self._state_shards is None or not isinstance(layout, dict) \
+                or "flat_total" not in layout:
+            return
+        for t, kind in zip(_leaves(state),
+                           _leaf_kinds(state, self._state_shards)):
+            if kind == SHARD and t.shape[0] * world != layout["flat_total"]:
+                raise ValueError(
+                    f"a shard field of {t.shape[0]} elements over a data "
+                    f"group of {world} is not the layout's flat_total "
+                    f"{layout['flat_total']}: pass the weight update's "
+                    f"group as shard_group")
+
+    def _control_sync(self):
+        """``(sync, writes)`` for the controller: ``sync(payload)``
+        returns global rank 0's payload on every rank (a gloo broadcast,
+        counted in :attr:`control_syncs`), None without a process group
+        of more than one rank; ``writes`` is whether this rank writes
+        ``CONTROL.json``."""
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size() == 1:
+            return None, True
+        # host values only: a gloo group even when the default is NCCL
+        # (made once a guard: every rank runs the same guards in order)
+        if dist.get_backend() != "gloo" and self._sync_group is None:
+            self._sync_group = dist.new_group(backend="gloo")
+        group = self._sync_group
+
+        def sync(payload):
+            box = [payload]
+            dist.broadcast_object_list(box, src=0, group=group)
+            self.control_syncs += 1
+            return box[0]
+        return sync, dist.get_rank() == 0
+
+    def _writes(self) -> bool:
+        """Does this rank write the checkpoints (rank 0 of the group)?"""
+        return self._shard_group()[2] == 0
 
     # -- telemetry ----------------------------------------------------------
     def _emit(self, name: str, **fields) -> None:
@@ -460,6 +620,41 @@ class TrainGuard:
             _tel_events.record_ckpt_exposed(dur, reg=self._registry,
                                             step=step)
 
+    def _finalize_control(self, ctl, tracer, report, writes: bool) -> None:
+        """Close the controller's decision ledger (best-effort, as
+        :meth:`_finalize_goodput`): the ``CONTROL.json`` doc with the
+        run's final status, written on the flight destination chain by
+        the writing rank."""
+        try:
+            doc = ctl.snapshot(status=report.status)
+            report.control = doc
+            directory = self._flight_destination(
+                tracer.recorder.directory
+                if tracer is not None and tracer.enabled else None)
+            if directory is not None and writes:
+                report.control_path = ctl.write(directory=directory,
+                                                doc=doc)
+        except Exception:   # the audit artifact must never mask the
+            pass            # run's real outcome
+
+    # -- controller actuation --------------------------------------------------
+    def request_resize(self, target_world: int, *, step=None,
+                       reason: str = "control") -> None:
+        """A synthesized ``resize@N:M``: the controller's quarantine
+        actuator calls this from inside the health-check boundary, so no
+        signal is needed: the target world goes into the report, the stop
+        flag is set, and the loop's preemption path snapshots and exits
+        cleanly for the harness to bring the run back at
+        ``target_world`` through the elastic reshard."""
+        rep = self._report
+        if rep is None:
+            raise RuntimeError("request_resize outside an active "
+                               "guarded run")
+        rep.resize_to = int(target_world)
+        self._emit("control.resize_requested", step=step,
+                   target_world=int(target_world), reason=str(reason))
+        self._stop = True
+
     def _finalize_goodput(self, ledger, tracer, prev_hook, prev_ledger,
                           report):
         """Close the run's goodput ledger (best-effort): detach it from the
@@ -485,12 +680,80 @@ class TrainGuard:
             pass            # outcome must still propagate untouched
 
     # -- state <-> host ------------------------------------------------------
+    def _save_now(self, mgr, step: int, state, writes: bool):
+        """An inline save: the snapshot (a collective under a process
+        group, so every rank takes it), written by the writing rank."""
+        payload = self._snapshot(state, step)
+        if writes:
+            _observed_save(mgr, step, payload, registry=self._registry)
+
     def _snapshot(self, state, step: int) -> dict:
         """The host payload of ``state``: its leaf list, read in one
         batched copy, rebuilt at restore against the live state's
-        structure (static values are never pickled)."""
+        structure (static values are never pickled).  At world > 1 the
+        sharded leaves are first gathered into their canonical form."""
+        leaves = _leaves(state)
+        group, world, _ = self._shard_group()
+        if world > 1:
+            kinds = _leaf_kinds(state, self._state_shards)
+            for kind in (SHARD, STACK):
+                idx = [i for i, k in enumerate(kinds) if k == kind]
+                if not idx:
+                    continue
+                full = _gather_bytes([leaves[i] for i in idx], group)
+                self.gathers += 1
+                for i, f in zip(idx, full):
+                    leaves[i] = f.reshape(-1) if kind == SHARD else f
         self.host_reads += 1
-        return {"step": int(step), "leaves": _host_leaves(_leaves(state))}
+        return {"step": int(step), "leaves": _host_leaves(leaves)}
+
+    def _canonical_template(self, state, world: int) -> list:
+        """The live state's leaves in the canonical (checkpoint) shapes
+        at ``world``: a shard field (T / N,) as (T,), a stack leaf (T,) as
+        (N, T); shapes only, on the meta device."""
+        out = []
+        kinds = _leaf_kinds(state, self._state_shards)
+        for t, kind in zip(_leaves(state), kinds):
+            if kind == SHARD:
+                t = torch.empty((t.shape[0] * world,), dtype=t.dtype,
+                                device="meta")
+            elif kind == STACK:
+                t = torch.empty((world,) + tuple(t.shape), dtype=t.dtype,
+                                device="meta")
+            out.append(t)
+        return out
+
+    def _local_payload(self, state, payload: dict) -> dict:
+        """This rank's part of a canonical payload: its slice of each
+        shard field and its row of each stack leaf (a world-1 snapshot's
+        1-D stack leaf is its own row)."""
+        if self._state_shards is None:
+            return payload
+        _, world, rank = self._shard_group()
+        kinds = _leaf_kinds(state, self._state_shards)
+        out = []
+        for t, h, kind in zip(_leaves(state), payload["leaves"], kinds):
+            if kind == SHARD and np.ndim(h) == 1 \
+                    and np.shape(h)[0] == t.shape[0] * world:
+                h = h[rank * t.shape[0]:(rank + 1) * t.shape[0]]
+            elif kind == STACK and np.ndim(h) == 2:
+                h = h[rank]
+            out.append(h)
+        return {**payload, "leaves": out}
+
+    def _canonical_saved(self, state, payload: dict) -> dict:
+        """A loaded payload with each 1-D stack leaf (a world-1
+        snapshot's) given its leading world axis, so that the resharder
+        sees the ``(saved_world, flat_total)`` stack the JAX package
+        writes."""
+        if self._state_shards is None:
+            return payload
+        kinds = _leaf_kinds(state, self._state_shards)
+        if len(kinds) != len(payload["leaves"]):
+            return payload          # _restore names the mismatch
+        return {**payload, "leaves": [
+            h[None] if kind == STACK and np.ndim(h) == 1 else h
+            for h, kind in zip(payload["leaves"], kinds)]}
 
     @staticmethod
     def _restore(template, payload: dict):
@@ -523,6 +786,7 @@ class TrainGuard:
         through the resharder; a same-world (or world-agnostic) resume
         passes the payload through.  No resharder ->
         :class:`WorldSizeMismatchError` naming both counts."""
+        template_state = template
         resharder = (self._elastic if self._elastic is not None
                      else get_resharder())
         saved_world = saved_meta.get(META_WORLD_KEY)
@@ -548,6 +812,11 @@ class TrainGuard:
             raise WorldSizeMismatchError(
                 saved_world, live_world,
                 detail="manifest lacks the flat-shard layout fields")
+        if self._state_shards is not None:
+            # the resharder works on canonical payloads: the template
+            # carries the live world's canonical shapes
+            template = self._canonical_template(template, live_world)
+            payload = self._canonical_saved(template_state, payload)
         payload = resharder.resume(template, payload, saved_meta,
                                    live_world, emit=self._emit)
         report.resharded_from = saved_world
@@ -655,9 +924,24 @@ class TrainGuard:
         plan = self._plan if self._plan is not None else _faults.active_plan()
         it = None if seekable else iter(batches)
         report = GuardReport(status="completed", final_step=start_step)
+        self._report = report   # request_resize targets the live run
         mgr = self.manager
         step = start_step
-        live_world = cfg.world_size
+        # the controller rides the health-check window below; a disabled
+        # one is dropped here, so the loop skips every touch point
+        ctl = self._controller
+        if ctl is not None and not getattr(ctl, "enabled", False):
+            ctl = None
+        group, group_world, _ = self._shard_group()
+        live_world = cfg.world_size or (group_world if group_world > 1
+                                        else None)
+        if group_world > 1 and cfg.save_every_seconds:
+            raise ValueError(
+                "save_every_seconds under a process group: each rank's "
+                "clock would pick its own save steps; use "
+                "save_every_steps")
+        self._check_layout(state, group_world)
+        writes = self._writes()
         # the live OpenMetrics endpoint: armed only when
         # APEX_TPU_METRICS_PORT is set, shut down at the end iff this run
         # started it
@@ -698,25 +982,32 @@ class TrainGuard:
         _tel_events.install_compile_listener()
         tracer = _trace.get_tracer()
         ledger = prev_ledger = prev_hook = None
+        ctl_writes = True
         if tracer is not None and tracer.enabled:
             ledger = _goodput.GoodputLedger()
             prev_hook = getattr(tracer, "ledger", None)
             ledger.attach(tracer)
             prev_ledger = _goodput.install(ledger)
         try:
+            # under a process group rank 0 writes; the others take part
+            # in each snapshot's gathers and write nothing
             writer = (_AsyncWriter(mgr, registry=self._registry)
-                      if mgr is not None else None)
+                      if writes else _NullWriter()) \
+                if mgr is not None else None
+            resumed_meta = None
             if mgr is not None and cfg.auto_resume:
                 found = mgr.load_latest(with_meta=True)
                 if found is not None and found[0] > start_step:
                     ck_step, payload, saved_meta = found
+                    resumed_meta = saved_meta
                     # the stream must be the one the manifest cursor names
                     self._check_data_stream(batches, saved_meta)
                     payload = self._maybe_reshard(state, payload,
                                                   saved_meta, live_world,
                                                   report)
                     with _trace.span("ckpt.restore", step=ck_step):
-                        state = self._restore(state, payload)
+                        state = self._restore(
+                            state, self._local_payload(state, payload))
                     step = min(ck_step, num_steps)
                     seek = getattr(batches, "seek", None)
                     if seekable and callable(seek):
@@ -728,15 +1019,21 @@ class TrainGuard:
                         # interrupted run; a re-armed env plan must not
                         # fire them again
                         plan.skip_until(step)
+            if ctl is not None:
+                # armed after the resume, so that an acted config recorded
+                # in the interrupted run's manifest is re-applied before
+                # any step runs; every rank decides on rank 0's signals
+                sync, ctl_writes = self._control_sync()
+                ctl.arm(guard=self, manager=mgr, live_world=live_world,
+                        saved_meta=resumed_meta, sync=sync)
             last_saved = step
             t_last_save = time.monotonic()
             if mgr is not None and step < num_steps:
                 # the rollback anchor, written inline (the writer is idle
                 # this early): the whole save is boundary-blocked
                 self._record_cursor(batches, step)
-                self._blocked_ckpt(step, lambda: _observed_save(
-                    mgr, step, self._snapshot(state, step),
-                    registry=self._registry))
+                self._blocked_ckpt(step, lambda: self._save_now(
+                    mgr, step, state, writes))
                 report.checkpoints += 1
             while step < num_steps:
                 if plan is not None and not self._stop:
@@ -788,12 +1085,27 @@ class TrainGuard:
                             report.faults_injected += 1
                             self._emit("fault_injected", kind=kind,
                                        step=step)
+                t_step = time.perf_counter() if ctl is not None else 0.0
                 with _trace.span("train.step", step=step):
                     if straggler_spec is not None:
                         # the slowdown is real step time, inside the span
                         time.sleep(_faults.straggler_delay(
                             straggler_spec.arg))
                     state, loss = split(self.step_fn(state, batch))
+                if ctl is not None and live_world and int(live_world) >= 2:
+                    # per-rank busy rows for the controller's leave-one-out
+                    # straggler naming: host step timing spread over the
+                    # world, the armed straggler fault's factor on one
+                    # deterministic rank (the plan's seed modulo the world)
+                    busy_ms = (time.perf_counter() - t_step) * 1e3
+                    devs = {f"d{i}": busy_ms
+                            for i in range(int(live_world))}
+                    if straggler_spec is not None:
+                        culprit = ((plan.seed if plan is not None else 0)
+                                   % int(live_world))
+                        devs[f"d{culprit}"] = busy_ms * max(
+                            float(straggler_spec.arg), 1.0)
+                    ctl.feed_device_stats(step, devs)
                 if loss is not None:
                     pending.append((step, loss))
                 step += 1
@@ -805,6 +1117,13 @@ class TrainGuard:
                     healthy = self._health_check(state, pending)
                 pending.clear()             # the window is consumed
                 since_check = 0
+                if healthy and ctl is not None and not self._stop:
+                    # the controller decides on the read the health check
+                    # just paid for; an action that stops the run
+                    # (quarantine) sets self._stop, and the preemption
+                    # path below takes it from there
+                    with _trace.span("control.window", step=step):
+                        ctl.on_window(step=step, losses=self._last_losses)
                 if not healthy:
                     if writer is not None:  # newest ckpt must be on disk
                         self._blocked_ckpt(step, writer.drain)
@@ -830,9 +1149,8 @@ class TrainGuard:
             if mgr is not None and (self._stop or cfg.save_on_exit):
                 self._blocked_ckpt(step, writer.drain)
                 self._record_cursor(batches, step)
-                self._blocked_ckpt(step, lambda: _observed_save(
-                    mgr, step, self._snapshot(state, step),
-                    registry=self._registry))
+                self._blocked_ckpt(step, lambda: self._save_now(
+                    mgr, step, state, writes))
                 report.checkpoints += 1
             if self._stop:
                 report.status = "preempted"
@@ -841,6 +1159,11 @@ class TrainGuard:
             report.final_step = step
             if writer is not None:
                 self._blocked_ckpt(step, writer.drain)
+            if writer is not None and group_world > 1:
+                # no rank returns before rank 0's checkpoints are on disk:
+                # a rank that reads them next must find the newest
+                import torch.distributed as dist
+                dist.barrier(group=group)
             return state, report
         except BaseException as e:
             # the crash flight dump (GuardAbort included), or for an OOM
@@ -860,8 +1183,11 @@ class TrainGuard:
             if ledger is not None:
                 self._finalize_goodput(ledger, tracer, prev_hook,
                                        prev_ledger, report)
+            if ctl is not None:
+                self._finalize_control(ctl, tracer, report, ctl_writes)
             if exp_owned:
                 _export.shutdown()
+            self._report = None
 
     # -- health + rollback ---------------------------------------------------
     def _health_check(self, state, pending) -> bool:
@@ -918,13 +1244,19 @@ class TrainGuard:
             raise GuardAbort(
                 f"rollback budget exhausted ({cfg.max_retries} retries), "
                 f"still escalating on {why}")
+        group, world, _ = self._shard_group()
+        if world > 1:
+            # rank 0's writer has drained: every rank reads the same file
+            import torch.distributed as dist
+            dist.barrier(group=group)
         found = self.manager.load_latest()
         if found is None:
             raise GuardAbort(f"escalation ({why}) but no readable "
                              f"checkpoint under {self.manager.directory}")
         ck_step, payload = found
         with _trace.span("ckpt.restore", step=ck_step, rollback=True):
-            state = self._restore(state, payload)
+            state = self._restore(state, self._local_payload(state,
+                                                             payload))
         self._streak = 0
         self._floor_checks = 0
         self._emit("rollback", to_step=ck_step, attempt=report.rollbacks,

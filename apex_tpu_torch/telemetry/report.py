@@ -10,9 +10,8 @@ collective bytes/calls and loader wait.  With no path it runs the demo
 instrumented through the real registry/event wiring, with an amp
 overflow forced on one step, then the per-op FLOPs/bytes table
 (:mod:`.attrib`) of the same step.  Subcommands ``trace``, ``goodput``,
-``mem``, ``serve``, ``timeline`` and ``fleet`` render the other artifacts;
-``control`` (the JAX package's run controller) is not ported yet and
-exits 2.
+``mem``, ``serve``, ``timeline``, ``fleet`` and ``control`` (the run
+controller's ``CONTROL.json``) render the other artifacts.
 """
 from __future__ import annotations
 
@@ -356,10 +355,6 @@ def run_demo(path: str, steps: int = 6, overflow_at: int = 3,
     return summarize(load_records(path))
 
 
-#: the JAX CLI's subcommands whose modules the port does not have yet
-_NOT_PORTED = ("control",)
-
-
 def main(argv=None) -> int:
     import argparse
     import os
@@ -386,11 +381,9 @@ def main(argv=None) -> int:
     if argv and argv[0] == "fleet":
         from . import fleet as _fleet
         return _fleet.cli(argv[1:])
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"python -m apex_tpu_torch.telemetry {argv[0]}: not ported "
-              "yet (the JAX package's telemetry.{argv[0]} has no "
-              "counterpart in the port)", file=sys.stderr)
-        return 2
+    if argv and argv[0] == "control":
+        from ..control import ledger as _control_ledger
+        return _control_ledger.cli(argv[1:])
 
     ap = argparse.ArgumentParser(
         prog="python -m apex_tpu_torch.telemetry",

@@ -158,7 +158,17 @@ It returns the status the example exits with (0 when the run completed,
 :func:`o5_guard_step` is :func:`train_step` as a ``TrainGuard`` step
 function; a ``(AmpState, torch.Generator)`` carry draws the step's
 dropout from the generator, which the guard saves and restores with the
-state.
+state.  :func:`flagship_guard_step` is the zero1 flagship step with its
+int8 error-feedback residual as a guard step under a process group, with
+the manifest layout and the ``state_shards`` an elastic resume needs::
+
+    state, step, layout, shards = flagship_guard_step(
+        cfg, ddp_kwargs={"collective_scheme": "int8_blockscale"})
+    guard = TrainGuard(step, GuardConfig(ckpt_dir=d, world_size=n,
+                                         ckpt_meta={"layout": layout}),
+                       state_shards=shards,
+                       shard_group=step.weight_update.group)
+    state, report = guard.run(state, tokens_at, steps)
 
 2:4 sparsity (ASP) needs no step of its own: ``amp.initialize(params,
 asp.wrap_optimizer(FusedLAMB(impl="fused"), masks), "O5")`` then
@@ -193,7 +203,7 @@ from .utils.pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
 __all__ = ["train_step", "zero_train_step", "build_flagship_step",
-           "mlp_train_step",
+           "flagship_guard_step", "mlp_train_step",
            "resnet_train_step", "resnet_eval_step", "simple_ddp_train_step",
            "bce_logits", "dcgan_train_step", "resnet_checkpoint_entries",
            "resnet_resume", "resnet_checkpoint_from_jax",
@@ -326,6 +336,17 @@ def build_flagship_step(cfg: TransformerConfig, *, ddp_kwargs=None,
     through :meth:`~apex_tpu_torch.parallel.weight_update.ShardedUpdate.
     step`.  ``params`` (default ``transformer_init`` from ``seed``) are the
     starting weights; ``lr`` defaults to the JAX step's 1e-2."""
+    return _build_flagship_step(cfg, ddp_kwargs=ddp_kwargs, params=params,
+                                seed=seed, lr=lr, device=device)
+
+
+def _build_flagship_step(cfg: TransformerConfig, *, ddp_kwargs=None,
+                         params=None, seed: int = 0, lr: float = 1e-2,
+                         device=None, error_feedback: bool = False):
+    """:func:`build_flagship_step`; ``error_feedback`` (zero1 only, for
+    :func:`flagship_guard_step`) threads the reduce-scatter's int8
+    error-feedback residual through the carry, ``(params, state,
+    residual)``, as the JAX elastic harness's step does."""
     from .models.transformer import transformer_init
     dev = resolve_device(device)
     params0 = params if params is not None else transformer_init(
@@ -335,24 +356,54 @@ def build_flagship_step(cfg: TransformerConfig, *, ddp_kwargs=None,
     su = ddp.weight_update(opt)
     group = resolve_group(ddp.axis_name)
     state0 = opt.init(params0) if su is None else su.init(params0)
+    carry0 = (params0, state0)
+    if error_feedback:
+        if su is None:
+            raise ValueError("error feedback rides the zero1 reduce-scatter:"
+                             " pass ddp_kwargs={'update_sharding': 'zero1'}")
+        carry0 += (su.init_residual(params0),)
 
     def step(carry, tokens):
-        params, state = carry
+        params, state, *res = carry
         leaves, treedef = _grad_leaves(params)
         loss = transformer_loss(tree_unflatten(treedef, leaves),
                                 {"tokens": tokens, "targets": tokens}, cfg)
         if su is None:
             held = [ddp.grad(loss, tree_unflatten(treedef, leaves))]
-            params, state = flat_update(opt, state, params, held)
+            carry = flat_update(opt, state, params, held)
         else:
             grads = torch.autograd.grad(loss, leaves)
-            params, state = su.step(state, tree_unflatten(treedef,
-                                                          list(grads)),
-                                    params)
-        return (params, state), mean_loss(loss, group)
+            carry = su.step(state, tree_unflatten(treedef, list(grads)),
+                            params, residual=res[0] if res else None)
+        return tuple(carry), mean_loss(loss, group)
 
     step.ddp = ddp
-    return (params0, state0), step
+    step.weight_update = su
+    return carry0, step
+
+
+def flagship_guard_step(cfg: TransformerConfig, *, ddp_kwargs=None,
+                        params=None, seed: int = 0, lr: float = 1e-2,
+                        device=None):
+    """The zero1 flagship step with its int8 error-feedback residual, ready
+    for :class:`~apex_tpu_torch.resilience.TrainGuard` under a process
+    group (the JAX elastic harness's step): ``(state0, step, layout,
+    state_shards)``.  ``state`` is ``(params, opt_state, residual)``;
+    ``step(state, tokens) -> (state, loss)``; ``layout`` is the manifest's
+    ``ShardedUpdate.layout_meta`` at the group's world; ``state_shards``
+    names the flat-shard fields and the residual for the guard's
+    ``state_shards=``, sharded over ``step.weight_update.group`` (the
+    guard's ``shard_group=``).  ``ddp_kwargs`` default to ``update_sharding=
+    "zero1"`` with the collective scheme from the environment."""
+    kw = dict(ddp_kwargs or {})
+    kw.setdefault("update_sharding", "zero1")
+    carry0, step = _build_flagship_step(cfg, ddp_kwargs=kw, params=params,
+                                        seed=seed, lr=lr, device=device,
+                                        error_feedback=True)
+    su = step.weight_update
+    world = group_size(su.group)
+    shards = (None, su.state_pspecs(carry0[0], world), "stack")
+    return carry0, step, su.layout_meta(carry0[0], world), shards
 
 
 def mlp_train_step(fp16_opt, params, batch: Dict[str, torch.Tensor], mlp):

@@ -8038,6 +8038,7 @@ def phase_planner(dev, card):
     t0 = time.perf_counter()
     prof, cfg, gb = P.flagship_profile(device=dev)
     prof_s = time.perf_counter() - t0
+    RESULTS["flagship_profile"] = prof      # phase 29's re-plans
     require(prof.platform == "h100" or "H100" not in card,
             f"profile platform {prof.platform} on {card}")
     log(f"  profiled {prof.name} (global batch {gb}, seq {cfg.max_len}, "
@@ -8092,6 +8093,489 @@ def phase_tensor_parallel(dev, card, serve_launches):
         if os.path.exists(store):
             os.remove(store)
     log(f"  phase 28 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 29: elastic resume and the run controller
+# ---------------------------------------------------------------------------
+
+ELASTIC_DIR = os.path.join(HERE, "build", "phase29")
+#: leg (a): phase 26's flagship step cut to phase 19's depth, zero1 with the
+#: int8 error-feedback reduce-scatter (the JAX elastic harness's knobs)
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_PREEMPT = 2, 8, 5
+ELASTIC_SCHEME = "int8_blockscale:min_bytes=0"
+#: the worlds the step-4 checkpoint is imported from: 8 (the total of world
+#: 1, so only the residual collapses) and 7 (another total, so the master
+#: and the moments re-chunk; the quarantine's resize)
+ELASTIC_FROM_WORLDS = (8, 7)
+#: the host round trip's live residual rows (of the 8-way stack)
+ROUNDTRIP_LIVE_ROWS = 4
+#: leg (b)'s goodput floor: between the clean O5 step's windows (the step
+#: and its check are productive, ~1.0) and the degraded ones (a 20 ms sleep
+#: beside a step of ~20 ms, ~0.5); the JAX chaos test's 0.5 sits on the
+#: degraded value when the step is a real one
+CONTROL_FLOOR = 0.9
+# the flagship step at 2 layers: phase 26's counts a layer (one flash
+# forward and backward, two layer norms each way) plus the embedding's and
+# the head's norms and the loss
+TRAIN_LAUNCHES_PER_STEP["elastic_flagship"] = dict(
+    {k: 0 for k in ALL_KERNELS}, flash_fwd=2, flash_bwd=2, ln_fwd=6,
+    ln_bwd=6, xent_fwd=1)
+# leg (b): phase 24c's O5 BERT step, exactly
+TRAIN_LAUNCHES_PER_STEP["control_o5"] = dict(
+    {k: 0 for k in ALL_KERNELS}, **TRAIN_LAUNCHES_PER_STEP["ckpt_o5"])
+
+
+def _to_world(payload, kinds, layout, world):
+    """A world-1 checkpoint payload as an N-way one, by a numpy re-chunk
+    written out here (the JAX elastic test's ``_import_canonical`` idiom,
+    not the elastic code): each flat-shard field's used prefix padded to
+    ``layout["flat_total"]``, the residual stacked to ``world`` rows with
+    row 0 holding it."""
+    out = []
+    for h, kind in zip(payload["leaves"], kinds):
+        h = np.asarray(h)
+        if kind in ("shard", "stack"):
+            v = np.zeros((layout["flat_total"],), h.dtype)
+            v[:layout["used"]] = h[:layout["used"]]
+            if kind == "stack":
+                v = np.concatenate([v[None], np.zeros(
+                    (world - 1, v.shape[0]), h.dtype)])
+            h = v
+        out.append(h)
+    return {"step": payload["step"], "leaves": out}
+
+
+def _elastic_leg(dev, card, profile):
+    """29a: the zero1 + int8-EF flagship under the guard, uninterrupted and
+    with ``preempt@5``; its step-4 checkpoint as world-8 and world-7
+    manifests; each resume at world 1 refused without elastic, resharded
+    to 1 with it, and steps 5-8 bitwise the uninterrupted run's."""
+    import shutil
+    import torch
+    import apex_tpu_torch.elastic as elastic
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.parallel import plan as P
+    from apex_tpu_torch.resilience import (CheckpointManager, GuardConfig,
+                                           TrainGuard,
+                                           WorldSizeMismatchError, faults,
+                                           guard)
+    from apex_tpu_torch.telemetry import events
+    from apex_tpu_torch.telemetry.registry import MemorySink, Registry
+    from apex_tpu_torch.train import flagship_guard_step
+    from apex_tpu_torch.utils import build
+    cfg = bert_large_config(num_layers=ELASTIC_LAYERS, attn_impl="fast")
+    params0 = transformer_init(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    toks = _flagship_tokens(cfg, dev, ELASTIC_STEPS)
+
+    def run(name, plan=None):
+        state, step, layout, shards = flagship_guard_step(
+            cfg, ddp_kwargs={"collective_scheme": ELASTIC_SCHEME},
+            params=params0, lr=FLAGSHIP_LR, device=dev)
+        g = TrainGuard(step, GuardConfig(
+            ckpt_dir=os.path.join(ELASTIC_DIR, name), save_every_steps=2,
+            check_every=2, enabled=True, world_size=1,
+            ckpt_meta={"plan": P.Plan(dp=1).knobs(), "layout": layout}),
+            plan=plan, state_shards=shards,
+            shard_group=step.weight_update.group)
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state, rep = g.run(state, lambda i: toks[i], ELASTIC_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(g.host_reads == g.health_checks + rep.checkpoints
+                and g.gathers == 0, f"29a {name}: reads {g.host_reads}, "
+                f"checks {g.health_checks}, snapshots {rep.checkpoints}, "
+                f"gathers {g.gathers}")
+        return state, rep, dict(build.LAUNCHES), (step, layout, shards), secs
+
+    st_a, rep_a, launch_a, (step, layout1, shards), secs_a = run("clean")
+    require(rep_a.status == "completed", f"29a clean: {rep_a}")
+    check_launches("elastic_flagship", launch_a, ELASTIC_STEPS, exact=True)
+    _, rep_b, launch_b, _, _ = run("preempt", faults.parse(
+        f"preempt@{ELASTIC_PREEMPT}"))
+    require(rep_b.status == "preempted"
+            and rep_b.final_step == ELASTIC_PREEMPT, f"29a preempt: {rep_b}")
+    check_launches("elastic_flagship", launch_b, ELASTIC_PREEMPT, exact=True)
+
+    # the step-4 checkpoint as world-8 and world-7 manifests, re-chunked
+    # in numpy: at 2 layers the world-8 total is the world-1 one, so only
+    # the 7-way import re-chunks the master and the moments
+    ck = ELASTIC_PREEMPT - 1
+    payload = checkpoint.load(CheckpointManager(os.path.join(
+        ELASTIC_DIR, "preempt")).path_for(ck))
+    kinds = guard._leaf_kinds(st_a, shards)
+    require(kinds.count("shard") == 3 and kinds.count("stack") == 1,
+            f"29a kinds {kinds}")
+
+    def resume(wdir):
+        state, step_r, layout, sh = flagship_guard_step(
+            cfg, ddp_kwargs={"collective_scheme": ELASTIC_SCHEME},
+            params=params0, lr=FLAGSHIP_LR, device=dev)
+        g = TrainGuard(step_r, GuardConfig(
+            ckpt_dir=wdir, save_every_steps=2, check_every=2,
+            enabled=True, world_size=1,
+            ckpt_meta={"plan": P.Plan(dp=1).knobs(), "layout": layout}),
+            state_shards=sh, shard_group=step_r.weight_update.group)
+        build.LAUNCHES.clear()
+        state, rep = g.run(state, lambda i: toks[i], ELASTIC_STEPS)
+        torch.cuda.synchronize()
+        return state, rep, dict(build.LAUNCHES)
+
+    la = guard._leaves(st_a)
+    names = ["params"] * (len(la) - 5) + ["count", "m", "v", "master",
+                                          "residual"]
+    require(bool(la[-1].abs().max() > 0), "29a: the EF residual is zero")
+    done, launch_r = [], {}
+    for w in ELASTIC_FROM_WORLDS:
+        layout_w = step.weight_update.layout_meta(params0, w)
+        require(layout_w["used"] == layout1["used"],
+                f"29a layouts {layout1} / {layout_w}")
+        wdir = os.path.join(ELASTIC_DIR, f"w{w}")
+        CheckpointManager(wdir, meta={
+            "world_size": w, "plan": P.Plan(dp=w).knobs(),
+            "layout": layout_w,
+        }).save(ck, _to_world(payload, kinds, layout_w, w))
+        try:
+            resume(wdir)
+            refused = None
+        except WorldSizeMismatchError as e:
+            refused = e
+        require(refused is not None and (refused.saved_world,
+                                         refused.live_world) == (w, 1),
+                f"29a: the world-{w} manifest at world 1 without elastic "
+                f"gave {refused!r}")
+        reg = Registry(sink=MemorySink(), flush_interval=0, rank0_only=False)
+        prev = events.set_default(reg)
+        er = elastic.install(profile=profile)
+        try:
+            st_r, rep_r, launch_r[w] = resume(wdir)
+        finally:
+            elastic.uninstall()
+            events.set_default(prev)
+        ev = {r["name"]: r["fields"] for r in reg.flush()
+              if r.get("kind") == "event"}
+        require(rep_r.status == "completed" and rep_r.resumed_from == ck
+                and rep_r.resharded_from == w,
+                f"29a elastic resume from {w}: {rep_r}")
+        # the flat fields re-chunk where the totals differ; the residual
+        # stack always collapses onto its one live row
+        fields = 1 + 3 * (layout_w["flat_total"] != layout1["flat_total"])
+        require(er.last_plan is not None and er.last_plan.chips == 1
+                and ev["elastic.replan"]["chips"] == 1
+                and ev["elastic.reshard"]["fields_resharded"] == fields,
+                f"29a replan {er.last_plan}, events {ev}")
+        check_launches("elastic_flagship", launch_r[w], ELASTIC_STEPS - ck,
+                       exact=True)
+        lr_ = guard._leaves(st_r)
+        diff = [n for n, x, y in zip(names, la, lr_)
+                if x.dtype != y.dtype or not torch.equal(x, y)]
+        require(not diff and len(la) == len(lr_),
+                f"29a: the {w} -> 1 resume is not the uninterrupted run's "
+                f"bits in {diff}")
+        done.append((w, layout_w["flat_total"], fields,
+                     ev["elastic.reshard"]["seconds"],
+                     ev["elastic.replan"]["seconds"],
+                     ev["elastic.replan"]["candidates"],
+                     er.last_plan.describe()))
+        del st_r, lr_
+        shutil.rmtree(wdir, ignore_errors=True)
+    del payload
+    require(any(f == 4 for _, _, f, *_ in done),
+            "29a: no import re-chunked the master and the moments")
+    RESULTS["elastic_reshard_s"] = {w: r for w, _, _, r, *_ in done}
+    RESULTS["elastic_replan_s"] = {w: r for w, _, _, _, r, *_ in done}
+    log(f"  (a) [{card}] flagship {ELASTIC_LAYERS} layers, fp32, "
+        f"{FLAGSHIP_BATCH[0]} x {FLAGSHIP_BATCH[1]}, zero1 + "
+        f"{ELASTIC_SCHEME} EF, a save every 2, a check every 2: "
+        f"{ELASTIC_STEPS} steps in {secs_a:.1f} s; preempt@"
+        f"{ELASTIC_PREEMPT}; the step-{ck} checkpoint (flat_total "
+        f"{layout1['flat_total']}, used {layout1['used']}) as world-w "
+        f"manifests, each refused at world 1 without elastic and, with "
+        f"elastic.install, resharded w -> 1 and re-planned for 1 chip; "
+        + "; ".join(
+            f"w {w}: flat_total {tot}, reshard {r:.3f} s ({f} fields), "
+            f"replan {q * 1e3:.2f} ms ({c} candidates, winner {d})"
+            for w, tot, f, r, q, c, d in done)
+        + f"; steps {ck + 1}-{ELASTIC_STEPS} end on the uninterrupted "
+        f"run's parameters, moments and residual bit for bit; launches a "
+        f"run {launch_a} / {launch_b} / {launch_r}")
+    del st_a, params0
+    return launch_a
+
+
+def _reshard_roundtrip(card):
+    """29a, on the host: the canonical flat of the 24-layer flagship
+    (``FLAT_N``, the JAX flagship's count) 8 -> 4 -> 8 and 8 -> 7 -> 8
+    through ``reshard_payload``: master, two moments and the residual
+    stack, bitwise.  The totals at 8 and 4 agree, so the first round trip
+    passes the fields through; the total at 7 differs, so the second
+    re-chunks them."""
+    import torch
+    import apex_tpu_torch.elastic as elastic
+    from apex_tpu_torch.multi_tensor_apply.flattener import LANE
+    used = FLAT_N
+    tot = {w: -(-used // (LANE * w)) * LANE * w for w in (8, 7, 4)}
+    rng = np.random.default_rng(29)
+
+    def fill(out):
+        # a fresh random 4 MB block tiled over the used prefix (drawing all
+        # 334 M values would cost seconds of the phase's time)
+        out[:used] = np.resize(rng.random(1 << 20, dtype=np.float32), used)
+    fields = [np.zeros((tot[8],), np.float32) for _ in range(3)]
+    res = np.zeros((8, tot[8]), np.float32)
+    for a in fields + [res[r] for r in range(ROUNDTRIP_LIVE_ROWS)]:
+        fill(a)
+    # the collapse, written out here: the live rows summed in order (the
+    # zero rows add +0.0 to non-negative sums, which changes no bit)
+    want = np.zeros((used,), np.float32)
+    for r in range(ROUNDTRIP_LIVE_ROWS):
+        want = want + res[r, :used]
+
+    def meta(w):
+        return {"world_size": w,
+                "layout": {"flat_total": tot[w], "used": used}}
+
+    def tmpl(w):
+        return [torch.empty((tot[w],), device="meta") for _ in range(3)] \
+            + [torch.empty((w, tot[w]), device="meta")]
+
+    def collapsed(r, w):
+        return (r.shape == (w, tot[w]) and np.array_equal(r[0, :used], want)
+                and not np.any(r[0, used:]) and not np.any(r[1:]))
+
+    def hop(payload, a, b):
+        """One reshard a -> b, timed, with the bytes it reads and writes:
+        the residual stacks, and the fields where the totals differ."""
+        t0 = time.perf_counter()
+        out = elastic.reshard_payload(tmpl(b), payload, meta(a), b,
+                                      emit=lambda *x, **k: None)
+        secs = time.perf_counter() - t0
+        moved = payload["leaves"][3].nbytes + out["leaves"][3].nbytes
+        if tot[a] != tot[b]:
+            moved += sum(x.nbytes for x in payload["leaves"][:3]) + sum(
+                x.nbytes for x in out["leaves"][:3])
+        return out, secs, moved / secs / 1e9
+
+    start = {"step": 0, "leaves": fields + [res]}
+    rows = []
+    for mid_w in (4, 7):
+        mid, s1, gb1 = hop(start, 8, mid_w)
+        back, s2, gb2 = hop(mid, mid_w, 8)
+        ok_fields = all(np.array_equal(a, b) for a, b in zip(
+            fields, back["leaves"][:3]))
+        ok_res = (collapsed(mid["leaves"][3], mid_w)
+                  and collapsed(back["leaves"][3], 8))
+        require(ok_fields and ok_res, f"29a round trip 8 -> {mid_w} -> 8: "
+                f"fields bitwise {ok_fields}, residual collapse bitwise "
+                f"{ok_res}")
+        rows.append((mid_w, s1, gb1, s2, gb2))
+        del mid, back
+    RESULTS["roundtrip"] = rows
+    log(f"  (a) host round trips of the flagship's canonical flat ({used} "
+        f"elements; totals {tot[8]} at 8, {tot[7]} at 7, {tot[4]} at 4): "
+        f"master, m, v and the residual stack ({ROUNDTRIP_LIVE_ROWS} live "
+        f"rows of 8, {res.nbytes / 1e9:.2f} GB); "
+        + "; ".join(
+            f"8 -> {w} in {s1:.2f} s ({g1:.2f} GB/s read + written), "
+            f"{w} -> 8 in {s2:.2f} s ({g2:.2f} GB/s), the fields "
+            f"{'re-chunked' if tot[w] != tot[8] else 'passed through'}"
+            for w, s1, g1, s2, g2 in rows)
+        + "; the fields bitwise, the residual rows summed onto row 0 and "
+        "kept bit for bit")
+    del start, fields, res, want
+
+
+def _control_leg(dev, card, profile):
+    """29b: the controller on phase 24c's O5 BERT leg.  Returns (the
+    enabled clean run's launches, the degrade run's CONTROL.json)."""
+    import torch
+    from apex_tpu_torch.control import (ControlConfig, RunController,
+                                        control_violations,
+                                        default_policies, load_artifact)
+    from apex_tpu_torch.models import bert_large_config, transformer_init
+    from apex_tpu_torch.resilience import (CheckpointManager, GuardConfig,
+                                           TrainGuard, faults, guard)
+    from apex_tpu_torch.telemetry import trace
+    from apex_tpu_torch.train import o5_guard_step
+    from apex_tpu_torch.utils import build
+    bcfg = bert_large_config(num_layers=GUARD_BERT_LAYERS, attn_impl="fast",
+                             remat=True, dtype=torch.bfloat16)
+    params = transformer_init(bcfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    b0 = _train_state(params, None)
+    del params
+    bbatches = []
+    for i in range(GUARD_BERT_STEPS):
+        b = _batch(bcfg, 8, 512, 40 + i, dev)
+        b["weights"] = torch.ones_like(b["tokens"], dtype=torch.float32)
+        bbatches.append(b)
+    inner = o5_guard_step(bcfg)
+    window = {"on": False}
+
+    def step(state, batch):
+        # between two step calls that no check separates, the guard's and
+        # the controller's code run with any host sync raising
+        torch.cuda.set_sync_debug_mode(0)
+        out = inner(state, batch)
+        if window["on"]:
+            torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def bsource(i):
+        window["on"] = (i + 1) % GUARD_CHECK_EVERY != 0 \
+            and i + 1 < GUARD_BERT_STEPS
+        return bbatches[i]
+
+    win_ms = []
+
+    def watched(ctl):
+        """The controller's window under the error mode, timed."""
+        real = ctl.on_window
+
+        def on_window(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                win_ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.set_sync_debug_mode(0)
+        ctl.on_window = on_window
+        return ctl
+
+    def run(name, ctl=None, plan=None, world=None, traced=False):
+        d = os.path.join(ELASTIC_DIR, name)
+        g = TrainGuard(step, GuardConfig(
+            ckpt_dir=d, enabled=True, save_every_steps=GUARD_BERT_STEPS,
+            check_every=GUARD_CHECK_EVERY, backoff_seconds=0.25,
+            world_size=world, flight_dir=d), plan=plan, controller=ctl)
+        prev = trace.set_tracer(trace.Tracer(enabled=True, flight_dir=d)
+                                if traced else None)
+        build.LAUNCHES.clear()
+        try:
+            st, rep = g.run(b0, bsource, GUARD_BERT_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            trace.set_tracer(prev)
+        torch.cuda.synchronize()
+        require(g.host_reads == g.health_checks + rep.checkpoints,
+                f"29b {name}: reads {g.host_reads} != checks "
+                f"{g.health_checks} + snapshots {rep.checkpoints}")
+        check_launches("control_o5", dict(build.LAUNCHES), rep.final_step,
+                       exact=True)
+        return st, rep, g, dict(build.LAUNCHES)
+
+    st_n, rep_n, g_n, _ = run("none")
+    off = RunController(ControlConfig(enabled=False))
+    st_o, rep_o, g_o, _ = run("off", off)
+    require(_same_bits(guard._leaves(st_n), guard._leaves(st_o))
+            and g_o.host_reads == g_n.host_reads and rep_o.control is None
+            and off.windows == 0,
+            f"29b: the disabled controller is not the controller-free run "
+            f"(reads {g_o.host_reads} / {g_n.host_reads})")
+    on = watched(RunController(ControlConfig(enabled=True)))
+    st_e, rep_e, g_e, launches = run("on", on, traced=True)
+    require(rep_e.status == "completed" and rep_e.control["decisions"] == []
+            and on.windows == GUARD_BERT_STEPS // GUARD_CHECK_EVERY
+            and _same_bits(guard._leaves(st_n), guard._leaves(st_e)),
+            f"29b: the enabled controller on a clean run: {rep_e.control}")
+    clean_ms = list(win_ms)
+    win_ms.clear()
+    deg = watched(RunController(ControlConfig(
+        enabled=True, max_actions=1, profile=profile),
+        default_policies(goodput_floor=CONTROL_FLOOR)))
+    _, rep_d, _, _ = run("degrade", deg, faults.parse(
+        "goodput_degrade@2x20:0.02"), world=1, traced=True)
+    doc = load_artifact(rep_d.control_path)
+    acted = [r for r in doc["decisions"] if r["outcome"] == "acted"]
+    require(len(acted) == 1 and acted[0]["action"] == "replan_reshard"
+            and control_violations(doc) == []
+            and rep_d.goodput["classes"]["reshard"]["ms"] > 0,
+            f"29b goodput_degrade: decisions {doc['decisions']}, reshard "
+            f"{rep_d.goodput['classes']['reshard']}")
+    degrade_ms = list(win_ms)
+    win_ms.clear()
+    strag = watched(RunController(ControlConfig(enabled=True,
+                                                max_actions=2)))
+    _, rep_s, _, _ = run("straggler", strag,
+                         faults.parse("straggler@2x40:4.0"), world=8)
+    meta = CheckpointManager(os.path.join(ELASTIC_DIR, "straggler")
+                             ).load_latest(with_meta=True)[2]
+    q = [r for r in rep_s.control["decisions"] if r["outcome"] == "acted"]
+    require(rep_s.status == "preempted" and rep_s.resize_to == 7
+            and len(q) == 1 and q[0]["action"] == "quarantine"
+            and q[0]["detail"] == {"device": "d0", "from_world": 8,
+                                   "to_world": 7}
+            and meta["control"] == {"quarantined_device": "d0",
+                                    "resize_to": 7},
+            f"29b straggler: {rep_s.status}, resize_to {rep_s.resize_to}, "
+            f"decisions {rep_s.control['decisions']}, manifest "
+            f"{meta.get('control')}")
+    RESULTS["control_window_ms"] = statistics.median(clean_ms)
+    log(f"  (b) [{card}] O5 BERT {GUARD_BERT_LAYERS} layers at full width, "
+        f"{GUARD_BERT_STEPS} steps, a check every {GUARD_CHECK_EVERY}: the "
+        f"disabled controller ends on the controller-free run's bits with "
+        f"its {g_n.host_reads} reads; the enabled one with "
+        f"default_policies() takes no action in {on.windows} windows, "
+        f"reads {g_e.host_reads} = checks {g_e.health_checks} + snapshots "
+        f"{rep_e.checkpoints}, the guard's and the controller's code "
+        f"between checks under set_sync_debug_mode('error'), "
+        f"{statistics.median(clean_ms):.3f} ms a window (median; all "
+        f"{[round(x, 3) for x in clean_ms]}); goodput_degrade@2x20:0.02 "
+        f"(floor {CONTROL_FLOOR}): {[(r['step'], r['action'], r['outcome'], round(r['value'], 3)) for r in doc['decisions']]},"
+        f" reshard {rep_d.goodput['classes']['reshard']['ms']:.3f} ms in "
+        f"GOODPUT.json, windows {[round(x, 3) for x in degrade_ms]} ms; "
+        f"straggler@2x40:4.0 at a stamped world of 8 (the fault's eight "
+        f"synthetic rows on one card): quarantine of {q[0]['detail']} at "
+        f"step {q[0]['step']}, {rep_s.status} at {rep_s.final_step} with "
+        f"resize_to {rep_s.resize_to}, manifest control {meta['control']}")
+    del st_n, st_o, st_e, b0, bbatches
+    return launches, rep_d.control_path
+
+
+def phase_elastic_control(dev, card, profile):
+    """Phase 29 (after 28, before 20): (a) elastic resume at full width on
+    a world-1 NCCL group, and the host round trip of the flagship's flat;
+    (b) the run controller on the O5 BERT leg; (c) the ``control`` CLI on
+    (b)'s artifact.  ``profile`` is phase 28c's flagship profile.  Returns
+    the legs' launch counts."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    log("== phase 29: elastic resume (the zero1 + int8-EF flagship, "
+        "8 -> 1 and 7 -> 1) and the run controller (O5 BERT)")
+    t0 = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    launches = {}
+    store = start_process_group()
+    try:
+        launches["elastic_flagship"] = _elastic_leg(dev, card, profile)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reshard_roundtrip(card)
+    gc.collect()
+    launches["control_o5"], ctl_path = _control_leg(dev, card, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = subprocess.run([sys.executable, "-m", "apex_tpu_torch.telemetry",
+                        "control", ctl_path], cwd=HERE, capture_output=True,
+                       text=True, timeout=300)
+    require(r.returncode == 0 and "control ledger" in r.stdout,
+            f"29c: the control CLI exited {r.returncode}: "
+            f"{r.stdout[-400:]} {r.stderr[-400:]}")
+    log(f"  (c) python -m apex_tpu_torch.telemetry control "
+        f"{os.path.relpath(ctl_path, HERE)}: exit 0, "
+        f"{r.stdout.strip().splitlines()[0]}")
+    log(f"  [{card}] phase 29 took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -8201,6 +8685,9 @@ def main(argv) -> int:
     launches.update(phase_parallel(dev, card))
     torch.cuda.empty_cache()
     launches.update(phase_tensor_parallel(dev, card, serve_launches))
+    torch.cuda.empty_cache()
+    launches.update(phase_elastic_control(dev, card,
+                                          RESULTS["flagship_profile"]))
     torch.cuda.empty_cache()
     phase_mha_parity(dev)
     launches["mha_self"], launches["mha_self_default"] = phase_mha_stack(

@@ -712,3 +712,229 @@ def sharded_optimizer_cases(rank, world, params_np, grads_np, cases):
             res_nonzero=None if res is None else bool(res.abs().sum() > 0),
             chaos=chaos)
     return out
+
+
+def elastic_tokens(step, world, rank, batch=8, seq=20, vocab=64):
+    """This rank's rows of the elastic harness's global batch at ``step``
+    (the JAX elastic test's ``_make_batch`` stream, split over ``world``)."""
+    import torch
+    rng = np.random.RandomState(1000 + step)
+    toks = rng.randint(0, vocab, (batch, seq)).astype("int64")
+    per = batch // world
+    return torch.from_numpy(toks[rank * per:(rank + 1) * per].copy())
+
+
+def _import_canonical(state, shards, payload, saved_world, layout, world,
+                      rank):
+    """An independent import of a canonical checkpoint payload into this
+    rank's state at ``world``: the numpy re-chunk and the replica-0
+    residual collapse written out here, no elastic code."""
+    from apex_tpu_torch.resilience import TrainGuard, guard
+    used, tot = int(layout["used"]), int(layout["flat_total"])
+    kinds = guard._leaf_kinds(state, shards)
+    local = []
+    for t, h, kind in zip(guard._leaves(state), payload["leaves"], kinds):
+        h = np.asarray(h)
+        if kind == "shard" and h.ndim == 1 and h.shape[0] == tot:
+            assert not np.any(h[used:])
+            v = np.zeros((t.shape[0] * world,), h.dtype)
+            v[:used] = h[:used]
+            h = v[rank * t.shape[0]:(rank + 1) * t.shape[0]]
+        elif kind == "stack" and h.shape == (saved_world, tot):
+            acc = np.zeros((t.shape[0],), h.dtype)
+            for row in h:
+                r = np.zeros((t.shape[0],), h.dtype)
+                r[:used] = row[:used]
+                acc = acc + r
+            h = acc if rank == 0 else np.zeros_like(acc)
+        local.append(h)
+    return TrainGuard._restore(state, {"leaves": local})
+
+
+def elastic_guard_cases(rank, world, params_np, cfg_kw, cases):
+    """Each case runs ``train.flagship_guard_step`` (zero1, the case's
+    scheme, from ``params_np``) at this world:
+
+      * ``mode="guard"``: ``TrainGuard(state_shards=...)`` over the
+        case's ``dir`` for ``steps`` steps with fault plan ``plan``;
+        ``elastic`` an ``ElasticResume`` over ``profile`` (a
+        ``ModelProfile`` field dict) or None;
+      * ``mode="import"``: the newest checkpoint of ``dir`` imported
+        independently (:func:`_import_canonical`), then plain steps to
+        ``steps``.
+
+    Returns {name: {state (numpy leaves), losses, report facts, events}},
+    or {name: {error, saved, live}} for a ``WorldSizeMismatchError``."""
+    import dataclasses
+    from apex_tpu_torch import elastic
+    from apex_tpu_torch.models import params_from_jax
+    from apex_tpu_torch.parallel import plan as P
+    from apex_tpu_torch.resilience import (CheckpointManager, GuardConfig,
+                                           TrainGuard,
+                                           WorldSizeMismatchError, faults,
+                                           guard)
+    from apex_tpu_torch.telemetry.registry import MemorySink, Registry
+    from apex_tpu_torch.train import flagship_guard_step
+    cfg = tiny_transformer_cfg(**cfg_kw)
+    out = {}
+    for c in cases:
+        state, step, layout, shards = flagship_guard_step(
+            cfg, ddp_kwargs={"collective_scheme": c["scheme"]},
+            params=params_from_jax(params_np, "cpu"), device="cpu")
+
+        def tokens_at(i):
+            return elastic_tokens(i, world, rank)
+
+        res = {"layout": layout}
+        if c["mode"] == "guard":
+            reg = Registry(sink=MemorySink(), flush_interval=0,
+                           rank0_only=False)
+            er = (elastic.ElasticResume(profile=P.ModelProfile(
+                **c["elastic"])) if c.get("elastic") else None)
+            losses = []
+            g = TrainGuard(
+                step, GuardConfig(
+                    ckpt_dir=c["dir"], save_every_steps=2, check_every=2,
+                    backoff_seconds=0.01, enabled=True, world_size=world,
+                    ckpt_meta={"plan": {"dp": world}, "layout": layout}),
+                plan=faults.parse(c["plan"]) if c.get("plan") else None,
+                registry=reg, elastic=er, state_shards=shards,
+                shard_group=step.weight_update.group,
+                on_check=lambda s, ls: losses.extend(ls))
+            try:
+                state, rep = g.run(state, tokens_at, c["steps"])
+            except WorldSizeMismatchError as e:
+                out[c["name"]] = {"error": str(e), "saved": e.saved_world,
+                                  "live": e.live_world}
+                continue
+            res.update(
+                losses=losses, report=dataclasses.asdict(rep),
+                reads=(g.host_reads, g.health_checks, rep.checkpoints,
+                       g.gathers),
+                events=[(r["name"], r.get("fields", {}))
+                        for r in reg.flush() if r.get("kind") == "event"],
+                plan=(None if er is None or er.last_plan is None
+                      else er.last_plan.knobs()))
+        else:
+            ck_step, payload, meta = CheckpointManager(
+                c["dir"]).load_latest(with_meta=True)
+            state = _import_canonical(state, shards, payload,
+                                      int(meta["world_size"]),
+                                      meta["layout"], world, rank)
+            losses = []
+            for i in range(ck_step, c["steps"]):
+                state, loss = step(state, tokens_at(i))
+                losses.append(float(loss))
+            res.update(losses=losses, resumed_from=ck_step)
+        res["state"] = [t.numpy().copy() for t in guard._leaves(state)]
+        out[c["name"]] = res
+    return out
+
+
+def elastic_subgroup_cases(rank, world, params_np, cfg_kw, scheme, d):
+    """The zero1 + EF flagship on a world of 4 whose data groups are {0,1}
+    and {2,3} (``_groups``' 2x2 layout): each data group its own
+    checkpoint directory, the guard told its group through
+    ``shard_group=``.  Runs 8 steps uninterrupted, then with preempt@5 and
+    a resume; returns both end states, the resume's facts, the shard
+    leaves' lengths in the newest checkpoint, and the error of a guard
+    given no ``shard_group`` (whose default group, the world, is not the
+    layout's)."""
+    from apex_tpu_torch.models import params_from_jax
+    from apex_tpu_torch.resilience import (CheckpointManager, GuardConfig,
+                                           TrainGuard, faults, guard)
+    from apex_tpu_torch.train import flagship_guard_step
+    shard, _, srank = _groups(rank, world, "2x2")
+    cfg = tiny_transformer_cfg(**cfg_kw)
+
+    def build():
+        return flagship_guard_step(
+            cfg, ddp_kwargs={"collective_scheme": scheme,
+                             "axis_name": shard},
+            params=params_from_jax(params_np, "cpu"), device="cpu")
+
+    def run(name, plan=None, group=shard):
+        state, step, layout, shards = build()
+        g = TrainGuard(step, GuardConfig(
+            ckpt_dir=os.path.join(d, f"{name}-r{rank // 2}"),
+            save_every_steps=2, check_every=2, backoff_seconds=0.01,
+            enabled=True, ckpt_meta={"layout": layout}),
+            plan=faults.parse(plan) if plan else None,
+            state_shards=shards, shard_group=group)
+        state, rep = g.run(state, lambda i: elastic_tokens(i, 2, srank), 8)
+        return state, rep, g, layout, shards
+
+    out = {}
+    try:
+        run("nogroup", group=None)
+        out["nogroup_error"] = None
+    except ValueError as e:
+        out["nogroup_error"] = str(e)
+    clean, _, _, layout, shards = run("clean")
+    _, rep_p, _, _, _ = run("pre", "preempt@5")
+    resumed, rep_r, g, _, _ = run("pre")
+    ck_step, payload = CheckpointManager(
+        os.path.join(d, f"pre-r{rank // 2}")).load_latest()
+    kinds = guard._leaf_kinds(clean, shards)
+    out.update(
+        layout=layout, preempted=rep_p.status, resumed_from=rep_r.resumed_from,
+        status=rep_r.status, reads=(g.host_reads, g.health_checks,
+                                    rep_r.checkpoints, g.gathers),
+        saved_shapes=[np.shape(h) for h, k in zip(payload["leaves"], kinds)
+                      if k in ("shard", "stack")],
+        clean=[t.numpy().copy() for t in guard._leaves(clean)],
+        resumed=[t.numpy().copy() for t in guard._leaves(resumed)])
+    return out
+
+
+def control_sync_cases(rank, world, d, stall_ranks):
+    """An enabled controller on every rank, its one policy walking the
+    wire down the retune ladder when the window's goodput falls below
+    0.5.  For each entry of ``stall_ranks`` a run of 8 steps (a check
+    every 2) in which that rank alone waits 50 ms on each batch (data
+    stall on its own clock; the other ranks wait inside the step's
+    all-reduce, which is productive time on theirs).  Returns for each
+    run the decisions, the live wire spec after it, the guard's counts and
+    the CONTROL.json path."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import control as pc
+    from apex_tpu_torch.parallel import collectives
+    from apex_tpu_torch.resilience import GuardConfig, TrainGuard
+    from apex_tpu_torch.telemetry import trace
+
+    def step(w, batch):
+        loss = ((w - batch) ** 2).sum()
+        dist.all_reduce(loss)
+        return w - 0.2 * (w - batch), loss / world
+
+    out = []
+    for stall in stall_ranks:
+        def batch_at(i):
+            if rank == stall:
+                time.sleep(0.05)
+            return torch.from_numpy(
+                np.random.RandomState(i).randn(4).astype(np.float32))
+        collectives.set_live_spec(None)
+        pol = pc.Policy(name="gp_low", signal="goodput_fraction",
+                        band=pc.Band(lo=0.5), action="comm_retune",
+                        k_consecutive=1, cooldown_windows=100)
+        ctl = pc.RunController(pc.ControlConfig(enabled=True), [pol])
+        flight = os.path.join(d, f"stall{stall}-rank{rank}")
+        prev = trace.set_tracer(trace.Tracer(enabled=True,
+                                             flight_dir=flight))
+        try:
+            g = TrainGuard(step, GuardConfig(check_every=2, enabled=True),
+                           controller=ctl)
+            _, rep = g.run(torch.zeros(4), batch_at, 8)
+        finally:
+            trace.set_tracer(prev)
+        live = collectives.get_live_spec()
+        out.append(dict(
+            decisions=rep.control["decisions"],
+            live=None if live is None else live.scheme,
+            syncs=g.control_syncs, windows=ctl.windows,
+            reads=(g.host_reads, g.health_checks),
+            control_path=rep.control_path))
+    collectives.set_live_spec(None)
+    return out

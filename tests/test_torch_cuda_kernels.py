@@ -1422,3 +1422,103 @@ def test_reduction_releases_its_buffers(nccl_world1, cuda_device):
     finally:
         if was:
             gc.enable()
+
+
+def test_elastic_8_to_1_resume_of_a_tiny_zero1_step_is_bitwise(
+        nccl_world1, cuda_device, tmp_path):
+    """The zero1 + int8 error-feedback flagship step (a tiny config) under
+    the guard on a world-1 NCCL group: its step-4 checkpoint, re-chunked
+    in numpy into a world-8 manifest, resumes through ``elastic.install``
+    and ends on the uninterrupted run's bits."""
+    import apex_tpu_torch.elastic as elastic
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.resilience import (CheckpointManager, GuardConfig,
+                                           TrainGuard, faults, guard)
+    from apex_tpu_torch.train import flagship_guard_step
+    cfg = TransformerConfig(vocab_size=64, max_len=20, num_layers=1,
+                            d_model=32, num_heads=2, d_ff=64,
+                            attn_impl="fast")
+    gen = torch.Generator().manual_seed(7)
+    toks = [torch.randint(0, 64, (8, 20), generator=gen).to(cuda_device)
+            for _ in range(8)]
+
+    def run(d, plan=None):
+        state, step, layout, shards = flagship_guard_step(
+            cfg, ddp_kwargs={"collective_scheme":
+                             "int8_blockscale:min_bytes=0"},
+            device=cuda_device)
+        g = TrainGuard(step, GuardConfig(
+            ckpt_dir=str(d), save_every_steps=2, check_every=2,
+            enabled=True, world_size=1, ckpt_meta={"layout": layout}),
+            plan=plan, state_shards=shards,
+            shard_group=step.weight_update.group)
+        state, rep = g.run(state, lambda i: toks[i], 8)
+        return state, rep, step, shards, layout
+
+    ref, _, step, shards, layout1 = run(tmp_path / "clean")
+    _, rep, _, _, _ = run(tmp_path / "pre", faults.parse("preempt@5"))
+    assert rep.status == "preempted"
+    payload = checkpoint.load(CheckpointManager(str(tmp_path / "pre"))
+                              .path_for(4))
+    lay8 = step.weight_update.layout_meta(ref[0], 8)
+    used, tot = lay8["used"], lay8["flat_total"]
+    leaves = []
+    for h, kind in zip(payload["leaves"], guard._leaf_kinds(ref, shards)):
+        if kind in ("shard", "stack"):
+            v = np.zeros((tot,), h.dtype)
+            v[:used] = h[:used]
+            h = np.stack([v] + [np.zeros_like(v)] * 7) if kind == "stack" \
+                else v
+        leaves.append(h)
+    CheckpointManager(str(tmp_path / "w8"), meta={
+        "world_size": 8, "layout": lay8}).save(4, {"step": 4,
+                                                   "leaves": leaves})
+    elastic.install()
+    try:
+        got, rep, _, _, _ = run(tmp_path / "w8")
+    finally:
+        elastic.uninstall()
+    assert rep.resharded_from == 8 and rep.resumed_from == 4
+    for a, b in zip(guard._leaves(got), guard._leaves(ref)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_enabled_controller_adds_no_host_sync(cuda_device, tmp_path):
+    """A guarded run on the card with an enabled controller, a tracer (the
+    goodput signals live) and a straggler on a stamped world of 8: every
+    controller call (the per-step feed and the window) runs under
+    ``set_sync_debug_mode("error")``, the guard's reads stay its checks
+    plus its snapshots, and the quarantine acts."""
+    from apex_tpu_torch.control import ControlConfig, RunController
+    from apex_tpu_torch.resilience import GuardConfig, TrainGuard, faults
+    from apex_tpu_torch.telemetry import trace
+    ctl = RunController(ControlConfig(enabled=True, max_actions=2))
+    for name in ("on_window", "feed_device_stats"):
+        real = getattr(ctl, name)
+
+        def strict(*a, _real=real, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        setattr(ctl, name, strict)
+    w0 = torch.zeros(1 << 16, device=cuda_device)
+
+    def step(w, b):
+        return w - 0.1 * (w - b), ((w - b) ** 2).mean()
+    batches = [torch.full_like(w0, float(i)) for i in range(12)]
+    g = TrainGuard(step, GuardConfig(
+        ckpt_dir=str(tmp_path), save_every_steps=4, check_every=2,
+        enabled=True, world_size=8), controller=ctl,
+        plan=faults.parse("straggler@2x40:4.0"))
+    prev = trace.set_tracer(trace.Tracer(enabled=True,
+                                         flight_dir=str(tmp_path)))
+    try:
+        _, rep = g.run(w0, lambda i: batches[i], 12)
+    finally:
+        trace.set_tracer(prev)
+    assert rep.status == "preempted" and rep.resize_to == 7
+    assert g.host_reads == g.health_checks + rep.checkpoints
+    assert ctl.windows >= 3 and ctl.actions_fired == 1

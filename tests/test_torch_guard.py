@@ -697,10 +697,25 @@ def test_generator_in_the_state_resumes_bitwise(tmp_path):
     assert rep.rollbacks == 1 and torch.equal(w, ref)
 
 
-def test_controller_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TrainGuard(_Port.sgd_step(), GuardConfig(enabled=True),
-                   controller=object())
+def test_controller_runs_and_disabled_is_dropped():
+    """The former stop is gone: ``TrainGuard(controller=...)`` runs.  A
+    disabled controller is dropped (no ledger doc), an enabled one rides
+    each health check and leaves its ``CONTROL.json`` doc in the
+    report."""
+    from apex_tpu_torch.control import (ControlConfig, RunController,
+                                        control_violations)
+    off = RunController(ControlConfig(enabled=False))
+    _, rep = TrainGuard(_Port.sgd_step(), GuardConfig(enabled=True,
+                                                      check_every=2),
+                        controller=off).run(torch.zeros(4),
+                                            _Port.batch_at, 6)
+    assert rep.control is None and off.windows == 0
+    on = RunController(ControlConfig(enabled=True))
+    _, rep = TrainGuard(_Port.sgd_step(), GuardConfig(enabled=True,
+                                                      check_every=2),
+                        controller=on).run(torch.zeros(4),
+                                           _Port.batch_at, 6)
+    assert on.windows == 3 and control_violations(rep.control) == []
 
 
 def test_world_size_mismatch_without_a_resharder(tmp_path):

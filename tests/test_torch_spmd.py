@@ -36,8 +36,8 @@ conftest's CPU devices (``Plan.apply(devices=jax.devices()[:W])``):
   ``step_flat``, bit for bit.
 
 Plans: ``family`` / ``measurable`` / ``axis_sizes`` / ``knobs`` / ``env``
-/ ``describe`` / ``complexity`` as JAX's, every JAX name but
-``from_tuning``; ``Plan.apply`` sets and restores the environment and
+/ ``describe`` / ``complexity`` as JAX's, every JAX name;
+``Plan.apply`` sets and restores the environment and
 ``Plan.pspecs`` gives the Megatron specs at tp > 1.
 The mesh: row-major layout, one group per axis, axis names resolving
 through the ambient mesh, ``Placement`` blocks.  The launcher runs a
@@ -442,10 +442,8 @@ def test_plan_surface_matches_jax(knobs):
 
 
 #: JAX ``parallel.plan`` names the port leaves out, with the reason:
-#: ``from_tuning`` reads a tuning profile, which the port does not have
-#: (ROADMAP.md, Queue 1 item 11); ``build_flagship_step`` is
-#: ``apex_tpu_torch.train``'s
-PLAN_NO_COUNTERPART = {"from_tuning", "build_flagship_step"}
+#: ``build_flagship_step`` is ``apex_tpu_torch.train``'s
+PLAN_NO_COUNTERPART = {"build_flagship_step"}
 PLAN_FIELDS_NO_COUNTERPART = set()
 
 

@@ -292,9 +292,17 @@ def test_report_cli_renders_jsonl_and_names_unported(tmp_path, capsys):
     assert "exposed 0.020 ms (fraction 0.500)" in out
     assert port_report.main(["fleet", str(tmp_path)]) == 0
     assert "fleet view  (1 hosts" in capsys.readouterr().out
-    # the run controller alone is not ported
-    assert port_report.main(["control", "x"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    # control renders a CONTROL.json (1 and an error line on a bad path)
+    from apex_tpu_torch.control import (build_doc, default_policies,
+                                        write_doc)
+    ctl_path = write_doc(build_doc(
+        enabled=True, windows=2, max_actions=3,
+        policies=[p.row() for p in default_policies()], decisions=[],
+        status="completed"), directory=str(tmp_path))
+    assert port_report.main(["control", ctl_path]) == 0
+    assert "control ledger  status=completed" in capsys.readouterr().out
+    assert port_report.main(["control", str(tmp_path / "x")]) == 1
+    assert "error" in capsys.readouterr().out
 
 
 def test_demo_on_the_cpu_overflows_once(tmp_path):
