@@ -30,7 +30,11 @@ The kernels are ``apex_tpu_torch/csrc/flash_fwd.cu`` (forward) and
 ``flash_bwd.cu``: the fused recompute backward (dq as per-k-tile fp32
 partials summed here) and the split route's two kernels, dq alone and
 dk/dv alone, which :func:`_flash_bwd` takes when the dq partials would
-pass :data:`_FUSE_BUFFER_CAP_MB` (long sequences).  :func:`_flash_fwd`,
+pass :data:`_FUSE_BUFFER_CAP_MB` (long sequences).  fp16 / bf16 run on
+``wgmma``; fp32 at D <= 128 runs the forward, the fused backward and the
+dk/dv kernel on the tensor cores in 3xTF32 (three TF32 products a pair of
+split operands, fp32's accuracy), the split dq and D = 256 on scalar FMA.
+:func:`_flash_fwd`,
 :func:`_flash_bwd_fused`, :func:`_flash_bwd_dq` and :func:`_flash_bwd_dkv`
 launch them for CUDA tensors and take their plain versions
 (:func:`_reference`, :func:`_flash_bwd_reference`,

@@ -65,11 +65,42 @@
 //     with dS^T as an MN-major A and its half of k's columns as an MN-major
 //     B (k lies in chunks of D / 2 columns for this), and writes it once.
 //   dK and dV stay in registers until the epilogue.
-// fp32 (the numerics oracle), and every dtype at D = 256 (whose k / v and
-// q / dO tiles the ring cannot hold): one CTA of 512 threads per (bh,
-// 128-key tile), in passes of 128 keys (64 at D = 256), q tiles of 32 rows,
-// scalar FMA on fp32 copies in shared memory, Pd and dS rounded to E before
-// their products.
+// Design of the fused and dk/dv kernels, fp32 at D <= 128
+// (`flash_bwd_kv_tf32_kernel<D, kEmitDq>`, the fp32 flagship's, the MoE
+// step's and the elastic step's backward): the same TPU kernels, on the
+// tensor cores in 3xTF32 (`sm90_tf32.cuh`), which keeps fp32's accuracy.
+//   * Bound: operations.  The five products are 10 BH Sq Sk D flops, 3 TF32
+//     products a pair at 495 TFLOP/s: at BH 128 x 512^2 x 64, 3 x 21.5
+//     GFLOP is 0.130 ms (0.320 ms of scalar fp32 FMA at 67 TFLOP/s),
+//     against ~118 MB of fp32 in and out (0.035 ms) and the 67 MB of dq
+//     partials.
+//   * What held the scalar kernel (below, which fp32 ran until then) back:
+//     all five products were scalar FMAs over shared memory, one load a
+//     FMA, and the q / dO tiles were loaded with nothing overlapping them.
+//   * Design: a CTA of 8 warps owns 128 keys (the dq-partial tile), k and v
+//     loaded once; q and dO tiles of 32 rows (64 at D = 32), with their
+//     rows' m, log l and delta, stream through two shared-memory stages
+//     filled by cp.async while the warps work on the other.  Warp w owns
+//     keys 16 w .. + 15: S^T = k q^T and dP^T = v dO^T, then P^T, Pd^T and
+//     dS^T in registers (the 16-bit kernel's masks, exp2 and dropout),
+//     then dV += Pd^T dO and dK += dS^T q with Pd^T and dS^T as A straight
+//     from the accumulators (`kPermutedK`); dK and dV stay in registers.
+//     The fused kernel stages dS^T in shared memory for its transposed
+//     use, and the 8 warps split the (rows x D) dq-partial block dS k over
+//     the 128 keys between them, each writing its part once.  All on
+//     mma.sync m16n8k8 TF32, three products a pair (`mma3`).  Up to D = 64
+//     the CTA splits k and v once and each q / dO stage as it arrives into
+//     their TF32 halves (`split_tile`), so the 8 warps read halves instead
+//     of each splitting every fragment (0.572 against 0.679 ms at BH 128 x
+//     512^2 x 64, `chip_smoke.py --variants fp32`); at D = 128 the halves would pass shared memory and the
+//     warps split as they read.  Rows are padded by 4 floats, so every
+//     fragment read is conflict-free.  No atomics, one order of sums: a
+//     call repeats its bits, and the fused and dk/dv kernels give the same
+//     dk and dv.
+// Every dtype at D = 256 (whose k / v and q / dO tiles the ring cannot
+// hold): one CTA of 512 threads per (bh, 128-key tile), in passes of 64
+// keys, q tiles of 32 rows, scalar FMA on fp32 copies in shared memory, Pd
+// and dS rounded to E before their products.
 // D > 256 (padded to a multiple of 128), every dtype, all three kernels:
 // the scalar kernels split over columns (`flash_bwd_chunk_kernel`,
 // `flash_bwd_dq_chunk_kernel`), one CTA per (tile, 128-column chunk, bh),
@@ -82,6 +113,7 @@
 
 #include "dropout.cuh"
 #include "sm90_attn.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
 
@@ -375,20 +407,307 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar-FMA kernel (the numerics oracle's path)
+// fp32, D <= 128: the key-major kernel in 3xTF32 (`sm90_tf32.cuh`)
+// ---------------------------------------------------------------------------
+
+// q rows a stage: 32, or 64 at D = 32 (at D = 64, before the tiles were
+// split in shared memory, 64 rows took 0.838 ms against 32 rows' 0.679 at
+// BH 128 x 512^2, `chip_smoke.py --variants fp32`; with the split halves,
+// and at D = 128, 64-row stages would pass shared memory)
+template <int D>
+__host__ __device__ constexpr int tf32_kv_rows() { return D > 32 ? 32 : 64; }
+
+// k, v, q and dO split into TF32 halves once a tile, by the CTA, in shared
+// memory (hi in place, lo in planes of their own), rather than by each of
+// the 8 warps at each fragment read; at D = 128 the planes would pass
+// shared memory, and the warps split as they read
+constexpr bool kTf32PreSplit = true;
+
+// Resident k and v of the CTA's 128 keys; two stages of a q and a dO tile
+// with their rows' (m, log l) and delta; where kPre, the lo planes of k, v
+// and the current q and dO; the fused kernel's dS^T tile (keys x rows).
+// Rows padded by 4 floats (`tf32::kPad`).
+template <int D, bool kEmitDq>
+struct Tf32KvCfg {
+  static constexpr int kBq = tf32_kv_rows<D>();
+  static constexpr int kThreads = 256;             // 8 warps of 16 keys
+  static constexpr bool kPre = kTf32PreSplit && D <= 64;
+  static constexpr int kS = D + tf32::kPad;
+  static constexpr int kTs = kBq + tf32::kPad;     // a dS^T row's floats
+  static constexpr int kKvFloats = kPartKeys * kS;
+  static constexpr int kRowFloats = kBq * kS;
+  static constexpr int kStageFloats = 2 * kRowFloats + 3 * kBq;  // q, dO, (m, log l), delta
+  static constexpr int kLoFloats = kPre ? 2 * kKvFloats + 2 * kRowFloats : 0;
+  static constexpr int kDsFloats = kEmitDq ? kPartKeys * kTs : 0;
+  static constexpr int kSmem =
+      (2 * kKvFloats + 2 * kStageFloats + kLoFloats + kDsFloats) * 4;
+};
+
+// kEmitDq: the fused kernel (dk, dv and the dq partials); without it, the
+// split route's dk/dv kernel: the same recompute in the same order, so the
+// two give the same dk and dv bits.
+template <int D, bool kEmitDq>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_kv_tf32_kernel(Params p) {
+  using Cfg = Tf32KvCfg<D, kEmitDq>;
+  using sm90::kLog2e;
+  constexpr int kBq = Cfg::kBq, kBk = kPartKeys, kS = Cfg::kS, kTs = Cfg::kTs;
+  constexpr bool kPre = Cfg::kPre;
+  extern __shared__ float4 smem_f4[];
+  float* ks = reinterpret_cast<float*>(smem_f4);
+  float* vs = ks + Cfg::kKvFloats;
+  float* stages = vs + Cfg::kKvFloats;
+  float* klo = stages + 2 * Cfg::kStageFloats;  // k's lo plane, then v's
+  float* qlo = klo + 2 * Cfg::kKvFloats;        // q's, then dO's
+  float* dst = klo + Cfg::kLoFloats;            // dS^T: [key][row]
+  constexpr int kKvLo = 2 * Cfg::kKvFloats + 2 * Cfg::kStageFloats;  // klo - ks
+
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const sm90::GridPos pos = sm90::grid_pos(p.nk);
+  const int bh = pos.bh;
+  const int kt = pos.tile;
+  const int k0 = kt * kBk;
+  const int n_qt = (p.sq + kBq - 1) / kBq;
+  // causal: q tiles whose every row lies above the CTA's first key are
+  // neither loaded nor computed
+  const int qt0 = p.causal ? min(k0 / kBq, n_qt) : 0;
+  const int n = n_qt - qt0;
+  const size_t qbase = (size_t)bh * p.sq * D;
+  const size_t kbase = (size_t)bh * p.sk * D;
+  const float* stats = reinterpret_cast<const float*>(p.stats) + (size_t)bh * p.sq * 2;
+  const float* delta = p.delta + (size_t)bh * p.sq;
+  float* dqp = kEmitDq ? p.dq_part + ((size_t)bh * p.nk + kt) * p.sq * D : nullptr;
+
+  auto load_stage = [&](int i) {
+    float* st = stages + (i & 1) * Cfg::kStageFloats;
+    const int q0 = (qt0 + i) * kBq;
+    tf32::load_rows<D, 256>(st, q + qbase, q0, kBq, p.sq);
+    tf32::load_rows<D, 256>(st + Cfg::kRowFloats, dout + qbase, q0, kBq, p.sq);
+    float* vec = st + 2 * Cfg::kRowFloats;
+    for (int r = tid; r < kBq; r += 256) {
+      const bool in = q0 + r < p.sq;
+      const int row = in ? q0 + r : 0;
+      tf32::cp_async8(vec + 2 * r, stats + 2 * row, in);
+      tf32::cp_async4(vec + 2 * kBq + r, delta + row, in);
+    }
+  };
+  tf32::load_rows<D, 256>(ks, k + kbase, k0, kBk, p.sk);
+  tf32::load_rows<D, 256>(vs, v + kbase, k0, kBk, p.sk);
+  if (n > 0) load_stage(0);
+  tf32::cp_async_commit();
+
+  if constexpr (kEmitDq) {
+    // the dq-partial rows of the q tiles the causal mask skips: zeros
+    const int rows = min(qt0 * kBq, p.sq);
+    for (int i = tid; i < rows * D / 4; i += 256)
+      reinterpret_cast<float4*>(dqp)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // warp w owns keys k0 + 16 w .. + 15; this thread's two
+  const int key_l = warp * 16 + g;
+  const int key_a = k0 + key_l, key_b = key_a + 8;
+  const float* bias_rows = p.bias == nullptr ? nullptr
+      : p.bias + (size_t)(p.bias_b == 1 ? 0 : bh / p.heads) * p.bias_q * p.sk;
+  const float* full_bias = p.bias_q != 1 ? bias_rows : nullptr;
+  // the keys' bias, once: a (1|B, 1, Sk) bias's value (0 for a (B, Sq, Sk)
+  // one, added per element)
+  const float kb_a = key_a < p.sk && bias_rows != nullptr && full_bias == nullptr
+                         ? bias_rows[key_a] : 0.f;
+  const float kb_b = key_b < p.sk && bias_rows != nullptr && full_bias == nullptr
+                         ? bias_rows[key_b] : 0.f;
+  const float inv_keep = 1.f / p.keep_div;
+  const float* kw = ks + key_l * kS + t;  // this thread's A fragments of k and v
+  const float* vw = vs + key_l * kS + t;
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[c][e] = dv[c][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) load_stage(i + 1);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (qt0 + i) * kBq;
+    float* qs = stages + (i & 1) * Cfg::kStageFloats;
+    const float* dos = qs + Cfg::kRowFloats;
+    const float* mrow = dos + Cfg::kRowFloats;  // (m, log l) a row
+    const float* drow = mrow + 2 * kBq;         // delta a row
+    const int q_lo = (int)(qlo - qs);           // the q / dO tiles' lo planes
+    if constexpr (kPre) {
+      if (i == 0) tf32::split_tile<256>(ks, klo, 2 * Cfg::kKvFloats);
+      tf32::split_tile<256>(qs, qlo, 2 * Cfg::kRowFloats);
+      __syncthreads();
+    }
+
+    // S^T = k q^T and dP^T = v dO^T: 16 keys x kBq rows each, reducing
+    // over D
+    float s[kBq / 8][4], dp[kBq / 8][4];
+#pragma unroll
+    for (int c = 0; c < kBq / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      tf32::FragA ak, av;
+      ak.fetch<kPre>(0, kw, kk * 8, kKvLo);
+      ak.fetch<kPre>(1, kw, 8 * kS + kk * 8, kKvLo);
+      ak.fetch<kPre>(2, kw, kk * 8 + 4, kKvLo);
+      ak.fetch<kPre>(3, kw, 8 * kS + kk * 8 + 4, kKvLo);
+      av.fetch<kPre>(0, vw, kk * 8, kKvLo);
+      av.fetch<kPre>(1, vw, 8 * kS + kk * 8, kKvLo);
+      av.fetch<kPre>(2, vw, kk * 8 + 4, kKvLo);
+      av.fetch<kPre>(3, vw, 8 * kS + kk * 8 + 4, kKvLo);
+#pragma unroll
+      for (int c = 0; c < kBq / 8; ++c) {
+        const int o = (c * 8 + g) * kS + kk * 8 + t;
+        tf32::FragB bq, bo;
+        bq.fetch<kPre>(0, qs, o, q_lo);
+        bq.fetch<kPre>(1, qs, o + 4, q_lo);
+        bo.fetch<kPre>(0, dos, o, q_lo);
+        bo.fetch<kPre>(1, dos, o + 4, q_lo);
+        tf32::mma3(s[c], ak, bq);
+        tf32::mma3(dp[c], av, bo);
+      }
+    }
+
+    // P^T = exp((S^T + bias - m) - log l), 0 past the ragged edges and
+    // above the causal diagonal; Pd^T = P^T keep / (1 - rate) into s, dS^T
+    // = P^T (dP^T keep / (1 - rate) - delta) into dp
+#pragma unroll
+    for (int c = 0; c < kBq / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = c * 8 + 2 * t + (e & 1);
+        const int row = q0 + r;
+        const int key = e < 2 ? key_a : key_b;
+        const float2 st = *reinterpret_cast<const float2*>(mrow + 2 * r);
+        float pr = 0.f;
+        if (row < p.sq && key < p.sk && !(p.causal && key > row)) {
+          float x = s[c][e] + (e < 2 ? kb_a : kb_b);
+          if (full_bias != nullptr) x += full_bias[(size_t)row * p.sk + key];
+          // the difference first (as the forward's exp2((s - max) log2(e)))
+          pr = exp2f(fmaf(x - st.x, kLog2e, -st.y * kLog2e));
+        }
+        float kf = 1.f;
+        if (p.drop_threshold != 0u)
+          kf = dropout_keep(p.seed, bh, row, key, p.drop_threshold) ? inv_keep : 0.f;
+        s[c][e] = __fmul_rn(pr, kf);
+        dp[c][e] = __fmul_rn(pr, fmaf(dp[c][e], kf, -drow[r]));
+      }
+    }
+
+    // dV += Pd^T dO and dK += dS^T q: Pd^T and dS^T are A as the
+    // accumulators hold them (rows in the permuted k order), dO's and q's
+    // rows 2 t and 2 t + 1 the matching B
+#pragma unroll
+    for (int kk = 0; kk < kBq / 8; ++kk) {
+      tf32::FragA ap, ad;
+      ap.from_acc(s[kk]);
+      ad.from_acc(dp[kk]);
+      const int o = (kk * 8 + 2 * t) * kS + g;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        tf32::FragB bo, bq;
+        bo.fetch<kPre>(0, dos, o + c * 8, q_lo);
+        bo.fetch<kPre>(1, dos, o + kS + c * 8, q_lo);
+        bq.fetch<kPre>(0, qs, o + c * 8, q_lo);
+        bq.fetch<kPre>(1, qs, o + kS + c * 8, q_lo);
+        tf32::mma3(dv[c], ap, bo);
+        tf32::mma3(dk[c], ad, bq);
+      }
+    }
+
+    if constexpr (kEmitDq) {
+      // dS^T into shared memory, then the dq-partial block dS k over the
+      // CTA's 128 keys, each warp 16 rows x kCols columns of it
+      float* dw = dst + key_l * kTs + 2 * t;
+#pragma unroll
+      for (int c = 0; c < kBq / 8; ++c) {
+        *reinterpret_cast<float2*>(dw + c * 8) = make_float2(dp[c][0], dp[c][1]);
+        *reinterpret_cast<float2*>(dw + 8 * kTs + c * 8) = make_float2(dp[c][2], dp[c][3]);
+      }
+      __syncthreads();
+      constexpr int kRt = kBq / 16;          // row tiles: 2, or 4 at D = 32
+      constexpr int kCols = D * kRt / 8;     // columns a warp
+      const int r0 = (warp % kRt) * 16, c0 = (warp / kRt) * kCols;
+      float dq[kCols / 8][4];
+#pragma unroll
+      for (int c = 0; c < kCols / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[c][e] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < kBk / 8; ++kk) {
+        // A = dS (rows x keys) from dS^T, keys in the permuted k order; B =
+        // k's rows 2 t and 2 t + 1
+        const float* dsp = dst + (kk * 8 + 2 * t) * kTs + r0 + g;
+        tf32::FragA a;
+        a.set(0, dsp[0]);
+        a.set(1, dsp[8]);
+        a.set(2, dsp[kTs]);
+        a.set(3, dsp[kTs + 8]);
+        const float* kp = ks + (kk * 8 + 2 * t) * kS + c0 + g;
+#pragma unroll
+        for (int c = 0; c < kCols / 8; ++c) {
+          tf32::FragB b;
+          b.fetch<kPre>(0, kp, c * 8, kKvLo);
+          b.fetch<kPre>(1, kp, kS + c * 8, kKvLo);
+          tf32::mma3(dq[c], a, b);
+        }
+      }
+      const int row_a = q0 + r0 + g, row_b = row_a + 8;
+#pragma unroll
+      for (int c = 0; c < kCols / 8; ++c) {
+        const int col = c0 + c * 8 + 2 * t;
+        if (row_a < p.sq)
+          *reinterpret_cast<float2*>(dqp + (size_t)row_a * D + col) = make_float2(dq[c][0], dq[c][1]);
+        if (row_b < p.sq)
+          *reinterpret_cast<float2*>(dqp + (size_t)row_b * D + col) = make_float2(dq[c][2], dq[c][3]);
+      }
+    }
+    __syncthreads();  // the stage (and dS^T) is refilled next
+  }
+  tf32::cp_async_wait<0>();
+
+  float* dk_out = static_cast<float*>(p.dk);
+  float* dv_out = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = c * 8 + 2 * t;
+    if (key_a < p.sk) {
+      *reinterpret_cast<float2*>(dk_out + kbase + (size_t)key_a * D + col) = make_float2(dk[c][0], dk[c][1]);
+      *reinterpret_cast<float2*>(dv_out + kbase + (size_t)key_a * D + col) = make_float2(dv[c][0], dv[c][1]);
+    }
+    if (key_b < p.sk) {
+      *reinterpret_cast<float2*>(dk_out + kbase + (size_t)key_b * D + col) = make_float2(dk[c][2], dk[c][3]);
+      *reinterpret_cast<float2*>(dv_out + kbase + (size_t)key_b * D + col) = make_float2(dv[c][2], dv[c][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D = 256, every dtype: scalar-FMA kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kSimtBq = 32;  // q rows per step
 constexpr int kSimtKvThreads = 512;
 
-// keys a pass of the scalar key-major kernel holds: the CTA's 128, or 64
-// at D = 256, where 128 keys' fp32 k and v alone would pass shared memory
-template <int D>
-__host__ __device__ constexpr int simt_pass_keys() { return D > 128 ? 64 : kPartKeys; }
+// keys a pass of the scalar key-major kernel holds: 64 of the CTA's 128
+// (at D = 256, 128 keys' fp32 k and v alone would pass shared memory)
+constexpr int kSimtPassKeys = 64;
 
 template <int D>
 constexpr int simt_smem_bytes() {
-  constexpr int kBk = simt_pass_keys<D>();
+  constexpr int kBk = kSimtPassKeys;
   return (2 * kBk * (D + 1) + 2 * kSimtBq * (D + 1) +
           2 * kSimtBq * (kBk + 1) + 3 * kSimtBq) * 4;
 }
@@ -396,9 +715,9 @@ constexpr int simt_smem_bytes() {
 template <typename E, int D, bool kEmitDq>
 __global__ void __launch_bounds__(kSimtKvThreads)
 flash_bwd_simt_kernel(Params p) {
-  constexpr int kBk = simt_pass_keys<D>();
+  constexpr int kBk = kSimtPassKeys;
   constexpr int kPasses = kPartKeys / kBk;
-  constexpr int kGroups = kSimtKvThreads / kBk;   // 4, or 8 at D = 256
+  constexpr int kGroups = kSimtKvThreads / kBk;   // 8
   constexpr int kS = D + 1;    // +1: lane-per-key reads hit distinct banks
   constexpr int kP = kBk + 1;
   constexpr int kPerThread = D / kGroups;  // dK / dV columns a thread owns
@@ -1102,6 +1421,18 @@ cudaError_t launch_kv_sm90(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, bool kEmitDq>
+cudaError_t launch_kv_tf32(const Params& p, cudaStream_t stream) {
+  using Cfg = Tf32KvCfg<D, kEmitDq>;
+  static bool smem_ready = false;
+  cudaError_t err = allow_smem(flash_bwd_kv_tf32_kernel<D, kEmitDq>, Cfg::kSmem, smem_ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if ((err = sm90::flat_grid(p.nk, p.bh_count, &grid)) != cudaSuccess) return err;
+  flash_bwd_kv_tf32_kernel<D, kEmitDq><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename E, int D, bool kEmitDq>
 cudaError_t launch_kv_simt(const Params& p, cudaStream_t stream) {
   static bool simt_ready = false;
@@ -1114,18 +1445,20 @@ cudaError_t launch_kv_simt(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The fused kernel (kEmitDq) or the split route's dk/dv kernel: fp16 / bf16
-// on the ring up to D = 128; fp32, and every dtype at D = 256, scalar.
+// The fused kernel (kEmitDq) or the split route's dk/dv kernel: up to D =
+// 128, fp16 / bf16 on the ring and fp32 in 3xTF32; every dtype at D = 256
+// scalar.
 template <int D, bool kEmitDq>
 cudaError_t launch_kv(const Params& p, int dtype, cudaStream_t stream) {
   if constexpr (D <= 128) {
     if (dtype == kDtypeBF16) return launch_kv_sm90<__nv_bfloat16, D, kEmitDq>(p, stream);
     if (dtype == kDtypeF16) return launch_kv_sm90<__half, D, kEmitDq>(p, stream);
+    return launch_kv_tf32<D, kEmitDq>(p, stream);
   } else {
     if (dtype == kDtypeBF16) return launch_kv_simt<__nv_bfloat16, D, kEmitDq>(p, stream);
     if (dtype == kDtypeF16) return launch_kv_simt<__half, D, kEmitDq>(p, stream);
+    return launch_kv_simt<float, D, kEmitDq>(p, stream);
   }
-  return launch_kv_simt<float, D, kEmitDq>(p, stream);
 }
 
 template <typename E, int D, int C>

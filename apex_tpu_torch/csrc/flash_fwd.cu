@@ -44,12 +44,41 @@
 //   * the grid: 128-row query tiles (two warpgroups) where they still fill
 //     the 132 SMs, else 64 (serving's BH 16 x 512 causal gives 128 CTAs of
 //     64 rows, not 64 of 128); causal grids take the longest rows first.
-// fp32 (the numerics oracle), and every dtype at D = 256 (whose k / v
-// stages the 128-key ring cannot hold): one CTA of 4 warps per (bh, 16-row
-// q tile), scalar FMA on fp32 copies in shared memory, one lane per key of
-// a 32-key tile; rows' running max/sum live in registers, the output
-// accumulator in registers (D/32 per lane); P rounds to E before P v, as
-// the plain version's `p.to(v.dtype)`.
+// fp32 at D <= 128 (`flash_fwd_tf32_kernel<D, W>`, the fp32 flagship's,
+// the MoE step's and the elastic step's forward): the same TPU kernel, on
+// the tensor cores in 3xTF32 (`sm90_tf32.cuh`), which keeps fp32's
+// accuracy (one TF32 product would not: ~1e-3 of the output's peak).
+//   * Bound: operations.  3 TF32 products a pair at 495 TFLOP/s: at BH 128
+//     x 512^2 x 64, 3 x 8.59 GFLOP is 0.052 ms (0.128 ms of scalar fp32
+//     FMA at 67 TFLOP/s) against 34 MB of fp32 in and out (0.010 ms).
+//   * What held the scalar kernel (below, which fp32 ran until then) back:
+//     one FMA per shared-memory load, q k^T summed lane by lane over D for
+//     one key a lane; P v read P back through 32 shuffles a tile; k and v
+//     reloaded from device memory for every 16-row q tile, with nothing
+//     overlapping the loads.
+//   * Design: W warps of 16 query rows (W = 16, 256 rows, where those fill
+//     the card at D <= 64; else 8 where 128 rows do; else 4), q loaded
+//     once; 64-key k / v tiles (and their key bias) through two
+//     shared-memory stages filled by cp.async while the warps work on the
+//     other, so each tile is read from device memory once per 64-256 rows
+//     and the loads overlap the products.  S = q k^T and O += P v run on
+//     mma.sync m16n8k8 TF32, each operand pair as three products (`mma3`).
+//     Up to D = 64 the CTA splits each k / v stage into its TF32 halves
+//     once (`split_tile`), so its W warps read the halves instead of each
+//     splitting every fragment (at BH 128 x 512^2 x 64: 0.168 ms, against
+//     0.211 splitting as read and 0.202 with 8 warps at most, `chip_smoke.py
+//     --variants fp32`); q is split as read, P as
+//     it leaves the accumulators, whose layout is the next product's A in
+//     the permuted k order; rows are padded by 4 floats, so every fragment
+//     read is conflict-free.  Masks, the online softmax in exp2, dropout
+//     and the dead rows follow the 16-bit kernel; a causal tile wholly
+//     above a warp's rows is skipped by that warp.
+// Every dtype at D = 256 (whose k / v stages the 128-key ring cannot
+// hold): one CTA of 4 warps per (bh, 16-row q tile), scalar FMA on fp32
+// copies in shared memory, one lane per key of a 32-key tile; rows'
+// running max/sum live in registers, the output accumulator in registers
+// (D/32 per lane); P rounds to E before P v, as the plain version's
+// `p.to(v.dtype)`.
 // D > 256 (padded to a multiple of 128): the scalar kernel split over
 // columns, one CTA per (bh, 16-row q tile, 128-column output chunk), q k^T
 // summed over all of D in 128-wide pieces through shared memory
@@ -64,6 +93,7 @@
 
 #include "dropout.cuh"
 #include "sm90_attn.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
 
@@ -296,7 +326,252 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar-FMA kernel (the numerics oracle's path)
+// fp32, D <= 128: 3xTF32 on the tensor cores (`sm90_tf32.cuh`)
+// ---------------------------------------------------------------------------
+
+// W warps of 16 query rows each; 64-key k / v stages, two of them, filled
+// by cp.async while the warps work on the other; q once, raw, in its own
+// tile; each stage also holds its keys' bias (a (1|B, 1, Sk) bias).
+constexpr int kTf32Bk = 64;
+
+// kPre: each k / v stage split into TF32 halves once, by the CTA (hi in
+// place, lo in planes of their own), rather than by every warp as it reads
+// (up to D = 64; at 128 the planes would pass shared memory)
+constexpr bool kTf32FwdPreSplit = true;
+
+template <int D, int W>
+struct Tf32FwdCfg {
+  static constexpr int kRows = 16 * W;
+  static constexpr int kThreads = 32 * W;
+  static constexpr bool kPre = kTf32FwdPreSplit && D <= 64;
+  static constexpr int kS = D + tf32::kPad;        // a row's floats
+  static constexpr int kQFloats = kRows * kS;
+  static constexpr int kKvFloats = kTf32Bk * kS;
+  static constexpr int kStageFloats = 2 * kKvFloats + kTf32Bk;  // k, v, bias
+  static constexpr int kSmem =
+      (kQFloats + 2 * kStageFloats + (kPre ? 2 * kKvFloats : 0)) * 4;
+};
+
+template <int D, int W>
+__global__ void __launch_bounds__(Tf32FwdCfg<D, W>::kThreads)
+flash_fwd_tf32_kernel(Params p) {
+  using Cfg = Tf32FwdCfg<D, W>;
+  using sm90::kLog2e;
+  constexpr int kRows = Cfg::kRows, kBk = kTf32Bk, kS = Cfg::kS;
+  constexpr bool kPre = Cfg::kPre;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);
+  float* stages = qs + Cfg::kQFloats;
+  float* kvlo = stages + 2 * Cfg::kStageFloats;  // k's lo plane, then v's
+
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_qt = (p.sq + kRows - 1) / kRows;
+  const sm90::GridPos pos = sm90::grid_pos(n_qt);
+  const int bh = pos.bh;
+  // causal: the longest rows first, so the grid's tail is short tiles
+  const int q0 = (p.causal ? n_qt - 1 - pos.tile : pos.tile) * kRows;
+  int n_kt = (p.sk + kBk - 1) / kBk;
+  if (p.causal) n_kt = min(n_kt, (q0 + kRows - 1) / kBk + 1);
+  const float* bias_rows = p.bias == nullptr ? nullptr
+      : p.bias + (size_t)(p.bias_b == 1 ? 0 : bh / p.heads) * p.bias_q * p.sk;
+  const float* key_bias = p.bias_q == 1 ? bias_rows : nullptr;
+  const float* full_bias = p.bias_q != 1 ? bias_rows : nullptr;
+  const size_t qbase = (size_t)bh * p.sq * D;
+  const size_t kbase = (size_t)bh * p.sk * D;
+
+  auto load_stage = [&](int kt) {
+    float* st = stages + (kt & 1) * Cfg::kStageFloats;
+    const int k0 = kt * kBk;
+    tf32::load_rows<D, Cfg::kThreads>(st, k + kbase, k0, kBk, p.sk);
+    tf32::load_rows<D, Cfg::kThreads>(st + Cfg::kKvFloats, v + kbase, k0, kBk, p.sk);
+    if (key_bias != nullptr)
+      for (int i = tid; i < kBk; i += Cfg::kThreads)
+        tf32::cp_async4(st + 2 * Cfg::kKvFloats + i, key_bias + min(k0 + i, p.sk - 1),
+                        k0 + i < p.sk);
+  };
+  tf32::load_rows<D, Cfg::kThreads>(qs, q + qbase, q0, kRows, p.sq);
+  load_stage(0);
+  tf32::cp_async_commit();
+
+  const int wr0 = q0 + warp * 16;  // the warp's first row
+  const int row_a = wr0 + g, row_b = row_a + 8;  // this thread's two rows
+  const float* qw = qs + (warp * 16 + g) * kS + t;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) load_stage(kt + 1);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = kt * kBk;
+    float* ks = stages + (kt & 1) * Cfg::kStageFloats;
+    const float* vs = ks + Cfg::kKvFloats;
+    const float* kb = vs + Cfg::kKvFloats;
+    const int kv_lo = (int)(kvlo - ks);
+    if constexpr (kPre) {
+      tf32::split_tile<Cfg::kThreads>(ks, kvlo, 2 * Cfg::kKvFloats);
+      __syncthreads();
+    }
+    // a causal tile wholly above the warp's rows adds exact zeros to rows
+    // that saw key 0, and nothing that outlives a dead row: skipped
+    if (!(p.causal && k0 > wr0 + 15)) {
+      // S = q k^T: 16 rows x kBk keys, reducing over D
+      float s[kBk / 8][4];
+#pragma unroll
+      for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        tf32::FragA a;
+        a.set(0, qw[kk * 8]);
+        a.set(1, qw[8 * kS + kk * 8]);
+        a.set(2, qw[kk * 8 + 4]);
+        a.set(3, qw[8 * kS + kk * 8 + 4]);
+#pragma unroll
+        for (int n = 0; n < kBk / 8; ++n) {
+          const int ko = (n * 8 + g) * kS + kk * 8 + t;
+          tf32::FragB b;
+          b.fetch<kPre>(0, ks, ko, kv_lo);
+          b.fetch<kPre>(1, ks, ko + 4, kv_lo);
+          tf32::mma3(s[n], a, b);
+        }
+      }
+
+      // bias, the causal mask and the ragged edges, as masked_score; inside
+      // the keys and off the diagonal, a key bias alone (rows past Sq are
+      // never stored)
+      if (full_bias == nullptr && k0 + kBk <= p.sk && !(p.causal && k0 + kBk - 1 > wr0)) {
+        if (key_bias != nullptr)
+#pragma unroll
+          for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] += kb[n * 8 + 2 * t + (e & 1)];
+      } else {
+#pragma unroll
+        for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n * 8 + 2 * t + (e & 1);
+            const int col = k0 + c, row = e < 2 ? row_a : row_b;
+            float x = s[n][e];
+            if (col >= p.sk || row >= p.sq) {
+              x = kNegInf;
+            } else {
+              if (key_bias != nullptr) x += kb[c];
+              else if (full_bias != nullptr) x += full_bias[(size_t)row * p.sk + col];
+              if (p.causal && col > row) x = kNegInf;
+            }
+            s[n][e] = x;
+          }
+      }
+
+      // online softmax in exp2, the difference first (as the 16-bit kernel)
+      float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+      for (int n = 0; n < kBk / 8; ++n) {
+        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float sc_a = exp2f((m_a - mn_a) * kLog2e), sc_b = exp2f((m_b - mn_b) * kLog2e);
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int n = 0; n < kBk / 8; ++n) {
+        s[n][0] = exp2f((s[n][0] - mn_a) * kLog2e);
+        s[n][1] = exp2f((s[n][1] - mn_a) * kLog2e);
+        s[n][2] = exp2f((s[n][2] - mn_b) * kLog2e);
+        s[n][3] = exp2f((s[n][3] - mn_b) * kLog2e);
+        sum_a += s[n][0] + s[n][1];
+        sum_b += s[n][2] + s[n][3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
+        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
+      }
+      l_a = l_a * sc_a + sum_a;
+      l_b = l_b * sc_b + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
+
+      if (p.drop_threshold != 0u) {  // after the denominator, as on the TPU
+#pragma unroll
+        for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t row = e < 2 ? row_a : row_b;
+            const uint32_t col = (uint32_t)(k0 + n * 8 + 2 * t + (e & 1));
+            s[n][e] = dropout_keep(p.seed, bh, row, col, p.drop_threshold)
+                          ? s[n][e] / p.keep_div : 0.f;
+          }
+      }
+
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][0] *= sc_a;
+        o[n][1] *= sc_a;
+        o[n][2] *= sc_b;
+        o[n][3] *= sc_b;
+      }
+
+      // O += P v: P is A as the accumulators hold it (keys in the permuted
+      // k order), v's rows 2 t and 2 t + 1 the matching B
+#pragma unroll
+      for (int kk = 0; kk < kBk / 8; ++kk) {
+        tf32::FragA a;
+        a.from_acc(s[kk]);
+        const int vo = (kk * 8 + 2 * t) * kS + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          tf32::FragB b;
+          b.fetch<kPre>(0, vs, vo + n * 8, kv_lo);
+          b.fetch<kPre>(1, vs, vo + kS + n * 8, kv_lo);
+          tf32::mma3(o[n], a, b);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+
+  // epilogue: normalise, dead rows -> 0 and lse = +1e30
+  float* out = static_cast<float*>(p.out);
+  const bool dead_a = m_a <= kNegInf / 2, dead_b = m_b <= kNegInf / 2;
+  const float sl_a = l_a == 0.f ? 1.f : l_a, sl_b = l_b == 0.f ? 1.f : l_b;
+  if (row_a < p.sq) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + qbase + (size_t)row_a * D + n * 8 + 2 * t) =
+          dead_a ? make_float2(0.f, 0.f) : make_float2(o[n][0] / sl_a, o[n][1] / sl_a);
+    if (t == 0) write_stats(p, bh, row_a, dead_a, m_a, sl_a);
+  }
+  if (row_b < p.sq) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + qbase + (size_t)row_b * D + n * 8 + 2 * t) =
+          dead_b ? make_float2(0.f, 0.f) : make_float2(o[n][2] / sl_b, o[n][3] / sl_b);
+    if (t == 0) write_stats(p, bh, row_b, dead_b, m_b, sl_b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D = 256, every dtype: scalar-FMA kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kSimtBq = 16;     // q rows per CTA (4 warps x 4 rows)
@@ -569,6 +844,31 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
                                                       : launch_sm90<E, D, 1>(p, stream);
 }
 
+template <int D, int W>
+cudaError_t launch_tf32_w(const Params& p, cudaStream_t stream) {
+  using Cfg = Tf32FwdCfg<D, W>;
+  static bool smem_ready = false;
+  cudaError_t err = sm90::allow_smem(flash_fwd_tf32_kernel<D, W>, Cfg::kSmem, smem_ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if ((err = sm90::flat_grid((p.sq + Cfg::kRows - 1) / Cfg::kRows, p.bh_count, &grid)) !=
+      cudaSuccess)
+    return err;
+  flash_fwd_tf32_kernel<D, W><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The largest CTA whose tiles still fill the card's 132 SMs: 256 rows (16
+// warps, up to D = 64, where the split k / v stages and q fit beside each
+// other), 128 (the 16-bit kernel's rule, `sm90::consumer_groups`), else 64
+template <int D>
+cudaError_t launch_tf32(const Params& p, cudaStream_t stream) {
+  if constexpr (D <= 64)
+    if ((p.sq + 255) / 256 * p.bh_count >= 132) return launch_tf32_w<D, 16>(p, stream);
+  return sm90::consumer_groups(p.sq, p.bh_count) == 2 ? launch_tf32_w<D, 8>(p, stream)
+                                                      : launch_tf32_w<D, 4>(p, stream);
+}
+
 template <typename E, int D>
 cudaError_t launch_simt(const Params& p, cudaStream_t stream) {
   static bool smem_ready = false;
@@ -596,18 +896,19 @@ cudaError_t launch_chunk(const Params& p, int d, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// fp16 / bf16 on the ring up to D = 128; fp32, and every dtype at D = 256,
-// on the scalar-FMA kernel
+// Up to D = 128: fp16 / bf16 on the wgmma ring, fp32 in 3xTF32; every
+// dtype at D = 256 on the scalar-FMA kernel
 template <int D>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
   if constexpr (D <= 128) {
     if (dtype == kDtypeBF16) return launch_wgmma<__nv_bfloat16, D>(p, stream);
     if (dtype == kDtypeF16) return launch_wgmma<__half, D>(p, stream);
+    return launch_tf32<D>(p, stream);
   } else {
     if (dtype == kDtypeBF16) return launch_simt<__nv_bfloat16, D>(p, stream);
     if (dtype == kDtypeF16) return launch_simt<__half, D>(p, stream);
+    return launch_simt<float, D>(p, stream);
   }
-  return launch_simt<float, D>(p, stream);
 }
 
 }  // namespace

@@ -67,11 +67,11 @@ LAUNCHES: collections.Counter = collections.Counter()
 #: kernel emits dq, flash_bwd_dkv's does not; flat_update_kernel<kLamb, ..>;
 #: scale_axpby_kernel<.., kAxpby>).  Each launch runs exactly one of its
 #: name's functions, apart from l2norm's second, :data:`AUX_FUNCTIONS`.
-_FLASH_KV = ("flash_bwd_kv_sm90_kernel", "flash_bwd_simt_kernel",
-             "flash_bwd_chunk_kernel")
+_FLASH_KV = ("flash_bwd_kv_sm90_kernel", "flash_bwd_kv_tf32_kernel",
+             "flash_bwd_simt_kernel", "flash_bwd_chunk_kernel")
 KERNEL_FUNCTIONS = {
-    "flash_fwd": (("flash_fwd_sm90_kernel", "flash_fwd_simt_kernel",
-                   "flash_fwd_chunk_kernel"), {}),
+    "flash_fwd": (("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel",
+                   "flash_fwd_simt_kernel", "flash_fwd_chunk_kernel"), {}),
     "flash_bwd": (_FLASH_KV, {-1: "true"}),
     "flash_bwd_dkv": (_FLASH_KV, {-1: "false"}),
     "flash_bwd_dq": (("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_simt_kernel",

@@ -16,7 +16,17 @@ NVIDIA GPU.
                                       # the dense kernel's (GEMM_VARIANTS)
                                       # against it and cuBLAS; no result
                                       # line
-    python3 chip_smoke.py --variants flash   # (or gemm): one study only
+    python3 chip_smoke.py --variants flash   # (or gemm): one study only;
+                                      # fp32: the 3xTF32 flash kernels'
+                                      # variants (FP32_VARIANTS)
+    python3 chip_smoke.py --against build/parent/apex_tpu_torch/csrc
+                                      # only phases 1-2, then the kernels
+                                      # built from another commit's sources
+                                      # (its `git archive` unpacked under
+                                      # build/) against these: the fp32 and
+                                      # bf16 flash kernels, parent, change,
+                                      # change, parent; then phases 26b,
+                                      # 27c and 29a on each; no result line
     python3 chip_smoke.py --seed 3    # phases 20-21's weights, data and masks
 
 Phases, in order; any failure exits nonzero and prints no result line:
@@ -30,7 +40,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
    the time of one call with its host cost (CUDA events around the call,
    median of 30), the plain version's and one PyTorch library call's
    device time (the library call is a yardstick the port never calls) and
-   the least time the card could take; the forward also at the
+   the least time the card could take (fp32 at D <= 128: in 3xTF32, beside
+   scalar fp32 FMA's; the training shape also at D 32 and 128, fp32 beside
+   SDPA's memory-efficient calls); the forward also at the
    long-sequence shape BH 64 x 4096 x 4096 x 64 bf16 (held to the plain
    version on its first 8 heads, SDPA's forward as the yardstick), and the
    bf16 forward on the edges of its tiles (``FLASH_EDGE_CASES``: Sq and Sk
@@ -363,6 +375,7 @@ LONG_SHAPE = (4, 16, 4096, 64)
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+TF32_PEAK_FLOPS = 495e12     # dense TF32 on the tensor cores
 
 LN_REPLACES = "apex_tpu/ops/layer_norm.py:52"
 FLASH_REPLACES = "apex_tpu/contrib/multihead_attn/flash.py:276"
@@ -553,6 +566,15 @@ def check_launches(path: str, launches, steps: int,
 def bound(bytes_moved: float, flops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_3xtf32(bytes_moved: float, flops: float):
+    """The bound of fp32 products run as three TF32 products each on the
+    tensor cores (the fp32 flash kernels' route): 3 x flops at
+    :data:`TF32_PEAK_FLOPS`, or the bytes, whichever is longer."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 3.0 * flops / TF32_PEAK_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1002,8 +1024,10 @@ def check_flash_bwd_graph(dev):
 
 
 def check_flash(dev):
+    import contextlib
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from apex_tpu_torch.contrib.multihead_attn.flash import (_flash_fwd,
                                                              _reference)
     rows = []
@@ -1015,6 +1039,9 @@ def check_flash(dev):
         ("dropout", 1, 16, 512, 512, 64, "zeros", True, 0.1),
         ("d128", 2, 2, 130, 130, 128, "zeros", True, 0.0),
         ("d32", 2, 2, 96, 160, 32, "pad_dead", False, 0.1),
+        # the training shape at the other instances' head dims
+        ("training_d32", 8, 16, 512, 512, 32, "zeros", False, 0.0),
+        ("training_d128", 8, 16, 512, 512, 128, "zeros", False, 0.0),
     ]
     for name, B, heads, sq, sk, d, kind, causal, rate in cases:
         for dtype in ("bfloat16", "float32"):
@@ -1042,7 +1069,11 @@ def check_flash(dev):
                 + bias.numel() * 4 + bh * sq * 4
             pairs = (sum(min(r + 1, sk) for r in range(sq)) if causal
                      else sq * sk)
+            fp32 = dtype == "float32"
             bms, by = bound(nbytes, 4.0 * d * pairs * bh, dtype)
+            fma_ms = bms
+            if fp32:    # the route's bound; scalar FMA's beside it
+                bms, by = bound_3xtf32(nbytes, 4.0 * d * pairs * bh)
             ms = device_ms(lambda: _flash_fwd(q, k, v, bias, causal, rate,
                                               1234, heads))
             call_ms = time_ms(lambda: _flash_fwd(q, k, v, bias, causal,
@@ -1050,24 +1081,29 @@ def check_flash(dev):
             pms = device_ms(lambda: _reference(q, k, v, bias, causal, rate,
                                                1234, heads), n=5)
             lms = l_call = None
-            if name in ("serving", "training"):
+            if name.startswith(("serving", "training")):
                 q4, k4, v4 = (t.view(B, heads, -1, d) for t in (q, k, v))
 
                 def sdpa():
                     return F.scaled_dot_product_attention(
                         q4, k4, v4, is_causal=causal, scale=1.0)
-                lms, l_call = device_ms(sdpa), time_ms(sdpa)
+                # SDPA's flash kernels take 16-bit only
+                with (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if fp32
+                      else contextlib.nullcontext()):
+                    lms, l_call = device_ms(sdpa), time_ms(sdpa)
             rows.append(dict(case=name, dtype=dtype, max_abs_err=err,
                              tol=tol, lse_rel_err=l_err, dead_rows=n_dead,
                              ms=ms, call_ms=call_ms, plain_ms=pms,
-                             library_ms=lms, bound_ms=bms, bound_by=by))
+                             library_ms=lms, bound_ms=bms, bound_by=by,
+                             bound_fp32_fma_ms=fma_ms if fp32 else None))
             lib = (f"{lms:.5f} ms (one call {l_call:.4f} ms)"
                    if lms is not None else "n/a")
+            fma = f", scalar fp32 FMA {fma_ms:.5f} ms" if fp32 else ""
             log(f"  flash {name:15s} {dtype:8s} out err {err:.3g} (tol "
                 f"{tol}) lse {l_err:.2g} dead rows {n_dead} | kernel "
                 f"{ms:.5f} ms (one call with its host cost {call_ms:.4f} "
                 f"ms)  plain {pms:.5f} ms  sdpa {lib}  bound {bms:.5f} ms "
-                f"({by})")
+                f"({by}{', 3xTF32' if fp32 else ''}{fma})")
     rows.append(check_flash_long(dev, gen))
     return rows
 
@@ -1253,10 +1289,14 @@ def check_flash_bwd(dev):
         ("causal", 8, 16, 512, 512, 64, "zeros", True, 0.0),
         ("ragged_pad_dead", 2, 4, 200, 333, 64, "pad_dead", False, 0.0),
         ("dropout", 8, 16, 512, 512, 64, "zeros", False, 0.1),
+        # the training shape at the other instances' head dims
+        ("training_d32", 8, 16, 512, 512, 32, "zeros", False, 0.0),
+        ("training_d128", 8, 16, 512, 512, 128, "zeros", False, 0.0),
     ]
     for name, B, heads, sq, sk, d, kind, causal, rate in cases:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
+            fp32 = dtype == "float32"
             q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, gen, dt,
                                           dev)
             do = _randn(q.shape, gen, dt, dev)
@@ -1298,6 +1338,9 @@ def check_flash_bwd(dev):
             pairs = (sum(min(r + 1, sk) for r in range(sq)) if causal
                      else sq * sk)
             bms, by = bound(nbytes, 10.0 * d * pairs * bh, dtype)
+            fma_ms = bms
+            if fp32:    # the route's bound; scalar FMA's beside it
+                bms, by = bound_3xtf32(nbytes, 10.0 * d * pairs * bh)
             ms = device_ms(kern)
             pms = device_ms(plain, n=3)
             nk = -(-sk // BWD_K_TILE)
@@ -1305,7 +1348,22 @@ def check_flash_bwd(dev):
                                device=dev)
             sum_ms = device_ms(lambda: part.sum(dim=1).to(dt))
             lms = None
-            if name in ("training", "causal") and dtype == "bfloat16":
+            library = "aten flash-attention backward"
+            if name.startswith(("training", "causal")) and fp32:
+                # SDPA's memory-efficient backward (its flash kernels take
+                # 16-bit only), on its own forward's saved (out, lse)
+                q4, k4, v4, do4 = (t.view(B, heads, -1, d)
+                                   for t in (q, k, v, do))
+                (o4, lse4, rng_seed,
+                 rng_offset) = aten._scaled_dot_product_efficient_attention(
+                    q4, k4, v4, None, True, 0.0, causal, scale=1.0)
+                lms = device_ms(
+                    lambda: aten._scaled_dot_product_efficient_attention_backward(
+                        do4, q4, k4, v4, None, o4, lse4, rng_seed, rng_offset,
+                        0.0, [True, True, True, False], causal, scale=1.0))
+                library = "aten memory-efficient attention backward"
+                del o4, lse4
+            elif name.startswith(("training", "causal")):
                 # SDPA's flash backward alone, on its own forward's saved
                 # (out, lse), timed like the kernel
                 q4, k4, v4, do4 = (t.view(B, heads, -1, d)
@@ -1319,12 +1377,15 @@ def check_flash_bwd(dev):
                         causal, rng_seed, rng_offset, scale=1.0))
             rows.append(dict(case=name, dtype=dtype, max_abs_err=max(errs),
                              tol=tol, ms=ms, plain_ms=pms, library_ms=lms,
-                             library="aten flash-attention backward",
-                             partials_sum_ms=sum_ms, bound_ms=bms,
-                             bound_by=by))
+                             library=library, partials_sum_ms=sum_ms,
+                             bound_ms=bms, bound_by=by,
+                             bound_fp32_fma_ms=fma_ms if fp32 else None))
+            fma = (f"; bound 3xTF32, scalar fp32 FMA {fma_ms:.5f} ms"
+                   if fp32 else "")
             _report("flash_bwd", f"{name:15s} {dtype:8s}", max(errs), tol, ms,
                     pms, lms, bms, by,
-                    f" [of it, the dq-partial sum {sum_ms:.5f} ms]{extra}")
+                    f" [of it, the dq-partial sum {sum_ms:.5f} ms{fma}]"
+                    f"{extra}")
     return rows
 
 
@@ -1675,8 +1736,8 @@ def check_xent_edges(dev):
 
 def check_flash_pad_edges(dev):
     """#1, #4 and #2 + #3 at head dims 48 and 96 (padded to the 64 and 128
-    instances) in bf16 and fp16, and at 160, 192 and 256 (the D = 256
-    instance) in fp32 too, zero bias: out on the peak rule (fp32 1e-4,
+    instances) and at 160, 192 and 256 (the D = 256 instance), in fp32,
+    bf16 and fp16, zero bias: out on the peak rule (fp32 1e-4,
     bf16 2e-2, fp16 5e-3), live lse 1e-4 relative; dq, dk, dv on both
     routes (fp32 1e-4 and bf16 2e-2 on the peak rule, fp16 2e-3 relative
     in norm); timed beside the plain versions and SDPA's forward and
@@ -1695,8 +1756,7 @@ def check_flash_pad_edges(dev):
     gen = torch.Generator().manual_seed(48)
     for name, B, heads, sq, sk, d, causal in FLASH_PAD_EDGES:
         bh = B * heads
-        for dtype in (("float32",) if d > 128 else ()) + ("bfloat16",
-                                                          "float16"):
+        for dtype in EDGE_DTYPES:
             dt = getattr(torch, dtype)
             fp16 = dtype == "float16"
             fp32 = dtype == "float32"
@@ -1792,6 +1852,9 @@ def check_flash_pad_edges(dev):
                      max(errs["dk"], errs["dv"]), g_tol,
                      io + 2 * bh * sk * d * es, 8.0 * d * pairs, None)):
                 bms, by = bound(nbytes, flops, dtype)
+                if fp32 and d <= 128 and kname != "flash_bwd_dq":
+                    # the 3xTF32 kernels' route (#2's fp32 dq is scalar)
+                    bms, by = bound_3xtf32(nbytes, flops)
                 ms = device_ms(fn)
                 pms = device_ms(plain, n=3)
                 rows.append(_edge_row(kname, case, dtype, err, tol, ms, pms,
@@ -6016,6 +6079,228 @@ def study_variants(dev, rounds: int = 3):
     return times
 
 
+# The fp32 flash kernels (#1 and #4 in 3xTF32, #3 the same template as #4):
+# (B, heads, S = Sq = Sk, D) they are timed at: the flagship's BH 128 x 512^2
+# x 64 (non-causal, zero key bias) and the other instances' head dims
+FP32_SHAPES = [(8, 16, 512, 64), (8, 16, 512, 32), (8, 16, 512, 128)]
+_FWD, _BWD = "flash_fwd.cu", "flash_bwd.cu"
+# Edits of the 3xTF32 kernels (``--variants fp32``): the forward without
+# its 256-row CTAs (8 warps at most), or splitting its fragments as the
+# warps read them; the backward splitting as it reads, with 32-row or
+# 64-row q stages
+_NOPRE = (_BWD, "constexpr bool kTf32PreSplit = true;",
+          "constexpr bool kTf32PreSplit = false;")
+FP32_VARIANTS = {
+    "fwd_w8": [(_FWD, "if ((p.sq + 255) / 256 * p.bh_count >= 132)",
+                "if (false)")],
+    "fwd_nopre": [(_FWD, "constexpr bool kTf32FwdPreSplit = true;",
+                   "constexpr bool kTf32FwdPreSplit = false;")],
+    "bwd_nopre": [_NOPRE],
+    "bwd_nopre_q64": [_NOPRE, (_BWD, "return D > 32 ? 32 : 64;",
+                               "return D > 64 ? 32 : 64;")],
+}
+
+
+def _fp32_calls(dev, gen, B, heads, S, d, dtype="float32"):
+    """(forward, fused backward, dk/dv) calls at one shape, zero key bias,
+    not causal, and the flops of each."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_dkv, _flash_bwd_fused, _flash_fwd, _flash_fwd_res)
+    dt = getattr(torch, dtype)
+    q, k, v, bias = _flash_inputs(B, heads, S, S, d, "zeros", gen, dt, dev)
+    do = _randn(q.shape, gen, dt, dev)
+    out, _, stats = _flash_fwd_res(q, k, v, bias, False, 0.0, 0, heads)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, bias, False, 0.0, 0, heads, stats, delta, do)
+    pairs = B * heads * S * S
+    return [("flash_fwd", lambda: _flash_fwd(q, k, v, bias, False, 0.0, 0,
+                                             heads)[0], 4.0 * d * pairs),
+            ("flash_bwd", lambda: _flash_bwd_fused(*args), 10.0 * d * pairs),
+            ("flash_bwd_dkv", lambda: _flash_bwd_dkv(*args),
+             8.0 * d * pairs)]
+
+
+def study_fp32(dev, libs, order, dtypes=("float32",), strict=True):
+    """Device time of the fp32 (and ``dtypes``') flash forward, fused and
+    dk/dv kernels at :data:`FP32_SHAPES` from each library of ``libs``
+    ({name: loaded library}), run in ``order`` (names, repeats allowed:
+    parent, change, change, parent), every output against the first
+    library's (fp32 1e-4, bf16 2e-2 of its peak; ``strict``: a miss
+    fails, else it is logged).  Returns {(kernel, shape, dtype, name):
+    [ms, ...]}."""
+    import torch
+    from apex_tpu_torch.utils import build
+    gen = torch.Generator().manual_seed(43)
+    calls = [(kernel, shape, dtype, fn, flops)
+             for shape in FP32_SHAPES for dtype in dtypes
+             if dtype == "float32" or shape == FP32_SHAPES[0]
+             for kernel, fn, flops in _fp32_calls(dev, gen, *shape, dtype)]
+    shipped = build._LIB
+
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
+    times = {}
+    try:
+        first = order[0]
+        build._LIB = libs[first]
+        ref = [outs(fn()) for *_, fn, _ in calls]
+        for name in dict.fromkeys(order):
+            build._LIB = libs[name]
+            for (kernel, shape, dtype, fn, _), r in zip(calls, ref):
+                diff = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(outs(fn()), r))
+                rel = diff / max(float(b.float().abs().max()) for b in r)
+                ok = rel <= (1e-4 if dtype == "float32" else 2e-2)
+                msg = (f"{kernel} {shape} {dtype} {name}: max |diff| "
+                       f"{diff:.3g} from {first}'s")
+                require(ok or not strict, msg)
+                if not ok:
+                    log(f"  MISMATCH {msg}")
+        for name in order:
+            build._LIB = libs[name]
+            for kernel, shape, dtype, fn, _ in calls:
+                times.setdefault((kernel, shape, dtype, name), []).append(
+                    device_ms(fn))
+    finally:
+        build._LIB = shipped
+    for kernel, shape, dtype, fn, flops in calls:
+        B, heads, S, d = shape
+        ts = {n: times[(kernel, shape, dtype, n)] for n in dict.fromkeys(
+            order)}
+        txt = "  ".join(f"{n} {[round(t, 5) for t in v]}"
+                        for n, v in ts.items())
+        log(f"  {kernel} BH{B * heads}x{S}x{S}x{d} {dtype}: {txt} ms "
+            f"({flops / 1e9:.2f} GFLOP)")
+    return times
+
+
+def study_fp32_variants(dev):
+    """``--variants fp32``: each of :data:`FP32_VARIANTS` built from an
+    edited copy of the sources (in parallel) and timed against the shipped
+    kernels, 3 rounds."""
+    from concurrent.futures import ThreadPoolExecutor
+    from apex_tpu_torch.utils import build
+    log("== variants: the fp32 (3xTF32) flash kernels")
+    libs = {"shipped": build.library()}
+    with ThreadPoolExecutor(len(FP32_VARIANTS)) as ex:
+        futs = {n: ex.submit(_build_variant, n, e)
+                for n, e in FP32_VARIANTS.items()}
+        for n, f in futs.items():
+            res = f.result()
+            for line in res.log.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {n} ptxas: {line.strip()}")
+            libs[n] = build.load(res.path)
+    study_fp32(dev, libs, list(libs) * 3, strict=False)
+
+
+def study_against(dev, card, parent_csrc, parent_build):
+    """``--against DIR``: the kernels built from ``DIR`` (the parent
+    commit's ``apex_tpu_torch/csrc``, its ``git archive`` unpacked under
+    ``build/``) against this checkout's, in one process on one card: the
+    fp32 forward, fused and dk/dv kernels at :data:`FP32_SHAPES` and the
+    bf16 ones at the flagship's shape, parent, change, change, parent;
+    SDPA's memory-efficient fp32 forward and backward and the plain
+    versions at the same shapes, with both bounds; then phase 26b's
+    flagship step in all five modes, phase 27c's MoE step and phase 29a's
+    elastic resumes under the parent's kernels and then this checkout's
+    (each with its own launch-count and bitwise checks).  Prints no result
+    line."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from apex_tpu_torch.contrib.multihead_attn.flash import (
+        _flash_bwd_reference, _flash_fwd_res, _reference)
+    from apex_tpu_torch.parallel import plan as P
+    from apex_tpu_torch.utils import build
+    aten = torch.ops.aten
+    res = parent_build.result()
+    log(f"== against {parent_csrc}: parent built in {res.seconds:.1f} s")
+    libs = {"parent": build.load(res.path), "change": build.library()}
+    times = study_fp32(dev, libs, ["parent", "change", "change", "parent"],
+                       dtypes=("float32", "bfloat16"))
+    gen = torch.Generator().manual_seed(47)
+    for B, heads, S, d in FP32_SHAPES:
+        bh = B * heads
+        q, k, v, bias = _flash_inputs(B, heads, S, S, d, "zeros", gen,
+                                      torch.float32, dev)
+        do = _randn(q.shape, gen, torch.float32, dev)
+        q4, k4, v4, do4 = (t.view(B, heads, S, d) for t in (q, k, v, do))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            f_lms = device_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0))
+        o4, lse4, rs, ro = aten._scaled_dot_product_efficient_attention(
+            q4, k4, v4, None, True, 0.0, False, scale=1.0)
+        b_lms = device_ms(
+            lambda: aten._scaled_dot_product_efficient_attention_backward(
+                do4, q4, k4, v4, None, o4, lse4, rs, ro, 0.0,
+                [True, True, True, False], False, scale=1.0))
+        out, _, stats = _flash_fwd_res(q, k, v, bias, False, 0.0, 0, heads)
+        delta = (do * out).sum(-1, keepdim=True)
+        f_pms = device_ms(lambda: _reference(q, k, v, bias, False, 0.0, 0,
+                                             heads), n=3)
+        b_pms = device_ms(lambda: _flash_bwd_reference(
+            q, k, v, bias, False, 0.0, 0, heads, stats, delta, do), n=3)
+        io = 4 * bh * S * d * 4 + 2 * bh * S * 4
+        for kernel, lms, pms, nbytes, flops in (
+                ("flash_fwd", f_lms, f_pms, io, 4.0 * d * S * S * bh),
+                ("flash_bwd", b_lms, b_pms, io + 3 * bh * S * d * 4,
+                 10.0 * d * S * S * bh)):
+            tf, tby = bound_3xtf32(nbytes, flops)
+            sf, sby = bound(nbytes, flops, "float32")
+            shape = (B, heads, S, d)
+            par = statistics.median(times[(kernel, shape, "float32",
+                                           "parent")])
+            chg = statistics.median(times[(kernel, shape, "float32",
+                                           "change")])
+            log(f"  {kernel} BH{bh}x{S}x{S}x{d} fp32 [{card}]: change "
+                f"{chg:.5f} ms, parent {par:.5f} ms ({par / chg:.2f}x), "
+                f"SDPA memory-efficient {lms:.5f} ms, plain {pms:.5f} ms, "
+                f"bound 3xTF32 {tf:.5f} ms ({tby}), scalar fp32 FMA "
+                f"{sf:.5f} ms ({sby})")
+        del q, k, v, do, q4, k4, v4, do4, o4, lse4, out, stats, delta
+        torch.cuda.empty_cache()
+
+    # end to end, parent then change
+    prof = P.flagship_profile(device=dev)[0]
+    shipped = build._LIB
+    steps = {}
+    try:
+        for name in ("parent", "change"):
+            build._LIB = libs[name]
+            log(f"  -- the paths on the {name}'s kernels")
+            store = start_process_group()
+            try:
+                phase_flagship_ddp(dev, card)
+                torch.cuda.empty_cache()
+                phase_moe(dev, card)
+                gc.collect()
+                torch.cuda.empty_cache()
+                shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+                os.makedirs(ELASTIC_DIR)
+                _elastic_leg(dev, card, prof)
+            finally:
+                dist.destroy_process_group()
+                if os.path.exists(store):
+                    os.remove(store)
+            gc.collect()
+            torch.cuda.empty_cache()
+            steps[name] = {k: RESULTS[k] for k in (
+                "flagship_off_ms", "flagship_bucketed_ms",
+                "flagship_zero1_ms", "flagship_zero1_bucketed_ms",
+                "flagship_zero1_int8_ms", "moe_step_ms",
+                "elastic_clean_s")}
+    finally:
+        build._LIB = shipped
+    for key in steps["parent"]:
+        a, b = steps["parent"][key], steps["change"][key]
+        log(f"  [{card}] {key}: parent {a:.3f}, change {b:.3f} "
+            f"({a - b:+.3f}, {a / b:.3f}x)")
+
+
 # ---------------------------------------------------------------------------
 # phase 24: the self-resuming training guard
 # ---------------------------------------------------------------------------
@@ -8194,6 +8479,7 @@ def _elastic_leg(dev, card, profile):
 
     st_a, rep_a, launch_a, (step, layout1, shards), secs_a = run("clean")
     require(rep_a.status == "completed", f"29a clean: {rep_a}")
+    RESULTS["elastic_clean_s"] = secs_a
     check_launches("elastic_flagship", launch_a, ELASTIC_STEPS, exact=True)
     _, rep_b, launch_b, _, _ = run("preempt", faults.parse(
         f"preempt@{ELASTIC_PREEMPT}"))
@@ -8603,13 +8889,28 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = phase_environment()
+    if "--against" in argv:
+        # the parent's kernels build beside this checkout's
+        from concurrent.futures import ThreadPoolExecutor
+        from pathlib import Path
+        from apex_tpu_torch.utils import build
+        parent_csrc = Path(argv[argv.index("--against") + 1]).resolve()
+        parent_build = ThreadPoolExecutor(1).submit(build.build, parent_csrc)
     phase_build()
     if "--variants" in argv:
         which = argv[argv.index("--variants") + 1:][:1]
-        if which != ["gemm"]:
-            study_variants(dev)
-        if which != ["flash"]:
-            study_gemm_variants(dev)
+        if which == ["fp32"]:
+            study_fp32_variants(dev)
+        else:
+            if which != ["gemm"]:
+                study_variants(dev)
+            if which != ["flash"]:
+                study_gemm_variants(dev)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
+    if "--against" in argv:
+        study_against(dev, card, parent_csrc, parent_build)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
@@ -8765,6 +9066,19 @@ def main(argv) -> int:
             if r["kernel"] == k["name"]]
         if edges:
             k["edges"] = edges
+        # the fp32 instance at the training shape (the 3xTF32 kernels):
+        # the flagship's, the MoE step's and the elastic step's
+        fp32_rows = {"flash_fwd": flash_rows,
+                     "flash_bwd": fb_rows}.get(k["name"])
+        if fp32_rows is not None:
+            row = pick(fp32_rows, case="training", dtype="float32")
+            k["fp32"] = {key: row[key] for key in (
+                "case", "max_abs_err", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "bound_fp32_fma_ms")}
+            k["fp32"]["launches_by_path"] = {
+                p: launches[p].get(k["name"], 0)
+                for p in ("ddp_flagship_off", "moe_ep", "elastic_flagship")
+                if p in launches}
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1095,6 +1095,61 @@ def test_fp16_refused_on_the_card(cuda_device):
     assert dict(build.LAUNCHES) == before
 
 
+def _fp32_fwd_bwd(q, k, v, bias, do, causal, rate, heads):
+    """The fp32 forward, the fused backward and the dk/dv kernel, once."""
+    out, lse, stats = pflash._flash_fwd_res(q, k, v, bias, causal, rate, 13,
+                                            heads)
+    delta = (do * out).sum(-1, keepdim=True)
+    args = (q, k, v, bias, causal, rate, 13, heads, stats, delta, do)
+    return ((out, lse, stats) + pflash._flash_bwd_fused(*args)
+            + pflash._flash_bwd_dkv(*args))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_fp32_flash_kernels_repeat_bit_for_bit(d, cuda_device):
+    """fp32 on the 3xTF32 kernels (ragged, causal, dropout, rows whose
+    every key carries -1e9): a second forward and fused backward give the
+    first's bits (no atomics, one order of sums), and the fused kernel's
+    dk and dv are the dk/dv kernel's."""
+    q, k, v, bias = _flash_inputs(2, 3, 130, 200, d, "masked", cuda_device,
+                                  torch.float32, seed=11 + d)
+    rng = np.random.default_rng(d)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(cuda_device)
+    first = _fp32_fwd_bwd(q, k, v, bias, do, True, 0.1, 3)
+    second = _fp32_fwd_bwd(q, k, v, bias, do, True, 0.1, 3)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(first[4], first[6]) and torch.equal(first[5],
+                                                           first[7])
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_fp32_flash_runs_the_tf32_kernels(d, cuda_device):
+    """The profiler names the 3xTF32 kernels for an fp32 forward, fused
+    backward and dk/dv call, and no scalar-FMA flash kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, bias = _flash_inputs(2, 4, 200, 333, d, "key_pad", cuda_device,
+                                  torch.float32, seed=d)
+    do = torch.ones_like(q)
+    # a warm-up: a profiler's first kernels can be missing from its trace
+    _fp32_fwd_bwd(q, k, v, bias, do, False, 0.0, 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _fp32_fwd_bwd(q, k, v, bias, do, False, 0.0, 4)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launched = [build.launch_name(n) for n in names]
+    assert launched.count("flash_fwd") == 1
+    assert launched.count("flash_bwd") == 1
+    assert launched.count("flash_bwd_dkv") == 1
+    assert sum("flash_fwd_tf32_kernel" in n for n in names) == 1
+    assert sum("flash_bwd_kv_tf32_kernel" in n for n in names) == 2
+    assert not any("simt_kernel" in n for n in names)
+
+
 MHA_MASKS = ["none", "key_pad", "time", "causal"]
 
 
