@@ -52,8 +52,21 @@ kernel; only a grid of more than 2**31 - 1 CTAs (tiles x chunks x BH, far
 past the card's memory) is refused by the launch.  ``backward="xla"`` takes autograd of the plain
 :func:`_reference` instead, by the caller's choice; ``"pallas"`` (the JAX
 package's name for its kernel route, kept so the amp option keeps its
-meaning) and ``"auto"`` take the kernels.  The JAX package's environment
-overrides and tuning profile keys are not ported.
+meaning) and ``"auto"`` take the kernels.
+
+Knobs, each in the JAX package's order (explicit argument > environment >
+the amp default where there is one > tuning profile, read on the card only
+through :func:`~apex_tpu_torch.utils.tuning.get_on_gpu` > built-in): the
+backward route (:func:`_resolve_backward`: ``APEX_TPU_FLASH_BWD_IMPL``,
+``flash_bwd_impl``) and the fused-or-split choice (:func:`_resolve_fuse`:
+``APEX_TPU_FLASH_BWD_FUSE``, ``flash_bwd_fuse``, then the cap
+``APEX_TPU_FLASH_BWD_FUSE_MB``).  The JAX block keys and pins
+(``flash_block_q/k``, ``flash_bwd_{,dq_,dkv_}block_q/k``,
+``APEX_TPU_FLASH_BLOCK_Q/_K``, ``APEX_TPU_FLASH_BWD_*_BLOCK_*``,
+``APEX_TPU_FLASH_VMEM_MB``) size Pallas blocks against VMEM; the CUDA
+kernels' tiles are fixed when they are compiled (``kPartKeys``,
+:data:`BWD_K_TILE`), so the port reads none of them and a profile or an
+environment that holds them changes no route and no launch.
 
 Its callers: the attention modules' ``impl="fast"``
 (:mod:`~apex_tpu_torch.contrib.multihead_attn.modules`:
@@ -62,12 +75,13 @@ Its callers: the attention modules' ``impl="fast"``
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from ...utils import build
+from ...utils import build, tuning
 
 __all__ = ["flash_attention", "_flash_fwd", "_flash_bwd", "_flash_bwd_fused",
            "_flash_bwd_dq", "_flash_bwd_dkv", "_flash_bwd_reference",
@@ -108,32 +122,50 @@ def set_default_backward(value: str) -> None:
 
 
 def _resolve_backward(backward: str) -> str:
-    """Explicit "pallas"/"xla" argument > the amp default
-    (:func:`set_default_backward`) > "pallas", the kernels."""
+    """Explicit "pallas"/"xla" argument > ``APEX_TPU_FLASH_BWD_IMPL`` > the
+    amp default (:func:`set_default_backward`) > the tuning profile's
+    ``flash_bwd_impl`` (on the card only) > "pallas", the kernels."""
     if backward not in BACKWARD_IMPLS:
         raise ValueError(f"backward must be one of {BACKWARD_IMPLS}, "
                          f"got {backward!r}")
     if backward != "auto":
         return backward
+    env = os.environ.get("APEX_TPU_FLASH_BWD_IMPL")
+    if env in ("pallas", "xla"):
+        return env
     if _DEFAULT_BACKWARD != "auto":
         return _DEFAULT_BACKWARD
+    prof = tuning.get_on_gpu("flash_bwd_impl", None)
+    if prof in ("pallas", "xla"):
+        return prof
     return "pallas"
 
 
 def _resolve_fuse(fuse, BH, Sq, Sk, D) -> bool:
-    """Fused-vs-split strategy: an explicit ``fuse`` wins; otherwise fuse
-    while the (BH, ceil(Sk/BWD_K_TILE), Sq, D) fp32 dq-partials buffer
-    stays under :data:`_FUSE_BUFFER_CAP_MB`.
+    """Fused-vs-split strategy: an explicit ``fuse`` >
+    ``APEX_TPU_FLASH_BWD_FUSE`` (``0`` / ``off`` / ``false`` / ``no`` /
+    empty split, anything else fuses) > the tuning profile's
+    ``flash_bwd_fuse`` (on the card only) > fuse while the
+    (BH, ceil(Sk/BWD_K_TILE), Sq, D) fp32 dq-partials buffer stays under
+    the cap, :data:`_FUSE_BUFFER_CAP_MB` or ``APEX_TPU_FLASH_BWD_FUSE_MB``.
 
-    The JAX package's rule with its default 128-key backward blocks
-    (``_resolve_fuse(None, ..., bk=128)``), which the port's 128-key tiles
-    count alike: at BH 128 x 2048 x 2048 x 64 both fuse (exactly 1 GiB of
-    partials), at BH 64 x 4096 x 4096 x 64 both split.  The JAX package's
-    environment overrides are not ported."""
+    The JAX package's rule counts the partials with its resolved backward
+    ``bk``, the port with its fixed 128-key tiles, so the two built-in
+    decisions agree where the JAX ``bk`` resolves to 128 (its default):
+    at BH 128 x 2048 x 2048 x 64 both fuse (exactly 1 GiB of partials), at
+    BH 64 x 4096 x 4096 x 64 both split."""
     if fuse is not None:
         return bool(fuse)
+    env = os.environ.get("APEX_TPU_FLASH_BWD_FUSE")
+    if env is not None:
+        return env.lower() not in ("0", "off", "false", "no", "")
+    prof = tuning.get_on_gpu("flash_bwd_fuse", None)
+    if prof is not None:
+        return bool(prof)
+    cap = float(os.environ.get("APEX_TPU_FLASH_BWD_FUSE_MB",
+                               _FUSE_BUFFER_CAP_MB)) * 2 ** 20
     nk = -(-Sk // BWD_K_TILE)
-    return BH * nk * Sq * D * 4 <= _FUSE_BUFFER_CAP_MB * 2 ** 20
+    return BH * nk * Sq * D * 4 <= cap
 
 _M32 = 0xFFFFFFFF
 

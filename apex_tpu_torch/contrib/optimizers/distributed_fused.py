@@ -53,6 +53,7 @@ from ...optimizers._base import resolve, resolve_state_dtype
 from ...parallel import collectives as _coll
 from ...parallel.mesh import group_rank, group_size
 from ...telemetry import events as _tel_events
+from ...utils import tuning
 from ...utils.device import resolve_device
 from ...utils.pytree import tree_flatten
 
@@ -92,7 +93,9 @@ class _DistributedFusedBase:
                  check_overflow=True, impl=None, state_dtype=None,
                  collective_scheme=None, allgather_scheme=None):
         if impl is None:
-            impl = "xla"
+            # the tuning profile's zero_impl (on the card only), else the
+            # JAX package's built-in, the plain flat update
+            impl = tuning.get_on_gpu("zero_impl", "xla")
         if impl not in ("xla", "fused"):
             raise ValueError(f"impl must be 'xla' or 'fused', got {impl!r}")
         self.lr = lr
@@ -154,8 +157,8 @@ class _DistributedFusedBase:
         if which == "ag":
             if self.allgather_scheme is None:
                 return None
-            return _coll.resolve(self.allgather_scheme)
-        return _coll.resolve(self.collective_scheme)
+            return _coll.resolve(self.allgather_scheme, tuning_key=None)
+        return _coll.resolve(self.collective_scheme, tuning_key=None)
 
     def _meter(self, op, logical, wire, seconds, scheme, dtype):
         """One ``zero.<op>`` record a collective, free without a registry

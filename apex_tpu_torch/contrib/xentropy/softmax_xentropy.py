@@ -15,17 +15,21 @@ launches it for a CUDA tensor and takes :func:`_xent_fwd_reference` only for
 a CPU tensor.  :func:`_xent_plan` picks its instance from the row's width
 and dtype: 8, 16 or 32 lanes a row for rows of up to 2 KB, a
 shared-memory ring fed by bulk copies past that.  The backward is plain PyTorch, as the JAX package's is plain
-XLA.  ``impl``: ``"auto"`` and ``"pallas"`` (the JAX package's name for its
-kernel route, kept so the config field keeps its meaning) take
-:func:`_xent_fwd`; ``"xla"`` takes the plain forward.
+XLA.  ``impl``: ``"pallas"`` (the JAX package's name for its kernel route,
+kept so the config field keeps its meaning) takes :func:`_xent_fwd`,
+``"xla"`` the plain forward, and ``"auto"`` resolves in the JAX package's
+order (:func:`_resolve_impl`): ``APEX_TPU_XENT_IMPL`` > the tuning
+profile's ``xent_auto_impl`` (on the card only) > the kernel for a CUDA
+tensor, the plain version for a CPU one.
 """
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
 
-from ...utils import build
+from ...utils import build, tuning
 
 __all__ = ["softmax_xentropy_loss", "SoftmaxCrossEntropyLoss", "_xent_fwd",
            "_xent_fwd_reference", "_xent_plan", "XENT_IMPLS", "XENT_PATHS"]
@@ -112,10 +116,24 @@ def _check_cuda_inputs(logits: torch.Tensor, labels: torch.Tensor):
     return labels.contiguous(), code
 
 
-def _fwd(logits, labels, smoothing, impl):
+def _resolve_impl(impl: str, device) -> str:
+    """``impl`` as a route, "pallas" (the kernel) or "xla" (the plain
+    forward).  "auto": ``APEX_TPU_XENT_IMPL`` > ``xent_auto_impl`` (on the
+    card only) > "pallas" on a CUDA ``device``, "xla" on the CPU.  As in
+    the JAX package, a resolved value other than "pallas" takes the plain
+    forward."""
     if impl not in XENT_IMPLS:
         raise ValueError(f"impl must be one of {XENT_IMPLS}, got {impl!r}")
-    if impl == "xla":
+    if impl == "auto":
+        impl = (os.environ.get("APEX_TPU_XENT_IMPL", "")
+                or tuning.get_on_gpu("xent_auto_impl")
+                or ("pallas" if torch.device(device).type == "cuda"
+                    else "xla"))
+    return "pallas" if impl == "pallas" else "xla"
+
+
+def _fwd(logits, labels, smoothing, impl):
+    if _resolve_impl(impl, logits.device) == "xla":
         return _xent_fwd_reference(logits, labels, smoothing)
     return _xent_fwd(logits, labels, smoothing)
 

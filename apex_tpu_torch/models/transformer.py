@@ -53,6 +53,7 @@ import torch.distributed as dist
 from ..contrib.multihead_attn.flash import _dropout_keep
 from ..normalization.fused_layer_norm import fused_layer_norm_affine
 from ..parallel import comm
+from ..utils import tuning
 from ..utils.device import from_numpy, resolve_device
 
 __all__ = ["TransformerConfig", "bert_large_config", "transformer_init",
@@ -88,8 +89,14 @@ class TransformerConfig:
 
 
 def bert_large_config(**overrides) -> TransformerConfig:
+    """BERT-large's widths; the attention route is ``attn_impl`` when it is
+    among the overrides, else the tuning profile's ``bert_attn_impl`` (on
+    the card only), else the config's default."""
     base = dict(vocab_size=30592, max_len=512, num_layers=24, d_model=1024,
                 num_heads=16, d_ff=4096)
+    tuned_attn = tuning.get_on_gpu("bert_attn_impl")
+    if tuned_attn and "attn_impl" not in overrides:
+        base["attn_impl"] = tuned_attn
     base.update(overrides)
     return TransformerConfig(**base)
 

@@ -188,24 +188,30 @@ def ln_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
 class LayerNormFunction(torch.autograd.Function):
     """Layer norm of x2d (N, H) with an optional affine: :func:`ln_fwd`
     forward, :func:`ln_bwd` for dx, and dw / db as fp32 column sums cast to
-    the parameters' dtype (``apex_tpu/ops/layer_norm.py:218-233``)."""
+    the parameters' dtype (``apex_tpu/ops/layer_norm.py:218-233``).
+    ``plain=True`` takes :func:`ln_fwd_reference` / :func:`ln_bwd_reference`
+    whatever the device: the JAX package's XLA VJP
+    (``apex_tpu/normalization/fused_layer_norm.py:50-97``), no kernel."""
 
     @staticmethod
-    def forward(ctx, x2d, weight, bias, eps):
-        out, mean, invvar = ln_fwd(x2d, weight, bias, eps)
+    def forward(ctx, x2d, weight, bias, eps, plain=False):
+        fwd = ln_fwd_reference if plain else ln_fwd
+        out, mean, invvar = fwd(x2d, weight, bias, eps)
         ctx.save_for_backward(x2d, weight, mean, invvar)
         ctx.bias_dtype = bias.dtype if bias is not None else None
+        ctx.plain = plain
         return out
 
     @staticmethod
     def backward(ctx, g):
         x2d, weight, mean, invvar = ctx.saved_tensors
         g = g.contiguous()
-        dx = ln_bwd(g, x2d, mean, invvar, weight)
+        dx = (ln_bwd_reference if ctx.plain else ln_bwd)(g, x2d, mean, invvar,
+                                                        weight)
         dw = db = None
         if weight is not None and ctx.needs_input_grad[1]:
             xhat = (x2d.float() - mean) * invvar
             dw = (g.float() * xhat).sum(dim=0).to(weight.dtype)
         if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
             db = g.float().sum(dim=0).to(ctx.bias_dtype)
-        return dx, dw, db, None
+        return dx, dw, db, None, None

@@ -24,11 +24,12 @@ Built-in schemes
     4 B an element; it sets its own magnitude (``self_scaling``).
 
 Selection: explicit argument > the live override (:func:`set_live_spec`) >
-``APEX_TPU_COLLECTIVES`` > off (the plain reduction in the gradients'
-dtype).  The spec grammar is ``"int8_blockscale:block=128,min_bytes=4096"``;
-leaves under ``min_bytes`` (fp32 bytes) stay ``fp32``.  The JAX package's
-further step, the tuning profile's ``ddp_collective_scheme``, is read only
-on a TPU; the port has no tuning profile.
+``APEX_TPU_COLLECTIVES`` > the tuning profile's ``ddp_collective_scheme``
+with ``collective_min_compress_bytes`` (on the card only; the ZeRO paths
+opt out with ``tuning_key=None``) > off (the plain reduction in the
+gradients' dtype).  The spec grammar is
+``"int8_blockscale:block=128,min_bytes=4096"``; leaves under ``min_bytes``
+(fp32 bytes) stay ``fp32``.
 
 Lowering: ``all_reduce`` (fp32, bf16), ``all_gather_into_tensor`` of the
 (int8 codes, fp32 scales) pair or of the fp32 leaves (int8, adasum),
@@ -54,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from .mesh import check_group_device, group_size
+from ..utils import tuning
 from ..utils.pytree import tree_map
 
 __all__ = ["DEFAULT_BLOCK", "DEFAULT_MIN_BYTES", "ENV_KNOB",
@@ -190,12 +192,17 @@ def parse_spec(text: str) -> CollectiveSpec:
 
 
 def resolve(scheme=None, *, min_bytes: Optional[int] = None,
-            block: Optional[int] = None) -> Optional[CollectiveSpec]:
+            block: Optional[int] = None,
+            tuning_key: Optional[str] = "ddp_collective_scheme"
+            ) -> Optional[CollectiveSpec]:
     """A scheme choice -> a spec, or None (the plain reduction).
 
     Precedence: explicit ``scheme`` (name, spec string or
     :class:`CollectiveSpec`) > the live override > ``APEX_TPU_COLLECTIVES``
-    > None.  ``min_bytes`` / ``block`` override the spec's own values."""
+    > the tuning profile's scheme under ``tuning_key`` with its
+    ``collective_min_compress_bytes`` (on the card only; ``tuning_key=
+    None`` opts out) > None.  ``min_bytes`` / ``block`` override the
+    spec's own values."""
     spec: Optional[CollectiveSpec] = None
     if scheme is None:
         if _LIVE_SPEC is not None:
@@ -210,6 +217,13 @@ def resolve(scheme=None, *, min_bytes: Optional[int] = None,
             return None
         if env:
             spec = parse_spec(env)
+        elif tuning_key is not None:
+            name = tuning.get_on_gpu(tuning_key)
+            if name:
+                spec = CollectiveSpec(
+                    scheme=name,
+                    min_bytes=tuning.get_on_gpu(
+                        "collective_min_compress_bytes", DEFAULT_MIN_BYTES))
     elif isinstance(scheme, CollectiveSpec):
         spec = scheme
     else:

@@ -100,7 +100,8 @@ def allreduce_tree(grads, *, axis_name=None, average: bool = True,
     ``scheme`` picks a compressed or adaptive reduction per leaf: a scheme
     name, a spec string, a :class:`~apex_tpu_torch.parallel.collectives.
     CollectiveSpec` or a callable ``(path, leaf) -> scheme | None``;
-    ``None`` takes the live override, then ``APEX_TPU_COLLECTIVES``, else
+    ``None`` takes the live override, then ``APEX_TPU_COLLECTIVES``, then
+    the tuning profile's ``ddp_collective_scheme`` (on the card only), else
     the plain reduction.  Leaves under ``min_compress_bytes`` (default the
     spec's ``min_bytes``) stay fp32.  ``residuals`` (the int8
     error-feedback tree, :func:`~apex_tpu_torch.parallel.collectives.
@@ -293,7 +294,7 @@ class DistributedDataParallel:
     def mode(self) -> str:
         """The overlap mode a reduction takes now: ``"off"`` under
         ``delay_allreduce``, else the constructor's ``overlap`` >
-        ``APEX_TPU_OVERLAP`` > ``"off"``; a scheme that cannot stream falls
+        ``APEX_TPU_OVERLAP`` > the profile's ``ddp_overlap`` > ``"off"``; a scheme that cannot stream falls
         back to ``"off"`` with a one-time warning."""
         mode = "off" if self.delay_allreduce else _ov.resolve_mode(
             self.overlap)
@@ -393,7 +394,8 @@ class DistributedDataParallel:
         """The zero1 path: a :class:`~apex_tpu_torch.parallel.weight_update.
         ShardedUpdate` with this DDP's group, averaging and collective
         settings, or None when the mode resolves to ``"off"`` (constructor
-        ``update_sharding`` > ``APEX_TPU_UPDATE_SHARDING`` > off); the
+        ``update_sharding`` > ``APEX_TPU_UPDATE_SHARDING`` > the profile's
+        ``ddp_update_sharding`` > off); the
         caller then keeps :meth:`allreduce_grads` and a replicated
         update."""
         from . import weight_update as _wu

@@ -40,8 +40,8 @@ DistributedDataParallel.grad`)
 and, with paths and dtypes spelled the JAX way, the same ``signature``.
 
 Mode resolution (:func:`resolve_mode`): explicit ``overlap=`` >
-``APEX_TPU_OVERLAP`` > ``"off"`` (the JAX package's tuning-profile step is
-read only on a TPU).  Adasum (its merge couples every element it reduces)
+``APEX_TPU_OVERLAP`` > the tuning profile's ``ddp_overlap``
+(:data:`TUNING_KEY`, on the card only) > ``"off"``.  Adasum (its merge couples every element it reduces)
 and callable per-leaf routing cannot stream per bucket
 (:func:`can_stream`); the DDP falls back to the deferred path with a
 one-time warning (:func:`warn_once`).
@@ -63,10 +63,11 @@ from . import collectives as _coll
 from .mesh import check_group_device, group_size, resolve_group
 from ..multi_tensor_apply.flattener import LANE
 from ..telemetry import events as _tel_events
+from ..utils import tuning
 from ..utils.pytree import (tree_flatten, tree_flatten_with_keystr,
                             tree_leaves, tree_unflatten)
 
-__all__ = ["MODES", "ENV_KNOB", "DEFAULT_MESSAGE_SIZE",
+__all__ = ["MODES", "ENV_KNOB", "TUNING_KEY", "DEFAULT_MESSAGE_SIZE",
            "resolve_mode", "can_stream", "warn_once",
            "Bucket", "BucketLayout", "partition_buckets",
            "bucketed_allreduce", "HookedReduction", "shard_chunk_bounds",
@@ -74,16 +75,20 @@ __all__ = ["MODES", "ENV_KNOB", "DEFAULT_MESSAGE_SIZE",
 
 MODES = ("off", "bucketed")
 ENV_KNOB = "APEX_TPU_OVERLAP"
+TUNING_KEY = "ddp_overlap"
 #: the reference's bucket threshold, in elements (10M ~ 40 MB fp32)
 DEFAULT_MESSAGE_SIZE = 10_000_000
 
 
 def resolve_mode(mode: Optional[str] = None) -> str:
-    """Explicit ``mode`` > ``APEX_TPU_OVERLAP`` > ``"off"``."""
+    """Explicit ``mode`` > ``APEX_TPU_OVERLAP`` > the tuning profile's
+    ``ddp_overlap`` (on the card only) > ``"off"``."""
     if mode is None:
         env = os.environ.get(ENV_KNOB)
-        mode = env.strip().lower() if env is not None and env.strip() \
-            else "off"
+        if env is not None and env.strip():
+            mode = env.strip().lower()
+        else:
+            mode = tuning.get_on_gpu(TUNING_KEY, "off")
     if mode not in MODES:
         raise ValueError(f"overlap must be one of {MODES}, got {mode!r}")
     return mode

@@ -28,8 +28,11 @@ compressed scatter would mangle the non-finite values; a skipped step keeps
 the old state and the old residual.
 
 Mode (:func:`resolve_mode`): explicit ``update_sharding`` >
-``APEX_TPU_UPDATE_SHARDING`` > ``"off"`` (the JAX package's tuning-profile
-step is read only on a TPU).  Under ``overlap="bucketed"`` the scatter runs
+``APEX_TPU_UPDATE_SHARDING`` > the tuning profile's ``ddp_update_sharding``
+(:data:`TUNING_KEY`, on the card only) > ``"off"``.  The param
+all-gather's scheme: explicit ``allgather_scheme`` > the profile's
+``ddp_update_allgather_scheme`` (:data:`AG_TUNING_KEY`) > fp32; the ambient
+``APEX_TPU_COLLECTIVES`` is not read for it.  Under ``overlap="bucketed"`` the scatter runs
 in column chunks and the gather in segments
 (:func:`~apex_tpu_torch.parallel.overlap.chunked_reduce_scatter`,
 :func:`~apex_tpu_torch.parallel.overlap.segmented_allgather`), bitwise
@@ -54,21 +57,27 @@ from . import overlap as _ov
 from .mesh import group_rank, group_size, resolve_group
 from ..multi_tensor_apply.flattener import LANE, TreeFlattener
 from ..telemetry import events as _tel_events
+from ..utils import tuning
 from ..utils.pytree import tree_leaves, tree_map
 
-__all__ = ["MODES", "ENV_KNOB", "resolve_mode", "ShardContext",
-           "ShardedUpdate"]
+__all__ = ["MODES", "ENV_KNOB", "TUNING_KEY", "AG_TUNING_KEY",
+           "resolve_mode", "ShardContext", "ShardedUpdate"]
 
 MODES = ("off", "zero1")
 ENV_KNOB = "APEX_TPU_UPDATE_SHARDING"
+TUNING_KEY = "ddp_update_sharding"
+AG_TUNING_KEY = "ddp_update_allgather_scheme"
 
 
 def resolve_mode(mode: Optional[str] = None) -> str:
-    """Explicit ``mode`` > ``APEX_TPU_UPDATE_SHARDING`` > ``"off"``."""
+    """Explicit ``mode`` > ``APEX_TPU_UPDATE_SHARDING`` > the tuning
+    profile's ``ddp_update_sharding`` (on the card only) > ``"off"``."""
     if mode is None:
         env = os.environ.get(ENV_KNOB)
-        mode = env.strip().lower() if env is not None and env.strip() \
-            else "off"
+        if env is not None and env.strip():
+            mode = env.strip().lower()
+        else:
+            mode = tuning.get_on_gpu(TUNING_KEY, "off")
     if mode not in MODES:
         raise ValueError(
             f"update_sharding must be one of {MODES}, got {mode!r}")
@@ -145,8 +154,9 @@ class ShardedUpdate:
 
     ``collective_scheme`` / ``collective_min_bytes`` ride the gradient
     reduce-scatter (default: the live override, then
-    ``APEX_TPU_COLLECTIVES``); ``allgather_scheme`` the param gather
-    (explicit only; fp32 otherwise).  ``residual`` threads the int8
+    ``APEX_TPU_COLLECTIVES``, then the profile's ``ddp_collective_scheme``);
+    ``allgather_scheme`` the param gather (default: the profile's
+    ``ddp_update_allgather_scheme``, then fp32).  ``residual`` threads the int8
     error-feedback state (:meth:`init_residual`)."""
 
     def __init__(self, optimizer, *, axis_name=None,
@@ -209,15 +219,21 @@ class ShardedUpdate:
 
     def _resolve_rs(self):
         """Gradient reduce-scatter scheme: explicit > live override >
-        ``APEX_TPU_COLLECTIVES`` (the DDP gradient wire, scattered)."""
+        ``APEX_TPU_COLLECTIVES`` > the DDP tuning winner (the DDP gradient
+        wire, scattered)."""
         return _coll.resolve(self.collective_scheme,
                              min_bytes=self.collective_min_bytes)
 
     def _resolve_ag(self):
-        """Param all-gather scheme: explicit only, else fp32 (quantizing
-        params is an accuracy trade the ambient knob must not flip)."""
+        """Param all-gather scheme: explicit > the profile's
+        ``ddp_update_allgather_scheme`` (on the card only) > fp32.  The
+        ambient ``APEX_TPU_COLLECTIVES`` is not read: quantizing params is
+        an accuracy trade the ambient knob must not flip."""
         if self.allgather_scheme is not None:
-            return _coll.resolve(self.allgather_scheme)
+            return _coll.resolve(self.allgather_scheme, tuning_key=None)
+        name = tuning.get_on_gpu(AG_TUNING_KEY)
+        if name and name != "fp32":
+            return _coll.resolve(name, tuning_key=None)
         return None
 
     # -- metering ------------------------------------------------------------

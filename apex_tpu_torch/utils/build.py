@@ -8,10 +8,14 @@ library that is loaded with ``ctypes``.  The library lands in
 the sources and the flags, so an edited source builds anew and an unchanged
 one is loaded as it is.
 
-The host code ``csrc/prefetch.cpp`` (the data loader's prefetch ring, no
-kernel) is built apart, with the host C++ compiler and no ``nvcc``, into
-``build/apex_tpu_torch/host/<hash>/`` at first use (:func:`host_library`),
-so a host without the CUDA toolkit builds it too.
+The host code, ``csrc/prefetch.cpp`` (the data loader's prefetch ring) and
+``csrc/host_pack.cpp`` (the threaded host packing of
+:mod:`apex_tpu_torch.utils.host_pack`), has no kernel: each file is built
+apart, with the host C++ compiler and no ``nvcc``, into
+``build/apex_tpu_torch/host/<hash>/`` at first use (:func:`build_host`,
+:func:`host_library`, :func:`host_pack_library`), so a host without the
+CUDA toolkit builds it too.  Neither is among the ``nvcc`` sources or in
+their hash.
 
 Each wrapper passes ``data_ptr()``s, sizes and the current stream; each C
 entry point returns ``cudaGetLastError()``, which :func:`check` turns into
@@ -47,7 +51,8 @@ import torch
 
 __all__ = ["LAUNCHES", "BuildResult", "build", "load", "library", "check",
            "dtype_code", "stream_of", "NVCC_FLAGS", "FLOATS", "HOST_FLAGS",
-           "build_host", "host_library", "launched", "KERNEL_FUNCTIONS",
+           "build_host", "host_library", "host_pack_library", "launched",
+           "KERNEL_FUNCTIONS",
            "AUX_FUNCTIONS", "launch_name", "is_port_kernel"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -343,15 +348,15 @@ def dtype_code(dtype: torch.dtype, what: str = "the kernel") -> int:
 
 
 # ---------------------------------------------------------------------------
-# host code: the prefetch ring
+# host code: the prefetch ring and the host packing
 # ---------------------------------------------------------------------------
 
 HOST_SOURCE = CSRC / "prefetch.cpp"
-HOST_LIB_NAME = "libapex_tpu_torch_prefetch.so"
+HOST_PACK_SOURCE = CSRC / "host_pack.cpp"
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
-_HOST_LIB: Optional[ctypes.CDLL] = None
-_HOST_TRIED = False
+#: the loaded host libraries by source (None: it could not be built)
+_HOST_LIBS: dict = {}
 
 
 def _host_cxx() -> str:
@@ -359,21 +364,23 @@ def _host_cxx() -> str:
         if cand and shutil.which(cand):
             return shutil.which(cand)
     raise RuntimeError("no host C++ compiler ($CXX, g++ or c++ on PATH): "
-                       "the prefetch ring cannot be built")
+                       "the host code cannot be built")
 
 
 def build_host(src: Path = HOST_SOURCE) -> BuildResult:
     """Compile the host source ``src`` with the host C++ compiler into a
-    shared library unless one for this source and these flags exists."""
+    shared library, ``libapex_tpu_torch_<stem>.so``, unless one for this
+    source and these flags exists."""
     h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
     h.update(src.read_bytes())
     out_dir = BUILD_ROOT / "host" / h.hexdigest()[:16]
-    lib = out_dir / HOST_LIB_NAME
+    name = f"libapex_tpu_torch_{src.stem}.so"
+    lib = out_dir / name
     if lib.exists():
         return BuildResult(lib, 0.0, True, "")
     cxx = _host_cxx()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{HOST_LIB_NAME}.{os.getpid()}.tmp"
+    tmp = out_dir / f"{name}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -384,18 +391,22 @@ def build_host(src: Path = HOST_SOURCE) -> BuildResult:
     return BuildResult(lib, time.perf_counter() - t0, False, proc.stdout)
 
 
-def host_library() -> Optional[ctypes.CDLL]:
-    """The prefetch ring's library with its entry points' signatures set,
-    built at first use; None where it cannot be built or loaded (no host
-    compiler), which the loader reports through ``native_available``."""
-    global _HOST_LIB, _HOST_TRIED
-    if _HOST_LIB is not None or _HOST_TRIED:
-        return _HOST_LIB
-    _HOST_TRIED = True
-    try:
-        lib = ctypes.CDLL(str(build_host().path))
-    except (RuntimeError, OSError, subprocess.SubprocessError):
-        return None
+def _host_lib(src: Path, signatures) -> Optional[ctypes.CDLL]:
+    """The library of host source ``src``, built at first use, with
+    ``signatures(lib)`` applied; None where it cannot be built or loaded
+    (no host compiler), remembered for the process."""
+    if src not in _HOST_LIBS:
+        try:
+            lib = ctypes.CDLL(str(build_host(src).path))
+        except (RuntimeError, OSError, subprocess.SubprocessError):
+            lib = None
+        if lib is not None and not signatures(lib):
+            lib = None
+        _HOST_LIBS[src] = lib
+    return _HOST_LIBS[src]
+
+
+def _prefetch_signatures(lib) -> bool:
     lib.pf_create.restype = ctypes.c_void_p
     lib.pf_create.argtypes = [
         ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -407,8 +418,33 @@ def host_library() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)]
     lib.pf_release.argtypes = [ctypes.c_void_p, ctypes.c_int32]
     lib.pf_destroy.argtypes = [ctypes.c_void_p]
-    _HOST_LIB = lib
-    return lib
+    return True
+
+
+def _host_pack_signatures(lib) -> bool:
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    vpp = ctypes.POINTER(ctypes.c_void_p)
+    lib.apex_torch_host_pack.argtypes = [
+        vpp, i64p, i64p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+    lib.apex_torch_host_pack.restype = None
+    lib.apex_torch_host_unpack.argtypes = [
+        ctypes.c_void_p, i64p, i64p, ctypes.c_int64, vpp, ctypes.c_int64]
+    lib.apex_torch_host_unpack.restype = None
+    lib.apex_torch_host_pack_abi.restype = ctypes.c_int
+    return lib.apex_torch_host_pack_abi() == 1
+
+
+def host_library() -> Optional[ctypes.CDLL]:
+    """The prefetch ring's library (``csrc/prefetch.cpp``), or None where
+    it cannot be built (the loader reports it through
+    ``native_available``)."""
+    return _host_lib(HOST_SOURCE, _prefetch_signatures)
+
+
+def host_pack_library() -> Optional[ctypes.CDLL]:
+    """The host packing library (``csrc/host_pack.cpp``), or None where it
+    cannot be built (the callers take numpy)."""
+    return _host_lib(HOST_PACK_SOURCE, _host_pack_signatures)
 
 
 def stream_of(t: torch.Tensor) -> int:

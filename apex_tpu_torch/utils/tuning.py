@@ -13,9 +13,24 @@ profile > built-in default.  With no profile on disk nothing changes.
 Readers: :func:`get` for values that do not depend on the device (the
 planner's overlap fractions, tooling); :func:`get_on_gpu` for runtime
 defaults, which apply a measured winner only where it was measured, on
-the card.  So far ``parallel.plan.from_tuning`` and
-``parallel.plan.resolve_overlap_fraction`` read the profile; no kernel
-knob does yet.
+the card.  The runtime knobs that read it, each after its explicit
+argument and its environment override: ``flash._resolve_backward``
+(``flash_bwd_impl``) and ``_resolve_fuse`` (``flash_bwd_fuse``), the
+cross-entropy's ``impl="auto"`` (``xent_auto_impl``), ``fused_layer_norm``
+and ``FusedLayerNorm``'s ``use_pallas=None`` (``layer_norm_use_pallas``),
+``MLP(use_pallas=None)`` (``mlp_use_pallas``), ``bert_large_config``
+(``bert_attn_impl``), the ZeRO optimizers' ``impl=None`` (``zero_impl``),
+``collectives.resolve`` (``ddp_collective_scheme``,
+``collective_min_compress_bytes``), ``overlap.resolve_mode``
+(``ddp_overlap``), ``weight_update.resolve_mode``
+(``ddp_update_sharding``) and the zero1 all-gather
+(``ddp_update_allgather_scheme``); ``parallel.plan.from_tuning`` and
+``resolve_overlap_fraction`` read the ``plan_*`` / ``overlap_*`` keys.
+The flash block keys (``flash_block_*``, ``flash_bwd_*block_*``) size the
+JAX package's Pallas blocks against VMEM; the CUDA kernels' tiles are
+fixed when they are compiled, so nothing reads them here.
+``serve_decode_batch`` / ``serve_olevel`` are read by the JAX bench
+harness, not by its package, and get no reader either.
 
 Profile location: ``$APEX_TPU_TUNING_FILE`` if set, else
 ``apex_tpu_torch/tuned_defaults.json`` next to this package (the
@@ -149,13 +164,10 @@ def get(key: str, default: Any = None) -> Any:
 
 
 def _cuda_initialized() -> bool:
-    """Has this process already brought CUDA up?  Never brings it up: the
-    counterpart of the JAX package's ``platform.backends_initialized``."""
-    try:
-        import torch
-        return bool(torch.cuda.is_initialized())
-    except Exception:   # a broken probe reads as "not initialised"
-        return False
+    """Has this process already brought CUDA up?  Never brings it up
+    (:func:`apex_tpu_torch.utils.platform.backends_initialized`)."""
+    from .platform import backends_initialized
+    return backends_initialized()
 
 
 def get_on_gpu(key: str, default: Any = None) -> Any:

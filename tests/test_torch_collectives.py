@@ -424,13 +424,10 @@ def test_chaos_gate_fires_through_every_compressed_entry(ranks):
                          "rs_adasum": True, "ag_int8_blockscale": True}
 
 
-#: JAX public names the port leaves out, with the reason: the tuning
-#: profile's keys, which the JAX package reads only on a TPU (the port has
-#: no tuning profile, so nothing would read them)
-NO_COUNTERPART = {
-    "overlap": {"TUNING_KEY"},
-    "weight_update": {"TUNING_KEY", "AG_TUNING_KEY"},
-}
+#: JAX public names the port leaves out, with the reason (none: the
+#: tuning profile's keys ``TUNING_KEY`` / ``AG_TUNING_KEY`` exist and are
+#: read on the card, ``tests/test_torch_tuning_knobs.py``)
+NO_COUNTERPART = {}
 
 
 @pytest.mark.parametrize("module", ["collectives", "overlap",
@@ -438,8 +435,8 @@ NO_COUNTERPART = {
 def test_every_jax_public_name_has_a_counterpart(module):
     """Each public name of the JAX module (its ``__all__``, else every name
     it defines and does not import) exists in the port's module of the same
-    name, apart from the listed tuning-profile keys, which the port must
-    not carry unread."""
+    name, apart from those :data:`NO_COUNTERPART` lists, which the port
+    must not carry."""
     import importlib
     import inspect
     jm = importlib.import_module(f"apex_tpu.parallel.{module}")

@@ -39,6 +39,9 @@ within 1e-3 relative (one fp16 step of the fp32 update, which is held to
 1e-6).  Every kernel refuses a float64 CUDA tensor with a ``TypeError``
 and launches nothing.
 """
+import hashlib
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -64,6 +67,33 @@ def _peak_close(got, ref, tol):
     err = (got.float() - ref.float()).abs()
     a = ref.float().abs()
     return bool((err <= tol * a.clamp(min=min(1.0, float(a.max())))).all())
+
+
+def _digest(tensors):
+    """sha256 of the tensors' bytes, in order (the bits of a result)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _worst_element(got, ref, tol):
+    """The element of the dicts' tensors nearest (or furthest past) the
+    peak rule's limit: [name, index, got, ref, |got - ref|, limit]."""
+    worst = None
+    for n in ref:
+        g, r = got[n].float().cpu(), ref[n].float().cpu()
+        a = r.abs()
+        limit = tol * a.clamp(min=min(1.0, float(a.max())))
+        ratio = (g - r).abs() / limit
+        i = int(ratio.argmax())
+        if worst is None or float(ratio.reshape(-1)[i]) > worst[0]:
+            idx = [int(v) for v in np.unravel_index(i, tuple(r.shape))]
+            worst = (float(ratio.reshape(-1)[i]), [
+                n, idx, float(g.reshape(-1)[i]), float(r.reshape(-1)[i]),
+                float((g - r).abs().reshape(-1)[i]),
+                float(limit.reshape(-1)[i])])
+    return worst[1]
 
 
 def _norm_close(got, ref, tol):
@@ -1212,11 +1242,18 @@ def test_mha_fast_path_on_the_card_matches_plain(module, mask, dtype,
             n: p.grad.cpu() for n, p in mod.named_parameters()}))
     (go, gg), (co, cg) = results
     tol = 1e-4 if dtype == "float32" else 2e-2
+    # one line for repeated runs in separate processes (``chip_smoke.py
+    # --repeat-mha``): each device's bits and the worst element
+    print("MHA_DIGEST " + json.dumps({
+        "case": f"{module}-{mask}-{dtype}",
+        "card": _digest([go] + [gg[n] for n in sorted(gg)]),
+        "cpu": _digest([co] + [cg[n] for n in sorted(cg)]),
+        "worst": _worst_element(gg, cg, tol)}))
     assert _peak_close(go, co, tol)
     for n in cg:
         if dtype == "float32":
-            assert _peak_close(gg[n], cg[n], tol), (n, float(
-                (gg[n] - cg[n]).abs().max()))
+            assert _peak_close(gg[n], cg[n], tol), _worst_element(
+                {n: gg[n]}, {n: cg[n]}, tol)
         else:   # bf16 sums cancel in the small elements: held in norm
             rel = float((gg[n] - cg[n]).norm() / cg[n].norm())
             assert rel <= tol, (n, rel)
@@ -1577,3 +1614,87 @@ def test_enabled_controller_adds_no_host_sync(cuda_device, tmp_path):
     assert rep.status == "preempted" and rep.resize_to == 7
     assert g.host_reads == g.health_checks + rep.checkpoints
     assert ctl.windows >= 3 and ctl.actions_fired == 1
+
+
+@pytest.mark.parametrize("which", ["profile", "env"])
+def test_flash_block_keys_and_pins_leave_the_launches_unchanged(
+        which, cuda_device, tmp_path, monkeypatch):
+    """The JAX flash block keys and pins size Pallas blocks; the CUDA
+    kernels' tiles are fixed, so a profile or an environment holding them
+    leaves the route, the launches and the bits of a bf16 forward and
+    backward unchanged on the card."""
+    from apex_tpu_torch.utils import tuning
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(8, 300, 64, generator=g).to(cuda_device,
+                                                        torch.bfloat16)
+               for _ in range(3))
+    do = torch.randn(8, 300, 64, generator=g).to(cuda_device, torch.bfloat16)
+    bias = torch.zeros(1, 1, 300, device=cuda_device)
+
+    def run():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        before = dict(build.LAUNCHES)
+        out = pflash.flash_attention(*leaves, bias, heads=2)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        launched = {n: c - before.get(n, 0) for n, c in build.LAUNCHES.items()
+                    if c - before.get(n, 0)}
+        return [out.detach()] + list(grads), launched
+
+    base, base_launched = run()
+    assert base_launched == {"flash_fwd": 1, "flash_bwd": 1}
+    if which == "profile":
+        path = tmp_path / "blocks.json"
+        path.write_text(json.dumps({
+            "flash_block_q": 256, "flash_block_k": 512,
+            "flash_bwd_block_q": 64, "flash_bwd_block_k": 256,
+            "flash_bwd_dq_block_q": 32, "flash_bwd_dq_block_k": 128,
+            "flash_bwd_dkv_block_q": 16, "flash_bwd_dkv_block_k": 256}))
+        monkeypatch.setenv("APEX_TPU_TUNING_FILE", str(path))
+    else:
+        for name, val in (("APEX_TPU_FLASH_BLOCK_Q", "64"),
+                          ("APEX_TPU_FLASH_BLOCK_K", "128"),
+                          ("APEX_TPU_FLASH_BWD_BLOCK_Q", "8"),
+                          ("APEX_TPU_FLASH_BWD_DKV_BLOCK_K", "512"),
+                          ("APEX_TPU_FLASH_VMEM_MB", "0.01")):
+            monkeypatch.setenv(name, val)
+    tuning.reload()
+    try:
+        again, launched = run()
+    finally:
+        monkeypatch.undo()
+        tuning.reload()
+    assert launched == base_launched
+    for a, b in zip(base, again):
+        assert torch.equal(a, b)
+
+
+def test_interop_device_path_on_the_card(cuda_device):
+    """``TorchFusedOptimizer`` over a FusedLAMB (fused) with the parameters
+    on the card: the device path, one l2norm launch a step and nothing
+    else of the port's, the functional ``step_flat``'s bits."""
+    from apex_tpu_torch.interop import TorchFusedOptimizer
+    from apex_tpu_torch.optimizers import FusedLAMB
+    torch.manual_seed(4)
+    model = torch.nn.Sequential(torch.nn.Linear(256, 512), torch.nn.ReLU(),
+                                torch.nn.Linear(512, 64)).to(cuda_device)
+    opt = TorchFusedOptimizer(model.parameters(),
+                              FusedLAMB(lr=1e-3, impl="fused"))
+    ref = FusedLAMB(lr=1e-3, impl="fused")
+    st = ref.init([p.detach().clone() for p in model.parameters()])
+    x = torch.randn(128, 256, device=cuda_device)
+    y = torch.randn(128, 64, device=cuda_device)
+    for _ in range(3):
+        opt.zero_grad()
+        ((model(x) - y) ** 2).mean().backward()
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        opt.step()
+        torch.cuda.synchronize()
+        launched = {n: c - before.get(n, 0) for n, c in build.LAUNCHES.items()
+                    if c - before.get(n, 0)}
+        assert opt.last_path == "device" and launched == {"l2norm": 1}
+        st = ref.step_flat(st, ref.flattener.flatten(grads))
+        for p, want in zip(model.parameters(), ref.model_params(st)):
+            assert torch.equal(p.detach(), want)
