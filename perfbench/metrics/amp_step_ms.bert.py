@@ -1,0 +1,6 @@
+"""Device span of amp_step in the BERT step."""
+from perfbench.lib import readers
+
+
+def read(rec):
+    return readers.amp_step_ms(rec)

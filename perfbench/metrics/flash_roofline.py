@@ -1,0 +1,6 @@
+"""The flash kernels' roofline bound over their device time."""
+from perfbench.lib import readers
+
+
+def read(rec):
+    return readers.roofline(rec, "flash")

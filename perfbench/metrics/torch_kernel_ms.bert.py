@@ -1,0 +1,6 @@
+"""Device ms a BERT step of kernels that are not the port's."""
+from perfbench.lib import readers
+
+
+def read(rec):
+    return readers.torch_kernel_ms(rec)
