@@ -25,6 +25,7 @@ import torch
 from . import amp as _amp
 from . import scaler as _scaler
 from .properties import Properties, opt_levels
+from ..telemetry import trace as _trace
 from ..utils import pytree as _pt
 
 __all__ = ["AmpState", "initialize", "scale_loss", "amp_step",
@@ -221,51 +222,67 @@ def amp_step_multi(amp_state: AmpState, grads_and_ids, *, lr=None):
     if amp_state.optimizer is None:
         raise RuntimeError("amp_step_multi requires an optimizer passed to "
                            "initialize()")
-    total32 = None
-    finites = {}
-    for grads, loss_id in grads_and_ids:
-        g32, finite = _scaler.unscale(amp_state.scalers[loss_id], grads)
-        finites[loss_id] = (finites[loss_id] & finite
-                            if loss_id in finites else finite)
-        total32 = g32 if total32 is None else _pt.tree_map(torch.add,
-                                                           total32, g32)
-    all_finite = None
-    for f in finites.values():
-        all_finite = f if all_finite is None else (all_finite & f)
+    with _trace.span("amp.step"):
+        with _trace.span("amp.unscale"):
+            total32 = None
+            finites = {}
+            for grads, loss_id in grads_and_ids:
+                g32, finite = _scaler.unscale(amp_state.scalers[loss_id],
+                                              grads)
+                finites[loss_id] = (finites[loss_id] & finite
+                                    if loss_id in finites else finite)
+                total32 = g32 if total32 is None else _pt.tree_map(
+                    torch.add, total32, g32)
+            all_finite = None
+            for f in finites.values():
+                all_finite = f if all_finite is None else (all_finite & f)
+            scalers = tuple(
+                _scaler.update(s, finites[i]) if i in finites else s
+                for i, s in enumerate(amp_state.scalers))
 
-    scalers = tuple(
-        _scaler.update(s, finites[i]) if i in finites else s
-        for i, s in enumerate(amp_state.scalers))
+        if _flat_masters_active(amp_state):
+            # flat fast path: pack the grads once, update the flat master,
+            # one unflatten-with-cast gives the model copy
+            opt = amp_state.optimizer
+            fl = _master_flattener(amp_state)
+            with _trace.span("amp.flatten"):
+                flat = fl.flatten(total32)
+            with _trace.span("amp.optimizer"):
+                new_opt_state = opt.step_flat(amp_state.opt_state, flat,
+                                              lr=lr)
+            del flat
+            with _trace.span("amp.select"):
+                new_opt_state = _scaler.apply_if_finite(
+                    all_finite, new_opt_state, amp_state.opt_state)
+            with _trace.span("amp.model_copy"):
+                model_params = fl.unflatten(new_opt_state.master,
+                                            like=amp_state.model_params)
+            return amp_state._replace(model_params=model_params,
+                                      scalers=scalers,
+                                      opt_state=new_opt_state)
 
-    if _flat_masters_active(amp_state):
-        # flat fast path: pack the grads once, update the flat master, one
-        # unflatten-with-cast gives the model copy
-        opt = amp_state.optimizer
-        fl = _master_flattener(amp_state)
-        new_opt_state = opt.step_flat(amp_state.opt_state,
-                                      fl.flatten(total32), lr=lr)
-        new_opt_state = _scaler.apply_if_finite(all_finite, new_opt_state,
-                                                amp_state.opt_state)
-        model_params = fl.unflatten(new_opt_state.master,
-                                    like=amp_state.model_params)
-        return amp_state._replace(model_params=model_params,
-                                  scalers=scalers, opt_state=new_opt_state)
-
-    masters = (amp_state.master_params if amp_state.master_params is not None
-               else amp_state.model_params)
-    new_masters, new_opt_state = amp_state.optimizer.step(
-        amp_state.opt_state, total32, masters, lr=lr)
-    new_masters = _scaler.apply_if_finite(all_finite, new_masters, masters)
-    new_opt_state = _scaler.apply_if_finite(all_finite, new_opt_state,
-                                            amp_state.opt_state)
-    if amp_state.master_params is not None:
-        model_params = _pt.master_to_model(new_masters,
-                                           amp_state.model_params)
-        return amp_state._replace(model_params=model_params,
-                                  master_params=new_masters,
-                                  scalers=scalers, opt_state=new_opt_state)
-    return amp_state._replace(model_params=new_masters, scalers=scalers,
-                              opt_state=new_opt_state)
+        masters = (amp_state.master_params
+                   if amp_state.master_params is not None
+                   else amp_state.model_params)
+        with _trace.span("amp.optimizer"):
+            new_masters, new_opt_state = amp_state.optimizer.step(
+                amp_state.opt_state, total32, masters, lr=lr)
+        with _trace.span("amp.select"):
+            new_masters = _scaler.apply_if_finite(all_finite, new_masters,
+                                                  masters)
+            new_opt_state = _scaler.apply_if_finite(all_finite,
+                                                    new_opt_state,
+                                                    amp_state.opt_state)
+        if amp_state.master_params is not None:
+            with _trace.span("amp.model_copy"):
+                model_params = _pt.master_to_model(new_masters,
+                                                   amp_state.model_params)
+            return amp_state._replace(model_params=model_params,
+                                      master_params=new_masters,
+                                      scalers=scalers,
+                                      opt_state=new_opt_state)
+        return amp_state._replace(model_params=new_masters, scalers=scalers,
+                                  opt_state=new_opt_state)
 
 
 def master_params(amp_state: AmpState):

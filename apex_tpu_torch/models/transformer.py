@@ -53,6 +53,7 @@ import torch.distributed as dist
 from ..contrib.multihead_attn.flash import _dropout_keep
 from ..normalization.fused_layer_norm import fused_layer_norm_affine
 from ..parallel import comm
+from ..telemetry import trace as _trace
 from ..utils import tuning
 from ..utils.device import from_numpy, resolve_device
 
@@ -276,9 +277,10 @@ def _tok_rows(tok, tokens, tp_group):
 def embed(params: Params, tokens, pos_rows, cfg: TransformerConfig,
           tp_group=None):
     emb = params["embed"]
-    x = _tok_rows(emb["tok"], tokens, tp_group).to(cfg.dtype) \
-        + pos_rows.to(cfg.dtype)
-    return ln(x, emb["ln_g"], emb["ln_b"], cfg)
+    with _trace.span("model.embed"):
+        x = _tok_rows(emb["tok"], tokens, tp_group).to(cfg.dtype) \
+            + pos_rows.to(cfg.dtype)
+        return ln(x, emb["ln_g"], emb["ln_b"], cfg)
 
 
 def _row_out(x, w, b, tp_group):
@@ -294,24 +296,26 @@ def _row_out(x, w, b, tp_group):
 def mlp(x, lp, cfg: TransformerConfig, tp_group=None):
     """``x + ff2(gelu(ff1(ln2(x))))``; tanh gelu, as ``jax.nn.gelu``."""
     dt = x.dtype
-    h = ln(x, lp["ln2_g"], lp["ln2_b"], cfg)
-    if tp_group is not None:
-        h = comm.copy_to_tp(h, tp_group)
-    h = h @ lp["w1"].to(dt) + lp["b1"].to(dt)
-    h = F.gelu(h, approximate="tanh")
-    return x + _row_out(h, lp["w2"], lp["b2"], tp_group)
+    with _trace.span("model.mlp"):
+        h = ln(x, lp["ln2_g"], lp["ln2_b"], cfg)
+        if tp_group is not None:
+            h = comm.copy_to_tp(h, tp_group)
+        h = h @ lp["w1"].to(dt) + lp["b1"].to(dt)
+        h = F.gelu(h, approximate="tanh")
+        return x + _row_out(h, lp["w2"], lp["b2"], tp_group)
 
 
 def head(params: Params, x, cfg: TransformerConfig, tp_group=None):
     """Logits ``(..., V)``; with ``tp_group``, this rank's vocabulary
     columns ``(..., V / tp)``."""
     dt = x.dtype
-    x = ln(x, params["head"]["ln_g"], params["head"]["ln_b"], cfg)
-    if tp_group is not None:
-        x = comm.copy_to_tp(x, tp_group)
-    w_out = (params["embed"]["tok"].t() if cfg.tie_embeddings
-             else params["head"]["out"]).to(dt)
-    return x @ w_out
+    with _trace.span("model.head"):
+        x = ln(x, params["head"]["ln_g"], params["head"]["ln_b"], cfg)
+        if tp_group is not None:
+            x = comm.copy_to_tp(x, tp_group)
+        w_out = (params["embed"]["tok"].t() if cfg.tie_embeddings
+                 else params["head"]["out"]).to(dt)
+        return x @ w_out
 
 
 def qkv_heads(h, lp, cfg: TransformerConfig):
@@ -319,11 +323,12 @@ def qkv_heads(h, lp, cfg: TransformerConfig):
     them, or a tensor-parallel rank's)."""
     B, S, _ = h.shape
     dt = h.dtype
-    qkv = h @ lp["wqkv"].to(dt) + lp["bqkv"].to(dt)
-    width = qkv.shape[-1] // 3
-    q, k, v = qkv.split(width, dim=-1)
-    shape = (B, S, width // cfg.head_dim, cfg.head_dim)
-    return q.reshape(shape), k.reshape(shape), v.reshape(shape)
+    with _trace.span("attention.qkv"):
+        qkv = h @ lp["wqkv"].to(dt) + lp["bqkv"].to(dt)
+        width = qkv.shape[-1] // 3
+        q, k, v = qkv.split(width, dim=-1)
+        shape = (B, S, width // cfg.head_dim, cfg.head_dim)
+        return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
 
 def attention_core(q, k, v, cfg: TransformerConfig, mask=None, seed=0,
@@ -331,36 +336,42 @@ def attention_core(q, k, v, cfg: TransformerConfig, mask=None, seed=0,
     """q, k, v (B, H, S, hd) -> ctx (B, H, S, hd).  ``mask``: optional
     key-padding mask (B, S), nonzero = PAD.  ``rate`` > 0: attention
     dropout with the counter-hash mask of ``seed``."""
-    B, H, S, hd = q.shape
-    dt = q.dtype
-    if cfg.attn_impl == "fast":
-        from ..contrib.multihead_attn.flash import flash_attention
-        scale = 1.0 / math.sqrt(hd)
-        qf = (q.float() * scale).to(dt).reshape(B * H, S, hd).contiguous()
+    with _trace.span("attention.core"):
+        B, H, S, hd = q.shape
+        dt = q.dtype
+        if cfg.attn_impl == "fast":
+            from ..contrib.multihead_attn.flash import flash_attention
+            scale = 1.0 / math.sqrt(hd)
+            qf = (q.float() * scale).to(dt).reshape(B * H, S, hd) \
+                .contiguous()
+            if mask is not None:
+                bias = torch.where(mask[:, None, :] != 0, -1e9, 0.0) \
+                    .to(torch.float32)
+            else:
+                bias = torch.zeros((1, 1, S), dtype=torch.float32,
+                                   device=q.device)
+            ctx = flash_attention(qf, k.reshape(B * H, S, hd).contiguous(),
+                                  v.reshape(B * H, S, hd).contiguous(),
+                                  bias.contiguous(), seed=seed,
+                                  causal=cfg.causal, dropout_rate=rate,
+                                  heads=H)
+            return ctx.reshape(B, H, S, hd)
+        # JAX divides by sqrt(hd) in the activation dtype
+        scores = (q @ k.transpose(-1, -2)) / torch.sqrt(
+            torch.tensor(float(hd), dtype=dt, device=q.device))
+        if cfg.causal:
+            causal = torch.ones((S, S), dtype=torch.bool,
+                                device=q.device).tril()
+            scores = scores.masked_fill(~causal, float("-inf"))
         if mask is not None:
-            bias = torch.where(mask[:, None, :] != 0, -1e9, 0.0) \
-                .to(torch.float32)
-        else:
-            bias = torch.zeros((1, 1, S), dtype=torch.float32, device=q.device)
-        ctx = flash_attention(qf, k.reshape(B * H, S, hd).contiguous(),
-                              v.reshape(B * H, S, hd).contiguous(),
-                              bias.contiguous(), seed=seed, causal=cfg.causal,
-                              dropout_rate=rate, heads=H)
-        return ctx.reshape(B, H, S, hd)
-    # JAX divides by sqrt(hd) in the activation dtype
-    scores = (q @ k.transpose(-1, -2)) / torch.sqrt(
-        torch.tensor(float(hd), dtype=dt, device=q.device))
-    if cfg.causal:
-        causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~causal, float("-inf"))
-    if mask is not None:
-        scores = scores.masked_fill(mask[:, None, None, :] != 0, -1e9)
-    probs = torch.softmax(scores.float(), dim=-1).to(dt)
-    if rate > 0.0:
-        bh = torch.arange(B * H, device=q.device)[:, None, None]
-        keep = _dropout_keep(seed, bh, 0, 0, (S, S), rate).view(B, H, S, S)
-        probs = probs * keep.to(dt) / (1.0 - rate)
-    return probs @ v
+            scores = scores.masked_fill(mask[:, None, None, :] != 0, -1e9)
+        probs = torch.softmax(scores.float(), dim=-1).to(dt)
+        if rate > 0.0:
+            bh = torch.arange(B * H, device=q.device)[:, None, None]
+            keep = _dropout_keep(seed, bh, 0, 0, (S, S), rate) \
+                .view(B, H, S, S)
+            probs = probs * keep.to(dt) / (1.0 - rate)
+        return probs @ v
 
 
 def attention(h, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0,
@@ -383,23 +394,27 @@ def attention(h, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0,
             raise ValueError(
                 "attn_override does not compose with a key-padding mask "
                 "(the sequence-parallel collectives carry no mask plumbing)")
-        ctx = attn_override(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=cfg.causal)
-        ctx = ctx.to(h.dtype)
+        with _trace.span("attention.core"):
+            ctx = attn_override(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=cfg.causal)
+            ctx = ctx.to(h.dtype)
     else:
         ctx = attention_core(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), cfg, mask, seed, rate)
-    ctx = ctx.transpose(1, 2).reshape(B, S, -1)
-    return _row_out(ctx, lp["wo"], lp["bo"], tp_group), k, v
+    with _trace.span("attention.out"):
+        ctx = ctx.transpose(1, 2).reshape(B, S, -1)
+        return _row_out(ctx, lp["wo"], lp["bo"], tp_group), k, v
 
 
 def block(x, lp, cfg: TransformerConfig, mask=None, seed=0, rate=0.0,
           attn_override=None, tp_group=None):
     """One pre-LN layer: ``x + attn(ln1(x))``, then the MLP block."""
-    h = ln(x, lp["ln1_g"], lp["ln1_b"], cfg)
-    out, _, _ = attention(h, lp, cfg, mask, seed, rate, attn_override,
-                          tp_group)
-    return mlp(x + out, lp, cfg, tp_group)
+    with _trace.span("model.attention"):
+        h = ln(x, lp["ln1_g"], lp["ln1_b"], cfg)
+        out, _, _ = attention(h, lp, cfg, mask, seed, rate, attn_override,
+                              tp_group)
+        x = x + out
+    return mlp(x, lp, cfg, tp_group)
 
 
 def _layer_seeds(n_layers: int, dropout_rng: Optional[torch.Generator]
@@ -435,10 +450,12 @@ def transformer_apply(params: Params, tokens: torch.Tensor,
             f"attn_impl must be 'default' or 'fast', got {cfg.attn_impl!r}")
     S = tokens.shape[1]
     off = 0 if pos_offset is None else int(pos_offset)
-    x = embed(params, tokens, params["embed"]["pos"][off:off + S][None], cfg,
-              tp_group)
-    # one unbind per stacked leaf: its backward stacks the layer grads once
-    stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    with _trace.span("model.embed"):
+        pos_rows = params["embed"]["pos"][off:off + S][None]
+        # one unbind per stacked leaf: its backward stacks the layer grads
+        # once
+        stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    x = embed(params, tokens, pos_rows, cfg, tp_group)
     n_layers = params["layers"]["wqkv"].shape[0]
     rate = cfg.dropout if dropout_rng is not None else 0.0
     for i, seed in enumerate(_layer_seeds(n_layers, dropout_rng)):
@@ -475,19 +492,20 @@ def transformer_loss(params: Params, batch: Dict[str, torch.Tensor],
                                attn_override=attn_override,
                                pos_offset=pos_offset, tp_group=tp_group)
     B, S, V = logits.shape
-    if tp_group is None:
-        nll = softmax_xentropy_loss(logits.reshape(B * S, V),
-                                    batch["targets"].reshape(B * S),
-                                    smoothing, -1, False, cfg.xent_impl)
-    else:
-        nll = vocab_parallel_xentropy(logits.reshape(B * S, V),
-                                      batch["targets"].reshape(B * S),
-                                      tp_group, smoothing)
-    nll = nll.reshape(B, S)
-    w = batch.get("weights")
-    if w is None:
-        return nll.mean()
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    with _trace.span("model.loss"):
+        if tp_group is None:
+            nll = softmax_xentropy_loss(logits.reshape(B * S, V),
+                                        batch["targets"].reshape(B * S),
+                                        smoothing, -1, False, cfg.xent_impl)
+        else:
+            nll = vocab_parallel_xentropy(logits.reshape(B * S, V),
+                                          batch["targets"].reshape(B * S),
+                                          tp_group, smoothing)
+        nll = nll.reshape(B, S)
+        w = batch.get("weights")
+        if w is None:
+            return nll.mean()
+        return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
 class _VocabParallelXent(torch.autograd.Function):

@@ -6,9 +6,11 @@ push NVTX ranges; (b) ``parse`` reads the profiler's database; (c) ``prof``
 maps kernels to layers and computes FLOPs/bytes.  Here:
 
   * :func:`annotate` / :func:`annotate_function` name regions of a step: a
-    ``torch.profiler.record_function`` range (which a capture mirrors onto
-    the device's streams as ``gpu_user_annotation``) plus, once CUDA is
-    initialised, an NVTX range;
+    ``torch.profiler.record_function`` range while a capture records
+    (:func:`apex_tpu_torch.telemetry.trace.profiler_range`, the range every
+    span of the port opens; a capture mirrors it onto the device's
+    streams as ``gpu_user_annotation``) plus, once CUDA is initialised,
+    an NVTX range;
   * :func:`start_trace` / :func:`stop_trace` / :func:`trace` capture a
     ``torch.profiler`` window (CPU and, where there is a card, CUDA
     activity) and write it as a Chrome trace (``*.pt.trace.json``) under
@@ -34,6 +36,8 @@ import os
 import socket
 
 import torch
+
+from ..telemetry import trace as _trace
 
 
 class _State:
@@ -64,15 +68,16 @@ def is_initialized() -> bool:
 
 @contextlib.contextmanager
 def annotate(name: str, **attrs):
-    """Named range visible in profiler traces: a
-    ``torch.profiler.record_function`` range, and an NVTX range once CUDA
-    is initialised.  ``attrs`` are appended to the name
+    """Named range visible in profiler traces: the spans' profiler range
+    (:func:`~apex_tpu_torch.telemetry.trace.profiler_range`, a
+    ``record_function`` range while a capture records), and an NVTX range
+    once CUDA is initialised.  ``attrs`` are appended to the name
     (``name|k=v,...``), as the JAX package forms it."""
     if attrs:
         name = name + "|" + ",".join(f"{k}={v}" for k, v in attrs.items())
     nvtx = (torch.cuda.nvtx.range(name) if torch.cuda.is_available()
             and torch.cuda.is_initialized() else contextlib.nullcontext())
-    with torch.profiler.record_function(name), nvtx:
+    with _trace.profiler_range(name), nvtx:
         yield
 
 

@@ -36,7 +36,8 @@ reads a ``torch.profiler`` (Kineto) capture, written by
     :class:`~.registry.Registry` and one ``timeline.straggler`` event per
     flagged row;
   * :func:`merge_host_device` -- host Tracer spans and the device lanes
-    in ONE Chrome timeline on a shared epoch;
+    in ONE Chrome timeline on a shared epoch, aligned on the spans a
+    profiler session mirrored (:func:`mirror_offset`);
   * :func:`port_launches` -- the port's kernel launches per step window,
     found by their CUDA function names;
   * :func:`cli` -- ``python -m apex_tpu_torch.telemetry timeline
@@ -51,6 +52,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .attrib import hlo_op_class, kernel_op_class
@@ -58,7 +60,7 @@ from .attrib import hlo_op_class, kernel_op_class
 __all__ = [
     "device_lanes", "event_op_class", "is_collective_event",
     "step_windows", "decompose", "straggler_rows", "observe",
-    "merge_host_device", "load_events", "summarize",
+    "merge_host_device", "mirror_offset", "load_events", "summarize",
     "format_decomposition", "port_launches", "cli",
     "STRAGGLER_Z", "STRAGGLER_MIN_SLOWDOWN", "DEVICE_CATS",
 ]
@@ -457,25 +459,82 @@ def observe(decomp: dict, registry) -> None:
 # correlated host + device timeline
 # ---------------------------------------------------------------------------
 
+def mirror_offset(host_events: Sequence[dict],
+                  device_events: Sequence[dict]
+                  ) -> Optional[Tuple[float, int]]:
+    """The host clock's offset onto the profiler's, from host spans a
+    profiler session mirrored (every span of the port opens a
+    ``record_function`` range of its name while a session records, so
+    the capture holds a ``user_annotation`` row for each): per name, the
+    host spans and the rows paired in order, the median gap over every
+    pair.  Where one side holds more of a name (a capture window inside
+    a longer run), the run of them paired is the one whose durations
+    agree best.  Returns ``(offset_us, pairs)``, or None where no name
+    has a pair."""
+    host: Dict[str, List[dict]] = {}
+    for e in host_events:
+        if e.get("ph", "X") == "X" and e.get("dur") is not None \
+                and e.get("cat") != _DEVICE_RANGE_CAT:
+            host.setdefault(e.get("name"), []).append(e)
+    rows: Dict[str, List[dict]] = {}
+    for e in device_events:
+        if e.get("cat") == "user_annotation" and e.get("name") in host:
+            rows.setdefault(e["name"], []).append(e)
+    gaps: List[float] = []
+    for name, ds in rows.items():
+        hs = sorted(host[name], key=lambda e: float(e["ts"]))
+        ds = sorted(ds, key=lambda e: float(e["ts"]))
+        short, long_ = (hs, ds) if len(hs) <= len(ds) else (ds, hs)
+        n = len(short)
+
+        def misfit(k):
+            return sum(abs(float(a["dur"]) - float(b["dur"]))
+                       for a, b in zip(short, long_[k:k + n]))
+        k = min(range(len(long_) - n + 1), key=misfit)
+        pairs = zip(short, long_[k:k + n]) if short is hs \
+            else zip(long_[k:k + n], short)
+        gaps.extend(float(d["ts"]) - float(h["ts"]) for h, d in pairs)
+    if not gaps:
+        return None
+    return statistics.median(gaps), len(gaps)
+
+
 def merge_host_device(host, device_events: Sequence[dict], *,
                       host_offset_us: Optional[float] = None) -> dict:
     """One Chrome/Perfetto document holding host Tracer spans AND the
     device lanes.  ``host`` is a :meth:`Tracer.export` doc (or its
     ``traceEvents`` list); ``device_events`` the parsed profiler events.
-    The two clocks share no epoch, so host timestamps are rebased by
-    ``host_offset_us`` -- by default aligning the earliest host event
-    with the earliest device event.  Device lanes keep their pids; host
-    lanes are remapped clear of them."""
+    The tracer's clock and the profiler's share no epoch, so host
+    timestamps are rebased by ``host_offset_us``; by default by the
+    spans the profiler mirrored (:func:`mirror_offset`), and only in a
+    capture with no mirrored span by aligning the earliest host event
+    with the earliest device event, a guess.  The document's
+    ``alignment`` says which (``method``: ``given``, ``mirrored_spans``
+    or ``first_event_guess``; ``offset_us``; ``pairs``).  Device lanes
+    keep their pids; host lanes are remapped clear of them.
+
+    Divergence from the JAX module: the mirrored-span alignment and the
+    ``alignment`` key (the JAX package's host spans never reach its
+    profiler, so it always guesses)."""
     if isinstance(host, dict):
         host_events = [e for e in host.get("traceEvents", [])
                        if e.get("ph") in ("X", "i", "C")]
     else:
         host_events = [dict(e) for e in host]
     dev_spans = [e for e in device_events if e.get("dur") is not None]
+    alignment = {"method": "given", "offset_us": host_offset_us, "pairs": 0}
     if host_offset_us is None:
-        h0 = min((e["ts"] for e in host_events), default=0.0)
-        d0 = min((e["ts"] for e in dev_spans), default=0.0)
-        host_offset_us = d0 - h0
+        mirrored = mirror_offset(host_events, device_events)
+        if mirrored is not None:
+            host_offset_us, pairs = mirrored
+            alignment = {"method": "mirrored_spans",
+                         "offset_us": host_offset_us, "pairs": pairs}
+        else:
+            h0 = min((e["ts"] for e in host_events), default=0.0)
+            d0 = min((e["ts"] for e in dev_spans), default=0.0)
+            host_offset_us = d0 - h0
+            alignment = {"method": "first_event_guess",
+                         "offset_us": host_offset_us, "pairs": 0}
     used_pids = {e.get("pid") for e in dev_spans}
     host_pid = 1
     while host_pid in used_pids:
@@ -509,7 +568,8 @@ def merge_host_device(host, device_events: Sequence[dict], *,
         ev["pid"] = host_pid
         ev["ts"] = float(e.get("ts", 0.0)) + host_offset_us
         out.append(ev)
-    return {"displayTimeUnit": "ms", "traceEvents": out}
+    return {"displayTimeUnit": "ms", "traceEvents": out,
+            "alignment": alignment}
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,20 @@ a ``slow_step_timeline`` flight document, and :func:`load_chrome` reads
 Chrome JSON (plain, gzip, or a streaming array) and profiler directories
 through ``pyprof.parse``.
 
-Nothing here touches the device: the profiler is imported inside the
-sentinel's capture only.  Library hooks route through the process-default
-tracer (:func:`set_tracer`); with none installed every hook is one
-attribute check.
+Divergence from the JAX module: while a ``torch.profiler`` session
+records, every span (:func:`span`, :func:`traced`, :meth:`Tracer.span`)
+also opens a ``torch.profiler.record_function`` range of its name,
+whether or not a tracer is installed (:func:`profiler_range`).  The range
+lands in the profiler's trace on its clock, and Kineto mirrors it onto
+the streams its launches went to as ``gpu_user_annotation``, so a span
+names device work without a second clock.  The JAX package's spans never
+reach its profiler.  :data:`STEP_SPANS` names the spans inside the
+training step.
+
+Nothing here touches the device.  Library hooks route through the
+process-default tracer (:func:`set_tracer`); with none installed and no
+profiler recording, every hook is two attribute checks and :func:`span`
+returns :data:`NULL_SPAN`.
 """
 from __future__ import annotations
 
@@ -45,9 +55,12 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from torch.autograd import profiler as _profiler
+
 __all__ = [
     "Tracer", "FlightRecorder", "SlowStepSentinel", "NULL_SPAN",
-    "set_tracer", "get_tracer", "active", "span", "traced",
+    "STEP_SPANS", "set_tracer", "get_tracer", "active", "span", "traced",
+    "profiler_range",
     "note_span", "note_event", "note_flush", "note_step", "note_counter",
     "load_chrome", "span_summary", "format_span_summary",
     "dump_violations", "cli",
@@ -99,36 +112,74 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+#: The spans inside the training step (``train.train_step`` and what it
+#: calls), each opened where its work happens.  ``train.forward`` holds
+#: the ``model.*`` spans and ``amp.step`` the other ``amp.*``; the
+#: ``attention.*`` spans nest in ``model.attention``.
+STEP_SPANS = (
+    "train.forward", "train.backward",
+    "model.embed", "model.attention", "attention.qkv", "attention.core",
+    "attention.out", "model.mlp", "model.head", "model.loss",
+    "amp.step", "amp.unscale", "amp.flatten", "amp.optimizer",
+    "amp.select", "amp.model_copy",
+)
+
+
 class _Span:
-    """One live span handle (context manager + decorator).  Handles
-    nest LIFO within a thread; for concurrent threads create one handle
-    per thread (``tracer.span(...)`` per ``with`` statement — the
-    normal usage — does exactly that)."""
+    """One live span handle (context manager + decorator): the tracer's
+    ``perf_counter_ns`` interval where ``tracer`` is given, and a
+    ``record_function`` range of ``name`` where a profiler session is
+    recording when it opens.  Handles nest LIFO within a thread; for
+    concurrent threads create one handle per thread
+    (``tracer.span(...)`` per ``with`` statement -- the normal usage --
+    does exactly that)."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0s")
+    __slots__ = ("_tracer", "name", "attrs", "_open")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+    def __init__(self, tracer: Optional["Tracer"], name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
-        self._t0s: List[int] = []
+        self._open: List[tuple] = []
 
     def __enter__(self):
-        self._t0s.append(time.perf_counter_ns())
+        rng = None
+        if _profiler._is_profiler_enabled:
+            rng = _profiler.record_function(self.name)
+            rng.__enter__()
+        self._open.append((time.perf_counter_ns(), rng))
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter_ns()
-        t0 = self._t0s.pop() if self._t0s else t1
-        self._tracer._record(self.name, t0, t1 - t0, self.attrs)
+        t0, rng = self._open.pop() if self._open else (t1, None)
+        if rng is not None:
+            rng.__exit__(*exc)
+        if self._tracer is not None:
+            self._tracer._record(self.name, t0, t1 - t0, self.attrs)
         return False
 
     def __call__(self, fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            with self._tracer.span(self.name, **self.attrs):
+            handle = (profiler_range(self.name) if self._tracer is None
+                      else self._tracer.span(self.name, **self.attrs))
+            with handle:
                 return fn(*args, **kwargs)
         return wrapped
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler session records, else :data:`NULL_SPAN`.  The check is one
+    read of the flag ``torch.autograd.profiler`` sets on entering a
+    session (measured cheaper than asking the profiler's C++ state), so
+    with no session nothing is allocated and no ``RecordFunction`` made.
+    The one range mechanism of the port: every span, and
+    :func:`~apex_tpu_torch.pyprof.annotate`, goes through it."""
+    if not _profiler._is_profiler_enabled:
+        return NULL_SPAN
+    return _Span(None, name, {})
 
 
 def env_flag(name: str, default: bool = True) -> bool:
@@ -542,9 +593,11 @@ class Tracer:
     # -- recording ----------------------------------------------------------
     def span(self, name: str, **attrs):
         """A context manager timing one span (also usable as a
-        decorator).  Disabled tracer: the shared no-op singleton."""
+        decorator), mirrored into a recording profiler session.
+        Disabled tracer: :func:`profiler_range` alone (the shared no-op
+        singleton with no session)."""
         if not self.enabled:
-            return NULL_SPAN
+            return profiler_range(name)
         return _Span(self, name, attrs)
 
     def add(self, name: str, dur_s: float, *, t0_ns: Optional[int] = None,
@@ -710,29 +763,28 @@ def active() -> bool:
 
 
 def span(name: str, **attrs):
-    """Module-level span against the default tracer; the shared no-op
-    singleton when none is installed (or it is disabled).  NOTE: this
-    resolves the tracer at CALL time — for decorating a function at
+    """Module-level span against the default tracer, mirrored into a
+    recording profiler session (:func:`profiler_range` alone with no
+    enabled tracer); the shared no-op singleton with neither.  NOTE:
+    this resolves the tracer at CALL time — for decorating a function at
     import time use :func:`traced`, which resolves per call."""
     tr = _default
-    if tr is None or not tr.enabled:
-        return NULL_SPAN
-    return tr.span(name, **attrs)
+    if tr is not None and tr.enabled:
+        return _Span(tr, name, attrs)
+    return profiler_range(name)
 
 
 def traced(name: Optional[str] = None, **attrs):
     """Decorator form: wraps ``fn`` in a span named ``name`` (default:
-    the qualified function name), resolving the default tracer at each
-    call — safe to apply at import time before any tracer exists."""
+    the qualified function name), resolving the default tracer and the
+    profiler's state at each call — safe to apply at import time before
+    any tracer exists."""
     def deco(fn):
         label = name or fn.__qualname__
 
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            tr = _default
-            if tr is None or not tr.enabled:
-                return fn(*args, **kwargs)
-            with tr.span(label, **attrs):
+            with span(label, **attrs):
                 return fn(*args, **kwargs)
         return wrapped
     return deco

@@ -198,6 +198,7 @@ from .optimizers import FusedAdam
 from .parallel.distributed import DistributedDataParallel
 from .parallel.mesh import group_size, resolve_group
 from .reparameterization import apply_weight_norm, compute_weights
+from .telemetry import trace as _trace
 from .utils.device import resolve_device
 from .utils.pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
@@ -226,10 +227,12 @@ def train_step(amp_state: amp.AmpState, batch: Dict[str, torch.Tensor],
     leaves, treedef = tree_flatten(amp_state.model_params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     params = tree_unflatten(treedef, leaves)
-    loss = transformer_loss(params, batch, cfg, dropout_rng=dropout_rng,
-                            smoothing=smoothing)
-    scaled = amp.scale_loss(loss, amp_state)
-    grads = torch.autograd.grad(scaled, leaves)
+    with _trace.span("train.forward"):
+        loss = transformer_loss(params, batch, cfg, dropout_rng=dropout_rng,
+                                smoothing=smoothing)
+        scaled = amp.scale_loss(loss, amp_state)
+    with _trace.span("train.backward"):
+        grads = torch.autograd.grad(scaled, leaves)
     new_state = amp.amp_step(amp_state, tree_unflatten(treedef, list(grads)))
     return new_state, loss.detach()
 

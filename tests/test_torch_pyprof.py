@@ -10,7 +10,8 @@ plus each record's ``cat``.  Self times, the op table and its rendering
 equal the JAX ones on those events.  ``prof``'s ceilings keep the JAX
 ``cpu`` row and override grammar and gain an ``h100`` row; its
 calibration equals the JAX one on the same artifact.  ``annotate`` forms
-the JAX names, ``trace`` writes a ``torch.profiler`` Chrome trace that
+the JAX names and opens them through the spans' range helper
+(``telemetry.trace.profiler_range``), ``trace`` writes a ``torch.profiler`` Chrome trace that
 ``parse.load`` reads back with the step ranges in it, and ``server``
 raises ``NotImplementedError``.
 """
@@ -26,6 +27,7 @@ from apex_tpu.pyprof import prof as jax_prof
 from apex_tpu_torch import pyprof
 from apex_tpu_torch.pyprof import parse as port_parse
 from apex_tpu_torch.pyprof import prof as port_prof
+from apex_tpu_torch.telemetry import trace as port_trace
 
 
 def _raw(kineto: bool):
@@ -145,13 +147,12 @@ def test_calibration_equals_jax():
 
 def test_annotate_names_and_trace_round_trip(tmp_path):
     names = []
-    orig = torch.profiler.record_function
+    orig = port_trace.profiler_range
 
-    class Spy(orig):
-        def __init__(self, name, *a, **k):
-            names.append(name)
-            super().__init__(name, *a, **k)
-    torch.profiler.record_function = Spy
+    def spy(name):
+        names.append(name)
+        return orig(name)
+    port_trace.profiler_range = spy
     try:
         with pyprof.annotate("fwd", layer=3, kind="attn"):
             pass
@@ -166,7 +167,7 @@ def test_annotate_names_and_trace_round_trip(tmp_path):
         step()
         other()
     finally:
-        torch.profiler.record_function = orig
+        port_trace.profiler_range = orig
     assert names == ["fwd|layer=3,kind=attn", "step", "named"]
 
     with pyprof.trace(str(tmp_path)):

@@ -6,7 +6,8 @@ shapes: HLO-named device lanes, host ``train.step`` spans) the port's
 ``decompose``, ``straggler_rows``, ``merge_host_device``,
 ``format_decomposition`` and the interval core (``_merge`` /
 ``_subtract`` / ``_clip`` / ``_total_us``) give exactly the JAX results:
-the same arithmetic on the same floats, compared with ``==``.  A Kineto
+the same arithmetic on the same floats, compared with ``==`` (the merged
+document's ``alignment`` aside, port-only).  A Kineto
 trace of one full-width O5 BERT-large step, captured on the card by
 ``chip_smoke.py`` phase 25 and trimmed to that step's device work and
 step ranges (``torch_fixtures/o5_step_trace.json.gz``), decomposes into
@@ -14,7 +15,9 @@ the split the test computes by hand from the kernels' intervals (to
 1e-6 ms, the decomposition's rounding), and its hand-kernel launches,
 found by their CUDA function names, are phase 7's a step.  The goodput
 ledger's exposed-comm carve, fed a decomposition, partitions the wall
-exactly as the JAX ledger does.
+exactly as the JAX ledger does.  The guard's ``train.step`` span, mirrored
+into a CPU capture, gives one step window a step, and aligns the
+tracer's spans onto the capture.
 """
 import gzip
 import json
@@ -167,9 +170,13 @@ def test_merge_host_device_equals_jax():
     devs = _stepped_mesh()
     hosts = [host("train.step", 5.0 + 1000 * s, 800, step=s)
              for s in range(3)]
-    for off in (None, 17.25):
-        assert port_tl.merge_host_device(hosts, devs, host_offset_us=off) \
-            == jax_tl.merge_host_device(hosts, devs, host_offset_us=off)
+    # no mirrored span in these lists: the port guesses as the JAX module
+    # does, and says so
+    for off, method in ((None, "first_event_guess"), (17.25, "given")):
+        doc = port_tl.merge_host_device(hosts, devs, host_offset_us=off)
+        assert doc.pop("alignment")["method"] == method
+        assert doc == jax_tl.merge_host_device(hosts, devs,
+                                               host_offset_us=off)
 
 
 def test_kernel_names_bin_into_classes():
@@ -293,3 +300,48 @@ def test_timeline_cli_renders_the_card_trace(capsys):
     assert port_tl.cli([FIXTURE, "--json"]) == 0
     doc = json.loads(capsys.readouterr().out)
     assert doc["kind"] == "device_timeline" and doc["n_steps"] == 1
+
+
+def test_guard_train_step_is_mirrored_into_a_cpu_capture(tmp_path):
+    """The guard's ``train.step`` span, with a tracer installed, lands in
+    a ``torch.profiler`` capture on the CPU as a range of its own: one
+    step window per step, and the tracer's spans merged onto the
+    capture by the mirrored spans, each on its own row."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.resilience import GuardConfig, TrainGuard
+    from apex_tpu_torch.telemetry import trace as port_trace
+
+    def step(w, batch):
+        g = 2.0 * (w - batch)
+        return w - 0.1 * g, torch.sum((w - batch) ** 2)
+
+    tr = port_trace.Tracer(enabled=True)
+    prev = port_trace.set_tracer(tr)
+    try:
+        for _ in range(3):                 # steps before the capture
+            with tr.span("train.step"):
+                pass
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            TrainGuard(step, GuardConfig(enabled=True, check_every=2)).run(
+                torch.zeros(4), lambda i: torch.full((4,), float(i)), 5)
+    finally:
+        port_trace.set_tracer(prev)
+    path = str(tmp_path / "capture.pt.trace.json")
+    prof.export_chrome_trace(path)
+    events = port_tl.load_events(path)
+    rows = sorted((e for e in events if e["name"] == "train.step"),
+                  key=lambda e: e["ts"])
+    assert len(rows) == 5 and {e["cat"] for e in rows} == {"user_annotation"}
+    assert port_tl.step_windows(events) == [
+        (i, e["ts"], e["ts"] + e["dur"]) for i, e in enumerate(rows)]
+    merged = port_tl.merge_host_device(tr.export(), events)
+    align = merged["alignment"]
+    assert align["method"] == "mirrored_spans" and align["pairs"] >= 5
+    host_pid = merged["traceEvents"][0]["pid"]
+    host_steps = sorted(e["ts"] for e in merged["traceEvents"]
+                        if e.get("pid") == host_pid
+                        and e.get("name") == "train.step")[-5:]
+    for h, r in zip(host_steps, rows):
+        assert abs(h - r["ts"]) < 50.0     # us: the span and its row open
+                                           # together

@@ -12,7 +12,13 @@ capture (on the CPU here) lands as a Chrome trace the port's
 ``load_chrome`` reads; a capture holding a card's device lanes is
 decomposed into a ``slow_step_timeline`` dump the JAX ``dump_violations``
 accepts, its decomposition fed to the tracer's goodput ledger.  A
-disabled tracer hands out the shared null span and records nothing.  Every test restores the default tracer.
+disabled tracer hands out the shared null span and records nothing.
+
+Port-only: with no profiler session and no tracer, ``span`` is the null
+span and 10,000 of them allocate nothing; under ``torch.profiler`` every
+span (module-level, a disabled tracer's, ``traced``) leaves a
+``user_annotation`` row of its name; with a tracer installed a span is
+both recorded and mirrored.  Every test restores the default tracer.
 """
 import json
 import threading
@@ -246,3 +252,84 @@ def test_trace_cli(tmp_path, capsys):
     assert "span timeline summary" in out and "more names" in out
     empty = port_trace.Tracer(enabled=True).write(str(tmp_path / "e.json"))
     assert port_trace.cli([empty]) == 1
+
+
+def _traced_alloc(loop, n):
+    """Bytes a loop leaves allocated, and its peak, under tracemalloc."""
+    import tracemalloc
+    loop(10)
+    tracemalloc.start()
+    try:
+        loop(10)
+        tracemalloc.reset_peak()
+        c0, _ = tracemalloc.get_traced_memory()
+        loop(n)
+        c1, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    return c1 - c0, peak - c0
+
+
+def test_span_with_no_profiler_and_no_tracer_is_null_and_allocates_nothing():
+    assert port_trace.span("model.attention") is port_trace.NULL_SPAN
+    assert port_trace.profiler_range("x") is port_trace.NULL_SPAN
+    assert port_trace.Tracer(enabled=False).span("x") is \
+        port_trace.NULL_SPAN
+
+    def spans(n):
+        for _ in range(n):
+            with port_trace.span("model.attention"):
+                pass
+
+    def null(n):
+        for _ in range(n):
+            with port_trace.NULL_SPAN:
+                pass
+    # 10,000 spans allocate no more than the same loop over the singleton
+    assert _traced_alloc(spans, 10_000) == _traced_alloc(null, 10_000)
+
+
+def _annotations(prof):
+    return [e.name for e in prof.events()
+            if e.device_type.name == "CPU" and e.name.startswith("t.")]
+
+
+def test_span_under_the_profiler_leaves_a_user_annotation_row(tmp_path):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    @port_trace.traced("t.deco")
+    def f(x):
+        return x + 1
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with port_trace.span("t.outer", step=3):
+            with port_trace.Tracer(enabled=False).span("t.inner"):
+                torch.ones(4).sum()
+            f(torch.ones(2))
+    assert sorted(_annotations(prof)) == ["t.deco", "t.inner", "t.outer"]
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        rows = [e for e in json.load(fh)["traceEvents"]
+                if e.get("name", "").startswith("t.")]
+    assert {e["cat"] for e in rows} == {"user_annotation"}
+    # outside a session the same calls are the null span again
+    assert port_trace.span("t.outer") is port_trace.NULL_SPAN
+
+
+def test_span_with_a_tracer_records_and_mirrors_into_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    tr = port_trace.Tracer(enabled=True)
+    port_trace.set_tracer(tr)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with port_trace.span("t.step", step=1):
+            with tr.span("t.inner"):
+                pass
+    with port_trace.span("t.after"):       # no session: the tracer alone
+        pass
+    assert sorted(_annotations(prof)) == ["t.inner", "t.step"]
+    doc = tr.export()
+    spans = {e["name"]: e for e in doc["traceEvents"] if e["ph"] == "X"}
+    assert set(spans) == {"t.step", "t.inner", "t.after"}
+    assert spans["t.step"]["args"] == {"step": 1}
+    assert spans["t.step"]["ts"] <= spans["t.inner"]["ts"]
