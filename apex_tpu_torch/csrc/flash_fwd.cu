@@ -43,7 +43,18 @@
 //     warpgroup's diagonal, and tiles wholly above it are not loaded;
 //   * the grid: 128-row query tiles (two warpgroups) where they still fill
 //     the 132 SMs, else 64 (serving's BH 16 x 512 causal gives 128 CTAs of
-//     64 rows, not 64 of 128); causal grids take the longest rows first.
+//     64 rows, not 64 of 128); causal grids take the longest rows first;
+//   * dropout, as BERT-large's pretraining runs it (BH 1024 x 512^2 x 64,
+//     rate 0.1, every layer): a thread holds 64 probabilities of two rows
+//     a 128-key tile.  Divided by 1 - rate, each compiled to an IEEE
+//     division (a reciprocal, a check, a branch to a slow path) that
+//     serialised the unrolled loop and made the two-warpgroup instance
+//     spill: the call took 3.5x its dropout-free time (1.217 against 0.349
+//     ms on an H100).  Now, as the backward does, 1 / (1 - rate) is taken
+//     once and a kept probability multiplied by it, so the forward's
+//     dropped-out P is the backward's (0.496 ms, 1.46x; without spills, so
+//     one instance serves every rate).  Multiplying by a selected 1 / (1 -
+//     rate) or 0 through __fmul_rn, the backward's form, took 0.516 ms.
 // fp32 at D <= 128 (`flash_fwd_tf32_kernel<D, W>`, the fp32 flagship's,
 // the MoE step's and the elastic step's forward): the same TPU kernel, on
 // the tensor cores in 3xTF32 (`sm90_tf32.cuh`), which keeps fp32's
@@ -75,9 +86,12 @@
 //     above a warp's rows is skipped by that warp.
 // Every dtype at D = 256 (whose k / v stages the 128-key ring cannot
 // hold): one CTA of 4 warps per (bh, 16-row q tile), scalar FMA on fp32
-// copies in shared memory, one lane per key of a 32-key tile; rows'
-// running max/sum live in registers, the output accumulator in registers
-// (D/32 per lane); P rounds to E before P v, as the plain version's
+// copies in shared memory, one lane per key of a 32-key tile, a warp's
+// four rows' q k^T summed together (a k element read from shared memory
+// serves the four rows; summed row by row, ptxas spilled 2.7 KB: 6.88 ms
+// a call against 1.10 at BH 32 x 512^2 on an H100); rows' running
+// max/sum live in registers, the output accumulator in registers (D/32
+// per lane); P rounds to E before P v, as the plain version's
 // `p.to(v.dtype)`.
 // D > 256 (padded to a multiple of 128): the scalar kernel split over
 // columns, one CTA per (bh, 16-row q tile, 128-column output chunk), q k^T
@@ -114,7 +128,7 @@ struct Params {
   int bias_b, bias_q;      // bias shape (bias_b, bias_q, sk), bias_b in {1, B}
   int causal;
   uint32_t drop_threshold; // 0 = no dropout
-  float keep_div;          // 1 - rate: kept probabilities are divided by it
+  float keep_div;          // 1 - rate: kept probabilities are multiplied by 1 / it
   uint32_t seed;
 };
 
@@ -197,6 +211,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int row_a = wg_row0 + (warp & 3) * 16 + (lane >> 2);  // this thread's two rows
   const int row_b = row_a + 8;
   const uint32_t q_addr = ring.res_addr(0);
+  const float inv_keep = 1.f / p.keep_div;  // dropout's scale, once
 
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   float o[D / 2];
@@ -268,7 +283,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
           const uint32_t row = e < 2 ? row_a : row_b;
           const uint32_t col = (uint32_t)(k0 + j * 8 + 2 * t + (e & 1));
           s[4 * j + e] = dropout_keep(p.seed, bh, row, col, p.drop_threshold)
-                             ? s[4 * j + e] / p.keep_div : 0.f;
+                             ? s[4 * j + e] * inv_keep : 0.f;
         }
       }
     }
@@ -402,6 +417,7 @@ flash_fwd_tf32_kernel(Params p) {
   const int wr0 = q0 + warp * 16;  // the warp's first row
   const int row_a = wr0 + g, row_b = row_a + 8;  // this thread's two rows
   const float* qw = qs + (warp * 16 + g) * kS + t;
+  const float inv_keep = 1.f / p.keep_div;  // dropout's scale, once
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   float o[D / 8][4];
 #pragma unroll
@@ -519,7 +535,7 @@ flash_fwd_tf32_kernel(Params p) {
             const uint32_t row = e < 2 ? row_a : row_b;
             const uint32_t col = (uint32_t)(k0 + n * 8 + 2 * t + (e & 1));
             s[n][e] = dropout_keep(p.seed, bh, row, col, p.drop_threshold)
-                          ? s[n][e] / p.keep_div : 0.f;
+                          ? s[n][e] * inv_keep : 0.f;
           }
       }
 
@@ -625,6 +641,7 @@ flash_fwd_simt_kernel(Params p) {
 
   int n_tiles = (p.sk + kSimtBk - 1) / kSimtBk;
   if (p.causal) n_tiles = min(n_tiles, (q0 + kSimtBq - 1) / kSimtBk + 1);
+  const float inv_keep = 1.f / p.keep_div;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kSimtBk;
@@ -637,28 +654,37 @@ flash_fwd_simt_kernel(Params p) {
     }
     __syncthreads();
 
+    // q k^T for the warp's rows together, each a sum over d in order: a k
+    // element read from shared memory serves every row
+    float s[kSimtRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) s[rr] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float kd = ks[lane][d];
+#pragma unroll
+      for (int rr = 0; rr < kSimtRowsPerWarp; ++rr)
+        s[rr] = fmaf(qs[warp * kSimtRowsPerWarp + rr][d], kd, s[rr]);
+    }
+
     const int col = k0 + lane;
 #pragma unroll
     for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
-      const int lr = warp * kSimtRowsPerWarp + rr;
-      const int row = q0 + lr;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qs[lr][d], ks[lane][d], s);
-      s = masked_score(p, s, bh, row, col);
-      float mx = s;
+      const int row = q0 + warp * kSimtRowsPerWarp + rr;
+      const float sv = masked_score(p, s[rr], bh, row, col);
+      float mx = sv;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float mn = fmaxf(m[rr], mx);
       const float sc = expf(m[rr] - mn);
-      float pr = expf(s - mn);
+      float pr = expf(sv - mn);
       float sum = pr;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       l[rr] = l[rr] * sc + sum;
       m[rr] = mn;
       if (p.drop_threshold != 0u)
-        pr = dropout_keep(p.seed, bh, row, col, p.drop_threshold) ? pr / p.keep_div : 0.f;
+        pr = dropout_keep(p.seed, bh, row, col, p.drop_threshold) ? pr * inv_keep : 0.f;
       pr = sm90::round_to<E>(pr);
 #pragma unroll
       for (int c = 0; c < kPer; ++c) o[rr][c] *= sc;
@@ -741,6 +767,7 @@ flash_fwd_chunk_kernel(Params p, int d) {
 
   int n_tiles = (p.sk + kSimtBk - 1) / kSimtBk;
   if (p.causal) n_tiles = min(n_tiles, (q0 + kSimtBq - 1) / kSimtBk + 1);
+  const float inv_keep = 1.f / p.keep_div;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kSimtBk;
@@ -791,7 +818,7 @@ flash_fwd_chunk_kernel(Params p, int d) {
       l[rr] = l[rr] * sc + sum;
       m[rr] = mn;
       if (p.drop_threshold != 0u)
-        pr = dropout_keep(p.seed, bh, row, col, p.drop_threshold) ? pr / p.keep_div : 0.f;
+        pr = dropout_keep(p.seed, bh, row, col, p.drop_threshold) ? pr * inv_keep : 0.f;
       pr = sm90::round_to<E>(pr);
 #pragma unroll
       for (int c = 0; c < kPer; ++c) o[rr][c] *= sc;

@@ -48,7 +48,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
    device time (the library call is a yardstick the port never calls) and
    the least time the card could take (fp32 at D <= 128: in 3xTF32, beside
    scalar fp32 FMA's; the training shape also at D 32 and 128, fp32 beside
-   SDPA's memory-efficient calls); the forward also at the
+   SDPA's memory-efficient calls); the bf16 forward also at BERT-large
+   phase 2's BH 1024 x 512 x 512 x 64 with the zero key bias, at dropout
+   0 and 0.1, and at the
    long-sequence shape BH 64 x 4096 x 4096 x 64 bf16 (held to the plain
    version on its first 8 heads, SDPA's forward as the yardstick), and the
    bf16 forward on the edges of its tiles (``FLASH_EDGE_CASES``: Sq and Sk
@@ -1080,7 +1082,7 @@ def check_flash(dev):
                                                              _reference)
     rows = []
     gen = torch.Generator().manual_seed(1)
-    cases = [  # name, B, heads, Sq, Sk, D, bias, causal, dropout
+    cases = [  # name, B, heads, Sq, Sk, D, bias, causal, dropout[, dtype]
         ("serving", 1, 16, 512, 512, 64, "zeros", True, 0.0),
         ("training", 8, 16, 512, 512, 64, "zeros", False, 0.0),
         ("ragged_pad_dead", 2, 4, 200, 333, 64, "pad_dead", False, 0.0),
@@ -1090,9 +1092,14 @@ def check_flash(dev):
         # the training shape at the other instances' head dims
         ("training_d32", 8, 16, 512, 512, 32, "zeros", False, 0.0),
         ("training_d128", 8, 16, 512, 512, 128, "zeros", False, 0.0),
+        # BERT-large phase 2's attention (the benchmark's cell), without
+        # and with its dropout: what the dropout stage costs
+        ("bert", 64, 16, 512, 512, 64, "zeros", False, 0.0, "bfloat16"),
+        ("bert_dropout", 64, 16, 512, 512, 64, "zeros", False, 0.1,
+         "bfloat16"),
     ]
-    for name, B, heads, sq, sk, d, kind, causal, rate in cases:
-        for dtype in ("bfloat16", "float32"):
+    for name, B, heads, sq, sk, d, kind, causal, rate, *dts in cases:
+        for dtype in dts or ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q, k, v, bias = _flash_inputs(B, heads, sq, sk, d, kind, gen, dt,
                                           dev)
@@ -1129,7 +1136,8 @@ def check_flash(dev):
             pms = device_ms(lambda: _reference(q, k, v, bias, causal, rate,
                                                1234, heads), n=5)
             lms = l_call = None
-            if name.startswith(("serving", "training")):
+            # SDPA's dropout draws another mask: no yardstick at rate > 0
+            if name.startswith(("serving", "training", "bert")) and rate == 0:
                 q4, k4, v4 = (t.view(B, heads, -1, d) for t in (q, k, v))
 
                 def sdpa():

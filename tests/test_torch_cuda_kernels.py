@@ -288,6 +288,33 @@ def test_flash_fwd_kernel_matches_plain(case, dtype, cuda_device):
     assert bool((out[(~live)[..., 0]] == 0).all())
 
 
+@pytest.mark.parametrize("bh", [3, 33], ids=["one_group", "two_groups"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_flash_fwd_dropout_mask_is_dropout_keep(dtype, bh, cuda_device):
+    """The forward's keep mask, read out element by element: q = 0 makes
+    every score 0 and every P 1, and v one-hot over the 64 keys c0 .. c0 +
+    63 makes out[b, i, d] row i's dropped-out P at key c0 + d, 0 exactly
+    where that element was dropped.  Over the four 128-key tiles of Sk =
+    512 the mask must be ``_dropout_keep``'s, at rate 0.1 and an odd seed
+    (BH 3 runs one consumer warpgroup, 33 two; fp32 the 3xTF32 kernel)."""
+    S, D, rate, seed = 512, 64, 0.1, 12345
+    dt = getattr(torch, dtype)
+    q = torch.zeros(bh, S, D, device=cuda_device, dtype=dt)
+    k = torch.zeros_like(q)
+    bias = torch.zeros(1, 1, S, device=cuda_device)
+    heads_idx = torch.arange(bh)[:, None, None]
+    d = torch.arange(D, device=cuda_device)
+    for c0 in range(0, S, D):
+        v = torch.zeros_like(q)
+        v[:, c0 + d, d] = 1
+        out, _ = pflash._flash_fwd(q, k, v, bias, False, rate, seed, 1)
+        want = pflash._dropout_keep(seed, heads_idx, 0, c0, (S, D), rate)
+        assert torch.equal((out != 0).float().cpu(), want), c0
+        r_out, _ = pflash._reference(q, k, v, bias, False, rate, seed, 1)
+        assert _peak_close(out, r_out, {"float32": 1e-4, "bfloat16": 2e-2,
+                                        "float16": FP16_OUT_TOL}[dtype])
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda_device):
     """A CUDA tensor launches a kernel or raises: H = 60 (off the 16-byte
     vector) launches and matches the plain version; float64 and a

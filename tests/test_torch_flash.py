@@ -104,7 +104,8 @@ def test_flash_attention_returns_out():
 @pytest.mark.parametrize("bh", [0, 5, 31])
 @pytest.mark.parametrize("row0,col0", [(0, 0), (2 ** 31 - 4, 17),
                                        (123, 2 ** 31 - 6),
-                                       (2 ** 31 - 2, 2 ** 31 - 3)])
+                                       (2 ** 31 - 2, 2 ** 31 - 3),
+                                       (125, 509), (509, 125)])
 def test_dropout_keep_bit_exact(seed, bh, row0, col0):
     shape = (8, 8)
     for rate in (0.1, 0.5, 0.9):
